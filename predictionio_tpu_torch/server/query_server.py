@@ -1,0 +1,573 @@
+"""Query server — a deployed engine's REST serving (port of the
+reference's ``server/query_server.py``, serving routes of slice 1):
+
+  GET  /               -> engine/instance info, serving stats, the
+                          scorer's status and the kernel launch counts
+  POST /queries.json   -> the prediction hot path
+
+The HTTP layer is the standard library's asyncio streams (HTTP/1.1 with
+keep-alive, ``Content-Length`` bodies), where the reference uses aiohttp.
+The error contract is the reference's: a body that is not JSON, or a
+query the engine rejects, answers 400 with ``{"message": ...}``.
+
+Concurrent queries coalesce in a :class:`MicroBatcher` into one
+``batch_predict`` per algorithm, padded to its power-of-two bucket
+(ops/bucketing) before any scorer sees it.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import dataclasses
+import datetime as _dt
+import functools
+import json
+import logging
+import threading
+import time
+import typing
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from predictionio_tpu_torch.core.engine import Engine, TrainResult
+from predictionio_tpu_torch.core.params import params_from_json
+from predictionio_tpu_torch.deploy.warm import (
+    EngineInstance, ServingUnit, WarmupReport, compute_vectorized,
+    verify_unit, warmup_unit,
+)
+from predictionio_tpu_torch.ops import kernels
+from predictionio_tpu_torch.ops.bucketing import bucket_size, padding_waste
+from predictionio_tpu_torch.ops.scoring import (
+    set_process_scorer_config, unit_scorer_status,
+)
+from predictionio_tpu_torch.utils.server_config import ScorerConfig
+
+logger = logging.getLogger("pio.torch.queryserver")
+
+DEFAULT_PORT = 8000
+#: largest micro-batch (the reference's ``batchMax`` default)
+MAX_BATCH = 64
+#: micro-batches running at once on the predict executor
+INFLIGHT = 2
+
+#: ceiling of the adaptive linger window: the batcher never waits
+#: longer than this for stragglers, and usually far less (2x the
+#: arrival-interval EWMA)
+ADAPTIVE_LINGER_MAX_S = 0.002
+#: EWMA smoothing for the arrival-interval estimate
+_EWMA_ALPHA = 0.2
+#: an arrival gap above this resets the estimator
+_EWMA_RESET_S = 1.0
+
+#: largest request body accepted
+MAX_BODY_BYTES = 16 << 20
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if hasattr(obj, "to_dict"):
+        return obj.to_dict()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.asdict(obj)
+    return obj
+
+
+def _query_class(train_result: TrainResult) -> Optional[type]:
+    """The query dataclass: an explicit `query_class` on an algorithm,
+    else the annotation of predict's query parameter."""
+    for algo in train_result.algorithms:
+        qc = getattr(algo, "query_class", None)
+        if qc is not None:
+            return qc
+        try:
+            hints = typing.get_type_hints(type(algo).predict)
+        except (NameError, TypeError):
+            continue
+        qc = hints.get("query")
+        if isinstance(qc, type) and dataclasses.is_dataclass(qc):
+            return qc
+    return None
+
+
+class MicroBatcher:
+    """Cross-request micro-batching onto the resident device model.
+
+    Every request queued while a batch is running is drained into ONE
+    ``predict_batch`` call (at most ``max_batch`` queries). Up to
+    ``inflight`` batches run at once on ``executor``, so the worker
+    assembles batch k+1 while batch k is on the device.
+
+    Linger rule (``linger_s=None``, adaptive): the worker waits for
+    stragglers only while another batch is in flight (the device is
+    busy, so waiting is free) AND the arrival-interval EWMA says a
+    second request is likely within ``ADAPTIVE_LINGER_MAX_S``; then it
+    waits ``min(ADAPTIVE_LINGER_MAX_S, 2 * EWMA)``. A lone sequential
+    client never pays a linger. A number forces a fixed wait (0 = none).
+    """
+
+    def __init__(self, predict_batch, max_batch: int = MAX_BATCH,
+                 linger_s: Optional[float] = None, inflight: int = INFLIGHT,
+                 executor: Optional[ThreadPoolExecutor] = None):
+        self._predict_batch = predict_batch
+        self.max_batch = max(1, max_batch)
+        self.linger_s = linger_s
+        self.adaptive_linger_max_s = ADAPTIVE_LINGER_MAX_S
+        self.inflight = max(1, inflight)
+        self._executor = executor
+        self._queue: Optional[asyncio.Queue] = None
+        self._task: Optional[asyncio.Task] = None
+        self._sem: Optional[asyncio.Semaphore] = None
+        self._inflight_now = 0
+        self._ewma_interval: Optional[float] = None
+        self._last_arrival: Optional[float] = None
+        #: sizes of the batches dispatched so far (count per size)
+        self.batch_sizes: collections.Counter = collections.Counter()
+
+    # -- arrival-rate estimate (adaptive linger input) -----------------------
+    def _note_arrival(self) -> None:
+        now = time.monotonic()
+        last, self._last_arrival = self._last_arrival, now
+        if last is None:
+            return
+        dt = now - last
+        if dt > _EWMA_RESET_S:
+            self._ewma_interval = None
+        elif self._ewma_interval is None:
+            self._ewma_interval = dt
+        else:
+            self._ewma_interval += _EWMA_ALPHA * (dt - self._ewma_interval)
+
+    def _linger_window(self) -> float:
+        if self.linger_s is not None:
+            return self.linger_s
+        if self._inflight_now == 0:
+            return 0.0
+        ewma = self._ewma_interval
+        if ewma is None or ewma > self.adaptive_linger_max_s:
+            return 0.0
+        return min(self.adaptive_linger_max_s, 2.0 * ewma)
+
+    async def shutdown(self) -> None:
+        """Cancel the worker; its drain fails everything still queued."""
+        task = self._task
+        if task is not None and not task.done():
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+
+    # -- submit/worker -------------------------------------------------------
+    async def submit(self, query):
+        loop = asyncio.get_running_loop()
+        self._note_arrival()
+        fut = loop.create_future()
+        while True:
+            if self._task is None or self._task.done():
+                self._queue = asyncio.Queue()
+                self._sem = asyncio.Semaphore(self.inflight)
+                self._task = loop.create_task(
+                    self._worker(self._queue, self._sem))
+            task, queue = self._task, self._queue
+            queue.put_nowait((query, fut))
+            if not task.done() or fut.done():
+                return await fut
+            # the worker completed between the liveness check and the
+            # put: its drain may have missed our entry — requeue onto a
+            # fresh worker
+
+    async def _worker(self, queue: asyncio.Queue, sem: asyncio.Semaphore):
+        loop = asyncio.get_running_loop()
+        batch = []
+        try:
+            while True:
+                batch = [await queue.get()]
+                # an in-flight slot BEFORE assembling: while every slot is
+                # busy the queue keeps filling, which IS the batching signal
+                await sem.acquire()
+                dispatched = False
+                try:
+                    while len(batch) < self.max_batch and not queue.empty():
+                        batch.append(queue.get_nowait())
+                    linger = self._linger_window()
+                    if linger > 0.0 and len(batch) < self.max_batch:
+                        await asyncio.sleep(linger)
+                        while (len(batch) < self.max_batch
+                               and not queue.empty()):
+                            batch.append(queue.get_nowait())
+                    self.batch_sizes[len(batch)] += 1
+                    ex_fut = loop.run_in_executor(
+                        self._executor, self._predict_batch,
+                        [entry[0] for entry in batch])
+                    self._inflight_now += 1
+                    ex_fut.add_done_callback(
+                        functools.partial(self._finish_batch, batch, sem))
+                    dispatched = True
+                finally:
+                    if not dispatched:
+                        sem.release()
+                batch = []
+        finally:
+            # fail everything not yet dispatched so no handler hangs
+            while not queue.empty():
+                batch.append(queue.get_nowait())
+            for _query, fut in batch:
+                if not fut.done():
+                    fut.set_exception(
+                        RuntimeError("query micro-batch worker stopped"))
+
+    def _finish_batch(self, batch, sem: asyncio.Semaphore, ex_fut) -> None:
+        """On the event loop when a dispatched batch settles: free the
+        slot, then route per-query results/errors to their handlers."""
+        self._inflight_now -= 1
+        sem.release()
+        try:
+            results = ex_fut.result()
+        except BaseException as e:   # noqa: BLE001 — must never orphan futs
+            err = e if isinstance(e, Exception) else \
+                RuntimeError(f"micro-batch dispatch failed: {e!r}")
+            results = [err] * len(batch)
+        for (_query, fut), res in zip(batch, results):
+            if fut.done():
+                continue
+            if isinstance(res, Exception):
+                fut.set_exception(res)
+            else:
+                fut.set_result(res)
+
+
+class _BadRequest(Exception):
+    pass
+
+
+_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
+            405: "Method Not Allowed", 411: "Length Required",
+            413: "Payload Too Large", 500: "Internal Server Error"}
+
+
+class QueryServer:
+    """Serves one deployed TrainResult. ``start`` binds the socket on the
+    running event loop; :func:`run_query_server` is the blocking form."""
+
+    def __init__(self, engine: Engine, train_result: TrainResult,
+                 instance: EngineInstance,
+                 scorer_config: Optional[ScorerConfig] = None,
+                 max_batch: int = MAX_BATCH,
+                 linger_s: Optional[float] = None,
+                 inflight: int = INFLIGHT):
+        self.engine = engine
+        self.start_time = _dt.datetime.now(tz=_dt.timezone.utc)
+        self.max_batch = max(1, max_batch)
+        #: resolved scoring-kernel knobs, pinned process-wide so every
+        #: scoring surface (models, warm-up) sees ONE mode
+        self.scorer_config = scorer_config or ScorerConfig.from_env()
+        set_process_scorer_config(self.scorer_config)
+        self._predict_executor = ThreadPoolExecutor(
+            max_workers=max(4, inflight * 2),
+            thread_name_prefix="pio-predict")
+        self._linger_s = linger_s
+        self._inflight = inflight
+        self._unit = ServingUnit(
+            instance=instance, result=train_result,
+            vectorized=compute_vectorized(train_result))
+        self._attach_batcher(self._unit)
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._stats_lock = threading.Lock()
+        self._query_count = 0
+        self._query_seconds = 0.0
+        self._recent = collections.deque(maxlen=1024)
+        self.last_serving_sec = 0.0
+        self.last_warmup: Optional[WarmupReport] = None
+        self.warmup_launches: Dict[str, int] = {}
+
+    @property
+    def result(self) -> TrainResult:
+        return self._unit.result
+
+    @property
+    def instance(self) -> EngineInstance:
+        return self._unit.instance
+
+    @property
+    def batcher(self) -> MicroBatcher:
+        return self._unit.batcher
+
+    def _attach_batcher(self, unit: ServingUnit) -> None:
+        unit.batcher = MicroBatcher(
+            functools.partial(self._predict_batch_unit, unit),
+            max_batch=self.max_batch, linger_s=self._linger_s,
+            inflight=self._inflight, executor=self._predict_executor)
+
+    # -- deploy phases -------------------------------------------------------
+    def warm(self) -> WarmupReport:
+        """Warm-up ladder then verify, on the caller's thread, before
+        the server takes traffic."""
+        report = warmup_unit(self._unit, self._predict_batch,
+                             self.max_batch)
+        verify_unit(self._unit, self._predict_batch)
+        self.last_warmup = report
+        # GET / counts the kernel launches of served queries only: the
+        # counts are zeroed here, just before the server takes traffic
+        self.warmup_launches = kernels.counts()
+        kernels.reset_counts()
+        return report
+
+    # -- HTTP ----------------------------------------------------------------
+    async def start(self, host: str = "localhost", port: int = DEFAULT_PORT
+                    ) -> int:
+        """Bind and start accepting; returns the bound port (``port=0``
+        picks a free one)."""
+        self._server = await asyncio.start_server(self._handle_conn,
+                                                  host, port)
+        return self._server.sockets[0].getsockname()[1]
+
+    async def close(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            await self._server.wait_closed()
+        await self._unit.batcher.shutdown()
+        self._predict_executor.shutdown(wait=False)
+
+    async def _read_request(self, reader: asyncio.StreamReader):
+        line = await reader.readline()
+        if not line:
+            return None
+        try:
+            method, target, version = line.decode("latin-1").split()
+        except ValueError:
+            raise _BadRequest("malformed request line") from None
+        headers = {}
+        while True:
+            h = await reader.readline()
+            if h in (b"\r\n", b"\n", b""):
+                break
+            name, _, value = h.decode("latin-1").partition(":")
+            headers[name.strip().lower()] = value.strip()
+        if "chunked" in headers.get("transfer-encoding", "").lower():
+            return method, target, version, headers, None
+        try:
+            n = int(headers.get("content-length") or 0)
+        except ValueError:
+            raise _BadRequest("bad Content-Length") from None
+        if n < 0 or n > MAX_BODY_BYTES:
+            raise _BadRequest(f"body of {n} bytes refused")
+        body = await reader.readexactly(n) if n else b""
+        return method, target, version, headers, body
+
+    async def _handle_conn(self, reader: asyncio.StreamReader,
+                           writer: asyncio.StreamWriter) -> None:
+        try:
+            while True:
+                try:
+                    req = await self._read_request(reader)
+                except _BadRequest as e:
+                    await self._respond(writer, 400, {"message": str(e)},
+                                        keep_alive=False)
+                    return
+                if req is None:
+                    return
+                method, target, version, headers, body = req
+                keep_alive = (version == "HTTP/1.1" and headers.get(
+                    "connection", "").lower() != "close")
+                if body is None:
+                    status, payload = 411, {"message": "chunked bodies are "
+                                            "not accepted; send "
+                                            "Content-Length"}
+                    keep_alive = False
+                else:
+                    status, payload = await self._dispatch(
+                        method, target.split("?", 1)[0], body)
+                await self._respond(writer, status, payload, keep_alive)
+                if not keep_alive:
+                    return
+        except (ConnectionError, asyncio.IncompleteReadError,
+                asyncio.LimitOverrunError, ValueError):
+            # a peer that vanished, or a line past the stream's limit:
+            # drop the connection
+            pass
+        finally:
+            writer.close()
+
+    @staticmethod
+    async def _respond(writer: asyncio.StreamWriter, status: int,
+                       payload: Any, keep_alive: bool) -> None:
+        data = json.dumps(payload).encode()
+        head = (f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
+                "Content-Type: application/json; charset=utf-8\r\n"
+                f"Content-Length: {len(data)}\r\n"
+                f"Connection: {'keep-alive' if keep_alive else 'close'}"
+                "\r\n\r\n")
+        writer.write(head.encode("latin-1") + data)
+        await writer.drain()
+
+    async def _dispatch(self, method: str, path: str,
+                        body: bytes) -> Tuple[int, Any]:
+        routes = {"/": ("GET", self.handle_root),
+                  "/queries.json": ("POST", self.handle_query)}
+        route = routes.get(path)
+        if route is None:
+            return 404, {"message": f"no route {path}"}
+        if method != route[0]:
+            return 405, {"message": f"{path} takes {route[0]}"}
+        try:
+            return await route[1](body)
+        except Exception as e:       # the server must keep serving
+            logger.exception("handler failed")
+            return 500, {"message": repr(e)}
+
+    # -- info ---------------------------------------------------------------
+    async def handle_root(self, _body: bytes) -> Tuple[int, Any]:
+        """Engine/instance info + serving stats; also the scorer status
+        and the kernel launch counts of this process."""
+        with self._stats_lock:
+            count, total = self._query_count, self._query_seconds
+            recent = list(self._recent)
+        uptime = (_dt.datetime.now(tz=_dt.timezone.utc)
+                  - self.start_time).total_seconds()
+        return 200, {
+            "status": "alive",
+            "engineInstance": {
+                "id": self.instance.id,
+                "engineId": self.instance.engine_id,
+                "engineVariant": self.instance.engine_variant,
+                "startTime": self.instance.start_time.isoformat(),
+            },
+            "algorithms": [type(a).__name__ for a in self.result.algorithms],
+            "startTime": self.start_time.isoformat(),
+            "uptimeSeconds": uptime,
+            "requestCount": count,
+            "queryCount": count,
+            "avgServingSec": (total / count) if count else 0.0,
+            "p95ServingSec": (float(np.percentile(recent, 95))
+                              if recent else 0.0),
+            "lastServingSec": self.last_serving_sec,
+            "scorer": unit_scorer_status(self.result),
+            "warmup": (self.last_warmup.to_dict()
+                       if self.last_warmup is not None else None),
+            "kernelLaunches": kernels.counts(),
+            "warmupKernelLaunches": self.warmup_launches,
+        }
+
+    # -- hot path ------------------------------------------------------------
+    async def handle_query(self, body: bytes) -> Tuple[int, Any]:
+        t0 = time.perf_counter()
+        try:
+            data = json.loads(body)
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            return 400, {"message": str(e)}
+        unit = self._unit
+        try:
+            query = self._extract_query(data)
+            prediction = await self._predict_via(unit, query)
+        except Exception as e:
+            logger.exception("query failed")
+            return 400, {"message": str(e)}
+        dt = time.perf_counter() - t0
+        with self._stats_lock:
+            self._query_count += 1
+            self._query_seconds += dt
+            self._recent.append(dt)
+        self.last_serving_sec = dt
+        return 200, _to_jsonable(prediction)
+
+    def _extract_query(self, body):
+        qc = _query_class(self.result)
+        if qc is None:
+            return body
+        if not isinstance(body, dict):
+            raise ValueError("a query must be a JSON object")
+        return params_from_json(body, qc)
+
+    async def _predict_via(self, unit: ServingUnit, query):
+        """Through the unit's batcher when vectorized, else per-request
+        on the predict pool."""
+        if unit.vectorized:
+            return await unit.batcher.submit(query)
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self._predict_executor, self._predict_unit, unit, query)
+
+    def _predict_unit(self, unit: ServingUnit, query):
+        result = unit.result
+        supplemented = result.serving.supplement(query)
+        predictions = [
+            algo.predict(model, supplemented)
+            for algo, model in zip(result.algorithms, result.models)]
+        return result.serving.serve(query, predictions)
+
+    def _predict_batch(self, queries):
+        """Active-unit batch path (warm-up and tests call this)."""
+        return self._predict_batch_unit(self._unit, queries)
+
+    def _predict_batch_unit(self, unit: ServingUnit, queries):
+        """Batch path behind each unit's MicroBatcher (on the predict
+        executor). Per-query errors are isolated: a failing query yields
+        its Exception in the result slot. The batch pads up to its
+        power-of-two bucket with clones of the last real query under
+        sentinel indices; pad rows are sliced off here."""
+        result = unit.result
+        n = len(queries)
+        out: List[Any] = [None] * n
+        ok = []
+        for i, q in enumerate(queries):
+            try:
+                ok.append((i, result.serving.supplement(q)))
+            except Exception as e:
+                out[i] = e
+        if not ok:
+            return out
+        bucket = bucket_size(len(ok), self.max_batch)
+        waste = padding_waste(len(ok), bucket)
+        if waste:
+            pad_q = ok[-1][1]
+            batch = ok + [(n + j, pad_q) for j in range(waste)]
+        else:
+            batch = ok
+        try:
+            per_query = {i: [] for i, _ in ok}
+            for algo, model in zip(result.algorithms, result.models):
+                for i, p in algo.batch_predict(model, batch):
+                    if i in per_query:      # pad rows sliced off
+                        per_query[i].append(p)
+            for i, _ in ok:
+                try:
+                    out[i] = result.serving.serve(queries[i], per_query[i])
+                except Exception as e:
+                    out[i] = e
+        except Exception:
+            # the batch path failed (a poison query inside a vectorized
+            # batch_predict): isolate by per-query predict
+            for i, sq in ok:
+                try:
+                    preds = [a.predict(m, sq) for a, m in
+                             zip(result.algorithms, result.models)]
+                    out[i] = result.serving.serve(queries[i], preds)
+                except Exception as e:
+                    out[i] = e
+        return out
+
+
+def create_query_server(engine: Engine, train_result: TrainResult,
+                        instance: EngineInstance, **kwargs) -> QueryServer:
+    return QueryServer(engine, train_result, instance, **kwargs)
+
+
+def run_query_server(server: QueryServer, host: str = "localhost",
+                     port: int = DEFAULT_PORT, on_ready=None) -> None:
+    """Serve until interrupted. ``on_ready(port)`` runs once the socket
+    is bound."""
+    async def _main():
+        bound = await server.start(host, port)
+        if on_ready is not None:
+            on_ready(bound)
+        try:
+            await asyncio.Event().wait()
+        finally:
+            await server.close()
+
+    try:
+        asyncio.run(_main())
+    except KeyboardInterrupt:
+        pass

@@ -1,9 +1,19 @@
 """Command line of the port (``argparse``; the reference's ``pio`` uses
 click).
 
+    python -m predictionio_tpu_torch.cli.main train --variant engine.json \\
+        --out M.npz [--device cpu]
     python -m predictionio_tpu_torch.cli.main deploy --model M.npz \\
         [--variant engine.json] [--ip localhost] [--port 8000] \\
         [--device cpu]
+
+``train`` reads the engine.json's datasource, preparator and algorithms
+sections as ``pio train`` does, reads the app's events from the
+configured event store (``PIO_STORAGE_*``), trains, writes the model
+file (``workflow/serialization``) and prints one JSON line: users,
+items, nnz, the seconds of the whole train (event read included) and of
+the host-side data build, and the kernel launch counts. The reference's
+engine-instance store and releases come with a later slice.
 
 ``deploy`` loads an ALS model file (``workflow/serialization``), reads
 the engine.json's algorithms and top-level ``scorer`` section as
@@ -76,6 +86,37 @@ def deploy(args) -> int:
     return 0
 
 
+def train(args) -> int:
+    import types
+
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.workflow.serialization import save_model
+
+    with open(args.variant) as f:
+        variant = json.load(f)
+    engine = _engine_of(variant)
+    engine_params = engine.engine_params_from_json(variant)
+    if engine_params.data_source_params is None:
+        raise SystemExit(f"[ERROR] {args.variant}: a train needs the "
+                         "datasource section (its appName)")
+    device = resolve_device(args.device)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    result = engine.train(types.SimpleNamespace(device=device),
+                          engine_params)
+    train_s = time.perf_counter() - t0
+    model = result.models[0]
+    save_model(args.out, model)
+    print(json.dumps({
+        "users": len(model.user_vocab), "items": len(model.item_vocab),
+        "nnz": model.train_info["nnz"], "rank": int(model.V.shape[1]),
+        "device": str(device), "train_s": train_s,
+        "build_s": model.train_info["build_s"],
+        "launches": kernels.counts(), "out": str(args.out)}), flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m predictionio_tpu_torch.cli.main")
     sub = p.add_subparsers(dest="command", required=True)
@@ -88,6 +129,13 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     d.set_defaults(func=deploy)
+    t = sub.add_parser("train", help="train an engine variant from its "
+                                     "app's events into a model file")
+    t.add_argument("--variant", "-v", required=True,
+                   help="engine.json (datasource, preparator, algorithms)")
+    t.add_argument("--out", required=True, help="model .npz to write")
+    t.add_argument("--device", default=None, help="cuda (default) or cpu")
+    t.set_defaults(func=train)
     return p
 
 

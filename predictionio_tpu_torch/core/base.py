@@ -1,6 +1,9 @@
-"""DASE component protocols, serving subset (port of the reference's
-``core/base.py``): ``Algorithm``, ``Serving`` and ``FirstServing``, and
-the constructor conventions the engine uses to build them."""
+"""DASE component protocols (port of the reference's ``core/base.py``):
+``DataSource``, ``Preparator``, ``Algorithm``, ``Serving`` and
+``FirstServing``, and the constructor conventions the engine uses to
+build them. ``ctx`` is what the caller passes through ``Engine.train``:
+the port's components read its ``device`` (None or absent: ``cuda``),
+where the reference's workflow context carries a device mesh."""
 
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
 
 from predictionio_tpu_torch.core.params import Params
 
+TD = TypeVar("TD")   # training data
+PD = TypeVar("PD")   # prepared data
 Q = TypeVar("Q")     # query
 P = TypeVar("P")     # prediction
 M = TypeVar("M")     # model
@@ -61,8 +66,26 @@ def params_class_of(cls: type) -> Optional[type]:
     return None
 
 
-class Algorithm(Generic[M, Q, P], abc.ABC):
-    """One algorithm's serving side: predict from a trained model."""
+class DataSource(Generic[TD], abc.ABC):
+    """Reads the training data from the event store."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx) -> TD:
+        """Read training data (DataSource.readTraining)."""
+
+
+class Preparator(Generic[TD, PD], abc.ABC):
+    @abc.abstractmethod
+    def prepare(self, ctx, training_data: TD) -> PD:
+        """Turn training data into what the algorithms train on."""
+
+
+class Algorithm(Generic[PD, M, Q, P], abc.ABC):
+    """One algorithm: train a model, predict from it."""
+
+    @abc.abstractmethod
+    def train(self, ctx, prepared_data: PD) -> M:
+        """Train a model from the prepared data."""
 
     @abc.abstractmethod
     def predict(self, model: M, query: Q) -> P:

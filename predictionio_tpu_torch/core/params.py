@@ -1,16 +1,20 @@
-"""Component parameters and their JSON extraction (the serving subset of
-the reference's ``core/params.py``).
+"""Component parameters and their JSON extraction (port of the
+reference's ``core/params.py``).
 
-Engine variant JSON keeps the reference's engine.json schema; the port
-reads its ``algorithms`` and ``serving`` sections (the data source and
-preparator sections belong to training, a later slice):
+Engine variant JSON keeps the reference's engine.json schema:
 
     {
       "id": "default",
       "engineFactory": "mypkg.engine:factory",
+      "datasource": {"params": {"appName": "MyApp1"}},
+      "preparator": {"params": {}},
       "algorithms": [{"name": "als", "params": {...}}],
       "serving": {"params": {...}}
     }
+
+A deploy reads only the algorithms and serving sections, so a variant
+without a ``datasource`` section parses (its data source params are then
+None); ``pio train`` needs it.
 """
 
 from __future__ import annotations
@@ -69,9 +73,15 @@ def params_from_json(data: Any, params_class: Optional[type] = None) -> Any:
 
 @dataclasses.dataclass
 class EngineParams:
-    """Named params of the serving components: the algorithms (a list of
-    (name, params)) and the serving component."""
+    """EngineParams.scala:35 — named params for each DASE component.
+    Component names select among an Engine's registered classes; ""
+    selects the single/default one."""
 
+    data_source_name: str = ""
+    data_source_params: Any = None
+    preparator_name: str = ""
+    preparator_params: Any = None
+    #: list of (algorithm name, params)
     algorithm_params_list: Sequence[Tuple[str, Any]] = ()
     serving_name: str = ""
     serving_params: Any = None
@@ -79,20 +89,36 @@ class EngineParams:
 
 def engine_params_from_json(
     data: Dict[str, Any],
+    data_source_params_class: Optional[type] = None,
+    preparator_params_class: Optional[type] = None,
     algorithm_params_classes: Optional[Dict[str, type]] = None,
     serving_params_class: Optional[type] = None,
 ) -> EngineParams:
-    """The ``algorithms`` and ``serving`` sections of an engine.json."""
-    node = data.get("serving") or {}
-    if not isinstance(node, dict):
-        raise ValueError("serving must be an object")
-    s_name = node.get("name", "")
-    s_params = params_from_json(node.get("params"), serving_params_class)
+    """jValueToEngineParams parity (Engine.scala:355-418); the datasource
+    and preparator sections are parsed when present."""
+    def _component(key: str, cls: Optional[type], optional: bool):
+        node = data.get(key)
+        if node is None and optional:
+            return "", None
+        node = node or {}
+        if not isinstance(node, dict):
+            raise ValueError(f"{key} must be an object")
+        return node.get("name", ""), params_from_json(node.get("params"),
+                                                      cls)
+
+    ds_name, ds_params = _component("datasource", data_source_params_class,
+                                    True)
+    p_name, p_params = _component("preparator", preparator_params_class,
+                                  True)
+    s_name, s_params = _component("serving", serving_params_class, False)
 
     algo_list: List[Tuple[str, Any]] = []
     for node in data.get("algorithms") or []:
         name = node.get("name", "")
         cls = (algorithm_params_classes or {}).get(name)
         algo_list.append((name, params_from_json(node.get("params"), cls)))
-    return EngineParams(algorithm_params_list=algo_list,
-                        serving_name=s_name, serving_params=s_params)
+    return EngineParams(
+        data_source_name=ds_name, data_source_params=ds_params,
+        preparator_name=p_name, preparator_params=p_params,
+        algorithm_params_list=algo_list,
+        serving_name=s_name, serving_params=s_params)

@@ -30,6 +30,8 @@ import torch
 
 #: shortlist kernel launches in this process (csrc/shortlist.cu)
 SHORTLIST_LAUNCHES = 0
+#: batched SPD solve kernel launches in this process (csrc/spd_solve.cu)
+SPD_SOLVE_LAUNCHES = 0
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -39,6 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: largest tile the shortlist kernel takes: its [T] f32 score row lives
 #: in shared memory (227 KB per block on Hopper)
 SHORTLIST_MAX_TILE = 32768
+#: largest system the SPD solve kernel takes (its warp stages K x (K+1)
+#: floats in shared memory; the reference's ``_PALLAS_MAX_K``)
+SPD_SOLVE_MAX_K = 64
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -46,13 +51,15 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 def reset_counts() -> None:
     """Zero every launch count."""
-    global SHORTLIST_LAUNCHES
+    global SHORTLIST_LAUNCHES, SPD_SOLVE_LAUNCHES
     with _LOCK:
         SHORTLIST_LAUNCHES = 0
+        SPD_SOLVE_LAUNCHES = 0
 
 
 def counts() -> Dict[str, int]:
-    return {"shortlist": SHORTLIST_LAUNCHES}
+    return {"shortlist": SHORTLIST_LAUNCHES,
+            "spd_solve": SPD_SOLVE_LAUNCHES}
 
 
 def _nvcc() -> str:
@@ -121,6 +128,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.pio_shortlist_topc.argtypes = [p, p, p, p, p, p,
                                            i, i, i, i, i, i, p]
         lib.pio_shortlist_topc.restype = i
+    elif name == "spd_solve":
+        lib.pio_spd_solve.argtypes = [p, p, p, i, i, p]
+        lib.pio_spd_solve.restype = i
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -190,3 +200,35 @@ def shortlist_topc_cuda(u: torch.Tensor, tiles: torch.Tensor,
     with _LOCK:
         SHORTLIST_LAUNCHES += 1
     return vals, ids
+
+
+def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/spd_solve.cu on CUDA tensors: ``A [S,K,K] f32``,
+    ``b [S,K] f32`` -> ``x [S,K] f32`` with ``A[s] x[s] = b[s]``, for
+    1 <= K <= 64. Runs on the current stream and does not synchronise."""
+    global SPD_SOLVE_LAUNCHES
+    dev = A.device
+    if dev.type != "cuda":
+        raise ValueError(f"spd_solve kernel needs CUDA tensors, got {dev}")
+    _require(A, "A", torch.float32, 3, dev)
+    _require(b, "b", torch.float32, 2, dev)
+    s, k, k2 = A.shape
+    if k2 != k or tuple(b.shape) != (s, k):
+        raise ValueError(f"shape mismatch: A {tuple(A.shape)}, b "
+                         f"{tuple(b.shape)}")
+    if not 1 <= k <= SPD_SOLVE_MAX_K:
+        raise ValueError(f"K={k} outside [1, {SPD_SOLVE_MAX_K}]")
+    if s < 1:
+        raise ValueError("empty input: S=0")
+    if s >= 2 ** 31:
+        raise ValueError(f"S={s} too large for the kernel's 32-bit count")
+    lib = _lib("spd_solve")
+    x = torch.empty((s, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pio_spd_solve(A.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                s, k, stream)
+    _check(lib, err, "spd_solve")
+    with _LOCK:
+        SPD_SOLVE_LAUNCHES += 1
+    return x

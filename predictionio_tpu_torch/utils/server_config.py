@@ -1,7 +1,9 @@
-"""Scorer knobs: the ``scorer`` section of the reference's
-``utils/server_config.py`` (``ScorerConfig``, ``scorer_config``), with its
-precedence unchanged — server.json ``scorer`` section < engine.json
-top-level ``scorer`` section < ``PIO_SCORER_*`` environment.
+"""Scorer and training-solver knobs: the ``scorer`` and ``train``
+sections of the reference's ``utils/server_config.py`` (``ScorerConfig``,
+``scorer_config``, ``TrainConfig``, ``als_solver_config``), with their
+precedence unchanged — server.json section < engine.json (the top-level
+``scorer`` section, the algorithm's ``solver`` params) < ``PIO_SCORER_*``
+/ ``PIO_ALS_*`` environment.
 
 The server.json path is resolved as the reference resolves it:
 ``PIO_SERVER_CONF``, else ``$PIO_CONF_DIR/server.json``, else
@@ -143,3 +145,107 @@ def scorer_config(variant_section: Optional[dict] = None) -> ScorerConfig:
     ``PIO_SCORER_*`` env vars override both."""
     data = read_server_json().get("scorer") or {}
     return ScorerConfig.from_env(data, variant_section)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training-solver tuning (server.json ``train`` section, camelCase
+    keys; ``PIO_ALS_SOLVER`` / ``PIO_ALS_BLOCK_SIZE`` env overrides).
+
+    ``als_solver`` selects the ALS training solver: ``"full"`` (per-row
+    K x K normal equations) or ``"subspace"`` (iALS++ block coordinate
+    descent over rank blocks of ``als_block_size``). ``None`` means no
+    host-level preference."""
+
+    als_solver: Optional[str] = None       # None | "full" | "subspace"
+    als_block_size: Optional[int] = None   # None = solver default (16)
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None) -> "TrainConfig":
+        """server.json ``train`` section overlaid by env vars (env
+        wins); malformed knobs are logged and fall back."""
+        data = data or {}
+        cfg = cls()
+
+        def as_solver(v):
+            s = str(v).strip().lower()
+            if s not in ("full", "subspace"):
+                raise ValueError(s)
+            return s
+
+        sources = (
+            ("alsSolver", data.get("alsSolver"), "als_solver", as_solver),
+            ("alsBlockSize", data.get("alsBlockSize"), "als_block_size",
+             int),
+            ("PIO_ALS_SOLVER", os.environ.get("PIO_ALS_SOLVER"),
+             "als_solver", as_solver),
+            ("PIO_ALS_BLOCK_SIZE", os.environ.get("PIO_ALS_BLOCK_SIZE"),
+             "als_block_size", int),
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed train knob %s=%r",
+                               name, raw)
+        if cfg.als_block_size is not None:
+            cfg.als_block_size = max(1, cfg.als_block_size)
+        return cfg
+
+
+DEFAULT_ALS_BLOCK_SIZE = 16
+
+
+def als_solver_config(algo_solver=None,
+                      config: Optional[TrainConfig] = None
+                      ) -> "tuple[str, int]":
+    """Resolve the (solver_mode, block_size) an ALS train uses.
+
+    ``algo_solver`` is the engine.json algorithm params' ``"solver"``
+    section (``{"mode": "full"|"subspace", "block_size": N}`` or a bare
+    mode string); it overrides the server.json ``train`` section, and
+    ``PIO_ALS_SOLVER`` / ``PIO_ALS_BLOCK_SIZE`` override both, knob by
+    knob. A malformed env or file value is logged and ignored; a bad
+    mode written in the engine variant raises."""
+    if config is None:
+        config = TrainConfig.from_env(read_server_json().get("train") or {})
+    if isinstance(algo_solver, str):
+        algo_solver = {"mode": algo_solver}
+    elif algo_solver is not None and not isinstance(algo_solver, dict):
+        raise ValueError(
+            f"algo params solver must be a mode string or a "
+            f'{{"mode", "block_size"}} object, got '
+            f"{type(algo_solver).__name__}")
+    mode, block = "full", None
+    algo_mode = None
+    if algo_solver:
+        if "mode" in algo_solver:
+            algo_mode = str(algo_solver["mode"]).strip().lower()
+            if algo_mode not in ("full", "subspace"):
+                raise ValueError(
+                    f'algo params solver.mode {algo_mode!r}: expected '
+                    f'"full" or "subspace"')
+            mode = algo_mode
+        raw = algo_solver.get("block_size", algo_solver.get("blockSize"))
+        if raw is not None:
+            block = max(1, int(raw))
+        unknown = set(algo_solver) - {"mode", "block_size", "blockSize"}
+        if unknown:
+            raise ValueError(
+                f"unknown solver params {sorted(unknown)}: expected "
+                f"mode/block_size")
+    if algo_mode is None and config.als_solver is not None:
+        mode = config.als_solver
+    if block is None and config.als_block_size is not None:
+        block = config.als_block_size
+    if block is None:
+        block = DEFAULT_ALS_BLOCK_SIZE
+    # env beats everything, also over a caller's file-built config
+    env_cfg = TrainConfig.from_env(None)
+    if env_cfg.als_solver is not None:
+        mode = env_cfg.als_solver
+    if env_cfg.als_block_size is not None:
+        block = env_cfg.als_block_size
+    return mode, block

@@ -4,13 +4,16 @@ the CPU on their own.
 
 * a subprocess imports every module of the port and serves one query
   over HTTP on the CPU, then finds neither ``jax`` nor any
-  ``predictionio_tpu`` module in ``sys.modules``;
+  ``predictionio_tpu`` module in ``sys.modules``; another writes events
+  into a tiny sqlite store and trains from it through the train CLI on
+  the CPU, with the same finding;
 * an AST scan finds no such import in the package or in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
 """
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -72,6 +75,53 @@ def test_serving_one_query_loads_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
+_TRAIN_CHILD = r"""
+import json, os, sys
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+
+tmp = sys.argv[1]
+os.environ.update({
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "pio.db"),
+    "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB"})
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+store = Storage.get_events()
+store.init_channel(app_id)
+store.insert_batch([
+    Event(event="rate", entity_type="user", entity_id=f"u{u}",
+          target_entity_type="item", target_entity_id=f"i{(u * 7 + j) % 9}",
+          properties={"rating": float(1 + (u + j) % 5)})
+    for u in range(12) for j in range(4)], app_id)
+variant = os.path.join(tmp, "engine.json")
+with open(variant, "w") as f:
+    json.dump({"datasource": {"params": {"appName": "Guard"}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": 3, "numIterations": 2}}]}, f)
+assert main(["train", "--variant", variant, "--out",
+             os.path.join(tmp, "m.npz"), "--device", "cpu"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_training_from_a_store_loads_no_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _TRAIN_CHILD, str(tmp_path)],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert json.loads(lines[-2])["nnz"] == 48
+    assert lines[-1] == "[]", out.stdout
+
+
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -131,6 +181,24 @@ def _build_scorer(**kw):
     return build_scorer(v, ScorerConfig(mode="twostage"), **kw)
 
 
+def _train_als():
+    from predictionio_tpu_torch.models.als import ALSData, ALSParams, train_als
+
+    data = ALSData.build(np.array([0, 1]), np.array([1, 0]),
+                         np.array([3.0, 4.0], np.float32), 2, 2)
+    return train_als(data, ALSParams(rank=2, num_iterations=1))
+
+
+def _cli_train(tmp_path):
+    from predictionio_tpu_torch.cli.main import main
+
+    variant = tmp_path / "engine.json"
+    variant.write_text('{"datasource": {"params": {"appName": "x"}}, '
+                       '"algorithms": [{"name": "als"}]}')
+    return main(["train", "--variant", str(variant), "--out",
+                 str(tmp_path / "m.npz")])
+
+
 def _cli_deploy(tmp_path):
     from predictionio_tpu_torch.cli.main import main
     from predictionio_tpu_torch.workflow.serialization import save_model
@@ -141,13 +209,16 @@ def _cli_deploy(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["ALSModel.from_arrays", "load_model",
-                                   "build_scorer", "cli deploy"])
+                                   "build_scorer", "cli deploy",
+                                   "train_als", "cli train"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
             "load_model": lambda: _load_model(tmp_path),
             "build_scorer": lambda: _build_scorer(),
-            "cli deploy": lambda: _cli_deploy(tmp_path)}[entry]
+            "cli deploy": lambda: _cli_deploy(tmp_path),
+            "train_als": _train_als,
+            "cli train": lambda: _cli_train(tmp_path)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

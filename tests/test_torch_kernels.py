@@ -1,15 +1,18 @@
 """The hand-written CUDA kernels against their plain PyTorch versions.
 
-The kernel tests need a CUDA device and nvcc (the kernel has no CPU
-mode) and skip without one. This file imports neither jax nor the JAX
+The kernel tests need a CUDA device and nvcc (a kernel has no CPU mode)
+and skip without one. This file imports neither jax nor the JAX
 package, so on the card it runs without the repo's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-The wrapper's CPU dispatch and its input checks run everywhere.
+The wrappers' CPU dispatch and their input checks run everywhere.
 
-Tolerance: vals rtol 1e-5 / atol 1e-6 (f32 sums in another order); ids
-equal wherever the value is finite (random int8 data, tie-free).
+Tolerances. Shortlist: vals rtol 1e-5 / atol 1e-6 (f32 sums in another
+order); ids equal wherever the value is finite (random int8 data,
+tie-free). SPD solve: max |x - x_plain| <= 1e-4 * max(1, max |x_plain|)
+(f32 Cholesky, sums and rsqrt in another order; systems built like a
+half-sweep's, well conditioned); empty segments exactly 0.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from predictionio_tpu_torch.ops import kernels
+from predictionio_tpu_torch.ops.linalg import cholesky_solve_vec, spd_solve
 from predictionio_tpu_torch.ops.scoring import (
     shortlist_topc, shortlist_topc_reference,
 )
@@ -107,5 +111,67 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_launch_counts_reset():
+    kernels.SPD_SOLVE_LAUNCHES = 5
     kernels.reset_counts()
-    assert kernels.counts() == {"shortlist": 0}
+    assert kernels.counts() == {"shortlist": 0, "spd_solve": 0}
+
+
+def _spd_inputs(s, k, seed, device):
+    """Half-sweep-like systems, made on ``device`` from a seeded
+    generator: the Gramian of random factors over cnt <= 24 ratings plus
+    0.01 * max(cnt, 1) * I and the 1e-6 jitter; about 1% of segments
+    empty (A = (0.01 + 1e-6) I, b = 0)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = 24
+    cnt = torch.randint(1, n + 1, (s,), generator=g, device=device)
+    cnt[torch.rand((s,), generator=g, device=device) < 0.01] = 0
+    cnt[0] = 0                                # at least one empty segment
+    w = (torch.arange(n, device=device)[None, :] < cnt[:, None]).float()
+    f = torch.randn((s, n, k), generator=g, device=device) / k ** 0.5
+    r = torch.randint(1, 6, (s, n), generator=g, device=device).float()
+    fw_t = (f * w[..., None]).transpose(1, 2)
+    A = torch.bmm(fw_t, f) + (0.01 * cnt.clamp_min(1).float() + 1e-6)[
+        :, None, None] * torch.eye(k, device=device)
+    b = torch.bmm(fw_t, r[..., None])[..., 0]
+    return A.contiguous(), b.contiguous(), cnt == 0
+
+
+@pytest.mark.parametrize("k", [1, 3, 10, 16, 33, 64])
+@pytest.mark.parametrize("s", [1, 129, 4097, 27_000, 138_000])
+def test_spd_solve_kernel_matches_plain_on_card(cuda_device, s, k):
+    """The smoke's shapes (S up to 138,000 users, K up to 64) and odd K."""
+    A, b, empty = _spd_inputs(s, k, s + k, cuda_device)
+    before = kernels.SPD_SOLVE_LAUNCHES
+    got = spd_solve(A, b)
+    torch.cuda.synchronize()
+    assert kernels.SPD_SOLVE_LAUNCHES == before + 1
+    want = cholesky_solve_vec(A, b)
+    assert got.shape == want.shape == (s, k)
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+    assert (got[empty] == 0).all()
+
+
+def test_spd_solve_kernel_refuses_bad_inputs_on_card(cuda_device):
+    A, b, _ = _spd_inputs(4, 8, 0, cuda_device)
+    with pytest.raises(ValueError, match="A:"):
+        kernels.spd_solve_cuda(A.double(), b)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        kernels.spd_solve_cuda(A, b[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.spd_solve_cuda(A.transpose(1, 2), b)
+    big = torch.eye(65, device=cuda_device).expand(2, 65, 65).contiguous()
+    with pytest.raises(ValueError, match="K=65"):
+        kernels.spd_solve_cuda(big, torch.zeros((2, 65), device=cuda_device))
+
+
+def test_spd_solve_cpu_tensors_take_the_plain_version():
+    A, b, empty = _spd_inputs(50, 10, 1, "cpu")
+    before = kernels.SPD_SOLVE_LAUNCHES
+    got = spd_solve(A, b)
+    assert kernels.SPD_SOLVE_LAUNCHES == before
+    assert torch.equal(got, cholesky_solve_vec(A, b))
+    assert empty.any() and (got[empty] == 0).all()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.spd_solve_cuda(A, b)

@@ -124,7 +124,7 @@ async def test_port_server_answers_like_reference(trained, tmp_path, mode,
     monkeypatch.setattr(kernels, "SHORTLIST_LAUNCHES", 3)
     report = server.warm()
     assert report.buckets == [1, 2, 4, 8, 16, 32, 64]
-    assert kernels.counts() == {"shortlist": 0}
+    assert kernels.counts() == {"shortlist": 0, "spd_solve": 0}
     port = await server.start("127.0.0.1", 0)
     base = f"http://127.0.0.1:{port}"
     try:
@@ -154,8 +154,10 @@ async def test_port_server_answers_like_reference(trained, tmp_path, mode,
             assert info["status"] == "alive"
             assert info["queryCount"] == len(QUERIES)
             assert info["engineInstance"]["id"] == instance.id
-            assert info["warmupKernelLaunches"] == {"shortlist": 3}
-            assert info["kernelLaunches"] == {"shortlist": 0}
+            assert info["warmupKernelLaunches"] == {"shortlist": 3,
+                                                    "spd_solve": 0}
+            assert info["kernelLaunches"] == {"shortlist": 0,
+                                              "spd_solve": 0}
             scorers = info["scorer"]
             if mode == "twostage":
                 assert scorers[0]["activeMode"] == "twostage"

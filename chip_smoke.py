@@ -20,13 +20,21 @@ Phases, each reported on its own lines:
                    mask: vals within rtol 1e-5 / atol 1e-5 (f32 sums in
                    another order); ids equal wherever the plain version's
                    neighbouring values differ by more than that.
-                   B1, the batched SPD solve, at K in {10, 16, 64} x S in
-                   {1, 129, 27000, 138000} on systems built like a
+                   B1, the batched SPD solve, at K in {10, 16, 32, 64} x
+                   S in {1, 129, 27000, 138000} on systems built like a
                    half-sweep's (the Gramian of seeded factors over up to
-                   24 ratings plus 0.01 * max(cnt, 1) * I and the 1e-6
-                   jitter; about 1% of segments empty): max |x -
-                   x_plain| <= 1e-4 * max(1, max |x_plain|) (f32
-                   Cholesky in another order), empty segments exactly 0.
+                   24 ratings, its ridge 0.01 * max(cnt, 1) and the 1e-6
+                   jitter; about 1% of segments empty), both with the
+                   ridge passed as ``diag`` (the trains' call) and with it
+                   summed into A: max |x - x_plain| <= 1e-4 * max(1,
+                   max |x_plain|) (f32 Cholesky in another order), empty
+                   segments exactly 0, A unchanged. Each row records the
+                   call's time (CUDA events over back-to-back calls) and
+                   the kernel's device time (a CUDA graph of the calls,
+                   replayed: no host time), its regime (as the built
+                   library reports its boundary) and whether A and b fit
+                   in the 50 MB L2 (then the time is warm and is not a
+                   share of the bound).
 4. ``train``     — the training main path at the full width of the
                    reference's ML-20M ALS bench: 20M synthetic ratings
                    over 138,000 users x 27,000 items
@@ -40,7 +48,12 @@ Phases, each reported on its own lines:
                    within ``TWIN_TOL``. Then a ``subspace`` leg on the
                    same data (rank 64, block 16, 3 iterations): 24
                    launches at K = 16, held to its plain twin the same
-                   way.
+                   way. Then a ``full_r64`` leg: the ``full`` solver at
+                   rank 64, 3 iterations, 6 launches at K = 64, held to
+                   its plain twin the same way. Each leg first runs one
+                   uncounted train (a process's first train is 2-3x
+                   slower), and after the timed one a profiled train for
+                   the device's busy time and idle share.
 5. ``lifecycle`` — events -> train -> model file -> deploy -> query at
                    the reference pipeline bench's ML-100k shape (943 x
                    1682, 100,000 ratings): rate (and a few buy) events
@@ -114,6 +127,9 @@ ML20M = dict(n_users=138_000, n_items=27_000, nnz=20_000_000, seed=20,
 #: its subspace leg: the als_kernel bench's rank and block
 #: (bench.py:895-897), 3 iterations
 SUBSPACE = dict(rank=64, block=16, iters=3)
+#: its full-solver leg at the als_kernel bench's rank 64 (bench.py:951),
+#: 3 iterations: B1 at K = 64
+FULL_R64 = dict(rank=64, iters=3)
 #: the reference's pipeline bench shape (bench.py:466, cfg_pipeline_ml100k)
 ML100K = dict(n_users=943, n_items=1682, nnz=100_000, rank=10, iters=20,
               reg=0.01, buys=50, queries=20)
@@ -184,6 +200,29 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int, reps: int = 5) -> float:
+    """Device milliseconds per call of ``fn()``, without its host time:
+    ``launches`` calls captured in one CUDA graph, the graph replayed
+    ``reps`` times. At small shapes a call's host time (the wrapper's
+    checks, the allocation, the launch) exceeds the kernel's, and
+    :func:`cuda_ms` reads the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    ms = cuda_ms(graph.replay, iters=reps) / launches
+    del graph
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -322,24 +361,27 @@ def kernels_phase(seed: int, n_items: int):
 # kernels phase, B1: the batched SPD solve
 # ---------------------------------------------------------------------------
 
-SPD_SHAPES = [(k, s) for k in (10, 16, 64) for s in (1, 129, 27_000, 138_000)]
+SPD_SHAPES = [(k, s) for k in (10, 16, 32, 64)
+              for s in (1, 129, 27_000, 138_000)]
+#: H100 L2 cache: inputs below this stay resident across timed launches
+L2_BYTES = 50e6
 
 
 def spd_bound_ms(s: int, k: int):
-    """Least time for the solve: A and b read once and x written once
-    over HBM bandwidth, or its f32 multiply-adds (about K^3/3 for the
-    factorization and 2K^2 for the substitutions, per system) over the
-    f32 peak."""
-    t_bytes = s * (k * k + 2 * k) * 4 / HBM_BYTES_PER_S * 1e3
+    """Least time for the solve: A, b and diag read once and x written
+    once over HBM bandwidth, or its f32 multiply-adds (about K^3/3 for
+    the factorization and 2K^2 for the substitutions, per system) over
+    the f32 peak."""
+    t_bytes = s * (k * k + 2 * k + 1) * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * s * (k ** 3 / 3 + 2 * k * k) / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def spd_inputs(s: int, k: int, g):
     """Systems built like a half-sweep's on the card: the Gramian of
-    seeded random factors over cnt <= 24 ratings, plus reg *
-    max(cnt, 1) * I and the 1e-6 jitter; about 1% of segments empty
-    (A = (reg + jitter) I, b = 0)."""
+    seeded random factors over cnt <= 24 ratings and its ridge lam =
+    reg * max(cnt, 1), kept apart; about 1% of segments empty (gram = 0,
+    b = 0). Returns (gram, lam, b, empty)."""
     import torch
 
     dev = torch.device(DEV)
@@ -352,11 +394,10 @@ def spd_inputs(s: int, k: int, g):
     f = torch.randn((s, n, k), generator=g, device=dev) / k ** 0.5
     r = torch.randint(1, 6, (s, n), generator=g, device=dev).float()
     fw = f * w[..., None]
-    A = torch.bmm(fw.transpose(1, 2), f)
-    A += (reg * cnt.clamp_min(1).float() + 1e-6)[:, None, None] \
-        * torch.eye(k, device=dev)
+    gram = torch.bmm(fw.transpose(1, 2), f)
+    lam = reg * cnt.clamp_min(1).float()
     b = torch.bmm(fw.transpose(1, 2), r[..., None])[..., 0]
-    return A.contiguous(), b.contiguous(), cnt == 0
+    return gram.contiguous(), lam, b.contiguous(), cnt == 0
 
 
 def spd_kernels_phase(seed: int):
@@ -364,30 +405,48 @@ def spd_kernels_phase(seed: int):
 
     from predictionio_tpu_torch.ops import kernels
     from predictionio_tpu_torch.ops.linalg import (
-        cholesky_solve_vec, spd_solve,
+        cholesky_solve_vec, spd_solve, with_diagonal,
     )
 
     g = torch.Generator(device=DEV).manual_seed(seed + 2)
     rows, max_err = [], 0.0
+    jitter = 1e-6
+    thread_max_k = kernels.spd_solve_thread_max_k()
     for k, s in SPD_SHAPES:
-        A, b, empty = spd_inputs(s, k, g)
+        gram, lam, b, empty = spd_inputs(s, k, g)
+        A = with_diagonal(gram, lam, jitter)
+        gram0, A0 = gram.clone(), A.clone()
         kernels.reset_counts()
-        x = spd_solve(A, b)
+        x_diag = spd_solve(gram, b, lam, jitter)     # the trains' call
+        x_sum = spd_solve(A, b)                      # the sum given
         synchronize()
-        check(kernels.SPD_SOLVE_LAUNCHES == 1,
+        check(kernels.SPD_SOLVE_LAUNCHES == 2,
               "spd_solve wrapper did not launch its kernel")
+        check(torch.equal(gram, gram0) and torch.equal(A, A0),
+              f"spd K={k} S={s}: the kernel wrote A")
         plain = cholesky_solve_vec(A, b)
-        check(bool(torch.isfinite(x).all()), f"spd K={k} S={s}: non-finite")
-        err = float((x - plain).abs().max())
         scale = max(1.0, float(plain.abs().max()))
-        check(err <= SPD_TOL * scale, f"spd K={k} S={s}: max |dx| {err} > "
-              f"{SPD_TOL} * {scale}")
         n_empty = int(empty.sum())
-        check(bool((x[empty] == 0).all()),
-              f"spd K={k} S={s}: an empty segment did not solve to 0")
+        err = 0.0
+        for name, x in (("diag", x_diag), ("summed", x_sum)):
+            check(bool(torch.isfinite(x).all()),
+                  f"spd K={k} S={s} {name}: non-finite")
+            e = float((x - plain).abs().max())
+            check(e <= SPD_TOL * scale, f"spd K={k} S={s} {name}: max "
+                  f"|dx| {e} > {SPD_TOL} * {scale}")
+            check(bool((x[empty] == 0).all()), f"spd K={k} S={s} {name}: "
+                  f"an empty segment did not solve to 0")
+            err = max(err, e)
         max_err = max(max_err, err)
-        ms = cuda_ms(lambda: spd_solve(A, b), iters=10)
-        plain_ms = cuda_ms(lambda: cholesky_solve_vec(A, b), iters=3)
+        # small shapes take the wrapper's host time, not the kernel's:
+        # many launches, after a warm-up, to keep that time steady
+        n_it, n_warm = (10, 1) if s >= 27_000 else (200, 20)
+        ms = cuda_ms(lambda: spd_solve(gram, b, lam, jitter), iters=n_it,
+                     warmup=n_warm)
+        device_ms = graph_ms(lambda: spd_solve(gram, b, lam, jitter),
+                             launches=10 if s >= 27_000 else 50)
+        plain_ms = cuda_ms(lambda: cholesky_solve_vec(
+            with_diagonal(gram, lam, jitter), b), iters=3)
         library_ms = cuda_ms(lambda: torch.linalg.solve(A, b), iters=3)
 
         def chol():
@@ -396,13 +455,17 @@ def spd_kernels_phase(seed: int):
 
         chol_ms = cuda_ms(chol, iters=3)
         bound, bound_by = spd_bound_ms(s, k)
-        row = {"K": k, "S": s, "ms": ms, "plain_ms": plain_ms,
+        in_bytes = s * (k * k + k + 1) * 4
+        row = {"K": k, "S": s,
+               "regime": "thread" if k <= thread_max_k else "warp",
+               "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "library_chol_ms": chol_ms,
                "bound_ms": bound, "bound_by": bound_by,
+               "fits_l2": in_bytes <= L2_BYTES,
                "max_abs_err": err, "max_abs_x": scale, "empty": n_empty}
         rows.append(row)
         log("kernels: spd_solve " + json.dumps(row))
-        del A, b, x, plain
+        del gram, lam, A, b, x_diag, x_sum, plain, gram0, A0
     torch.cuda.empty_cache()
     kernels.reset_counts()
     return rows, max_err
@@ -437,22 +500,46 @@ def _rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+def device_busy_ms(fn) -> float | None:
+    """Device time of ``fn()``: the summed durations of the events the
+    profiler ran on the card (kernels, copies, sets; one stream, so they
+    do not overlap), in ms; None if it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 if total > 0 else None
+
+
 def _train_leg(name, data, params, init_V, users, items, ratings,
                want_launches):
     """One train on the card and its plain-solve twin from the same
-    initial factors; returns the leg's report."""
+    initial factors; returns the leg's report. An uncounted train first
+    warms the process (the first train of a process runs 2-3x slower:
+    library handles, allocator), so the timed one is steady; a profiled
+    train after it gives the device's busy time per half-sweep and its
+    idle share of the timed train's wall time."""
     import numpy as np
 
     from predictionio_tpu_torch.models.als import rmse, train_als
     from predictionio_tpu_torch.ops import kernels
 
     head = slice(0, 1_000_000)
+    train_als(data, params, device=DEV, init_V=init_V)
     synchronize()
     kernels.reset_counts()
     t0 = time.perf_counter()
     U, V = train_als(data, params, device=DEV, init_V=init_V)
     train_s = time.perf_counter() - t0
     launches = kernels.counts()["spd_solve"]
+    busy = device_busy_ms(
+        lambda: train_als(data, params, device=DEV, init_V=init_V))
     check(launches == want_launches, f"{name}: {launches} SPD kernel "
           f"launches, expected {want_launches}")
     err = rmse(U, V, users[head], items[head], ratings[head])
@@ -478,6 +565,10 @@ def _train_leg(name, data, params, init_V, users, items, ratings,
     half = 2 * params.num_iterations
     report = {"leg": name, "launches": launches, "train_s": train_s,
               "half_sweep_ms": train_s / half * 1e3,
+              "device_busy_half_sweep_ms":
+                  None if busy is None else busy / half,
+              "device_idle_share":
+                  None if busy is None else 1 - busy / (train_s * 1e3),
               "plain_train_s": plain_s,
               "plain_half_sweep_ms": plain_s / half * 1e3,
               "rmse_1m": err, "plain_rmse_1m": err2,
@@ -538,7 +629,18 @@ def train_phase(spd_rows):
     sub_ms = by.get((sc["block"], c["n_users"]), 0.0) + \
         by.get((sc["block"], c["n_items"]), 0.0)
     sub["kernel_share"] = sub_ms * n_blocks / (2 * sub["half_sweep_ms"])
-    summary = {"full": full, "subspace": sub,
+
+    rc = FULL_R64
+    r64_params = ALSParams(rank=rc["rank"], num_iterations=rc["iters"],
+                           reg=c["reg"], chunk_size=c["chunk"])
+    r64_V = _init_item_factors(data.n_items, data.n_items_pad, rc["rank"],
+                               params.seed, dev).cpu().numpy()
+    r64 = _train_leg("full_r64", data, r64_params, r64_V, users, items,
+                     ratings, 2 * rc["iters"])
+    r64["kernel_share"] = (by[(rc["rank"], c["n_users"])]
+                           + by[(rc["rank"], c["n_items"])]) \
+        / (2 * r64["half_sweep_ms"])
+    summary = {"full": full, "subspace": sub, "full_r64": r64,
                "peak_device_bytes": torch.cuda.max_memory_allocated()}
     log("train: " + json.dumps({"summary": summary}))
     del data
@@ -1001,14 +1103,16 @@ def spd_line(spd_rows, spd_err, train, lifecycle) -> dict:
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
-        "library": "torch.linalg.solve(A, b)",
+        "library": "torch.linalg.solve(A + lam I + jitter I, b)",
         "library_chol_ms": row["library_chol_ms"],
         "library_chol": "two-call composite: torch.linalg.cholesky_ex + "
                         "torch.cholesky_solve",
-        "shape": {"S": row["S"], "K": row["K"]},
+        "shape": {"S": row["S"], "K": row["K"], "regime": row["regime"],
+                  "fits_l2": row["fits_l2"]},
         "launches_by_path": {
             "train_full": train["full"]["launches"],
             "train_subspace": train["subspace"]["launches"],
+            "train_full_r64": train["full_r64"]["launches"],
             "lifecycle_train": lifecycle["train"]["launches"]["spd_solve"]},
     }
 
@@ -1050,7 +1154,11 @@ def main() -> int:
         logs = kernels.build_all()
         for src, out in logs.items():
             for line in out.splitlines():
-                if "registers" in line or "error" in line.lower():
+                # ptxas: each instantiation's mangled name (its template
+                # argument as Li<K>E), then its registers and spills
+                if any(w in line for w in ("Compiling entry function",
+                                           "registers", "spill")) \
+                        or "error" in line.lower():
                     log(f"build: {src}: {line.strip()}")
         log(f"build: {sorted(logs) or 'cached'} in "
             f"{time.perf_counter() - t0:.3f} s")

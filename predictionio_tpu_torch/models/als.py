@@ -289,8 +289,6 @@ def _half_sweep_dyn(opposite: torch.Tensor, row_tgt, row_seg, row_val,
                     alpha_is_zero: bool, chunk_rows: int) -> torch.Tensor:
     """Solve this side's factors against the full opposite factor
     matrix; rows are the padded ALX layout. One batched K x K solve."""
-    k = opposite.shape[1]
-    eye = torch.eye(k, dtype=opposite.dtype, device=opposite.device)
     if implicit_prefs:
         # Hu-Koren-Volinsky: p = [r > 0], c = 1 + alpha * |r|;
         # A_s = V^T V + sum (c-1) f f^T + lam I ; b_s = sum c p f, with
@@ -315,12 +313,12 @@ def _half_sweep_dyn(opposite: torch.Tensor, row_tgt, row_seg, row_val,
             cnt = segment_count(row_seg, row_w.sum(dim=1), seg_per_shard)
         A = gram_all[None, :, :] + gram
         lam = _reg_per_segment(reg, cnt, weighted_reg)
-        return batched_spd_solve(A + lam[:, None, None] * eye, rhs)
+        return batched_spd_solve(A, rhs, diag=lam)
     gram, rhs, cnt = rows_gram_rhs(
         opposite, row_tgt, row_seg, row_val, row_w,
         num_segments=seg_per_shard, chunk_rows=chunk_rows)
     lam = _reg_per_segment(reg, cnt, weighted_reg)
-    return batched_spd_solve(gram + lam[:, None, None] * eye, rhs)
+    return batched_spd_solve(gram, rhs, diag=lam)
 
 
 def _half_sweep(opposite: torch.Tensor, rows: ShardedRows,
@@ -379,7 +377,6 @@ def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
 
     pred = row_predict_add(opposite, x_prev, row_tgt, row_seg,
                            torch.zeros_like(row_val), chunk_rows=chunk_rows)
-    eye_b = torch.eye(b, dtype=opposite.dtype, device=opposite.device)
 
     x = x_prev.clone()
     for j, s in enumerate(starts):
@@ -395,7 +392,7 @@ def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
             g_bb = g_col[s:s + b]
             gram = gram + g_bb[None, :, :]
             rhs = rhs - (x @ g_col - x_b @ g_bb)
-        y = batched_spd_solve(gram + lam[:, None, None] * eye_b, rhs)
+        y = batched_spd_solve(gram, rhs, diag=lam)
         if j + 1 < len(starts):
             # fold this block's delta into the running predictions (the
             # last block's update feeds nothing)

@@ -41,8 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: largest tile the shortlist kernel takes: its [T] f32 score row lives
 #: in shared memory (227 KB per block on Hopper)
 SHORTLIST_MAX_TILE = 32768
-#: largest system the SPD solve kernel takes (its warp stages K x (K+1)
-#: floats in shared memory; the reference's ``_PALLAS_MAX_K``)
+#: largest system the SPD solve kernel takes (a lane of its warp keeps
+#: two columns of L in registers; the reference's ``_PALLAS_MAX_K``)
 SPD_SOLVE_MAX_K = 64
 
 _LOCK = threading.Lock()
@@ -129,8 +129,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                                            i, i, i, i, i, i, p]
         lib.pio_shortlist_topc.restype = i
     elif name == "spd_solve":
-        lib.pio_spd_solve.argtypes = [p, p, p, i, i, p]
+        lib.pio_spd_solve.argtypes = [p, p, p, p, i, i, ctypes.c_float, p]
         lib.pio_spd_solve.restype = i
+        lib.pio_spd_solve_thread_max_k.argtypes = []
+        lib.pio_spd_solve_thread_max_k.restype = i
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -202,10 +204,22 @@ def shortlist_topc_cuda(u: torch.Tensor, tiles: torch.Tensor,
     return vals, ids
 
 
-def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def spd_solve_thread_max_k() -> int:
+    """The largest K the SPD solve kernel solves one system per thread;
+    above it, one warp per system. Read from the built library, which
+    owns the choice (builds it if needed)."""
+    return int(_lib("spd_solve").pio_spd_solve_thread_max_k())
+
+
+def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor,
+                   diag: Optional[torch.Tensor] = None,
+                   jitter: float = 0.0) -> torch.Tensor:
     """Launch csrc/spd_solve.cu on CUDA tensors: ``A [S,K,K] f32``,
-    ``b [S,K] f32`` -> ``x [S,K] f32`` with ``A[s] x[s] = b[s]``, for
-    1 <= K <= 64. Runs on the current stream and does not synchronise."""
+    ``b [S,K] f32``, ``diag [S] f32`` or None -> ``x [S,K] f32`` with
+    ``(A[s] + diag[s] I + jitter I) x[s] = b[s]``, for 1 <= K <= 64. The
+    kernel adds both terms to the diagonal as it loads A, in that order,
+    and reads only A's lower triangle; A is not written. Runs on the
+    current stream and does not synchronise."""
     global SPD_SOLVE_LAUNCHES
     dev = A.device
     if dev.type != "cuda":
@@ -222,12 +236,18 @@ def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("empty input: S=0")
     if s >= 2 ** 31:
         raise ValueError(f"S={s} too large for the kernel's 32-bit count")
+    diag_ptr = None
+    if diag is not None:
+        _require(diag, "diag", torch.float32, 1, dev)
+        if diag.shape[0] != s:
+            raise ValueError(f"diag shape {tuple(diag.shape)} != {(s,)}")
+        diag_ptr = diag.data_ptr()
     lib = _lib("spd_solve")
     x = torch.empty((s, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pio_spd_solve(A.data_ptr(), b.data_ptr(), x.data_ptr(),
-                                s, k, stream)
+        err = lib.pio_spd_solve(A.data_ptr(), b.data_ptr(), diag_ptr,
+                                x.data_ptr(), s, k, float(jitter), stream)
     _check(lib, err, "spd_solve")
     with _LOCK:
         SPD_SOLVE_LAUNCHES += 1

@@ -13,17 +13,22 @@ reference:
   plain version of the hand-written kernel: the CPU runs it, and the
   tests and ``chip_smoke.py`` hold the kernel against it.
 - :func:`spd_solve` — the hand-written Hopper kernel
-  (``csrc/spd_solve.cu``, one warp per system, the counterpart of the
-  Pallas ``_spd_solve_kernel``) on CUDA tensors; the plain version on
-  CPU tensors.
+  (``csrc/spd_solve.cu``: one system per thread for K <= 16, one warp
+  per system above; the counterpart of the Pallas ``_spd_solve_kernel``)
+  on CUDA tensors; the plain version on CPU tensors.
 
-:func:`batched_spd_solve` adds the jitter and picks one of them by
-``PIO_TPU_SOLVE`` with the reference's values and rule.
+:func:`batched_spd_solve` picks one of them by ``PIO_TPU_SOLVE`` with the
+reference's values and rule. It takes the ridge term as a per-system
+``diag`` beside A: the kernel adds it and the jitter to the diagonal as
+it loads A, and the other routes add the same terms in the same order
+(``(A_ii + diag_s) + jitter``, the reference's ``gram + lam I`` followed
+by its jitter).
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 
@@ -81,13 +86,31 @@ def cholesky_solve_vec(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _vec_solve_tri(_vec_cholesky(A), b)
 
 
-def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The B1 solve: CUDA tensors launch ``csrc/spd_solve.cu`` (or
-    raise); CPU tensors take :func:`cholesky_solve_vec` (the counterpart
-    of the reference's ``interpret=True``)."""
+def with_diagonal(A: torch.Tensor, diag: Optional[torch.Tensor],
+                  jitter: float) -> torch.Tensor:
+    """``A + diag[:, None, None] I + jitter I`` as a new tensor, the
+    diagonal summed as ``(A_ii + diag_s) + jitter`` (the kernel's order
+    and the reference's)."""
+    out = A.clone()
+    d = out.diagonal(dim1=-2, dim2=-1)
+    if diag is not None:
+        d += diag[:, None]
+    d += jitter
+    return out
+
+
+def spd_solve(A: torch.Tensor, b: torch.Tensor,
+              diag: Optional[torch.Tensor] = None,
+              jitter: float = 0.0) -> torch.Tensor:
+    """The B1 solve of ``(A + diag I + jitter I) x = b``: CUDA tensors
+    launch ``csrc/spd_solve.cu`` (or raise), which adds both terms as it
+    loads A; CPU tensors take :func:`cholesky_solve_vec` on the same sum
+    (the counterpart of the reference's ``interpret=True``)."""
     if A.is_cuda:
-        return kernels.spd_solve_cuda(A.contiguous(), b.contiguous())
-    return cholesky_solve_vec(A, b)
+        return kernels.spd_solve_cuda(
+            A.contiguous(), b.contiguous(),
+            None if diag is None else diag.contiguous(), jitter)
+    return cholesky_solve_vec(with_diagonal(A, diag, jitter), b)
 
 
 def solve_method() -> str:
@@ -100,24 +123,26 @@ def solve_method() -> str:
 
 
 def batched_spd_solve(A: torch.Tensor, b: torch.Tensor,
-                      jitter: float = 1e-6) -> torch.Tensor:
-    """Solve ``A[s] x[s] = b[s]`` for SPD A, ``[S, K, K] x [S, K] ->
-    [S, K]``.
+                      jitter: float = 1e-6,
+                      diag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Solve ``(A[s] + diag[s] I + jitter I) x[s] = b[s]`` for SPD
+    systems, ``[S, K, K] x [S, K] -> [S, K]``; ``diag [S]`` (the ALS
+    ridge term) is optional.
 
     A small diagonal jitter keeps empty segments (A ~ 0) from producing
     NaNs; their rhs is 0, so their solution stays exactly 0. Method:
     ``PIO_TPU_SOLVE`` (``pallas`` | ``vec`` | ``xla``) overrides; the
     default ``auto`` takes the hand-written kernel on a CUDA tensor for
     K <= 64 and the vectorized path otherwise, the reference's rule with
-    the card in the TPU's place.
+    the card in the TPU's place. On the kernel's route nothing forms the
+    sum beforehand: the kernel adds ``diag`` and the jitter as it loads A.
     """
     k = A.shape[-1]
     method = solve_method()
-    A = A + jitter * torch.eye(k, dtype=A.dtype, device=A.device)
+    if method == "pallas" or (method == "auto" and k <= _PALLAS_MAX_K
+                              and A.is_cuda):
+        return spd_solve(A, b, diag, jitter)
+    A = with_diagonal(A, diag, jitter)
     if method == "xla":
         return cholesky_solve_xla(A, b)
-    if method == "vec":
-        return cholesky_solve_vec(A, b)
-    if method == "pallas" or (k <= _PALLAS_MAX_K and A.is_cuda):
-        return spd_solve(A, b)
     return cholesky_solve_vec(A, b)

@@ -11,8 +11,9 @@ The wrappers' CPU dispatch and their input checks run everywhere.
 Tolerances. Shortlist: vals rtol 1e-5 / atol 1e-6 (f32 sums in another
 order); ids equal wherever the value is finite (random int8 data,
 tie-free). SPD solve: max |x - x_plain| <= 1e-4 * max(1, max |x_plain|)
-(f32 Cholesky, sums and rsqrt in another order; systems built like a
-half-sweep's, well conditioned); empty segments exactly 0.
+(f32 Cholesky, sums and rsqrt in another order, and a reciprocal of
+L[j][j] where the plain version divides; systems built like a
+half-sweep's, well conditioned); empty segments exactly 0; A unchanged.
 """
 
 import numpy as np
@@ -20,7 +21,9 @@ import pytest
 import torch
 
 from predictionio_tpu_torch.ops import kernels
-from predictionio_tpu_torch.ops.linalg import cholesky_solve_vec, spd_solve
+from predictionio_tpu_torch.ops.linalg import (
+    cholesky_solve_vec, spd_solve, with_diagonal,
+)
 from predictionio_tpu_torch.ops.scoring import (
     shortlist_topc, shortlist_topc_reference,
 )
@@ -118,9 +121,9 @@ def test_launch_counts_reset():
 
 def _spd_inputs(s, k, seed, device):
     """Half-sweep-like systems, made on ``device`` from a seeded
-    generator: the Gramian of random factors over cnt <= 24 ratings plus
-    0.01 * max(cnt, 1) * I and the 1e-6 jitter; about 1% of segments
-    empty (A = (0.01 + 1e-6) I, b = 0)."""
+    generator: the Gramian of random factors over cnt <= 24 ratings and
+    its ridge 0.01 * max(cnt, 1) kept apart as ``lam``; about 1% of
+    segments empty (gram = 0, b = 0). Returns (gram, lam, b, empty)."""
     g = torch.Generator(device=device).manual_seed(seed)
     n = 24
     cnt = torch.randint(1, n + 1, (s,), generator=g, device=device)
@@ -130,22 +133,30 @@ def _spd_inputs(s, k, seed, device):
     f = torch.randn((s, n, k), generator=g, device=device) / k ** 0.5
     r = torch.randint(1, 6, (s, n), generator=g, device=device).float()
     fw_t = (f * w[..., None]).transpose(1, 2)
-    A = torch.bmm(fw_t, f) + (0.01 * cnt.clamp_min(1).float() + 1e-6)[
-        :, None, None] * torch.eye(k, device=device)
-    b = torch.bmm(fw_t, r[..., None])[..., 0]
-    return A.contiguous(), b.contiguous(), cnt == 0
+    gram = torch.bmm(fw_t, f).contiguous()
+    lam = 0.01 * cnt.clamp_min(1).float()
+    b = torch.bmm(fw_t, r[..., None])[..., 0].contiguous()
+    return gram, lam, b, cnt == 0
 
 
-@pytest.mark.parametrize("k", [1, 3, 10, 16, 33, 64])
-@pytest.mark.parametrize("s", [1, 129, 4097, 27_000, 138_000])
-def test_spd_solve_kernel_matches_plain_on_card(cuda_device, s, k):
-    """The smoke's shapes (S up to 138,000 users, K up to 64) and odd K."""
-    A, b, empty = _spd_inputs(s, k, s + k, cuda_device)
+def _check_spd(gram, lam, b, empty, with_diag):
+    """One launch, held to the plain version on ``gram + lam I + 1e-6 I``:
+    either the kernel adds the diagonal (``with_diag``) or it is given
+    the sum. A must come back unchanged."""
+    jitter = 1e-6
+    summed = with_diagonal(gram, lam, jitter)
+    A = gram if with_diag else summed
+    before_A = A.clone()
     before = kernels.SPD_SOLVE_LAUNCHES
-    got = spd_solve(A, b)
+    if with_diag:
+        got = spd_solve(A, b, lam, jitter)
+    else:
+        got = spd_solve(A, b)
     torch.cuda.synchronize()
     assert kernels.SPD_SOLVE_LAUNCHES == before + 1
-    want = cholesky_solve_vec(A, b)
+    assert torch.equal(A, before_A)
+    want = cholesky_solve_vec(summed, b)
+    s, k = b.shape
     assert got.shape == want.shape == (s, k)
     assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
@@ -153,8 +164,83 @@ def test_spd_solve_kernel_matches_plain_on_card(cuda_device, s, k):
     assert (got[empty] == 0).all()
 
 
+@pytest.mark.parametrize("k", [1, 3, 10, 16, 33, 64])
+@pytest.mark.parametrize("s", [1, 129, 4097, 27_000, 138_000])
+@pytest.mark.parametrize("with_diag", [False, True])
+def test_spd_solve_kernel_matches_plain_on_card(cuda_device, s, k,
+                                                with_diag):
+    """The smoke's shapes (S up to 138,000 users, K up to 64) and odd K,
+    with the ridge given as ``diag`` and already summed into A."""
+    _check_spd(*_spd_inputs(s, k, s + k, cuda_device), with_diag)
+
+
+@pytest.mark.parametrize("k", range(1, 65))
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 4097])
+def test_spd_solve_every_k_on_card(cuda_device, s, k):
+    """Every K the kernel takes: each of regime A's 16 instantiations
+    (one system per thread, blocks of 64 or 128 systems, so S = 127,
+    128 and 129 are a ragged, a full and a one-over block) and regime
+    B's two ceilings (one warp per system, K = 17..32 and 33..64)."""
+    _check_spd(*_spd_inputs(s, k, 1000 * k + s, cuda_device), True)
+
+
+@pytest.mark.parametrize("k", [4, 12, 16, 17, 40, 64])
+def test_spd_solve_floored_pivot_on_card(cuda_device, k):
+    """A pivot at or below the 1e-30 floor: row and column j of A are
+    zero but for A[j][j] = -1 (and 0 in a second system), so d =
+    rsqrt(1e-30) and L[j][j] = A[j][j] * d; the kernel must agree with
+    the plain version, which divides by that L[j][j]."""
+    gram, lam, b, _ = _spd_inputs(3, k, 7 * k, cuda_device)
+    A = with_diagonal(gram, lam, 1e-6)
+    j = k // 2
+    A[:, j, :] = 0.0
+    A[:, :, j] = 0.0
+    A[0, j, j] = -1.0
+    A[1, j, j] = 1e-31
+    b[1, j] = 0.0
+    want = cholesky_solve_vec(A, b)
+    assert torch.isfinite(want[:2]).all()
+    got = spd_solve(A.contiguous(), b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got[:2]).all()
+    err = float((got[:2] - want[:2]).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want[:2].abs().max())), err
+
+
+@pytest.mark.parametrize("k", [12, 16, 17, 24, 40, 64])
+def test_spd_solve_floored_pivots_in_full_rows_on_card(cuda_device, k):
+    """Three adjacent pivots at the 1e-30 floor (A[j][j] = -1) whose rows
+    and columns are not zeroed: entries of 1e-15 scale with every other
+    row, so L[i][j] = A[i][j] * rsqrt(1e-30) is of order 1 and L[j][j]
+    about -1e15, while the three rows are 0 to one another. The plain
+    version stays finite; the kernel must agree with it, so no product
+    of those large entries may reach a finished column."""
+    rng = np.random.default_rng(k)
+    m = rng.normal(size=(k, 3 * k))
+    a = m @ m.T / (3 * k) + 10.0 * np.eye(k)
+    js = [k // 2 - 1, k // 2, k // 2 + 1]
+    for j in js:
+        v = 1e-15 * rng.uniform(-0.5, 0.5, size=k)
+        a[j, :] = v
+        a[:, j] = v
+    for j in js:
+        a[j, js] = 0.0
+        a[j, j] = -1.0
+    A = torch.tensor(a[None], dtype=torch.float32, device=cuda_device)
+    b = torch.tensor(rng.normal(size=(1, k)), dtype=torch.float32,
+                     device=cuda_device)
+    want = cholesky_solve_vec(A, b)
+    assert torch.isfinite(want).all()
+    got = spd_solve(A, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+
+
 def test_spd_solve_kernel_refuses_bad_inputs_on_card(cuda_device):
-    A, b, _ = _spd_inputs(4, 8, 0, cuda_device)
+    gram, lam, b, _ = _spd_inputs(4, 8, 0, cuda_device)
+    A = with_diagonal(gram, lam, 1e-6)
     with pytest.raises(ValueError, match="A:"):
         kernels.spd_solve_cuda(A.double(), b)
     with pytest.raises(ValueError, match="shape mismatch"):
@@ -164,14 +250,28 @@ def test_spd_solve_kernel_refuses_bad_inputs_on_card(cuda_device):
     big = torch.eye(65, device=cuda_device).expand(2, 65, 65).contiguous()
     with pytest.raises(ValueError, match="K=65"):
         kernels.spd_solve_cuda(big, torch.zeros((2, 65), device=cuda_device))
+    with pytest.raises(ValueError, match="diag:"):
+        kernels.spd_solve_cuda(gram, b, lam.double())
+    with pytest.raises(ValueError, match="diag shape"):
+        kernels.spd_solve_cuda(gram, b, lam[:3].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.spd_solve_cuda(gram, b, torch.stack([lam, lam], 1)[:, 0])
+    with pytest.raises(ValueError, match="diag is on"):
+        kernels.spd_solve_cuda(gram, b, lam.cpu())
 
 
 def test_spd_solve_cpu_tensors_take_the_plain_version():
-    A, b, empty = _spd_inputs(50, 10, 1, "cpu")
+    gram, lam, b, empty = _spd_inputs(50, 10, 1, "cpu")
+    A = with_diagonal(gram, lam, 1e-6)
     before = kernels.SPD_SOLVE_LAUNCHES
     got = spd_solve(A, b)
     assert kernels.SPD_SOLVE_LAUNCHES == before
     assert torch.equal(got, cholesky_solve_vec(A, b))
     assert empty.any() and (got[empty] == 0).all()
+    # the ridge given apart: the same sum, the same answer, A unchanged
+    gram_before = gram.clone()
+    assert torch.equal(spd_solve(gram, b, lam, 1e-6), got)
+    assert torch.equal(gram, gram_before)
+    assert kernels.SPD_SOLVE_LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernels.spd_solve_cuda(A, b)

@@ -129,7 +129,8 @@ def test_auto_routes_cuda_tensors_by_k(monkeypatch):
     CUDA tensors need a card)."""
     launched = []
     monkeypatch.setattr(port, "spd_solve",
-                        lambda A, b: launched.append(A.shape[-1]) or b)
+                        lambda A, b, *terms: launched.append(A.shape[-1])
+                        or b)
 
     class FakeCuda(torch.Tensor):
         @property
@@ -143,3 +144,86 @@ def test_auto_routes_cuda_tensors_by_k(monkeypatch):
         monkeypatch.setenv("PIO_TPU_SOLVE", "auto")
         port.batched_spd_solve(A, b)
         assert (launched == [k]) == want_kernel, (k, launched)
+
+
+# ---------------------------------------------------------------------------
+# the ridge term as a per-system diagonal
+# ---------------------------------------------------------------------------
+
+def _ridge_problem(s, k, seed=0, reg=0.05, n=24):
+    """Systems built like an ALS half-sweep's: the Gramian of seeded
+    factors over cnt <= n ratings, the ridge ``lam = reg * max(cnt, 1)``
+    kept apart, about 10% of segments empty (gram = 0, b = 0)."""
+    rng = np.random.default_rng(seed + 7 * k + s)
+    cnt = rng.integers(1, n + 1, s)
+    cnt[rng.random(s) < 0.1] = 0
+    cnt[0] = 0
+    w = (np.arange(n)[None, :] < cnt[:, None]).astype(np.float32)
+    f = (rng.standard_normal((s, n, k)) / np.sqrt(k)).astype(np.float32)
+    r = rng.integers(1, 6, (s, n)).astype(np.float32)
+    fw = f * w[..., None]
+    gram = np.einsum("snk,snl->skl", fw, f).astype(np.float32)
+    rhs = np.einsum("snk,sn->sk", fw, r).astype(np.float32)
+    lam = (reg * np.maximum(cnt, 1)).astype(np.float32)
+    return gram, rhs, lam, cnt == 0
+
+
+@pytest.mark.parametrize("k", [1, 10, 16, 33, 64])
+@pytest.mark.parametrize("method", ["auto", "vec", "xla", "pallas"])
+def test_diag_matches_reference_gram_plus_lam(k, method, monkeypatch):
+    """``batched_spd_solve(gram, b, diag=lam)`` against the reference's
+    ``batched_spd_solve(gram + lam I, b)`` on the same numpy inputs.
+    Tolerance: max |dx| <= 1e-4 * max(1, max |x|) (f32 Cholesky, sums in
+    another order); empty segments exactly 0 in both."""
+    gram, rhs, lam, empty = _ridge_problem(130, k)
+    A_t = torch.from_numpy(gram)
+    monkeypatch.setenv("PIO_TPU_SOLVE", method)
+    got = port.batched_spd_solve(A_t, torch.from_numpy(rhs),
+                                 diag=torch.from_numpy(lam)).numpy()
+    assert np.array_equal(A_t.numpy(), gram)          # A is not written
+    monkeypatch.setenv("PIO_TPU_SOLVE", "vec")
+    A_ref = jnp.asarray(gram) + jnp.asarray(lam)[:, None, None] * jnp.eye(
+        k, dtype=jnp.float32)
+    want = np.asarray(ref.batched_spd_solve(A_ref, jnp.asarray(rhs)))
+    assert got.shape == want.shape == (130, k)
+    assert np.isfinite(got).all()
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-4 * max(1.0, float(np.abs(want).max())), err
+    assert (got[empty] == 0).all() and (want[empty] == 0).all()
+
+
+@pytest.mark.parametrize("k", [1, 10, 16, 33, 64])
+def test_diag_empty_segments_exactly_zero(k, monkeypatch):
+    """Empty segments with the ridge passed apart (gram = 0, diag = lam,
+    b = 0) solve to exactly 0 through every method, as the reference's
+    ``gram + lam I`` does."""
+    s = 5
+    gram = np.zeros((s, k, k), np.float32)
+    lam = np.array([0.01, 0.5, 3.0, 1e-4, 20.0], np.float32)
+    b = np.zeros((s, k), np.float32)
+    for method in ("auto", "vec", "xla", "pallas"):
+        monkeypatch.setenv("PIO_TPU_SOLVE", method)
+        out = port.batched_spd_solve(torch.from_numpy(gram),
+                                     torch.from_numpy(b),
+                                     diag=torch.from_numpy(lam)).numpy()
+        assert (out == 0.0).all(), method
+    monkeypatch.setenv("PIO_TPU_SOLVE", "vec")
+    A_ref = lam[:, None, None] * np.eye(k, dtype=np.float32)
+    assert (np.asarray(ref.batched_spd_solve(jnp.asarray(A_ref),
+                                             jnp.asarray(b))) == 0).all()
+
+
+def test_with_diagonal_sums_in_reference_order():
+    """The diagonal is ``(A_ii + diag_s) + jitter`` bit for bit, as the
+    reference's ``gram + lam I`` then ``+ jitter I`` gives it; the rest
+    of A is copied unchanged and A itself is not written."""
+    gram, _, lam, _ = _ridge_problem(40, 10, seed=5)
+    A_t = torch.from_numpy(gram)
+    got = port.with_diagonal(A_t, torch.from_numpy(lam), 1e-6).numpy()
+    eye = jnp.eye(10, dtype=jnp.float32)
+    want = (jnp.asarray(gram) + jnp.asarray(lam)[:, None, None] * eye) \
+        + 1e-6 * eye
+    assert np.array_equal(got, np.asarray(want))
+    assert np.array_equal(A_t.numpy(), gram)
+    plain = port.with_diagonal(A_t, None, 1e-6).numpy()
+    assert np.array_equal(plain, np.asarray(jnp.asarray(gram) + 1e-6 * eye))

@@ -54,17 +54,34 @@ Phases, each reported on its own lines:
                    uncounted train (a process's first train is 2-3x
                    slower), and after the timed one a profiled train for
                    the device's busy time and idle share.
-5. ``lifecycle`` — events -> train -> model file -> deploy -> query at
-                   the reference pipeline bench's ML-100k shape (943 x
-                   1682, 100,000 ratings): rate (and a few buy) events
-                   into a fresh sqlite store chosen by ``PIO_STORAGE_*``,
-                   ``cli.main train`` in a subprocess (rank 10, 20
-                   iterations, reg 0.01; its line must show 40 SPD
-                   launches), ``cli.main deploy`` of the model it wrote,
-                   and ``POST /queries.json`` for 20 known users: the
-                   exact top-10 computed on the card from the model's
-                   factors (same ids, scores within 1e-4); an unknown
-                   user gets an empty answer.
+5. ``lifecycle`` — the system's own lifecycle at the reference
+                   pipeline bench's ML-100k shape (943 x 1682, 100,000
+                   ratings and 50 buys; rank 10, 20 iterations, reg
+                   0.01), every step through the port's CLI in
+                   subprocesses on a fresh store chosen by
+                   ``PIO_STORAGE_*`` (sqlite for events and metadata,
+                   ``localfs`` for model blobs): ``eventserver``, ``app
+                   new`` and ``accesskey new``; all 100,050 events over
+                   ``POST /batch/events.json``, 50 a request from 8
+                   client threads (every one 201, the store holding
+                   exactly the acknowledged ids, a sample read back
+                   unchanged through ``GET /events/<id>.json``, a bad
+                   key 401, one malformed event in a batch 400 beside
+                   49 201s); ``train`` (instance COMPLETED, release v1,
+                   40 SPD launches); ``deploy`` of the latest release and
+                   20 queries plus unknown users against the exact
+                   top-10 of v1's factors on the card (same ids up to
+                   ties, scores within 1e-4); 10,000 more events with
+                   100 new users, ``train`` (v2, 40 launches); ``GET
+                   /reload`` (200, v2's instance), new users answered,
+                   the top-10s those of v2's factors, ``GET
+                   /releases.json`` listing v2 and v1, ``POST /stop``,
+                   and the event server draining on SIGTERM. Then, in
+                   this process on the same data: ``train_als`` with
+                   ``Checkpointer(interval=5)`` (40 launches) and a
+                   20-iteration train resuming a step-10 snapshot (20
+                   launches), both within ``TWIN_TOL`` of the straight
+                   run.
 6. ``serve``     — builds an ALS model at full width from ``--seed``
                    (10M items x rank 64, 138,493 users, factors with a
                    geometrically decaying spectrum), saves it, deploys it
@@ -652,14 +669,125 @@ def train_phase(spd_rows):
 # lifecycle phase
 # ---------------------------------------------------------------------------
 
-def lifecycle_phase(seed: int, port: int):
+def _cli(args, env, timeout=600):
+    """One port CLI command in a subprocess; its stdout lines."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", *args],
+        cwd=str(ROOT), env=env, capture_output=True, text=True,
+        timeout=timeout)
+    check(proc.returncode == 0, f"cli {args[0]} failed (rc "
+          f"{proc.returncode}): {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    return proc.stdout.strip().splitlines()
+
+
+def _wire(users, items, values, names):
+    """Event Server JSON of (user, item, value, event name) rows."""
+    return [{"event": e, "entityType": "user", "entityId": f"u{u}",
+             "targetEntityType": "item", "targetEntityId": f"i{i}",
+             **({"properties": {"rating": r}} if e == "rate" else {})}
+            for u, i, r, e in zip(users, items, values, names)]
+
+
+def ingest(port: int, key: str, events, threads: int = 8, per: int = 50):
+    """POST ``events`` to ``/batch/events.json``, ``per`` a request, from
+    ``threads`` clients; returns (the acknowledged id of each event, in
+    the order of ``events``; request latencies in ms; wall seconds).
+    Every event must be acknowledged 201."""
+    import queue as _queue
+
+    jobs = _queue.Queue()
+    for s in range(0, len(events), per):
+        jobs.put((s, events[s:s + per]))
+    ids, lat, errors = [None] * len(events), [], []
+    lock = threading.Lock()
+
+    def client():
+        c = Client(port)
+        while True:
+            try:
+                start, batch = jobs.get_nowait()
+            except _queue.Empty:
+                return
+            try:
+                status, body, dt = c.call(
+                    "POST", f"/batch/events.json?accessKey={key}", batch)
+            except Exception as e:      # noqa: BLE001 — reported below
+                errors.append(repr(e))
+                return
+            ok = status == 200 and [r["status"] for r in body] == \
+                [201] * len(batch)
+            with lock:
+                lat.append(dt * 1e3)
+                if ok:
+                    ids[start:start + len(batch)] = [r["eventId"]
+                                                     for r in body]
+                else:
+                    errors.append(f"{status} {str(body)[:200]}")
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=client) for _ in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not any(w.is_alive() for w in workers), "ingest clients hung")
+    check(not errors, f"ingest: {len(errors)} requests failed, first "
+          f"{errors[:3]}")
+    return ids, lat, wall
+
+
+def check_top10(client, model, users, tag: str):
+    """Each user's served top-10 against the exact top-10 of ``model``'s
+    factors on the card: same ids up to ties within 1e-4, scores within
+    1e-4. Returns (max score error, latencies in ms)."""
     import numpy as np
     import torch
 
-    from predictionio_tpu_torch.data.event import Event
-    from predictionio_tpu_torch.storage.base import App
+    U = torch.from_numpy(model.U).to(DEV)
+    V = torch.from_numpy(model.V).to(DEV)
+    check(bool(torch.isfinite(U).all() and torch.isfinite(V).all()),
+          f"{tag}: trained factors are not finite")
+    max_err, lat = 0.0, []
+    for user in users:
+        status, body, dt = client.call("POST", "/queries.json",
+                                       {"user": user, "num": 10})
+        check(status == 200, f"{tag}: query for {user} answered {status}")
+        lat.append(dt * 1e3)
+        got = body["itemScores"]
+        vals, idx = torch.topk(V @ U[model.user_index(user)], 10)
+        want_ids = [str(model.item_vocab[j]) for j in idx.tolist()]
+        vals = vals.cpu().numpy()
+        got_ids = [x["item"] for x in got]
+        check(len(got) == 10, f"{tag}: {user} got {len(got)} items")
+        err = np.abs(np.array([x["score"] for x in got]) - vals)
+        max_err = max(max_err, float(err.max()))
+        check(bool((err <= 1e-4 * np.maximum(1.0, np.abs(vals))).all()),
+              f"{tag}: {user}'s scores differ from the exact top-10 by "
+              f"{float(err.max())}")
+        for a, b_, v in zip(got_ids, want_ids, vals):
+            tied = np.abs(vals - v) <= 1e-4 * max(1.0, abs(v))
+            check(a == b_ or a in {want_ids[j]
+                                   for j in np.flatnonzero(tied)},
+                  f"{tag}: {user} served {got_ids}, exact {want_ids}")
+    return max_err, lat
+
+
+def _stored_model(instance_id: str):
     from predictionio_tpu_torch.storage.registry import Storage
-    from predictionio_tpu_torch.workflow.serialization import load_model
+    from predictionio_tpu_torch.workflow.serialization import (
+        deserialize_models,
+    )
+
+    got = Storage.get_model_data_models().get(instance_id)
+    check(got is not None, f"no model blob stored for {instance_id}")
+    return deserialize_models(got.models, device=DEV)[0]
+
+
+def lifecycle_phase(seed: int, port: int):
+    import numpy as np
+
+    from predictionio_tpu_torch.storage.registry import Storage
 
     c = ML100K
     work = WORK / "lifecycle"
@@ -668,125 +796,271 @@ def lifecycle_phase(seed: int, port: int):
     store_env = {
         "PIO_STORAGE_SOURCES_SMOKE_TYPE": "sqlite",
         "PIO_STORAGE_SOURCES_SMOKE_PATH": str(work / "pio.db"),
+        "PIO_STORAGE_SOURCES_MODELS_TYPE": "localfs",
+        "PIO_STORAGE_SOURCES_MODELS_PATH": str(work / "models"),
         "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "pio_meta",
         "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "SMOKE",
         "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio_event",
         "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SMOKE",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio_model",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MODELS",
     }
-    saved = {k: os.environ.get(k) for k in store_env}
-    os.environ.update(store_env)
-    Storage.reset()
+    env = dict(os.environ, **store_env)
+    # this process reads the same store to check what the servers did
+    Storage.configure({
+        "sources": {"SMOKE": {"TYPE": "sqlite",
+                              "PATH": str(work / "pio.db")},
+                    "MODELS": {"TYPE": "localfs",
+                               "PATH": str(work / "models")}},
+        "repositories": {
+            "METADATA": {"NAME": "pio_meta", "SOURCE": "SMOKE"},
+            "EVENTDATA": {"NAME": "pio_event", "SOURCE": "SMOKE"},
+            "MODELDATA": {"NAME": "pio_model", "SOURCE": "MODELS"}}})
+    events_srv = server = None
     try:
-        t0 = time.perf_counter()
+        # 1. event server, app and keys ------------------------------------
+        events_srv = Server(["eventserver", "--ip", "127.0.0.1", "--port",
+                             "0"], env, tag="lifecycle")
+        es_port = events_srv.wait_ready(timeout_s=120)
+        out = _cli(["app", "new", "SmokeApp"], env)
+        key = next(x for x in out if "Access Key:" in x).split()[-1]
+        out = _cli(["accesskey", "new", "SmokeApp"], env)
+        key2 = out[-1].split()[-1]
+        app_id = Storage.get_meta_data_apps().get_by_name("SmokeApp").id
+
+        # 2. the ML-100k events over REST ----------------------------------
         users, items, ratings = synthetic_ratings(
             c["n_users"], c["n_items"], c["nnz"], seed=seed)
         rng = np.random.default_rng(seed + 3)
-        events = [Event(event="rate", entity_type="user",
-                        entity_id=f"u{u}", target_entity_type="item",
-                        target_entity_id=f"i{i}",
-                        properties={"rating": float(r)})
-                  for u, i, r in zip(users.tolist(), items.tolist(),
-                                     ratings.tolist())]
-        events += [Event(event="buy", entity_type="user",
-                         entity_id=f"u{u}", target_entity_type="item",
-                         target_entity_id=f"i{i}")
-                   for u, i in zip(rng.integers(0, c["n_users"], c["buys"]),
-                                   rng.integers(0, c["n_items"],
-                                                c["buys"]))]
-        app_id = Storage.get_meta_data_apps().insert(
-            App(id=0, name="SmokeApp"))
-        store = Storage.get_events()
-        store.init_channel(app_id)
-        store.insert_batch(events, app_id)
-        Storage.reset()
-        log(f"lifecycle: {len(events)} events into {work / 'pio.db'} in "
-            f"{time.perf_counter() - t0:.3f} s")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-
-    variant = work / "engine.json"
-    variant.write_text(json.dumps({
-        "id": "default",
-        "engineFactory": "predictionio_tpu_torch.engines.recommendation:"
-                         "engine",
-        "datasource": {"params": {"appName": "SmokeApp"}},
-        "algorithms": [{"name": "als", "params": {
-            "rank": c["rank"], "numIterations": c["iters"],
-            "lambda": c["reg"]}}]}))
-    model_path = work / "model.npz"
-    env = dict(os.environ, **store_env)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "train",
-         "--variant", str(variant), "--out", str(model_path),
-         "--device", DEV],
-        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
-    wall_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"train CLI failed (rc {proc.returncode}): "
-          f"{proc.stderr[-2000:]}")
-    train = json.loads(proc.stdout.strip().splitlines()[-1])
-    train["wall_s"] = wall_s
-    log("lifecycle: train " + json.dumps(train))
-    want = 2 * c["iters"]
-    check(train["launches"]["spd_solve"] == want,
-          f"train CLI launched the SPD kernel "
-          f"{train['launches']['spd_solve']} times, expected {want}")
-    check(train["nnz"] == len(events), f"train read {train['nnz']} "
-          f"ratings of {len(events)} events")
-
-    model = load_model(model_path, device=DEV)
-    U = torch.from_numpy(model.U).to(DEV)
-    V = torch.from_numpy(model.V).to(DEV)
-    check(bool(torch.isfinite(U).all() and torch.isfinite(V).all()),
-          "trained factors are not finite")
-    server = Server(model_path, port, env, tag="lifecycle")
-    try:
-        client = Client(server.wait_ready(timeout_s=300))
-        picks = np.random.default_rng(seed + 4).choice(
-            len(model.user_vocab), size=c["queries"], replace=False)
-        max_err, lat = 0.0, []
-        for ui in picks.tolist():
-            user = str(model.user_vocab[ui])
-            status, body, dt = client.call(
-                "POST", "/queries.json", {"user": user, "num": 10})
-            check(status == 200, f"query for {user} answered {status}")
-            lat.append(dt * 1e3)
-            got = body["itemScores"]
-            sc = V @ U[ui]
-            vals, idx = torch.topk(sc, 10)
-            want_ids = [str(model.item_vocab[j]) for j in idx.tolist()]
-            vals = vals.cpu().numpy()
-            got_ids = [s["item"] for s in got]
-            got_sc = np.array([s["score"] for s in got])
-            check(len(got) == 10, f"{user}: {len(got)} items")
-            err = np.abs(got_sc - vals)
-            max_err = max(max_err, float(err.max()))
-            check(bool((err <= 1e-4 * np.maximum(1.0, np.abs(vals))).all()),
-                  f"{user}: scores differ from the exact top-10 by "
-                  f"{float(err.max())}")
-            # ids equal, up to the order of scores tied within 1e-4
-            for a, b_, v in zip(got_ids, want_ids, vals):
-                tied = np.abs(vals - v) <= 1e-4 * max(1.0, abs(v))
-                check(a == b_ or a in {want_ids[j]
-                                       for j in np.flatnonzero(tied)},
-                      f"{user}: served {got_ids}, exact {want_ids}")
+        bu = rng.integers(0, c["n_users"], c["buys"])
+        bi = rng.integers(0, c["n_items"], c["buys"])
+        wire = _wire(users.tolist(), items.tolist(), ratings.tolist(),
+                     ["rate"] * len(ratings))
+        wire += _wire(bu.tolist(), bi.tolist(), [None] * c["buys"],
+                      ["buy"] * c["buys"])
+        ids, lat, wall = ingest(es_port, key, wire)
+        n1 = len(wire)
+        check(None not in ids and len(set(ids)) == n1,
+              f"ingest acknowledged {len(set(ids) - {None})} distinct "
+              f"events of {n1}")
+        stored = Storage.get_events().find_columns(
+            app_id, columns=("event_id",), ordered=False)["event_id"]
+        check(len(stored) == n1 and set(stored.tolist()) == set(ids),
+              f"the store holds {len(stored)} rows, "
+              f"{len(set(stored.tolist()) & set(ids))} of the acknowledged "
+              f"{n1} ids")
+        client = Client(es_port)
+        for j in rng.choice(n1, size=20, replace=False).tolist():
+            status, body, _ = client.call(
+                "GET", f"/events/{ids[j]}.json?accessKey={key}")
+            check(status == 200, f"GET event answered {status}")
+            sent = wire[j]
+            check({k: body.get(k) for k in sent if k != "properties"}
+                  == {k: v for k, v in sent.items() if k != "properties"}
+                  and body["properties"] == sent.get("properties", {})
+                  and body["eventId"] == ids[j],
+                  f"event {ids[j]} read back as {body}, sent {sent}")
+        status, _, _ = client.call(
+            "POST", "/batch/events.json?accessKey=not-a-key", wire[:2])
+        check(status == 401, f"a bad key answered {status}")
+        probe = [dict(w, event="view") for w in wire[:49]] + [
+            {"event": "view", "entityType": "user"}]
         status, body, _ = client.call(
-            "POST", "/queries.json", {"user": "nobody", "num": 10})
-        check(status == 200 and body["itemScores"] == [],
-              f"unknown user got {status} {body}")
-        report = {"train": train, "queries": len(picks),
-                  "max_score_abs_err": max_err,
-                  "query_p50_ms": float(np.percentile(lat, 50)),
-                  "query_max_ms": float(max(lat))}
+            "POST", f"/batch/events.json?accessKey={key}", probe)
+        check(status == 200 and [r["status"] for r in body]
+              == [201] * 49 + [400],
+              f"a batch with one malformed event answered {status} "
+              f"{[r['status'] for r in body]}")
+        ingest_report = {
+            "events": n1, "requests": len(lat), "clients": 8,
+            "events_per_s": n1 / wall, "wall_s": wall,
+            "request_p50_ms": float(np.percentile(lat, 50)),
+            "request_p99_ms": float(np.percentile(lat, 99))}
+        log("lifecycle: ingest " + json.dumps(ingest_report))
+
+        # 3. train -> instance 1, release v1 -------------------------------
+        variant = work / "engine.json"
+        variant.write_text(json.dumps({
+            "id": "default",
+            "engineFactory": "predictionio_tpu_torch.engines."
+                             "recommendation:engine",
+            "datasource": {"params": {"appName": "SmokeApp"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": c["rank"], "numIterations": c["iters"],
+                "lambda": c["reg"]}}]}))
+        want = 2 * c["iters"]
+
+        def train(n_events: int, release: int):
+            t0 = time.perf_counter()
+            out = _cli(["train", "--variant", str(variant), "--device",
+                        DEV], env)
+            line = json.loads(out[-1])
+            line["wall_s"] = time.perf_counter() - t0
+            log(f"lifecycle: train v{release} " + json.dumps(line))
+            check(line["launches"]["spd_solve"] == want,
+                  f"train v{release} launched the SPD kernel "
+                  f"{line['launches']['spd_solve']} times, expected {want}")
+            check(line["nnz"] == n_events, f"train v{release} read "
+                  f"{line['nnz']} ratings of {n_events} events")
+            check(line["release"] == release, f"train registered release "
+                  f"{line['release']}, expected v{release}")
+            inst = Storage.get_meta_data_engine_instances().get(
+                line["instance"])
+            check(inst is not None and inst.status == "COMPLETED",
+                  f"instance {line['instance']} is not COMPLETED")
+            return line
+
+        t1 = train(n1, 1)
+        m1 = _stored_model(t1["instance"])
+
+        # 4. deploy the latest release --------------------------------------
+        server = Server(["deploy", "--variant", str(variant), "--port",
+                         str(port), "--device", DEV, "--accesskey", key],
+                        env, tag="lifecycle")
+        q_port = server.wait_ready(timeout_s=300)
+        qc = Client(q_port)
+        _, root, _ = qc.call("GET", "/")
+        check(root["engineInstance"]["id"] == t1["instance"]
+              and root["engineInstance"]["releaseVersion"] == 1,
+              f"deploy serves {root['engineInstance']}, not release v1")
+        picks = [str(m1.user_vocab[i]) for i in np.random.default_rng(
+            seed + 4).choice(len(m1.user_vocab), size=c["queries"],
+                             replace=False)]
+        err1, lat1 = check_top10(qc, m1, picks, "v1")
+        new_users = [f"u{c['n_users'] + j}" for j in range(100)]
+        for user in new_users[:5] + ["nobody"]:
+            status, body, _ = qc.call("POST", "/queries.json",
+                                      {"user": user, "num": 10})
+            check(status == 200 and body["itemScores"] == [],
+                  f"v1 answered unknown {user}: {status} {body}")
+
+        # 5. 10,000 more events (100 new users) -> train v2 ----------------
+        r2 = np.random.default_rng(seed + 5)
+        nu = np.concatenate([np.repeat(np.arange(c["n_users"],
+                                                 c["n_users"] + 100), 20),
+                             r2.integers(0, c["n_users"], 8000)])
+        ni = r2.integers(0, c["n_items"], 10_000)
+        nr = r2.integers(1, 6, 10_000).astype(float)
+        more = _wire(nu.tolist(), ni.tolist(), nr.tolist(),
+                     ["rate"] * 10_000)
+        ids2, _, wall2 = ingest(es_port, key2, more)
+        check(len(set(ids2)) == 10_000, "second ingest lost events")
+        t2 = train(n1 + 10_000, 2)
+        m2 = _stored_model(t2["instance"])
+
+        # 6. GET /reload -> v2 ---------------------------------------------
+        status, reload, reload_dt = qc.call("GET",
+                                            f"/reload?accessKey={key}")
+        check(status == 200
+              and reload["engineInstanceId"] == t2["instance"]
+              and reload["releaseVersion"] == 2,
+              f"/reload answered {status} {reload}")
+        status, first, first_dt = qc.call(
+            "POST", "/queries.json", {"user": picks[0], "num": 10})
+        check(status == 200 and len(first["itemScores"]) == 10,
+              f"first query after the reload: {status} {first}")
+        for user in new_users[:5]:
+            status, body, _ = qc.call("POST", "/queries.json",
+                                      {"user": user, "num": 10})
+            check(status == 200 and len(body["itemScores"]) == 10,
+                  f"v2 gave {user} {len(body['itemScores'])} items")
+        err2, lat2 = check_top10(qc, m2, picks + new_users[:10], "v2")
+        _, listing, _ = qc.call("GET", "/releases.json")
+        versions = [r["version"] for r in listing["releases"]]
+        check(versions == [2, 1] and listing["serving"]["releaseVersion"]
+              == 2, f"/releases.json lists {versions}, serving "
+              f"{listing['serving']}")
+        status, _, _ = qc.call("POST", f"/stop?accessKey={key}")
+        check(status == 200 and server.proc.wait(timeout=60) == 0,
+              "the query server did not stop on POST /stop")
+        events_srv.stop()
+        check(events_srv.proc.returncode == 0, "the event server did not "
+              f"drain and exit cleanly (rc {events_srv.proc.returncode})")
+        reload_report = {
+            "reload_ms": reload_dt * 1e3,
+            "reload_server_s": reload["seconds"],
+            "first_query_after_reload_ms": first_dt * 1e3,
+            "second_ingest_events_per_s": 10_000 / wall2,
+            "query_p50_ms_v1": float(np.percentile(lat1, 50)),
+            "query_p50_ms_v2": float(np.percentile(lat2, 50)),
+            "max_score_abs_err": max(err1, err2)}
+        log("lifecycle: reload " + json.dumps(reload_report))
+        ckpt = checkpoint_leg(users, items, ratings, bu, bi, work)
+        report = {"ingest": ingest_report, "train": t1, "train_v2": t2,
+                  **reload_report, "checkpoint": ckpt,
+                  "queries": len(picks) + 11}
         log("lifecycle: " + json.dumps(report))
         return report
     finally:
-        server.stop()
+        for proc in (server, events_srv):
+            if proc is not None:
+                proc.stop()
+        Storage.reset()
         shutil.rmtree(work, ignore_errors=True)
+
+
+def checkpoint_leg(users, items, ratings, bu, bi, work):
+    """Checkpoint-resume of ``train_als`` on the lifecycle's first data
+    (the ML-100k ratings and the buys at 4.0), in this process: a train
+    with ``Checkpointer(interval=5)`` launches B1 40 times and lands
+    within TWIN_TOL of the straight run; a 20-iteration train against a
+    snapshot written at step 10 (from a straight 10-iteration run)
+    resumes, launches B1 20 times and lands within TWIN_TOL of the
+    straight 20-iteration run."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models.als import (
+        ALSData, ALSParams, _init_item_factors, als_fingerprint, train_als,
+    )
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.workflow.checkpoint import Checkpointer
+
+    c = ML100K
+    data = ALSData.build(
+        np.concatenate([users, bu]).astype(np.int32),
+        np.concatenate([items, bi]).astype(np.int32),
+        np.concatenate([ratings, np.full(len(bu), 4.0, np.float32)]),
+        c["n_users"], c["n_items"])
+    params = ALSParams(rank=c["rank"], num_iterations=c["iters"],
+                       reg=c["reg"])
+    init_V = _init_item_factors(data.n_items, data.n_items_pad, c["rank"],
+                                params.seed, torch.device(DEV)
+                                ).cpu().numpy()
+
+    def run(p, ck=None):
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        U, V = train_als(data, p, device=DEV, init_V=init_V,
+                         checkpointer=ck)
+        return U, V, kernels.counts()["spd_solve"], time.perf_counter() - t0
+
+    U0, V0, n0, s0 = run(params)
+    U1, V1, n1, s1 = run(params, Checkpointer(str(work / "ck5"),
+                                              interval=5))
+    half = ALSParams(rank=c["rank"], num_iterations=10, reg=c["reg"])
+    Uh, Vh, nh, _ = run(half)
+    ck = Checkpointer(str(work / "ck_resume"), interval=10)
+    ck.save(10, {"V": Vh}, fingerprint=als_fingerprint(data, params))
+    U2, V2, n2, s2 = run(params, ck)
+    out = {"straight_launches": n0, "checkpointed_launches": n1,
+           "half_launches": nh, "resumed_launches": n2,
+           "straight_s": s0, "checkpointed_s": s1, "resumed_s": s2,
+           "checkpointed_rel_diff": max(_rel(U1, U0), _rel(V1, V0)),
+           "resumed_rel_diff": max(_rel(U2, U0), _rel(V2, V0))}
+    log("lifecycle: checkpoint " + json.dumps(out))
+    want = 2 * c["iters"]
+    check(n0 == n1 == want, f"checkpointed train launched B1 {n1} times "
+          f"(straight {n0}), expected {want}")
+    check(n2 == want // 2, f"resumed train launched B1 {n2} times, "
+          f"expected {want // 2}")
+    check(out["checkpointed_rel_diff"] <= TWIN_TOL,
+          f"checkpointed train differs from the straight run by "
+          f"{out['checkpointed_rel_diff']}")
+    check(out["resumed_rel_diff"] <= TWIN_TOL,
+          f"resumed train differs from the straight run by "
+          f"{out['resumed_rel_diff']}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -847,16 +1121,15 @@ def model_layer_p50_ms(users, items, U, V, rows) -> float:
 
 
 class Server:
-    """The deploy CLI in a subprocess; stdout lines are relayed."""
+    """A server command of the port's CLI (``deploy``, ``eventserver``)
+    in a subprocess; its stdout lines are relayed until it listens."""
 
-    def __init__(self, model_path: pathlib.Path, port: int, env: dict,
-                 tag: str = "serve"):
+    def __init__(self, args, env: dict, tag: str = "serve"):
         self.tag = tag
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
-             "deploy", "--model", str(model_path), "--port", str(port),
-             "--device", DEV],
-            cwd=str(ROOT), env=env, stdout=subprocess.PIPE, text=True)
+             *args], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            text=True)
         self.lines: "queue.Queue[str]" = queue.Queue()
         threading.Thread(target=self._pump, daemon=True).start()
 
@@ -869,12 +1142,13 @@ class Server:
         deadline = time.monotonic() + timeout_s
         while True:
             left = deadline - time.monotonic()
-            check(left > 0, "query server did not come up in time")
+            check(left > 0, f"{self.tag}: server did not come up in time")
             try:
                 line = self.lines.get(timeout=left)
             except queue.Empty:
                 continue
-            check(line != "", f"query server exited (rc {self.proc.poll()})")
+            check(line != "", f"{self.tag}: server exited (rc "
+                  f"{self.proc.poll()})")
             log(f"{self.tag}: [server] " + line.rstrip())
             if "listening on" in line:
                 return int(line.rsplit(":", 1)[1])
@@ -924,7 +1198,8 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict):
     env = dict(os.environ, PIO_SCORER_MODE="twostage",
                PIO_SCORER_TILE_ITEMS=str(TILE),
                PIO_SCORER_SHORTLIST=str(SHORTLIST))
-    server = Server(model_path, port, env)
+    server = Server(["deploy", "--model", str(model_path), "--port",
+                     str(port), "--device", DEV], env)
     try:
         t1 = time.perf_counter()
         bound_port = server.wait_ready(timeout_s=600)
@@ -1113,7 +1388,13 @@ def spd_line(spd_rows, spd_err, train, lifecycle) -> dict:
             "train_full": train["full"]["launches"],
             "train_subspace": train["subspace"]["launches"],
             "train_full_r64": train["full_r64"]["launches"],
-            "lifecycle_train": lifecycle["train"]["launches"]["spd_solve"]},
+            "lifecycle_train_v1":
+                lifecycle["train"]["launches"]["spd_solve"],
+            "lifecycle_train_v2":
+                lifecycle["train_v2"]["launches"]["spd_solve"],
+            "checkpointed_train":
+                lifecycle["checkpoint"]["checkpointed_launches"],
+            "resumed_train": lifecycle["checkpoint"]["resumed_launches"]},
     }
 
 

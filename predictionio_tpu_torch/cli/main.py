@@ -1,25 +1,40 @@
 """Command line of the port (``argparse``; the reference's ``pio`` uses
-click).
+click), with the reference's commands, flags and exit codes:
 
-    python -m predictionio_tpu_torch.cli.main train --variant engine.json \\
-        --out M.npz [--device cpu]
-    python -m predictionio_tpu_torch.cli.main deploy --model M.npz \\
-        [--variant engine.json] [--ip localhost] [--port 8000] \\
-        [--device cpu]
+    python -m predictionio_tpu_torch.cli.main app new NAME [--id N]
+        [--description D] [--access-key K]
+    python -m predictionio_tpu_torch.cli.main app list
+    python -m predictionio_tpu_torch.cli.main accesskey new APP
+        [--key K] [--event NAME ...]
+    python -m predictionio_tpu_torch.cli.main accesskey list [APP]
+    python -m predictionio_tpu_torch.cli.main eventserver [--ip] [--port 7070]
+    python -m predictionio_tpu_torch.cli.main import --appname APP
+        [--channel C] --input events.jsonl
+    python -m predictionio_tpu_torch.cli.main train [-v engine.json]
+        [--batch B] [--checkpoint-dir D] [--checkpoint-interval N]
+        [--out M.npz] [--device cpu]
+    python -m predictionio_tpu_torch.cli.main deploy [-v engine.json]
+        [--engine-instance-id ID | --release SEL | --model M.npz]
+        [--ip localhost] [--port 8000] [--accesskey K] [--device cpu]
+    python -m predictionio_tpu_torch.cli.main releases [-v engine.json]
+        [--status S]
 
-``train`` reads the engine.json's datasource, preparator and algorithms
-sections as ``pio train`` does, reads the app's events from the
-configured event store (``PIO_STORAGE_*``), trains, writes the model
-file (``workflow/serialization``) and prints one JSON line: users,
-items, nnz, the seconds of the whole train (event read included) and of
-the host-side data build, and the kernel launch counts. The reference's
-engine-instance store and releases come with a later slice.
+``train`` runs ``workflow.train.run_train``: an EngineInstance (INIT,
+then COMPLETED), the model blob in the model store under its id, and the
+variant's next release; it prints one JSON line — users, items, nnz,
+rank, the seconds of the whole train (event read and records included)
+and of the host-side data build, the kernel launch counts, the instance
+id and the release version. ``--out`` also writes the model as an
+``.npz`` file.
 
-``deploy`` loads an ALS model file (``workflow/serialization``), reads
-the engine.json's algorithms and top-level ``scorer`` section as
-``pio deploy`` does (env > engine.json > server.json for the scorer
-knobs), warms the serving path up, then serves ``/queries.json``. The
-model runs on ``cuda`` unless ``--device cpu`` is given.
+``deploy`` serves the latest COMPLETED instance of the variant, or
+``--engine-instance-id``, or a release (``--release`` id, ``3`` or
+``v3``), or a model file (``--model``). It reads the engine.json's
+top-level ``scorer`` section as ``pio deploy`` does (env > engine.json >
+server.json), warms the serving path up, then serves. Models run on
+``cuda`` unless ``--device cpu`` is given.
+
+The storage is the one ``PIO_STORAGE_*`` configures (``storage/registry``).
 """
 
 from __future__ import annotations
@@ -35,6 +50,11 @@ from typing import List, Optional
 _ENGINES = ("recommendation",)
 
 
+def _fail(msg: str) -> None:
+    print(f"[ERROR] {msg}", flush=True)
+    sys.exit(1)
+
+
 def _engine_of(variant: dict):
     from predictionio_tpu_torch.engines import recommendation
 
@@ -46,34 +66,287 @@ def _engine_of(variant: dict):
     return recommendation.engine()
 
 
+def _load_variant(path: str):
+    """(engine, variant dict, engine id, variant id) of an engine.json;
+    the engine id is the engineFactory string, as the reference records
+    it."""
+    if not os.path.exists(path):
+        _fail(f"{path} does not exist. Aborting.")
+    with open(path) as f:
+        variant = json.load(f)
+    engine = _engine_of(variant)
+    engine_id = variant.get("engineFactory") or type(engine).__name__
+    return engine, variant, engine_id, variant.get("id", "default")
+
+
+# -- apps and keys (commands/App.scala, commands/AccessKey.scala) -----------
+
+def app_new(args) -> int:
+    from predictionio_tpu_torch.storage.base import AccessKey, App
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    apps = Storage.get_meta_data_apps()
+    if apps.get_by_name(args.name):
+        _fail(f"App {args.name} already exists. Aborting.")
+    new_id = apps.insert(App(id=args.id, name=args.name,
+                             description=args.description))
+    if new_id is None:
+        _fail("Unable to create new app.")
+    Storage.get_events().init_channel(new_id)
+    key = Storage.get_meta_data_access_keys().insert(
+        AccessKey(key=args.access_key, appid=new_id, events=()))
+    if key is None:
+        Storage.get_events().remove_channel(new_id)
+        apps.delete(new_id)
+        _fail(f"Access key {args.access_key} already exists. Aborting.")
+    print("[INFO] Created a new app:")
+    print(f"[INFO]         Name: {args.name}")
+    print(f"[INFO]           ID: {new_id}")
+    print(f"[INFO] Access Key: {key}", flush=True)
+    return 0
+
+
+def app_list(_args) -> int:
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    apps = Storage.get_meta_data_apps().get_all()
+    keys = Storage.get_meta_data_access_keys()
+    print(f"[INFO] {'Name':<20} | {'ID':<4} | Access Key")
+    for a in sorted(apps, key=lambda x: x.name):
+        for k in keys.get_by_appid(a.id) or [None]:
+            print(f"[INFO] {a.name:<20} | {a.id:<4} | {k.key if k else ''}")
+    print(f"[INFO] Finished listing {len(apps)} app(s).", flush=True)
+    return 0
+
+
+def accesskey_new(args) -> int:
+    from predictionio_tpu_torch.storage.base import AccessKey
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    a = Storage.get_meta_data_apps().get_by_name(args.app_name)
+    if a is None:
+        _fail(f"App {args.app_name} does not exist. Aborting.")
+    k = Storage.get_meta_data_access_keys().insert(
+        AccessKey(key=args.key, appid=a.id, events=tuple(args.event)))
+    if k is None:
+        _fail("Unable to create access key.")
+    print(f"[INFO] Created new access key: {k}", flush=True)
+    return 0
+
+
+def accesskey_list(args) -> int:
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    keys = Storage.get_meta_data_access_keys()
+    if args.app_name:
+        a = Storage.get_meta_data_apps().get_by_name(args.app_name)
+        if a is None:
+            _fail(f"App {args.app_name} does not exist. Aborting.")
+        listing = keys.get_by_appid(a.id)
+    else:
+        listing = keys.get_all()
+    for k in listing:
+        events = ",".join(k.events) if k.events else "(all)"
+        print(f"[INFO] {k.key} | app {k.appid} | {events}")
+    print(f"[INFO] Finished listing {len(listing)} access key(s).",
+          flush=True)
+    return 0
+
+
+# -- events (EventServer.scala, commands/Import.scala) ----------------------
+
+def eventserver(args) -> int:
+    from predictionio_tpu_torch.server.event_server import run_event_server
+
+    print(f"[INFO] Creating Event Server at {args.ip}:{args.port}",
+          flush=True)
+
+    def ready(port):
+        print(f"[INFO] Event Server listening on http://{args.ip}:{port}",
+              flush=True)
+
+    run_event_server(args.ip, args.port, on_ready=ready)
+    return 0
+
+
+#: events per insert of ``import`` (the reference's batch)
+IMPORT_BATCH = 5000
+
+
+def import_events(args) -> int:
+    from predictionio_tpu_torch.data.event import Event, validate_event
+    from predictionio_tpu_torch.data.eventstore import resolve_app
+    from predictionio_tpu_torch.storage.base import StorageError
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    if args.appname:
+        try:
+            app_id, channel_id = resolve_app(args.appname, args.channel)
+        except StorageError as e:
+            _fail(f"{e}. Aborting.")
+    elif args.appid is not None:
+        app_id, channel_id = args.appid, None
+    else:
+        _fail("--appid or --appname is required.")
+    store = Storage.get_events()
+    store.init_channel(app_id, channel_id)
+    batch, total = [], 0
+    with open(args.input) as f:      # streamed: one batch in memory
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            e = Event.from_json(line)
+            validate_event(e)
+            batch.append(e)
+            if len(batch) >= IMPORT_BATCH:
+                store.insert_batch(batch, app_id, channel_id)
+                total += len(batch)
+                batch = []
+    if batch:
+        store.insert_batch(batch, app_id, channel_id)
+        total += len(batch)
+    print(f"[INFO] Imported {total} events.", flush=True)
+    return 0
+
+
+# -- train / deploy / releases (commands/Engine.scala) ----------------------
+
+def train(args) -> int:
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.workflow.context import (
+        WorkflowContext, WorkflowParams,
+    )
+    from predictionio_tpu_torch.workflow.serialization import save_model
+    from predictionio_tpu_torch.workflow.train import run_train
+
+    engine, variant, engine_id, variant_id = _load_variant(args.variant)
+    engine_params = engine.engine_params_from_json(variant)
+    if engine_params.data_source_params is None:
+        _fail(f"{args.variant}: a train needs the datasource section "
+              "(its appName)")
+    runtime_conf = {}
+    if args.checkpoint_dir:
+        runtime_conf["checkpoint_dir"] = args.checkpoint_dir
+        runtime_conf["checkpoint_interval"] = str(args.checkpoint_interval)
+    wp = WorkflowParams(batch=args.batch, runtime_conf=runtime_conf)
+    # the device first: without a card (and without --device cpu) this
+    # raises before anything is written
+    ctx = WorkflowContext.create(mode="Training", batch=args.batch,
+                                 workflow_params=wp, device=args.device)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    instance, result = run_train(engine, engine_params,
+                                 engine_factory=engine_id,
+                                 engine_variant=variant_id,
+                                 workflow_params=wp, ctx=ctx)
+    train_s = time.perf_counter() - t0
+    model = result.models[0]
+    if args.out:
+        save_model(args.out, model)
+    release = _release_of(instance)
+    print(f"[INFO] Training completed. Engine instance: {instance.id}"
+          + (f" (release v{release.version})" if release else ""),
+          flush=True)
+    print(json.dumps({
+        "users": len(model.user_vocab), "items": len(model.item_vocab),
+        "nnz": model.train_info["nnz"], "rank": int(model.V.shape[1]),
+        "device": str(ctx.device), "train_s": train_s,
+        "build_s": model.train_info["build_s"],
+        "launches": kernels.counts(), "out": args.out,
+        "instance": instance.id,
+        "release": release.version if release else None}), flush=True)
+    return 0
+
+
+def _release_of(instance):
+    """The release registered for an instance, if any (instances
+    trained before releases existed deploy without one)."""
+    from predictionio_tpu_torch.deploy.releases import release_of_instance
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    return release_of_instance(Storage.get_meta_data_releases(), instance)
+
+
+def _instance_to_deploy(args, engine_id: str, variant_id: str):
+    """(instance, release) the deploy flags select."""
+    from predictionio_tpu_torch.deploy.releases import resolve_release
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    instances = Storage.get_meta_data_engine_instances()
+    release = None
+    if args.release:
+        release = resolve_release(Storage.get_meta_data_releases(),
+                                  engine_id, "1", variant_id, args.release)
+        if release is None:
+            _fail(f"Release {args.release} not found (see `releases`). "
+                  "Aborting.")
+        instance = instances.get(release.instance_id)
+        if instance is None or instance.status != "COMPLETED":
+            _fail(f"Release v{release.version} points at instance "
+                  f"{release.instance_id}, which is not deployable. "
+                  "Aborting.")
+    elif args.engine_instance_id:
+        instance = instances.get(args.engine_instance_id)
+        if instance is None or instance.status != "COMPLETED":
+            _fail(f"Engine instance {args.engine_instance_id} is not "
+                  "deployable. Aborting.")
+    else:
+        instance = instances.get_latest_completed(engine_id, "1",
+                                                  variant_id)
+        if instance is None:
+            _fail("No COMPLETED engine instance found. Run `train` first. "
+                  "Aborting.")
+    return instance, release or _release_of(instance)
+
+
 def deploy(args) -> int:
-    from predictionio_tpu_torch.deploy.warm import EngineInstance
+    from predictionio_tpu_torch.deploy.warm import DeployError
     from predictionio_tpu_torch.server.query_server import (
         create_query_server, run_query_server,
     )
+    from predictionio_tpu_torch.storage.base import EngineInstance
     from predictionio_tpu_torch.utils.server_config import scorer_config
     from predictionio_tpu_torch.workflow.serialization import load_model
+    from predictionio_tpu_torch.workflow.train import load_for_deploy
 
-    variant = {}
-    if args.variant:
-        with open(args.variant) as f:
-            variant = json.load(f)
-    engine = _engine_of(variant)
-    engine_params = engine.engine_params_from_json(
-        variant if variant.get("algorithms") else
-        {"algorithms": [{"name": "als", "params": {}}]})
-    scfg = scorer_config(variant.get("scorer"))
     t0 = time.perf_counter()
-    model = load_model(args.model, device=args.device)
-    result = engine.prepare_deploy(engine_params, [model])
-    instance = EngineInstance(
-        id=os.path.basename(args.model),
-        engine_variant=variant.get("id", "default"))
-    print(f"[INFO] Loaded {args.model}: {len(model.user_vocab)} users x "
+    release = None
+    if args.model:
+        variant = {}
+        if args.variant:
+            with open(args.variant) as f:
+                variant = json.load(f)
+        engine = _engine_of(variant)
+        engine_params = engine.engine_params_from_json(
+            variant if variant.get("algorithms") else
+            {"algorithms": [{"name": "als", "params": {}}]})
+        model = load_model(args.model, device=args.device)
+        result = engine.prepare_deploy(engine_params, [model])
+        instance = EngineInstance(
+            id=os.path.basename(args.model), status="COMPLETED",
+            engine_id=variant.get("engineFactory") or type(engine).__name__,
+            engine_version="1", engine_variant=variant.get("id", "default"))
+    else:
+        engine, variant, engine_id, variant_id = _load_variant(
+            args.variant or "engine.json")
+        instance, release = _instance_to_deploy(args, engine_id, variant_id)
+        print(f"[INFO] Deploying engine instance {instance.id}"
+              + (f" (release v{release.version})" if release else "")
+              + f" at {args.ip}:{args.port}", flush=True)
+        try:
+            result, _ctx = load_for_deploy(engine, instance,
+                                           device=args.device)
+        except DeployError as e:
+            _fail(f"{e}. Aborting.")
+        model = result.models[0]
+    scfg = scorer_config(variant.get("scorer"))
+    print(f"[INFO] Loaded {instance.id}: {len(model.user_vocab)} users x "
           f"{len(model.item_vocab)} items, rank {model.V.shape[1]}, on "
           f"{model.device} ({time.perf_counter() - t0:.3f} s)", flush=True)
     server = create_query_server(engine, result, instance,
-                                 scorer_config=scfg)
+                                 scorer_config=scfg, release=release,
+                                 access_key=args.accesskey)
     report = server.warm()
     print(f"[INFO] Warm-up: batches {report.buckets} in "
           f"{report.seconds:.3f} s; scorer mode {scfg.mode}", flush=True)
@@ -86,56 +359,111 @@ def deploy(args) -> int:
     return 0
 
 
-def train(args) -> int:
-    import types
+def releases(args) -> int:
+    from predictionio_tpu_torch.storage.registry import Storage
 
-    from predictionio_tpu_torch.ops import kernels
-    from predictionio_tpu_torch.utils.device import resolve_device
-    from predictionio_tpu_torch.workflow.serialization import save_model
-
-    with open(args.variant) as f:
-        variant = json.load(f)
-    engine = _engine_of(variant)
-    engine_params = engine.engine_params_from_json(variant)
-    if engine_params.data_source_params is None:
-        raise SystemExit(f"[ERROR] {args.variant}: a train needs the "
-                         "datasource section (its appName)")
-    device = resolve_device(args.device)
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    result = engine.train(types.SimpleNamespace(device=device),
-                          engine_params)
-    train_s = time.perf_counter() - t0
-    model = result.models[0]
-    save_model(args.out, model)
-    print(json.dumps({
-        "users": len(model.user_vocab), "items": len(model.item_vocab),
-        "nnz": model.train_info["nnz"], "rank": int(model.V.shape[1]),
-        "device": str(device), "train_s": train_s,
-        "build_s": model.train_info["build_s"],
-        "launches": kernels.counts(), "out": str(args.out)}), flush=True)
+    _engine, _variant, engine_id, variant_id = _load_variant(args.variant)
+    listing = Storage.get_meta_data_releases().get_for_variant(
+        engine_id, "1", variant_id)
+    if args.status:
+        listing = [r for r in listing if r.status == args.status.upper()]
+    print(f"[INFO] {'Ver':<5} | {'Status':<11} | "
+          f"{'Instance':<32} | {'Created':<20} | Model")
+    for r in listing:
+        size = (f"{r.model_size_bytes / 1024:.0f}KiB"
+                if r.model_size_bytes else "-")
+        digest = r.model_digest[:12] if r.model_digest else "-"
+        print(f"[INFO] v{r.version:<4} | {r.status:<11} | "
+              f"{r.instance_id:<32} | "
+              f"{r.created_time.strftime('%Y-%m-%d %H:%M:%S'):<20} | "
+              f"{digest} {size}")
+    print(f"[INFO] Finished listing {len(listing)} release(s).", flush=True)
     return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="python -m predictionio_tpu_torch.cli.main")
+    p = argparse.ArgumentParser(
+        prog="python -m predictionio_tpu_torch.cli.main")
     sub = p.add_subparsers(dest="command", required=True)
-    d = sub.add_parser("deploy", help="serve an ALS model file over HTTP")
-    d.add_argument("--model", required=True, help="model .npz file")
-    d.add_argument("--variant", "-v", default=None,
-                   help="engine.json (algorithms and scorer sections)")
-    d.add_argument("--ip", default="localhost")
-    d.add_argument("--port", default=8000, type=int)
-    d.add_argument("--device", default=None,
-                   help="cuda (default) or cpu")
-    d.set_defaults(func=deploy)
+
+    app = sub.add_parser("app", help="manage apps").add_subparsers(
+        dest="app_command", required=True)
+    a = app.add_parser("new", help="create an app, its event table and "
+                                   "an access key")
+    a.add_argument("name")
+    a.add_argument("--id", type=int, default=0, help="preferred app id")
+    a.add_argument("--description", default=None)
+    a.add_argument("--access-key", default="",
+                   help="use this access key instead of generating one")
+    a.set_defaults(func=app_new)
+    app.add_parser("list", help="list apps and their keys").set_defaults(
+        func=app_list)
+
+    keys = sub.add_parser("accesskey", help="manage access keys"
+                          ).add_subparsers(dest="key_command", required=True)
+    k = keys.add_parser("new", help="add an access key to an app")
+    k.add_argument("app_name")
+    k.add_argument("--key", default="")
+    k.add_argument("--event", action="append", default=[],
+                   help="allowed event name (repeatable; default: all)")
+    k.set_defaults(func=accesskey_new)
+    k = keys.add_parser("list", help="list access keys")
+    k.add_argument("app_name", nargs="?", default=None)
+    k.set_defaults(func=accesskey_list)
+
+    e = sub.add_parser("eventserver", help="serve the event REST API")
+    e.add_argument("--ip", default="localhost")
+    e.add_argument("--port", default=7070, type=int)
+    e.set_defaults(func=eventserver)
+
+    i = sub.add_parser("import", help="import events from a JSON-lines "
+                                      "file")
+    i.add_argument("--appid", type=int, default=None)
+    i.add_argument("--appname", default=None)
+    i.add_argument("--channel", default=None)
+    i.add_argument("--input", required=True,
+                   help="JSON-lines file of events")
+    i.set_defaults(func=import_events)
+
     t = sub.add_parser("train", help="train an engine variant from its "
-                                     "app's events into a model file")
-    t.add_argument("--variant", "-v", required=True,
+                                     "app's events and record it")
+    t.add_argument("--variant", "-v", default="engine.json",
                    help="engine.json (datasource, preparator, algorithms)")
-    t.add_argument("--out", required=True, help="model .npz to write")
+    t.add_argument("--batch", default="", help="batch label")
+    t.add_argument("--checkpoint-dir", default=None,
+                   help="mid-training checkpoint/resume directory")
+    t.add_argument("--checkpoint-interval", default=10, type=int,
+                   help="iterations between snapshots")
+    t.add_argument("--out", default=None,
+                   help="also write the model to this .npz")
     t.add_argument("--device", default=None, help="cuda (default) or cpu")
     t.set_defaults(func=train)
+
+    d = sub.add_parser("deploy", help="serve a trained instance over "
+                                      "HTTP")
+    d.add_argument("--variant", "-v", default=None,
+                   help="engine.json (default: engine.json; with --model "
+                        "optional)")
+    d.add_argument("--engine-instance-id", default=None,
+                   help="deploy this instance instead of the latest")
+    d.add_argument("--release", default=None,
+                   help="deploy this release (id, version or vN)")
+    d.add_argument("--model", default=None,
+                   help="serve this .npz model file instead of a stored "
+                        "instance")
+    d.add_argument("--ip", default="localhost")
+    d.add_argument("--port", default=8000, type=int)
+    d.add_argument("--accesskey", default=None,
+                   help="key required by /stop and /reload")
+    d.add_argument("--device", default=None, help="cuda (default) or cpu")
+    d.set_defaults(func=deploy)
+
+    r = sub.add_parser("releases", help="list the releases of an engine "
+                                        "variant")
+    r.add_argument("--variant", "-v", default="engine.json")
+    r.add_argument("--status", default=None,
+                   help="only releases in this status")
+    r.set_defaults(func=releases)
     return p
 
 

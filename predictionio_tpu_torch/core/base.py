@@ -102,6 +102,12 @@ class Algorithm(Generic[PD, M, Q, P], abc.ABC):
         through this algorithm's scorers, or None."""
         return None
 
+    def make_persistent_model(self, ctx, model: M) -> Any:
+        """What the model store keeps for this algorithm
+        (BaseAlgorithm.makePersistentModel:111): the model itself, or
+        None to retrain it at deploy."""
+        return model
+
 
 class Serving(Generic[Q, P], abc.ABC):
     def supplement(self, query: Q) -> Q:

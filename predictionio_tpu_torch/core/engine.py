@@ -1,8 +1,9 @@
 """The Engine (port of the reference's ``core/engine.py``): registries of
 named DASE component classes, ``train`` (read, prepare, train each
-algorithm — object Engine.train, Engine.scala:623) and the assembly of a
-:class:`TrainResult` from persisted models for a deploy. The evaluation
-driver and the model store's persistence come with later slices."""
+algorithm — object Engine.train, Engine.scala:623), what the model store
+keeps of a train (``persist_models``) and the assembly of a
+:class:`TrainResult` from persisted models for a deploy
+(``prepare_deploy``). The evaluation driver comes with a later slice."""
 
 from __future__ import annotations
 
@@ -67,6 +68,16 @@ class Engine:
                     _pick(self.algorithm_classes, name, "algorithm"), params))
                 for name, params in ep.algorithm_params_list]
 
+    def _data_source(self, ep: EngineParams) -> DataSource:
+        return instantiate(_pick(self.data_source_classes,
+                                 ep.data_source_name, "data source"),
+                           ep.data_source_params)
+
+    def _preparator(self, ep: EngineParams) -> Preparator:
+        return instantiate(_pick(self.preparator_classes,
+                                 ep.preparator_name, "preparator"),
+                           ep.preparator_params)
+
     def _serving(self, ep: EngineParams) -> Serving:
         return instantiate(_pick(self.serving_classes, ep.serving_name,
                                  "serving"), ep.serving_params)
@@ -98,34 +109,56 @@ class Engine:
     def train(self, ctx, engine_params: EngineParams) -> TrainResult:
         """Read the training data, prepare it, and train every
         algorithm on it (object Engine.train, Engine.scala:623)."""
-        data_source: DataSource = instantiate(
-            _pick(self.data_source_classes, engine_params.data_source_name,
-                  "data source"), engine_params.data_source_params)
-        td = data_source.read_training(ctx)
-        preparator: Preparator = instantiate(
-            _pick(self.preparator_classes, engine_params.preparator_name,
-                  "preparator"), engine_params.preparator_params)
-        pd = preparator.prepare(ctx, td)
+        td = self._data_source(engine_params).read_training(ctx)
+        pd = self._preparator(engine_params).prepare(ctx, td)
         named_algos = self._algorithms(engine_params)
         models = []
-        for name, algo in named_algos:
+        shared_ckpt = getattr(ctx, "checkpointer", None)
+        for i, (name, algo) in enumerate(named_algos):
             logger.info("training algorithm %s (%s)", name or "<default>",
                         type(algo).__name__)
-            models.append(algo.train(ctx, pd))
+            if shared_ckpt is not None:
+                # one namespace per algorithm: algorithm i never resumes
+                # from algorithm j's snapshots
+                ctx.checkpointer = shared_ckpt.scoped(
+                    f"algo_{i}_{name or type(algo).__name__}")
+            try:
+                models.append(algo.train(ctx, pd))
+            finally:
+                if shared_ckpt is not None:
+                    ctx.checkpointer = shared_ckpt
         return TrainResult(models=models,
                            algorithms=[a for _, a in named_algos],
                            serving=self._serving(engine_params),
                            engine_params=engine_params)
 
+    def persist_models(self, ctx, train_result: TrainResult) -> List[Any]:
+        """What the model store keeps per algorithm
+        (Engine.scala:284-311): the model, or None to retrain it at
+        deploy."""
+        return [algo.make_persistent_model(ctx, model)
+                for algo, model in zip(train_result.algorithms,
+                                       train_result.models)]
+
     def prepare_deploy(self, engine_params: EngineParams,
-                       models: Sequence[Any]) -> TrainResult:
-        """Pair each persisted model with its instantiated algorithm."""
+                       persisted: Sequence[Any], ctx=None) -> TrainResult:
+        """Pair each persisted model with its instantiated algorithm
+        (Engine.prepareDeploy:198); a slot persisted as None is retrained
+        from the event store on ``ctx`` (read and prepared once)."""
         named_algos = self._algorithms(engine_params)
-        if len(models) != len(named_algos):
+        if len(persisted) != len(named_algos):
             raise ValueError(
-                f"{len(models)} model(s) for {len(named_algos)} "
+                f"{len(persisted)} model(s) for {len(named_algos)} "
                 "algorithm(s)")
-        return TrainResult(models=list(models),
+        models = list(persisted)
+        if any(m is None for m in models):
+            logger.info("some models are not persisted; retraining for "
+                        "deploy")
+            td = self._data_source(engine_params).read_training(ctx)
+            pd = self._preparator(engine_params).prepare(ctx, td)
+            models = [algo.train(ctx, pd) if m is None else m
+                      for (_, algo), m in zip(named_algos, models)]
+        return TrainResult(models=models,
                            algorithms=[a for _, a in named_algos],
                            serving=self._serving(engine_params),
                            engine_params=engine_params)

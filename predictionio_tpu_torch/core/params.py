@@ -29,6 +29,18 @@ class Params:
     dataclasses; plain dicts are also accepted anywhere Params are."""
 
 
+def params_to_json(params: Any) -> Any:
+    """Params (dataclass | dict | None) -> JSON value."""
+    if params is None:
+        return {}
+    if dataclasses.is_dataclass(params) and not isinstance(params, type):
+        return dataclasses.asdict(params)
+    if isinstance(params, dict):
+        return params
+    raise TypeError(
+        f"cannot serialize params of type {type(params).__name__}")
+
+
 def _snake(name: str) -> str:
     """camelCase -> snake_case (appName -> app_name)."""
     return re.sub(r"(?<=[a-z0-9])([A-Z])", r"_\1", name).lower()

@@ -1,6 +1,6 @@
-"""The universal event datum and its validation rules (copy of the
-reference's ``data/event.py`` without the event server's JSON wire
-format, which comes with the event server).
+"""The universal event datum, its JSON wire format (the Event Server's
+REST API) and its validation rules (copy of the reference's
+``data/event.py``).
 
 Behavioral parity with the reference's Event model
 (data/.../storage/Event.scala:42-167): an event is
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 import datetime as _dt
-from typing import Optional, Sequence
+import json
+from typing import Any, Mapping, Optional, Sequence
 
 from predictionio_tpu_torch.data.datamap import DataMap
 
@@ -70,6 +71,100 @@ class Event:
             if t.tzinfo is None:  # naive timestamps are taken as UTC
                 object.__setattr__(self, attr, t.replace(tzinfo=UTC))
         object.__setattr__(self, "tags", tuple(self.tags))
+
+    # -- JSON round-trip (wire format of the Event Server REST API) ---------
+    def to_dict(self) -> dict:
+        d: dict = {
+            "event": self.event,
+            "entityType": self.entity_type,
+            "entityId": self.entity_id,
+            "properties": self.properties.fields,
+            "eventTime": format_event_time(self.event_time),
+        }
+        if self.event_id is not None:
+            d["eventId"] = self.event_id
+        if self.target_entity_type is not None:
+            d["targetEntityType"] = self.target_entity_type
+        if self.target_entity_id is not None:
+            d["targetEntityId"] = self.target_entity_id
+        if self.tags:
+            d["tags"] = list(self.tags)
+        if self.pr_id is not None:
+            d["prId"] = self.pr_id
+        d["creationTime"] = format_event_time(self.creation_time)
+        return d
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "Event":
+        if not isinstance(d, Mapping):
+            raise EventValidationError("event must be a JSON object")
+        for key in ("event", "entityType", "entityId"):
+            if key not in d:
+                raise EventValidationError(f"field {key} is required")
+        props = d.get("properties") or {}
+        if not isinstance(props, Mapping):
+            raise EventValidationError("properties must be a JSON object")
+        return cls(
+            event=_req_str(d, "event"),
+            entity_type=_req_str(d, "entityType"),
+            entity_id=_req_str(d, "entityId"),
+            target_entity_type=_opt_str(d, "targetEntityType"),
+            target_entity_id=_opt_str(d, "targetEntityId"),
+            properties=DataMap(props),
+            event_time=(parse_event_time(d["eventTime"])
+                        if d.get("eventTime") is not None else _utcnow()),
+            tags=tuple(d.get("tags") or ()),
+            pr_id=_opt_str(d, "prId"),
+            creation_time=(parse_event_time(d["creationTime"])
+                           if d.get("creationTime") is not None
+                           else _utcnow()),
+            event_id=_opt_str(d, "eventId"),
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "Event":
+        return cls.from_dict(json.loads(s))
+
+
+def _req_str(d: Mapping[str, Any], key: str) -> str:
+    v = d[key]
+    if not isinstance(v, str):
+        raise EventValidationError(f"field {key} must be a string")
+    return v
+
+
+def _opt_str(d: Mapping[str, Any], key: str) -> Optional[str]:
+    v = d.get(key)
+    if v is None:
+        return None
+    if not isinstance(v, str):
+        raise EventValidationError(f"field {key} must be a string")
+    return v
+
+
+def parse_event_time(s: str) -> _dt.datetime:
+    """Parse ISO-8601 with timezone; naive times are UTC (Event.scala:73)."""
+    if not isinstance(s, str):
+        raise EventValidationError(
+            f"eventTime must be an ISO-8601 string, got {s!r}")
+    try:
+        t = _dt.datetime.fromisoformat(s.replace("Z", "+00:00"))
+    except ValueError as e:
+        raise EventValidationError(f"cannot parse time {s!r}: {e}") from e
+    if t.tzinfo is None:
+        t = t.replace(tzinfo=UTC)
+    return t
+
+
+def format_event_time(t: _dt.datetime) -> str:
+    """ISO-8601 to the millisecond, UTC when naive: the reference's
+    string, so ``GET /events.json`` answers agree byte for byte."""
+    if t.tzinfo is None:
+        t = t.replace(tzinfo=UTC)
+    return t.isoformat(timespec="milliseconds")
 
 
 def millis(t: _dt.datetime) -> int:

@@ -2,9 +2,9 @@
 ``data/eventstore.py``, with the single-process training read of
 ``data/ingest.py``: ``training_scan`` + ``event_columns``).
 
-App name -> (app_id, channel_id) resolution is cached, as in
-store/Common.scala:25-60. Named channels and the multi-process sharded
-read belong to later slices of the port.
+App name (+ channel name) -> (app_id, channel_id) resolution is cached,
+as in store/Common.scala:25-60. The multi-process sharded read belongs
+to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -25,11 +25,8 @@ _channel_cache_lock = threading.Lock()
 
 def resolve_app(app_name: str, channel_name: Optional[str] = None
                 ) -> Tuple[int, Optional[int]]:
-    """app name -> (app_id, channel_id), cached."""
-    if channel_name is not None:
-        raise NotImplementedError(
-            f"channel {channel_name!r}: named channels are not ported to "
-            "PyTorch yet (the default channel is)")
+    """app name (+ optional channel name) -> (app_id, channel_id),
+    cached."""
     key = (app_name, channel_name)
     with _channel_cache_lock:
         if key in _channel_cache:
@@ -37,9 +34,17 @@ def resolve_app(app_name: str, channel_name: Optional[str] = None
     app = Storage.get_meta_data_apps().get_by_name(app_name)
     if app is None:
         raise StorageError(f"Invalid app name {app_name}")
+    channel_id = None
+    if channel_name is not None:
+        channels = Storage.get_meta_data_channels().get_by_appid(app.id)
+        matched = [c for c in channels if c.name == channel_name]
+        if not matched:
+            raise StorageError(
+                f"Invalid channel name {channel_name} for app {app_name}")
+        channel_id = matched[0].id
     with _channel_cache_lock:
-        _channel_cache[key] = (app.id, None)
-    return app.id, None
+        _channel_cache[key] = (app.id, channel_id)
+    return app.id, channel_id
 
 
 def clear_cache() -> None:

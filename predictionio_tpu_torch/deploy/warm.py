@@ -1,53 +1,61 @@
 """Warm-up before a model takes traffic (port of the reference's
-``deploy/warm.py`` ``ServingUnit``, ``warmup_ladder``, ``warmup_unit``
-and ``verify_unit``).
+``deploy/warm.py``: ``ServingUnit``, ``build_unit``, ``warmup_ladder``,
+``warmup_unit`` and ``verify_unit``).
 
-Before the query server listens, the unit's full batch-predict path is
-driven once per reachable bucketed batch size: the first batch builds
-the quantized scorer and runs its parity gate, and every batch shape
-the micro-batcher can hand the shortlist kernel launches once. Then one
-real scoring must succeed (verify).
+Before a unit takes traffic — at deploy, and at ``GET /reload`` before
+the swap — its full batch-predict path is driven once per reachable
+bucketed batch size: the first batch builds the quantized scorer and
+runs its parity gate, and every batch shape the micro-batcher can hand
+the shortlist kernel launches once. Then one real scoring must succeed
+(verify).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import datetime as _dt
 import logging
 import time
 from typing import Any, Callable, List, Optional, Sequence
 
 from predictionio_tpu_torch.ops.bucketing import bucket_size
+from predictionio_tpu_torch.storage.base import EngineInstance, Release
 
 logger = logging.getLogger("pio.torch.deploy")
 
 
 class DeployError(Exception):
-    """A model failed to become servable (warmup/verify)."""
-
-
-@dataclasses.dataclass
-class EngineInstance:
-    """What the server reports about the deployed model."""
-
-    id: str
-    engine_id: str = "recommendation"
-    engine_variant: str = "default"
-    start_time: _dt.datetime = dataclasses.field(
-        default_factory=lambda: _dt.datetime.now(tz=_dt.timezone.utc))
+    """A release failed to become servable (load/warmup/verify)."""
 
 
 @dataclasses.dataclass
 class ServingUnit:
-    """One servable model: everything a query needs, bundled so a swap
-    is one reference assignment. ``vectorized`` says whether every
+    """One servable release: everything a query needs, bundled so a
+    swap is one reference assignment. ``vectorized`` says whether every
     algorithm batches (micro-batching pays only then); ``batcher`` is
     attached by the query server."""
 
     instance: EngineInstance
     result: Any                        # core.engine.TrainResult
     vectorized: bool
+    release: Optional[Release] = None
     batcher: Any = None
+
+    @property
+    def release_version(self) -> int:
+        return self.release.version if self.release else 0
+
+
+def build_unit(engine, instance: EngineInstance,
+               release: Optional[Release] = None,
+               device=None) -> ServingUnit:
+    """Load a COMPLETED instance's stored models into a ServingUnit on
+    ``device`` (the load phase; off the serving loop)."""
+    from predictionio_tpu_torch.workflow.train import load_for_deploy
+
+    result, _ctx = load_for_deploy(engine, instance, device=device)
+    return ServingUnit(instance=instance, result=result,
+                       vectorized=compute_vectorized(result),
+                       release=release)
 
 
 def compute_vectorized(result) -> bool:

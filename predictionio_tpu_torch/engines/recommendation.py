@@ -204,7 +204,8 @@ def _request(q: Query):
 class ALSAlgorithm(Algorithm):
     """ALSAlgorithm.scala:39 — id assignment and ALS training; serving
     from the trained model. Training runs on ``ctx.device`` (None or
-    absent: ``cuda``)."""
+    absent: ``cuda``) and resumes from ``ctx.checkpointer`` when the
+    workflow has one."""
 
     params_class = AlgorithmParams
 
@@ -232,9 +233,14 @@ class ALSAlgorithm(Algorithm):
             implicit_prefs=self.params.implicit_prefs,
             alpha=self.params.alpha,
             solver=solver, block_size=block_size)
+        from predictionio_tpu_torch.workflow.checkpoint import (
+            checkpointer_of,
+        )
+
         device = getattr(ctx, "device", None)
         t0 = time.perf_counter()
-        U, V = train_als(data, als_params, device=device)
+        U, V = train_als(data, als_params, device=device,
+                         checkpointer=checkpointer_of(ctx))
         model = ALSModel.from_arrays(user_vocab, item_vocab, U, V,
                                      device=device)
         model.train_info = {"nnz": data.nnz, "build_s": build_s,

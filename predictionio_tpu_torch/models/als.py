@@ -429,8 +429,34 @@ def _init_item_factors(n_items: int, n_items_pad: int, k: int, seed: int,
     return V
 
 
+def als_fingerprint(data: ALSData, params: ALSParams) -> str:
+    """Identity of a training run for checkpoint-resume safety, the
+    reference's hex string for the same data and params: the
+    math-shaping hyperparams (not num_iterations or chunk_size — more
+    iterations of the same run is what resuming is for — and not the
+    solver, which minimizes the same objective), the dataset's sizes and
+    its order-independent COO digest."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr((params.rank, params.reg, params.alpha,
+                   params.implicit_prefs, params.weighted_reg,
+                   params.seed)).encode())
+    h.update(np.asarray([data.nnz, data.n_users, data.n_items],
+                        np.int64).tobytes())
+    h.update(data.digest.encode())
+    return h.hexdigest()
+
+
+def _padded(rows: np.ndarray, n: int, n_pad: int, dev) -> torch.Tensor:
+    out = torch.zeros((n_pad, rows.shape[1]), dtype=torch.float32,
+                      device=dev)
+    out[:n] = torch.from_numpy(np.array(rows[:n], np.float32)).to(dev)
+    return out
+
+
 def train_als(data: ALSData, params: ALSParams, device=None,
-              init_V: Optional[np.ndarray] = None
+              init_V: Optional[np.ndarray] = None, checkpointer=None
               ) -> Tuple[np.ndarray, np.ndarray]:
     """Train on one device and return host ``(U [n_users, K], V
     [n_items, K])``.
@@ -438,31 +464,62 @@ def train_als(data: ALSData, params: ALSParams, device=None,
     ``init_V`` (``[n_items, K]`` or ``[n_items_pad, K]``, numpy) replaces
     the seeded initial item factors, e.g. with the reference's. The rows
     are uploaded once (:meth:`ALSData.to`); each iteration runs the user
-    half-sweep against V, then the item half-sweep against the new U."""
+    half-sweep against V, then the item half-sweep against the new U.
+
+    With a ``workflow.checkpoint.Checkpointer`` the iterations run in
+    chunks of ``checkpointer.interval`` and V (and U for ``subspace``,
+    whose state is both) is snapshotted between chunks under
+    :func:`als_fingerprint`. A run whose latest snapshot of that
+    fingerprint is below ``num_iterations`` and fits the data resumes
+    from it and runs only the remaining iterations."""
     validate_solver(params)
     dev = resolve_device(device)
     data = data.to(dev)
     k = params.rank
-    if init_V is None:
+    it = 0
+    V = U = None
+    fp = None
+    if checkpointer is not None:
+        fp = als_fingerprint(data, params)
+        snap = checkpointer.latest(fingerprint=fp)
+        # a snapshot at or past the target (a stale run with fewer
+        # iterations) would skip every sweep: train from scratch instead
+        if snap is not None and snap[0] < params.num_iterations \
+                and getattr(snap[1].get("V"), "shape", None) \
+                == (data.n_items, k):
+            it, state = snap
+            V = _padded(state["V"], data.n_items, data.n_items_pad, dev)
+            su = state.get("U")
+            if getattr(su, "shape", None) == (data.n_users, k):
+                U = _padded(su, data.n_users, data.n_users_pad, dev)
+    if V is None and init_V is None:
         V = _init_item_factors(data.n_items, data.n_items_pad, k,
                                params.seed, dev)
-    else:
-        init_V = np.array(init_V, np.float32)
+    elif V is None:
+        init_V = np.asarray(init_V, np.float32)
         if init_V.shape[1] != k or init_V.shape[0] not in (
                 data.n_items, data.n_items_pad):
             raise ValueError(f"init_V shape {init_V.shape} does not fit "
                              f"{data.n_items} items x rank {k}")
-        V = torch.zeros((data.n_items_pad, k), dtype=torch.float32,
+        V = _padded(init_V, data.n_items, data.n_items_pad, dev)
+    if U is None:
+        U = torch.zeros((data.n_users_pad, k), dtype=torch.float32,
                         device=dev)
-        V[:data.n_items] = torch.from_numpy(init_V[:data.n_items]).to(dev)
-    U = torch.zeros((data.n_users_pad, k), dtype=torch.float32, device=dev)
-    for _ in range(params.num_iterations):
+    start = it
+    while it < params.num_iterations:
         if params.solver == "subspace":
             U = _half_sweep_subspace(U, V, data.by_user, params)
             V = _half_sweep_subspace(V, U, data.by_item, params)
         else:
             U = _half_sweep(V, data.by_user, params)
             V = _half_sweep(U, data.by_item, params)
+        it += 1
+        if (checkpointer is not None and it < params.num_iterations
+                and (it - start) % checkpointer.interval == 0):
+            state = {"V": V[:data.n_items]}
+            if params.solver == "subspace":
+                state["U"] = U[:data.n_users]
+            checkpointer.save(it, state, fingerprint=fp)
     return (U[:data.n_users].cpu().numpy(),
             V[:data.n_items].cpu().numpy())
 
@@ -619,6 +676,13 @@ class ALSModel:
             cached = (self.V, torch.from_numpy(self.V).to(self.device))
             self._resident = cached
         return cached[1]
+
+    def release_device(self) -> None:
+        """Drop the device-resident copies (the exact scorer's V, the
+        quantized scorer's factors) of a model that no longer serves, so
+        their memory is freed."""
+        self._resident = None
+        self._scorer_cache = None
 
     def user_index(self, user_id: str) -> Optional[int]:
         return vocab_index(self.user_vocab, user_id)

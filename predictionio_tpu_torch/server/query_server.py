@@ -1,12 +1,16 @@
 """Query server — a deployed engine's REST serving (port of the
-reference's ``server/query_server.py``, serving routes of slice 1):
+reference's ``server/query_server.py``):
 
   GET  /               -> engine/instance info, serving stats, the
                           scorer's status and the kernel launch counts
   POST /queries.json   -> the prediction hot path
+  GET  /reload         -> warm-swap to the latest COMPLETED instance
+  GET  /releases.json  -> release manifests of this engine variant
+  POST /stop           -> graceful shutdown
 
-The HTTP layer is the standard library's asyncio streams (HTTP/1.1 with
-keep-alive, ``Content-Length`` bodies), where the reference uses aiohttp.
+``/reload`` and ``/stop`` take the ``accessKey`` query parameter when
+the server was given one (``deploy --accesskey``). The HTTP layer is the
+port's stdlib one (``server/http``), where the reference uses aiohttp.
 The error contract is the reference's: a body that is not JSON, or a
 query the engine rejects, answers 400 with ``{"message": ...}``.
 
@@ -34,15 +38,23 @@ import numpy as np
 
 from predictionio_tpu_torch.core.engine import Engine, TrainResult
 from predictionio_tpu_torch.core.params import params_from_json
+from predictionio_tpu_torch.deploy.releases import (
+    release_of_instance, release_to_json,
+)
 from predictionio_tpu_torch.deploy.warm import (
-    EngineInstance, ServingUnit, WarmupReport, compute_vectorized,
+    DeployError, ServingUnit, WarmupReport, build_unit, compute_vectorized,
     verify_unit, warmup_unit,
+)
+from predictionio_tpu_torch.server.http import (
+    HttpServer, Request, serve_until_stopped,
 )
 from predictionio_tpu_torch.ops import kernels
 from predictionio_tpu_torch.ops.bucketing import bucket_size, padding_waste
 from predictionio_tpu_torch.ops.scoring import (
     set_process_scorer_config, unit_scorer_status,
 )
+from predictionio_tpu_torch.storage.base import EngineInstance, Release
+from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.server_config import ScorerConfig
 
 logger = logging.getLogger("pio.torch.queryserver")
@@ -61,9 +73,8 @@ ADAPTIVE_LINGER_MAX_S = 0.002
 _EWMA_ALPHA = 0.2
 #: an arrival gap above this resets the estimator
 _EWMA_RESET_S = 1.0
-
-#: largest request body accepted
-MAX_BODY_BYTES = 16 << 20
+#: longest wait for a retired unit's queued and in-flight batches
+DRAIN_TIMEOUT_S = 30.0
 
 
 def _to_jsonable(obj: Any) -> Any:
@@ -148,6 +159,11 @@ class MicroBatcher:
         if ewma is None or ewma > self.adaptive_linger_max_s:
             return 0.0
         return min(self.adaptive_linger_max_s, 2.0 * ewma)
+
+    def idle(self) -> bool:
+        """Nothing queued and no batch in flight."""
+        return ((self._queue is None or self._queue.empty())
+                and self._inflight_now == 0)
 
     async def shutdown(self) -> None:
         """Cancel the worker; its drain fails everything still queued."""
@@ -238,25 +254,19 @@ class MicroBatcher:
                 fut.set_result(res)
 
 
-class _BadRequest(Exception):
-    pass
-
-
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-            405: "Method Not Allowed", 411: "Length Required",
-            413: "Payload Too Large", 500: "Internal Server Error"}
-
-
 class QueryServer:
-    """Serves one deployed TrainResult. ``start`` binds the socket on the
-    running event loop; :func:`run_query_server` is the blocking form."""
+    """Serves one deployed TrainResult and swaps in retrained ones
+    (``/reload``). ``start`` binds the socket on the running event loop;
+    :func:`run_query_server` is the blocking form."""
 
     def __init__(self, engine: Engine, train_result: TrainResult,
                  instance: EngineInstance,
                  scorer_config: Optional[ScorerConfig] = None,
                  max_batch: int = MAX_BATCH,
                  linger_s: Optional[float] = None,
-                 inflight: int = INFLIGHT):
+                 inflight: int = INFLIGHT,
+                 release: Optional[Release] = None,
+                 access_key: Optional[str] = None):
         self.engine = engine
         self.start_time = _dt.datetime.now(tz=_dt.timezone.utc)
         self.max_batch = max(1, max_batch)
@@ -264,16 +274,37 @@ class QueryServer:
         #: scoring surface (models, warm-up) sees ONE mode
         self.scorer_config = scorer_config or ScorerConfig.from_env()
         set_process_scorer_config(self.scorer_config)
+        #: guards /reload and /stop when set (``deploy --accesskey``)
+        self.access_key = access_key
+        #: where a reloaded instance's models go: the deployed models'
+        self.device = getattr(train_result.models[0], "device", None) \
+            if train_result.models else None
         self._predict_executor = ThreadPoolExecutor(
             max_workers=max(4, inflight * 2),
             thread_name_prefix="pio-predict")
+        #: load, warm-up and verify of a reloaded unit run here, so the
+        #: serving unit keeps every predict slot
+        self._deploy_executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="pio-deploy")
         self._linger_s = linger_s
         self._inflight = inflight
         self._unit = ServingUnit(
             instance=instance, result=train_result,
-            vectorized=compute_vectorized(train_result))
+            vectorized=compute_vectorized(train_result), release=release)
         self._attach_batcher(self._unit)
-        self._server: Optional[asyncio.AbstractServer] = None
+        self._swap_lock = threading.Lock()
+        #: one reload at a time
+        self._reload_lock = asyncio.Lock()
+        self._tasks: set = set()
+        self._http = HttpServer([
+            ("GET", "/", self.handle_root),
+            ("POST", "/queries.json", self.handle_query),
+            ("GET", "/reload", self.handle_reload),
+            ("GET", "/releases.json", self.handle_releases),
+            ("POST", "/stop", self.handle_stop),
+        ])
+        #: set by POST /stop; :func:`run_query_server` then shuts down
+        self.stopped = asyncio.Event()
         self._stats_lock = threading.Lock()
         self._query_count = 0
         self._query_seconds = 0.0
@@ -314,127 +345,113 @@ class QueryServer:
         kernels.reset_counts()
         return report
 
+    def _prepare_unit(self, instance: EngineInstance,
+                      release: Optional[Release]
+                      ) -> Tuple[ServingUnit, WarmupReport]:
+        """Load -> warm-up -> verify of a unit that does not take
+        traffic yet (on the deploy executor)."""
+        unit = build_unit(self.engine, instance, release,
+                          device=self.device)
+        self._attach_batcher(unit)
+        predict = functools.partial(self._predict_batch_unit, unit)
+        report = warmup_unit(unit, predict, self.max_batch)
+        verify_unit(unit, predict)
+        return unit, report
+
+    def _swap_to(self, unit: ServingUnit) -> ServingUnit:
+        """The cutover: one reference assignment installs the new unit.
+        Requests already routed keep the old unit, whose batcher drains
+        in the background before its device memory is released."""
+        with self._swap_lock:
+            old, self._unit = self._unit, unit
+        self._spawn(self._retire(old))
+        self._set_release_status(unit.release, "LIVE", "reload")
+        if old.release is not None and (
+                unit.release is None or old.release.id != unit.release.id):
+            self._set_release_status(old.release, "RETIRED",
+                                     "superseded: reload")
+        logger.info("swapped to engine instance %s (release v%d)",
+                    unit.instance.id, unit.release_version)
+        return old
+
+    def _spawn(self, coro) -> None:
+        task = asyncio.get_running_loop().create_task(coro)
+        self._tasks.add(task)
+        task.add_done_callback(self._tasks.discard)
+
+    async def _retire(self, unit: ServingUnit) -> None:
+        """Let the retired unit's queued and in-flight batches finish on
+        it, then stop its batcher and drop its device-resident copies."""
+        batcher = unit.batcher
+        deadline = time.monotonic() + DRAIN_TIMEOUT_S
+        while batcher is not None and not batcher.idle() \
+                and time.monotonic() < deadline:
+            await asyncio.sleep(0.02)
+        if batcher is not None:
+            await batcher.shutdown()
+        for model in unit.result.models:
+            release = getattr(model, "release_device", None)
+            if release is not None:
+                release()
+
+    def _set_release_status(self, release: Optional[Release], status: str,
+                            reason: str) -> None:
+        """Best-effort lineage write-back, off the event loop (a registry
+        outage must not stall serving)."""
+        if release is None:
+            return
+        release.status = status
+
+        def write():
+            try:
+                Storage.get_meta_data_releases().set_status(
+                    release.id, status, reason=reason)
+            except Exception:
+                logger.exception("release status update failed (%s -> %s)",
+                                 release.id, status)
+
+        self._deploy_executor.submit(write)
+
     # -- HTTP ----------------------------------------------------------------
     async def start(self, host: str = "localhost", port: int = DEFAULT_PORT
                     ) -> int:
         """Bind and start accepting; returns the bound port (``port=0``
         picks a free one)."""
-        self._server = await asyncio.start_server(self._handle_conn,
-                                                  host, port)
-        return self._server.sockets[0].getsockname()[1]
+        return await self._http.start(host, port)
 
     async def close(self) -> None:
-        if self._server is not None:
-            self._server.close()
-            await self._server.wait_closed()
+        await self._http.close()
+        for task in list(self._tasks):
+            await task
         await self._unit.batcher.shutdown()
         self._predict_executor.shutdown(wait=False)
+        self._deploy_executor.shutdown(wait=True)
 
-    async def _read_request(self, reader: asyncio.StreamReader):
-        line = await reader.readline()
-        if not line:
-            return None
-        try:
-            method, target, version = line.decode("latin-1").split()
-        except ValueError:
-            raise _BadRequest("malformed request line") from None
-        headers = {}
-        while True:
-            h = await reader.readline()
-            if h in (b"\r\n", b"\n", b""):
-                break
-            name, _, value = h.decode("latin-1").partition(":")
-            headers[name.strip().lower()] = value.strip()
-        if "chunked" in headers.get("transfer-encoding", "").lower():
-            return method, target, version, headers, None
-        try:
-            n = int(headers.get("content-length") or 0)
-        except ValueError:
-            raise _BadRequest("bad Content-Length") from None
-        if n < 0 or n > MAX_BODY_BYTES:
-            raise _BadRequest(f"body of {n} bytes refused")
-        body = await reader.readexactly(n) if n else b""
-        return method, target, version, headers, body
-
-    async def _handle_conn(self, reader: asyncio.StreamReader,
-                           writer: asyncio.StreamWriter) -> None:
-        try:
-            while True:
-                try:
-                    req = await self._read_request(reader)
-                except _BadRequest as e:
-                    await self._respond(writer, 400, {"message": str(e)},
-                                        keep_alive=False)
-                    return
-                if req is None:
-                    return
-                method, target, version, headers, body = req
-                keep_alive = (version == "HTTP/1.1" and headers.get(
-                    "connection", "").lower() != "close")
-                if body is None:
-                    status, payload = 411, {"message": "chunked bodies are "
-                                            "not accepted; send "
-                                            "Content-Length"}
-                    keep_alive = False
-                else:
-                    status, payload = await self._dispatch(
-                        method, target.split("?", 1)[0], body)
-                await self._respond(writer, status, payload, keep_alive)
-                if not keep_alive:
-                    return
-        except (ConnectionError, asyncio.IncompleteReadError,
-                asyncio.LimitOverrunError, ValueError):
-            # a peer that vanished, or a line past the stream's limit:
-            # drop the connection
-            pass
-        finally:
-            writer.close()
-
-    @staticmethod
-    async def _respond(writer: asyncio.StreamWriter, status: int,
-                       payload: Any, keep_alive: bool) -> None:
-        data = json.dumps(payload).encode()
-        head = (f"HTTP/1.1 {status} {_REASONS.get(status, 'Error')}\r\n"
-                "Content-Type: application/json; charset=utf-8\r\n"
-                f"Content-Length: {len(data)}\r\n"
-                f"Connection: {'keep-alive' if keep_alive else 'close'}"
-                "\r\n\r\n")
-        writer.write(head.encode("latin-1") + data)
-        await writer.drain()
-
-    async def _dispatch(self, method: str, path: str,
-                        body: bytes) -> Tuple[int, Any]:
-        routes = {"/": ("GET", self.handle_root),
-                  "/queries.json": ("POST", self.handle_query)}
-        route = routes.get(path)
-        if route is None:
-            return 404, {"message": f"no route {path}"}
-        if method != route[0]:
-            return 405, {"message": f"{path} takes {route[0]}"}
-        try:
-            return await route[1](body)
-        except Exception as e:       # the server must keep serving
-            logger.exception("handler failed")
-            return 500, {"message": repr(e)}
+    def _authorized(self, req: Request) -> bool:
+        return not self.access_key or \
+            req.query.get("accessKey") == self.access_key
 
     # -- info ---------------------------------------------------------------
-    async def handle_root(self, _body: bytes) -> Tuple[int, Any]:
+    async def handle_root(self, _req: Request) -> Tuple[int, Any]:
         """Engine/instance info + serving stats; also the scorer status
-        and the kernel launch counts of this process."""
+        and the kernel launch counts of this process since it was warm
+        (a ``/reload``'s warm-up counts among them)."""
         with self._stats_lock:
             count, total = self._query_count, self._query_seconds
             recent = list(self._recent)
         uptime = (_dt.datetime.now(tz=_dt.timezone.utc)
                   - self.start_time).total_seconds()
+        unit = self._unit
         return 200, {
             "status": "alive",
             "engineInstance": {
-                "id": self.instance.id,
-                "engineId": self.instance.engine_id,
-                "engineVariant": self.instance.engine_variant,
-                "startTime": self.instance.start_time.isoformat(),
+                "id": unit.instance.id,
+                "engineId": unit.instance.engine_id,
+                "engineVariant": unit.instance.engine_variant,
+                "startTime": unit.instance.start_time.isoformat(),
+                "releaseVersion": unit.release_version or None,
             },
-            "algorithms": [type(a).__name__ for a in self.result.algorithms],
+            "algorithms": [type(a).__name__ for a in unit.result.algorithms],
             "startTime": self.start_time.isoformat(),
             "uptimeSeconds": uptime,
             "requestCount": count,
@@ -443,18 +460,87 @@ class QueryServer:
             "p95ServingSec": (float(np.percentile(recent, 95))
                               if recent else 0.0),
             "lastServingSec": self.last_serving_sec,
-            "scorer": unit_scorer_status(self.result),
+            "scorer": unit_scorer_status(unit.result),
             "warmup": (self.last_warmup.to_dict()
                        if self.last_warmup is not None else None),
             "kernelLaunches": kernels.counts(),
             "warmupKernelLaunches": self.warmup_launches,
         }
 
+    # -- deploy lifecycle ----------------------------------------------------
+    def _latest(self) -> Tuple[Optional[EngineInstance], Optional[Release]]:
+        inst = self.instance
+        latest = Storage.get_meta_data_engine_instances(
+        ).get_latest_completed(inst.engine_id, inst.engine_version,
+                               inst.engine_variant)
+        release = None
+        if latest is not None:
+            try:
+                release = release_of_instance(
+                    Storage.get_meta_data_releases(), latest)
+            except Exception:
+                logger.exception("release lookup failed")
+        return latest, release
+
+    async def handle_reload(self, req: Request) -> Tuple[int, Any]:
+        """Warm-swap to the latest COMPLETED instance of this variant:
+        load, warm up and verify it off the event loop, then swap."""
+        if not self._authorized(req):
+            return 401, {"message": "Unauthorized"}
+        loop = asyncio.get_running_loop()
+        async with self._reload_lock:
+            t0 = time.perf_counter()
+            latest, release = await loop.run_in_executor(
+                self._deploy_executor, self._latest)
+            if latest is None:
+                return 404, {"message": "No COMPLETED instance found"}
+            try:
+                unit, report = await loop.run_in_executor(
+                    self._deploy_executor, self._prepare_unit, latest,
+                    release)
+            except DeployError as e:
+                return 500, {"message": str(e)}
+            self._swap_to(unit)
+            self.last_warmup = report
+            return 200, {
+                "message": "Reloaded",
+                "engineInstanceId": latest.id,
+                "releaseVersion": unit.release_version or None,
+                "warmup": report.to_dict(),
+                "seconds": time.perf_counter() - t0}
+
+    async def handle_releases(self, _req: Request) -> Tuple[int, Any]:
+        """Release manifests of this engine variant, newest first."""
+        inst = self.instance
+
+        def listing():
+            try:
+                return [release_to_json(r) for r in
+                        Storage.get_meta_data_releases().get_for_variant(
+                            inst.engine_id, inst.engine_version,
+                            inst.engine_variant)]
+            except Exception:
+                logger.exception("release listing failed")
+                return []
+
+        out = await asyncio.get_running_loop().run_in_executor(
+            self._deploy_executor, listing)
+        return 200, {"releases": out, "serving": {
+            "engineInstanceId": inst.id,
+            "releaseVersion": self._unit.release_version or None}}
+
+    async def handle_stop(self, req: Request) -> Tuple[int, Any]:
+        if not self._authorized(req):
+            return 401, {"message": "Unauthorized"}
+        # after the answer has gone out
+        asyncio.get_running_loop().call_later(0.2, self.stopped.set)
+        return 200, {"message": "Shutting down"}
+
     # -- hot path ------------------------------------------------------------
-    async def handle_query(self, body: bytes) -> Tuple[int, Any]:
+    async def handle_query(self, req: Request) -> Tuple[int, Any]:
         t0 = time.perf_counter()
         try:
-            data = json.loads(body)
+            data = req.json()
         except (json.JSONDecodeError, UnicodeDecodeError) as e:
             return 400, {"message": str(e)}
         unit = self._unit
@@ -556,18 +642,6 @@ def create_query_server(engine: Engine, train_result: TrainResult,
 
 def run_query_server(server: QueryServer, host: str = "localhost",
                      port: int = DEFAULT_PORT, on_ready=None) -> None:
-    """Serve until interrupted. ``on_ready(port)`` runs once the socket
-    is bound."""
-    async def _main():
-        bound = await server.start(host, port)
-        if on_ready is not None:
-            on_ready(bound)
-        try:
-            await asyncio.Event().wait()
-        finally:
-            await server.close()
-
-    try:
-        asyncio.run(_main())
-    except KeyboardInterrupt:
-        pass
+    """Serve until ``POST /stop``, SIGINT or SIGTERM. ``on_ready(port)``
+    runs once the socket is bound."""
+    serve_until_stopped(server, host, port, on_ready)

@@ -1,6 +1,7 @@
-"""Storage interfaces the sqlite backend implements, and the ``App``
-record (the subset of the reference's ``storage/base.py`` that training
-reads through).
+"""Storage interfaces the backends implement, and the metadata records
+(port of the reference's ``storage/base.py``: apps, access keys,
+channels, engine instances, model blobs, releases and events; the
+evaluation instances come with the evaluation slice).
 
 Instead of Scala's Option[Option[T]] target filters, the sentinel
 ``UNFILTERED`` distinguishes "no filter" from "must be absent" (None).
@@ -16,11 +17,14 @@ import dataclasses
 import datetime as _dt
 import os
 import random
+import re
+import secrets
+import time
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.event import UTC, Event
 
 
 class StorageError(Exception):
@@ -64,6 +68,102 @@ class App:
     description: Optional[str] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class AccessKey:
+    """AccessKeys.scala:35 — (key, appid, allowed event names; () = all)."""
+    key: str
+    appid: int
+    events: Sequence[str] = ()
+
+
+CHANNEL_NAME_RE = re.compile(r"^[a-zA-Z0-9-]{1,16}$")
+CHANNEL_NAME_CONSTRAINT = ("Only alphanumeric and - characters are allowed "
+                           "and max length is 16.")
+
+
+def is_valid_channel_name(name: str) -> bool:
+    """Channels.scala:54-57 — 1-16 alphanumeric or '-' characters."""
+    return bool(CHANNEL_NAME_RE.match(name))
+
+
+@dataclasses.dataclass(frozen=True)
+class Channel:
+    """Channels.scala:32 — (id, name unique within app, appid)."""
+    id: int
+    name: str
+    appid: int
+
+    def __post_init__(self):
+        if not is_valid_channel_name(self.name):
+            raise ValueError(f"Invalid channel name: {self.name}. "
+                             f"{CHANNEL_NAME_CONSTRAINT}")
+
+
+def _utcnow() -> _dt.datetime:
+    return _dt.datetime.now(tz=UTC)
+
+
+@dataclasses.dataclass
+class EngineInstance:
+    """EngineInstances.scala:46 — one train run and its deployable
+    model. ``runtime_conf`` holds the workflow's runtime settings (the
+    reference's sparkConf)."""
+    id: str = ""
+    status: str = "INIT"  # INIT -> COMPLETED (failed runs stay INIT)
+    start_time: _dt.datetime = dataclasses.field(default_factory=_utcnow)
+    end_time: _dt.datetime = dataclasses.field(default_factory=_utcnow)
+    engine_id: str = ""
+    engine_version: str = ""
+    engine_variant: str = ""
+    engine_factory: str = ""
+    batch: str = ""
+    env: Dict[str, str] = dataclasses.field(default_factory=dict)
+    runtime_conf: Dict[str, str] = dataclasses.field(default_factory=dict)
+    data_source_params: str = ""
+    preparator_params: str = ""
+    algorithms_params: str = ""
+    serving_params: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """Models.scala:33 — serialized model blob keyed by engine instance
+    id."""
+    id: str
+    models: bytes
+
+
+#: the release lifecycle: REGISTERED by a train, CANARY while a traffic
+#: split judges it, LIVE when serving, RETIRED when superseded,
+#: ROLLED_BACK when rejected
+RELEASE_STATUSES = ("REGISTERED", "CANARY", "LIVE", "RETIRED",
+                    "ROLLED_BACK")
+
+
+@dataclasses.dataclass
+class Release:
+    """One deployable version of an engine variant: a version that grows
+    by one per (engine_id, engine_version, engine_variant), content
+    digests of the params and of the model blob, and a status whose
+    lineage is kept in ``history`` as ``[{"status", "timeMs",
+    "reason"}, ...]``."""
+
+    id: str = ""
+    version: int = 0                 # assigned by insert(): max+1 per variant
+    engine_id: str = ""
+    engine_version: str = ""
+    engine_variant: str = ""
+    instance_id: str = ""            # the COMPLETED EngineInstance behind it
+    params_digest: str = ""
+    model_digest: str = ""
+    model_size_bytes: int = 0
+    status: str = "REGISTERED"
+    created_time: _dt.datetime = dataclasses.field(default_factory=_utcnow)
+    train_seconds: float = 0.0
+    batch: str = ""
+    history: List[Dict] = dataclasses.field(default_factory=list)
+
+
 class Apps(abc.ABC):
     @abc.abstractmethod
     def insert(self, app: App) -> Optional[int]:
@@ -78,6 +178,145 @@ class Apps(abc.ABC):
     @abc.abstractmethod
     def get_all(self) -> List[App]: ...
 
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> None: ...
+
+
+class AccessKeys(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, k: AccessKey) -> Optional[str]:
+        """Insert; generates a key when k.key is empty. Returns the key
+        (None when it exists already)."""
+
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[AccessKey]: ...
+
+    @abc.abstractmethod
+    def get_by_appid(self, appid: int) -> List[AccessKey]: ...
+
+    @staticmethod
+    def generate_key() -> str:
+        """Random URL-safe key (AccessKeys.scala:68 parity)."""
+        return secrets.token_urlsafe(48)
+
+
+class Channels(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, channel: Channel) -> Optional[int]:
+        """Insert; generates an id when channel.id == 0. Returns the id."""
+
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Optional[Channel]: ...
+
+    @abc.abstractmethod
+    def get_by_appid(self, appid: int) -> List[Channel]: ...
+
+
+class EngineInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, i: EngineInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EngineInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EngineInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self, engine_id: str, engine_version: str,
+                      engine_variant: str) -> List[EngineInstance]:
+        """COMPLETED instances, latest start_time first
+        (EngineInstances.scala:88)."""
+
+    def get_latest_completed(self, engine_id: str, engine_version: str,
+                             engine_variant: str
+                             ) -> Optional[EngineInstance]:
+        """EngineInstances.scala:82."""
+        completed = self.get_completed(engine_id, engine_version,
+                                       engine_variant)
+        return completed[0] if completed else None
+
+    @abc.abstractmethod
+    def update(self, i: EngineInstance) -> None: ...
+
+
+class Models(abc.ABC):
+    """Binary model blob store (Models.scala:33-86)."""
+
+    @abc.abstractmethod
+    def insert(self, model: Model) -> None: ...
+
+    @abc.abstractmethod
+    def get(self, model_id: str) -> Optional[Model]: ...
+
+    @abc.abstractmethod
+    def delete(self, model_id: str) -> None: ...
+
+
+class Releases(abc.ABC):
+    """Versioned release manifests."""
+
+    @abc.abstractmethod
+    def insert(self, release: Release) -> str:
+        """Persist; assigns ``id`` (when empty) and the next ``version``
+        of the release's (engine_id, engine_version, engine_variant).
+        Returns the id."""
+
+    @abc.abstractmethod
+    def get(self, release_id: str) -> Optional[Release]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[Release]: ...
+
+    @abc.abstractmethod
+    def get_for_variant(self, engine_id: str, engine_version: str,
+                        engine_variant: str) -> List[Release]:
+        """All releases of one variant, newest version first."""
+
+    @abc.abstractmethod
+    def update(self, release: Release) -> None: ...
+
+    def get_by_version(self, engine_id: str, engine_version: str,
+                       engine_variant: str, version: int
+                       ) -> Optional[Release]:
+        for r in self.get_for_variant(engine_id, engine_version,
+                                      engine_variant):
+            if r.version == version:
+                return r
+        return None
+
+    def latest(self, engine_id: str, engine_version: str,
+               engine_variant: str,
+               status: Optional[str] = None) -> Optional[Release]:
+        """Newest release of the variant, optionally of one status."""
+        for r in self.get_for_variant(engine_id, engine_version,
+                                      engine_variant):
+            if status is None or r.status == status:
+                return r
+        return None
+
+    def set_status(self, release_id: str, status: str,
+                   reason: str = "") -> Optional[Release]:
+        """Move a release to ``status``, appending to its history.
+        Returns the updated release (None when unknown). Re-asserting the
+        current status is a no-op: no second history entry, no write."""
+        if status not in RELEASE_STATUSES:
+            raise ValueError(f"unknown release status {status!r}")
+        release = self.get(release_id)
+        if release is None:
+            return None
+        if release.status == status:
+            return release
+        release.status = status
+        release.history = list(release.history) + [{
+            "status": status, "timeMs": int(time.time() * 1000),
+            "reason": reason}]
+        self.update(release)
+        return release
+
 
 class EventStore(abc.ABC):
     """Event writes and reads per (app_id, channel_id) namespace."""
@@ -88,12 +327,34 @@ class EventStore(abc.ABC):
         """Initialize the namespace (LEvents.init:53)."""
 
     @abc.abstractmethod
+    def remove_channel(self, app_id: int,
+                       channel_id: Optional[int] = None) -> bool:
+        """Remove the namespace and all its events (LEvents.remove:63)."""
+
+    @abc.abstractmethod
     def close(self) -> None: ...
 
     @abc.abstractmethod
     def insert_batch(self, events: Sequence[Event], app_id: int,
                      channel_id: Optional[int] = None) -> List[str]:
         """Insert events, returning their ids."""
+
+    @abc.abstractmethod
+    def insert_batch_idempotent(self, events: Sequence[Event], app_id: int,
+                                channel_id: Optional[int] = None
+                                ) -> List[str]:
+        """Like insert_batch, but events whose (pre-assigned) id is
+        already stored are skipped: the retry path of the group-commit
+        flush (``data/write_buffer``), where an earlier attempt may have
+        committed. Every event must carry an event_id."""
+
+    @abc.abstractmethod
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]: ...
+
+    @abc.abstractmethod
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool: ...
 
     @abc.abstractmethod
     def find(

@@ -1,11 +1,12 @@
 """Env-driven storage registry (port of the reference's
-``storage/registry.py``, the Storage.scala:146-466 analog), for the
-sqlite backend.
+``storage/registry.py``, the Storage.scala:146-466 analog).
 
   * ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` — backend type of source <NAME>;
-    the port has ``sqlite`` (other types of the reference raise
-    ``NotImplementedError`` naming where they live);
-  * ``PIO_STORAGE_SOURCES_<NAME>_PATH`` — the sqlite file;
+    the port has ``sqlite`` (every repository) and ``localfs`` / ``fs``
+    (MODELDATA, local paths); the reference's other types raise
+    ``NotImplementedError`` naming where they live;
+  * ``PIO_STORAGE_SOURCES_<NAME>_PATH`` — the sqlite file, or the model
+    directory;
   * ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,SOURCE}``
     — binds each repository to a source.
 
@@ -36,8 +37,14 @@ _NOT_PORTED = {
     "postgres": "storage/postgres_backend.py",
     "parquet": "storage/parquet_events.py",
     "evlog": "storage/evlog_backend.py",
-    "localfs": "storage/localfs_models.py",
-    "fs": "storage/fs_models.py",
+}
+
+#: data object kind -> sqlite backend class name
+_SQLITE_KINDS = {
+    "apps": "SqliteApps", "accesskeys": "SqliteAccessKeys",
+    "channels": "SqliteChannels", "engineinstances": "SqliteEngineInstances",
+    "releases": "SqliteReleases", "models": "SqliteModels",
+    "events": "SqliteEvents",
 }
 
 
@@ -57,7 +64,7 @@ def _parse_env(env: Dict[str, str]) -> Dict:
 
 def default_config(home: Optional[str] = None) -> Dict:
     """Single-file sqlite under $PIO_HOME (or ~/.pio_tpu) for events and
-    metadata (the reference keeps models under ``models/`` beside it)."""
+    metadata, model blobs as files under ``models/`` beside it."""
     home = home or os.environ.get(
         "PIO_HOME", os.path.join(os.path.expanduser("~"), ".pio_tpu"))
     db = os.path.join(home, "data", "pio.db")
@@ -135,7 +142,29 @@ class Storage:
                 return obj
             name, source = cls._source(repository)
             stype = source.get("TYPE", "sqlite")
-            if stype != "sqlite":
+            if stype in ("localfs", "fs"):
+                if kind != "models":
+                    raise StorageError(
+                        f"{stype} source {name} only supports MODELDATA")
+                from predictionio_tpu_torch.storage.fs_models import FSModels
+                from predictionio_tpu_torch.storage.localfs_models import (
+                    LocalFSModels,
+                )
+
+                obj = (LocalFSModels if stype == "localfs" else FSModels)(
+                    source.get("PATH") or os.path.join(
+                        os.path.expanduser("~"), ".pio_tpu", "models"))
+            elif stype == "sqlite":
+                from predictionio_tpu_torch.storage import (
+                    sqlite_backend as sb,
+                )
+
+                client = cls._clients.get(name)
+                if client is None:
+                    client = sb.SqliteClient(source.get("PATH", ":memory:"))
+                    cls._clients[name] = client
+                obj = getattr(sb, _SQLITE_KINDS[kind])(client)
+            else:
                 where = _NOT_PORTED.get(stype)
                 if where is None:
                     raise StorageError(f"unknown storage type {stype!r} "
@@ -143,20 +172,32 @@ class Storage:
                 raise NotImplementedError(
                     f"storage type {stype!r} (source {name}) is not ported "
                     f"to PyTorch yet: see predictionio_tpu/{where}")
-            from predictionio_tpu_torch.storage import sqlite_backend as sb
-
-            client = cls._clients.get(name)
-            if client is None:
-                client = sb.SqliteClient(source.get("PATH", ":memory:"))
-                cls._clients[name] = client
-            obj = {"apps": sb.SqliteApps,
-                   "events": sb.SqliteEvents}[kind](client)
             cls._objects[key] = obj
             return obj
 
     @classmethod
     def get_meta_data_apps(cls) -> base.Apps:
         return cls._get("METADATA", "apps")
+
+    @classmethod
+    def get_meta_data_access_keys(cls) -> base.AccessKeys:
+        return cls._get("METADATA", "accesskeys")
+
+    @classmethod
+    def get_meta_data_channels(cls) -> base.Channels:
+        return cls._get("METADATA", "channels")
+
+    @classmethod
+    def get_meta_data_engine_instances(cls) -> base.EngineInstances:
+        return cls._get("METADATA", "engineinstances")
+
+    @classmethod
+    def get_meta_data_releases(cls) -> base.Releases:
+        return cls._get("METADATA", "releases")
+
+    @classmethod
+    def get_model_data_models(cls) -> base.Models:
+        return cls._get("MODELDATA", "models")
 
     @classmethod
     def get_events(cls) -> base.EventStore:

@@ -1,10 +1,13 @@
-"""Event store and app metadata on sqlite3 (port of the reference's
-``storage/sqlite_backend.py``: ``SqliteClient``, ``SqliteEvents``,
-``SqliteApps``).
+"""Event store, metadata and model blobs on sqlite3 (port of the
+reference's ``storage/sqlite_backend.py``: ``SqliteClient``,
+``SqliteEvents`` and the apps, access keys, channels, engine instances,
+releases and models tables).
 
 The tables are byte-for-byte the reference's (one event table per app
-and channel, ``pio_event_<app>[_<channel>]``, and ``pio_apps``), so a
-store written by either package is read by the other. All SQL uses bound
+and channel, ``pio_event_<app>[_<channel>]``, ``pio_apps``,
+``pio_accesskeys``, ``pio_channels``, ``pio_engineinstances``,
+``pio_releases``, ``pio_models``), so a store written by either package
+is read by the other. All SQL uses bound
 parameters. Connections are per thread; WAL mode lets readers run during
 writes. The training read, :meth:`SqliteEvents.find_columns`, turns SQL
 rows straight into numpy columns (the reference builds a pyarrow table).
@@ -25,7 +28,8 @@ from predictionio_tpu_torch.data.datamap import DataMap
 from predictionio_tpu_torch.data.event import UTC, Event, millis as _to_ms
 from predictionio_tpu_torch.storage import base
 from predictionio_tpu_torch.storage.base import (
-    App, StorageError, UNFILTERED, generate_id,
+    AccessKey, App, Channel, EngineInstance, Model, Release, StorageError,
+    UNFILTERED, generate_id,
 )
 
 
@@ -138,11 +142,19 @@ class SqliteEvents(base.EventStore):
             self.client.conn().commit()
         return True
 
+    def remove_channel(self, app_id: int,
+                       channel_id: Optional[int] = None) -> bool:
+        name = event_table_name(app_id, channel_id)
+        with self.client.write_lock():
+            self.client.conn().execute(f"DROP TABLE IF EXISTS {name}")
+            self.client.conn().commit()
+        return True
+
     def close(self) -> None:
         self.client.close()
 
-    def insert_batch(self, events: Sequence[Event], app_id: int,
-                     channel_id: Optional[int] = None) -> List[str]:
+    def _insert(self, verb: str, events: Sequence[Event], app_id: int,
+                channel_id: Optional[int]) -> List[str]:
         name = event_table_name(app_id, channel_id)
         rows, ids = [], []
         for e in events:
@@ -160,7 +172,7 @@ class SqliteEvents(base.EventStore):
         try:
             with self.client.write_lock():
                 self.client.conn().executemany(
-                    f"INSERT INTO {name} VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                    f"{verb} INTO {name} VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?)",
                     rows)
                 self.client.conn().commit()
         except sqlite3.OperationalError as ex:
@@ -168,6 +180,41 @@ class SqliteEvents(base.EventStore):
                 f"cannot insert into app {app_id} channel {channel_id}: {ex}. "
                 "Was the app initialized (pio app new)?") from ex
         return ids
+
+    def insert_batch(self, events: Sequence[Event], app_id: int,
+                     channel_id: Optional[int] = None) -> List[str]:
+        return self._insert("INSERT", events, app_id, channel_id)
+
+    def insert_batch_idempotent(self, events: Sequence[Event], app_id: int,
+                                channel_id: Optional[int] = None
+                                ) -> List[str]:
+        """Retry-path insert: INSERT OR IGNORE on the id primary key, so a
+        replayed flush skips rows an earlier attempt committed."""
+        if any(not e.event_id for e in events):
+            raise StorageError(
+                "insert_batch_idempotent requires pre-assigned event ids")
+        return self._insert("INSERT OR IGNORE", events, app_id, channel_id)
+
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        row = self._rows(
+            f"SELECT {_EVENT_COLS} FROM {event_table_name(app_id, channel_id)}"
+            " WHERE id = ?", (event_id,), app_id, channel_id).fetchone()
+        return _row_to_event(row) if row else None
+
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        name = event_table_name(app_id, channel_id)
+        try:
+            with self.client.write_lock():
+                cur = self.client.conn().execute(
+                    f"DELETE FROM {name} WHERE id = ?", (event_id,))
+                self.client.conn().commit()
+        except sqlite3.OperationalError as ex:
+            raise StorageError(
+                f"cannot delete from app {app_id} channel {channel_id}: "
+                f"{ex}") from ex
+        return cur.rowcount > 0
 
     def _find_sql(
         self,
@@ -306,18 +353,18 @@ def _row_to_event(row) -> Event:
 
 
 # ---------------------------------------------------------------------------
-# App metadata
+# Metadata and model blobs
 # ---------------------------------------------------------------------------
 
-class SqliteApps(base.Apps):
+class _MetaBase:
     def __init__(self, client: SqliteClient):
         self.client = client
         with client.write_lock():
-            client.conn().execute("""CREATE TABLE IF NOT EXISTS pio_apps (
-                id INTEGER PRIMARY KEY AUTOINCREMENT,
-                name TEXT NOT NULL UNIQUE,
-                description TEXT)""")
+            self._ddl(client.conn())
             client.conn().commit()
+
+    def _ddl(self, conn):
+        raise NotImplementedError
 
     def _exec(self, sql, params=()):
         with self.client.write_lock():
@@ -327,6 +374,14 @@ class SqliteApps(base.Apps):
 
     def _query(self, sql, params=()):
         return self.client.conn().execute(sql, params)
+
+
+class SqliteApps(_MetaBase, base.Apps):
+    def _ddl(self, conn):
+        conn.execute("""CREATE TABLE IF NOT EXISTS pio_apps (
+            id INTEGER PRIMARY KEY AUTOINCREMENT,
+            name TEXT NOT NULL UNIQUE,
+            description TEXT)""")
 
     def insert(self, app: App) -> Optional[int]:
         try:
@@ -357,3 +412,256 @@ class SqliteApps(base.Apps):
     def get_all(self) -> List[App]:
         return [App(*r) for r in self._query(
             "SELECT id, name, description FROM pio_apps ORDER BY id")]
+
+    def delete(self, app_id: int) -> None:
+        self._exec("DELETE FROM pio_apps WHERE id=?", (app_id,))
+
+
+class SqliteAccessKeys(_MetaBase, base.AccessKeys):
+    def _ddl(self, conn):
+        conn.execute("""CREATE TABLE IF NOT EXISTS pio_accesskeys (
+            accesskey TEXT PRIMARY KEY,
+            appid INTEGER NOT NULL,
+            events TEXT)""")
+
+    def insert(self, k: AccessKey) -> Optional[str]:
+        key = k.key or self.generate_key()
+        try:
+            self._exec("INSERT INTO pio_accesskeys VALUES (?,?,?)",
+                       (key, k.appid, ",".join(k.events)))
+        except sqlite3.IntegrityError:
+            return None
+        return key
+
+    def get(self, key: str) -> Optional[AccessKey]:
+        row = self._query(
+            "SELECT accesskey, appid, events FROM pio_accesskeys "
+            "WHERE accesskey=?", (key,)).fetchone()
+        return _row_to_accesskey(row) if row else None
+
+    def get_all(self) -> List[AccessKey]:
+        return [_row_to_accesskey(r) for r in self._query(
+            "SELECT accesskey, appid, events FROM pio_accesskeys")]
+
+    def get_by_appid(self, appid: int) -> List[AccessKey]:
+        return [_row_to_accesskey(r) for r in self._query(
+            "SELECT accesskey, appid, events FROM pio_accesskeys "
+            "WHERE appid=?", (appid,))]
+
+
+def _row_to_accesskey(row) -> AccessKey:
+    key, appid, events = row
+    return AccessKey(key=key, appid=appid,
+                     events=tuple(e for e in (events or "").split(",") if e))
+
+
+class SqliteChannels(_MetaBase, base.Channels):
+    def _ddl(self, conn):
+        conn.execute("""CREATE TABLE IF NOT EXISTS pio_channels (
+            id INTEGER PRIMARY KEY AUTOINCREMENT,
+            name TEXT NOT NULL,
+            appid INTEGER NOT NULL,
+            UNIQUE (name, appid))""")
+
+    def insert(self, channel: Channel) -> Optional[int]:
+        try:
+            if channel.id == 0:
+                return self._exec(
+                    "INSERT INTO pio_channels (name, appid) VALUES (?,?)",
+                    (channel.name, channel.appid)).lastrowid
+            self._exec(
+                "INSERT INTO pio_channels (id, name, appid) VALUES (?,?,?)",
+                (channel.id, channel.name, channel.appid))
+            return channel.id
+        except sqlite3.IntegrityError:
+            return None
+
+    def get(self, channel_id: int) -> Optional[Channel]:
+        row = self._query(
+            "SELECT id, name, appid FROM pio_channels WHERE id=?",
+            (channel_id,)).fetchone()
+        return Channel(*row) if row else None
+
+    def get_by_appid(self, appid: int) -> List[Channel]:
+        return [Channel(*r) for r in self._query(
+            "SELECT id, name, appid FROM pio_channels WHERE appid=? "
+            "ORDER BY id", (appid,))]
+
+
+_EI_COLS = ("id, status, startTime, endTime, engineId, engineVersion, "
+            "engineVariant, engineFactory, batch, env, runtimeConf, "
+            "dataSourceParams, preparatorParams, algorithmsParams, "
+            "servingParams")
+
+
+class SqliteEngineInstances(_MetaBase, base.EngineInstances):
+    def _ddl(self, conn):
+        conn.execute("""CREATE TABLE IF NOT EXISTS pio_engineinstances (
+            id TEXT PRIMARY KEY, status TEXT, startTime INTEGER, endTime INTEGER,
+            engineId TEXT, engineVersion TEXT, engineVariant TEXT,
+            engineFactory TEXT, batch TEXT, env TEXT, runtimeConf TEXT,
+            dataSourceParams TEXT, preparatorParams TEXT,
+            algorithmsParams TEXT, servingParams TEXT)""")
+
+    def insert(self, i: EngineInstance) -> str:
+        i.id = i.id or generate_id()
+        self._exec(
+            f"INSERT INTO pio_engineinstances ({_EI_COLS}) "
+            "VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
+            (i.id, i.status, _to_ms(i.start_time), _to_ms(i.end_time),
+             i.engine_id, i.engine_version, i.engine_variant,
+             i.engine_factory, i.batch, json.dumps(i.env),
+             json.dumps(i.runtime_conf), i.data_source_params,
+             i.preparator_params, i.algorithms_params, i.serving_params))
+        return i.id
+
+    def get(self, instance_id: str) -> Optional[EngineInstance]:
+        row = self._query(
+            f"SELECT {_EI_COLS} FROM pio_engineinstances WHERE id=?",
+            (instance_id,)).fetchone()
+        return _row_to_ei(row) if row else None
+
+    def get_all(self) -> List[EngineInstance]:
+        return [_row_to_ei(r) for r in self._query(
+            f"SELECT {_EI_COLS} FROM pio_engineinstances")]
+
+    def get_completed(self, engine_id, engine_version, engine_variant):
+        return [_row_to_ei(r) for r in self._query(
+            f"SELECT {_EI_COLS} FROM pio_engineinstances "
+            "WHERE status='COMPLETED' AND engineId=? AND engineVersion=? "
+            "AND engineVariant=? ORDER BY startTime DESC",
+            (engine_id, engine_version, engine_variant))]
+
+    def update(self, i: EngineInstance) -> None:
+        self._exec(
+            "UPDATE pio_engineinstances SET status=?, startTime=?, "
+            "endTime=?, engineId=?, engineVersion=?, engineVariant=?, "
+            "engineFactory=?, batch=?, env=?, runtimeConf=?, "
+            "dataSourceParams=?, preparatorParams=?, algorithmsParams=?, "
+            "servingParams=? WHERE id=?",
+            (i.status, _to_ms(i.start_time), _to_ms(i.end_time),
+             i.engine_id, i.engine_version, i.engine_variant,
+             i.engine_factory, i.batch, json.dumps(i.env),
+             json.dumps(i.runtime_conf), i.data_source_params,
+             i.preparator_params, i.algorithms_params, i.serving_params,
+             i.id))
+
+
+def _row_to_ei(row) -> EngineInstance:
+    return EngineInstance(
+        id=row[0], status=row[1], start_time=_from_ms(row[2]),
+        end_time=_from_ms(row[3]), engine_id=row[4], engine_version=row[5],
+        engine_variant=row[6], engine_factory=row[7], batch=row[8],
+        env=json.loads(row[9] or "{}"),
+        runtime_conf=json.loads(row[10] or "{}"),
+        data_source_params=row[11], preparator_params=row[12],
+        algorithms_params=row[13], serving_params=row[14])
+
+
+_REL_COLS = ("id, version, engineId, engineVersion, engineVariant, "
+             "instanceId, paramsDigest, modelDigest, modelSizeBytes, "
+             "status, createdTime, trainSeconds, batch, history")
+
+
+class SqliteReleases(_MetaBase, base.Releases):
+    def _ddl(self, conn):
+        conn.execute("""CREATE TABLE IF NOT EXISTS pio_releases (
+            id TEXT PRIMARY KEY, version INTEGER NOT NULL,
+            engineId TEXT, engineVersion TEXT, engineVariant TEXT,
+            instanceId TEXT, paramsDigest TEXT, modelDigest TEXT,
+            modelSizeBytes INTEGER, status TEXT, createdTime INTEGER,
+            trainSeconds REAL, batch TEXT, history TEXT)""")
+        # two trains of one variant never share a version, also across
+        # processes on one sqlite file (the write lock is per process)
+        conn.execute(
+            "CREATE UNIQUE INDEX IF NOT EXISTS pio_releases_variant_version "
+            "ON pio_releases (engineId, engineVersion, engineVariant, "
+            "version)")
+
+    def insert(self, r: Release) -> str:
+        r.id = r.id or generate_id()
+        for _attempt in range(8):
+            with self.client.write_lock():
+                conn = self.client.conn()
+                row = conn.execute(
+                    "SELECT COALESCE(MAX(version), 0) FROM pio_releases "
+                    "WHERE engineId=? AND engineVersion=? AND "
+                    "engineVariant=?",
+                    (r.engine_id, r.engine_version,
+                     r.engine_variant)).fetchone()
+                r.version = int(row[0]) + 1
+                try:
+                    conn.execute(
+                        f"INSERT INTO pio_releases ({_REL_COLS}) "
+                        "VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                        (r.id, r.version, r.engine_id, r.engine_version,
+                         r.engine_variant, r.instance_id, r.params_digest,
+                         r.model_digest, r.model_size_bytes, r.status,
+                         _to_ms(r.created_time), r.train_seconds, r.batch,
+                         json.dumps(r.history)))
+                    conn.commit()
+                    return r.id
+                except sqlite3.IntegrityError:
+                    # another process claimed this version between the
+                    # MAX read and the insert: read again
+                    conn.rollback()
+        raise StorageError(
+            f"could not claim a release version for {r.engine_id}/"
+            f"{r.engine_variant} after 8 attempts")
+
+    def get(self, release_id: str) -> Optional[Release]:
+        row = self._query(
+            f"SELECT {_REL_COLS} FROM pio_releases WHERE id=?",
+            (release_id,)).fetchone()
+        return _row_to_release(row) if row else None
+
+    def get_all(self) -> List[Release]:
+        return [_row_to_release(r) for r in self._query(
+            f"SELECT {_REL_COLS} FROM pio_releases "
+            "ORDER BY engineId, engineVariant, version DESC")]
+
+    def get_for_variant(self, engine_id, engine_version, engine_variant):
+        return [_row_to_release(r) for r in self._query(
+            f"SELECT {_REL_COLS} FROM pio_releases WHERE engineId=? AND "
+            "engineVersion=? AND engineVariant=? ORDER BY version DESC",
+            (engine_id, engine_version, engine_variant))]
+
+    def update(self, r: Release) -> None:
+        self._exec(
+            "UPDATE pio_releases SET version=?, engineId=?, "
+            "engineVersion=?, engineVariant=?, instanceId=?, "
+            "paramsDigest=?, modelDigest=?, modelSizeBytes=?, status=?, "
+            "createdTime=?, trainSeconds=?, batch=?, history=? WHERE id=?",
+            (r.version, r.engine_id, r.engine_version, r.engine_variant,
+             r.instance_id, r.params_digest, r.model_digest,
+             r.model_size_bytes, r.status, _to_ms(r.created_time),
+             r.train_seconds, r.batch, json.dumps(r.history), r.id))
+
+
+def _row_to_release(row) -> Release:
+    return Release(
+        id=row[0], version=row[1], engine_id=row[2], engine_version=row[3],
+        engine_variant=row[4], instance_id=row[5], params_digest=row[6],
+        model_digest=row[7], model_size_bytes=row[8], status=row[9],
+        created_time=_from_ms(row[10]), train_seconds=row[11],
+        batch=row[12], history=json.loads(row[13] or "[]"))
+
+
+class SqliteModels(_MetaBase, base.Models):
+    """Model blobs in sqlite (JDBCModels.scala:28-55 parity)."""
+
+    def _ddl(self, conn):
+        conn.execute("""CREATE TABLE IF NOT EXISTS pio_models (
+            id TEXT PRIMARY KEY, models BLOB NOT NULL)""")
+
+    def insert(self, model: Model) -> None:
+        self._exec("INSERT OR REPLACE INTO pio_models VALUES (?,?)",
+                   (model.id, model.models))
+
+    def get(self, model_id: str) -> Optional[Model]:
+        row = self._query("SELECT id, models FROM pio_models WHERE id=?",
+                          (model_id,)).fetchone()
+        return Model(id=row[0], models=bytes(row[1])) if row else None
+
+    def delete(self, model_id: str) -> None:
+        self._exec("DELETE FROM pio_models WHERE id=?", (model_id,))

@@ -1,9 +1,10 @@
-"""Scorer and training-solver knobs: the ``scorer`` and ``train``
-sections of the reference's ``utils/server_config.py`` (``ScorerConfig``,
-``scorer_config``, ``TrainConfig``, ``als_solver_config``), with their
-precedence unchanged — server.json section < engine.json (the top-level
-``scorer`` section, the algorithm's ``solver`` params) < ``PIO_SCORER_*``
-/ ``PIO_ALS_*`` environment.
+"""Scorer, ingest and training-solver knobs: the ``scorer``, ``ingest``
+and ``train`` sections of the reference's ``utils/server_config.py``
+(``ScorerConfig``, ``scorer_config``, ``IngestConfig``, ``TrainConfig``,
+``als_solver_config``), with their precedence unchanged — server.json
+section < engine.json (the top-level ``scorer`` section, the algorithm's
+``solver`` params) < ``PIO_SCORER_*`` / ``PIO_INGEST_*`` / ``PIO_ALS_*``
+environment.
 
 The server.json path is resolved as the reference resolves it:
 ``PIO_SERVER_CONF``, else ``$PIO_CONF_DIR/server.json``, else
@@ -145,6 +146,87 @@ def scorer_config(variant_section: Optional[dict] = None) -> ScorerConfig:
     ``PIO_SCORER_*`` env vars override both."""
     data = read_server_json().get("scorer") or {}
     return ScorerConfig.from_env(data, variant_section)
+
+
+@dataclasses.dataclass
+class IngestConfig:
+    """Event-server ingest tuning (server.json ``ingest`` section,
+    camelCase keys; the ``PIO_INGEST_*`` and ``PIO_MAX_EVENTS_PER_BATCH``
+    env vars win).
+
+    ``buffer=True`` routes event writes through the group-commit
+    ``WriteBuffer`` (``data/write_buffer``): a queue bounded at
+    ``queue_max`` events (past it the server answers 429 with
+    Retry-After), flushes of up to ``flush_max`` events after at most
+    ``linger_s``, ``retries`` retries with backoff from ``backoff_s``
+    (capped at ``backoff_cap_s``) and ``flush_timeout_s`` per storage
+    call. ``buffer=False`` writes per request. ``max_events_per_batch``
+    caps ``/batch/events.json`` (EventServer.scala:66). ``partitions`` >
+    1 (parallel commit lanes over a partitioned store) is not ported:
+    resolving it raises ``NotImplementedError``."""
+
+    max_events_per_batch: int = 50
+    buffer: bool = True
+    queue_max: int = 8192
+    flush_max: int = 256
+    linger_s: float = 0.002
+    retries: int = 4
+    backoff_s: float = 0.05
+    backoff_cap_s: float = 1.0
+    flush_timeout_s: float = 30.0
+    partitions: int = 1
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None) -> "IngestConfig":
+        """server.json ``ingest`` section overlaid by env vars (env
+        wins); malformed knobs are logged and fall back."""
+        data = data or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+        keys = (
+            ("maxEventsPerBatch", "PIO_MAX_EVENTS_PER_BATCH",
+             "max_events_per_batch", int),
+            ("buffer", "PIO_INGEST_BUFFER", "buffer", as_bool),
+            ("queueMax", "PIO_INGEST_QUEUE_MAX", "queue_max", int),
+            ("flushMax", "PIO_INGEST_FLUSH_MAX", "flush_max", int),
+            ("lingerS", "PIO_INGEST_LINGER_S", "linger_s", float),
+            ("retries", "PIO_INGEST_RETRIES", "retries", int),
+            ("backoffS", "PIO_INGEST_BACKOFF_S", "backoff_s", float),
+            ("backoffCapS", "PIO_INGEST_BACKOFF_CAP_S", "backoff_cap_s",
+             float),
+            ("flushTimeoutS", "PIO_INGEST_FLUSH_TIMEOUT_S",
+             "flush_timeout_s", float),
+            ("partitions", "PIO_INGEST_PARTITIONS", "partitions", int),
+        )
+        sources = ([(k, data.get(k), attr, conv)
+                    for k, _e, attr, conv in keys]
+                   + [(e, os.environ.get(e), attr, conv)
+                      for _k, e, attr, conv in keys])
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed ingest knob %s=%r",
+                               name, raw)
+        cfg.max_events_per_batch = max(1, cfg.max_events_per_batch)
+        cfg.queue_max = max(1, cfg.queue_max)
+        cfg.flush_max = max(1, cfg.flush_max)
+        return cfg
+
+
+def ingest_config() -> IngestConfig:
+    """The event server's ingest knobs (server.json ``ingest`` section <
+    env). Partitioned ingest is refused, not run as one lane."""
+    cfg = IngestConfig.from_env(read_server_json().get("ingest") or {})
+    if cfg.partitions > 1:
+        raise NotImplementedError(
+            f"ingest partitions={cfg.partitions}: the partitioned event "
+            "store and its parallel commit lanes are not ported to "
+            "PyTorch yet")
+    return cfg
 
 
 @dataclasses.dataclass

@@ -6,7 +6,8 @@ the CPU on their own.
   over HTTP on the CPU, then finds neither ``jax`` nor any
   ``predictionio_tpu`` module in ``sys.modules``; another writes events
   into a tiny sqlite store and trains from it through the train CLI on
-  the CPU, with the same finding;
+  the CPU, and a third creates an app through the CLI and ingests an
+  event through the event server, with the same finding;
 * an AST scan finds no such import in the package or in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
@@ -89,7 +90,9 @@ os.environ.update({
     "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "pio",
     "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
     "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio",
-    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB"})
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"})
 app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
 store = Storage.get_events()
 store.init_channel(app_id)
@@ -120,6 +123,56 @@ def test_training_from_a_store_loads_no_jax(tmp_path):
     lines = out.stdout.strip().splitlines()
     assert json.loads(lines[-2])["nnz"] == 48
     assert lines[-1] == "[]", out.stdout
+
+
+_EVENT_CHILD = r"""
+import asyncio, http.client, json, os, sys
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.server.event_server import EventServer
+from predictionio_tpu_torch.storage.registry import Storage
+
+tmp = sys.argv[1]
+Storage.configure({"sources": {"DB": {"TYPE": "sqlite",
+                                      "PATH": os.path.join(tmp, "es.db")}},
+                   "repositories": {r: {"NAME": "pio", "SOURCE": "DB"}
+                                    for r in ("METADATA", "EVENTDATA",
+                                              "MODELDATA")}})
+assert main(["app", "new", "Guard", "--access-key", "k"]) == 0
+
+def post(port):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    c.request("POST", "/batch/events.json?accessKey=k", body=json.dumps([
+        {"event": "rate", "entityType": "user", "entityId": "u",
+         "targetEntityType": "item", "targetEntityId": "i",
+         "properties": {"rating": 3}}]))
+    r = c.getresponse()
+    return r.status, json.loads(r.read())
+
+async def run():
+    server = EventServer()
+    port = await server.start("127.0.0.1", 0)
+    try:
+        return await asyncio.get_running_loop().run_in_executor(None, post,
+                                                                port)
+    finally:
+        await server.close()
+
+status, body = asyncio.run(run())
+assert status == 200 and body[0]["status"] == 201, (status, body)
+assert len(list(Storage.get_events().find(1))) == 1
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_event_server_loads_no_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _EVENT_CHILD, str(tmp_path)],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
 def _port_sources():
@@ -199,6 +252,23 @@ def _cli_train(tmp_path):
                  str(tmp_path / "m.npz")])
 
 
+def _run_train(tmp_path):
+    from predictionio_tpu_torch.engines.recommendation import (
+        default_engine_params, engine,
+    )
+    from predictionio_tpu_torch.workflow.train import run_train
+
+    return run_train(engine(), default_engine_params("x"))
+
+
+def _load_for_deploy(tmp_path):
+    from predictionio_tpu_torch.engines.recommendation import engine
+    from predictionio_tpu_torch.storage.base import EngineInstance
+    from predictionio_tpu_torch.workflow.train import load_for_deploy
+
+    return load_for_deploy(engine(), EngineInstance(id="x"))
+
+
 def _cli_deploy(tmp_path):
     from predictionio_tpu_torch.cli.main import main
     from predictionio_tpu_torch.workflow.serialization import save_model
@@ -210,7 +280,8 @@ def _cli_deploy(tmp_path):
 
 @pytest.mark.parametrize("entry", ["ALSModel.from_arrays", "load_model",
                                    "build_scorer", "cli deploy",
-                                   "train_als", "cli train"])
+                                   "train_als", "cli train", "run_train",
+                                   "load_for_deploy"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -218,7 +289,9 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "build_scorer": lambda: _build_scorer(),
             "cli deploy": lambda: _cli_deploy(tmp_path),
             "train_als": _train_als,
-            "cli train": lambda: _cli_train(tmp_path)}[entry]
+            "cli train": lambda: _cli_train(tmp_path),
+            "run_train": lambda: _run_train(tmp_path),
+            "load_for_deploy": lambda: _load_for_deploy(tmp_path)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

@@ -14,6 +14,10 @@
   events and the same training columns).
 * A rate event without a rating raises ``ValueError`` in both.
 * The train CLI on the CPU writes a model file that deploys.
+* The whole lifecycle through the port's CLI and servers on the CPU:
+  eventserver, app and keys, events over REST, train into the instance,
+  model and release stores, deploy of the latest release, a retrain and
+  ``GET /reload`` to it.
 """
 
 import json
@@ -287,6 +291,8 @@ def test_train_cli_writes_a_model_that_deploys(stores, tmp_path):
            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
            "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio",
            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB",
+           "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio",
+           "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
            "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
     proc = subprocess.run(
         [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "train",
@@ -302,3 +308,196 @@ def test_train_cli_writes_a_model_that_deploys(stores, tmp_path):
     assert model.U.shape == (30, 6) and np.isfinite(model.U).all()
     recs = model.recommend("u1", 3)
     assert len(recs) == 3
+
+
+# -- the whole lifecycle through the port's servers, on the CPU ------------
+
+ROOT = str(port_rec.__file__).rsplit("/predictionio_tpu_torch/", 1)[0]
+
+
+class _Proc:
+    """A port CLI command in a subprocess whose stdout is followed until
+    it prints its ``listening on`` line."""
+
+    def __init__(self, args, env):
+        import queue
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+             *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines = queue.Queue()
+        threading.Thread(target=lambda: [self.lines.put(x) for x in
+                                         self.proc.stdout],
+                         daemon=True).start()
+
+    def port(self, timeout=120):
+        import queue
+
+        out = []
+        while True:
+            try:
+                line = self.lines.get(timeout=timeout)
+            except queue.Empty:
+                raise AssertionError(f"no listening line: {out}") from None
+            out.append(line)
+            if "listening on" in line:
+                return int(line.rsplit(":", 1)[1])
+            assert self.proc.poll() is None, "".join(out)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        return self.proc.wait(timeout=60)
+
+
+def _http(port, method, path, body=None):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    c.request(method, path, body=None if body is None else json.dumps(body),
+              headers={"Content-Type": "application/json"})
+    r = c.getresponse()
+    out = r.status, json.loads(r.read())
+    c.close()
+    return out
+
+
+def _exact_top(model, user, k):
+    ui = model.user_index(user)
+    scores = model.V @ model.U[ui]
+    order = np.argsort(-scores, kind="stable")[:k]
+    return [str(model.item_vocab[j]) for j in order], scores[order]
+
+
+def test_whole_lifecycle_on_cpu(stores, tmp_path):
+    """eventserver -> app/accesskey -> POST /batch/events.json -> train
+    (instance 1, release v1) -> deploy the latest release -> more events
+    with new users -> train (v2) -> GET /reload -> instance 2's answers,
+    every step through the port's CLI and servers on the CPU."""
+    from predictionio_tpu_torch.cli.main import main
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.workflow.serialization import (
+        deserialize_models,
+    )
+
+    db = tmp_path / "life.db"
+    env = {"PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_DB_PATH": str(db),
+           "PIO_STORAGE_SOURCES_FS_TYPE": "localfs",
+           "PIO_STORAGE_SOURCES_FS_PATH": str(tmp_path / "models"),
+           "PATH": "/usr/bin:/bin", "HOME": str(tmp_path)}
+    for repo, src in (("METADATA", "DB"), ("EVENTDATA", "DB"),
+                      ("MODELDATA", "FS")):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = "pio"
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = src
+    PortStorage.configure({
+        "sources": {"DB": {"TYPE": "sqlite", "PATH": str(db)},
+                    "FS": {"TYPE": "localfs",
+                           "PATH": str(tmp_path / "models")}},
+        "repositories": {"METADATA": {"NAME": "pio", "SOURCE": "DB"},
+                         "EVENTDATA": {"NAME": "pio", "SOURCE": "DB"},
+                         "MODELDATA": {"NAME": "pio", "SOURCE": "FS"}}})
+    assert main(["app", "new", APP, "--access-key", "k1"]) == 0
+    with pytest.raises(SystemExit) as dup:
+        main(["app", "new", APP])
+    assert dup.value.code == 1
+    assert main(["accesskey", "new", APP, "--key", "k2",
+                 "--event", "rate"]) == 0
+    variant = tmp_path / "engine.json"
+    variant.write_text(json.dumps({
+        "id": "default",
+        "engineFactory": "predictionio_tpu_torch.engines.recommendation:"
+                         "engine",
+        "datasource": {"params": {"appName": APP}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": 6, "numIterations": 4, "lambda": 0.05}}]}))
+
+    def wire(rows):
+        return [{"event": e, "entityType": "user", "entityId": u,
+                 "targetEntityType": "item", "targetEntityId": i,
+                 **({} if r is None else {"properties": {"rating": r}})}
+                for e, u, i, r in rows]
+
+    es = _Proc(["eventserver", "--ip", "127.0.0.1", "--port", "0"], env)
+    server = None
+    try:
+        es_port = es.port()
+        first = wire(_event_rows(seed=21))
+        for s in range(0, len(first), 50):
+            status, body = _http(es_port, "POST",
+                                 "/batch/events.json?accessKey=k2",
+                                 first[s:s + 50])
+            assert status == 200
+            # k2 takes rate events only: buy events answer 403
+            assert [r["status"] for r in body] == [
+                201 if ev["event"] == "rate" else 403
+                for ev in first[s:s + 50]]
+        status, _ = _http(es_port, "POST", "/batch/events.json?accessKey=no",
+                          first[:2])
+        assert status == 401
+        n_rate = sum(ev["event"] == "rate" for ev in first)
+
+        def train():
+            proc = subprocess.run(
+                [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                 "train", "--variant", str(variant), "--device", "cpu"],
+                cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=300)
+            assert proc.returncode == 0, proc.stderr[-3000:]
+            return json.loads(proc.stdout.strip().splitlines()[-1])
+
+        t1 = train()
+        assert (t1["nnz"], t1["release"], t1["out"]) == (n_rate, 1, None)
+        server = _Proc(["deploy", "--variant", str(variant), "--ip",
+                        "127.0.0.1", "--port", "0", "--device", "cpu",
+                        "--accesskey", "secret"], env)
+        q_port = server.port()
+        status, root = _http(q_port, "GET", "/")
+        assert root["engineInstance"]["id"] == t1["instance"]
+        assert root["engineInstance"]["releaseVersion"] == 1
+
+        def models_of(instance_id):
+            blob = Storage.get_model_data_models().get(instance_id).models
+            return deserialize_models(blob, device="cpu")[0]
+
+        m1 = models_of(t1["instance"])
+        got = _http(q_port, "POST", "/queries.json",
+                    {"user": "u1", "num": 5})[1]["itemScores"]
+        assert [s["item"] for s in got] == _exact_top(m1, "u1", 5)[0]
+        assert _http(q_port, "POST", "/queries.json",
+                     {"user": "newbie", "num": 5})[1] == {"itemScores": []}
+
+        more = wire([("rate", "newbie", f"i{j}", 5.0) for j in range(6)]
+                    + [("rate", f"u{u}", "i3", 4.0) for u in range(10)])
+        status, body = _http(es_port, "POST",
+                             "/batch/events.json?accessKey=k1", more)
+        assert all(r["status"] == 201 for r in body)
+        t2 = train()
+        assert (t2["nnz"], t2["release"]) == (n_rate + len(more), 2)
+
+        assert _http(q_port, "GET", "/reload")[0] == 401
+        status, body = _http(q_port, "GET", "/reload?accessKey=secret")
+        assert status == 200, body
+        assert (body["engineInstanceId"], body["releaseVersion"]) == (
+            t2["instance"], 2)
+        m2 = models_of(t2["instance"])
+        for user in ("newbie", "u1", "u7"):
+            got = _http(q_port, "POST", "/queries.json",
+                        {"user": user, "num": 5})[1]["itemScores"]
+            want, scores = _exact_top(m2, user, 5)
+            assert [s["item"] for s in got] == want
+            np.testing.assert_allclose([s["score"] for s in got], scores,
+                                       rtol=1e-5, atol=1e-6)
+        status, listing = _http(q_port, "GET", "/releases.json")
+        assert [(r["version"], r["status"]) for r in listing["releases"]] \
+            == [(2, "LIVE"), (1, "RETIRED")]
+        assert listing["serving"]["releaseVersion"] == 2
+        assert _http(q_port, "POST", "/stop?accessKey=secret")[0] == 200
+        assert server.proc.wait(timeout=60) == 0
+    finally:
+        if server is not None:
+            server.stop()
+        # SIGTERM: the event server drains its buffer and exits cleanly
+        assert es.stop() == 0

@@ -82,9 +82,47 @@ Phases, each reported on its own lines:
                    20-iteration train resuming a step-10 snapshot (20
                    launches), both within ``TWIN_TOL`` of the straight
                    run.
-6. ``serve``     — builds an ALS model at full width from ``--seed``
-                   (10M items x rank 64, 138,493 users, factors with a
-                   geometrically decaying spectrum), saves it, deploys it
+6. ``foldin``    — online fold-in (``deploy/foldin``), two legs. Leg 1,
+                   inside the lifecycle after the v2 checks: ``deploy``
+                   of v2 with ``PIO_FOLDIN=1`` and a 0.25 s apply interval
+                   (the reference bench's, bench.py:1914-1922); 120 new
+                   users x 8 rate events over the event server in the
+                   other process (the pull path), one user a request 4 ms
+                   apart, every 4th probed until answered (event ->
+                   reflected p50/p95, held to the bench's bound p95 <=
+                   interval + the longest apply + 0.5 s); 8 more ratings
+                   for 20 sampled users; 5 new items rated by 10 users
+                   each. Checks: every folded user's served top-10 equal
+                   to the exact top-10 of rows recomputed here by
+                   ``FoldInSolver`` on the plain solve from v2's factors
+                   and the stored events (ids up to ties, scores within
+                   1e-4); a whiteList of the new items serves them; the
+                   controls' answers unchanged unless a new item belongs
+                   in their top-10; the deploy's B1 launches equal the
+                   controller's solves, every apply's solve on the card;
+                   a LIVE drift release over v2, v2 RETIRED; then
+                   ``rollback``: the sampled and control answers byte
+                   for byte as before, the new users unknown, the drift
+                   ROLLED_BACK. Leg 2, after the lifecycle, on the serve
+                   cell's model (built once, in this process):
+                   ``FoldInSolver`` over the 10M x 64 factors on the card,
+                   256 users x 8 ratings batched (1 launch) against one
+                   at a time (256), explicit and implicit (the Gramian
+                   once per solver), rows within 1e-4 * max(1, max |x|)
+                   of the plain solve and the batched solve at least 5x
+                   the rows/s (bench.py:1967); a ``QueryServer`` (twostage,
+                   shortlist ``SHORTLIST``) with its controller and a
+                   ``WriteBuffer`` flush tap (the push path), the same
+                   stream and bound, user-only folds keeping the
+                   quantized scorer, the folded users served through B2
+                   with recall@10 >= 0.99 against the exact top-10 of
+                   their rows; then 16 new items (24 raters each), the
+                   scorer rebuilt (and parity-gated) before the swap, and
+                   a user aligned with each new item served it first,
+                   through B2 if the gate kept twostage, else exactly.
+7. ``serve``     — the same model (10M items x rank 64, 138,493 users,
+                   factors with a geometrically decaying spectrum from
+                   ``--seed``), saved and deployed
                    with ``python -m predictionio_tpu_torch.cli.main
                    deploy`` under ``PIO_SCORER_MODE=twostage`` (tile
                    16384, shortlist ``SHORTLIST``) and POSTs
@@ -111,6 +149,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import pathlib
@@ -973,6 +1012,11 @@ def lifecycle_phase(seed: int, port: int):
         status, _, _ = qc.call("POST", f"/stop?accessKey={key}")
         check(status == 200 and server.proc.wait(timeout=60) == 0,
               "the query server did not stop on POST /stop")
+        # 7. the foldin phase's first leg, on v2 and the same event server
+        t0 = time.perf_counter()
+        foldin = foldin_lifecycle_leg(seed, env, variant, key, es_port,
+                                      port, m2)
+        foldin["leg_s"] = time.perf_counter() - t0
         events_srv.stop()
         check(events_srv.proc.returncode == 0, "the event server did not "
               f"drain and exit cleanly (rc {events_srv.proc.returncode})")
@@ -988,7 +1032,7 @@ def lifecycle_phase(seed: int, port: int):
         ckpt = checkpoint_leg(users, items, ratings, bu, bi, work)
         report = {"ingest": ingest_report, "train": t1, "train_v2": t2,
                   **reload_report, "checkpoint": ckpt,
-                  "queries": len(picks) + 11}
+                  "queries": len(picks) + 11, "foldin": foldin}
         log("lifecycle: " + json.dumps(report))
         return report
     finally:
@@ -1061,6 +1105,702 @@ def checkpoint_leg(users, items, ratings, bu, bi, work):
           f"resumed train differs from the straight run by "
           f"{out['resumed_rel_diff']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# foldin phase, leg 1: the lifecycle's deploy with online fold-in
+# ---------------------------------------------------------------------------
+
+#: the reference bench's fold-in stream (bench.py:1914-1922): apply
+#: interval, streamed users, ratings per user, and the p95 slack of its
+#: bound p95 <= interval + the longest apply + slack (bench.py:2078-2091)
+FOLDIN = dict(interval_s=0.25, stream_users=120, events_per_user=8,
+              p95_slack_s=0.5, gap_s=0.004)
+#: folded rows (kernel against the plain solve) and served scores
+FOLDIN_TOL = 1e-4
+
+
+def _percentile_pair(lat):
+    """(p50, p95) as the reference bench takes them."""
+    lat = sorted(lat)
+    return lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.95 * len(lat)))]
+
+
+def _plain_solve(fn):
+    """``fn()`` with the plain batched solve (PIO_TPU_SOLVE=vec); checks
+    that it launched no kernel."""
+    from predictionio_tpu_torch.ops import kernels
+
+    saved = os.environ.get("PIO_TPU_SOLVE")
+    os.environ["PIO_TPU_SOLVE"] = "vec"
+    before = kernels.counts()["spd_solve"]
+    try:
+        out = fn()
+    finally:
+        if saved is None:
+            del os.environ["PIO_TPU_SOLVE"]
+        else:
+            os.environ["PIO_TPU_SOLVE"] = saved
+    check(kernels.counts()["spd_solve"] == before,
+          "the plain fold-in twin launched the kernel")
+    return out
+
+
+def _fold_rows(spec, factors, vocab, history):
+    """The rows the controller folds from ``history`` ({id: (others,
+    values)}) against ``factors``: only ratings of known targets join,
+    and an entity with none is skipped (``FoldInController._solve_side``)."""
+    from predictionio_tpu_torch.data.bimap import batch_lookup
+    from predictionio_tpu_torch.models.als import FoldInSolver
+
+    kept, rated, values = [], [], []
+    for ent, (others, vals) in history.items():
+        idx = batch_lookup(vocab, others)
+        if (idx >= 0).any():
+            kept.append(ent)
+            rated.append(idx[idx >= 0])
+            values.append(vals[idx >= 0])
+    if not kept:
+        return {}
+    rows = FoldInSolver(factors, spec.als_params, device=DEV).solve(rated,
+                                                                    values)
+    return dict(zip(kept, rows))
+
+
+def _wait_quiet(qc, after_ticks: int, what: str, timeout_s: float = 120):
+    """Wait until the controller has run ``after_ticks`` more ticks than
+    now and nothing is pending: a tick that starts after the events were
+    acknowledged reads all of them. Returns the fold-in status."""
+    def ticks(st):
+        return sum(st["outcomes"].values())
+
+    _, st, _ = qc.call("GET", "/deploy/status.json")
+    goal = ticks(st["foldin"]) + after_ticks
+    deadline = time.monotonic() + timeout_s
+    while True:
+        _, st, _ = qc.call("GET", "/deploy/status.json")
+        f = st["foldin"]
+        if ticks(f) >= goal and f["pendingRows"] == 0:
+            return f
+        check(time.monotonic() < deadline, f"fold-in did not settle after "
+              f"{what}: {json.dumps(f)[:500]}")
+        time.sleep(0.05)
+
+
+def foldin_lifecycle_leg(seed, env, variant, key, es_port, port, m2):
+    """Leg 1 of the foldin phase: ``deploy`` of v2 with PIO_FOLDIN=1, the
+    reference bench's stream of new users over the event server in
+    another process (the pull path), more ratings of sampled users, new
+    items, the checks against a plain-solve recompute, and ``rollback``."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.bimap import vocab_index
+    from predictionio_tpu_torch.deploy.foldin import (
+        read_entities_ratings, upsert_factor_rows,
+    )
+    from predictionio_tpu_torch.engines.recommendation import (
+        ALSAlgorithm, AlgorithmParams, default_engine_params,
+    )
+    from predictionio_tpu_torch.models.als import ALSModel
+
+    c, f = ML100K, FOLDIN
+    env_f = dict(env, PIO_FOLDIN="1",
+                 PIO_FOLDIN_APPLY_INTERVAL_S=str(f["interval_s"]))
+    server = Server(["deploy", "--variant", str(variant), "--port",
+                     str(port), "--device", DEV, "--accesskey", key], env_f,
+                    tag="foldin")
+    try:
+        q_port = server.wait_ready(timeout_s=300)
+        qc = Client(q_port)
+        ec = Client(es_port)
+        _, root, _ = qc.call("GET", "/")
+        check(root["engineInstance"]["releaseVersion"] == 2
+              and root["foldin"]["enabled"], "the fold-in deploy serves "
+              f"{root['engineInstance']}, fold-in {root['foldin']}")
+        check(root["kernelLaunches"]["spd_solve"] == 0,
+              "B1 launched before any event")
+        rng = np.random.default_rng(seed + 6)
+        pool = rng.choice(len(m2.user_vocab), size=25 + 50, replace=False)
+        pool = [str(m2.user_vocab[i]) for i in pool]
+        sampled, controls, raters = pool[:20], pool[20:25], pool[25:]
+        before = {u: qc.call("POST", "/queries.json",
+                             {"user": u, "num": 10}, raw=True)[1]
+                  for u in sampled + controls}
+
+        def post(events):
+            status, body, _ = ec.call(
+                "POST", f"/batch/events.json?accessKey={key}", events)
+            check(status == 200 and all(r["status"] == 201 for r in body),
+                  f"fold-in events answered {status} {str(body)[:200]}")
+            return time.monotonic()
+
+        def rate_rows(user, n):
+            its = rng.choice(len(m2.item_vocab), size=n, replace=False)
+            return [{"event": "rate", "entityType": "user",
+                     "entityId": user, "targetEntityType": "item",
+                     "targetEntityId": str(m2.item_vocab[i]),
+                     "properties": {"rating": float(rng.integers(1, 6))}}
+                    for i in its]
+
+        def probe(user, deadline_s=60.0):
+            deadline = time.monotonic() + deadline_s
+            while time.monotonic() < deadline:
+                _, body, _ = qc.call("POST", "/queries.json",
+                                     {"user": user, "num": 10})
+                if body["itemScores"]:
+                    return time.monotonic()
+                time.sleep(0.002)
+            check(False, f"fold-in: {user} never reflected")
+
+        # 1. the stream: new users, one a request, a few ms apart; every
+        #    4th probed until answered (bench.py:2053-2072)
+        warm = [f"foldwarm{w}" for w in range(2)]
+        for user in warm:
+            post(rate_rows(user, f["events_per_user"]))
+            probe(user)
+        warm_applies = _wait_quiet(qc, 1, "the warm-up users")["applies"]
+        t_stream = time.perf_counter()
+        stream = [f"fold{n:04d}" for n in range(f["stream_users"])]
+        lat = []
+        for n, user in enumerate(stream):
+            t_post = post(rate_rows(user, f["events_per_user"]))
+            time.sleep(f["gap_s"])
+            if n % 4 == 3:
+                lat.append(probe(user) - t_post)
+        probe(stream[-1])
+        stream_s = time.perf_counter() - t_stream
+        st_stream = _wait_quiet(qc, 1, "the stream")
+        for user in stream:
+            _, body, _ = qc.call("POST", "/queries.json",
+                                 {"user": user, "num": 10})
+            check(len(body["itemScores"]) == 10,
+                  f"streamed user {user} not reflected")
+        # 2. more ratings of the sampled users (a user's events may
+        #    straddle two requests: the settle waits two ticks past them)
+        more = [e for u in sampled for e in rate_rows(u, 8)]
+        for s0 in range(0, len(more), 50):
+            post(more[s0:s0 + 50])
+        _wait_quiet(qc, 2, "the sampled users' ratings")
+        # 3. new items, each rated by 10 existing users (one request)
+        new_items = [f"foldi{j}" for j in range(5)]
+        post([{"event": "rate", "entityType": "user", "entityId": u,
+               "targetEntityType": "item", "targetEntityId": it,
+               "properties": {"rating": float(rng.integers(1, 6))}}
+              for j, it in enumerate(new_items)
+              for u in raters[10 * j:10 * (j + 1)]])
+        st = _wait_quiet(qc, 3, "the new items")
+        _, root, _ = qc.call("GET", "/")
+
+        # the plain-solve recompute of every folded row, in the order the
+        # controller folds them: the stream and the sampled users against
+        # v2's V; the raters against v2's V (known items only), then the
+        # new items against U with those rows, then the raters again
+        # against V with the new items
+        algo = ALSAlgorithm(AlgorithmParams(rank=c["rank"],
+                                            num_iterations=c["iters"],
+                                            reg=c["reg"]))
+        spec = algo.foldin_spec(m2, default_engine_params("SmokeApp"))
+
+        def recompute():
+            hist = read_entities_ratings(spec, warm + stream + sampled)
+            uv, U = upsert_factor_rows(
+                m2.user_vocab, m2.U,
+                _fold_rows(spec, m2.V, m2.item_vocab, hist))
+            hr = read_entities_ratings(spec, raters)
+            uv, U = upsert_factor_rows(
+                uv, U, _fold_rows(spec, m2.V, m2.item_vocab, hr))
+            iv, V = upsert_factor_rows(
+                m2.item_vocab, m2.V,
+                _fold_rows(spec, U, uv,
+                           read_entities_ratings(spec, new_items, "item")))
+            uv, U = upsert_factor_rows(uv, U, _fold_rows(spec, V, iv, hr))
+            return ALSModel.from_arrays(uv, iv, U, V, device=DEV)
+
+        want = _plain_solve(recompute)
+        check(all(vocab_index(want.item_vocab, it) is not None
+                  for it in new_items), "recompute lost a new item")
+        err, _ = check_top10(qc, want, warm + stream + sampled + raters,
+                             "foldin")
+        _, body, _ = qc.call("POST", "/queries.json", {
+            "user": stream[0], "num": 10, "whiteList": new_items})
+        check(sorted(x["item"] for x in body["itemScores"])
+              == sorted(new_items), f"whiteList of the new items served "
+              f"{body['itemScores']}")
+        # a control's answer is unchanged unless a new item now belongs
+        # in its exact top-10 (then it must be that top-10)
+        unchanged = 0
+        for u in controls:
+            now = qc.call("POST", "/queries.json", {"user": u, "num": 10},
+                          raw=True)[1]
+            ui = want.user_index(u)
+            top = np.argsort(-(want.V @ want.U[ui]), kind="stable")[:10]
+            if not {str(want.item_vocab[j]) for j in top} & set(new_items):
+                check(now == before[u], f"control {u}'s answer changed")
+                unchanged += 1
+            else:
+                check_top10(qc, want, [u], "foldin control")
+        check(unchanged >= 1, "no control kept its answer")
+        fs = st
+        solve_calls = fs["solveCalls"]
+        b1 = root["kernelLaunches"]["spd_solve"]
+        check(b1 == solve_calls and b1 >= 1, f"the deploy launched B1 {b1} "
+              f"times for {solve_calls} fold-in solves")
+        check(fs["applies"] >= 1 and fs["appliedUserRows"] >= 140
+              and fs["appliedItemRows"] == 5, f"fold-in status {fs}")
+        for a in fs["recentApplies"]:
+            check(all(s["solve_event_ms"] is not None
+                      for s in a["solves"]), "an apply did not solve on "
+                  "the card")
+        _, listing, _ = qc.call("GET", "/releases.json")
+        by_v = {r["version"]: r for r in listing["releases"]}
+        drift = [r for r in listing["releases"]
+                 if r["batch"] == "foldin drift of v2"]
+        check(len(drift) == 1 and drift[0]["status"] == "LIVE"
+              and by_v[2]["status"] == "RETIRED", "releases after fold-in: "
+              f"{[(r['version'], r['status'], r['batch']) for r in listing['releases']]}")
+        _, status, _ = qc.call("GET", "/deploy/status.json")
+        check(status["standby"]["releaseVersion"] == 2,
+              f"the standby is {status['standby']}, not v2")
+
+        # 4. rollback: the pre-fold-in answers, byte for byte
+        t0 = time.perf_counter()
+        out = _cli(["rollback", "--port", str(q_port), "--accesskey", key],
+                   env)
+        rollback_cli_s = time.perf_counter() - t0
+        log("foldin: " + out[-1])
+        for u in sampled + controls:
+            now = qc.call("POST", "/queries.json", {"user": u, "num": 10},
+                          raw=True)[1]
+            check(now == before[u], f"after rollback {u}'s answer differs "
+                  "from its pre-fold-in answer")
+        for u in warm + stream:
+            _, body, _ = qc.call("POST", "/queries.json",
+                                 {"user": u, "num": 10})
+            check(body["itemScores"] == [], f"{u} still known after the "
+                  "rollback")
+        _, listing, _ = qc.call("GET", "/releases.json")
+        d = next(r for r in listing["releases"]
+                 if r["id"] == drift[0]["id"])
+        check(d["status"] == "ROLLED_BACK" and next(
+            r for r in listing["releases"] if r["version"] == 2)["status"]
+            == "LIVE", f"after rollback the drift is {d['status']}")
+        rollback_ms = float(out[-1].rsplit("in ", 1)[1].split(" ms")[0])
+        status, _, _ = qc.call("POST", f"/stop?accessKey={key}")
+        check(status == 200 and server.proc.wait(timeout=60) == 0,
+              "the fold-in deploy did not stop on POST /stop")
+
+        p50, p95 = _percentile_pair(lat)
+        stream_applies = st_stream["recentApplies"][
+            warm_applies - st_stream["applies"]:]
+        max_apply = max(a["apply_s"] for a in stream_applies)
+        bound = f["interval_s"] + max_apply + f["p95_slack_s"]
+        report = {
+            "stream_users": len(stream), "probed": len(lat),
+            "p50_event_to_reflected_s": p50,
+            "p95_event_to_reflected_s": p95, "p95_bound_s": bound,
+            "max_stream_apply_s": max_apply, "stream_s": stream_s,
+            "applies": fs["applies"], "solve_calls": solve_calls,
+            "b1_launches": b1, "applied_user_rows": fs["appliedUserRows"],
+            "applied_item_rows": fs["appliedItemRows"],
+            "max_score_abs_err": err, "controls_unchanged": unchanged,
+            "rollback_server_ms": rollback_ms,
+            "rollback_cli_s": rollback_cli_s,
+            "apply_split": _split_summary(fs["recentApplies"])}
+        log("foldin: lifecycle " + json.dumps(report))
+        check(p95 <= bound, f"fold-in p95 event->reflected {p95:.3f} s "
+              f"exceeds the bound {bound:.3f} s")
+        return report
+    finally:
+        server.stop()
+
+
+def foldin_b1_rows(seed, shapes):
+    """B1 at the fold-in applies' shapes ``(K, S)``: the call's ms (CUDA
+    events over back-to-back calls: the wrapper's host time where it
+    exceeds the kernel's) and the kernel's device ms (a CUDA graph of the
+    calls, replayed), on systems built as the kernels phase builds them,
+    each held to the plain solve."""
+    import torch
+
+    from predictionio_tpu_torch.ops.linalg import (
+        cholesky_solve_vec, spd_solve, with_diagonal,
+    )
+
+    g = torch.Generator(device=DEV).manual_seed(seed + 9)
+    rows = []
+    for k, s_ in sorted(set(shapes)):
+        gram, lam, b, _ = spd_inputs(s_, k, g)
+        x = spd_solve(gram, b, lam, 1e-6)
+        plain = cholesky_solve_vec(with_diagonal(gram, lam, 1e-6), b)
+        scale = max(1.0, float(plain.abs().max()))
+        err = float((x - plain).abs().max())
+        check(err <= SPD_TOL * scale, f"B1 at K={k} S={s_}: max |dx| {err}")
+        rows.append({
+            "K": k, "S": s_, "max_abs_err": err,
+            "call_ms": cuda_ms(lambda: spd_solve(gram, b, lam, 1e-6),
+                               iters=200, warmup=20),
+            "device_ms": graph_ms(lambda: spd_solve(gram, b, lam, 1e-6),
+                                  launches=50)})
+    log("foldin: b1 " + json.dumps(rows))
+    return rows
+
+
+def _split_summary(applies):
+    """Medians and maxima of the applies' splits, and B1's call ms and
+    event-to-event ms by the bucketed S it ran at."""
+    import numpy as np
+
+    out = {}
+    for k in ("read_s", "model_s", "register_s", "warm_s", "swap_s",
+              "pull_s", "apply_s"):
+        v = [a[k] for a in applies if k in a]
+        if v:
+            out[k] = {"median": float(np.median(v)), "max": float(max(v))}
+    by_s = {}
+    for a in applies:
+        for sv in a["solves"]:
+            by_s.setdefault((sv["K"], sv["S"]), []).append(sv)
+    out["b1_by_shape"] = [
+        {"K": k, "S": s_, "solves": len(v),
+         "call_ms_median": float(np.median([x["solve_call_ms"] for x in v])),
+         "event_ms_median": (
+             float(np.median([x["solve_event_ms"] for x in v]))
+             if v[0]["solve_event_ms"] is not None else None),
+         "system_ms_median": float(np.median([x["system_ms"] for x in v]))}
+        for (k, s_), v in sorted(by_s.items())]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# foldin phase, leg 2: the serve cell's width, in this process
+# ---------------------------------------------------------------------------
+
+#: the reference bench's solver measurement (bench.py:1917-1918,
+#: :1928-1967): B pending rows x ratings each, reg, and the least speed-up
+#: of one batched solve over one solve a row
+FOLDIN_SOLVER = dict(batch=256, ratings=8, reg=0.05, min_speedup=5.0)
+#: the width leg's item fold: new items, raters of each (users + items
+#: stay within one apply's max_pending)
+FOLDIN_ITEMS = dict(items=16, raters=24)
+
+
+def foldin_solver_leg(V_dev, n_items: int):
+    """Batched against one-at-a-time fold-in over the 10M x 64 factors on
+    the card, explicit then implicit: launch counts, rows/s, B1's call
+    and device time at S = 256 and S = 1, and every row held to the plain
+    solve."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models.als import ALSParams, FoldInSolver
+    from predictionio_tpu_torch.ops import kernels
+
+    fs = FOLDIN_SOLVER
+    rng = np.random.default_rng(17)
+    b, n = fs["batch"], fs["ratings"]
+    rated = [rng.choice(n_items, size=n, replace=False) for _ in range(b)]
+    values = [np.clip(rng.normal(3.0, 1.0, n), 1, 5).astype(np.float32)
+              for _ in range(b)]
+    out = {}
+    for name, params in (
+            ("explicit", ALSParams(rank=V_dev.shape[1], reg=fs["reg"])),
+            ("implicit", ALSParams(rank=V_dev.shape[1], reg=fs["reg"],
+                                   implicit_prefs=True, alpha=1.0))):
+        solver = FoldInSolver(None, params, factors_device=V_dev)
+        solver.solve(rated, values)                  # first-use costs
+        solver.solve(rated[:1], values[:1])
+        gram = solver._gram
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        x = solver.solve(rated, values)
+        batched_s = time.perf_counter() - t0
+        at_b = dict(solver.last_solve)
+        n_batched = kernels.counts()["spd_solve"]
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        seq = np.concatenate([solver.solve([r], [v])
+                              for r, v in zip(rated, values)])
+        seq_s = time.perf_counter() - t0
+        at_1 = dict(solver.last_solve)
+        n_seq = kernels.counts()["spd_solve"]
+        batched_s = min(batched_s, _timed(lambda: solver.solve(rated,
+                                                               values)))
+        seq_s = min(seq_s, _timed(lambda: [solver.solve([r], [v]) for r, v
+                                          in zip(rated, values)]))
+        plain = _plain_solve(lambda: solver.solve(rated, values))
+        scale = max(1.0, float(np.abs(plain).max()))
+        err = max(float(np.abs(x - plain).max()),
+                  float(np.abs(seq - plain).max()))
+        check(n_batched == 1 and n_seq == b, f"fold-in solver {name}: "
+              f"{n_batched} launches batched, {n_seq} one at a time, "
+              f"expected 1 and {b}")
+        check(err <= FOLDIN_TOL * scale, f"fold-in solver {name}: rows "
+              f"differ from the plain solve by {err} > {FOLDIN_TOL} * "
+              f"{scale}")
+        check(solver._gram is gram and (gram is not None)
+              == params.implicit_prefs, f"fold-in solver {name}: the "
+              "Gramian was not computed once")
+        speedup = seq_s / batched_s
+        out[name] = {
+            "rows_per_s_batched": b / batched_s,
+            "rows_per_s_one_at_a_time": b / seq_s, "speedup": speedup,
+            "launches_batched": n_batched, "launches_one_at_a_time": n_seq,
+            "max_abs_err": err, "max_abs_x": scale,
+            "b1_at_S256": at_b, "b1_at_S1": at_1}
+        check(speedup >= fs["min_speedup"], f"fold-in solver {name}: "
+              f"batched {speedup:.1f}x over one at a time, under "
+              f"{fs['min_speedup']}x")
+    log("foldin: solver " + json.dumps(out))
+    return out
+
+
+def _applies_after(ctl, n: int):
+    """The controller's logged applies after its n-th."""
+    return [a for a in ctl.apply_log.copy() if a["apply"] > n]
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def foldin_width_leg(seed, users, items, U, V):
+    """Leg 2 of the foldin phase: the serve cell's model in this process,
+    a QueryServer (twostage, shortlist SHORTLIST) with its controller
+    started and the write buffer's flush tap armed (the push path), the
+    reference bench's stream and probe (bench.py:2005-2091), then one item
+    fold. Returns the leg's report."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import UTC, Event
+    from predictionio_tpu_torch.data.write_buffer import WriteBuffer
+    from predictionio_tpu_torch.deploy.warm import EngineInstance
+    from predictionio_tpu_torch.engines.recommendation import (
+        Query, default_engine_params, engine,
+    )
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.ops import kernels, scoring
+    from predictionio_tpu_torch.server.query_server import QueryServer
+    from predictionio_tpu_torch.storage.base import App
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.utils.server_config import (
+        FoldinConfig, ScorerConfig,
+    )
+    import datetime as dt
+
+    f = FOLDIN
+    n_items, rank = V.shape
+    work = WORK / "foldin_width"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    Storage.configure({
+        "sources": {"DB": {"TYPE": "sqlite", "PATH": str(work / "pio.db")}},
+        "repositories": {r: {"NAME": "pio", "SOURCE": "DB"}
+                         for r in ("METADATA", "EVENTDATA", "MODELDATA")}})
+    server = buf = ctl = None
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0,
+                                                         name="WidthApp"))
+        Storage.get_events().init_channel(app_id)
+        model = ALSModel.from_arrays(users, items, U, V, device=DEV)
+        eng = engine()
+        result = eng.prepare_deploy(
+            default_engine_params("WidthApp", rank=rank), [model])
+        server = QueryServer(
+            eng, result, EngineInstance(id="foldin-width"),
+            scorer_config=ScorerConfig(mode="twostage", tile_items=TILE,
+                                       shortlist=SHORTLIST),
+            foldin_config=FoldinConfig(
+                enabled=True, apply_interval_s=f["interval_s"],
+                max_pending=4 * f["stream_users"]))
+        t0 = time.perf_counter()
+        server.warm()
+        build_s = time.perf_counter() - t0
+        scorer0 = model._scorer_cache[2]
+        check(scorer0.active_mode == "twostage", "the width leg's scorer "
+              f"serves {scorer0.active_mode}")
+        t0 = time.perf_counter()
+        V_dev = model.V_device                       # the solver's copy
+        synchronize()
+        upload_s = time.perf_counter() - t0
+        solver = foldin_solver_leg(V_dev, n_items)
+
+        server._start_foldin()                       # no loop: tap only
+        ctl = server._foldin
+        buf = WriteBuffer(Storage.get_events, linger_s=0.001, flush_max=256)
+        stop = threading.Event()
+        errors = []
+
+        def apply_loop():
+            while not stop.is_set():
+                try:
+                    ctl.apply_pending()
+                except Exception as e:      # noqa: BLE001 — reported
+                    errors.append(repr(e))
+                stop.wait(f["interval_s"])
+
+        applier = threading.Thread(target=apply_loop, daemon=True)
+        applier.start()
+        rng = np.random.default_rng(seed + 7)
+        scored = [0]
+
+        def stream_one(uid):
+            when = dt.datetime.now(tz=UTC)
+            its = rng.choice(n_items, size=f["events_per_user"],
+                             replace=False)
+            buf.submit([Event(event="rate", entity_type="user",
+                              entity_id=uid, target_entity_type="item",
+                              target_entity_id=str(items[j]),
+                              properties=DataMap({"rating": 4.0}),
+                              event_time=when) for j in its], app_id)
+            return time.monotonic()
+
+        def probe_until(uid, deadline_s=60.0):
+            deadline = time.monotonic() + deadline_s
+            while time.monotonic() < deadline:
+                out = server._predict_batch([Query(user=uid, num=10)])[0]
+                if out.item_scores:
+                    scored[0] += 1
+                    return time.monotonic()
+                time.sleep(0.002)
+            check(False, f"width leg: {uid} never reflected "
+                  f"(apply errors {errors[:3]})")
+
+        for w in range(2):                    # the first applies upload V
+            stream_one(f"warm{w:04d}")
+            probe_until(f"warm{w:04d}")
+        a0 = ctl.applies
+        kernels.reset_counts()
+        scored[0] = 0
+        lat = []
+        t_stream = time.perf_counter()
+        stream = [f"fresh{n:05d}" for n in range(f["stream_users"])]
+        for n, uid in enumerate(stream):
+            t_post = stream_one(uid)
+            time.sleep(f["gap_s"])
+            if n % 4 == 3:
+                lat.append(probe_until(uid) - t_post)
+        probe_until(stream[-1])
+        stream_s = time.perf_counter() - t_stream
+        for uid in stream:
+            probe_until(uid, deadline_s=10.0)
+        launches = kernels.counts()
+        stream_applies = _applies_after(ctl, a0)
+        check(not errors, f"width leg applies failed: {errors[:3]}")
+        unit = server._unit
+        m_now = unit.result.models[0]
+        check(m_now._scorer_cache[2] is scorer0, "a user-only fold did not "
+              "carry the quantized scorer")
+        check(launches["shortlist"] >= scored[0], f"{scored[0]} scored "
+              f"queries launched the shortlist kernel "
+              f"{launches['shortlist']} times")
+        check(launches["spd_solve"] == sum(len(a["solves"])
+                                           for a in stream_applies),
+              f"the stream's applies launched B1 {launches['spd_solve']} "
+              "times")
+        # recall@10 of the folded users' served answers against the exact
+        # top-10 of their folded rows on the card
+        hits = total = 0
+        for uid in stream:
+            got = [s.item for s in server._predict_batch(
+                [Query(user=uid, num=10)])[0].item_scores]
+            u = torch.from_numpy(m_now.U[m_now.user_index(uid)]).to(DEV)
+            top = torch.topk(V_dev @ u, 10).indices.cpu().numpy()
+            hits += len({str(items[j]) for j in top} & set(got))
+            total += 10
+        recall = hits / total
+        p50, p95 = _percentile_pair(lat)
+        max_apply = max(a["apply_s"] for a in stream_applies)
+        bound = f["interval_s"] + max_apply + f["p95_slack_s"]
+        report = {
+            "card": card_line(), "items": n_items, "rank": rank,
+            "scorer_build_s": build_s, "v_upload_s": upload_s,
+            "solver": solver, "stream_users": len(stream),
+            "probed": len(lat), "p50_event_to_reflected_s": p50,
+            "p95_event_to_reflected_s": p95, "p95_bound_s": bound,
+            "max_stream_apply_s": max_apply, "stream_s": stream_s,
+            "stream_applies": len(stream_applies),
+            "stream_launches": launches, "scored_probes": scored[0],
+            "recall_at_10": recall,
+            "apply_split": _split_summary(stream_applies)}
+        log("foldin: width stream " + json.dumps(report))
+        check(recall >= 0.99, f"folded users' recall@10 {recall:.4f} < "
+              "0.99")
+        check(p95 <= bound, f"width leg p95 event->reflected {p95:.3f} s "
+              f"exceeds the bound {bound:.3f} s")
+
+        # one item fold: new items rated by existing users; the fold
+        # rebuilds the scorer before the swap (warm_s)
+        fi = FOLDIN_ITEMS
+        new_items = [f"newitem{j:02d}" for j in range(fi["items"])]
+        raters = rng.choice(len(users), size=fi["items"] * fi["raters"],
+                            replace=False)
+        a1 = ctl.applies
+        buf.submit([Event(event="rate", entity_type="user",
+                          entity_id=str(users[r]), target_entity_type="item",
+                          target_entity_id=new_items[k // fi["raters"]],
+                          properties=DataMap({"rating": 5.0}))
+                    for k, r in enumerate(raters)], app_id).result(60)
+        deadline = time.monotonic() + 120
+        while (ctl.applied_items < fi["items"] or ctl.pending_rows()) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        stop.set()
+        applier.join(timeout=60)
+        check(not errors, f"the item fold failed: {errors[:3]}")
+        check(ctl.applied_items == fi["items"], f"{ctl.applied_items} of "
+              f"{fi['items']} new items folded")
+        fold_applies = _applies_after(ctl, a1)
+        grown = server._unit.result.models[0]
+        rebuilt = grown._scorer_cache[2]
+        check(rebuilt is not scorer0
+              and rebuilt.n_items == n_items + fi["items"],
+              "the item fold did not rebuild the scorer")
+        # a user aligned with a new item gets it first, through what the
+        # rebuilt scorer's parity gate left serving: twostage (B2), or
+        # the exact scorer if the gate demoted it
+        first = 0
+        b2_before = kernels.counts()["shortlist"]
+        for it in new_items:
+            row = grown.V[grown.item_index(it)]
+            aligned = ALSModel(user_vocab=np.asarray(["q"], dtype=object),
+                               item_vocab=grown.item_vocab, U=row[None, :],
+                               V=grown.V, device=DEV)
+            for attr in ("_scorer_cache", "_resident"):
+                setattr(aligned, attr, getattr(grown, attr, None))
+            top = aligned.recommend_batch([("q", 1, (), None)])[0]
+            first += top[0][0] == it
+        b2_aligned = kernels.counts()["shortlist"] - b2_before
+        check(first == len(new_items), f"{first} of {len(new_items)} new "
+              "items came first for a user aligned with them")
+        check((b2_aligned == len(new_items)) == rebuilt.active,
+              f"aligned queries launched B2 {b2_aligned} times on a "
+              f"{rebuilt.active_mode} scorer")
+        report.update({
+            "item_fold": {
+                "items": fi["items"], "raters": len(raters),
+                "applies": len(fold_applies),
+                "scorer_rebuild_s": max(a["warm_s"] for a in fold_applies),
+                "rebuilt_mode": rebuilt.active_mode,
+                "rebuilt_probe_recall": rebuilt.recall_probe,
+                "aligned_b2_launches": b2_aligned,
+                "apply_split": _split_summary(fold_applies)},
+            "aligned_first": first})
+        log("foldin: width item fold " + json.dumps(report["item_fold"]))
+        return report
+    finally:
+        if ctl is not None:
+            ctl.stop_tap()
+        if buf is not None:
+            buf.stop()
+        if server is not None:
+            server._predict_executor.shutdown(wait=False)
+            server._deploy_executor.shutdown(wait=True)
+        scoring.set_process_scorer_config(None)
+        Storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1169,31 +1909,38 @@ class Client:
 
         self.conn = http.client.HTTPConnection("localhost", port, timeout=300)
 
-    def call(self, method: str, path: str, body=None):
+    def call(self, method: str, path: str, body=None, raw: bool = False):
+        """(status, JSON body, or its bytes with ``raw``, seconds)."""
         data = json.dumps(body).encode() if body is not None else None
         t0 = time.perf_counter()
         self.conn.request(method, path, body=data,
                           headers={"Content-Type": "application/json"})
         resp = self.conn.getresponse()
-        payload = json.loads(resp.read())
+        payload = resp.read()
+        if not raw:
+            payload = json.loads(payload)
         return resp.status, payload, time.perf_counter() - t0
 
 
-def serve_phase(seed: int, n_items: int, port: int, shape: dict):
+#: the serve cell's model: rank and users (bench.py:2658-2668)
+SERVE_RANK, SERVE_USERS = 64, 138_493
+
+
+def serve_phase(seed: int, n_items: int, port: int, shape: dict,
+                users, items, U, V):
     import numpy as np
     import torch
 
     from predictionio_tpu_torch.models.als import ALSModel
     from predictionio_tpu_torch.workflow.serialization import save_model
 
-    rank, n_users = 64, 138_493
+    rank, n_users = V.shape[1], len(users)
     t0 = time.perf_counter()
-    users, items, U, V = build_model(seed, n_items, n_users, rank)
     WORK.mkdir(parents=True, exist_ok=True)
     model_path = WORK / "als_model.npz"
     save_model(model_path, ALSModel.from_arrays(users, items, U, V))
     log(f"serve: model {n_items} items x rank {rank}, {n_users} users, "
-        f"built and saved in {time.perf_counter() - t0:.3f} s")
+        f"saved in {time.perf_counter() - t0:.3f} s")
 
     env = dict(os.environ, PIO_SCORER_MODE="twostage",
                PIO_SCORER_TILE_ITEMS=str(TILE),
@@ -1359,10 +2106,12 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict):
 
 # ---------------------------------------------------------------------------
 
-def spd_line(spd_rows, spd_err, train, lifecycle) -> dict:
+def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
-    the ML-20M train (counted from zero)."""
+    the ML-20M train (counted from zero); beside them the fold-in
+    launches of both legs and B1's times at the applies' shapes."""
+    fl = lifecycle["foldin"]
     c = ML20M
     row = next(r for r in spd_rows
                if r["K"] == c["rank"] and r["S"] == c["n_users"])
@@ -1394,7 +2143,18 @@ def spd_line(spd_rows, spd_err, train, lifecycle) -> dict:
                 lifecycle["train_v2"]["launches"]["spd_solve"],
             "checkpointed_train":
                 lifecycle["checkpoint"]["checkpointed_launches"],
-            "resumed_train": lifecycle["checkpoint"]["resumed_launches"]},
+            "resumed_train": lifecycle["checkpoint"]["resumed_launches"],
+            "foldin_lifecycle_deploy": fl["b1_launches"],
+            "foldin_width_stream": width["stream_launches"]["spd_solve"],
+            "foldin_width_solver": {
+                k: [v["launches_batched"], v["launches_one_at_a_time"]]
+                for k, v in width["solver"].items()}},
+        "foldin": {
+            "at_apply_shapes": b1_rows,
+            "K10_lifecycle_applies": fl["apply_split"]["b1_by_shape"],
+            "K64_width_applies": width["apply_split"]["b1_by_shape"],
+            "K64_solver": {k: {"S256": v["b1_at_S256"], "S1": v["b1_at_S1"]}
+                           for k, v in width["solver"].items()}},
     }
 
 
@@ -1455,9 +2215,27 @@ def main() -> int:
         t0 = time.perf_counter()
         lifecycle = lifecycle_phase(args.seed, args.port)
         log(f"lifecycle: phase took {time.perf_counter() - t0:.3f} s")
-        # 6. serve (the counts are those of the serving process, zero
+        # 6. foldin, leg 2, on the serve cell's model (built once, here);
+        #    leg 1 ran inside the lifecycle (its deploy process counted)
+        t0 = time.perf_counter()
+        served = build_model(args.seed, args.items, SERVE_USERS, SERVE_RANK)
+        log(f"foldin: serve cell's model built in "
+            f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        width = foldin_width_leg(args.seed, *served)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"foldin: width leg took {time.perf_counter() - t0:.3f} s")
+        shapes = [(r["K"], r["S"]) for split in (
+            lifecycle["foldin"]["apply_split"], width["apply_split"],
+            width["item_fold"]["apply_split"])
+            for r in split["b1_by_shape"]] + [(SERVE_RANK, 1),
+                                                (SERVE_RANK, 256)]
+        b1_rows = foldin_b1_rows(args.seed, shapes)
+        # 7. serve (the counts are those of the serving process, zero
         #    just before the queries and read just after)
-        serve = serve_phase(args.seed, args.items, args.port, shape)
+        serve = serve_phase(args.seed, args.items, args.port, shape,
+                            *served)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1481,7 +2259,11 @@ def main() -> int:
         "library": "composite: torch.matmul over dequantized f32 factors "
                    "+ torch.topk per tile",
         "shape": dict(shape, B=1, c=shape["c"]["plain"], masked=False),
-    }, spd_line(spd_rows, spd_err, train, lifecycle)]}
+        "launches_by_path": {
+            "serve": serve["shortlist_launches"],
+            "foldin_width_stream": width["stream_launches"]["shortlist"]},
+        "foldin_scored_queries": width["scored_probes"],
+    }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows)]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of predictionio_tpu, slice 1: ALS serving.
+"""PyTorch/CUDA port of predictionio_tpu: ALS serving, training, the
+event-to-release lifecycle and online fold-in.
 
 The JAX package ``predictionio_tpu`` is the reference this package is held
 against; module paths mirror it so each counterpart is easy to find. This

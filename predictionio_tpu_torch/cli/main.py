@@ -18,6 +18,8 @@ click), with the reference's commands, flags and exit codes:
         [--ip localhost] [--port 8000] [--accesskey K] [--device cpu]
     python -m predictionio_tpu_torch.cli.main releases [-v engine.json]
         [--status S]
+    python -m predictionio_tpu_torch.cli.main rollback [--ip localhost]
+        [--port 8000] [--accesskey K]
 
 ``train`` runs ``workflow.train.run_train``: an EngineInstance (INIT,
 then COMPLETED), the model blob in the model store under its id, and the
@@ -30,9 +32,13 @@ id and the release version. ``--out`` also writes the model as an
 ``deploy`` serves the latest COMPLETED instance of the variant, or
 ``--engine-instance-id``, or a release (``--release`` id, ``3`` or
 ``v3``), or a model file (``--model``). It reads the engine.json's
-top-level ``scorer`` section as ``pio deploy`` does (env > engine.json >
-server.json), warms the serving path up, then serves. Models run on
-``cuda`` unless ``--device cpu`` is given.
+top-level ``scorer`` and ``foldin`` sections as ``pio deploy`` does (env
+> engine.json > server.json; ``PIO_FOLDIN=1`` starts online fold-in),
+warms the serving path up, then serves. Models run on ``cuda`` unless
+``--device cpu`` is given.
+
+``rollback`` asks a running query server to roll back
+(``POST /rollback.json``) and prints what it serves now.
 
 The storage is the one ``PIO_STORAGE_*`` configures (``storage/registry``).
 """
@@ -306,7 +312,9 @@ def deploy(args) -> int:
         create_query_server, run_query_server,
     )
     from predictionio_tpu_torch.storage.base import EngineInstance
-    from predictionio_tpu_torch.utils.server_config import scorer_config
+    from predictionio_tpu_torch.utils.server_config import (
+        foldin_config, scorer_config,
+    )
     from predictionio_tpu_torch.workflow.serialization import load_model
     from predictionio_tpu_torch.workflow.train import load_for_deploy
 
@@ -341,15 +349,21 @@ def deploy(args) -> int:
             _fail(f"{e}. Aborting.")
         model = result.models[0]
     scfg = scorer_config(variant.get("scorer"))
+    fic = foldin_config(variant.get("foldin"))
     print(f"[INFO] Loaded {instance.id}: {len(model.user_vocab)} users x "
           f"{len(model.item_vocab)} items, rank {model.V.shape[1]}, on "
           f"{model.device} ({time.perf_counter() - t0:.3f} s)", flush=True)
     server = create_query_server(engine, result, instance,
                                  scorer_config=scfg, release=release,
-                                 access_key=args.accesskey)
+                                 access_key=args.accesskey,
+                                 foldin_config=fic)
     report = server.warm()
     print(f"[INFO] Warm-up: batches {report.buckets} in "
           f"{report.seconds:.3f} s; scorer mode {scfg.mode}", flush=True)
+    if fic.enabled:
+        print(f"[INFO] Online fold-in enabled: apply interval "
+              f"{fic.apply_interval_s:g}s, max pending {fic.max_pending} "
+              "rows", flush=True)
 
     def ready(port):
         print(f"[INFO] Query server listening on http://{args.ip}:{port}",
@@ -378,6 +392,36 @@ def releases(args) -> int:
               f"{r.created_time.strftime('%Y-%m-%d %H:%M:%S'):<20} | "
               f"{digest} {size}")
     print(f"[INFO] Finished listing {len(listing)} release(s).", flush=True)
+    return 0
+
+
+def rollback(args) -> int:
+    """``POST /rollback.json`` to a running query server."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://{args.ip}:{args.port}/rollback.json"
+    if args.accesskey:
+        url += f"?accessKey={args.accesskey}"
+    try:
+        with urllib.request.urlopen(
+                urllib.request.Request(url, data=b"", method="POST"),
+                timeout=60) as r:
+            out = json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            message = json.loads(e.read().decode()).get("message", str(e))
+        except Exception:
+            message = str(e)
+        _fail(f"Rollback failed: {message}")
+    except OSError as e:
+        _fail(f"Unable to reach query server: {e}")
+    version, seconds = out.get("releaseVersion"), out.get("seconds")
+    print(f"[INFO] {out.get('message', 'Rolled back')}: now serving "
+          f"instance {out.get('engineInstanceId')}"
+          + (f" (release v{version})" if version else "")
+          + (f" in {seconds * 1e3:.3f} ms" if seconds is not None else ""),
+          flush=True)
     return 0
 
 
@@ -454,7 +498,8 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--ip", default="localhost")
     d.add_argument("--port", default=8000, type=int)
     d.add_argument("--accesskey", default=None,
-                   help="key required by /stop and /reload")
+                   help="key required by /stop, /reload and "
+                        "/rollback.json")
     d.add_argument("--device", default=None, help="cuda (default) or cpu")
     d.set_defaults(func=deploy)
 
@@ -464,6 +509,13 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--status", default=None,
                    help="only releases in this status")
     r.set_defaults(func=releases)
+
+    rb = sub.add_parser("rollback", help="roll a running query server "
+                                         "back to its previous release")
+    rb.add_argument("--ip", default="localhost")
+    rb.add_argument("--port", default=8000, type=int)
+    rb.add_argument("--accesskey", default=None)
+    rb.set_defaults(func=rollback)
     return p
 
 

@@ -17,13 +17,26 @@ import numpy as np
 
 def batch_lookup(vocab: np.ndarray, values) -> np.ndarray:
     """Vectorized `vocab_index` for whole columns: int32 codes into the
-    sorted `vocab`, with -1 for values not present."""
+    sorted `vocab`, with -1 for values not present. A fixed-width unicode
+    vocab (the port's model files hold them) is searched in its own dtype:
+    searching it with an object array would first turn every vocab entry
+    into a Python string, on every call."""
     arr = np.asarray(values, dtype=object)
     if arr.size == 0 or len(vocab) == 0:
         return np.full(arr.size, -1, np.int32)
+    fits = np.ones(arr.size, bool)
+    if vocab.dtype.kind == "U":
+        vals = arr.tolist()
+        keys = np.asarray(["" if x is None else str(x) for x in vals])
+        # a key wider than the vocab cannot be in it (cut, it could
+        # falsely match), and neither can None
+        fits = ((np.char.str_len(keys) <= vocab.dtype.itemsize // 4)
+                & np.fromiter((x is not None for x in vals), bool,
+                              count=len(vals)))
+        arr = keys.astype(vocab.dtype)
     idx = np.searchsorted(vocab, arr)
     idx_c = np.minimum(idx, len(vocab) - 1)
-    hit = vocab[idx_c] == arr
+    hit = (vocab[idx_c] == arr) & fits
     return np.where(hit, idx_c, -1).astype(np.int32)
 
 

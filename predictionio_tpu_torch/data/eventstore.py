@@ -64,6 +64,16 @@ class EventStoreClient:
                                          channel_id=channel_id, **filters)
 
     @staticmethod
+    def find_columns(app_name: str, channel_name: Optional[str] = None,
+                     **filters) -> Dict[str, np.ndarray]:
+        """The store's numpy columns of the matching events (the
+        reference's ``find_columnar``; ``SqliteEvents.find_columns``
+        filters and ``columns``)."""
+        app_id, channel_id = resolve_app(app_name, channel_name)
+        return Storage.get_events().find_columns(app_id, channel_id,
+                                                 **filters)
+
+    @staticmethod
     def training_columns(app_name: str, channel_name: Optional[str] = None,
                          **filters) -> Dict[str, np.ndarray]:
         """The training read (single-process ``training_scan`` +
@@ -71,9 +81,8 @@ class EventStoreClient:
         reads a pyarrow table), without the time sort (training math is
         permutation-invariant) unless the caller asks for it."""
         filters.setdefault("ordered", False)
-        app_id, channel_id = resolve_app(app_name, channel_name)
-        return Storage.get_events().find_columns(app_id, channel_id,
-                                                 **filters)
+        return EventStoreClient.find_columns(app_name, channel_name,
+                                             **filters)
 
 
 def property_column(properties: np.ndarray, key: str,

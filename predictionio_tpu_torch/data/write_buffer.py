@@ -19,10 +19,17 @@ lane).
   retry could write twice). A caller's future fails only when every
   attempt has.
 
+* **flush taps** — ``add_flush_tap(tap)`` subscribes
+  ``tap(events, app_id, channel_id)`` to every successful group commit
+  of every buffer in the process (the push path of online fold-in,
+  ``deploy/foldin``). A tap runs on the writer thread only after the
+  commit landed, never for a failed flush; a tap that raises is logged
+  and the flush goes on.
+
 ``stop(drain=True)`` flushes everything queued before it returns.
 
 The reference's parallel commit lanes (``partitions``) come with the
-partitioned event store, and its flush taps with online fold-in.
+partitioned event store.
 """
 
 from __future__ import annotations
@@ -39,6 +46,34 @@ from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.storage.base import StorageError, generate_id
 
 logger = logging.getLogger("pio.torch.writebuffer")
+
+#: flush taps of this process, called after each successful group commit
+_FLUSH_TAPS: List[Callable] = []
+_TAPS_LOCK = threading.Lock()
+
+
+def add_flush_tap(tap: Callable) -> None:
+    """Subscribe ``tap(events, app_id, channel_id)`` to the successful
+    group commits of every WriteBuffer in this process."""
+    with _TAPS_LOCK:
+        if tap not in _FLUSH_TAPS:
+            _FLUSH_TAPS.append(tap)
+
+
+def remove_flush_tap(tap: Callable) -> None:
+    with _TAPS_LOCK:
+        if tap in _FLUSH_TAPS:
+            _FLUSH_TAPS.remove(tap)
+
+
+def _notify_taps(events, app_id, channel_id) -> None:
+    with _TAPS_LOCK:
+        taps = list(_FLUSH_TAPS)
+    for tap in taps:
+        try:
+            tap(events, app_id, channel_id)
+        except Exception:
+            logger.exception("flush tap failed (events stay committed)")
 
 
 class BufferFull(Exception):
@@ -201,6 +236,9 @@ class WriteBuffer:
                 if p.future.set_running_or_notify_cancel():
                     p.future.set_result(list(ids[pos:pos + n]))
                 pos += n
+            # only after the commit: a tap never sees an event the store
+            # might still lose
+            _notify_taps(events, app_id, channel_id)
         self._last_flush_s = max(0.001, time.monotonic() - t0)
 
     def _flush_group(self, events, app_id, channel_id) -> List[str]:

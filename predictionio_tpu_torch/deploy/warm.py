@@ -1,6 +1,6 @@
 """Warm-up before a model takes traffic (port of the reference's
-``deploy/warm.py``: ``ServingUnit``, ``build_unit``, ``warmup_ladder``,
-``warmup_unit`` and ``verify_unit``).
+``deploy/warm.py``: ``ServingUnit``, ``FoldinSwapRaced``, ``build_unit``,
+``warmup_ladder``, ``warmup_unit`` and ``verify_unit``).
 
 Before a unit takes traffic — at deploy, and at ``GET /reload`` before
 the swap — its full batch-predict path is driven once per reachable
@@ -23,6 +23,13 @@ from predictionio_tpu_torch.storage.base import EngineInstance, Release
 logger = logging.getLogger("pio.torch.deploy")
 
 
+class FoldinSwapRaced(Exception):
+    """A fold-in drift lost the cutover race: the serving unit changed
+    (reload or rollback) between the solve's snapshot and the swap. The
+    apply requeues its deltas and the next tick folds them onto whatever
+    serves then, never reverting a real deploy."""
+
+
 class DeployError(Exception):
     """A release failed to become servable (load/warmup/verify)."""
 
@@ -39,6 +46,12 @@ class ServingUnit:
     vectorized: bool
     release: Optional[Release] = None
     batcher: Any = None
+    #: the pre-fold-in base unit when this unit is an online fold-in
+    #: drift of it (deploy/foldin): kept resident as the rollback standby
+    #: however many applies stack on it
+    foldin_of: Optional["ServingUnit"] = None
+    #: factor rows folded into this unit since its base was deployed
+    foldin_rows: int = 0
 
     @property
     def release_version(self) -> int:

@@ -1,6 +1,6 @@
 """Recommendation engine (ALS) (port of the reference's
-``engines/recommendation.py``, training and serving; the evaluation
-side comes with a later slice).
+``engines/recommendation.py``, training, serving and the online fold-in
+hooks; the evaluation side comes with a later slice).
 
 Rate/buy events -> ratings -> ALS -> top-N item scores per user. Rate
 events keep their ``rating`` property; buy events weigh 4.0 and view
@@ -265,6 +265,63 @@ class ALSAlgorithm(Algorithm):
         if model is None or not len(model.user_vocab):
             return None
         return Query(user=str(model.user_vocab[0]), num=10)
+
+    # -- online fold-in (deploy/foldin.py) -----------------------------------
+    def foldin_spec(self, model: ALSModel, engine_params):
+        """The fold-in contract: the training read's event->rating
+        mapping (rate keeps its rating property; buy/view weigh per
+        DataSourceParams), each event one rating row, and both sides
+        fold (a new item's row is solved from its raters against the
+        updated user factors)."""
+        from predictionio_tpu_torch.deploy.foldin import FoldinSpec
+
+        ds = getattr(engine_params, "data_source_params", None)
+        app_name = getattr(ds, "app_name", None)
+        if model is None or not app_name:
+            return None
+        names = tuple(getattr(ds, "event_names", None) or ["rate", "buy"])
+        weights = {**RecommendationDataSource.DEFAULT_WEIGHTS,
+                   **(getattr(ds, "event_weights", None) or {})}
+        return FoldinSpec(
+            app_name=app_name,
+            als_params=ALSParams(
+                rank=self.params.rank, reg=self.params.reg,
+                alpha=self.params.alpha,
+                implicit_prefs=self.params.implicit_prefs,
+                seed=self.params.seed),
+            event_names=names, event_weights=weights,
+            rate_event="rate" if "rate" in names else None,
+            aggregate="rows", fold_items=True)
+
+    def foldin_factors(self, model: ALSModel):
+        from predictionio_tpu_torch.deploy.foldin import FoldinFactors
+
+        return FoldinFactors(user_vocab=model.user_vocab,
+                             item_vocab=model.item_vocab,
+                             U=model.U, V=model.V,
+                             device_copy=lambda: model.V_device)
+
+    def foldin_apply(self, model: ALSModel, spec, user_rows, item_rows,
+                     counts) -> ALSModel:
+        """The drifted model. A user-only fold keeps V (the same array),
+        so it carries the base's resident V copy and quantized scorer:
+        nothing is re-uploaded or requantized. An item fold changes V:
+        the next scored batch uploads V and rebuilds the scorer."""
+        from predictionio_tpu_torch.deploy.foldin import upsert_factor_rows
+
+        user_vocab, U = upsert_factor_rows(model.user_vocab, model.U,
+                                           user_rows)
+        item_vocab, V = upsert_factor_rows(model.item_vocab, model.V,
+                                           item_rows)
+        new = ALSModel(user_vocab=user_vocab, item_vocab=item_vocab,
+                       U=U, V=V, device=model.device)
+        # both caches are keyed on V's identity, so an item fold misses
+        # them as it must
+        for attr in ("_resident", "_scorer_cache"):
+            cached = getattr(model, attr, None)
+            if cached is not None:
+                setattr(new, attr, cached)
+        return new
 
 
 class RecommendationServing(FirstServing):

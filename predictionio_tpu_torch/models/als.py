@@ -283,42 +283,61 @@ def _reg_per_segment(reg: float, cnt: torch.Tensor,
     return torch.full_like(cnt, reg)
 
 
-def _half_sweep_dyn(opposite: torch.Tensor, row_tgt, row_seg, row_val,
-                    row_w, seg_per_shard: int, *, reg, alpha,
-                    implicit_prefs: bool, weighted_reg: bool,
-                    alpha_is_zero: bool, chunk_rows: int) -> torch.Tensor:
-    """Solve this side's factors against the full opposite factor
-    matrix; rows are the padded ALX layout. One batched K x K solve."""
+def _normal_equations(factors: torch.Tensor,
+                      gram_all: Optional[torch.Tensor], row_tgt, row_seg,
+                      row_val, row_w, reg: float, alpha: float, *,
+                      num_segments: int, implicit_prefs: bool,
+                      weighted_reg: bool, alpha_is_zero: bool,
+                      chunk_rows: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every segment's normal equations against the frozen ``factors``
+    (rows in the padded ALX layout): ``(A [S,K,K], rhs [S,K], ridge
+    [S])``, solved as ``(A + ridge I) x = rhs``. Implicit feedback adds
+    the global Gramian ``gram_all`` (V^T V of all of ``factors``);
+    explicit feedback ignores it."""
     if implicit_prefs:
         # Hu-Koren-Volinsky: p = [r > 0], c = 1 + alpha * |r|;
         # A_s = V^T V + sum (c-1) f f^T + lam I ; b_s = sum c p f, with
         # rhs values c*p/(c-1) so that value * weight = c * p exactly.
         # alpha == 0 is c = 1: the Gramian correction vanishes and the
         # rhs is a plain preference sum.
-        gram_all = opposite.T @ opposite                 # [K, K]
         p = (row_val > 0).to(row_val.dtype)
         if alpha_is_zero:
-            gram, rhs, cnt = rows_gram_rhs(
-                opposite, row_tgt, row_seg, p, row_w,
-                num_segments=seg_per_shard, chunk_rows=chunk_rows)
-            gram = torch.zeros_like(gram)   # (c-1) = 0; keep only the rhs
+            _, rhs, cnt = rows_gram_rhs(
+                factors, row_tgt, row_seg, p, row_w,
+                num_segments=num_segments, chunk_rows=chunk_rows)
+            k = factors.shape[1]
+            A = gram_all.expand(num_segments, k, k).contiguous()
         else:
             cm1 = alpha * row_val.abs()                  # c - 1
             vals = torch.where(
                 cm1 > 0, (1.0 + cm1) * p / torch.clamp_min(cm1, 1e-12),
                 torch.zeros_like(cm1))
             gram, rhs, _ = rows_gram_rhs(
-                opposite, row_tgt, row_seg, vals, row_w * cm1,
-                num_segments=seg_per_shard, chunk_rows=chunk_rows)
-            cnt = segment_count(row_seg, row_w.sum(dim=1), seg_per_shard)
-        A = gram_all[None, :, :] + gram
-        lam = _reg_per_segment(reg, cnt, weighted_reg)
-        return batched_spd_solve(A, rhs, diag=lam)
+                factors, row_tgt, row_seg, vals, row_w * cm1,
+                num_segments=num_segments, chunk_rows=chunk_rows)
+            cnt = segment_count(row_seg, row_w.sum(dim=1), num_segments)
+            A = gram_all[None, :, :] + gram
+        return A, rhs, _reg_per_segment(reg, cnt, weighted_reg)
     gram, rhs, cnt = rows_gram_rhs(
-        opposite, row_tgt, row_seg, row_val, row_w,
-        num_segments=seg_per_shard, chunk_rows=chunk_rows)
-    lam = _reg_per_segment(reg, cnt, weighted_reg)
-    return batched_spd_solve(gram, rhs, diag=lam)
+        factors, row_tgt, row_seg, row_val, row_w,
+        num_segments=num_segments, chunk_rows=chunk_rows)
+    return gram, rhs, _reg_per_segment(reg, cnt, weighted_reg)
+
+
+def _half_sweep_dyn(opposite: torch.Tensor, row_tgt, row_seg, row_val,
+                    row_w, seg_per_shard: int, *, reg, alpha,
+                    implicit_prefs: bool, weighted_reg: bool,
+                    alpha_is_zero: bool, chunk_rows: int) -> torch.Tensor:
+    """Solve this side's factors against the full opposite factor
+    matrix; rows are the padded ALX layout. One batched K x K solve."""
+    A, rhs, lam = _normal_equations(
+        opposite, _global_gram(opposite) if implicit_prefs else None,
+        row_tgt, row_seg, row_val, row_w, reg, alpha,
+        num_segments=seg_per_shard, implicit_prefs=implicit_prefs,
+        weighted_reg=weighted_reg, alpha_is_zero=alpha_is_zero,
+        chunk_rows=chunk_rows)
+    return batched_spd_solve(A, rhs, diag=lam)
 
 
 def _half_sweep(opposite: torch.Tensor, rows: ShardedRows,
@@ -839,3 +858,131 @@ class ALSModel:
             scores = scores.cpu().numpy()[:len(rows), :k]
             idx = idx.cpu().numpy()[:len(rows), :k]
         return rows, scores, idx, k
+
+
+# ---------------------------------------------------------------------------
+# Online fold-in (deploy/foldin.py): batched single-side row solves
+# ---------------------------------------------------------------------------
+
+class FoldInSolver:
+    """Batched online fold-in against one frozen factor matrix.
+
+    With the opposite side's factors frozen, each pending row (a user
+    with fresh events, or an item with fresh raters) is an independent
+    K x K least-squares solve, so B pending rows go through ONE call:
+    each row's rated columns gathered from ``factors`` in the training
+    path's padded-row layout (``_row_positions``, ``rows_gram_rhs``), the
+    cached implicit Gramian V^T V added, and one batched SPD solve (B1 on
+    the card). Segment and packed-row counts are bucketed to powers of
+    two, as in the reference.
+
+    ``factors_device`` is a copy of ``factors`` already on the device
+    (``ALSModel.V_device``), which skips the upload; otherwise the
+    factors go to ``device`` (None: ``cuda``; see utils/device).
+    ``last_solve`` describes the latest call: the bucketed S and K, the
+    host ms of the system's assembly and of the B1 call (on the card the
+    wrapper's host time: it returns once the kernel is queued) and, on
+    the card, the ms between CUDA events recorded before and after the
+    B1 call (the kernel, plus the wait for its launch when the card was
+    idle)."""
+
+    def __init__(self, factors: np.ndarray, params: ALSParams,
+                 row_len: int = 32, factors_device=None, device=None):
+        self.params = params
+        self.row_len = max(1, int(row_len))
+        if factors_device is not None:
+            self._dev = factors_device
+        else:
+            host = np.ascontiguousarray(np.asarray(factors), np.float32)
+            self._dev = torch.from_numpy(host).to(resolve_device(device))
+        self.device = self._dev.device
+        self._shape = tuple(self._dev.shape)
+        self._gram: Optional[torch.Tensor] = None
+        self.last_solve: dict = {}
+
+    @property
+    def rank(self) -> int:
+        return self._shape[1]
+
+    def _gram_dev(self) -> Optional[torch.Tensor]:
+        """V^T V of the whole factor matrix, once per solver (implicit
+        feedback only)."""
+        if self._gram is None and self.params.implicit_prefs:
+            self._gram = _global_gram(self._dev)
+        return self._gram
+
+    def solve(self, rated, values, weights=None) -> np.ndarray:
+        """Solve rows for B segments: ``rated[i]`` holds segment i's
+        rated opposite-side indices, ``values[i]`` the rating values,
+        optional ``weights[i]`` per-rating weights (default 1). Returns
+        host float32 [B, K]. A segment with no ratings solves to the
+        zero row."""
+        b = len(rated)
+        if b != len(values):
+            raise ValueError(f"rated/values length mismatch: {b} vs "
+                             f"{len(values)}")
+        if b == 0:
+            return np.zeros((0, self.rank), np.float32)
+        counts = np.fromiter((len(r) for r in rated), dtype=np.int64,
+                             count=b)
+        if weights is not None and [len(w) for w in weights] != \
+                counts.tolist():
+            raise ValueError("weights must parallel rated per segment")
+        seg = np.repeat(np.arange(b, dtype=np.int64), counts)
+        total = int(counts.sum())
+        if total:
+            tgt = np.concatenate([np.asarray(r) for r in rated]
+                                 ).astype(np.int32)
+            val = np.concatenate([np.asarray(v) for v in values]
+                                 ).astype(np.float32)
+            w = (np.concatenate([np.asarray(x) for x in weights]
+                                ).astype(np.float32)
+                 if weights is not None else np.ones(total, np.float32))
+            if ((tgt < 0) | (tgt >= self._shape[0])).any():
+                raise ValueError(
+                    f"rated indices out of range [0, {self._shape[0]})")
+        else:
+            tgt = np.zeros(0, np.int32)
+            val = w = np.zeros(0, np.float32)
+        b_pad = bucket_size(b)
+        rrow, col, n_rows, row_seg = _row_positions(seg, self.row_len,
+                                                    b_pad)
+        r_pad = bucket_size(max(n_rows, 1))
+        row_tgt = np.zeros((r_pad, self.row_len), np.int32)
+        row_val = np.zeros((r_pad, self.row_len), np.float32)
+        row_w = np.zeros((r_pad, self.row_len), np.float32)
+        # pad rows aim at the LAST (padding) segment with weight 0, so
+        # row_seg stays sorted and the pads contribute nothing
+        seg_arr = np.full((r_pad,), b_pad - 1, np.int32)
+        seg_arr[:n_rows] = row_seg
+        if rrow is not None:
+            row_tgt[rrow, col] = tgt
+            row_val[rrow, col] = val
+            row_w[rrow, col] = w
+        dev = self.device
+        p = self.params
+        t0 = time.perf_counter()
+        A, rhs, lam = _normal_equations(
+            self._dev, self._gram_dev(), torch.from_numpy(row_tgt).to(dev),
+            torch.from_numpy(seg_arr).to(dev),
+            torch.from_numpy(row_val).to(dev),
+            torch.from_numpy(row_w).to(dev), p.reg, p.alpha,
+            num_segments=b_pad, implicit_prefs=p.implicit_prefs,
+            weighted_reg=p.weighted_reg, alpha_is_zero=(p.alpha == 0),
+            chunk_rows=1024)
+        t1 = time.perf_counter()
+        cuda = dev.type == "cuda"
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = batched_spd_solve(A, rhs, diag=lam)
+        t2 = time.perf_counter()
+        if cuda:
+            end.record()
+        x = out[:b].cpu().numpy()
+        self.last_solve = {
+            "S": b_pad, "K": self.rank, "rows": b,
+            "system_ms": (t1 - t0) * 1e3, "solve_call_ms": (t2 - t1) * 1e3,
+            "solve_event_ms": start.elapsed_time(end) if cuda else None}
+        return x

@@ -47,19 +47,24 @@ SPD_SOLVE_MAX_K = 64
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: guards the launch counts (never held across a build)
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
     """Zero every launch count."""
     global SHORTLIST_LAUNCHES, SPD_SOLVE_LAUNCHES
-    with _LOCK:
+    with _COUNT_LOCK:
         SHORTLIST_LAUNCHES = 0
         SPD_SOLVE_LAUNCHES = 0
 
 
 def counts() -> Dict[str, int]:
-    return {"shortlist": SHORTLIST_LAUNCHES,
-            "spd_solve": SPD_SOLVE_LAUNCHES}
+    """Every launch count, read together (a fold-in apply launches from
+    the deploy thread while queries launch from the predict pool)."""
+    with _COUNT_LOCK:
+        return {"shortlist": SHORTLIST_LAUNCHES,
+                "spd_solve": SPD_SOLVE_LAUNCHES}
 
 
 def _nvcc() -> str:
@@ -199,7 +204,7 @@ def shortlist_topc_cuda(u: torch.Tensor, tiles: torch.Tensor,
             vals.data_ptr(), ids.data_ptr(), b, nt, t, r, int(n_items),
             int(cand), stream)
     _check(lib, err, "shortlist")
-    with _LOCK:
+    with _COUNT_LOCK:
         SHORTLIST_LAUNCHES += 1
     return vals, ids
 
@@ -249,6 +254,6 @@ def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor,
         err = lib.pio_spd_solve(A.data_ptr(), b.data_ptr(), diag_ptr,
                                 x.data_ptr(), s, k, float(jitter), stream)
     _check(lib, err, "spd_solve")
-    with _LOCK:
+    with _COUNT_LOCK:
         SPD_SOLVE_LAUNCHES += 1
     return x

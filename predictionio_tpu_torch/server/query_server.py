@@ -6,10 +6,20 @@ reference's ``server/query_server.py``):
   POST /queries.json   -> the prediction hot path
   GET  /reload         -> warm-swap to the latest COMPLETED instance
   GET  /releases.json  -> release manifests of this engine variant
+  GET  /deploy/status.json -> active and standby releases, fold-in status
+  POST /rollback.json  -> restore the resident standby (else the newest
+                          older release from the registry)
   POST /stop           -> graceful shutdown
 
-``/reload`` and ``/stop`` take the ``accessKey`` query parameter when
-the server was given one (``deploy --accesskey``). The HTTP layer is the
+``/reload``, ``/rollback.json`` and ``/stop`` take the ``accessKey``
+query parameter when the server was given one (``deploy --accesskey``).
+
+Every swap keeps the outgoing unit resident as the rollback standby
+(its batcher is retired); a unit's device copies are dropped only once
+it is neither active nor standby. With ``FoldinConfig.enabled`` the
+online fold-in controller (``deploy/foldin``) starts with the server and
+swaps drifted models in through :meth:`QueryServer.swap_foldin_unit`,
+whose standby is the pre-fold-in base. The HTTP layer is the
 port's stdlib one (``server/http``), where the reference uses aiohttp.
 The error contract is the reference's: a body that is not JSON, or a
 query the engine rejects, answers 400 with ``{"message": ...}``.
@@ -42,8 +52,8 @@ from predictionio_tpu_torch.deploy.releases import (
     release_of_instance, release_to_json,
 )
 from predictionio_tpu_torch.deploy.warm import (
-    DeployError, ServingUnit, WarmupReport, build_unit, compute_vectorized,
-    verify_unit, warmup_unit,
+    DeployError, FoldinSwapRaced, ServingUnit, WarmupReport, build_unit,
+    compute_vectorized, verify_unit, warmup_unit,
 )
 from predictionio_tpu_torch.server.http import (
     HttpServer, Request, serve_until_stopped,
@@ -55,7 +65,9 @@ from predictionio_tpu_torch.ops.scoring import (
 )
 from predictionio_tpu_torch.storage.base import EngineInstance, Release
 from predictionio_tpu_torch.storage.registry import Storage
-from predictionio_tpu_torch.utils.server_config import ScorerConfig
+from predictionio_tpu_torch.utils.server_config import (
+    FoldinConfig, ScorerConfig,
+)
 
 logger = logging.getLogger("pio.torch.queryserver")
 
@@ -266,7 +278,8 @@ class QueryServer:
                  linger_s: Optional[float] = None,
                  inflight: int = INFLIGHT,
                  release: Optional[Release] = None,
-                 access_key: Optional[str] = None):
+                 access_key: Optional[str] = None,
+                 foldin_config: Optional[FoldinConfig] = None):
         self.engine = engine
         self.start_time = _dt.datetime.now(tz=_dt.timezone.utc)
         self.max_batch = max(1, max_batch)
@@ -292,6 +305,12 @@ class QueryServer:
             instance=instance, result=train_result,
             vectorized=compute_vectorized(train_result), release=release)
         self._attach_batcher(self._unit)
+        #: the unit the last swap replaced, kept resident for an instant
+        #: rollback (a fold-in drift's is its pre-fold-in base)
+        self._standby: Optional[ServingUnit] = None
+        #: online fold-in knobs; the controller starts with the server
+        self.foldin_config = foldin_config or FoldinConfig.from_env()
+        self._foldin = None
         self._swap_lock = threading.Lock()
         #: one reload at a time
         self._reload_lock = asyncio.Lock()
@@ -301,6 +320,8 @@ class QueryServer:
             ("POST", "/queries.json", self.handle_query),
             ("GET", "/reload", self.handle_reload),
             ("GET", "/releases.json", self.handle_releases),
+            ("GET", "/deploy/status.json", self.handle_deploy_status),
+            ("POST", "/rollback.json", self.handle_rollback),
             ("POST", "/stop", self.handle_stop),
         ])
         #: set by POST /stop; :func:`run_query_server` then shuts down
@@ -358,20 +379,25 @@ class QueryServer:
         verify_unit(unit, predict)
         return unit, report
 
-    def _swap_to(self, unit: ServingUnit) -> ServingUnit:
-        """The cutover: one reference assignment installs the new unit.
-        Requests already routed keep the old unit, whose batcher drains
-        in the background before its device memory is released."""
+    def _swap_to(self, unit: ServingUnit, reason: str = "reload",
+                 retire_old: bool = True) -> ServingUnit:
+        """The cutover: one reference assignment installs the new unit;
+        the old one becomes the standby, and its batcher drains in the
+        background. ``retire_old=False`` leaves the outgoing release's
+        status to the caller (rollback marks it ROLLED_BACK)."""
         with self._swap_lock:
             old, self._unit = self._unit, unit
+            dropped, self._standby = self._standby, old
         self._spawn(self._retire(old))
-        self._set_release_status(unit.release, "LIVE", "reload")
-        if old.release is not None and (
+        if dropped is not None and dropped is not unit:
+            self._spawn(self._retire(dropped))
+        self._set_release_status(unit.release, "LIVE", reason)
+        if retire_old and old.release is not None and (
                 unit.release is None or old.release.id != unit.release.id):
             self._set_release_status(old.release, "RETIRED",
-                                     "superseded: reload")
-        logger.info("swapped to engine instance %s (release v%d)",
-                    unit.instance.id, unit.release_version)
+                                     f"superseded: {reason}")
+        logger.info("swapped to engine instance %s (release v%d, %s)",
+                    unit.instance.id, unit.release_version, reason)
         return old
 
     def _spawn(self, coro) -> None:
@@ -380,19 +406,70 @@ class QueryServer:
         task.add_done_callback(self._tasks.discard)
 
     async def _retire(self, unit: ServingUnit) -> None:
-        """Let the retired unit's queued and in-flight batches finish on
-        it, then stop its batcher and drop its device-resident copies."""
+        """Let a replaced unit's queued and in-flight batches finish on
+        it, then stop its batcher; drop its device-resident copies only
+        if it is neither active nor standby by then (a standby keeps
+        them for an instant rollback). A unit made active again meanwhile
+        is left alone: its batcher serves."""
         batcher = unit.batcher
         deadline = time.monotonic() + DRAIN_TIMEOUT_S
         while batcher is not None and not batcher.idle() \
                 and time.monotonic() < deadline:
+            if unit is self._unit:
+                return
             await asyncio.sleep(0.02)
+        if unit is self._unit:
+            return
         if batcher is not None:
             await batcher.shutdown()
+        if unit is self._standby:
+            return
         for model in unit.result.models:
             release = getattr(model, "release_device", None)
             if release is not None:
                 release()
+
+    # -- online fold-in cutover (deploy/foldin.py) ---------------------------
+    def build_foldin_unit(self, new_models, applied_rows: int,
+                          drift_release: Optional[Release] = None,
+                          base_unit: Optional[ServingUnit] = None
+                          ) -> ServingUnit:
+        """A fold-in drift of ``base_unit`` (default: the active unit):
+        same instance, new models, ``foldin_of`` pinned to the
+        pre-fold-in base so every later drift and the rollback find it."""
+        base = base_unit if base_unit is not None else self._unit
+        result = dataclasses.replace(base.result, models=list(new_models))
+        unit = ServingUnit(
+            instance=base.instance, result=result,
+            vectorized=compute_vectorized(result),
+            release=drift_release or base.release)
+        unit.foldin_of = base.foldin_of or base
+        unit.foldin_rows = base.foldin_rows + applied_rows
+        return unit
+
+    def swap_foldin_unit(self, unit: ServingUnit, loop=None,
+                         expected_base: Optional[ServingUnit] = None
+                         ) -> None:
+        """The fold-in cutover, callable from any thread: the ``/reload``
+        swap as a compare-and-swap against ``expected_base`` (the unit
+        the solve read). A reload or rollback that landed meanwhile wins:
+        :class:`FoldinSwapRaced` is raised and the controller requeues its
+        deltas. The standby becomes the pre-fold-in base; the replaced
+        unit's batcher is retired on ``loop`` when one runs."""
+        if unit.batcher is None:
+            self._attach_batcher(unit)
+        with self._swap_lock:
+            if expected_base is not None and self._unit is not expected_base:
+                raise FoldinSwapRaced(
+                    "serving unit changed during the fold-in solve (now "
+                    f"instance {self._unit.instance.id})")
+            old, self._unit = self._unit, unit
+            dropped, self._standby = self._standby, unit.foldin_of
+        if loop is not None and loop.is_running():
+            for gone in {id(u): u for u in (old, dropped)
+                         if u is not None and u is not unit}.values():
+                loop.call_soon_threadsafe(
+                    lambda u=gone: self._spawn(self._retire(u)))
 
     def _set_release_status(self, release: Optional[Release], status: str,
                             reason: str) -> None:
@@ -416,16 +493,50 @@ class QueryServer:
     async def start(self, host: str = "localhost", port: int = DEFAULT_PORT
                     ) -> int:
         """Bind and start accepting; returns the bound port (``port=0``
-        picks a free one)."""
-        return await self._http.start(host, port)
+        picks a free one). Starts the fold-in controller when enabled."""
+        bound = await self._http.start(host, port)
+        self._start_foldin()
+        return bound
+
+    def _start_foldin(self) -> None:
+        """Start the online fold-in controller when it is enabled and the
+        engine resolves exactly one fold-in algorithm; otherwise serve as
+        before."""
+        if not self.foldin_config.enabled or self._foldin is not None:
+            return
+        from predictionio_tpu_torch.deploy.foldin import (
+            FoldInController, FoldinUnsupported,
+        )
+
+        try:
+            self._foldin = FoldInController(self, self.foldin_config)
+        except FoldinUnsupported as e:
+            logger.warning("online fold-in disabled: %s", e)
+            return
+        self._foldin.start()
+        logger.info("online fold-in armed: interval %.2fs, max pending %d",
+                    self.foldin_config.apply_interval_s,
+                    self.foldin_config.max_pending)
+
+    def foldin_status(self) -> dict:
+        return (self._foldin.status_dict() if self._foldin is not None
+                else {"enabled": False})
 
     async def close(self) -> None:
+        """Stop accepting, stop fold-in, join an in-flight apply or
+        reload, settle the retirements, then stop the batchers."""
         await self._http.close()
-        for task in list(self._tasks):
-            await task
-        await self._unit.batcher.shutdown()
+        if self._foldin is not None:
+            await self._foldin.aclose()
+        await asyncio.get_running_loop().run_in_executor(
+            None, functools.partial(self._deploy_executor.shutdown,
+                                    wait=True))
+        while pending := [t for t in self._tasks if not t.done()]:
+            await asyncio.gather(*pending, return_exceptions=True)
+        for unit in (self._unit, self._standby):
+            if unit is not None and unit.batcher is not None:
+                await unit.batcher.shutdown()
         self._predict_executor.shutdown(wait=False)
-        self._deploy_executor.shutdown(wait=True)
 
     def _authorized(self, req: Request) -> bool:
         return not self.access_key or \
@@ -433,9 +544,10 @@ class QueryServer:
 
     # -- info ---------------------------------------------------------------
     async def handle_root(self, _req: Request) -> Tuple[int, Any]:
-        """Engine/instance info + serving stats; also the scorer status
-        and the kernel launch counts of this process since it was warm
-        (a ``/reload``'s warm-up counts among them)."""
+        """Engine/instance info + serving stats; also the scorer status,
+        the kernel launch counts of this process since it was warm (a
+        ``/reload``'s warm-up and the fold-in solves count among them) and
+        the fold-in status."""
         with self._stats_lock:
             count, total = self._query_count, self._query_seconds
             recent = list(self._recent)
@@ -465,6 +577,7 @@ class QueryServer:
                        if self.last_warmup is not None else None),
             "kernelLaunches": kernels.counts(),
             "warmupKernelLaunches": self.warmup_launches,
+            "foldin": self.foldin_status(),
         }
 
     # -- deploy lifecycle ----------------------------------------------------
@@ -500,7 +613,7 @@ class QueryServer:
                     release)
             except DeployError as e:
                 return 500, {"message": str(e)}
-            self._swap_to(unit)
+            self._swap_to(unit, reason="reload")
             self.last_warmup = report
             return 200, {
                 "message": "Reloaded",
@@ -528,6 +641,84 @@ class QueryServer:
         return 200, {"releases": out, "serving": {
             "engineInstanceId": inst.id,
             "releaseVersion": self._unit.release_version or None}}
+
+    async def handle_rollback(self, req: Request) -> Tuple[int, Any]:
+        """Operator rollback: restore the resident standby (the previous
+        release, or a fold-in drift's pre-fold-in base), else load the
+        newest older release from the registry. The release rolled away
+        from is marked ROLLED_BACK, and the standby is cleared so a
+        second rollback never flips back onto it."""
+        if not self._authorized(req):
+            return 401, {"message": "Unauthorized"}
+        loop = asyncio.get_running_loop()
+        async with self._reload_lock:
+            t0 = time.perf_counter()
+            target = self._standby
+            if target is None:
+                target = await loop.run_in_executor(
+                    self._deploy_executor, self._load_previous_release)
+            if target is None:
+                return 404, {"message": "No previous release to roll "
+                                        "back to."}
+            rolled_back = self._swap_to(target, reason="operator rollback",
+                                        retire_old=False)
+            self._set_release_status(rolled_back.release, "ROLLED_BACK",
+                                     "operator rollback")
+            self._standby = None
+            return 200, {
+                "message": "Rolled back",
+                "engineInstanceId": target.instance.id,
+                "releaseVersion": target.release_version or None,
+                "seconds": time.perf_counter() - t0}
+
+    def _load_previous_release(self) -> Optional[ServingUnit]:
+        """The registry's rollback target when no standby is resident
+        (the server restarted since the last swap): the newest RETIRED
+        or LIVE release below the active version whose instance is
+        COMPLETED, loaded, warmed up and verified (on the deploy
+        executor)."""
+        inst = self.instance
+        try:
+            releases = Storage.get_meta_data_releases()
+            instances = Storage.get_meta_data_engine_instances()
+            active_v = self._unit.release_version
+            for r in releases.get_for_variant(
+                    inst.engine_id, inst.engine_version,
+                    inst.engine_variant):
+                if active_v and r.version >= active_v:
+                    continue
+                if r.status not in ("RETIRED", "LIVE"):
+                    continue
+                target = instances.get(r.instance_id)
+                if target is not None and target.status == "COMPLETED":
+                    return self._prepare_unit(target, r)[0]
+        except DeployError:
+            logger.exception("previous release failed to prepare")
+        except Exception:
+            logger.exception("rollback target lookup failed")
+        return None
+
+    async def handle_deploy_status(self, _req: Request) -> Tuple[int, Any]:
+        """The active and standby units and the fold-in status (the
+        canary comes with the canary's port)."""
+        unit, standby = self._unit, self._standby
+        return 200, {
+            "active": {
+                "engineInstanceId": unit.instance.id,
+                "releaseVersion": unit.release_version or None,
+                "vectorized": unit.vectorized,
+                "foldinRows": unit.foldin_rows,
+            },
+            "standby": ({
+                "engineInstanceId": standby.instance.id,
+                "releaseVersion": standby.release_version or None,
+            } if standby is not None else None),
+            "canary": None,
+            "lastWarmup": (self.last_warmup.to_dict()
+                           if self.last_warmup is not None else None),
+            "foldin": self.foldin_status(),
+            "scorer": unit_scorer_status(unit.result),
+        }
 
     async def handle_stop(self, req: Request) -> Tuple[int, Any]:
         if not self._authorized(req):

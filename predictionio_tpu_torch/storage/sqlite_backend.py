@@ -112,6 +112,18 @@ def event_table_name(app_id: int, channel_id: Optional[int]) -> str:
     return f"pio_event_{app_id}{suffix}"
 
 
+def _equal_or_in(column: str, value, params: list) -> str:
+    """``column = ?`` for one id, ``column IN (?, ...)`` for a list."""
+    if isinstance(value, str):
+        params.append(value)
+        return f"{column} = ?"
+    values = list(value)
+    if not values:
+        return "0"
+    params.extend(values)
+    return f"{column} IN ({','.join('?' * len(values))})"
+
+
 class SqliteEvents(base.EventStore):
     """EventStore over sqlite (JDBCLEvents.scala behavioural parity)."""
 
@@ -234,6 +246,8 @@ class SqliteEvents(base.EventStore):
     ):
         """(sql, params) for a filtered event scan, shared by the row
         path (`find`) and the columnar training path (`find_columns`).
+        ``entity_id`` and ``target_entity_id`` also take a list of ids
+        (any of them matches: one scan for a fold-in tick's entities).
         The reference's ``shard`` partitioning belongs to multi-process
         training, which the port does not have yet."""
         name = event_table_name(app_id, channel_id)
@@ -248,8 +262,7 @@ class SqliteEvents(base.EventStore):
             where.append("entityType = ?")
             params.append(entity_type)
         if entity_id is not None:
-            where.append("entityId = ?")
-            params.append(entity_id)
+            where.append(_equal_or_in("entityId", entity_id, params))
         if event_names:
             qs = ",".join("?" * len(event_names))
             where.append(f"event IN ({qs})")
@@ -264,8 +277,8 @@ class SqliteEvents(base.EventStore):
             if target_entity_id is None:
                 where.append("targetEntityId IS NULL")
             else:
-                where.append("targetEntityId = ?")
-                params.append(target_entity_id)
+                where.append(_equal_or_in("targetEntityId",
+                                          target_entity_id, params))
         sql = f"SELECT {select_cols} FROM {name} WHERE {' AND '.join(where)}"
         if ordered:
             sql += f" ORDER BY eventTime {'DESC' if reversed_order else 'ASC'}"

@@ -1,9 +1,11 @@
-"""Scorer, ingest and training-solver knobs: the ``scorer``, ``ingest``
-and ``train`` sections of the reference's ``utils/server_config.py``
-(``ScorerConfig``, ``scorer_config``, ``IngestConfig``, ``TrainConfig``,
-``als_solver_config``), with their precedence unchanged — server.json
-section < engine.json (the top-level ``scorer`` section, the algorithm's
-``solver`` params) < ``PIO_SCORER_*`` / ``PIO_INGEST_*`` / ``PIO_ALS_*``
+"""Scorer, ingest, training-solver and fold-in knobs: the ``scorer``,
+``ingest``, ``train`` and ``foldin`` sections of the reference's
+``utils/server_config.py`` (``ScorerConfig``, ``scorer_config``,
+``IngestConfig``, ``TrainConfig``, ``als_solver_config``,
+``FoldinConfig``, ``foldin_config``), with their precedence unchanged —
+server.json section < engine.json (the top-level ``scorer`` and
+``foldin`` sections, the algorithm's ``solver`` params) <
+``PIO_SCORER_*`` / ``PIO_INGEST_*`` / ``PIO_ALS_*`` / ``PIO_FOLDIN*``
 environment.
 
 The server.json path is resolved as the reference resolves it:
@@ -146,6 +148,72 @@ def scorer_config(variant_section: Optional[dict] = None) -> ScorerConfig:
     ``PIO_SCORER_*`` env vars override both."""
     data = read_server_json().get("scorer") or {}
     return ScorerConfig.from_env(data, variant_section)
+
+
+@dataclasses.dataclass
+class FoldinConfig:
+    """Online fold-in tuning (server.json ``foldin`` section, camelCase
+    keys; an engine.json top-level ``foldin`` section overrides the host
+    file; the ``PIO_FOLDIN*`` env vars override both).
+
+    ``enabled`` starts the query server's fold-in controller
+    (``deploy/foldin``) when the deployed engine supports it.
+    ``apply_interval_s`` is the apply cadence (p95 event->reflected is
+    about the interval plus one apply); ``max_pending`` caps the rows one
+    apply folds (the rest wait for the next tick) and, once that many
+    rows wait, wakes the apply early; ``row_len`` is the packed-row width
+    of the batched solve (heavy entities span several rows)."""
+
+    enabled: bool = False
+    apply_interval_s: float = 2.0
+    max_pending: int = 1024
+    row_len: int = 32
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None,
+                 variant: Optional[dict] = None) -> "FoldinConfig":
+        """Per knob, weakest first: server.json ``foldin`` section
+        (``data``) < engine.json ``foldin`` section (``variant``) <
+        ``PIO_FOLDIN*`` env. Malformed knobs are logged and fall back."""
+        data = data or {}
+        variant = variant or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+        keys = (
+            ("enabled", "PIO_FOLDIN", "enabled", as_bool),
+            ("applyIntervalS", "PIO_FOLDIN_APPLY_INTERVAL_S",
+             "apply_interval_s", float),
+            ("maxPending", "PIO_FOLDIN_MAX_PENDING", "max_pending", int),
+            ("rowLen", "PIO_FOLDIN_ROW_LEN", "row_len", int),
+        )
+        sources = ([(k, data.get(k), attr, conv)
+                    for k, _e, attr, conv in keys]
+                   + [(f"engine.json {k}", variant.get(k), attr, conv)
+                      for k, _e, attr, conv in keys]
+                   + [(e, os.environ.get(e), attr, conv)
+                      for _k, e, attr, conv in keys])
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed foldin knob %s=%r",
+                               name, raw)
+        cfg.apply_interval_s = max(0.01, cfg.apply_interval_s)
+        cfg.max_pending = max(1, cfg.max_pending)
+        cfg.row_len = max(1, cfg.row_len)
+        return cfg
+
+
+def foldin_config(variant_section: Optional[dict] = None) -> FoldinConfig:
+    """Resolve the fold-in knobs a query server runs with:
+    ``variant_section`` is the engine.json top-level ``foldin`` section,
+    which overrides the host-level server.json section; the
+    ``PIO_FOLDIN*`` env vars override both."""
+    data = read_server_json().get("foldin") or {}
+    return FoldinConfig.from_env(data, variant_section)
 
 
 @dataclasses.dataclass

@@ -6,8 +6,9 @@ the CPU on their own.
   over HTTP on the CPU, then finds neither ``jax`` nor any
   ``predictionio_tpu`` module in ``sys.modules``; another writes events
   into a tiny sqlite store and trains from it through the train CLI on
-  the CPU, and a third creates an app through the CLI and ingests an
-  event through the event server, with the same finding;
+  the CPU, a third creates an app through the CLI and ingests an event
+  through the event server, and a fourth serves with online fold-in on
+  (``PIO_FOLDIN=1``) and applies once, each with the same finding;
 * an AST scan finds no such import in the package or in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
@@ -175,6 +176,74 @@ def test_event_server_loads_no_jax(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
+_FOLDIN_CHILD = r"""
+import asyncio, http.client, json, os, sys
+import numpy as np
+os.environ.update({"PIO_FOLDIN": "1", "PIO_FOLDIN_APPLY_INTERVAL_S": "3600"})
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.deploy.warm import EngineInstance
+from predictionio_tpu_torch.engines.recommendation import engine, default_engine_params
+from predictionio_tpu_torch.models.als import ALSModel
+from predictionio_tpu_torch.server.query_server import create_query_server
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+from predictionio_tpu_torch.utils.server_config import foldin_config
+
+tmp = sys.argv[1]
+Storage.configure({"sources": {"DB": {"TYPE": "sqlite",
+                                      "PATH": os.path.join(tmp, "f.db")}},
+                   "repositories": {r: {"NAME": "pio", "SOURCE": "DB"}
+                                    for r in ("METADATA", "EVENTDATA",
+                                              "MODELDATA")}})
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+Storage.get_events().init_channel(app_id)
+rng = np.random.default_rng(0)
+model = ALSModel.from_arrays(np.array(["u0", "u1"]), np.array(["a", "b", "c"]),
+                             rng.standard_normal((2, 4)), rng.standard_normal((3, 4)),
+                             device="cpu")
+eng = engine()
+result = eng.prepare_deploy(default_engine_params("Guard", rank=4), [model])
+server = create_query_server(eng, result, EngineInstance(id="guard"),
+                             foldin_config=foldin_config())
+
+def query(port):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    c.request("POST", "/queries.json", body=json.dumps({"user": "new", "num": 2}))
+    r = c.getresponse()
+    return r.status, json.loads(r.read())
+
+async def main():
+    port = await server.start("127.0.0.1", 0)
+    loop = asyncio.get_running_loop()
+    try:
+        Storage.get_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id="new",
+                  target_entity_type="item", target_entity_id=i,
+                  properties={"rating": 4.0}) for i in ("a", "c")], app_id)
+        stats = await loop.run_in_executor(server._deploy_executor,
+                                           server._foldin.apply_pending)
+        assert stats["users"] == 1, stats
+        return await loop.run_in_executor(None, query, port)
+    finally:
+        await server.close()
+
+status, body = asyncio.run(main())
+assert status == 200 and len(body["itemScores"]) == 2, (status, body)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_foldin_deploy_and_apply_loads_no_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _FOLDIN_CHILD, str(tmp_path)],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -269,6 +338,12 @@ def _load_for_deploy(tmp_path):
     return load_for_deploy(engine(), EngineInstance(id="x"))
 
 
+def _foldin_solver():
+    from predictionio_tpu_torch.models.als import ALSParams, FoldInSolver
+
+    return FoldInSolver(np.ones((3, 2), np.float32), ALSParams(rank=2))
+
+
 def _cli_deploy(tmp_path):
     from predictionio_tpu_torch.cli.main import main
     from predictionio_tpu_torch.workflow.serialization import save_model
@@ -281,7 +356,7 @@ def _cli_deploy(tmp_path):
 @pytest.mark.parametrize("entry", ["ALSModel.from_arrays", "load_model",
                                    "build_scorer", "cli deploy",
                                    "train_als", "cli train", "run_train",
-                                   "load_for_deploy"])
+                                   "load_for_deploy", "FoldInSolver"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -291,7 +366,8 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "train_als": _train_als,
             "cli train": lambda: _cli_train(tmp_path),
             "run_train": lambda: _run_train(tmp_path),
-            "load_for_deploy": lambda: _load_for_deploy(tmp_path)}[entry]
+            "load_for_deploy": lambda: _load_for_deploy(tmp_path),
+            "FoldInSolver": _foldin_solver}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

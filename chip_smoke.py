@@ -137,6 +137,43 @@ Phases, each reported on its own lines:
                    the card, served scores equal to the exact f32 scores
                    within 1e-4, and that blacklisted items are absent.
 
+8. ``canary``    — staged rollouts (``deploy/canary``) at the serve
+                   cell's width: the same 10M x 64 model as v1, served
+                   by a ``QueryServer`` in this process over HTTP
+                   (twostage, fold-in on with the push tap, a 1 s apply
+                   interval), and v2 and v3 from ``--seed`` + 1 and + 2
+                   stored as COMPLETED instances, ``localfs`` blobs and
+                   releases. ``POST /deploy.json`` of v2 as a canary at
+                   fraction 0.2 (window 200, 20 samples, promote after
+                   100): its prepare split (blob load, scorer build,
+                   parity gate and its recall, warm-up, verify; a
+                   candidate gated to exact fails the phase); 8 new users
+                   x 8 ratings streamed while it is judged (no apply
+                   runs, all 8 stay pending); sequential single queries
+                   until the verdict, each answer the exact f32 top-10
+                   of the arm that served it (the arms' factors differ,
+                   so the ids show the arm) and one B2 launch each; the
+                   realized split round(N * 0.2) +-1; the verdict
+                   promote, and ``/releases.json`` reading v2 LIVE and
+                   v1 RETIRED on the request after ``/deploy/status.json``
+                   shows no canary; the held users folded (B1 at K = 64)
+                   within one interval plus one apply of the verdict and
+                   answered. Then 200 queries, ``POST /deploy.json`` of
+                   v3 as a shadow, the same 200 queries: every answer
+                   v2's, B2 twice a query, the incumbent's p50 beside
+                   its p50 before; ``POST /rollback.json`` answers
+                   "Canary aborted" and the next ``/releases.json`` reads
+                   v3 ROLLED_BACK. Its CLI leg runs inside the
+                   lifecycle, after the fold-in leg, at the ML-100k
+                   shape: ``deploy`` of v2 with ``--feedback
+                   --event-server-app --log-url --log-prefix`` (the sink
+                   a stdlib HTTP server here that sleeps 2 s before it
+                   answers); 50 queries write 50 ``predict`` events, each
+                   with its answer's ``prId``; a failing query gets its
+                   400 in under 0.5 s and the sink the prefixed body;
+                   ``undeploy`` stops the server, which exits 0 within
+                   5 s.
+
 Each phase's launch counts are its own: zeroed just before the phase
 drives its path and read just after (in the process that launched).
 Then it prints one JSON line describing each kernel (times from this
@@ -1017,6 +1054,8 @@ def lifecycle_phase(seed: int, port: int):
         foldin = foldin_lifecycle_leg(seed, env, variant, key, es_port,
                                       port, m2)
         foldin["leg_s"] = time.perf_counter() - t0
+        # 8. the canary phase's CLI leg, on v2 and the same store
+        feedback = feedback_leg(seed, env, variant, key, port, app_id, m2)
         events_srv.stop()
         check(events_srv.proc.returncode == 0, "the event server did not "
               f"drain and exit cleanly (rc {events_srv.proc.returncode})")
@@ -1032,7 +1071,8 @@ def lifecycle_phase(seed: int, port: int):
         ckpt = checkpoint_leg(users, items, ratings, bu, bi, work)
         report = {"ingest": ingest_report, "train": t1, "train_v2": t2,
                   **reload_report, "checkpoint": ckpt,
-                  "queries": len(picks) + 11, "foldin": foldin}
+                  "queries": len(picks) + 11, "foldin": foldin,
+                  "feedback": feedback}
         log("lifecycle: " + json.dumps(report))
         return report
     finally:
@@ -1105,6 +1145,130 @@ def checkpoint_leg(users, items, ratings, bu, bi, work):
           f"resumed train differs from the straight run by "
           f"{out['resumed_rel_diff']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# canary phase, its CLI leg: feedback, the remote log and undeploy
+# ---------------------------------------------------------------------------
+
+#: the canary phase's CLI leg at the lifecycle's shape: queries recorded
+#: by the feedback loop, the remote log sink's delay and the prefix
+FEEDBACK = dict(queries=50, sink_sleep_s=2.0, prefix="pio-smoke-log:")
+
+
+class _LogSink:
+    """A stdlib HTTP sink for the remote error log: it records each body
+    and its arrival, then sleeps ``sleep_s`` before answering."""
+
+    def __init__(self, sleep_s: float):
+        import http.server
+
+        self.bodies = []
+        sink = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                sink.bodies.append((time.perf_counter(),
+                                    self.rfile.read(n).decode()))
+                time.sleep(sleep_s)
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/log"
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def feedback_leg(seed, env, variant, key, port, app_id, m2):
+    """The canary phase's CLI leg, on the lifecycle's store: ``deploy``
+    of v2 with ``--feedback --event-server-app --log-url --log-prefix``;
+    each answer's ``prId`` recorded as a ``predict`` event, a failing
+    query's 400 out at once while the sink sleeps, the sink receiving the
+    prefixed body, then ``undeploy``."""
+    import numpy as np
+
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    f = FEEDBACK
+    sink = _LogSink(f["sink_sleep_s"])
+    server = None
+    try:
+        server = Server(["deploy", "--variant", str(variant), "--release",
+                         "2", "--port", str(port), "--device", DEV,
+                         "--accesskey", key, "--feedback",
+                         "--event-server-app", "SmokeApp", "--log-url",
+                         sink.url, "--log-prefix", f["prefix"]], env,
+                        tag="feedback")
+        q_port = server.wait_ready(timeout_s=300)
+        qc = Client(q_port)
+        picks = np.random.default_rng(seed + 9).choice(
+            len(m2.user_vocab), size=f["queries"], replace=False)
+        pr_ids = []
+        for i in picks:
+            status, body, _ = qc.call("POST", "/queries.json",
+                                      {"user": str(m2.user_vocab[i]),
+                                       "num": 10})
+            check(status == 200 and len(body["itemScores"]) == 10
+                  and body.get("prId"), f"feedback query: {status} {body}")
+            pr_ids.append(body["prId"])
+        t_fail = time.perf_counter()
+        status, body, fail_dt = qc.call("POST", "/queries.json", {"num": 10})
+        check(status == 400, f"a query without a user answered {status}")
+        check(fail_dt < 0.5, f"the failing query's 400 took {fail_dt:.3f} s "
+              f"with the log sink asleep {f['sink_sleep_s']} s")
+        deadline = time.monotonic() + 10
+        while not sink.bodies and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(len(sink.bodies) == 1 and sink.bodies[0][1].startswith(
+            f["prefix"]), f"the log sink received {sink.bodies}")
+        logged = json.loads(sink.bodies[0][1][len(f["prefix"]):])
+        check(set(logged) == {"engineInstance", "message"}
+              and logged["message"].startswith("Query:\n"),
+              f"remote log payload {logged}")
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            events = list(Storage.get_events().find(
+                app_id, entity_type="pio_pr"))
+            if len(events) >= f["queries"]:
+                break
+            time.sleep(0.05)
+        check(sorted(e.entity_id for e in events) == sorted(pr_ids)
+              and all(e.event == "predict" for e in events),
+              f"{len(events)} predict events for {len(pr_ids)} answers")
+        _, root, _ = qc.call("GET", "/")
+        fb = root["feedback"]
+        check(fb["writes"] == f["queries"] and fb["failures"] == 0,
+              f"feedback writes {fb}")
+        t0 = time.perf_counter()
+        _cli(["undeploy", "--port", str(q_port), "--accesskey", key], env,
+             timeout=60)
+        rc = server.proc.wait(timeout=5)
+        undeploy_s = time.perf_counter() - t0
+        check(rc == 0, f"the undeployed server exited {rc}")
+        report = {
+            "queries": f["queries"], "predict_events": len(events),
+            "feedback_write_p50_ms": fb["p50WriteSec"] * 1e3,
+            "feedback_write_max_ms": fb["maxWriteSec"] * 1e3,
+            "failed_query_400_ms": fail_dt * 1e3,
+            "log_arrived_after_400_start_ms":
+                (sink.bodies[0][0] - t_fail) * 1e3,
+            "sink_sleep_s": f["sink_sleep_s"], "undeploy_s": undeploy_s}
+        log("canary: feedback " + json.dumps(report))
+        return report
+    finally:
+        if server is not None:
+            server.stop()
+        sink.close()
 
 
 # ---------------------------------------------------------------------------
@@ -1804,6 +1968,406 @@ def foldin_width_leg(seed, users, items, U, V):
 
 
 # ---------------------------------------------------------------------------
+# canary phase: staged rollouts at the serve cell's width, in this process
+# ---------------------------------------------------------------------------
+
+#: the first leg's ``POST /deploy.json``: a canary of v2 at one query in
+#: five, promoted after 100 clean samples
+CANARY_BODY = {"version": 2, "canaryFraction": 0.2, "canaryWindow": 200,
+               "canaryMinSamples": 20, "canaryPromoteAfter": 100}
+#: the shadow leg's body, and the queries it mirrors. The server's own
+#: promote count (DeployConfig) is set far above them, so the shadow ends
+#: by the operator's abort, not by a promote
+SHADOW_BODY = {"version": 3, "shadow": True}
+SHADOW_QUERIES = 200
+SHADOW_PROMOTE_AFTER = 100_000
+#: the fold-in held by the canary: new users x ratings, streamed through
+#: the push tap while the canary is judged; the apply interval
+CANARY_FOLDIN = dict(users=8, ratings=8, interval_s=1.0)
+#: a served top-10 against its arm's exact one: ids equal up to ties,
+#: scores within this (relative above 1)
+ARM_TOL = 1e-4
+
+
+class _LoopThread:
+    """An asyncio loop on a daemon thread, for an in-process server."""
+
+    def __init__(self):
+        import asyncio
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 600):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def stop(self):
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=60)
+
+
+def _arm_match(body, sc) -> bool:
+    """Does a served answer equal the exact f32 top-10 of one arm's
+    scores ``sc`` (a card tensor over the catalog)?"""
+    import numpy as np
+    import torch
+
+    got = body["itemScores"]
+    vals, idx = torch.topk(sc, 10)
+    vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+    if len(got) != 10:
+        return False
+    got_ids = np.array([int(s["item"][1:]) for s in got])
+    got_sc = np.array([s["score"] for s in got])
+    exact_sc = sc[torch.as_tensor(got_ids, device=DEV)].cpu().numpy()
+    tol = ARM_TOL * np.maximum(1.0, np.abs(exact_sc))
+    if not (np.abs(got_sc - exact_sc) <= tol).all():
+        return False
+    # the same ids, up to ties of the exact scores
+    return all(a == b_ or abs(float(s) - float(v)) <= ARM_TOL * max(
+        1.0, abs(float(v))) for a, b_, v, s in zip(got_ids, idx, vals,
+                                                  exact_sc))
+
+
+def _lat(ms):
+    import numpy as np
+
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))} if ms else {"n": 0}
+
+
+def canary_phase(seed, users, items, U, V):
+    """Staged rollouts at the serve cell's width, through the deploy API
+    of a ``QueryServer`` in this process (served over HTTP on a loop
+    thread): a canary of v2 promoted, fold-in held by it, a shadow of v3
+    aborted. Returns the phase's report (``main`` prints it as the
+    ``canary`` line, with the CLI leg's figures)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.write_buffer import WriteBuffer
+    from predictionio_tpu_torch.deploy.releases import record_release
+    from predictionio_tpu_torch.engines.recommendation import (
+        default_engine_params, engine,
+    )
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.ops import kernels, scoring
+    from predictionio_tpu_torch.server.query_server import QueryServer
+    from predictionio_tpu_torch.storage.base import App, EngineInstance, Model
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.utils.server_config import (
+        DeployConfig, FoldinConfig, ScorerConfig,
+    )
+    from predictionio_tpu_torch.workflow.serialization import (
+        serialize_models,
+    )
+
+    n_items, rank = V.shape
+    n_users = len(users)
+    work = WORK / "canary"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    Storage.configure({
+        "sources": {"DB": {"TYPE": "sqlite", "PATH": str(work / "pio.db")},
+                    "FS": {"TYPE": "localfs", "PATH": str(work / "models")}},
+        "repositories": {
+            "METADATA": {"NAME": "pio", "SOURCE": "DB"},
+            "EVENTDATA": {"NAME": "pio", "SOURCE": "DB"},
+            "MODELDATA": {"NAME": "pio", "SOURCE": "FS"}}})
+    server = lt = buf = None
+    arms_dev = {}
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0,
+                                                         name="CanaryApp"))
+        Storage.get_events().init_channel(app_id)
+
+        def instance(n):
+            inst = EngineInstance(
+                id=f"canary-v{n}", status="COMPLETED",
+                engine_id="canary-engine", engine_version="1",
+                engine_variant="default",
+                data_source_params=json.dumps({"appName": "CanaryApp"}),
+                algorithms_params=json.dumps(
+                    [{"name": "als", "params": {"rank": rank}}]))
+            Storage.get_meta_data_engine_instances().insert(inst)
+            return inst
+
+        # v1: the serve cell's model, served from this process; v2 and v3
+        # from seed + 1 and seed + 2, stored as blobs
+        inst1 = instance(1)
+        rel1 = record_release(inst1, 0.0)
+        factors = {1: (U, V)}
+        t0 = time.perf_counter()
+        for n in (2, 3):
+            _, _, Un, Vn = build_model(seed + n - 1, n_items, n_users, rank)
+            blob = serialize_models([ALSModel.from_arrays(
+                users, items, Un, Vn, device="cpu")])
+            inst = instance(n)
+            Storage.get_model_data_models().insert(Model(id=inst.id,
+                                                         models=blob))
+            check(record_release(inst, 0.0, blob).version == n,
+                  f"v{n} did not register as release {n}")
+            blob_mb = len(blob) / 1e6
+            del blob
+            factors[n] = (Un, Vn)
+        setup_s = time.perf_counter() - t0
+        log(f"canary: v2 and v3 built and stored ({blob_mb:.0f} MB blobs) "
+            f"in {setup_s:.3f} s")
+
+        model = ALSModel.from_arrays(users, items, U, V, device=DEV)
+        eng = engine()
+        result = eng.prepare_deploy(
+            default_engine_params("CanaryApp", rank=rank), [model])
+        cf = CANARY_FOLDIN
+        server = QueryServer(
+            eng, result, inst1, release=rel1,
+            scorer_config=ScorerConfig(mode="twostage", tile_items=TILE,
+                                       shortlist=SHORTLIST),
+            foldin_config=FoldinConfig(enabled=True,
+                                       apply_interval_s=cf["interval_s"],
+                                       max_pending=64),
+            deploy_config=DeployConfig(
+                canary_promote_after=SHADOW_PROMOTE_AFTER))
+        t0 = time.perf_counter()
+        server.warm()
+        warm_s = time.perf_counter() - t0
+        check(model._scorer_cache[2].active, "v1's scorer was demoted")
+        lt = _LoopThread()
+        port = lt.run(server.start("127.0.0.1", 0))
+        client = Client(port)
+        ctl = server._foldin
+        check(ctl is not None, "fold-in did not arm")
+
+        def exact(n, ui):
+            Un, _ = factors[n]
+            if n not in arms_dev:
+                arms_dev[n] = torch.from_numpy(factors[n][1]).to(DEV)
+            return arms_dev[n] @ torch.from_numpy(Un[ui]).to(DEV)
+
+        def prepare_split(out):
+            prep = out["prepare"]
+            scorer = prep["scorer"]
+            check(len(scorer) == 1, f"candidate scorers: {scorer}")
+            scorer = scorer[0]
+            check(scorer["activeMode"] == "twostage", "the candidate's "
+                  f"scorer was gated to {scorer['activeMode']} (probe "
+                  f"recall {scorer['recallProbe']}): B2 would be off an arm")
+            return {"load_s": prep["loadS"],
+                    "scorer_build_s": scorer["buildSeconds"]
+                    - scorer["gateSeconds"],
+                    "parity_gate_s": scorer["gateSeconds"],
+                    "parity_recall": scorer["recallProbe"],
+                    "warmup_s": prep["warmupS"] - scorer["buildSeconds"],
+                    "verify_s": prep["verifyS"],
+                    "prepare_s": out["seconds"]}
+
+        rng = np.random.default_rng(seed + 11)
+
+        # 1. canary v2 ------------------------------------------------------
+        status, out, dt = client.call("POST", "/deploy.json", CANARY_BODY)
+        check(status == 200 and out.get("message") == "Canary started",
+              f"canary deploy answered {status}: {out}")
+        prepare2 = prepare_split(out)
+        prepare2["http_s"] = dt
+        log("canary: v2 prepared " + json.dumps(prepare2))
+        _, rels, _ = client.call("GET", "/releases.json")
+        check({r["version"]: r["status"] for r in rels["releases"]}.get(2)
+              == "CANARY", f"releases after the canary deploy: "
+              f"{rels['releases']}")
+
+        # 2. the fold-in it holds: 8 new users x 8 ratings, push tap -----
+        buf = WriteBuffer(Storage.get_events, linger_s=0.001)
+        fresh = [f"canaryfresh{j}" for j in range(cf["users"])]
+        buf.submit([Event(event="rate", entity_type="user", entity_id=uid,
+                          target_entity_type="item",
+                          target_entity_id=str(items[j]),
+                          properties=DataMap({"rating": 4.0}))
+                    for uid in fresh
+                    for j in rng.choice(n_items, cf["ratings"],
+                                        replace=False)], app_id).result(60)
+        deadline = time.monotonic() + 30
+        while ctl.pending_rows() < cf["users"] \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        check(ctl.pending_rows() == cf["users"], f"{ctl.pending_rows()} "
+              f"rows pending of {cf['users']} streamed users")
+        applies0 = ctl.applies
+
+        # 3. sequential single queries until the verdict -----------------
+        kernels.reset_counts()
+        arms, lat = [], {1: [], 2: []}
+        b2 = {1: 0, 2: 0}
+        t_phase = time.perf_counter()
+        verdict_st = None
+        while time.perf_counter() - t_phase < 300:
+            ui = int(rng.integers(n_users))
+            before = kernels.counts()["shortlist"]
+            status, body, dt = client.call(
+                "POST", "/queries.json", {"user": str(users[ui]),
+                                          "num": 10})
+            check(status == 200, f"canary query answered {status}: {body}")
+            launched = kernels.counts()["shortlist"] - before
+            served = [n for n in (1, 2) if _arm_match(body, exact(n, ui))]
+            check(len(served) == 1, f"query {len(arms)} for {users[ui]}: "
+                  f"its top-10 is the exact top-10 of arms {served}")
+            arm = served[0]
+            check(launched == 1, f"query {len(arms)} launched B2 "
+                  f"{launched} times")
+            arms.append(arm)
+            lat[arm].append(dt * 1e3)
+            b2[arm] += launched
+            _, st, _ = client.call("GET", "/deploy/status.json")
+            if st["canary"] is None or st["canary"]["decided"]:
+                verdict_st = st
+                break
+        check(verdict_st is not None, "no verdict within 300 s")
+        held = {"applies": ctl.applies - applies0,
+                "pending": ctl.pending_rows(),
+                "held_ticks": ctl.outcomes.get("held", 0)}
+        while verdict_st["canary"] is not None:
+            _, verdict_st, _ = client.call("GET", "/deploy/status.json")
+        t_verdict = time.perf_counter()
+        _, rels, _ = client.call("GET", "/releases.json")
+        statuses = {r["version"]: r["status"] for r in rels["releases"]}
+        check(statuses.get(2) == "LIVE" and statuses.get(1) == "RETIRED",
+              f"straight after the verdict the registry reads {statuses}")
+        events = verdict_st["deploy"]["recentEvents"]
+        verdict = next(e for e in events if e["kind"] == "canary_verdict")
+        check(verdict["decision"] == "promote", f"verdict {verdict}")
+        check(held["applies"] == 0 and held["pending"] == cf["users"],
+              f"fold-in ran during the canary: {held}")
+        n_routed = max(i for i, a in enumerate(arms) if a == 2) + 1
+        n_canary = arms[:n_routed].count(2)
+        check(abs(n_canary - round(n_routed * CANARY_BODY["canaryFraction"]))
+              <= 1, f"{n_canary} of {n_routed} queries went to the canary")
+        check(b2[1] + b2[2] == len(arms), "B2 launches differ from the "
+              "scored queries")
+
+        # 4. the held fold-in lands after the verdict -------------------
+        spd0 = kernels.counts()["spd_solve"]
+        deadline = time.monotonic() + 30
+        while ctl.applied_users < cf["users"] \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        applied_s = time.perf_counter() - t_verdict
+        check(ctl.applied_users == cf["users"], f"{ctl.applied_users} of "
+              f"{cf['users']} held users folded after the verdict")
+        applies = _applies_after(ctl, applies0)
+        solves = [sv for a in applies for sv in a["solves"]]
+        b1 = kernels.counts()["spd_solve"] - spd0
+        check(b1 >= 1 and b1 == len(solves)
+              and all(sv["K"] == rank for sv in solves),
+              f"the held fold-in launched B1 {b1} times for {solves}")
+        bound = cf["interval_s"] + max(a["apply_s"] for a in applies) + 0.5
+        check(applied_s <= bound, f"held users applied {applied_s:.3f} s "
+              f"after the verdict, over {bound:.3f} s")
+        for uid in fresh:
+            status, body, _ = client.call("POST", "/queries.json",
+                                          {"user": uid, "num": 10})
+            check(status == 200 and len(body["itemScores"]) == 10,
+                  f"folded {uid} answered {status} {body}")
+
+        # 5. shadow v3, then the operator's abort -------------------------
+        picks = rng.choice(n_users, SHADOW_QUERIES, replace=False)
+
+        def drive(tag):
+            ms = []
+            for ui in picks:
+                status, body, dt = client.call(
+                    "POST", "/queries.json", {"user": str(users[ui]),
+                                              "num": 10})
+                check(status == 200 and _arm_match(body, exact(2, int(ui))),
+                      f"{tag}: {users[ui]} was not served v2's top-10")
+                ms.append(dt * 1e3)
+            return ms
+
+        kernels.reset_counts()
+        plain_ms = drive("before the shadow")
+        plain_b2 = kernels.counts()["shortlist"]
+        status, out, dt = client.call("POST", "/deploy.json", SHADOW_BODY)
+        check(status == 200 and out.get("message") == "Canary started"
+              and out["canary"]["shadow"] is True,
+              f"shadow deploy answered {status}: {out}")
+        prepare3 = prepare_split(out)
+        log("canary: v3 prepared " + json.dumps(prepare3))
+        kernels.reset_counts()
+        shadow_ms = drive("under the shadow")
+        deadline = time.monotonic() + 30
+        while True:
+            _, st, _ = client.call("GET", "/deploy/status.json")
+            mirrored = st["canary"]["canary"]["total"]
+            if mirrored >= SHADOW_QUERIES or time.monotonic() > deadline:
+                break
+            time.sleep(0.01)
+        shadow_b2 = kernels.counts()["shortlist"]
+        check(mirrored == SHADOW_QUERIES and st["canary"]["decided"] is None,
+              f"the shadow judged {mirrored} of {SHADOW_QUERIES}: "
+              f"{st['canary']}")
+        check(shadow_b2 == 2 * SHADOW_QUERIES and plain_b2 == SHADOW_QUERIES,
+              f"B2 launched {plain_b2} times for {SHADOW_QUERIES} plain "
+              f"queries and {shadow_b2} under the shadow")
+        status, out, abort_dt = client.call("POST", "/rollback.json")
+        check(status == 200 and out["message"] == "Canary aborted",
+              f"the abort answered {status}: {out}")
+        _, rels, _ = client.call("GET", "/releases.json")
+        statuses3 = {r["version"]: r["status"] for r in rels["releases"]}
+        check(statuses3.get(3) == "ROLLED_BACK",
+              f"straight after the abort the registry reads {statuses3}")
+
+        report = {
+            "card": card_line(), "items": n_items, "rank": rank,
+            "users": n_users, "v1_warm_s": warm_s, "blob_mb": blob_mb,
+            "candidates_built_and_stored_s": setup_s,
+            "prepare_v2": prepare2, "prepare_v3": prepare3,
+            "queries": len(arms), "routed": n_routed,
+            "canary_queries": n_canary,
+            "realized_fraction": n_canary / n_routed,
+            "incumbent_http": _lat(lat[1]), "canary_http": _lat(lat[2]),
+            "verdict": verdict["decision"], "verdict_reason":
+            verdict["reason"], "promote_swap_ms": verdict["seconds"] * 1e3,
+            "b2_launches": {"incumbent": b2[1], "canary": b2[2],
+                            "shadow_leg_plain": plain_b2,
+                            "shadow_leg_mirrored": shadow_b2},
+            "releases_after_verdict": statuses,
+            "held_foldin": {**held, "applied_s_after_verdict": applied_s,
+                            "bound_s": bound, "b1_launches": b1,
+                            "apply_split": _split_summary(applies)},
+            "shadow": {"queries": SHADOW_QUERIES,
+                       "incumbent_before": _lat(plain_ms),
+                       "incumbent_with_shadow": _lat(shadow_ms),
+                       "p50_delta_ms": float(np.percentile(shadow_ms, 50)
+                                             - np.percentile(plain_ms, 50)),
+                       "shadow_judged": st["canary"]["canary"]},
+            "abort_ms": out["seconds"] * 1e3, "abort_http_ms": abort_dt * 1e3,
+            "releases_after_abort": statuses3,
+            "deploy_counts": {k: v for k, v in st["deploy"].items()
+                              if k != "recentEvents"},
+        }
+        return report
+    finally:
+        if buf is not None:
+            buf.stop()
+        if lt is not None:
+            if server is not None:
+                lt.run(server.close(), timeout=120)
+            lt.stop()
+        elif server is not None:
+            server._predict_executor.shutdown(wait=False)
+            server._deploy_executor.shutdown(wait=True)
+        arms_dev.clear()
+        scoring.set_process_scorer_config(None)
+        Storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # serve phase
 # ---------------------------------------------------------------------------
 
@@ -2106,11 +2670,13 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict,
 
 # ---------------------------------------------------------------------------
 
-def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows) -> dict:
+def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
+             canary) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
     the ML-20M train (counted from zero); beside them the fold-in
-    launches of both legs and B1's times at the applies' shapes."""
+    launches of both legs and of the canary's held fold-in, and B1's
+    times at the applies' shapes."""
     fl = lifecycle["foldin"]
     c = ML20M
     row = next(r for r in spd_rows
@@ -2148,7 +2714,8 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows) -> dict:
             "foldin_width_stream": width["stream_launches"]["spd_solve"],
             "foldin_width_solver": {
                 k: [v["launches_batched"], v["launches_one_at_a_time"]]
-                for k, v in width["solver"].items()}},
+                for k, v in width["solver"].items()},
+            "canary_held_foldin": canary["held_foldin"]["b1_launches"]},
         "foldin": {
             "at_apply_shapes": b1_rows,
             "K10_lifecycle_applies": fl["apply_split"]["b1_by_shape"],
@@ -2236,6 +2803,13 @@ def main() -> int:
         #    just before the queries and read just after)
         serve = serve_phase(args.seed, args.items, args.port, shape,
                             *served)
+        # 8. canary, on the same model in this process (its CLI leg ran
+        #    inside the lifecycle, on v2)
+        t0 = time.perf_counter()
+        canary = canary_phase(args.seed, *served)
+        canary["feedback"] = lifecycle["feedback"]
+        canary["phase_s"] = time.perf_counter() - t0
+        log("canary: " + json.dumps(canary))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2261,9 +2835,11 @@ def main() -> int:
         "shape": dict(shape, B=1, c=shape["c"]["plain"], masked=False),
         "launches_by_path": {
             "serve": serve["shortlist_launches"],
-            "foldin_width_stream": width["stream_launches"]["shortlist"]},
+            "foldin_width_stream": width["stream_launches"]["shortlist"],
+            "canary": canary["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
-    }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows)]}
+    }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
+                canary)]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

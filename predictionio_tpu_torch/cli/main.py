@@ -16,6 +16,10 @@ click), with the reference's commands, flags and exit codes:
     python -m predictionio_tpu_torch.cli.main deploy [-v engine.json]
         [--engine-instance-id ID | --release SEL | --model M.npz]
         [--ip localhost] [--port 8000] [--accesskey K] [--device cpu]
+        [--feedback --event-server-app APP] [--log-url URL]
+        [--log-prefix P]
+    python -m predictionio_tpu_torch.cli.main undeploy [--ip localhost]
+        [--port 8000] [--accesskey K]
     python -m predictionio_tpu_torch.cli.main releases [-v engine.json]
         [--status S]
     python -m predictionio_tpu_torch.cli.main rollback [--ip localhost]
@@ -33,9 +37,16 @@ id and the release version. ``--out`` also writes the model as an
 ``--engine-instance-id``, or a release (``--release`` id, ``3`` or
 ``v3``), or a model file (``--model``). It reads the engine.json's
 top-level ``scorer`` and ``foldin`` sections as ``pio deploy`` does (env
-> engine.json > server.json; ``PIO_FOLDIN=1`` starts online fold-in),
-warms the serving path up, then serves. Models run on ``cuda`` unless
-``--device cpu`` is given.
+> engine.json > server.json; ``PIO_FOLDIN=1`` starts online fold-in)
+and server.json's ``deploy`` section (< ``PIO_DEPLOY_*`` /
+``PIO_CANARY_*``: the canary defaults of ``POST /deploy.json``), warms
+the serving path up, then serves. ``--feedback`` with
+``--event-server-app`` records every answer as a ``predict`` event of
+that app (the answer carries its ``prId``); ``--log-url`` receives each
+failed query's error, prefixed by ``--log-prefix``. Models run on
+``cuda`` unless ``--device cpu`` is given.
+
+``undeploy`` stops a running query server (``POST /stop``).
 
 ``rollback`` asks a running query server to roll back
 (``POST /rollback.json``) and prints what it serves now.
@@ -313,7 +324,7 @@ def deploy(args) -> int:
     )
     from predictionio_tpu_torch.storage.base import EngineInstance
     from predictionio_tpu_torch.utils.server_config import (
-        foldin_config, scorer_config,
+        deploy_config, foldin_config, scorer_config,
     )
     from predictionio_tpu_torch.workflow.serialization import load_model
     from predictionio_tpu_torch.workflow.train import load_for_deploy
@@ -356,7 +367,12 @@ def deploy(args) -> int:
     server = create_query_server(engine, result, instance,
                                  scorer_config=scfg, release=release,
                                  access_key=args.accesskey,
-                                 foldin_config=fic)
+                                 foldin_config=fic,
+                                 deploy_config=deploy_config(),
+                                 feedback=args.feedback,
+                                 feedback_app_name=args.event_server_app,
+                                 log_url=args.log_url,
+                                 log_prefix=args.log_prefix)
     report = server.warm()
     print(f"[INFO] Warm-up: batches {report.buckets} in "
           f"{report.seconds:.3f} s; scorer mode {scfg.mode}", flush=True)
@@ -422,6 +438,23 @@ def rollback(args) -> int:
           + (f" (release v{version})" if version else "")
           + (f" in {seconds * 1e3:.3f} ms" if seconds is not None else ""),
           flush=True)
+    return 0
+
+
+def undeploy(args) -> int:
+    """``POST /stop`` to a running query server (Console.scala:318)."""
+    import urllib.request
+
+    url = f"http://{args.ip}:{args.port}/stop"
+    if args.accesskey:
+        url += f"?accessKey={args.accesskey}"
+    try:
+        with urllib.request.urlopen(
+                urllib.request.Request(url, data=b"", method="POST"),
+                timeout=10) as r:
+            print(f"[INFO] {r.read().decode()}", flush=True)
+    except Exception as e:
+        _fail(f"Unable to undeploy: {e}")
     return 0
 
 
@@ -498,10 +531,25 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--ip", default="localhost")
     d.add_argument("--port", default=8000, type=int)
     d.add_argument("--accesskey", default=None,
-                   help="key required by /stop, /reload and "
-                        "/rollback.json")
+                   help="key required by /stop, /reload and the deploy "
+                        "API")
+    d.add_argument("--feedback", action="store_true",
+                   help="record query/prediction events")
+    d.add_argument("--event-server-app", default=None,
+                   help="app name for feedback events")
+    d.add_argument("--log-url", default=None,
+                   help="POST serving errors to this URL "
+                        "(CreateServer remoteLog)")
+    d.add_argument("--log-prefix", default="",
+                   help="prefix prepended to remote log payloads")
     d.add_argument("--device", default=None, help="cuda (default) or cpu")
     d.set_defaults(func=deploy)
+
+    u = sub.add_parser("undeploy", help="stop a deployed query server")
+    u.add_argument("--ip", default="localhost")
+    u.add_argument("--port", default=8000, type=int)
+    u.add_argument("--accesskey", default=None)
+    u.set_defaults(func=undeploy)
 
     r = sub.add_parser("releases", help="list the releases of an engine "
                                         "variant")

@@ -313,7 +313,7 @@ class FoldInController:
         #: batched solves run (one B1 call each on the card)
         self.solves = 0
         self.last_apply_s: Optional[float] = None
-        #: apply ticks by outcome: applied | empty | raced | error
+        #: apply ticks by outcome: applied | empty | raced | held | error
         self.outcomes: Dict[str, int] = Counter()
         #: the recent applies' splits (see `_apply`)
         self.apply_log: "deque[dict]" = deque(maxlen=APPLY_LOG)
@@ -540,9 +540,14 @@ class FoldInController:
         caller's thread): pull, take up to ``max_pending`` dirty rows,
         solve, hand the engine the rows, swap. Returns the tick's split
         (see `_apply`) or None when nothing was pending or the swap
-        raced a cutover; raises (after requeueing) when the apply
-        failed."""
+        raced a cutover, or while a canary is judged (``held``: the
+        incumbent it is judged against must not drift, so the deltas stay
+        pending until the verdict); raises (after requeueing) when the
+        apply failed."""
         t_start = time.perf_counter()
+        if getattr(self.server, "_canary", None) is not None:
+            self.outcomes["held"] += 1
+            return None
         try:
             self.pull()
         except Exception:

@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -317,6 +318,8 @@ class ItemScorer:
     recall_probe: float       # build-time probe recall@PARITY_PROBE_K
     quant_error: float        # sampled max relative dequantization error
     device: torch.device = torch.device("cpu")
+    build_s: float = 0.0      # the whole build, the parity gate included
+    gate_s: float = 0.0       # the parity gate alone
     _tiles: Optional[torch.Tensor] = None     # [n_tiles, T, scan_rank]
     _scales: Optional[torch.Tensor] = None    # [n_tiles, T] (int8 only)
     _v_host: Optional[np.ndarray] = None      # f32 rescore source
@@ -421,6 +424,8 @@ class ItemScorer:
             "recallProbe": round(self.recall_probe, 4),
             "quantError": round(self.quant_error, 6),
             "device": str(self.device),
+            "buildSeconds": self.build_s,
+            "gateSeconds": self.gate_s,
         }
 
 
@@ -432,6 +437,7 @@ def build_scorer(V: np.ndarray, cfg=None,
     may serve. ``cfg`` defaults to the process scorer config; ``device``
     to ``cuda`` (see utils/device)."""
     device = resolve_device(device)
+    t_build = time.perf_counter()
     if cfg is None:
         cfg = process_scorer_config()
     mode = cfg.mode
@@ -491,8 +497,11 @@ def build_scorer(V: np.ndarray, cfg=None,
         _tiles=tiles.to(device),
         _scales=scales.to(device) if scales is not None else None,
         _v_host=v, _rotation=rotation)
+    t_gate = time.perf_counter()
     _parity_gate(scorer, v,
                  cfg.min_recall if min_recall is None else min_recall)
+    scorer.gate_s = time.perf_counter() - t_gate
+    scorer.build_s = time.perf_counter() - t_build
     return scorer
 
 

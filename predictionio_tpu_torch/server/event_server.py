@@ -9,6 +9,11 @@
   POST   /batch/events.json   -> per-event statuses in the
                                  original order, at most
                                  ``maxEventsPerBatch``         (:340)
+  GET    /plugins.json        -> the registered input blockers
+                                 and sniffers                  (:155)
+  *      /plugins/<type>/<name>/<args...> -> that plugin's
+                                 ``handle_rest`` (the reference's
+                                 ``event_server.py:398-412``)
 
 Auth (:92-142): the ``accessKey`` query parameter, else an
 ``Authorization: Basic <key:>`` header; a key restricted to some event
@@ -19,9 +24,14 @@ storage failure after the retries 503, and a shutdown drains the buffer.
 ``PIO_INGEST_BUFFER=0`` writes per request instead (a storage failure
 then answers 500, as in the reference).
 
+Input blockers (``server/plugins``) run on every event of both ingest
+routes before the insert; one that raises rejects the event with 403
+and its message. Input sniffers see each stored event after the
+insert.
+
 The HTTP layer is the port's stdlib one (``server/http``); the
-reference's ``/stats.json``, plugins, webhooks, ``/metrics`` and history
-routes are not ported yet.
+reference's ``/stats.json``, webhooks, ``/metrics`` and history routes
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +49,9 @@ from predictionio_tpu_torch.data.event import (
 from predictionio_tpu_torch.data.write_buffer import BufferFull, WriteBuffer
 from predictionio_tpu_torch.server.http import (
     HttpError, HttpServer, Request, serve_until_stopped,
+)
+from predictionio_tpu_torch.server.plugins import (
+    EVENTSERVER_GROUP, PluginContext,
 )
 from predictionio_tpu_torch.storage.base import StorageError
 from predictionio_tpu_torch.storage.registry import Storage
@@ -65,8 +78,10 @@ class EventServer:
     accepting and drains the write buffer; :func:`run_event_server` is
     the blocking form."""
 
-    def __init__(self, ingest: Optional[IngestConfig] = None):
+    def __init__(self, ingest: Optional[IngestConfig] = None,
+                 plugin_context: Optional[PluginContext] = None):
         self.ingest_config = ingest or ingest_config()
+        self.plugins = plugin_context or PluginContext(EVENTSERVER_GROUP)
         ic = self.ingest_config
         self.buffer: Optional[WriteBuffer] = None
         if ic.buffer:
@@ -83,6 +98,8 @@ class EventServer:
             ("GET", "/events/{event_id}.json", self.handle_get),
             ("DELETE", "/events/{event_id}.json", self.handle_delete),
             ("POST", "/batch/events.json", self.handle_batch),
+            ("GET", "/plugins.json", self.handle_plugins),
+            ("*", "/plugins/{tail:.*}", self.handle_plugin_rest),
         ])
         #: set to shut :func:`run_event_server` down
         self.stopped = asyncio.Event()
@@ -168,12 +185,16 @@ class EventServer:
             return 400, {"message": str(e)}
         if auth.events and event.event not in auth.events:
             return 403, {"message": f"{event.event} events are not allowed"}
+        blocked = self._blocked(auth, event)
+        if blocked is not None:
+            return 403, {"message": blocked}
         try:
             event_id = (await self._insert([event], auth))[0]
         except BufferFull as bf:
             return self._shed(bf)
         except StorageError as e:
             return self._storage_status(), {"message": str(e)}
+        self._sniff(auth, event)
         return 201, {"eventId": event_id}
 
     async def handle_find(self, req: Request):
@@ -270,6 +291,10 @@ class EventServer:
                 results[i] = {"status": 403, "message":
                               f"{event.event} events are not allowed"}
                 continue
+            blocked = self._blocked(auth, event)
+            if blocked is not None:
+                results[i] = {"status": 403, "message": blocked}
+                continue
             to_insert.append((i, event))
         if to_insert:
             try:
@@ -281,9 +306,45 @@ class EventServer:
                 for i, _event in to_insert:
                     results[i] = {"status": 503, "message": str(e)}
             else:
-                for (i, _event), event_id in zip(to_insert, ids):
+                for (i, event), event_id in zip(to_insert, ids):
+                    self._sniff(auth, event)
                     results[i] = {"status": 201, "eventId": event_id}
         return 200, results
+
+    # -- plugins (EventServer.scala:155-189) --------------------------------
+    def _blocked(self, auth: AuthData, event: Event) -> Optional[str]:
+        """The message of the first input blocker that rejects
+        ``event``, else None."""
+        for blocker in self.plugins.input_blockers.values():
+            try:
+                blocker.process(auth.app_id, auth.channel_id, event)
+            except Exception as e:      # the blocker rejected the event
+                return str(e)
+        return None
+
+    def _sniff(self, auth: AuthData, event: Event) -> None:
+        for sniffer in self.plugins.input_sniffers.values():
+            try:
+                sniffer.process(auth.app_id, auth.channel_id, event)
+            except Exception:
+                logger.exception("input sniffer failed")
+
+    async def handle_plugins(self, _req: Request):
+        return 200, {"plugins": self.plugins.describe()}
+
+    async def handle_plugin_rest(self, req: Request):
+        auth = await self._auth(req)
+        segments = req.params["tail"].split("/")
+        if len(segments) < 2:
+            return 404, {"message": "Not Found"}
+        plugin_type, plugin_name, *args = segments
+        registry = {"inputblockers": self.plugins.input_blockers,
+                    "inputsniffers": self.plugins.input_sniffers
+                    }.get(plugin_type)
+        if registry is None or plugin_name not in registry:
+            return 404, {"message": "Not Found"}
+        return 200, registry[plugin_name].handle_rest(
+            auth.app_id, auth.channel_id, args)
 
 
 def run_event_server(host: str = "localhost", port: int = DEFAULT_PORT,

@@ -3,7 +3,9 @@ library's asyncio streams (the machine with the card has no aiohttp),
 keep-alive, ``Content-Length`` bodies, JSON answers.
 
 A server lists its routes as ``(method, pattern, handler)``; a pattern
-may hold path parameters (``/events/{event_id}.json``). A handler takes
+may hold path parameters (``/events/{event_id}.json``, or
+``/plugins/{tail:.*}`` for the rest of the path), and the method ``*``
+takes any method. A handler takes
 a :class:`Request` and returns ``(status, payload)`` or ``(status,
 payload, headers)``, or raises :class:`HttpError`. An unknown path
 answers 404, a known path with another method 405, a handler that
@@ -63,9 +65,12 @@ Handler = Callable[[Request], Awaitable[tuple]]
 
 
 def _compile(pattern: str) -> "re.Pattern":
+    """``{name}`` matches one path segment, ``{name:regex}`` the regex
+    (``{tail:.*}``: the rest of the path)."""
     out, pos = "", 0
-    for m in re.finditer(r"\{(\w+)\}", pattern):
-        out += re.escape(pattern[pos:m.start()]) + f"(?P<{m.group(1)}>[^/]+?)"
+    for m in re.finditer(r"\{(\w+)(?::([^}]+))?\}", pattern):
+        out += (re.escape(pattern[pos:m.start()])
+                + f"(?P<{m.group(1)}>{m.group(2) or '[^/]+?'})")
         pos = m.end()
     return re.compile("^" + out + re.escape(pattern[pos:]) + "$")
 
@@ -106,7 +111,7 @@ class HttpServer:
             m = regex.match(req.path)
             if m is None:
                 continue
-            if method != req.method:
+            if method not in ("*", req.method):
                 allowed.append(method)
                 continue
             req.params = m.groupdict()

@@ -2,27 +2,54 @@
 reference's ``server/query_server.py``):
 
   GET  /               -> engine/instance info, serving stats, the
-                          scorer's status and the kernel launch counts
+                          scorer's status, the kernel launch counts and
+                          the feedback writes
   POST /queries.json   -> the prediction hot path
   GET  /reload         -> warm-swap to the latest COMPLETED instance
+  POST /deploy.json    -> warm-deploy a release (``engineInstanceId``,
+                          ``releaseId`` or ``version``): a full cutover,
+                          or a canary (``canaryFraction``) or shadow
+                          (``shadow``) rollout judged against the
+                          incumbent
   GET  /releases.json  -> release manifests of this engine variant
-  GET  /deploy/status.json -> active and standby releases, fold-in status
-  POST /rollback.json  -> restore the resident standby (else the newest
-                          older release from the registry)
+  GET  /deploy/status.json -> active, standby and canary units, the
+                          deploy counters, fold-in status
+  POST /rollback.json  -> abort an undecided canary, else restore the
+                          resident standby (else the newest older
+                          release from the registry)
+  GET  /plugins.json   -> the registered output blockers and sniffers
   POST /stop           -> graceful shutdown
 
-``/reload``, ``/rollback.json`` and ``/stop`` take the ``accessKey``
-query parameter when the server was given one (``deploy --accesskey``).
+``/reload``, ``/deploy.json``, ``/rollback.json`` and ``/stop`` take
+the ``accessKey`` query parameter when the server was given one
+(``deploy --accesskey``).
 
 Every swap keeps the outgoing unit resident as the rollback standby
 (its batcher is retired); a unit's device copies are dropped only once
-it is neither active nor standby. With ``FoldinConfig.enabled`` the
-online fold-in controller (``deploy/foldin``) starts with the server and
-swaps drifted models in through :meth:`QueryServer.swap_foldin_unit`,
-whose standby is the pre-fold-in base. The HTTP layer is the
-port's stdlib one (``server/http``), where the reference uses aiohttp.
-The error contract is the reference's: a body that is not JSON, or a
-query the engine rejects, answers 400 with ``{"message": ...}``.
+it is neither active, standby nor a canary. A cutover's release-status
+writes (LIVE, RETIRED, CANARY, ROLLED_BACK) land before the request
+that caused it answers, so the registry never trails the server. With
+``FoldinConfig.enabled`` the online fold-in controller (``deploy/foldin``)
+starts with the server and swaps drifted models in through
+:meth:`QueryServer.swap_foldin_unit`, whose standby is the pre-fold-in
+base; it holds its deltas while a canary is judged.
+
+A staged rollout (``deploy/canary``) routes each query once, by the
+canary's error-diffusion splitter, to the incumbent's or the
+candidate's own micro-batcher; under shadow every query is answered by
+the incumbent and mirrored into the candidate off the response path.
+Each outcome feeds the judge, whose verdict (promote or rollback) is
+acted on off the request path.
+
+On an answer, the feedback loop (``deploy --feedback``) tags it with a
+``prId`` and records a ``predict`` event off the response path; output
+blockers then transform it and output sniffers observe it
+(``server/plugins``). A failed query answers 400 at once and, with
+``deploy --log-url``, posts its error to that URL in the background.
+The HTTP layer is the port's stdlib one (``server/http``), where the
+reference uses aiohttp. The error contract is the reference's: a body
+that is not JSON, or a query the engine rejects, answers 400 with
+``{"message": ...}``.
 
 Concurrent queries coalesce in a :class:`MicroBatcher` into one
 ``batch_predict`` per algorithm, padded to its power-of-two bucket
@@ -41,15 +68,22 @@ import logging
 import threading
 import time
 import typing
-from concurrent.futures import ThreadPoolExecutor
+import urllib.request
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from predictionio_tpu_torch.core.engine import Engine, TrainResult
 from predictionio_tpu_torch.core.params import params_from_json
+from predictionio_tpu_torch.data.datamap import DataMap
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.deploy.canary import (
+    ROLE_CANARY, ROLE_INCUMBENT, ROLE_SHADOW, CanaryConfig,
+    CanaryController,
+)
 from predictionio_tpu_torch.deploy.releases import (
-    release_of_instance, release_to_json,
+    release_of_instance, release_to_json, resolve_release,
 )
 from predictionio_tpu_torch.deploy.warm import (
     DeployError, FoldinSwapRaced, ServingUnit, WarmupReport, build_unit,
@@ -58,15 +92,20 @@ from predictionio_tpu_torch.deploy.warm import (
 from predictionio_tpu_torch.server.http import (
     HttpServer, Request, serve_until_stopped,
 )
+from predictionio_tpu_torch.server.plugins import (
+    ENGINESERVER_GROUP, PluginContext,
+)
 from predictionio_tpu_torch.ops import kernels
 from predictionio_tpu_torch.ops.bucketing import bucket_size, padding_waste
 from predictionio_tpu_torch.ops.scoring import (
     set_process_scorer_config, unit_scorer_status,
 )
-from predictionio_tpu_torch.storage.base import EngineInstance, Release
+from predictionio_tpu_torch.storage.base import (
+    EngineInstance, Release, generate_id,
+)
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.server_config import (
-    FoldinConfig, ScorerConfig,
+    DeployConfig, FoldinConfig, ScorerConfig,
 )
 
 logger = logging.getLogger("pio.torch.queryserver")
@@ -85,8 +124,11 @@ ADAPTIVE_LINGER_MAX_S = 0.002
 _EWMA_ALPHA = 0.2
 #: an arrival gap above this resets the estimator
 _EWMA_RESET_S = 1.0
-#: longest wait for a retired unit's queued and in-flight batches
-DRAIN_TIMEOUT_S = 30.0
+#: the remote error log's POST gives up after this
+REMOTE_LOG_TIMEOUT_S = 5.0
+#: lifecycle events (swaps, canary starts and verdicts) kept for
+#: ``GET /deploy/status.json``
+RECENT_DEPLOY_EVENTS = 64
 
 
 def _to_jsonable(obj: Any) -> Any:
@@ -112,6 +154,19 @@ def _query_class(train_result: TrainResult) -> Optional[type]:
         if isinstance(qc, type) and dataclasses.is_dataclass(qc):
             return qc
     return None
+
+
+def _post_remote_log(url: str, payload: str) -> None:
+    """POST one remote-log payload (on its own daemon thread); a
+    delivery failure is logged here and goes no further."""
+    try:
+        req = urllib.request.Request(
+            url, data=payload.encode(), method="POST",
+            headers={"Content-Type": "text/plain; charset=utf-8"})
+        with urllib.request.urlopen(req, timeout=REMOTE_LOG_TIMEOUT_S):
+            pass
+    except Exception as e:
+        logger.error("Unable to send remote log: %s", e)
 
 
 class MicroBatcher:
@@ -266,10 +321,23 @@ class MicroBatcher:
                 fut.set_result(res)
 
 
+@dataclasses.dataclass
+class CanaryState:
+    """One staged rollout in flight: the candidate unit and its judge."""
+
+    unit: ServingUnit
+    controller: CanaryController
+    config: CanaryConfig
+    #: set once the verdict is being acted on: one action per rollout,
+    #: whoever comes second waits for it
+    settling: Optional[asyncio.Future] = None
+
+
 class QueryServer:
-    """Serves one deployed TrainResult and swaps in retrained ones
-    (``/reload``). ``start`` binds the socket on the running event loop;
-    :func:`run_query_server` is the blocking form."""
+    """Serves one deployed TrainResult and swaps in others (``/reload``,
+    ``/deploy.json``, ``/rollback.json``, fold-in). ``start`` binds the
+    socket on the running event loop; :func:`run_query_server` is the
+    blocking form."""
 
     def __init__(self, engine: Engine, train_result: TrainResult,
                  instance: EngineInstance,
@@ -279,7 +347,13 @@ class QueryServer:
                  inflight: int = INFLIGHT,
                  release: Optional[Release] = None,
                  access_key: Optional[str] = None,
-                 foldin_config: Optional[FoldinConfig] = None):
+                 foldin_config: Optional[FoldinConfig] = None,
+                 deploy_config: Optional[DeployConfig] = None,
+                 feedback: bool = False,
+                 feedback_app_name: Optional[str] = None,
+                 log_url: Optional[str] = None,
+                 log_prefix: str = "",
+                 plugin_context: Optional[PluginContext] = None):
         self.engine = engine
         self.start_time = _dt.datetime.now(tz=_dt.timezone.utc)
         self.max_batch = max(1, max_batch)
@@ -287,16 +361,37 @@ class QueryServer:
         #: scoring surface (models, warm-up) sees ONE mode
         self.scorer_config = scorer_config or ScorerConfig.from_env()
         set_process_scorer_config(self.scorer_config)
-        #: guards /reload and /stop when set (``deploy --accesskey``)
+        #: guards /reload, /deploy.json, /rollback.json and /stop when
+        #: set (``deploy --accesskey``)
         self.access_key = access_key
+        #: warm-up, drain and canary defaults
+        self.deploy_config = deploy_config or DeployConfig.from_env()
+        #: the feedback loop: every answer is recorded as a ``predict``
+        #: event of this app, resolved once here (a lookup per query
+        #: would sit on the hot path)
+        self.feedback = feedback
+        self.feedback_app_name = feedback_app_name
+        self._feedback_target = None
+        if feedback and feedback_app_name:
+            from predictionio_tpu_torch.data.eventstore import resolve_app
+
+            self._feedback_target = resolve_app(feedback_app_name)
+        #: remote error sink: a failed query POSTs log_prefix + JSON of
+        #: the instance and the error here
+        self.log_url = log_url
+        self.log_prefix = log_prefix
+        self.plugins = plugin_context or PluginContext(ENGINESERVER_GROUP)
         #: where a reloaded instance's models go: the deployed models'
         self.device = getattr(train_result.models[0], "device", None) \
             if train_result.models else None
+        #: predictions only: feedback writes and the remote log never
+        #: take a predict slot
         self._predict_executor = ThreadPoolExecutor(
             max_workers=max(4, inflight * 2),
             thread_name_prefix="pio-predict")
-        #: load, warm-up and verify of a reloaded unit run here, so the
-        #: serving unit keeps every predict slot
+        #: load, warm-up and verify of a new unit, the release-status
+        #: writes (in submission order) and the fold-in applies run here,
+        #: so the serving unit keeps every predict slot
         self._deploy_executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="pio-deploy")
         self._linger_s = linger_s
@@ -308,20 +403,24 @@ class QueryServer:
         #: the unit the last swap replaced, kept resident for an instant
         #: rollback (a fold-in drift's is its pre-fold-in base)
         self._standby: Optional[ServingUnit] = None
+        #: the staged rollout being judged, if any
+        self._canary: Optional[CanaryState] = None
         #: online fold-in knobs; the controller starts with the server
         self.foldin_config = foldin_config or FoldinConfig.from_env()
         self._foldin = None
         self._swap_lock = threading.Lock()
-        #: one reload at a time
+        #: one reload, deploy or rollback at a time
         self._reload_lock = asyncio.Lock()
         self._tasks: set = set()
         self._http = HttpServer([
             ("GET", "/", self.handle_root),
             ("POST", "/queries.json", self.handle_query),
             ("GET", "/reload", self.handle_reload),
+            ("POST", "/deploy.json", self.handle_deploy),
             ("GET", "/releases.json", self.handle_releases),
             ("GET", "/deploy/status.json", self.handle_deploy_status),
             ("POST", "/rollback.json", self.handle_rollback),
+            ("GET", "/plugins.json", self.handle_plugins),
             ("POST", "/stop", self.handle_stop),
         ])
         #: set by POST /stop; :func:`run_query_server` then shuts down
@@ -330,6 +429,17 @@ class QueryServer:
         self._query_count = 0
         self._query_seconds = 0.0
         self._recent = collections.deque(maxlen=1024)
+        #: the deploy counters (the reference's ``pio_deploy_*`` series):
+        #: queries by role, promotes by reason, rollbacks by reason slug,
+        #: swaps by "mode/outcome"
+        self._deploy_counts: Dict[str, collections.Counter] = {
+            k: collections.Counter()
+            for k in ("requests", "promotes", "rollbacks", "swaps")}
+        self._deploy_events = collections.deque(maxlen=RECENT_DEPLOY_EVENTS)
+        #: the feedback loop's event-store writes
+        self._feedback_writes = 0
+        self._feedback_failures = 0
+        self._feedback_seconds = collections.deque(maxlen=1024)
         self.last_serving_sec = 0.0
         self.last_warmup: Optional[WarmupReport] = None
         self.warmup_launches: Dict[str, int] = {}
@@ -352,6 +462,16 @@ class QueryServer:
             max_batch=self.max_batch, linger_s=self._linger_s,
             inflight=self._inflight, executor=self._predict_executor)
 
+    def _count(self, counter: str, key: str) -> None:
+        with self._stats_lock:
+            self._deploy_counts[counter][key] += 1
+
+    def _record(self, kind: str, **fields) -> None:
+        """One lifecycle event (the reference's ``record_event``), kept
+        for ``GET /deploy/status.json``."""
+        self._deploy_events.append(
+            {"kind": kind, "timeMs": int(time.time() * 1000), **fields})
+
     # -- deploy phases -------------------------------------------------------
     def warm(self) -> WarmupReport:
         """Warm-up ladder then verify, on the caller's thread, before
@@ -366,38 +486,71 @@ class QueryServer:
         kernels.reset_counts()
         return report
 
+    def _effective_warmup(self, override: Optional[bool]) -> bool:
+        """A deploy body's ``warmup`` beats the DeployConfig's."""
+        return bool(self.deploy_config.warmup if override is None
+                    else override)
+
     def _prepare_unit(self, instance: EngineInstance,
-                      release: Optional[Release]
-                      ) -> Tuple[ServingUnit, WarmupReport]:
+                      release: Optional[Release],
+                      warmup: Optional[bool] = None,
+                      warmup_query_json: Optional[dict] = None
+                      ) -> Tuple[ServingUnit, WarmupReport, dict]:
         """Load -> warm-up -> verify of a unit that does not take
-        traffic yet (on the deploy executor)."""
+        traffic yet (on the deploy executor). Returns the unit, the
+        warm-up report and the phases' seconds (``loadS``, ``warmupS``,
+        ``verifyS``) with the status of the scorer it built (its
+        ``buildSeconds``, ``gateSeconds`` and ``recallProbe``)."""
+        t0 = time.perf_counter()
         unit = build_unit(self.engine, instance, release,
                           device=self.device)
+        t1 = time.perf_counter()
         self._attach_batcher(unit)
         predict = functools.partial(self._predict_batch_unit, unit)
-        report = warmup_unit(unit, predict, self.max_batch)
-        verify_unit(unit, predict)
-        return unit, report
+        query = (self._extract_query(warmup_query_json)
+                 if warmup_query_json is not None else None)
+        if self._effective_warmup(warmup):
+            report = warmup_unit(unit, predict, self.max_batch, query)
+        else:
+            report = WarmupReport(skipped="disabled")
+        t2 = time.perf_counter()
+        verify_unit(unit, predict, query)
+        t3 = time.perf_counter()
+        logger.info("prepared instance %s: load %.3fs, warm-up %.3fs, "
+                    "verify %.3fs", instance.id, t1 - t0, t2 - t1, t3 - t2)
+        return unit, report, {
+            "loadS": t1 - t0, "warmupS": t2 - t1, "verifyS": t3 - t2,
+            "scorer": unit_scorer_status(unit.result)}
 
-    def _swap_to(self, unit: ServingUnit, reason: str = "reload",
-                 retire_old: bool = True) -> ServingUnit:
+    async def _swap_to(self, unit: ServingUnit, mode: str, reason: str,
+                       retire_old: bool = True,
+                       keep_standby: bool = True) -> ServingUnit:
         """The cutover: one reference assignment installs the new unit;
-        the old one becomes the standby, and its batcher drains in the
-        background. ``retire_old=False`` leaves the outgoing release's
-        status to the caller (rollback marks it ROLLED_BACK)."""
+        the old one becomes the standby (unless ``keep_standby`` is
+        False: a rollback never flips back onto what it left), and its
+        batcher drains in the background. The release-status writes
+        land before this returns. ``retire_old=False`` leaves the
+        outgoing release's status to the caller (rollback marks it
+        ROLLED_BACK)."""
         with self._swap_lock:
             old, self._unit = self._unit, unit
-            dropped, self._standby = self._standby, old
+            dropped = self._standby
+            self._standby = old if keep_standby else None
+        self._count("swaps", f"{mode}/ok")
+        self._record("swap", mode=mode, reason=reason,
+                     engineInstanceId=unit.instance.id,
+                     releaseVersion=unit.release_version or None)
         self._spawn(self._retire(old))
         if dropped is not None and dropped is not unit:
             self._spawn(self._retire(dropped))
-        self._set_release_status(unit.release, "LIVE", reason)
+        writes = [self._set_release_status(unit.release, "LIVE", reason)]
         if retire_old and old.release is not None and (
                 unit.release is None or old.release.id != unit.release.id):
-            self._set_release_status(old.release, "RETIRED",
-                                     f"superseded: {reason}")
-        logger.info("swapped to engine instance %s (release v%d, %s)",
-                    unit.instance.id, unit.release_version, reason)
+            writes.append(self._set_release_status(
+                old.release, "RETIRED", f"superseded: {reason}"))
+        logger.info("swapped to engine instance %s (release v%d, %s: %s)",
+                    unit.instance.id, unit.release_version, mode, reason)
+        await self._settle_writes(writes)
         return old
 
     def _spawn(self, coro) -> None:
@@ -408,11 +561,11 @@ class QueryServer:
     async def _retire(self, unit: ServingUnit) -> None:
         """Let a replaced unit's queued and in-flight batches finish on
         it, then stop its batcher; drop its device-resident copies only
-        if it is neither active nor standby by then (a standby keeps
-        them for an instant rollback). A unit made active again meanwhile
-        is left alone: its batcher serves."""
+        if it is neither active, standby nor a canary by then (a standby
+        keeps them for an instant rollback). A unit made active again
+        meanwhile is left alone: its batcher serves."""
         batcher = unit.batcher
-        deadline = time.monotonic() + DRAIN_TIMEOUT_S
+        deadline = time.monotonic() + self.deploy_config.drain_timeout_s
         while batcher is not None and not batcher.idle() \
                 and time.monotonic() < deadline:
             if unit is self._unit:
@@ -422,7 +575,9 @@ class QueryServer:
             return
         if batcher is not None:
             await batcher.shutdown()
-        if unit is self._standby:
+        canary = self._canary
+        if unit is self._standby or (canary is not None
+                                     and unit is canary.unit):
             return
         for model in unit.result.models:
             release = getattr(model, "release_device", None)
@@ -452,19 +607,31 @@ class QueryServer:
                          ) -> None:
         """The fold-in cutover, callable from any thread: the ``/reload``
         swap as a compare-and-swap against ``expected_base`` (the unit
-        the solve read). A reload or rollback that landed meanwhile wins:
-        :class:`FoldinSwapRaced` is raised and the controller requeues its
-        deltas. The standby becomes the pre-fold-in base; the replaced
-        unit's batcher is retired on ``loop`` when one runs."""
+        the solve read). A reload, deploy or rollback that landed
+        meanwhile wins, and so does a canary window that opened: the
+        incumbent it is judged against must not drift.
+        :class:`FoldinSwapRaced` is raised and the controller requeues
+        its deltas. The standby becomes the pre-fold-in base; the
+        replaced unit's batcher is retired on ``loop`` when one runs."""
         if unit.batcher is None:
             self._attach_batcher(unit)
         with self._swap_lock:
             if expected_base is not None and self._unit is not expected_base:
+                self._count("swaps", "foldin/raced")
                 raise FoldinSwapRaced(
                     "serving unit changed during the fold-in solve (now "
                     f"instance {self._unit.instance.id})")
+            if self._canary is not None:
+                self._count("swaps", "foldin/raced")
+                raise FoldinSwapRaced(
+                    "canary window opened during the fold-in solve")
             old, self._unit = self._unit, unit
             dropped, self._standby = self._standby, unit.foldin_of
+        self._count("swaps", "foldin/ok")
+        self._record("swap", mode="foldin",
+                     engineInstanceId=unit.instance.id,
+                     releaseVersion=unit.release_version or None,
+                     foldinRows=unit.foldin_rows)
         if loop is not None and loop.is_running():
             for gone in {id(u): u for u in (old, dropped)
                          if u is not None and u is not unit}.values():
@@ -472,11 +639,14 @@ class QueryServer:
                     lambda u=gone: self._spawn(self._retire(u)))
 
     def _set_release_status(self, release: Optional[Release], status: str,
-                            reason: str) -> None:
-        """Best-effort lineage write-back, off the event loop (a registry
-        outage must not stall serving)."""
+                            reason: str) -> Optional[Future]:
+        """Submit a lineage write-back to the deploy executor (one
+        worker: writes land in submission order) and return its future;
+        :meth:`_settle_writes` awaits it off the event loop. A failed
+        write is logged and never fails the request that caused it (a
+        registry outage must not wedge serving)."""
         if release is None:
-            return
+            return None
         release.status = status
 
         def write():
@@ -487,7 +657,19 @@ class QueryServer:
                 logger.exception("release status update failed (%s -> %s)",
                                  release.id, status)
 
-        self._deploy_executor.submit(write)
+        try:
+            return self._deploy_executor.submit(write)
+        except RuntimeError:              # the server is shutting down
+            logger.exception("release status update not submitted "
+                             "(%s -> %s)", release.id, status)
+            return None
+
+    @staticmethod
+    async def _settle_writes(writes) -> None:
+        """Wait for release-status writes (they never raise)."""
+        for fut in writes:
+            if fut is not None:
+                await asyncio.wrap_future(fut)
 
     # -- HTTP ----------------------------------------------------------------
     async def start(self, host: str = "localhost", port: int = DEFAULT_PORT
@@ -533,7 +715,9 @@ class QueryServer:
                                     wait=True))
         while pending := [t for t in self._tasks if not t.done()]:
             await asyncio.gather(*pending, return_exceptions=True)
-        for unit in (self._unit, self._standby):
+        canary = self._canary
+        for unit in (self._unit, self._standby,
+                     canary.unit if canary is not None else None):
             if unit is not None and unit.batcher is not None:
                 await unit.batcher.shutdown()
         self._predict_executor.shutdown(wait=False)
@@ -546,11 +730,15 @@ class QueryServer:
     async def handle_root(self, _req: Request) -> Tuple[int, Any]:
         """Engine/instance info + serving stats; also the scorer status,
         the kernel launch counts of this process since it was warm (a
-        ``/reload``'s warm-up and the fold-in solves count among them) and
-        the fold-in status."""
+        ``/reload``'s or ``/deploy.json``'s warm-up, a shadow's scoring
+        and the fold-in solves count among them), the fold-in status and
+        the feedback writes."""
         with self._stats_lock:
             count, total = self._query_count, self._query_seconds
             recent = list(self._recent)
+            fb = list(self._feedback_seconds)
+            fb_writes, fb_failures = (self._feedback_writes,
+                                      self._feedback_failures)
         uptime = (_dt.datetime.now(tz=_dt.timezone.utc)
                   - self.start_time).total_seconds()
         unit = self._unit
@@ -578,7 +766,15 @@ class QueryServer:
             "kernelLaunches": kernels.counts(),
             "warmupKernelLaunches": self.warmup_launches,
             "foldin": self.foldin_status(),
+            "feedback": {
+                "enabled": self._feedback_target is not None,
+                "writes": fb_writes, "failures": fb_failures,
+                "p50WriteSec": float(np.median(fb)) if fb else None,
+                "maxWriteSec": max(fb) if fb else None},
         }
+
+    async def handle_plugins(self, _req: Request) -> Tuple[int, Any]:
+        return 200, {"plugins": self.plugins.describe()}
 
     # -- deploy lifecycle ----------------------------------------------------
     def _latest(self) -> Tuple[Optional[EngineInstance], Optional[Release]]:
@@ -597,30 +793,193 @@ class QueryServer:
 
     async def handle_reload(self, req: Request) -> Tuple[int, Any]:
         """Warm-swap to the latest COMPLETED instance of this variant:
-        load, warm up and verify it off the event loop, then swap."""
+        load, warm up and verify it off the event loop, then swap. A
+        canary being judged answers 409; a decided one is acted on
+        first."""
         if not self._authorized(req):
             return 401, {"message": "Unauthorized"}
         loop = asyncio.get_running_loop()
         async with self._reload_lock:
+            blocked = await self._settle_canary_first()
+            if blocked is not None:
+                return blocked
             t0 = time.perf_counter()
             latest, release = await loop.run_in_executor(
                 self._deploy_executor, self._latest)
             if latest is None:
                 return 404, {"message": "No COMPLETED instance found"}
+            mode = "warm" if self._effective_warmup(None) else "cold"
             try:
-                unit, report = await loop.run_in_executor(
+                unit, report, _phases = await loop.run_in_executor(
                     self._deploy_executor, self._prepare_unit, latest,
                     release)
             except DeployError as e:
+                self._count("swaps", f"{mode}/failed")
                 return 500, {"message": str(e)}
-            self._swap_to(unit, reason="reload")
             self.last_warmup = report
+            await self._swap_to(unit, mode=mode, reason="reload")
             return 200, {
                 "message": "Reloaded",
                 "engineInstanceId": latest.id,
                 "releaseVersion": unit.release_version or None,
                 "warmup": report.to_dict(),
                 "seconds": time.perf_counter() - t0}
+
+    def _resolve_target(self, body: dict
+                        ) -> Tuple[Optional[EngineInstance],
+                                   Optional[Release]]:
+        """The instance (and release) a deploy body names: by
+        ``engineInstanceId``, else by ``releaseId`` or ``version``
+        through ``resolve_release`` (neither: the newest release that
+        was not rolled back)."""
+        instances = Storage.get_meta_data_engine_instances()
+        release = None
+        if body.get("engineInstanceId"):
+            instance = instances.get(str(body["engineInstanceId"]))
+        else:
+            selector = body.get("releaseId") or body.get("version")
+            inst = self.instance
+            release = resolve_release(
+                Storage.get_meta_data_releases(), inst.engine_id,
+                inst.engine_version, inst.engine_variant,
+                str(selector) if selector is not None else None)
+            instance = (instances.get(release.instance_id)
+                        if release is not None else None)
+        return instance, release
+
+    async def handle_deploy(self, req: Request) -> Tuple[int, Any]:
+        """Warm-deploy a release: a full cutover by default, a canary or
+        shadow rollout when the body asks for one (``canaryFraction`` or
+        ``shadow``; the other ``canary*`` keys override DeployConfig).
+        404 when no COMPLETED instance matches; 500 (and the release
+        ROLLED_BACK) when its prepare fails; 409 while a canary is
+        judged."""
+        if not self._authorized(req):
+            return 401, {"message": "Unauthorized"}
+        try:
+            body = req.json() if req.body else {}
+            if not isinstance(body, dict):
+                raise ValueError("a deploy body must be a JSON object")
+        except (json.JSONDecodeError, UnicodeDecodeError, ValueError) as e:
+            return 400, {"message": str(e)}
+        loop = asyncio.get_running_loop()
+        async with self._reload_lock:
+            blocked = await self._settle_canary_first()
+            if blocked is not None:
+                return blocked
+            t0 = time.perf_counter()
+            instance, release = await loop.run_in_executor(
+                self._deploy_executor, self._resolve_target, body)
+            if instance is None or instance.status != "COMPLETED":
+                return 404, {"message": "No deployable release/instance "
+                                        "matched."}
+            mode = "warm" if self._effective_warmup(body.get("warmup")) \
+                else "cold"
+            try:
+                unit, report, phases = await loop.run_in_executor(
+                    self._deploy_executor, self._prepare_unit, instance,
+                    release, body.get("warmup"), body.get("warmupQuery"))
+            except DeployError as e:
+                self._count("swaps", f"{mode}/failed")
+                await self._settle_writes([self._set_release_status(
+                    release, "ROLLED_BACK", f"prepare failed: {e}")])
+                return 500, {"message": str(e)}
+            self.last_warmup = report
+            out = {"engineInstanceId": instance.id,
+                   "releaseVersion": unit.release_version or None,
+                   "warmup": report.to_dict(), "prepare": phases}
+            cfg = self._canary_config(body)
+            if cfg is not None:
+                controller = CanaryController(cfg)
+                self._canary = CanaryState(unit=unit, controller=controller,
+                                           config=controller.config)
+                await self._settle_writes([self._set_release_status(
+                    release, "CANARY", "shadow" if cfg.shadow else
+                    f"fraction={controller.config.fraction}")])
+                self._record("canary_start", engineInstanceId=instance.id,
+                             releaseVersion=unit.release_version or None,
+                             shadow=cfg.shadow,
+                             fraction=controller.config.fraction)
+                return 200, {"message": "Canary started", **out,
+                             "canary": controller.to_dict(),
+                             "seconds": time.perf_counter() - t0}
+            await self._swap_to(unit, mode=mode, reason="deploy")
+            return 200, {"message": "Deployed", **out,
+                         "seconds": time.perf_counter() - t0}
+
+    async def _settle_canary_first(self) -> Optional[Tuple[int, Any]]:
+        """A swap must not run over a canary: an undecided one answers
+        409 (a swap would poison the judge's incumbent baseline); a
+        decided one not yet acted on is acted on now."""
+        canary = self._canary
+        if canary is None:
+            return None
+        if canary.controller.decided is None:
+            return 409, {"message": "A canary rollout is already in "
+                                    "progress; rollback or wait for its "
+                                    "verdict first."}
+        await self._act_on_verdict(canary, canary.controller.decided)
+        return None
+
+    def _canary_config(self, body: dict) -> Optional[CanaryConfig]:
+        """A deploy body opts into a staged rollout with canaryFraction
+        or shadow; DeployConfig supplies every knob it leaves out."""
+        if not (body.get("canaryFraction") or body.get("shadow")):
+            return None
+        dc = self.deploy_config
+        return CanaryConfig(
+            fraction=float(body.get("canaryFraction",
+                                    dc.canary_fraction) or 0.0),
+            shadow=bool(body.get("shadow", False)),
+            window=int(body.get("canaryWindow", dc.canary_window)),
+            min_samples=int(body.get("canaryMinSamples",
+                                     dc.canary_min_samples)),
+            promote_after=int(body.get("canaryPromoteAfter",
+                                       dc.canary_promote_after)),
+            p99_ratio=float(body.get("canaryP99Ratio", dc.canary_p99_ratio)),
+            latency_slack_s=float(body.get("canaryLatencySlackS",
+                                           dc.canary_latency_slack_s)),
+            error_rate_slack=float(body.get("canaryErrorRateSlack",
+                                            dc.canary_error_rate_slack)),
+        )
+
+    async def _act_on_verdict(self, canary: CanaryState, verdict) -> None:
+        """Promote the candidate (the ``/reload`` swap) or mark it
+        ROLLED_BACK and retire it. The statuses land before the canary
+        clears, so once ``/deploy/status.json`` shows no canary the
+        registry reads the verdict. Acted on once: a second caller waits
+        for the first."""
+        if canary.settling is not None:
+            await asyncio.shield(canary.settling)
+            return
+        if self._canary is not canary:
+            return
+        canary.settling = asyncio.get_running_loop().create_future()
+        decision, reason = verdict
+        t0 = time.perf_counter()
+        try:
+            if decision == "promote":
+                self._count("promotes", "healthy"
+                            if reason.startswith("healthy") else reason)
+                await self._swap_to(canary.unit, mode="canary",
+                                    reason=reason)
+            else:
+                self._count("rollbacks", reason.split(":", 1)[0])
+                await self._settle_writes([self._set_release_status(
+                    canary.unit.release, "ROLLED_BACK", reason)])
+                logger.warning("canary rolled back: %s", reason)
+        finally:
+            if self._canary is canary:
+                self._canary = None
+            canary.settling.set_result(None)
+            # ``seconds``: the swap or the status write, until the canary
+            # cleared
+            self._record("canary_verdict", decision=decision, reason=reason,
+                         engineInstanceId=canary.unit.instance.id,
+                         releaseVersion=canary.unit.release_version or None,
+                         seconds=time.perf_counter() - t0)
+        if decision != "promote":
+            await self._retire(canary.unit)
 
     async def handle_releases(self, _req: Request) -> Tuple[int, Any]:
         """Release manifests of this engine variant, newest first."""
@@ -643,16 +1002,33 @@ class QueryServer:
             "releaseVersion": self._unit.release_version or None}}
 
     async def handle_rollback(self, req: Request) -> Tuple[int, Any]:
-        """Operator rollback: restore the resident standby (the previous
-        release, or a fold-in drift's pre-fold-in base), else load the
-        newest older release from the registry. The release rolled away
-        from is marked ROLLED_BACK, and the standby is cleared so a
-        second rollback never flips back onto it."""
+        """Operator rollback. An undecided canary is aborted (its release
+        ROLLED_BACK, the incumbent keeps serving); a decided one is acted
+        on first, and when that verdict was a rollback the incumbent is
+        not demoted too. Otherwise restore the resident standby (the
+        previous release, or a fold-in drift's pre-fold-in base), else
+        load the newest older release from the registry. The release
+        rolled away from is marked ROLLED_BACK, and the standby is
+        cleared so a second rollback never flips back onto it."""
         if not self._authorized(req):
             return 401, {"message": "Unauthorized"}
         loop = asyncio.get_running_loop()
         async with self._reload_lock:
             t0 = time.perf_counter()
+            canary = self._canary
+            if canary is not None:
+                decision = canary.controller.decided
+                if decision is None:
+                    decision = canary.controller.decided = ("rollback",
+                                                             "operator")
+                await self._act_on_verdict(canary, decision)
+                if decision[0] == "rollback":
+                    return 200, {
+                        "message": "Canary aborted",
+                        "engineInstanceId": canary.unit.instance.id,
+                        "releaseVersion": canary.unit.release_version
+                        or None,
+                        "seconds": time.perf_counter() - t0}
             target = self._standby
             if target is None:
                 target = await loop.run_in_executor(
@@ -660,11 +1036,12 @@ class QueryServer:
             if target is None:
                 return 404, {"message": "No previous release to roll "
                                         "back to."}
-            rolled_back = self._swap_to(target, reason="operator rollback",
-                                        retire_old=False)
-            self._set_release_status(rolled_back.release, "ROLLED_BACK",
-                                     "operator rollback")
-            self._standby = None
+            self._count("rollbacks", "operator")
+            rolled_back = await self._swap_to(
+                target, mode="rollback", reason="operator rollback",
+                retire_old=False, keep_standby=False)
+            await self._settle_writes([self._set_release_status(
+                rolled_back.release, "ROLLED_BACK", "operator rollback")])
             return 200, {
                 "message": "Rolled back",
                 "engineInstanceId": target.instance.id,
@@ -699,9 +1076,11 @@ class QueryServer:
         return None
 
     async def handle_deploy_status(self, _req: Request) -> Tuple[int, Any]:
-        """The active and standby units and the fold-in status (the
-        canary comes with the canary's port)."""
-        unit, standby = self._unit, self._standby
+        """The active, standby and canary units, the deploy counters and
+        recent lifecycle events, and the fold-in status."""
+        unit, standby, canary = self._unit, self._standby, self._canary
+        with self._stats_lock:
+            counts = {k: dict(v) for k, v in self._deploy_counts.items()}
         return 200, {
             "active": {
                 "engineInstanceId": unit.instance.id,
@@ -713,11 +1092,17 @@ class QueryServer:
                 "engineInstanceId": standby.instance.id,
                 "releaseVersion": standby.release_version or None,
             } if standby is not None else None),
-            "canary": None,
+            "canary": ({
+                "engineInstanceId": canary.unit.instance.id,
+                "releaseVersion": canary.unit.release_version or None,
+                **canary.controller.to_dict(),
+            } if canary is not None else None),
             "lastWarmup": (self.last_warmup.to_dict()
                            if self.last_warmup is not None else None),
             "foldin": self.foldin_status(),
             "scorer": unit_scorer_status(unit.result),
+            "deploy": {**counts,
+                       "recentEvents": list(self._deploy_events)},
         }
 
     async def handle_stop(self, req: Request) -> Tuple[int, Any]:
@@ -734,20 +1119,113 @@ class QueryServer:
             data = req.json()
         except (json.JSONDecodeError, UnicodeDecodeError) as e:
             return 400, {"message": str(e)}
-        unit = self._unit
+        # route once: everything this request touches rides the units
+        # snapshotted here, so a concurrent swap never mixes halves
+        role, unit, canary = ROLE_INCUMBENT, self._unit, self._canary
+        if canary is not None and canary.controller.decided is None \
+                and canary.controller.splitter.route():
+            role, unit = ROLE_CANARY, canary.unit
+        t_predict = time.perf_counter()
         try:
             query = self._extract_query(data)
             prediction = await self._predict_via(unit, query)
         except Exception as e:
+            self._observe_role(canary, role, time.perf_counter() - t_predict,
+                               ok=False)
             logger.exception("query failed")
+            if self.log_url:
+                self._remote_log(
+                    f"Query:\n{json.dumps(data)}\n\nError:\n{e!r}\n\n")
             return 400, {"message": str(e)}
+        self._observe_role(canary, role, time.perf_counter() - t_predict,
+                           ok=True)
+        if (canary is not None and canary.config.shadow
+                and canary.controller.decided is None):
+            # mirror the query into the candidate off the response path;
+            # its answer is judged and discarded
+            self._spawn(self._shadow_score(canary, query))
+        pred_json = _to_jsonable(prediction)
+        if self._feedback_target is not None:
+            pr_id = (pred_json.get("prId") if isinstance(pred_json, dict)
+                     else None) or generate_id()
+            if isinstance(pred_json, dict):
+                pred_json = dict(pred_json)
+                pred_json["prId"] = pr_id
+            asyncio.get_running_loop().run_in_executor(
+                None, self._record_feedback, data, pred_json, pr_id)
+        # output blockers transform; sniffers observe
+        for blocker in self.plugins.output_blockers.values():
+            try:
+                pred_json = blocker.process(self.instance, data, pred_json)
+            except Exception:
+                logger.exception("output blocker failed")
+        for sniffer in self.plugins.output_sniffers.values():
+            try:
+                sniffer.process(self.instance, data, pred_json)
+            except Exception:
+                logger.exception("output sniffer failed")
         dt = time.perf_counter() - t0
         with self._stats_lock:
             self._query_count += 1
             self._query_seconds += dt
             self._recent.append(dt)
         self.last_serving_sec = dt
-        return 200, _to_jsonable(prediction)
+        return 200, pred_json
+
+    def _observe_role(self, canary: Optional[CanaryState], role: str,
+                      seconds: float, ok: bool) -> None:
+        """Count the query under its role and, during a rollout, feed the
+        judge; a verdict is acted on off the request path."""
+        self._count("requests", role)
+        if canary is None or canary is not self._canary:
+            return
+        verdict = canary.controller.observe(role, seconds, ok)
+        if verdict is not None:
+            self._spawn(self._act_on_verdict(canary, verdict))
+
+    async def _shadow_score(self, canary: CanaryState, query) -> None:
+        """Score on the candidate and discard: it sees the traffic's
+        shape without serving a byte."""
+        t0 = time.perf_counter()
+        try:
+            await self._predict_via(canary.unit, query)
+            ok = True
+        except Exception:
+            ok = False
+        self._observe_role(canary, ROLE_SHADOW, time.perf_counter() - t0, ok)
+
+    def _remote_log(self, message: str) -> None:
+        """POST a serving failure to ``log_url`` on a daemon thread: the
+        400 goes out at once, and delivery (5 s at most) or its failure
+        never reaches the client."""
+        inst = self.instance
+        payload = self.log_prefix + json.dumps({
+            "engineInstance": {"id": inst.id, "engineId": inst.engine_id,
+                               "engineVariant": inst.engine_variant},
+            "message": message})
+        threading.Thread(target=_post_remote_log,
+                         args=(self.log_url, payload), daemon=True,
+                         name="pio-remote-log").start()
+
+    def _record_feedback(self, query_json, pred_json, pr_id) -> None:
+        """Write the ``predict`` event linking a query to its answer
+        (CreateServer.scala:563-589), on the loop's default executor."""
+        t0 = time.perf_counter()
+        try:
+            app_id, channel_id = self._feedback_target
+            event = Event(event="predict", entity_type="pio_pr",
+                          entity_id=pr_id,
+                          properties=DataMap({"query": query_json,
+                                              "prediction": pred_json}))
+            Storage.get_events().insert_batch([event], app_id, channel_id)
+        except Exception:
+            logger.exception("feedback recording failed")
+            with self._stats_lock:
+                self._feedback_failures += 1
+            return
+        with self._stats_lock:
+            self._feedback_writes += 1
+            self._feedback_seconds.append(time.perf_counter() - t0)
 
     def _extract_query(self, body):
         qc = _query_class(self.result)

@@ -1,12 +1,13 @@
-"""Scorer, ingest, training-solver and fold-in knobs: the ``scorer``,
-``ingest``, ``train`` and ``foldin`` sections of the reference's
-``utils/server_config.py`` (``ScorerConfig``, ``scorer_config``,
-``IngestConfig``, ``TrainConfig``, ``als_solver_config``,
-``FoldinConfig``, ``foldin_config``), with their precedence unchanged —
+"""Scorer, ingest, training-solver, fold-in and deploy knobs: the
+``scorer``, ``ingest``, ``train``, ``foldin`` and ``deploy`` sections of
+the reference's ``utils/server_config.py`` (``ScorerConfig``,
+``scorer_config``, ``IngestConfig``, ``TrainConfig``,
+``als_solver_config``, ``FoldinConfig``, ``foldin_config``,
+``DeployConfig``, ``deploy_config``), with their precedence unchanged —
 server.json section < engine.json (the top-level ``scorer`` and
 ``foldin`` sections, the algorithm's ``solver`` params) <
-``PIO_SCORER_*`` / ``PIO_INGEST_*`` / ``PIO_ALS_*`` / ``PIO_FOLDIN*``
-environment.
+``PIO_SCORER_*`` / ``PIO_INGEST_*`` / ``PIO_ALS_*`` / ``PIO_FOLDIN*`` /
+``PIO_DEPLOY_*`` / ``PIO_CANARY_*`` environment.
 
 The server.json path is resolved as the reference resolves it:
 ``PIO_SERVER_CONF``, else ``$PIO_CONF_DIR/server.json``, else
@@ -214,6 +215,73 @@ def foldin_config(variant_section: Optional[dict] = None) -> FoldinConfig:
     ``PIO_FOLDIN*`` env vars override both."""
     data = read_server_json().get("foldin") or {}
     return FoldinConfig.from_env(data, variant_section)
+
+
+@dataclasses.dataclass
+class DeployConfig:
+    """Deploy-lifecycle tuning (server.json ``deploy`` section, camelCase
+    keys; the ``PIO_DEPLOY_*`` and ``PIO_CANARY_*`` env vars win).
+
+    ``warmup=False`` makes ``/reload`` and ``/deploy.json`` cold swaps;
+    ``drain_timeout_s`` bounds the wait for a retired unit's batches.
+    The ``canary_*`` fields are the defaults of a staged rollout; a
+    ``POST /deploy.json`` body overrides any of them."""
+
+    warmup: bool = True
+    drain_timeout_s: float = 5.0
+    canary_fraction: float = 0.1
+    canary_window: int = 200
+    canary_min_samples: int = 20
+    canary_promote_after: int = 100
+    canary_p99_ratio: float = 2.0
+    canary_latency_slack_s: float = 0.025
+    canary_error_rate_slack: float = 0.05
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None) -> "DeployConfig":
+        """server.json ``deploy`` section overlaid by env vars (env
+        wins); malformed knobs are logged and fall back."""
+        data = data or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+        keys = (
+            ("warmup", "PIO_DEPLOY_WARMUP", "warmup", as_bool),
+            ("drainTimeoutS", "PIO_DEPLOY_DRAIN_TIMEOUT_S",
+             "drain_timeout_s", float),
+            ("canaryFraction", "PIO_CANARY_FRACTION", "canary_fraction",
+             float),
+            ("canaryWindow", "PIO_CANARY_WINDOW", "canary_window", int),
+            ("canaryMinSamples", "PIO_CANARY_MIN_SAMPLES",
+             "canary_min_samples", int),
+            ("canaryPromoteAfter", "PIO_CANARY_PROMOTE_AFTER",
+             "canary_promote_after", int),
+            ("canaryP99Ratio", "PIO_CANARY_P99_RATIO", "canary_p99_ratio",
+             float),
+            ("canaryLatencySlackS", "PIO_CANARY_LATENCY_SLACK_S",
+             "canary_latency_slack_s", float),
+            ("canaryErrorRateSlack", "PIO_CANARY_ERROR_SLACK",
+             "canary_error_rate_slack", float),
+        )
+        sources = ([(k, data.get(k), attr, conv)
+                    for k, _e, attr, conv in keys]
+                   + [(e, os.environ.get(e), attr, conv)
+                      for _k, e, attr, conv in keys])
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed deploy knob %s=%r",
+                               name, raw)
+        return cfg
+
+
+def deploy_config() -> DeployConfig:
+    """The query server's deploy knobs (server.json ``deploy`` section <
+    env)."""
+    return DeployConfig.from_env(read_server_json().get("deploy") or {})
 
 
 @dataclasses.dataclass

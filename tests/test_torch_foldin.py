@@ -898,7 +898,6 @@ async def test_freshness_and_rollback_against_reference(stores, tmp_path):
         status, root = await get("/")
         assert root["foldin"]["solveCalls"] == st["foldin"]["solveCalls"]
         # the drift is a release row over the base
-        await loop.run_in_executor(qs._deploy_executor, lambda: None)
         rels = Storage.get_meta_data_releases()
         drift = next(r for r in rels.get_for_variant(ENGINE_ID, "1",
                                                      VARIANT)
@@ -919,7 +918,6 @@ async def test_freshness_and_rollback_against_reference(stores, tmp_path):
             assert await answer(u) == before[u]
         for n in range(3):
             assert json.loads(await answer(f"new{n}"))["itemScores"] == []
-        await loop.run_in_executor(qs._deploy_executor, lambda: None)
         assert rels.get(drift.id).status == "ROLLED_BACK"
         assert rels.get(base_release.id).status == "LIVE"
         # nothing older to roll back to

@@ -7,9 +7,13 @@ the CPU on their own.
   ``predictionio_tpu`` module in ``sys.modules``; another writes events
   into a tiny sqlite store and trains from it through the train CLI on
   the CPU, a third creates an app through the CLI and ingests an event
-  through the event server, and a fourth serves with online fold-in on
-  (``PIO_FOLDIN=1``) and applies once, each with the same finding;
-* an AST scan finds no such import in the package or in chip_smoke.py;
+  through the event server, a fourth serves with online fold-in on
+  (``PIO_FOLDIN=1``) and applies once, and a fifth runs ``deploy
+  --feedback --log-url`` through the CLI, answers a query and a failing
+  one, then stops it with ``undeploy``, each with the same finding;
+* an AST scan finds no such import in the package (the staged-rollout
+  modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``
+  among them) or in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
 """
@@ -242,6 +246,97 @@ def test_foldin_deploy_and_apply_loads_no_jax(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+_DEPLOY_CHILD = r"""
+import http.client, http.server, json, os, socket, sys, threading, time
+import numpy as np
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.models.als import ALSModel
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+from predictionio_tpu_torch.workflow.serialization import save_model
+
+tmp = sys.argv[1]
+os.environ.update({
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "d.db"),
+    **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+       for r in ("METADATA", "EVENTDATA", "MODELDATA")
+       for k, v in (("NAME", "pio"), ("SOURCE", "DB"))}})
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+Storage.get_events().init_channel(app_id)
+rng = np.random.default_rng(0)
+path = os.path.join(tmp, "m.npz")
+save_model(path, ALSModel.from_arrays(
+    np.array(["u0", "u1"]), np.array(["a", "b", "c"]),
+    rng.standard_normal((2, 4)), rng.standard_normal((3, 4)), device="cpu"))
+logged = []
+
+class Sink(http.server.BaseHTTPRequestHandler):
+    def do_POST(self):
+        logged.append(self.rfile.read(int(self.headers["Content-Length"])))
+        self.send_response(200)
+        self.end_headers()
+
+    def log_message(self, *a):
+        pass
+
+sink = http.server.HTTPServer(("127.0.0.1", 0), Sink)
+threading.Thread(target=sink.serve_forever, daemon=True).start()
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+rc = []
+deploy = threading.Thread(target=lambda: rc.append(main([
+    "deploy", "--model", path, "--port", str(port), "--device", "cpu",
+    "--feedback", "--event-server-app", "Guard", "--log-url",
+    f"http://127.0.0.1:{sink.server_address[1]}/", "--log-prefix", "g:"])))
+deploy.start()
+
+def post(body):
+    for _ in range(600):
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            c.request("POST", "/queries.json", body=json.dumps(body))
+            r = c.getresponse()
+            return r.status, json.loads(r.read())
+        except ConnectionRefusedError:
+            time.sleep(0.05)
+
+status, body = post({"user": "u1", "num": 2})
+assert status == 200 and body["prId"], (status, body)
+assert post({"num": 2})[0] == 400
+assert main(["undeploy", "--port", str(port)]) == 0
+deploy.join(timeout=30)
+assert rc == [0], rc
+for _ in range(100):
+    if logged:
+        break
+    time.sleep(0.05)
+assert logged and logged[0].startswith(b"g:"), logged
+events = list(Storage.get_events().find(app_id, entity_type="pio_pr"))
+assert [e.entity_id for e in events] == [body["prId"]], events
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_deploy_feedback_log_and_undeploy_load_no_jax(tmp_path):
+    out = subprocess.run([sys.executable, "-c", _DEPLOY_CHILD, str(tmp_path)],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
+def test_scan_covers_the_staged_rollout_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"obs/slo.py", "deploy/canary.py", "server/plugins.py",
+            "server/query_server.py", "cli/main.py"} <= scanned
 
 
 def _port_sources():

@@ -343,3 +343,45 @@ def test_sharded_scoring_is_not_ported(monkeypatch):
     monkeypatch.setenv("PIO_SCORER_SHARDS", "2")
     with pytest.raises(NotImplementedError, match="ShardedScorer"):
         ScorerConfig.from_env()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gate_on_appended_rows_matches_reference(seed):
+    """The item fold at 10M items (16 new ids, all in the last tile,
+    two candidates a tile) left a rebuilt twostage scorer that its
+    parity gate demoted. The same shape at a small size: 256 tiles of
+    16, 2 candidates a tile, 16 new items folded from 24 raters each
+    (rating 5.0, as the fold-in leg folds them) appended to a catalog
+    whose own scorer passes. Both packages probe the same rows, reach
+    the same recall and demote alike. Every id the probes miss is a new
+    item: the new rows are long, so they crowd the exact top-10s, and
+    they share the last tile, whose shortlist keeps two."""
+    from predictionio_tpu_torch.models.als import ALSParams, FoldInSolver
+
+    k, tile, n_tiles, n_new = 16, 16, 256, 16
+    V = _factors(n_tiles * tile - n_new, k=k, seed=seed, decay=1.5)
+    U = _factors(3000, k=k, seed=seed + 1, decay=1.5)
+    rng = np.random.default_rng(seed + 2)
+    rated = [rng.choice(len(U), 24, replace=False) for _ in range(n_new)]
+    rows = FoldInSolver(U, ALSParams(rank=k, reg=0.05), device="cpu").solve(
+        rated, [np.full(24, 5.0, np.float32)] * n_new)
+    grown = np.concatenate([V, rows.astype(np.float32)])
+    # 2 candidates a tile on both catalogs (255 and 256 tiles)
+    cfg = dict(mode="twostage", tile_items=tile, shortlist=2 * n_tiles - 2)
+    for catalog, demoted in ((V, False), (grown, True)):
+        r = ref.build_scorer(catalog, RefConfig(**cfg))
+        p = port.build_scorer(catalog, ScorerConfig(**cfg), device=CPU)
+        assert p.cand_per_tile == r.cand_per_tile == 2
+        assert p.recall_probe == r.recall_probe
+        assert (not p.active) == (not r.active) == demoted
+    # where the recall goes: the gate's probe rows, scored undemoted
+    p = port.build_scorer(grown, ScorerConfig(**cfg), min_recall=0.0,
+                          device=CPU)
+    probe_rows = np.linspace(0, len(grown) - 1,
+                             num=port.PARITY_PROBE_QUERIES).astype(int)
+    _, exact = host_topk(grown[probe_rows] @ grown.T, 10)
+    _, got = p.topk(grown[probe_rows], 10)
+    missed = set().union(*[set(a.tolist()) - set(b.tolist())
+                           for a, b in zip(exact, got)])
+    assert missed and min(missed) >= len(V)   # new items, the last tile
+    assert probe_rows[-1] >= len(V)           # the last probe is one

@@ -174,6 +174,57 @@ Phases, each reported on its own lines:
                    ``undeploy`` stops the server, which exits 0 within
                    5 s.
 
+9. ``engines``   — the other three ALS engines (e-commerce,
+                   similar-product, recommended-user), in two legs.
+                   Leg 2, right after the train phase, in this process
+                   on its ML-20M arrays: ``train_cooccurrence`` (n 20) on
+                   the integer codes takes the card's slabbed int8
+                   product (never the host path), 64 seeded items'
+                   lists recounted exactly on the host (int64 bincount
+                   over each item's users, lowest-id ties) and a planted
+                   incidence with counts 255, 256, 257, 300 and 5000
+                   exact; then implicit ALS on the train phase's data
+                   (rank 10, 10 iterations, 20 B1 launches), V
+                   row-normalized as a ``SimilarityModel`` over 27,000
+                   ids, ``ALSAlgorithm.batch_predict`` under twostage at
+                   B in {1, 8, 64} (B2 at T = 16384, two tiles, c = 256):
+                   every answer the exact lane's, one B2 launch a batch.
+                   Leg 1, after the canary phase, each engine through the
+                   CLI on its own sqlite store (events written with
+                   ``insert_batch``, the engine.json naming the
+                   reference's factory string): e-commerce at
+                   cfg_ecommerce's shape (bench.py:741-760; 2,000 x
+                   1,500, 200,000 views and buys, 4 categories, 10
+                   unavailable items; rank 10, 10 iterations), its query
+                   paths (known users, categories, whiteList, blackList,
+                   an unknown user's recent views, popularity) against a
+                   numpy recompute from the stored model; a second
+                   variant with unseenOnly deployed with ``PIO_FOLDIN=1``,
+                   8 new users x 8 views and 5 buys of one item folded in
+                   (rows against a plain-solve recompute, popularity + 5,
+                   B1 launches = the controller's solves); similar-product
+                   at cfg_cooccurrence's ML-1M shape (bench.py:665-676;
+                   1,000,000 views and 100,000 likes/dislikes; als,
+                   likealgo and cooccurrence in one engine) deployed
+                   under ``PIO_SCORER_MODE=twostage`` with shortlist 1024
+                   (the default 512 demotes its als catalog, in both
+                   packages; both gates reported), 40 plain queries
+                   from 8 concurrent clients (the micro-batcher forms
+                   batches) and a categories and a whiteList query (the
+                   exact lane), each the first algorithm's exact
+                   recompute, B2 launches = 2 x the fused batches, both
+                   scorers active; recommended-user at the smoke's own
+                   shape (6,040 users, 200,000 follows without
+                   self-follows; rank 10, 10 iterations), 20 queries
+                   against a numpy recompute. Every train launches B1 2 x
+                   iterations per ALS algorithm, counted from zero.
+                   Answers: scores within 1e-4 relative, ids equal up to
+                   ties (the ties at the cut included). The kernels phase
+                   also holds B2 at these engines' shapes: R in {8, 10},
+                   (3,706 items, T 4096, c 512 and 1024) and (27,000
+                   items, T 16384, c 256), B in {1, 8, 64}, masked and
+                   unmasked.
+
 Each phase's launch counts are its own: zeroed just before the phase
 drives its path and read just after (in the process that launched).
 Then it prints one JSON line describing each kernel (times from this
@@ -186,6 +237,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -736,9 +788,9 @@ def train_phase(spd_rows):
     summary = {"full": full, "subspace": sub, "full_r64": r64,
                "peak_device_bytes": torch.cuda.max_memory_allocated()}
     log("train: " + json.dumps({"summary": summary}))
-    del data
-    torch.cuda.empty_cache()
-    return summary
+    # the engines phase's width leg reuses the arrays and the uploaded
+    # layout
+    return summary, {"users": users, "items": items, "data": data}
 
 
 # ---------------------------------------------------------------------------
@@ -860,16 +912,17 @@ def _stored_model(instance_id: str):
     return deserialize_models(got.models, device=DEV)[0]
 
 
-def lifecycle_phase(seed: int, port: int):
-    import numpy as np
-
+def smoke_store(work):
+    """The CLI's environment for a fresh sqlite event store and a
+    ``localfs`` model store under ``work``, configured in this process
+    too (the smoke writes events, checks what the servers did and reads
+    models there)."""
+    from predictionio_tpu_torch.data import eventstore
     from predictionio_tpu_torch.storage.registry import Storage
 
-    c = ML100K
-    work = WORK / "lifecycle"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    store_env = {
+    env = dict(os.environ, **{
         "PIO_STORAGE_SOURCES_SMOKE_TYPE": "sqlite",
         "PIO_STORAGE_SOURCES_SMOKE_PATH": str(work / "pio.db"),
         "PIO_STORAGE_SOURCES_MODELS_TYPE": "localfs",
@@ -879,19 +932,28 @@ def lifecycle_phase(seed: int, port: int):
         "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio_event",
         "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "SMOKE",
         "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio_model",
-        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MODELS",
-    }
-    env = dict(os.environ, **store_env)
-    # this process reads the same store to check what the servers did
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "MODELS"})
     Storage.configure({
-        "sources": {"SMOKE": {"TYPE": "sqlite",
-                              "PATH": str(work / "pio.db")},
+        "sources": {"SMOKE": {"TYPE": "sqlite", "PATH": str(work / "pio.db")},
                     "MODELS": {"TYPE": "localfs",
                                "PATH": str(work / "models")}},
         "repositories": {
             "METADATA": {"NAME": "pio_meta", "SOURCE": "SMOKE"},
             "EVENTDATA": {"NAME": "pio_event", "SOURCE": "SMOKE"},
             "MODELDATA": {"NAME": "pio_model", "SOURCE": "MODELS"}}})
+    eventstore.clear_cache()
+    return env
+
+
+def lifecycle_phase(seed: int, port: int):
+    import numpy as np
+
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    c = ML100K
+    work = WORK / "lifecycle"
+    # this process reads the same store to check what the servers did
+    env = smoke_store(work)
     events_srv = server = None
     try:
         # 1. event server, app and keys ------------------------------------
@@ -2669,14 +2731,941 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict,
 
 
 # ---------------------------------------------------------------------------
+# engines phase: the other three ALS engines
+# ---------------------------------------------------------------------------
+
+#: the width leg's cooccurrence: top-N per item (cfg_cooccurrence's n)
+COOC_N = 20
+#: items whose top lists are recounted exactly on the host
+COOC_SAMPLES = 64
+#: planted shared-user counts: a bf16 output rounds 257 to 256 and 5000
+#: to 4992; the uniform synthetic data never reaches 256
+PLANTED = (255, 256, 257, 300, 5000)
+#: H100 SXM dense int8 tensor-core peak (NVIDIA data sheet, 700 W)
+INT8_OPS = 1979e12
+
+
+def _expected_top(row_counts: "np.ndarray", item: int, n: int):
+    """The reference's top list of one count row: counts descending,
+    equal counts by ascending id, zero counts dropped."""
+    import numpy as np
+
+    row = row_counts.astype(np.int64).copy()
+    row[item] = 0
+    order = np.lexsort((np.arange(len(row)), -row))[:n]
+    return [(int(j), int(row[j])) for j in order if row[j] > 0]
+
+
+def planted_incidence():
+    """(users, items, n_users, n_items) where items 2p and 2p+1 share
+    the first PLANTED[p] users, beside 6 noise items."""
+    import numpy as np
+
+    n_users = max(PLANTED) + 8
+    rng = np.random.default_rng(7)
+    u, i = [], []
+    for p, c in enumerate(PLANTED):
+        for it in (2 * p, 2 * p + 1):
+            u.append(np.arange(c))
+            i.append(np.full(c, it))
+    n_items = 2 * len(PLANTED) + 6
+    for it in range(2 * len(PLANTED), n_items):
+        us = rng.choice(n_users, 700, replace=False)
+        u.append(us)
+        i.append(np.full(len(us), it))
+    return (np.concatenate(u).astype(np.int32),
+            np.concatenate(i).astype(np.int32), n_users, n_items)
+
+
+def cooccurrence_width_leg(seed: int, users, items):
+    """``train_cooccurrence`` on the ML-20M arrays' integer codes (n
+    ``COOC_N``): the card path and never the host one, its split and
+    bound, ``COOC_SAMPLES`` seeded items recounted exactly (int64
+    bincount over each item's users, lowest-id ties), and a planted
+    incidence with counts a bf16 output would round, exact through the
+    same function on the card."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import cooccurrence as co
+
+    c = ML20M
+    stats: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    top = co.train_cooccurrence(users, items, c["n_users"], c["n_items"],
+                                COOC_N, device=DEV, stats=stats)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    check(stats.get("path") == "slabs"
+          and str(stats.get("device", "")).startswith("cuda"),
+          f"cooccurrence at the ML-20M shape took {stats.get('path')} on "
+          f"{stats.get('device')}, not the card's slabbed product")
+
+    du, di = co.distinct_pairs(users, items)      # sorted by (user, item)
+    offs = np.searchsorted(du, np.arange(c["n_users"] + 1))
+    rng = np.random.default_rng(seed + 64)
+    sample = rng.choice(c["n_items"], COOC_SAMPLES, replace=False)
+    t1 = time.perf_counter()
+    for it in sample:
+        us = du[di == it]
+        row = np.bincount(np.concatenate([di[offs[u]:offs[u + 1]]
+                                          for u in us]) if len(us) else
+                          np.zeros(0, np.int64), minlength=c["n_items"])
+        want = _expected_top(row, int(it), COOC_N)
+        check(top.get(int(it), []) == want,
+              f"cooccurrence row {it}: {top.get(int(it), [])[:5]} != "
+              f"{want[:5]} (exact counts, lowest-id ties)")
+    recount_s = time.perf_counter() - t1
+
+    pu, pi, pn_u, pn_i = planted_incidence()
+    pv, pidx = co.cooccurrence_topn_slabs(pu, pi, pn_u, pn_i, pn_i - 1,
+                                          device=DEV)
+    a = np.zeros((pn_u, pn_i), np.int64)
+    a[pu, pi] = 1
+    full = a.T @ a
+    for it in range(pn_i):
+        want = _expected_top(full[it], it, pn_i - 1)
+        got = [(int(j), int(v)) for j, v in zip(pidx[it], pv[it]) if v > 0]
+        check(got == want, f"planted row {it}: {got} != {want}")
+    for p, cnt in enumerate(PLANTED):
+        check(int(pv[2 * p][list(pidx[2 * p]).index(2 * p + 1)]) == cnt,
+              f"planted pair {p}: count {cnt} not exact")
+
+    nu_pad, ni_pad, slab = co.slab_geometry(c["n_users"], c["n_items"])
+    ops = 2.0 * nu_pad * ni_pad * ni_pad
+    bound_ops_ms = ops / INT8_OPS * 1e3
+    bound_bytes_ms = (nu_pad * ni_pad + ni_pad * COOC_N * 12) \
+        / HBM_BYTES_PER_S * 1e3
+    report = dict(
+        stats, wall_s=wall, peak_device_bytes=int(peak),
+        recount_items=COOC_SAMPLES, recount_s=recount_s,
+        items_with_lists=len(top), planted=list(PLANTED),
+        bound_ms=max(bound_ops_ms, bound_bytes_ms),
+        bound_by="operations" if bound_ops_ms >= bound_bytes_ms
+        else "bytes",
+        bound_note=f"2 * {nu_pad} * {ni_pad}^2 = {ops:.4g} int8 "
+                   f"multiply-adds at {INT8_OPS:.4g} op/s (the int8 "
+                   "tensor-core peak); A read once is "
+                   f"{bound_bytes_ms:.4f} ms")
+    log("engines: cooccurrence " + json.dumps(report))
+    return report
+
+
+#: the reference's judged e-commerce config (bench.py:741-760,
+#: cfg_ecommerce): implicit ratings, r = 1 a view and r = 2 a buy
+ECOMM = dict(n_users=2000, n_items=1500, nnz=200_000, seed=4, rank=10,
+             iters=10, reg=0.01, categories=4, unavailable=10, known=20,
+             new_users=8, new_views=8, buys=5, interval_s=0.5)
+#: cfg_cooccurrence's ML-1M shape (bench.py:665-676) under the
+#: similar-product engine's three algorithms
+SIMILAR = dict(n_users=6040, n_items=3706, nnz=1_000_000, seed=2,
+               likes=100_000, like_seed=3, rank=10, iters=10, n=20,
+               categories=4, queries=40, black=10, clients=8,
+               shortlist=1024)
+#: the deploy's scorer shortlist (engine.json ``scorer``). The reference
+#: default, 512, demotes the als catalog at this shape to exact in both
+#: packages (scan rank 8 of 10: probe recall 0.9875 on an NVIDIA H100
+#: 80GB HBM3, 700 W, 0.9625 on the CPU for the CPU-trained factors;
+#: tests/test_torch_engines.py); 1024 keeps both ALS scorers on B2. The
+#: phase reports both gates on the stored factors.
+#: recommended-user: the reference names no bench shape for it; this
+#: one is the smoke's own (ML-1M's users following each other)
+FOLLOW = dict(n_users=6040, nnz=200_000, seed=6, rank=10, iters=10,
+              queries=20)
+#: the width leg's batch sizes of similar-product queries
+WIDTH_BATCHES = (1, 8, 64)
+#: batches timed at each size (after one untimed)
+WIDTH_REPS = 4
+#: served answers against the recompute: scores within ENGINE_TOL *
+#: max(1, |score|); ids equal, or swapped inside a run of scores within it
+ENGINE_TOL = 1e-4
+#: the port's package; the reference's is its name without the suffix
+PORT_PACKAGE = "predictionio_tpu_torch"
+
+
+def reference_factory(name: str) -> str:
+    """The reference's engineFactory string of an engine, which the
+    port's CLI maps to its own engine by name."""
+    return "{}.engines.{}:engine".format(
+        PORT_PACKAGE.removesuffix("_torch"), name)
+
+
+def _new_app(name: str) -> int:
+    from predictionio_tpu_torch.storage.base import App
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    app_id = Storage.get_meta_data_apps().insert(App(id=0, name=name))
+    Storage.get_events().init_channel(app_id)
+    return app_id
+
+
+#: event times of the engines phase: milliseconds after this epoch ms
+BASE_MS = 1_704_067_200_000      # 2024-01-01T00:00:00Z
+
+
+def _insert(app_id: int, rows) -> float:
+    """Write ``(event, entity type, entity id, target type, target id,
+    properties, ms after BASE_MS)`` rows with ``insert_batch``, in
+    chunks; returns the seconds it took."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    base = dt.datetime.fromtimestamp(BASE_MS / 1000, tz=dt.timezone.utc)
+    store = Storage.get_events()
+    t0 = time.perf_counter()
+    for s in range(0, len(rows), 100_000):
+        store.insert_batch([
+            Event(event=e, entity_type=et, entity_id=eid,
+                  target_entity_type=tt, target_entity_id=tid,
+                  properties=p or {},
+                  event_time=base + dt.timedelta(milliseconds=ms))
+            for e, et, eid, tt, tid, p, ms in rows[s:s + 100_000]], app_id)
+    return time.perf_counter() - t0
+
+
+def _engine_train(name, env, variant, want_launches):
+    """``train -v variant`` through the CLI; the B1 launches of the
+    train's process, counted from zero, must be ``want_launches``."""
+    t0 = time.perf_counter()
+    line = json.loads(_cli(["train", "--variant", str(variant), "--device",
+                            DEV], env, timeout=900)[-1])
+    line["wall_s"] = time.perf_counter() - t0
+    log(f"engines: {name} train " + json.dumps(line))
+    check(line["launches"]["spd_solve"] == want_launches,
+          f"{name}: train launched B1 {line['launches']['spd_solve']} "
+          f"times, expected {want_launches}")
+    return line
+
+
+def _stored_models(instance_id: str):
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.workflow.serialization import (
+        deserialize_models,
+    )
+
+    got = Storage.get_model_data_models().get(instance_id)
+    check(got is not None, f"no model blob stored for {instance_id}")
+    return deserialize_models(got.models, device=DEV)
+
+
+def _same_answer(got, want, key: str, tag: str) -> float:
+    """A served list against a recompute ``(vocab, scores, num)``, the
+    scores -inf where an id is not a candidate: as many answers as
+    candidates score above 0 (at most num), each a distinct candidate
+    whose recomputed score is its served one, and the served scores the
+    best ones in order, all within ENGINE_TOL * max(1, |score|): ids
+    equal up to ties, the ties at the cut included. Returns the largest
+    score error."""
+    import numpy as np
+
+    vocab, scores, num = want
+    best = np.sort(scores[scores > 0])[::-1][:num].astype(np.float64)
+    check(len(got) == len(best), f"{tag}: {len(got)} answers, "
+          f"{len(best)} expected")
+    if not len(best):
+        return 0.0
+    served = np.asarray([x["score"] for x in got], np.float64)
+    idx = _index(vocab, [x[key] for x in got])
+    check(len(idx) == len(got) and len(set(idx.tolist())) == len(got),
+          f"{tag}: unknown or repeated ids {[x[key] for x in got]}")
+    own = scores[idx].astype(np.float64)
+    tol = ENGINE_TOL * np.maximum(1.0, np.abs(best))
+    err = np.maximum(np.abs(served - best), np.abs(served - own))
+    check(bool(np.isfinite(own).all() and (err <= tol).all()),
+          f"{tag}: served {[(x[key], x['score']) for x in got][:5]}, "
+          f"best {best[:5].tolist()}")
+    return float(err.max())
+
+
+def _index(vocab, ids):
+    from predictionio_tpu_torch.data.bimap import batch_lookup
+
+    idx = batch_lookup(vocab, list(ids))
+    return idx[idx >= 0]
+
+
+def ecomm_recompute(m, q: dict, seen, recent, unavailable, unseen_only):
+    """E-commerce's answer from a stored model, in numpy: the candidate
+    rules (white list, black list = query's + unavailable + seen when
+    ``unseen_only``, categories), then the known user's factors, else
+    similarity to the recent views, else popularity; score > 0."""
+    import numpy as np
+
+    n = len(m.item_vocab)
+    ok = np.ones(n, bool)
+    if q.get("whiteList") is not None:
+        ok[:] = False
+        ok[_index(m.item_vocab, q["whiteList"])] = True
+    black = set(unavailable) | set(q.get("blackList") or ())
+    if unseen_only:
+        black |= seen(q["user"])
+    ok[_index(m.item_vocab, black)] = False
+    if q.get("categories"):
+        wanted = set(q["categories"])
+        for j in range(n):
+            item = m.items.get(j)
+            if not (item and set(item.categories or ()) & wanted):
+                ok[j] = False
+    ui = m.user_index(q["user"])
+    if ui is not None:
+        scores = m.V @ m.U[ui]
+    else:
+        rec = _index(m.item_vocab, recent(q["user"]))
+        if len(rec):
+            Vn = m.V_normalized
+            scores = Vn @ Vn[rec].sum(axis=0)
+            ok[rec] = False
+        else:
+            scores = np.zeros(n)
+            for j, c in m.popular_count.items():
+                scores[j] = c
+    return m.item_vocab, np.where(ok, scores, -np.inf), q["num"]
+
+
+def ecommerce_leg(seed: int, port: int, work):
+    """E-commerce at cfg_ecommerce's shape through the CLI: train,
+    deploy, the query paths against a numpy recompute; then a second
+    variant with unseenOnly deployed with fold-in, new users and buys
+    folded in."""
+    import numpy as np
+
+    from predictionio_tpu_torch.deploy.foldin import (
+        read_entities_ratings, upsert_factor_rows,
+    )
+    from predictionio_tpu_torch.engines.ecommerce import (
+        ECommAlgorithm, ECommAlgorithmParams,
+    )
+
+    c = ECOMM
+    env = smoke_store(work)
+    app_id = _new_app("EcommApp")
+    users, items, ratings = synthetic_ratings(
+        c["n_users"], c["n_items"], c["nnz"], seed=c["seed"],
+        implicit=True)
+    rng = np.random.default_rng(seed + 40)
+    unavailable = [f"i{j}" for j in rng.choice(c["n_items"],
+                                               c["unavailable"],
+                                               replace=False)]
+    rows = [("$set", "user", f"u{u}", None, None, {"age": int(u % 60)}, 0)
+            for u in range(c["n_users"])]
+    rows += [("$set", "item", f"i{i}", None, None,
+              {"categories": [f"c{i % c['categories']}"]}, 0)
+             for i in range(c["n_items"])]
+    rows.append(("$set", "constraint", "unavailableItems", None, None,
+                 {"items": unavailable}, 0))
+    kinds = np.where(ratings == 2.0, "buy", "view")
+    rows += [(str(k), "user", f"u{u}", "item", f"i{i}", None, 1 + j)
+             for j, (k, u, i) in enumerate(zip(kinds.tolist(),
+                                               users.tolist(),
+                                               items.tolist()))]
+    insert_s = _insert(app_id, rows)
+    seen = {}
+    for u, i in zip(users.tolist(), items.tolist()):
+        seen.setdefault(f"u{u}", set()).add(f"i{i}")
+    recent = {}
+    t_end = 1 + len(users)
+    # after training: an unknown user with recent views
+    newbie = [f"i{j}" for j in rng.choice(c["n_items"], 6, replace=False)]
+
+    def variant(vid, unseen_only):
+        path = work / f"{vid}.json"
+        path.write_text(json.dumps({
+            "id": vid, "engineFactory": reference_factory("ecommerce"),
+            "datasource": {"params": {"appName": "EcommApp"}},
+            "algorithms": [{"name": "ecomm", "params": {
+                "appName": "EcommApp", "unseenOnly": unseen_only,
+                "rank": c["rank"], "numIterations": c["iters"],
+                "lambda": c["reg"]}}]}))
+        return path
+
+    want = 2 * c["iters"]
+    v_plain = variant("ecomm", False)
+    t_plain = _engine_train("ecommerce", env, v_plain, want)
+    m = _stored_models(t_plain["instance"])[0]
+    _insert(app_id, [("view", "user", "newbie", "item", it, None,
+                      t_end + j) for j, it in enumerate(newbie)])
+    recent["newbie"] = set(newbie)
+    seen["newbie"] = set(newbie)
+    picks = [str(m.user_vocab[j]) for j in rng.choice(
+        len(m.user_vocab), c["known"], replace=False)]
+    queries = [{"user": u, "num": 10} for u in picks[:10]]
+    queries += [
+        {"user": picks[10], "num": 10, "categories": ["c1"]},
+        {"user": picks[11], "num": 10, "whiteList": [
+            f"i{j}" for j in rng.choice(c["n_items"], 50, replace=False)]},
+        {"user": picks[12], "num": 10, "blackList": [
+            f"i{j}" for j in rng.choice(c["n_items"], 20, replace=False)]},
+        {"user": "newbie", "num": 10},
+        {"user": "ghost", "num": 10},
+        {"user": "ghost", "num": 10, "categories": ["c2", "c3"]}]
+
+    def ask(qc, q, model, unseen_only, tag):
+        status, body, dt = qc.call("POST", "/queries.json", q)
+        check(status == 200, f"{tag}: {q} answered {status} {body}")
+        want_q = ecomm_recompute(
+            model, q, lambda u: seen.get(u, set()),
+            lambda u: recent.get(u, set()), unavailable, unseen_only)
+        check(bool((want_q[1] > 0).any()), f"{tag}: empty recompute for "
+              f"{q}")
+        return _same_answer(body["itemScores"], want_q, "item",
+                            f"{tag} {q['user']}"), dt * 1e3
+
+    server = None
+    try:
+        server = Server(["deploy", "--variant", str(v_plain), "--port",
+                         str(port), "--device", DEV], env, tag="engines")
+        qc = Client(server.wait_ready(timeout_s=300))
+        errs, lat = zip(*(ask(qc, q, m, False, "ecommerce")
+                          for q in queries))
+        status, _, _ = qc.call("POST", "/stop")
+        check(status == 200 and server.proc.wait(timeout=60) == 0,
+              "the e-commerce server did not stop")
+
+        # unseenOnly, and fold-in on the same deploy
+        v_unseen = variant("ecomm-unseen", True)
+        t_unseen = _engine_train("ecommerce unseenOnly", env, v_unseen,
+                                 want)
+        m2 = _stored_models(t_unseen["instance"])[0]
+        fenv = dict(env, PIO_FOLDIN="1",
+                    PIO_FOLDIN_APPLY_INTERVAL_S=str(c["interval_s"]))
+        server = Server(["deploy", "--variant", str(v_unseen), "--port",
+                         str(port), "--device", DEV], fenv, tag="engines")
+        qc = Client(server.wait_ready(timeout_s=300))
+        errs2, lat2 = zip(*(ask(qc, q, m2, True, "ecommerce unseenOnly")
+                            for q in queries[:10]))
+        bought = next(f"i{j}" for j in rng.permutation(c["n_items"])
+                      if f"i{j}" not in unavailable)
+        pop_q = {"user": "ghost", "num": 1, "whiteList": [bought]}
+        _, before, _ = qc.call("POST", "/queries.json", pop_q)
+        pop0 = m2.popular_count.get(m2.item_index(bought), 0)
+        check([x["score"] for x in before["itemScores"]]
+              == ([float(pop0)] if pop0 else []),
+              f"popularity of {bought} served {before}, stored {pop0}")
+        new_users = [f"fu{j}" for j in range(c["new_users"])]
+        fold = []
+        # event times past the controller's watermark (its start)
+        t = int(time.time() * 1000) - BASE_MS
+        for u in new_users:
+            for it in rng.choice(c["n_items"], c["new_views"],
+                                 replace=False):
+                fold.append(("view", "user", u, "item", f"i{it}", None, t))
+                seen.setdefault(u, set()).add(f"i{it}")
+                t += 1
+        for u in new_users[:c["buys"]]:
+            fold.append(("buy", "user", u, "item", bought, None, t))
+            seen[u].add(bought)
+            t += 1
+        _insert(app_id, fold)
+        st = _wait_quiet(qc, 2, "the e-commerce fold-in")
+        _, root, _ = qc.call("GET", "/")
+        algo = ECommAlgorithm(ECommAlgorithmParams(
+            app_name="EcommApp", rank=c["rank"], reg=c["reg"]))
+        spec = algo.foldin_spec(m2, None)
+        hist = read_entities_ratings(spec, new_users)
+        rows_f = _plain_solve(lambda: _fold_rows(spec, m2.V, m2.item_vocab,
+                                                 hist))
+        check(sorted(rows_f) == new_users, f"recompute folded "
+              f"{sorted(rows_f)}")
+        uv, U = upsert_factor_rows(m2.user_vocab, m2.U, rows_f)
+        folded = dataclasses.replace(m2, user_vocab=uv, U=U)
+        errs3, _ = zip(*(ask(qc, {"user": u, "num": 10}, folded, True,
+                             "ecommerce folded") for u in new_users))
+        _, after, _ = qc.call("POST", "/queries.json", pop_q)
+        check([x["score"] for x in after["itemScores"]]
+              == [float(pop0 + c["buys"])],
+              f"popularity of {bought} after the fold: {after}, "
+              f"expected {pop0 + c['buys']}")
+        b1 = root["kernelLaunches"]["spd_solve"]
+        check(st["applies"] >= 1 and b1 == st["solveCalls"] >= 1,
+              f"fold-in: {st['applies']} applies, B1 {b1} launches for "
+              f"{st['solveCalls']} solves")
+        for a in st["recentApplies"]:
+            check(all(s["solve_event_ms"] is not None
+                      for s in a["solves"]), "an apply did not solve on "
+                  "the card")
+        status, _, _ = qc.call("POST", "/stop")
+        check(status == 200 and server.proc.wait(timeout=60) == 0,
+              "the e-commerce fold-in server did not stop")
+        server = None
+        report = {
+            "events": len(rows), "insert_s": insert_s,
+            "train": t_plain, "train_unseen": t_unseen,
+            "queries": len(queries) + 10 + len(new_users) + 2,
+            "query_p50_ms": float(np.median(lat + lat2)),
+            "max_score_abs_err": max(errs + errs2 + errs3),
+            "foldin": {"applies": st["applies"],
+                       "solve_calls": st["solveCalls"], "b1_launches": b1,
+                       "user_rows": st["appliedUserRows"],
+                       "popularity": [pop0, pop0 + c["buys"]],
+                       "apply_s": [a["apply_s"] for a in
+                                   st["recentApplies"]]}}
+        log("engines: ecommerce " + json.dumps(report))
+        return report
+    finally:
+        if server is not None:
+            server.stop()
+
+
+def similar_recompute(m, q: dict):
+    """The first algorithm's exact lane on a stored similarity model:
+    summed cosine to the query items, each id through the lane's own
+    candidate rule (``_candidate_ok``, which ``_score_and_filter``
+    applies)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.engines.similarproduct import (
+        Query, _candidate_ok, _index_set,
+    )
+
+    query = Query(items=tuple(q["items"]), num=q["num"],
+                  categories=q.get("categories"),
+                  white_list=q.get("whiteList"),
+                  black_list=q.get("blackList"))
+    qi = _index_set(m, query.items)
+    scores = np.full(len(m.item_vocab), -np.inf, np.float32)
+    if qi:
+        white = (_index_set(m, query.white_list)
+                 if query.white_list is not None else None)
+        black = _index_set(m, query.black_list or ())
+        ok = np.fromiter((_candidate_ok(j, m.items, qi, query, white, black)
+                          for j in range(len(scores))), bool,
+                         count=len(scores))
+        scores = np.where(ok, m.V @ m.V[sorted(qi)].sum(axis=0), -np.inf)
+    return m.item_vocab, scores, query.num
+
+
+def similar_leg(seed: int, port: int, work):
+    """Similar-product at cfg_cooccurrence's ML-1M shape through the
+    CLI: als, likealgo and cooccurrence in one engine; deployed under
+    twostage; concurrent plain queries (the fused lane, B2) and the
+    exact lane's filters, against the first algorithm's exact recompute;
+    B2's launches against the fused batches."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops.scoring import build_scorer
+    from predictionio_tpu_torch.utils.server_config import ScorerConfig
+
+    c = SIMILAR
+    env = smoke_store(work)
+    app_id = _new_app("SimilarApp")
+    users, items, _ = synthetic_ratings(c["n_users"], c["n_items"],
+                                        c["nnz"], seed=c["seed"])
+    lu, li, lr = synthetic_ratings(c["n_users"], c["n_items"], c["likes"],
+                                   seed=c["like_seed"])
+    rows = [("$set", "item", f"i{i}", None, None,
+             {"categories": [f"c{i % c['categories']}"]}, 0)
+            for i in range(c["n_items"])]
+    rows += [("view", "user", f"u{u}", "item", f"i{i}", None, 1 + j)
+             for j, (u, i) in enumerate(zip(users.tolist(), items.tolist()))]
+    rows += [("like" if r >= 3 else "dislike", "user", f"u{u}", "item",
+              f"i{i}", None, 1 + j)
+             for j, (u, i, r) in enumerate(zip(lu.tolist(), li.tolist(),
+                                                lr.tolist()))]
+    insert_s = _insert(app_id, rows)
+    variant = work / "similar.json"
+    variant.write_text(json.dumps({
+        "id": "similar", "engineFactory": reference_factory("similarproduct"),
+        "datasource": {"params": {"appName": "SimilarApp"}},
+        "algorithms": [
+            {"name": "als", "params": {"rank": c["rank"],
+                                       "numIterations": c["iters"]}},
+            {"name": "likealgo", "params": {"rank": c["rank"],
+                                            "numIterations": c["iters"]}},
+            {"name": "cooccurrence", "params": {"n": c["n"]}}],
+        "scorer": {"shortlist": c["shortlist"]}}))
+    trained = _engine_train("similarproduct", env, variant,
+                            2 * 2 * c["iters"])
+    models = _stored_models(trained["instance"])
+    m = models[0]
+    gates = {}
+    for name, mm in (("als", models[0]), ("likealgo", models[1])):
+        for sl in (ScorerConfig().shortlist, c["shortlist"]):
+            sc = build_scorer(mm.V, ScorerConfig(mode="twostage",
+                                                 shortlist=sl), device=DEV)
+            gates[f"{name}/{sl}"] = {"activeMode": sc.active_mode,
+                                     "recallProbe": sc.recall_probe,
+                                     "scanRank": sc.scan_rank}
+            del sc
+    log("engines: similarproduct gates " + json.dumps(gates))
+    rng = np.random.default_rng(seed + 50)
+    queries = []
+    for q in range(c["queries"]):
+        body = {"items": [f"i{j}" for j in rng.choice(
+            c["n_items"], 1 + q % 3, replace=False)], "num": 10}
+        if q < c["black"]:
+            body["blackList"] = [f"i{j}" for j in rng.choice(
+                c["n_items"], 10, replace=False)]
+        queries.append(body)
+    exact_lane = [
+        {"items": ["i1", "i2"], "num": 10, "categories": ["c1"]},
+        {"items": ["i3"], "num": 10, "whiteList": [
+            f"i{j}" for j in rng.choice(c["n_items"], 60, replace=False)]}]
+    server = None
+    try:
+        senv = dict(env, PIO_SCORER_MODE="twostage")
+        server = Server(["deploy", "--variant", str(variant), "--port",
+                         str(port), "--device", DEV], senv, tag="engines")
+        q_port = server.wait_ready(timeout_s=300)
+        answers = [None] * len(queries)
+
+        def client(k):
+            cl = Client(q_port)
+            for j in range(k, len(queries), c["clients"]):
+                answers[j] = cl.call("POST", "/queries.json", queries[j])
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(c["clients"])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        qc = Client(q_port)
+        _, mid, _ = qc.call("GET", "/")
+        errs = []
+        for q, got in zip(queries + exact_lane, answers + [
+                qc.call("POST", "/queries.json", q) for q in exact_lane]):
+            check(got is not None and got[0] == 200, f"similar {q}: {got}")
+            errs.append(_same_answer(got[1]["itemScores"],
+                                     similar_recompute(m, q), "item",
+                                     f"similarproduct {q['items']}"))
+        _, root, _ = qc.call("GET", "/")
+        fused = mid["microBatches"]["batches"]
+        b2 = root["kernelLaunches"]["shortlist"]
+        scorers = root["scorer"]
+        check(len(scorers) == 2 and all(s["activeMode"] == "twostage"
+                                        for s in scorers),
+              f"similar-product scorers: {scorers}")
+        check(root["microBatches"]["batches"] == fused + len(exact_lane),
+              f"micro-batches {root['microBatches']}, {fused} before the "
+              f"exact lane's {len(exact_lane)}")
+        check(b2 == 2 * fused, f"B2 launched {b2} times for {fused} fused "
+              "batches of two ALS algorithms")
+        status, _, _ = qc.call("POST", "/stop")
+        check(status == 200 and server.proc.wait(timeout=60) == 0,
+              "the similar-product server did not stop")
+        server = None
+        report = {"events": len(rows), "insert_s": insert_s,
+                  "train": trained, "queries": len(queries),
+                  "gates": gates,
+                  "exact_lane_queries": len(exact_lane),
+                  "micro_batches": mid["microBatches"],
+                  "b2_launches": b2,
+                  "scorer": [{k: s[k] for k in (
+                      "activeMode", "scanRank", "tileItems", "tiles",
+                      "shortlist", "recallProbe", "buildSeconds")}
+                      for s in scorers],
+                  "max_score_abs_err": max(errs)}
+        log("engines: similarproduct " + json.dumps(report))
+        return report
+    finally:
+        if server is not None:
+            server.stop()
+
+
+def follow_recompute(m, q: dict):
+    """Recommended-user's answer from a stored model, in numpy: summed
+    cosine to the query users, score > 0, the query users, black list
+    and white list applied."""
+    import numpy as np
+
+    qi = _index(m.user_vocab, q["users"])
+    if not len(qi):
+        return m.user_vocab, np.full(len(m.user_vocab), -np.inf), q["num"]
+    ok = np.ones(len(m.user_vocab), bool)
+    ok[qi] = False
+    ok[_index(m.user_vocab, q.get("blackList") or ())] = False
+    if q.get("whiteList") is not None:
+        white = np.zeros_like(ok)
+        white[_index(m.user_vocab, q["whiteList"])] = True
+        ok &= white
+    scores = m.V @ m.V[np.sort(qi)].sum(axis=0)
+    return m.user_vocab, np.where(ok, scores, -np.inf), q["num"]
+
+
+def follow_leg(seed: int, port: int, work):
+    """Recommended-user through the CLI at the smoke's own shape."""
+    import numpy as np
+
+    c = FOLLOW
+    env = smoke_store(work)
+    app_id = _new_app("FollowApp")
+    a, b, _ = synthetic_ratings(c["n_users"], c["n_users"], c["nnz"],
+                                seed=c["seed"])
+    keep = a != b                               # no self-follows
+    rows = [("$set", "user", f"u{u}", None, None, {"n": int(u)}, 0)
+            for u in range(c["n_users"])]
+    rows += [("follow", "user", f"u{x}", "user", f"u{y}", None, 1 + j)
+             for j, (x, y) in enumerate(zip(a[keep].tolist(),
+                                            b[keep].tolist()))]
+    insert_s = _insert(app_id, rows)
+    variant = work / "follow.json"
+    variant.write_text(json.dumps({
+        "id": "follow", "engineFactory":
+            reference_factory("recommended_user"),
+        "datasource": {"params": {"appName": "FollowApp"}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": c["rank"], "numIterations": c["iters"]}}]}))
+    trained = _engine_train("recommended_user", env, variant,
+                            2 * c["iters"])
+    m = _stored_models(trained["instance"])[0]
+    rng = np.random.default_rng(seed + 60)
+    server = None
+    try:
+        server = Server(["deploy", "--variant", str(variant), "--port",
+                         str(port), "--device", DEV], env, tag="engines")
+        qc = Client(server.wait_ready(timeout_s=300))
+        errs = []
+        for q in range(c["queries"]):
+            body = {"users": [f"u{j}" for j in rng.choice(
+                c["n_users"], 1 + q % 3, replace=False)], "num": 10}
+            if q % 4 == 1:
+                body["whiteList"] = [f"u{j}" for j in rng.choice(
+                    c["n_users"], 200, replace=False)]
+            if q % 4 == 2:
+                body["blackList"] = [f"u{j}" for j in rng.choice(
+                    c["n_users"], 20, replace=False)]
+            status, got, _ = qc.call("POST", "/queries.json", body)
+            check(status == 200, f"recommended-user {body}: {status}")
+            want = follow_recompute(m, body)
+            check(bool((want[1] > 0).any()), f"recommended-user: empty "
+                  f"recompute for {body['users']}")
+            errs.append(_same_answer(got["similarUserScores"], want, "user",
+                                     f"recommended_user {body['users']}"))
+        status, _, _ = qc.call("POST", "/stop")
+        check(status == 200 and server.proc.wait(timeout=60) == 0,
+              "the recommended-user server did not stop")
+        server = None
+        report = {"events": len(rows), "insert_s": insert_s,
+                  "train": trained, "queries": c["queries"],
+                  "max_score_abs_err": max(errs)}
+        log("engines: recommended_user " + json.dumps(report))
+        return report
+    finally:
+        if server is not None:
+            server.stop()
+
+
+def engines_cli_legs(seed: int, port: int):
+    """Leg 1 of the engines phase: the three engines through the CLI,
+    each on its own store, removed afterwards."""
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    out = {}
+    try:
+        for name, leg in (("ecommerce", ecommerce_leg),
+                          ("similarproduct", similar_leg),
+                          ("recommended_user", follow_leg)):
+            t0 = time.perf_counter()
+            out[name] = leg(seed, port, WORK / "engines" / name)
+            out[name]["leg_s"] = time.perf_counter() - t0
+    finally:
+        Storage.reset()
+        shutil.rmtree(WORK / "engines", ignore_errors=True)
+    return out
+
+
+def similar_width_leg(seed: int, data):
+    """Similar-product serving at the ML-20M width, in process: implicit
+    ALS on the train phase's data (20 B1 launches), V row-normalized as
+    a ``SimilarityModel`` over 27,000 ids, ``ALSAlgorithm.batch_predict``
+    under twostage at each batch size (B2 at T = 16384, two tiles), every
+    answer the exact lane's, one B2 launch a batch."""
+    import numpy as np
+
+    from predictionio_tpu_torch.engines.similarproduct import (
+        ALSAlgorithm, Query, SimilarityModel, _index_set,
+    )
+    from predictionio_tpu_torch.models.als import ALSParams, train_als
+    from predictionio_tpu_torch.ops import kernels, scoring
+    from predictionio_tpu_torch.utils.server_config import ScorerConfig
+
+    c = ML20M
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    _, V = train_als(data, ALSParams(
+        rank=c["rank"], num_iterations=SIMILAR["iters"], reg=c["reg"],
+        alpha=1.0, implicit_prefs=True, chunk_size=c["chunk"]), device=DEV)
+    train_s = time.perf_counter() - t0
+    b1 = kernels.counts()["spd_solve"]
+    check(b1 == 2 * SIMILAR["iters"], f"width ALS launched B1 {b1} times")
+    norms = np.linalg.norm(V, axis=1, keepdims=True)
+    V = (V / np.where(norms == 0, 1.0, norms)).astype(np.float32)
+    model = SimilarityModel(item_vocab=item_ids(c["n_items"]), V=V,
+                            items={}, device=DEV)
+    model._scorer_cfg_override = ScorerConfig(mode="twostage")
+    t0 = time.perf_counter()
+    scorer = scoring.scorer_for(model, model.V)
+    build_s = time.perf_counter() - t0
+    check(scorer is not None and scorer.active,
+          "the width scorer was gated to exact")
+    algo = ALSAlgorithm()
+    rng = np.random.default_rng(seed + 70)
+    rows, max_err, batches = [], 0.0, 0
+    kernels.reset_counts()
+    for b in WIDTH_BATCHES:
+        ms = []
+        for rep in range(WIDTH_REPS + 1):
+            qs = []
+            for j in range(b):
+                kw = {}
+                if j % 4 == 3:
+                    kw["black_list"] = tuple(str(model.item_vocab[x]) for x
+                                             in rng.choice(c["n_items"], 10))
+                qs.append((j, Query(items=tuple(
+                    str(model.item_vocab[x]) for x in rng.choice(
+                        c["n_items"], 1 + j % 3, replace=False)),
+                    num=10, **kw)))
+            t0 = time.perf_counter()
+            got = algo.batch_predict(model, qs)
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            batches += 1
+            if rep:
+                ms.append(dt_ms)
+            for (_, q), (_, res) in zip(qs, got):
+                # the exact lane's candidates: no query item, no black
+                qi = sorted(_index_set(model, q.items))
+                scores = model.V @ model.V[qi].sum(axis=0)
+                scores[qi + sorted(_index_set(model, q.black_list
+                                              or ()))] = -np.inf
+                max_err = max(max_err, _same_answer(
+                    res.to_dict()["itemScores"],
+                    (model.item_vocab, scores, q.num), "item",
+                    f"width B={b}"))
+        rows.append({"B": b, "batches": WIDTH_REPS,
+                     "batch_ms": ms, "batch_ms_median": float(np.median(ms))})
+    launches = kernels.counts()["shortlist"]
+    check(launches == batches, f"width: B2 launched {launches} times for "
+          f"{batches} batches")
+    st = scorer.status()
+    report = {"train_s": train_s, "b1_launches": b1,
+              "scorer_build_s": build_s, "b2_launches": launches,
+              "batches": batches, "rows": rows,
+              "max_score_abs_err": max_err,
+              "scorer": {k: st[k] for k in (
+                  "activeMode", "scanRank", "tileItems", "tiles",
+                  "shortlist", "recallProbe")},
+              "c": scoring.twostage_cand(scorer.cand_per_tile,
+                                         scorer.n_tiles, scorer.tile, 10,
+                                         False)}
+    log("engines: similar width " + json.dumps(report))
+    del model, scorer
+    return report
+
+
+def engines_width_leg(seed: int, held):
+    """Leg 2 of the engines phase, on the train phase's ML-20M arrays
+    and data (regenerated from the seed if not held)."""
+    if held is None:
+        from predictionio_tpu_torch.models.als import ALSData
+
+        c = ML20M
+        users, items, ratings = synthetic_ratings(
+            c["n_users"], c["n_items"], c["nnz"], seed=c["seed"])
+        held = {"users": users, "items": items,
+                "data": ALSData.build(users, items, ratings, c["n_users"],
+                                      c["n_items"]).to(DEV)}
+    t0 = time.perf_counter()
+    cooc = cooccurrence_width_leg(seed, held["users"], held["items"])
+    cooc["leg_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    width = similar_width_leg(seed, held["data"])
+    width["leg_s"] = time.perf_counter() - t0
+    return {"cooccurrence": cooc, "similar_width": width}
+
+
+#: B2 at the engines' shapes: (n_items, T, c) of similar-product's
+#: catalogs (tile 16384 rounded to the catalog, the shortlist spread
+#: over the tiles: 512, the default, and the ML-1M deploy's 1024), at
+#: the scan ranks rank 10 gives (8 or 10)
+ENGINE_B2_SHAPES = [(3706, 4096, 512), (3706, 4096, 1024),
+                    (27_000, 16_384, 256)]
+ENGINE_B2_RANKS = (8, 10)
+
+
+def kernels_engine_shapes(seed: int):
+    """B2 held against its plain version at the engines' shapes, B in
+    {1, 8, 64}, masked and unmasked: each row's ms, plain ms, library
+    composite ms and bound, as ``kernels_phase`` does it."""
+    import torch
+
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.ops.scoring import (
+        shortlist_topc, shortlist_topc_reference,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    rows, max_err = [], 0.0
+    for n_items, t, cand in ENGINE_B2_SHAPES:
+        nt = -(-n_items // t)
+        for r in ENGINE_B2_RANKS:
+            tiles = torch.randint(-127, 128, (nt, t, r), generator=g,
+                                  device=dev, dtype=torch.int8)
+            scales = (0.5 + torch.rand((nt, t), generator=g,
+                                       device=dev)) / 127.0
+            deq = (tiles.float() * scales[..., None]).reshape(nt * t, r)
+            for b in (1, 8, 64):
+                u = torch.randn((b, r), generator=g, device=dev)
+                mask_all = torch.rand((b, nt * t), generator=g,
+                                      device=dev) < 0.3
+                for masked in (False, True):
+                    mask = mask_all if masked else None
+                    kernels.reset_counts()
+                    got = shortlist_topc(u, tiles, scales, n_items, mask,
+                                         cand)
+                    torch.cuda.synchronize()
+                    check(kernels.SHORTLIST_LAUNCHES == 1,
+                          "shortlist wrapper did not launch its kernel")
+                    wide = shortlist_topc_reference(u, tiles, scales,
+                                                    n_items, mask, cand + 1)
+                    err, problems = compare_shortlist(
+                        got, (wide[0].reshape(b, nt, cand + 1),
+                              wide[1].reshape(b, nt, cand + 1)), cand)
+                    check(not problems, f"shortlist R={r} T={t} B={b} "
+                          f"c={cand} masked={masked}: {'; '.join(problems)}")
+                    max_err = max(max_err, err)
+                    ms = cuda_ms(lambda: shortlist_topc(
+                        u, tiles, scales, n_items, mask, cand), iters=10)
+                    plain_ms = cuda_ms(lambda: shortlist_topc_reference(
+                        u, tiles, scales, n_items, mask, cand), iters=2)
+
+                    def library():
+                        sc = torch.matmul(u, deq.T)
+                        sc[:, n_items:] = float("-inf")
+                        if mask is not None:
+                            sc = sc.masked_fill(mask, float("-inf"))
+                        return torch.topk(sc.view(b, nt, t), cand, dim=2)
+
+                    library_ms = cuda_ms(library, iters=3)
+                    bound, bound_by = shortlist_bound_ms(
+                        b, n_items, r, cand, nt, masked)
+                    row = {"n_items": n_items, "T": t, "R": r, "B": b,
+                           "c": cand, "masked": masked, "ms": ms,
+                           "plain_ms": plain_ms, "library_ms": library_ms,
+                           "bound_ms": bound, "bound_by": bound_by,
+                           "max_abs_err": err}
+                    rows.append(row)
+                    log("kernels: shortlist engines " + json.dumps(row))
+            del tiles, scales, deq
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    return rows, max_err
+
+
+# ---------------------------------------------------------------------------
 
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-             canary) -> dict:
+             canary, engines) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
     the ML-20M train (counted from zero); beside them the fold-in
-    launches of both legs and of the canary's held fold-in, and B1's
-    times at the applies' shapes."""
+    launches of both legs and of the canary's held fold-in, the engines'
+    trains and e-commerce's fold-in, and B1's times at the applies'
+    shapes."""
     fl = lifecycle["foldin"]
     c = ML20M
     row = next(r for r in spd_rows
@@ -2715,7 +3704,19 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
             "foldin_width_solver": {
                 k: [v["launches_batched"], v["launches_one_at_a_time"]]
                 for k, v in width["solver"].items()},
-            "canary_held_foldin": canary["held_foldin"]["b1_launches"]},
+            "canary_held_foldin": canary["held_foldin"]["b1_launches"],
+            "engines_ecommerce_train":
+                engines["ecommerce"]["train"]["launches"]["spd_solve"],
+            "engines_ecommerce_unseen_train": engines["ecommerce"][
+                "train_unseen"]["launches"]["spd_solve"],
+            "engines_ecommerce_foldin":
+                engines["ecommerce"]["foldin"]["b1_launches"],
+            "engines_similarproduct_train": engines["similarproduct"][
+                "train"]["launches"]["spd_solve"],
+            "engines_recommended_user_train": engines["recommended_user"][
+                "train"]["launches"]["spd_solve"],
+            "engines_similar_width_train":
+                engines["similar_width"]["b1_launches"]},
         "foldin": {
             "at_apply_shapes": b1_rows,
             "K10_lifecycle_applies": fl["apply_split"]["b1_by_shape"],
@@ -2772,12 +3773,20 @@ def main() -> int:
             f"{time.perf_counter() - t0:.3f} s")
         # 3. kernels
         rows, max_err, shape = kernels_phase(args.seed, args.items)
+        eng_rows, eng_err = kernels_engine_shapes(args.seed)
         spd_rows, spd_err = spd_kernels_phase(args.seed)
         # 4. train (the training path: counts zeroed just before each
         #    train, read just after)
         t0 = time.perf_counter()
-        train = train_phase(spd_rows)
+        train, held = train_phase(spd_rows)
         log(f"train: phase took {time.perf_counter() - t0:.3f} s")
+        # 9. engines, leg 2 (the width leg) on the train phase's arrays
+        t0 = time.perf_counter()
+        eng_width = engines_width_leg(args.seed, held)
+        del held
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"engines: width leg took {time.perf_counter() - t0:.3f} s")
         # 5. lifecycle (the train CLI's process counts its own launches)
         t0 = time.perf_counter()
         lifecycle = lifecycle_phase(args.seed, args.port)
@@ -2810,6 +3819,12 @@ def main() -> int:
         canary["feedback"] = lifecycle["feedback"]
         canary["phase_s"] = time.perf_counter() - t0
         log("canary: " + json.dumps(canary))
+        # 9. engines, leg 1: the three engines through the CLI
+        t0 = time.perf_counter()
+        engines = engines_cli_legs(args.seed, args.port)
+        engines.update(eng_width)
+        engines["cli_legs_s"] = time.perf_counter() - t0
+        log("engines: " + json.dumps(engines))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2824,7 +3839,7 @@ def main() -> int:
         "source": "predictionio_tpu_torch/csrc/shortlist.cu",
         "replaces": "predictionio_tpu/ops/scoring.py:885",
         "launches": serve["shortlist_launches"],
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, eng_err),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -2836,10 +3851,15 @@ def main() -> int:
         "launches_by_path": {
             "serve": serve["shortlist_launches"],
             "foldin_width_stream": width["stream_launches"]["shortlist"],
-            "canary": canary["b2_launches"]},
+            "canary": canary["b2_launches"],
+            "engines_similarproduct_cli":
+                engines["similarproduct"]["b2_launches"],
+            "engines_similar_width":
+                engines["similar_width"]["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
+        "engine_shapes": eng_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-                canary)]}
+                canary, engines)]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

@@ -25,13 +25,18 @@ click), with the reference's commands, flags and exit codes:
     python -m predictionio_tpu_torch.cli.main rollback [--ip localhost]
         [--port 8000] [--accesskey K]
 
+The engine.json's ``engineFactory`` names one of the ported engines
+(recommendation, ecommerce, similarproduct, recommended_user) by the
+reference's factory string or the port's own.
+
 ``train`` runs ``workflow.train.run_train``: an EngineInstance (INIT,
 then COMPLETED), the model blob in the model store under its id, and the
-variant's next release; it prints one JSON line — users, items, nnz,
-rank, the seconds of the whole train (event read and records included)
-and of the host-side data build, the kernel launch counts, the instance
-id and the release version. ``--out`` also writes the model as an
-``.npz`` file.
+variant's next release; it prints one JSON line — users, items, nnz and
+rank of the first algorithm's model (null where its kind has none) and
+each model's, the seconds of the whole train (event read and records
+included) and of the host-side data build, the kernel launch counts,
+the instance id and the release version. ``--out`` also writes the
+first model as an ``.npz`` file.
 
 ``deploy`` serves the latest COMPLETED instance of the variant, or
 ``--engine-instance-id``, or a release (``--release`` id, ``3`` or
@@ -63,8 +68,9 @@ import sys
 import time
 from typing import List, Optional
 
-#: the engines this slice of the port serves, by factory name
-_ENGINES = ("recommendation",)
+#: the engines the port serves, by module name under ``engines``
+_ENGINES = ("recommendation", "ecommerce", "similarproduct",
+            "recommended_user")
 
 
 def _fail(msg: str) -> None:
@@ -73,14 +79,39 @@ def _fail(msg: str) -> None:
 
 
 def _engine_of(variant: dict):
-    from predictionio_tpu_torch.engines import recommendation
+    """The port's engine for the variant's ``engineFactory``: the
+    engine module named before the factory function, dotted or with a
+    colon as the reference's ``load_class`` reads it, so the reference's
+    string (``predictionio_tpu.engines.<name>:engine``) and the port's
+    own (``predictionio_tpu_torch.engines.<name>:engine``) both map to
+    ``predictionio_tpu_torch.engines.<name>``, by string and never by
+    importing the reference; no factory means the recommendation
+    engine."""
+    import importlib
 
     factory = variant.get("engineFactory") or ""
-    name = factory.replace(":", ".").split(".")[-2:-1]
-    if factory and name != ["recommendation"]:
+    name = (factory.replace(":", ".").split(".")[-2:-1] or [""])[0]
+    if factory and name not in _ENGINES:
         raise SystemExit(f"[ERROR] engineFactory {factory!r}: only the "
-                         f"{'/'.join(_ENGINES)} engine is ported")
-    return recommendation.engine()
+                         f"{'/'.join(_ENGINES)} engines are ported")
+    return importlib.import_module(
+        f"predictionio_tpu_torch.engines.{name or 'recommendation'}"
+    ).engine()
+
+
+def _model_summary(model) -> dict:
+    """Sizes of a trained or loaded model of any ported engine (None
+    where the kind has no such side)."""
+    inner = getattr(model, "model", model)      # cooccurrence wraps one
+    users = getattr(inner, "user_vocab", None)
+    items = getattr(inner, "item_vocab", None)
+    V = getattr(model, "V", None)
+    info = getattr(model, "train_info", None) or {}
+    return {"kind": type(model).__name__,
+            "users": None if users is None else len(users),
+            "items": None if items is None else len(items),
+            "rank": None if V is None else int(V.shape[1]),
+            "nnz": info.get("nnz"), "build_s": info.get("build_s")}
 
 
 def _load_variant(path: str):
@@ -265,11 +296,13 @@ def train(args) -> int:
     print(f"[INFO] Training completed. Engine instance: {instance.id}"
           + (f" (release v{release.version})" if release else ""),
           flush=True)
+    summary = _model_summary(model)
     print(json.dumps({
-        "users": len(model.user_vocab), "items": len(model.item_vocab),
-        "nnz": model.train_info["nnz"], "rank": int(model.V.shape[1]),
+        "users": summary["users"], "items": summary["items"],
+        "nnz": summary["nnz"], "rank": summary["rank"],
         "device": str(ctx.device), "train_s": train_s,
-        "build_s": model.train_info["build_s"],
+        "build_s": summary["build_s"],
+        "models": [_model_summary(m) for m in result.models],
         "launches": kernels.counts(), "out": args.out,
         "instance": instance.id,
         "release": release.version if release else None}), flush=True)
@@ -361,9 +394,11 @@ def deploy(args) -> int:
         model = result.models[0]
     scfg = scorer_config(variant.get("scorer"))
     fic = foldin_config(variant.get("foldin"))
-    print(f"[INFO] Loaded {instance.id}: {len(model.user_vocab)} users x "
-          f"{len(model.item_vocab)} items, rank {model.V.shape[1]}, on "
-          f"{model.device} ({time.perf_counter() - t0:.3f} s)", flush=True)
+    summary = _model_summary(model)
+    print(f"[INFO] Loaded {instance.id}: {summary['kind']}, "
+          f"{summary['users']} users x {summary['items']} items, rank "
+          f"{summary['rank']}, on {getattr(model, 'device', None)} "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
     server = create_query_server(engine, result, instance,
                                  scorer_config=scfg, release=release,
                                  access_key=args.accesskey,

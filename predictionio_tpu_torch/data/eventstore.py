@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import json
 import threading
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
+from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.storage.base import StorageError
 from predictionio_tpu_torch.storage.registry import Storage
@@ -72,6 +73,21 @@ class EventStoreClient:
         app_id, channel_id = resolve_app(app_name, channel_name)
         return Storage.get_events().find_columns(app_id, channel_id,
                                                  **filters)
+
+    @staticmethod
+    def aggregate_properties(app_name: str, entity_type: str,
+                             channel_name: Optional[str] = None,
+                             start_time=None, until_time=None,
+                             required: Optional[Sequence[str]] = None
+                             ) -> Dict[str, PropertyMap]:
+        """PEventStore.aggregateProperties:87 parity: ``{entity_id:
+        PropertyMap}`` of the live entities of ``entity_type``
+        (``required``: only those carrying every named field)."""
+        app_id, channel_id = resolve_app(app_name, channel_name)
+        return Storage.get_events().aggregate_properties(
+            app_id, entity_type, channel_id=channel_id,
+            start_time=start_time, until_time=until_time,
+            required=required)
 
     @staticmethod
     def training_columns(app_name: str, channel_name: Optional[str] = None,

@@ -731,8 +731,8 @@ class QueryServer:
         """Engine/instance info + serving stats; also the scorer status,
         the kernel launch counts of this process since it was warm (a
         ``/reload``'s or ``/deploy.json``'s warm-up, a shadow's scoring
-        and the fold-in solves count among them), the fold-in status and
-        the feedback writes."""
+        and the fold-in solves count among them), the serving unit's
+        micro-batches, the fold-in status and the feedback writes."""
         with self._stats_lock:
             count, total = self._query_count, self._query_seconds
             recent = list(self._recent)
@@ -765,6 +765,7 @@ class QueryServer:
                        if self.last_warmup is not None else None),
             "kernelLaunches": kernels.counts(),
             "warmupKernelLaunches": self.warmup_launches,
+            "microBatches": self._batch_counts(unit),
             "foldin": self.foldin_status(),
             "feedback": {
                 "enabled": self._feedback_target is not None,
@@ -772,6 +773,19 @@ class QueryServer:
                 "p50WriteSec": float(np.median(fb)) if fb else None,
                 "maxWriteSec": max(fb) if fb else None},
         }
+
+    @staticmethod
+    def _batch_counts(unit: ServingUnit) -> Optional[dict]:
+        """The serving unit's micro-batches so far, by size (the
+        reference's per-batch serving observations, plain counts until
+        the port has the metrics registry); None when the unit does not
+        batch."""
+        batcher = unit.batcher
+        if batcher is None or not unit.vectorized:
+            return None
+        sizes = dict(batcher.batch_sizes)
+        return {"batches": sum(sizes.values()),
+                "sizes": {str(k): v for k, v in sorted(sizes.items())}}
 
     async def handle_plugins(self, _req: Request) -> Tuple[int, Any]:
         return 200, {"plugins": self.plugins.describe()}

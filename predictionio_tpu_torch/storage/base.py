@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from predictionio_tpu_torch.data.datamap import PropertyMap
 from predictionio_tpu_torch.data.event import UTC, Event
 
 
@@ -383,3 +384,30 @@ class EventStore(abc.ABC):
         as numpy arrays (object arrays for strings, int64 for the
         ``*_ms`` times), with ``find``'s filters. ``ordered=False``
         accepts any row order."""
+
+    def aggregate_properties(
+        self,
+        app_id: int,
+        entity_type: str,
+        channel_id: Optional[int] = None,
+        start_time: Optional[_dt.datetime] = None,
+        until_time: Optional[_dt.datetime] = None,
+        required: Optional[Sequence[str]] = None,
+    ) -> Dict[str, PropertyMap]:
+        """LEvents.futureAggregateProperties:215: the entities' special
+        events folded into PropertyMaps, through the columnar read and
+        the vectorized fold (``data/columnar``)."""
+        from predictionio_tpu_torch.data.aggregator import (
+            AGGREGATOR_EVENT_NAMES,
+        )
+        from predictionio_tpu_torch.data.columnar import (
+            AGGREGATE_COLUMNS, aggregate_properties_columns,
+        )
+
+        cols = self.find_columns(
+            app_id, channel_id, columns=AGGREGATE_COLUMNS,
+            ordered=False,      # the fold sorts per entity itself
+            start_time=start_time, until_time=until_time,
+            entity_type=entity_type,
+            event_names=list(AGGREGATOR_EVENT_NAMES))
+        return aggregate_properties_columns(cols, required=required)

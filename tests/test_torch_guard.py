@@ -10,7 +10,9 @@ the CPU on their own.
   through the event server, a fourth serves with online fold-in on
   (``PIO_FOLDIN=1``) and applies once, and a fifth runs ``deploy
   --feedback --log-url`` through the CLI, answers a query and a failing
-  one, then stops it with ``undeploy``, each with the same finding;
+  one, then stops it with ``undeploy``, and two more train and deploy
+  the e-commerce and similar-product engines through the CLI, each with
+  the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``
   among them) or in chip_smoke.py;
@@ -332,6 +334,85 @@ def test_deploy_feedback_log_and_undeploy_load_no_jax(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
+_ENGINE_CHILD = r"""
+import http.client, json, os, socket, sys, threading, time
+engine_name, tmp = sys.argv[1], sys.argv[2]
+os.environ.update({
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "e.db"),
+    "PIO_ENTITY_CACHE_TTL_S": "0", "PIO_SCORER_MODE": "twostage",
+    **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+       for r in ("METADATA", "EVENTDATA", "MODELDATA")
+       for k, v in (("NAME", "pio"), ("SOURCE", "DB"))}})
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+store = Storage.get_events()
+store.init_channel(app_id)
+evs = [Event(event="$set", entity_type="item", entity_id=f"i{i}",
+             properties={"categories": [f"c{i % 2}"]}) for i in range(9)]
+evs += [Event(event="view" if (u + j) % 4 else "buy", entity_type="user",
+              entity_id=f"u{u}", target_entity_type="item",
+              target_entity_id=f"i{(u * 5 + j) % 9}")
+        for u in range(12) for j in range(4)]
+store.insert_batch(evs, app_id)
+algos = ([{"name": "ecomm", "params": {"appName": "Guard", "rank": 3,
+                                       "numIterations": 2}}]
+         if engine_name == "ecommerce" else
+         [{"name": "als", "params": {"rank": 3, "numIterations": 2}},
+          {"name": "cooccurrence", "params": {"n": 3}}])
+variant = os.path.join(tmp, "engine.json")
+with open(variant, "w") as f:
+    json.dump({"engineFactory": f"predictionio_tpu.engines.{engine_name}:engine",
+               "datasource": {"params": {"appName": "Guard"}},
+               "algorithms": algos}, f)
+assert main(["train", "--variant", variant, "--device", "cpu"]) == 0
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+rc = []
+deploy = threading.Thread(target=lambda: rc.append(main([
+    "deploy", "--variant", variant, "--port", str(port), "--device", "cpu"])))
+deploy.start()
+
+def post(body):
+    for _ in range(600):
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            c.request("POST", "/queries.json", body=json.dumps(body))
+            r = c.getresponse()
+            return r.status, json.loads(r.read())
+        except ConnectionRefusedError:
+            time.sleep(0.05)
+
+query = ({"user": "u1", "num": 3} if engine_name == "ecommerce"
+         else {"items": ["i1"], "num": 3})
+status, body = post(query)
+assert status == 200 and len(body["itemScores"]) == 3, (status, body)
+assert main(["undeploy", "--port", str(port)]) == 0
+deploy.join(timeout=30)
+assert rc == [0], rc
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+@pytest.mark.parametrize("engine_name", ["ecommerce", "similarproduct"])
+def test_engine_train_and_deploy_load_no_jax(tmp_path, engine_name):
+    """``train`` and ``deploy`` of e-commerce and similar-product through
+    the CLI, the engine.json naming the reference's factory string."""
+    out = subprocess.run(
+        [sys.executable, "-c", _ENGINE_CHILD, engine_name, str(tmp_path)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
 def test_scan_covers_the_staged_rollout_modules():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
                if PKG in p.parents}
@@ -448,10 +529,29 @@ def _cli_deploy(tmp_path):
     return main(["deploy", "--model", str(path), "--port", "0"])
 
 
+def _train_cooccurrence():
+    from predictionio_tpu_torch.models.cooccurrence import (
+        train_cooccurrence,
+    )
+
+    return train_cooccurrence(np.array([0, 1, 1]), np.array([0, 0, 1]),
+                              2, 2, 3)
+
+
+def _similarity_model():
+    from predictionio_tpu_torch.engines.similarproduct import (
+        SimilarityModel,
+    )
+
+    return SimilarityModel(item_vocab=np.array(["i"]),
+                           V=np.ones((1, 2), np.float32), items={})
+
+
 @pytest.mark.parametrize("entry", ["ALSModel.from_arrays", "load_model",
                                    "build_scorer", "cli deploy",
                                    "train_als", "cli train", "run_train",
-                                   "load_for_deploy", "FoldInSolver"])
+                                   "load_for_deploy", "FoldInSolver",
+                                   "train_cooccurrence", "SimilarityModel"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -462,7 +562,9 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "cli train": lambda: _cli_train(tmp_path),
             "run_train": lambda: _run_train(tmp_path),
             "load_for_deploy": lambda: _load_for_deploy(tmp_path),
-            "FoldInSolver": _foldin_solver}[entry]
+            "FoldInSolver": _foldin_solver,
+            "train_cooccurrence": _train_cooccurrence,
+            "SimilarityModel": _similarity_model}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

@@ -19,7 +19,18 @@ Phases, each reported on its own lines:
                    ``twostage_cand``), with and without an exclusion
                    mask: vals within rtol 1e-5 / atol 1e-5 (f32 sums in
                    another order); ids equal wherever the plain version's
-                   neighbouring values differ by more than that.
+                   neighbouring values differ by more than that. Each B2
+                   row also records its device time (``graph_ms``: calls
+                   captured in a CUDA graph, no host time) and the launch
+                   plan the wrapper picked (``ops/kernels.shortlist_plan``:
+                   the finish C (2/4/8 per-thread lists, 16 a queue a
+                   row, 0 every key kept), rows per group, cluster size,
+                   staged items and the bytes of each row a stage holds,
+                   where the sort runs, shared memory,
+                   whether the product runs on the tensor cores; such rows'
+                   bound counts two TF32 products a score at 495 TFLOP/s).
+                   Three tie-heavy rows (``TIE_B2_SHAPES``) are held exactly
+                   to a stable sort: values and ids.
                    B1, the batched SPD solve, at K in {10, 16, 32, 64} x
                    S in {1, 129, 27000, 138000} on systems built like a
                    half-sweep's (the Gramian of seeded factors over up to
@@ -256,6 +267,8 @@ WORK = ROOT / "build" / "chip_smoke"
 # outside the tensor cores (both kernels' products are exact f32)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+#: dense TF32 on the tensor cores, where B2's plan puts the product there
+TF32_FLOPS = 495e12
 
 TOL = 1e-5
 #: B1 against its plain version: max |dx| <= SPD_TOL * max(1, max |x|)
@@ -331,43 +344,20 @@ def synchronize() -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device milliseconds of ``fn()`` over ``iters`` runs."""
-    import torch
+    """Mean device milliseconds of ``fn()`` over ``iters`` runs
+    (``tools/kernel_ab.event_ms``, the A/B tool's timer)."""
+    from predictionio_tpu_torch.tools import kernel_ab
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return kernel_ab.event_ms(fn, iters, warmup)
 
 
 def graph_ms(fn, launches: int, reps: int = 5) -> float:
-    """Device milliseconds per call of ``fn()``, without its host time:
-    ``launches`` calls captured in one CUDA graph, the graph replayed
-    ``reps`` times. At small shapes a call's host time (the wrapper's
-    checks, the allocation, the launch) exceeds the kernel's, and
-    :func:`cuda_ms` reads the host."""
-    import torch
+    """Device milliseconds per call of ``fn()`` without its host time, a
+    CUDA graph of ``launches`` calls replayed ``reps`` times
+    (``tools/kernel_ab.graph_ms``)."""
+    from predictionio_tpu_torch.tools import kernel_ab
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(launches):
-            fn()
-    ms = cuda_ms(graph.replay, iters=reps) / launches
-    del graph
-    return ms
+    return kernel_ab.graph_ms(fn, launches, reps)
 
 
 # ---------------------------------------------------------------------------
@@ -375,15 +365,22 @@ def graph_ms(fn, launches: int, reps: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 def shortlist_bound_ms(b: int, n_items: int, r: int, cand: int, nt: int,
-                       masked: bool):
+                       masked: bool, tensor_cores: bool = False):
     """Least time for the shortlist function on these inputs: every
     input byte read once and every output byte written once over HBM
-    bandwidth, or its f32 multiply-adds over the f32 peak."""
+    bandwidth, or its operations over the peak of the unit that does
+    them: the dot products' multiply-adds on the CUDA cores (f32), or,
+    where the plan puts the product on the tensor cores, two TF32
+    products a score (u split into hi and lo halves) at the dense TF32
+    rate; the scale multiply on the CUDA cores either way."""
     bytes_ = (n_items * r + n_items * 4 + b * r * 4
               + (b * n_items if masked else 0) + b * nt * cand * 8)
-    ops = 2.0 * b * n_items * r + b * n_items   # dot products + scale
+    dots = 2.0 * b * n_items * r
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
+    if tensor_cores:
+        t_ops = (2 * dots / TF32_FLOPS + b * n_items / F32_FLOPS) * 1e3
+    else:
+        t_ops = (dots + b * n_items) / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -479,12 +476,17 @@ def kernels_phase(seed: int, n_items: int):
                     return torch.topk(sc.view(b, nt, t), cand, dim=2)
 
                 library_ms = cuda_ms(library, iters=3)
-                bound, bound_by = shortlist_bound_ms(b, n_items, r, cand,
-                                                     nt, masked)
+                device_ms = graph_ms(lambda: shortlist_topc(
+                    u, tiles, scales, n_items, mask, cand), launches=4)
+                plan = kernels.shortlist_plan(b, nt, t, r, cand, masked)
+                bound, bound_by = shortlist_bound_ms(
+                    b, n_items, r, cand, nt, masked, plan.tensor_cores)
                 row = {"B": b, "c": cand, "masked": masked,
-                       "ms": ms, "plain_ms": plain_ms,
+                       "ms": ms, "device_ms": device_ms,
+                       "plain_ms": plain_ms,
                        "library_ms": library_ms, "bound_ms": bound,
-                       "bound_by": bound_by, "max_abs_err": err}
+                       "bound_by": bound_by, "max_abs_err": err,
+                       "plan": plan.as_dict()}
                 results.append(row)
                 log("kernels: shortlist " + json.dumps(row))
     # a masked batch ships its [B, n_pad] bool mask host -> device
@@ -3641,19 +3643,90 @@ def kernels_engine_shapes(seed: int):
                         return torch.topk(sc.view(b, nt, t), cand, dim=2)
 
                     library_ms = cuda_ms(library, iters=3)
+                    device_ms = graph_ms(lambda: shortlist_topc(
+                        u, tiles, scales, n_items, mask, cand), launches=20)
+                    plan = kernels.shortlist_plan(b, nt, t, r, cand, masked)
                     bound, bound_by = shortlist_bound_ms(
-                        b, n_items, r, cand, nt, masked)
+                        b, n_items, r, cand, nt, masked, plan.tensor_cores)
                     row = {"n_items": n_items, "T": t, "R": r, "B": b,
                            "c": cand, "masked": masked, "ms": ms,
+                           "device_ms": device_ms,
                            "plain_ms": plain_ms, "library_ms": library_ms,
                            "bound_ms": bound, "bound_by": bound_by,
-                           "max_abs_err": err}
+                           "max_abs_err": err,
+                           "plan": plan.as_dict()}
                     rows.append(row)
                     log("kernels: shortlist engines " + json.dumps(row))
             del tiles, scales, deq
     torch.cuda.empty_cache()
     kernels.reset_counts()
     return rows, max_err
+
+
+#: tie-heavy B2 rows: (n_items, T, R, B, c). Entries in [-2, 2], query
+#: rows in [-3, 3] and one scale of 1/128, so every score is a small
+#: multiple of 1/128, exact in f32 in any order, and a tile holds only a
+#: few dozen distinct values: the kernel must return each tile's top c in
+#: the stable order (value desc, id asc), values and ids exactly. One row
+#: keeps every score (c 1024, the similar-product deploy's shape), one
+#: the queues (c 16, the masked serve queries' c), one the tensor-core
+#: product (R 32, 8 rows, c 4).
+TIE_B2_SHAPES = [(3706, 4096, 8, 8, 1024), (40_000, 16_384, 32, 8, 16),
+                 (40_000, 16_384, 32, 8, 4)]
+
+
+def kernels_tie_rows(seed: int):
+    """B2 on tie-heavy inputs, held exactly to a stable sort of the same
+    scores (``torch.sort(stable=True)`` per tile); each row's ms,
+    device ms and plan."""
+    import torch
+
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.ops.scoring import shortlist_topc
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    rows = []
+    for n_items, t, r, b, cand in TIE_B2_SHAPES:
+        nt = -(-n_items // t)
+        tiles = torch.randint(-2, 3, (nt, t, r), generator=g, device=dev,
+                              dtype=torch.int8)
+        scales = torch.full((nt, t), 1 / 128, device=dev)
+        u = torch.randint(-3, 4, (b, r), generator=g, device=dev).float()
+        kernels.reset_counts()
+        got_v, got_i = shortlist_topc(u, tiles, scales, n_items, None, cand)
+        torch.cuda.synchronize()
+        check(kernels.SHORTLIST_LAUNCHES == 1,
+              "shortlist wrapper did not launch its kernel")
+        sc = (u @ tiles.reshape(nt * t, r).float().T) / 128
+        sc[:, n_items:] = float("-inf")
+        sv, si = torch.sort(sc.view(b, nt, t), dim=2, descending=True,
+                            stable=True)
+        want_v = sv[..., :cand].reshape(b, nt * cand)
+        want_i = (si[..., :cand] + torch.arange(
+            nt, device=dev)[None, :, None] * t).reshape(b, nt * cand)
+        fin = torch.isfinite(want_v)
+        distinct = int(torch.unique(sc[torch.isfinite(sc)]).numel())
+        check(torch.equal(fin, torch.isfinite(got_v)),
+              f"tie row T={t} c={cand}: finite pattern differs")
+        check(torch.equal(got_v[fin], want_v[fin]),
+              f"tie row T={t} c={cand}: values differ from the stable order")
+        bad = int((got_i[fin] != want_i[fin].int()).sum())
+        check(bad == 0, f"tie row T={t} c={cand}: {bad} ids out of the "
+              f"stable order (value desc, id asc)")
+        row = {"n_items": n_items, "T": t, "R": r, "B": b, "c": cand,
+               "distinct_scores": distinct, "ids_checked": int(fin.sum()),
+               "ms": cuda_ms(lambda: shortlist_topc(
+                   u, tiles, scales, n_items, None, cand), iters=10),
+               "device_ms": graph_ms(lambda: shortlist_topc(
+                   u, tiles, scales, n_items, None, cand), launches=20),
+               "plan": kernels.shortlist_plan(b, nt, t, r, cand).as_dict()}
+        rows.append(row)
+        log("kernels: shortlist ties " + json.dumps(row))
+        del tiles, scales, sc, sv, si
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3774,6 +3847,7 @@ def main() -> int:
         # 3. kernels
         rows, max_err, shape = kernels_phase(args.seed, args.items)
         eng_rows, eng_err = kernels_engine_shapes(args.seed)
+        tie_rows = kernels_tie_rows(args.seed)
         spd_rows, spd_err = spd_kernels_phase(args.seed)
         # 4. train (the training path: counts zeroed just before each
         #    train, read just after)
@@ -3841,12 +3915,14 @@ def main() -> int:
         "launches": serve["shortlist_launches"],
         "max_abs_err": max(max_err, eng_err),
         "ms": main_row["ms"],
+        "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "library": "composite: torch.matmul over dequantized f32 factors "
                    "+ torch.topk per tile",
+        "plan": main_row["plan"],
         "shape": dict(shape, B=1, c=shape["c"]["plain"], masked=False),
         "launches_by_path": {
             "serve": serve["shortlist_launches"],
@@ -3858,6 +3934,7 @@ def main() -> int:
                 engines["similar_width"]["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
         "engine_shapes": eng_rows,
+        "tie_rows": tie_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
                 canary, engines)]}
     log(json.dumps(line))

@@ -236,6 +236,43 @@ Phases, each reported on its own lines:
                    items, T 16384, c 256), B in {1, 8, 64}, masked and
                    unmasked.
 
+10. ``eval``     — ``pio eval``'s k-fold x hyperparameter ALS sweep
+                   (``models/als_sweep``), in three legs, each counting
+                   B1 launches from zero. Leg 1, after the engines'
+                   width leg: the reference bench's eval_sweep_grid
+                   (bench.py:282-294, 779-870; 943 x 1,682, 100,000
+                   ratings from seed 5, 3 folds, 5 iterations, ranks
+                   {8, 12} x regs {0.01, 0.02, 0.05, 0.1, 0.2, 0.4},
+                   chunk 16384, precision@10 and the top-N MSE), run
+                   batched (2 groups of 18 units: exactly 20 launches,
+                   at S = 16,974 and 30,276), one unit at a time (360)
+                   and batched on the plain solve (``PIO_TPU_SOLVE=vec``,
+                   0): the same best (rank, reg), every candidate's
+                   held-out RMSE within 1e-4, equal test and qualifying
+                   counts, hits within max(1, nQual // 100); seconds,
+                   candidates/s, the batched side's build / upload /
+                   train / metric split, and from one more batched
+                   sweep under the profiler B1's kernel time over its
+                   trains and the device's idle share of its wall.
+                   Leg 2, on the train phase's ML-20M arrays before
+                   they are freed: rank 10, regs {0.01, 0.05, 0.1}, 3
+                   folds, 2 iterations, held-out RMSE only: exactly 4
+                   launches over 9 units (S = 1,242,000 and 243,000),
+                   held to its plain twin within ``EVAL_TWIN_TOL``
+                   and profiled as leg 1 is. Leg 3,
+                   inside the lifecycle on its store: the smoke writes
+                   an evaluation module (PrecisionAtK(k=10) and
+                   RMSEMetric on the recommendation engine) into its
+                   work directory, on ``PYTHONPATH``, and runs ``eval
+                   --grid rank=8,12 --grid reg=0.01,0.1`` (batched, 20
+                   launches, ``best.json`` the best candidate's params),
+                   then ``--sequential`` on ranks {8, 12} at reg 0.01
+                   (60 launches, the batched run's best of those two),
+                   then
+                   a failing evaluation (exit 1): two EVALCOMPLETED
+                   instances and one EVALFAILED. The kernels phase holds
+                   B1 at the four eval shapes too.
+
 Each phase's launch counts are its own: zeroed just before the phase
 drives its path and read just after (in the process that launched).
 Then it prints one JSON line describing each kernel (times from this
@@ -248,6 +285,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -291,6 +329,27 @@ FULL_R64 = dict(rank=64, iters=3)
 #: the reference's pipeline bench shape (bench.py:466, cfg_pipeline_ml100k)
 ML100K = dict(n_users=943, n_items=1682, nnz=100_000, rank=10, iters=20,
               reg=0.01, buys=50, queries=20)
+
+#: the reference bench's eval_sweep_grid (bench.py:282-294, config
+#: bench.py:779-870): 3 folds x 12 candidates, 5 iterations, chunk
+#: 16384; the rank metrics of the DASE metrics (query_num 10, precision
+#: k 10, threshold 2.0)
+EVAL_GRID = dict(n_users=943, n_items=1682, nnz=100_000, seed=5, folds=3,
+                 iters=5, ranks=(8, 12),
+                 regs=(0.01, 0.02, 0.05, 0.1, 0.2, 0.4), chunk=16_384,
+                 rank_metrics=(10, 10, 2.0))
+#: the eval phase's width leg on the train phase's ML-20M arrays
+EVAL_WIDTH = dict(rank=10, regs=(0.01, 0.05, 0.1), folds=3, iters=2)
+#: the eval phase's CLI leg on the lifecycle's store: the batched grid,
+#: then the sequential loop on its ranks at the first reg
+EVAL_CLI = dict(ranks=(8, 12), regs=(0.01, 0.1), iters=5, folds=3)
+#: candidates within this held-out RMSE of each other across the eval
+#: sides (batched, one unit at a time, the plain solve)
+EVAL_RMSE_TOL = 1e-4
+#: the width leg's held-out RMSE against its plain-solve twin, relative:
+#: the same assembly feeds both solves, so only the solves' rounding
+#: (and index_add_'s order) parts them over 2 iterations
+EVAL_TWIN_TOL = 1e-6
 
 #: the serve phase's two-stage shortlist. The reference default, 512, is
 #: under one candidate per tile at 10M items (611 tiles): a query loses
@@ -349,6 +408,22 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     from predictionio_tpu_torch.tools import kernel_ab
 
     return kernel_ab.event_ms(fn, iters, warmup)
+
+
+@contextlib.contextmanager
+def solve_env(value):
+    """``PIO_TPU_SOLVE`` set to ``value`` inside the block (None: left
+    as it is), restored after it."""
+    saved = os.environ.get("PIO_TPU_SOLVE")
+    if value is not None:
+        os.environ["PIO_TPU_SOLVE"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PIO_TPU_SOLVE", None)
+        else:
+            os.environ["PIO_TPU_SOLVE"] = saved
 
 
 def graph_ms(fn, launches: int, reps: int = 5) -> float:
@@ -510,6 +585,11 @@ def kernels_phase(seed: int, n_items: int):
 
 SPD_SHAPES = [(k, s) for k in (10, 16, 32, 64)
               for s in (1, 129, 27_000, 138_000)]
+#: B1 at the eval phase's half-sweeps: K 8 and 12 over the 18 units of a
+#: group of the ML-100k grid (S = 18 x 943 users, 18 x 1,682 items), K 10
+#: over the 9 units of the ML-20M width leg (9 x 138,000, 9 x 27,000)
+EVAL_SPD_SHAPES = [(8, 16_974), (8, 30_276), (12, 16_974), (12, 30_276),
+                   (10, 1_242_000), (10, 243_000)]
 #: H100 L2 cache: inputs below this stay resident across timed launches
 L2_BYTES = 50e6
 
@@ -559,7 +639,7 @@ def spd_kernels_phase(seed: int):
     rows, max_err = [], 0.0
     jitter = 1e-6
     thread_max_k = kernels.spd_solve_thread_max_k()
-    for k, s in SPD_SHAPES:
+    for k, s in SPD_SHAPES + EVAL_SPD_SHAPES:
         gram, lam, b, empty = spd_inputs(s, k, g)
         A = with_diagonal(gram, lam, jitter)
         gram0, A0 = gram.clone(), A.clone()
@@ -603,7 +683,7 @@ def spd_kernels_phase(seed: int):
         chol_ms = cuda_ms(chol, iters=3)
         bound, bound_by = spd_bound_ms(s, k)
         in_bytes = s * (k * k + k + 1) * 4
-        row = {"K": k, "S": s,
+        row = {"K": k, "S": s, "eval": (k, s) in EVAL_SPD_SHAPES,
                "regime": "thread" if k <= thread_max_k else "warp",
                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "library_chol_ms": chol_ms,
@@ -647,21 +727,30 @@ def _rel(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def device_busy_ms(fn) -> float | None:
-    """Device time of ``fn()``: the summed durations of the events the
+def device_profile(fn):
+    """``fn()`` under the profiler: ``(its result, the device's busy ms,
+    B1's kernel ms)``. Busy is the summed durations of the events the
     profiler ran on the card (kernels, copies, sets; one stream, so they
-    do not overlap), in ms; None if it saw none."""
+    do not overlap); B1's are those of the ``spd_*`` kernels. None where
+    it saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        out = fn()
         synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 if total > 0 else None
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in cuda)
+    b1 = sum(e.time_range.elapsed_us() for e in cuda if "spd_" in e.name)
+    return (out, total / 1e3 if total > 0 else None,
+            b1 / 1e3 if b1 > 0 else None)
+
+
+def device_busy_ms(fn) -> float | None:
+    """Device time of ``fn()`` in ms (:func:`device_profile`)."""
+    return device_profile(fn)[1]
 
 
 def _train_leg(name, data, params, init_V, users, items, ratings,
@@ -692,20 +781,13 @@ def _train_leg(name, data, params, init_V, users, items, ratings,
     err = rmse(U, V, users[head], items[head], ratings[head])
     check(bool(np.isfinite(err)), f"{name}: RMSE is not finite")
 
-    saved = os.environ.get("PIO_TPU_SOLVE")
-    os.environ["PIO_TPU_SOLVE"] = "vec"
-    try:
+    with solve_env("vec"):
         kernels.reset_counts()
         t0 = time.perf_counter()
         U2, V2 = train_als(data, params, device=DEV, init_V=init_V)
         plain_s = time.perf_counter() - t0
         check(kernels.counts()["spd_solve"] == 0,
               f"{name}: the plain twin launched the kernel")
-    finally:
-        if saved is None:
-            del os.environ["PIO_TPU_SOLVE"]
-        else:
-            os.environ["PIO_TPU_SOLVE"] = saved
     err2 = rmse(U2, V2, users[head], items[head], ratings[head])
     du, dv = _rel(U, U2), _rel(V, V2)
     drmse = abs(err - err2) / err2
@@ -792,7 +874,309 @@ def train_phase(spd_rows):
     log("train: " + json.dumps({"summary": summary}))
     # the engines phase's width leg reuses the arrays and the uploaded
     # layout
-    return summary, {"users": users, "items": items, "data": data}
+    return summary, {"users": users, "items": items, "ratings": ratings,
+                     "data": data}
+
+
+# ---------------------------------------------------------------------------
+# eval phase
+# ---------------------------------------------------------------------------
+
+def _sweep_side(data, cands, rank_metrics, batched=True, solve=None):
+    """One counted sweep: (result, wall s, B1 launches)."""
+    from predictionio_tpu_torch.models.als_sweep import run_sweep
+    from predictionio_tpu_torch.ops import kernels
+
+    with solve_env(solve):
+        synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = run_sweep(data, cands, rank_metrics=rank_metrics,
+                        batched=batched, device=DEV)
+        synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.counts()["spd_solve"]
+    return res, wall, launches
+
+
+def _best_of(res):
+    best = min(res.candidates, key=lambda c: c.heldout_rmse)
+    return (best.params.rank, best.params.reg)
+
+
+def _hold_sweeps(name, sides, rank_metrics):
+    """Every side of a sweep picks the same best (rank, reg); each
+    candidate's held-out RMSE within ``EVAL_RMSE_TOL`` (relative to 1)
+    and its test and qualifying counts equal; hits within max(1, nQual //
+    100). Returns the largest RMSE gap and hit gap."""
+    first = next(iter(sides.values()))
+    bests = {k: _best_of(res) for k, res in sides.items()}
+    check(len(set(bests.values())) == 1, f"{name}: best candidates "
+          f"differ: {bests}")
+    gap, hit_gap = 0.0, 0
+    for other in sides.values():
+        for a, b in zip(first.candidates, other.candidates):
+            d = abs(a.heldout_rmse - b.heldout_rmse)
+            gap = max(gap, d)
+            check(d <= EVAL_RMSE_TOL * max(1.0, a.heldout_rmse),
+                  f"{name}: held-out RMSE {a.heldout_rmse} vs "
+                  f"{b.heldout_rmse} at {a.params.rank}/{a.params.reg}")
+            check(a.n_test == b.n_test and a.n_qual == b.n_qual,
+                  f"{name}: counts differ: {a.n_test}/{a.n_qual} vs "
+                  f"{b.n_test}/{b.n_qual}")
+            if rank_metrics is not None:
+                denom = min(rank_metrics[0], rank_metrics[1])
+                ha = round(a.precision * denom * a.n_qual)
+                hb = round(b.precision * denom * b.n_qual)
+                hit_gap = max(hit_gap, abs(ha - hb))
+                check(abs(ha - hb) <= max(1, a.n_qual // 100),
+                      f"{name}: hits {ha} vs {hb} of {a.n_qual}")
+    return gap, hit_gap
+
+
+def _profiled_sweep(data, cands, rank_metrics):
+    """A batched sweep under the profiler: B1's share of its trains (B1's
+    kernel ms over the trains' seconds) and the device's idle share of
+    its wall, both from this one run (the profiler slows the host, so
+    the idle share is an upper bound)."""
+    (res, wall, _n), busy, b1 = device_profile(
+        lambda: _sweep_side(data, cands, rank_metrics))
+    return {"wall_s": wall, "train_s": res.seconds["train"],
+            "device_busy_ms": busy, "b1_device_ms": b1,
+            "b1_share_of_train": None if b1 is None
+            else b1 / (res.seconds["train"] * 1e3),
+            "device_idle_share": None if busy is None
+            else 1 - busy / (wall * 1e3)}
+
+
+def eval_grid_leg():
+    """Leg 1 of the eval phase: the reference bench's eval_sweep_grid,
+    batched (20 B1 launches), one unit at a time (360) and batched on
+    the plain solve (0), each counted from zero."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.cross_validation import (
+        fold_assignments,
+    )
+    from predictionio_tpu_torch.models.als import ALSParams
+    from predictionio_tpu_torch.models.als_sweep import build_sweep_data
+
+    c = EVAL_GRID
+    users, items, ratings = synthetic_ratings(c["n_users"], c["n_items"],
+                                              c["nnz"], seed=c["seed"])
+    fold_of = fold_assignments(c["folds"], c["nnz"])
+    t0 = time.perf_counter()
+    data = build_sweep_data(users, items, ratings, fold_of, c["n_users"],
+                            c["n_items"])
+    build_s = time.perf_counter() - t0
+    cands = [ALSParams(rank=r, num_iterations=c["iters"], reg=g,
+                       chunk_size=c["chunk"])
+             for r in c["ranks"] for g in c["regs"]]
+    spec = c["rank_metrics"]
+    units = len(c["regs"]) * c["folds"]
+    # the first sweep of a process pays its allocations: one uncounted
+    _sweep_side(data, cands, spec)
+    batched, b_s, b_n = _sweep_side(data, cands, spec)
+    sequential, s_s, s_n = _sweep_side(data, cands, spec, batched=False)
+    plain, p_s, p_n = _sweep_side(data, cands, spec, solve="vec")
+    profiled = _profiled_sweep(data, cands, spec)
+    want = 2 * len(c["ranks"]) * c["iters"]
+    check(b_n == want, f"eval grid: batched sweep launched B1 {b_n} "
+          f"times, expected {want}")
+    check(s_n == 2 * c["iters"] * len(cands) * c["folds"],
+          f"eval grid: sequential sweep launched B1 {s_n} times")
+    check(p_n == 0, f"eval grid: the plain twin launched B1 {p_n} times")
+    check(batched.n_groups == len(c["ranks"])
+          and batched.batch_sizes == [units] * len(c["ranks"]),
+          f"eval grid: groups {batched.n_groups}, units per launch "
+          f"{batched.batch_sizes}")
+    for res in (batched, sequential, plain):
+        check(all(np.isfinite(x.heldout_rmse) and x.n_test == c["nnz"]
+                  for x in res.candidates), "eval grid: a candidate's "
+              "held-out RMSE is not finite or misses test entries")
+    gap, hit_gap = _hold_sweeps("eval grid", {
+        "batched": batched, "sequential": sequential, "plain": plain}, spec)
+    n = len(cands)
+    report = {
+        "candidates": n, "groups": batched.n_groups,
+        "units_per_launch": batched.batch_sizes,
+        "launches": {"batched": b_n, "sequential": s_n, "plain": p_n},
+        "batched_s": b_s, "sequential_s": s_s, "plain_s": p_s,
+        "candidates_per_s": {"batched": n / b_s, "sequential": n / s_s,
+                             "plain": n / p_s},
+        "speedup_batched_vs_sequential": s_s / b_s,
+        "batched_split_s": {"build": build_s, **batched.seconds},
+        "half_sweep_ms": batched.seconds["train"]
+        / (2 * c["iters"] * batched.n_groups) * 1e3,
+        "profiled": profiled,
+        "best": _best_of(batched),
+        "max_rmse_gap": gap, "max_hit_gap": hit_gap,
+        "best_rmse": min(x.heldout_rmse for x in batched.candidates),
+        "n_qual": batched.candidates[0].n_qual}
+    log("eval: grid " + json.dumps(report))
+    return report
+
+
+def eval_width_leg(held):
+    """Leg 2 of the eval phase, on the train phase's ML-20M arrays: a
+    batched sweep of 3 regs x 3 folds at rank 10, 2 iterations, held-out
+    RMSE only (4 B1 launches over 9 units), held to its plain-solve twin
+    as the train phase holds its twin."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core.cross_validation import (
+        fold_assignments,
+    )
+    from predictionio_tpu_torch.models.als import ALSParams
+    from predictionio_tpu_torch.models.als_sweep import build_sweep_data
+
+    c, w = ML20M, EVAL_WIDTH
+    t0 = time.perf_counter()
+    data = build_sweep_data(held["users"], held["items"], held["ratings"],
+                            fold_assignments(w["folds"], c["nnz"]),
+                            c["n_users"], c["n_items"])
+    build_s = time.perf_counter() - t0
+    cands = [ALSParams(rank=w["rank"], num_iterations=w["iters"], reg=g,
+                       chunk_size=c["chunk"]) for g in w["regs"]]
+    res, wall, n = _sweep_side(data, cands, None)
+    twin, twin_s, twin_n = _sweep_side(data, cands, None, solve="vec")
+    profiled = _profiled_sweep(data, cands, None)
+    units = len(cands) * w["folds"]
+    check(n == 2 * w["iters"], f"eval width: B1 launched {n} times, "
+          f"expected {2 * w['iters']}")
+    check(twin_n == 0, f"eval width: the plain twin launched B1 {twin_n} "
+          "times")
+    check(res.batch_sizes == [units], f"eval width: units per launch "
+          f"{res.batch_sizes}")
+    gap = 0.0
+    for a, b in zip(res.candidates, twin.candidates):
+        check(np.isfinite(a.heldout_rmse) and a.n_test == c["nnz"],
+              f"eval width: candidate {a.params.reg}: RMSE "
+              f"{a.heldout_rmse}, {a.n_test} test entries")
+        rel = abs(a.heldout_rmse - b.heldout_rmse) / b.heldout_rmse
+        gap = max(gap, rel)
+        check(rel <= EVAL_TWIN_TOL, f"eval width: held-out RMSE differs "
+              f"from the plain twin by {rel} > {EVAL_TWIN_TOL}")
+    check(_best_of(res) == _best_of(twin), "eval width: the plain twin "
+          "picks another best")
+    report = {
+        "candidates": len(cands), "units": units, "launches": n,
+        "systems_per_launch": [units * c["n_users"], units * c["n_items"]],
+        "wall_s": wall, "plain_wall_s": twin_s,
+        "split_s": {"build": build_s, **res.seconds},
+        "plain_split_s": twin.seconds,
+        "half_sweep_ms": res.seconds["train"] / (2 * w["iters"]) * 1e3,
+        "profiled": profiled,
+        "rmse": {str(x.params.reg): x.heldout_rmse for x in res.candidates},
+        "rel_diff_rmse_plain": gap, "best": _best_of(res),
+        "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    log("eval: width " + json.dumps(report))
+    return report
+
+
+#: the evaluation module the CLI leg writes, as a user would
+_EVAL_MODULE = """
+from predictionio_tpu_torch.core.evaluation import Evaluation
+from predictionio_tpu_torch.core.params import EngineParams
+from predictionio_tpu_torch.engines.recommendation import (
+    AlgorithmParams, DataSourceParams, PrecisionAtK, RMSEMetric, engine,
+)
+
+
+def _params(app):
+    return [EngineParams(
+        data_source_params=DataSourceParams(
+            app_name=app, eval_params={"kFold": FOLDS, "queryNum": 10}),
+        algorithm_params_list=[("als", AlgorithmParams(
+            num_iterations=ITERS))])]
+
+
+evaluation = Evaluation(engine=engine(), metric=PrecisionAtK(k=10),
+                        other_metrics=[RMSEMetric()], output_path=BEST)
+evaluation.engine_params_list = _params(APP)
+failing = Evaluation(engine=engine(), metric=PrecisionAtK(k=10),
+                     output_path=None)
+failing.engine_params_list = _params("NoSuchApp")
+"""
+
+
+def eval_cli_leg(env, work, app: str):
+    """Leg 3 of the eval phase, on the lifecycle's store: ``eval`` of a
+    user's evaluation module through the CLI, batched over the grid
+    (B1 2 x groups x iterations), then ``--sequential`` on its ranks at
+    the first reg (2 x candidates x folds x iterations), picking the
+    batched run's best of those two; a failing evaluation leaves
+    EVALFAILED."""
+    import numpy as np
+
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    c = EVAL_CLI
+    best_path = work / "best.json"
+    (work / "smoke_eval.py").write_text(
+        f"BEST = {str(best_path)!r}\nAPP = {app!r}\n"
+        f"FOLDS = {c['folds']}\nITERS = {c['iters']}\n" + _EVAL_MODULE)
+    env = dict(env, PYTHONPATH=os.pathsep.join(
+        [str(work)] + [p for p in [env.get("PYTHONPATH")] if p]))
+    grid = [f"rank={','.join(map(str, c['ranks']))}",
+            f"reg={','.join(map(str, c['regs']))}"]
+
+    def run(*extra):
+        t0 = time.perf_counter()
+        out = _cli(["eval", "smoke_eval:evaluation", "--device", DEV,
+                    *extra], env)
+        line = json.loads(out[-1])
+        line["wall_s"] = time.perf_counter() - t0
+        return line
+
+    batched = run("--grid", grid[0], "--grid", grid[1])
+    log("lifecycle: eval batched " + json.dumps(batched))
+    n_cand = len(c["ranks"]) * len(c["regs"])
+    want = 2 * len(c["ranks"]) * c["iters"]
+    check(batched["mode"] == "batched" and batched["groups"]
+          == len(c["ranks"]) and batched["candidates"] == n_cand,
+          f"eval CLI: {batched['mode']} over {batched['groups']} groups")
+    check(batched["launches"]["spd_solve"] == want, "eval CLI: batched "
+          f"B1 launches {batched['launches']['spd_solve']}, expected "
+          f"{want}")
+    check(json.loads(best_path.read_text()) == batched["best_params"],
+          "eval CLI: best.json is not the best candidate's params")
+    # the ranks at the first reg: the pair differs in rank, not only in
+    # the ridge, so their scores are apart by more than the run-to-run
+    # noise of near-tied top-10 edges
+    sequential = run("--grid", grid[0], "--grid", f"reg={c['regs'][0]}",
+                     "--sequential")
+    log("lifecycle: eval sequential " + json.dumps(sequential))
+    want_seq = 2 * len(c["ranks"]) * c["folds"] * c["iters"]
+    check(sequential["mode"] == "sequential"
+          and sequential["launches"]["spd_solve"] == want_seq,
+          f"eval CLI: sequential B1 launches "
+          f"{sequential['launches']['spd_solve']}, expected {want_seq}")
+    # the batched run's scores of those candidates
+    pair = [s for j, (s, _o) in enumerate(batched["scores"])
+            if j % len(c["regs"]) == 0]
+    check(sequential["best_idx"] == int(np.argmax(pair)),
+          f"eval CLI: sequential best #{sequential['best_idx']} "
+          f"({sequential['scores']}), batched {pair}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "eval",
+         "smoke_eval:failing", "--device", DEV], cwd=str(ROOT), env=env,
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 1 and "[ERROR] Evaluation failed"
+          in proc.stdout, f"eval CLI: the failing evaluation exited "
+          f"{proc.returncode}: {proc.stdout[-500:]}")
+    statuses = sorted(i.status for i in
+                      Storage.get_meta_data_evaluation_instances().get_all())
+    check(statuses == ["EVALCOMPLETED", "EVALCOMPLETED", "EVALFAILED"],
+          f"eval CLI: evaluation instances {statuses}")
+    report = {"batched": batched, "sequential": sequential,
+              "instances": statuses,
+              "candidates_per_s": {
+                  "batched": n_cand / batched["eval_s"],
+                  "sequential": len(c["ranks"]) / sequential["eval_s"]}}
+    log("lifecycle: eval " + json.dumps(report["candidates_per_s"]))
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -1120,6 +1504,10 @@ def lifecycle_phase(seed: int, port: int):
         foldin["leg_s"] = time.perf_counter() - t0
         # 8. the canary phase's CLI leg, on v2 and the same store
         feedback = feedback_leg(seed, env, variant, key, port, app_id, m2)
+        # 9. the eval phase's CLI leg, on the same store
+        t0 = time.perf_counter()
+        eval_cli = eval_cli_leg(env, work, "SmokeApp")
+        eval_cli["leg_s"] = time.perf_counter() - t0
         events_srv.stop()
         check(events_srv.proc.returncode == 0, "the event server did not "
               f"drain and exit cleanly (rc {events_srv.proc.returncode})")
@@ -1136,7 +1524,7 @@ def lifecycle_phase(seed: int, port: int):
         report = {"ingest": ingest_report, "train": t1, "train_v2": t2,
                   **reload_report, "checkpoint": ckpt,
                   "queries": len(picks) + 11, "foldin": foldin,
-                  "feedback": feedback}
+                  "feedback": feedback, "eval_cli": eval_cli}
         log("lifecycle: " + json.dumps(report))
         return report
     finally:
@@ -1359,16 +1747,9 @@ def _plain_solve(fn):
     that it launched no kernel."""
     from predictionio_tpu_torch.ops import kernels
 
-    saved = os.environ.get("PIO_TPU_SOLVE")
-    os.environ["PIO_TPU_SOLVE"] = "vec"
     before = kernels.counts()["spd_solve"]
-    try:
+    with solve_env("vec"):
         out = fn()
-    finally:
-        if saved is None:
-            del os.environ["PIO_TPU_SOLVE"]
-        else:
-            os.environ["PIO_TPU_SOLVE"] = saved
     check(kernels.counts()["spd_solve"] == before,
           "the plain fold-in twin launched the kernel")
     return out
@@ -3732,14 +4113,21 @@ def kernels_tie_rows(seed: int):
 # ---------------------------------------------------------------------------
 
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-             canary, engines) -> dict:
+             canary, engines, evals) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
-    the ML-20M train (counted from zero); beside them the fold-in
-    launches of both legs and of the canary's held fold-in, the engines'
-    trains and e-commerce's fold-in, and B1's times at the applies'
-    shapes."""
+    the ML-20M train and of the eval phase's sweeps (each counted from
+    zero); beside them the fold-in launches of both legs and of the
+    canary's held fold-in, the engines' trains and e-commerce's fold-in,
+    B1's times at the applies' shapes and at the eval sweeps'."""
     fl = lifecycle["foldin"]
+    grid, cli = evals["grid"]["launches"], evals["cli"]
+    eval_launches = {
+        "eval_grid_batched": grid["batched"],
+        "eval_grid_sequential": grid["sequential"],
+        "eval_width_batched": evals["width"]["launches"],
+        "eval_cli_batched": cli["batched"]["launches"]["spd_solve"],
+        "eval_cli_sequential": cli["sequential"]["launches"]["spd_solve"]}
     c = ML20M
     row = next(r for r in spd_rows
                if r["K"] == c["rank"] and r["S"] == c["n_users"])
@@ -3748,7 +4136,7 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
         "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/spd_solve.cu",
         "replaces": "predictionio_tpu/ops/linalg.py:106",
-        "launches": train["full"]["launches"],
+        "launches": train["full"]["launches"] + sum(eval_launches.values()),
         "max_abs_err": spd_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -3789,7 +4177,9 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
             "engines_recommended_user_train": engines["recommended_user"][
                 "train"]["launches"]["spd_solve"],
             "engines_similar_width_train":
-                engines["similar_width"]["b1_launches"]},
+                engines["similar_width"]["b1_launches"],
+            **eval_launches},
+        "eval_shapes": [r for r in spd_rows if r["eval"]],
         "foldin": {
             "at_apply_shapes": b1_rows,
             "K10_lifecycle_applies": fl["apply_split"]["b1_by_shape"],
@@ -3857,14 +4247,24 @@ def main() -> int:
         # 9. engines, leg 2 (the width leg) on the train phase's arrays
         t0 = time.perf_counter()
         eng_width = engines_width_leg(args.seed, held)
+        log(f"engines: width leg took {time.perf_counter() - t0:.3f} s")
+        # 10. eval, legs 2 (on the train phase's arrays) and 1; leg 3
+        #     runs inside the lifecycle (the CLI's processes count)
+        t0 = time.perf_counter()
+        eval_width = eval_width_leg(held)
         del held
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"engines: width leg took {time.perf_counter() - t0:.3f} s")
+        eval_grid = eval_grid_leg()
+        eval_legs_s = time.perf_counter() - t0
+        log(f"eval: legs 1-2 took {eval_legs_s:.3f} s")
         # 5. lifecycle (the train CLI's process counts its own launches)
         t0 = time.perf_counter()
         lifecycle = lifecycle_phase(args.seed, args.port)
         log(f"lifecycle: phase took {time.perf_counter() - t0:.3f} s")
+        evals = {"grid": eval_grid, "width": eval_width,
+                 "cli": lifecycle["eval_cli"], "legs_1_2_s": eval_legs_s}
+        log("eval: " + json.dumps(evals))
         # 6. foldin, leg 2, on the serve cell's model (built once, here);
         #    leg 1 ran inside the lifecycle (its deploy process counted)
         t0 = time.perf_counter()
@@ -3936,7 +4336,7 @@ def main() -> int:
         "engine_shapes": eng_rows,
         "tie_rows": tie_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-                canary, engines)]}
+                canary, engines, evals)]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of predictionio_tpu: ALS serving, training, the
 event-to-release lifecycle, online fold-in, staged rollouts, and the four
 ALS engines (recommendation, e-commerce, similar-product with
-cooccurrence, recommended-user).
+cooccurrence, recommended-user), and evaluation (``pio eval``: metrics,
+k folds and the batched hyperparameter sweep).
 
 The JAX package ``predictionio_tpu`` is the reference this package is held
 against; module paths mirror it so each counterpart is easy to find. This

@@ -11,8 +11,12 @@ click), with the reference's commands, flags and exit codes:
     python -m predictionio_tpu_torch.cli.main import --appname APP
         [--channel C] --input events.jsonl
     python -m predictionio_tpu_torch.cli.main train [-v engine.json]
-        [--batch B] [--checkpoint-dir D] [--checkpoint-interval N]
-        [--out M.npz] [--device cpu]
+        [--batch B] [--skip-sanity-check] [--stop-after-read]
+        [--stop-after-prepare] [--checkpoint-dir D]
+        [--checkpoint-interval N] [--out M.npz] [--device cpu]
+    python -m predictionio_tpu_torch.cli.main eval EVALUATION_PATH
+        [PARAMS_GENERATOR_PATH] [--batch B] [--grid NAME=V1,V2 ...]
+        [--k-fold N] [--query-num N] [--sequential] [--device cpu]
     python -m predictionio_tpu_torch.cli.main deploy [-v engine.json]
         [--engine-instance-id ID | --release SEL | --model M.npz]
         [--ip localhost] [--port 8000] [--accesskey K] [--device cpu]
@@ -37,6 +41,16 @@ each model's, the seconds of the whole train (event read and records
 included) and of the host-side data build, the kernel launch counts,
 the instance id and the release version. ``--out`` also writes the
 first model as an ``.npz`` file.
+
+``eval`` runs ``workflow.evaluate.run_evaluation``: the evaluation
+(``module:name`` or ``module.name``, an Evaluation, its class or a
+factory) over its own params list or the generator's, crossed with the
+``--grid`` values; an EvaluationInstance (INIT, then EVALCOMPLETED or
+EVALFAILED) and the best variant's ``best.json``. It prints the
+reference's lines, then one JSON line: the sweep's mode, groups, units
+per launch and seconds, the best candidate and its score, the kernel
+launch counts and the wall seconds. ``--sequential`` forces the
+per-candidate loop (``PIO_EVAL_VECTORIZE=0``).
 
 ``deploy`` serves the latest COMPLETED instance of the variant, or
 ``--engine-instance-id``, or a release (``--release`` id, ``3`` or
@@ -261,6 +275,9 @@ def import_events(args) -> int:
 # -- train / deploy / releases (commands/Engine.scala) ----------------------
 
 def train(args) -> int:
+    from predictionio_tpu_torch.core.engine import (
+        StopAfterPrepareInterruption, StopAfterReadInterruption,
+    )
     from predictionio_tpu_torch.ops import kernels
     from predictionio_tpu_torch.workflow.context import (
         WorkflowContext, WorkflowParams,
@@ -277,17 +294,30 @@ def train(args) -> int:
     if args.checkpoint_dir:
         runtime_conf["checkpoint_dir"] = args.checkpoint_dir
         runtime_conf["checkpoint_interval"] = str(args.checkpoint_interval)
-    wp = WorkflowParams(batch=args.batch, runtime_conf=runtime_conf)
+    wp = WorkflowParams(batch=args.batch,
+                        skip_sanity_check=args.skip_sanity_check,
+                        stop_after_read=args.stop_after_read,
+                        stop_after_prepare=args.stop_after_prepare,
+                        runtime_conf=runtime_conf)
     # the device first: without a card (and without --device cpu) this
     # raises before anything is written
     ctx = WorkflowContext.create(mode="Training", batch=args.batch,
                                  workflow_params=wp, device=args.device)
     kernels.reset_counts()
     t0 = time.perf_counter()
-    instance, result = run_train(engine, engine_params,
-                                 engine_factory=engine_id,
-                                 engine_variant=variant_id,
-                                 workflow_params=wp, ctx=ctx)
+    try:
+        instance, result = run_train(engine, engine_params,
+                                     engine_factory=engine_id,
+                                     engine_variant=variant_id,
+                                     workflow_params=wp, ctx=ctx)
+    except StopAfterReadInterruption:
+        print("[INFO] Training interrupted by --stop-after-read.",
+              flush=True)
+        return 0
+    except StopAfterPrepareInterruption:
+        print("[INFO] Training interrupted by --stop-after-prepare.",
+              flush=True)
+        return 0
     train_s = time.perf_counter() - t0
     model = result.models[0]
     if args.out:
@@ -306,6 +336,120 @@ def train(args) -> int:
         "launches": kernels.counts(), "out": args.out,
         "instance": instance.id,
         "release": release.version if release else None}), flush=True)
+    return 0
+
+
+def _evaluation_of(path: str):
+    """The evaluation a path names: an Evaluation, an Evaluation class
+    (instantiated), or a factory (called)."""
+    from predictionio_tpu_torch.core.base import load_class
+    from predictionio_tpu_torch.core.evaluation import Evaluation
+
+    evaluation = load_class(path)
+    if isinstance(evaluation, type):
+        return evaluation()
+    if callable(evaluation) and not isinstance(evaluation, Evaluation):
+        return evaluation()
+    return evaluation
+
+
+def _params_of(evaluation, generator_path: Optional[str]):
+    """The engine params list: the generator's, else the evaluation's."""
+    from predictionio_tpu_torch.core.base import load_class
+
+    if generator_path:
+        gen = load_class(generator_path)
+        if isinstance(gen, type):
+            gen = gen()
+        elif callable(gen) and not hasattr(gen, "engine_params_list"):
+            gen = gen()
+        return list(gen.engine_params_list)
+    return list(getattr(evaluation, "engine_params_list", []))
+
+
+def eval_cmd(args) -> int:
+    """Run an evaluation sweep (Console.scala:232)."""
+    import dataclasses
+
+    from predictionio_tpu_torch.core.evaluation import (
+        VECTORIZE_ENV, expand_param_grid,
+    )
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.workflow.context import (
+        WorkflowContext, WorkflowParams,
+    )
+    from predictionio_tpu_torch.workflow.evaluate import run_evaluation
+
+    wp = WorkflowParams(batch=args.batch)
+    # the device first: without a card (and without --device cpu) this
+    # raises before anything is loaded or written
+    ctx = WorkflowContext.create(mode="Evaluation", batch=args.batch,
+                                 workflow_params=wp, device=args.device)
+    evaluation = _evaluation_of(args.evaluation_path)
+    params_list = _params_of(evaluation, args.params_generator_path)
+    if not params_list:
+        _fail("No engine params to evaluate. Aborting.")
+    try:
+        params_list = expand_param_grid(params_list, args.grid)
+    except ValueError as e:
+        _fail(f"{e}. Aborting.")
+    overrides = {k: v for k, v in (("kFold", args.k_fold),
+                                   ("queryNum", args.query_num))
+                 if v is not None}
+    if overrides:
+        patched = []
+        for ep in params_list:
+            ds = ep.data_source_params
+            if not hasattr(ds, "eval_params"):
+                _fail("--k-fold/--query-num need a datasource with "
+                      "eval_params. Aborting.")
+            ds = dataclasses.replace(
+                ds, eval_params={**(ds.eval_params or {}), **overrides})
+            patched.append(dataclasses.replace(ep, data_source_params=ds))
+        params_list = patched
+    old_vectorize = os.environ.get(VECTORIZE_ENV)
+    if args.sequential:
+        os.environ[VECTORIZE_ENV] = "0"
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        result = run_evaluation(
+            evaluation, params_list,
+            evaluation_class=args.evaluation_path,
+            params_generator_class=args.params_generator_path or "",
+            workflow_params=wp, ctx=ctx)
+    except Exception as e:
+        _fail(f"Evaluation failed: {type(e).__name__}: {e}")
+    finally:
+        if args.sequential:
+            if old_vectorize is None:
+                os.environ.pop(VECTORIZE_ENV, None)
+            else:
+                os.environ[VECTORIZE_ENV] = old_vectorize
+    eval_s = time.perf_counter() - t0
+    sweep = result.sweep or {}
+    if sweep.get("mode") == "batched":
+        print(f"[INFO] Sweep ran device-batched: {len(params_list)} "
+              f"candidates in {sweep.get('compileGroups')} compile "
+              f"group(s), batch sizes {sweep.get('batchSizes')}")
+    for i, detail in enumerate(result.candidate_details):
+        _ep, score, _others = result.engine_params_scores[i]
+        print(f"[INFO]   #{i}: score={score} "
+              f"wall={detail.get('wallTimeS')}s "
+              f"group={detail.get('group')}"
+              + (" <- best" if i == result.best_idx else ""))
+    print(f"[INFO] {result.to_one_liner()}")
+    print("[INFO] Evaluation completed.", flush=True)
+    print(json.dumps({
+        "mode": sweep.get("mode"), "candidates": len(params_list),
+        "groups": sweep.get("compileGroups"),
+        "batch_sizes": sweep.get("batchSizes"),
+        "seconds": sweep.get("seconds"),
+        "best_idx": result.best_idx, "best_score": result.best_score,
+        "best_params": result.best_engine_params.to_json_dict(),
+        "scores": [[s, o] for _ep, s, o in result.engine_params_scores],
+        "device": str(ctx.device), "launches": kernels.counts(),
+        "eval_s": eval_s}), flush=True)
     return 0
 
 
@@ -542,6 +686,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--variant", "-v", default="engine.json",
                    help="engine.json (datasource, preparator, algorithms)")
     t.add_argument("--batch", default="", help="batch label")
+    t.add_argument("--skip-sanity-check", action="store_true")
+    t.add_argument("--stop-after-read", action="store_true")
+    t.add_argument("--stop-after-prepare", action="store_true")
     t.add_argument("--checkpoint-dir", default=None,
                    help="mid-training checkpoint/resume directory")
     t.add_argument("--checkpoint-interval", default=10, type=int,
@@ -550,6 +697,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write the model to this .npz")
     t.add_argument("--device", default=None, help="cuda (default) or cpu")
     t.set_defaults(func=train)
+
+    v = sub.add_parser("eval", help="run an evaluation sweep and record "
+                                    "it")
+    v.add_argument("evaluation_path",
+                   help="module:name of an Evaluation (or its class or "
+                        "a factory)")
+    v.add_argument("params_generator_path", nargs="?", default=None,
+                   help="module:name of an EngineParamsGenerator "
+                        "(default: the evaluation's own params list)")
+    v.add_argument("--batch", default="", help="batch label")
+    v.add_argument("--grid", action="append", default=[],
+                   metavar="NAME=V1,V2",
+                   help="cross-product override of the algorithm params, "
+                        "e.g. --grid rank=8,12 --grid reg=0.01,0.1 "
+                        "(repeatable)")
+    v.add_argument("--k-fold", type=int, default=None,
+                   help="override the datasource's kFold eval param")
+    v.add_argument("--query-num", type=int, default=None,
+                   help="override the datasource's queryNum eval param")
+    v.add_argument("--sequential", action="store_true",
+                   help="the per-candidate loop instead of the batched "
+                        "sweep")
+    v.add_argument("--device", default=None, help="cuda (default) or cpu")
+    v.set_defaults(func=eval_cmd)
 
     d = sub.add_parser("deploy", help="serve a trained instance over "
                                       "HTTP")

@@ -1,7 +1,7 @@
 """DASE component protocols (port of the reference's ``core/base.py``):
 ``DataSource``, ``Preparator``, ``Algorithm``, ``Serving`` and
-``FirstServing``, and the constructor conventions the engine uses to
-build them. ``ctx`` is what the caller passes through ``Engine.train``:
+``FirstServing``, the ``SanityCheck`` hook, and the constructor
+conventions the engine uses to build them. ``ctx`` is what the caller passes through ``Engine.train``:
 the port's components read its ``device`` (None or absent: ``cuda``),
 where the reference's workflow context carries a device mesh."""
 
@@ -16,10 +16,36 @@ from typing import Any, Generic, List, Optional, Sequence, Tuple, TypeVar
 from predictionio_tpu_torch.core.params import Params
 
 TD = TypeVar("TD")   # training data
+EI = TypeVar("EI")   # evaluation info
 PD = TypeVar("PD")   # prepared data
 Q = TypeVar("Q")     # query
 P = TypeVar("P")     # prediction
+A = TypeVar("A")     # actual
 M = TypeVar("M")     # model
+
+
+class SanityCheck(abc.ABC):
+    """Data classes may self-validate during training
+    (SanityCheck.scala:27)."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise if the data is invalid."""
+
+
+def load_class(path: str) -> Any:
+    """Resolve ``module.sub:Name`` or ``module.sub.Name`` to the object
+    it names (an evaluation, a params generator, a class)."""
+    import importlib
+
+    if ":" in path:
+        module_name, qualname = path.split(":", 1)
+    else:
+        module_name, _, qualname = path.rpartition(".")
+    obj = importlib.import_module(module_name)
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return obj
 
 
 def instantiate(cls: type, params: Any):

@@ -3,7 +3,8 @@ named DASE component classes, ``train`` (read, prepare, train each
 algorithm — object Engine.train, Engine.scala:623), what the model store
 keeps of a train (``persist_models``) and the assembly of a
 :class:`TrainResult` from persisted models for a deploy
-(``prepare_deploy``). The evaluation driver comes with a later slice."""
+(``prepare_deploy``), and evaluation (``eval``: train on
+each fold and predict its queries, Engine.scala:728-818)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import logging
 from typing import Any, Dict, List, Sequence, Tuple, Union
 
 from predictionio_tpu_torch.core.base import (
-    Algorithm, DataSource, Preparator, Serving, instantiate,
+    Algorithm, DataSource, Preparator, SanityCheck, Serving, instantiate,
     params_class_of,
 )
 from predictionio_tpu_torch.core.params import (
@@ -36,6 +37,17 @@ def _pick(classes: Dict[str, type], name: str, what: str) -> type:
     if name == "" and len(classes) == 1:
         return next(iter(classes.values()))
     raise KeyError(f"unknown {what} name {name!r}; known: {sorted(classes)}")
+
+
+def _sanity(obj: Any, what: str, skip: bool) -> None:
+    """Engine.scala:650-706 — run the object's SanityCheck, if it has
+    one."""
+    if skip:
+        return
+    if isinstance(obj, SanityCheck):
+        logger.debug("%s: running sanity check on %s", what,
+                     type(obj).__name__)
+        obj.sanity_check()
 
 
 @dataclasses.dataclass
@@ -106,11 +118,23 @@ class Engine:
             serving_params_class=section_class(
                 "serving", self.serving_classes, "serving"))
 
-    def train(self, ctx, engine_params: EngineParams) -> TrainResult:
+    def train(self, ctx, engine_params: EngineParams,
+              skip_sanity_check: bool = False,
+              stop_after_read: bool = False,
+              stop_after_prepare: bool = False) -> TrainResult:
         """Read the training data, prepare it, and train every
-        algorithm on it (object Engine.train, Engine.scala:623)."""
+        algorithm on it (object Engine.train, Engine.scala:623), running
+        each SanityCheck on the way unless ``skip_sanity_check``; the
+        ``stop_after_*`` debug stops raise their interruption with the
+        data read so far."""
         td = self._data_source(engine_params).read_training(ctx)
+        _sanity(td, "training data", skip_sanity_check)
+        if stop_after_read:
+            raise StopAfterReadInterruption(td)
         pd = self._preparator(engine_params).prepare(ctx, td)
+        _sanity(pd, "prepared data", skip_sanity_check)
+        if stop_after_prepare:
+            raise StopAfterPrepareInterruption(pd)
         named_algos = self._algorithms(engine_params)
         models = []
         shared_ckpt = getattr(ctx, "checkpointer", None)
@@ -123,10 +147,13 @@ class Engine:
                 ctx.checkpointer = shared_ckpt.scoped(
                     f"algo_{i}_{name or type(algo).__name__}")
             try:
-                models.append(algo.train(ctx, pd))
+                model = algo.train(ctx, pd)
             finally:
                 if shared_ckpt is not None:
                     ctx.checkpointer = shared_ckpt
+            _sanity(model, f"model of {name or type(algo).__name__}",
+                    skip_sanity_check)
+            models.append(model)
         return TrainResult(models=models,
                            algorithms=[a for _, a in named_algos],
                            serving=self._serving(engine_params),
@@ -162,3 +189,52 @@ class Engine:
                            algorithms=[a for _, a in named_algos],
                            serving=self._serving(engine_params),
                            engine_params=engine_params)
+
+    def eval(self, ctx, engine_params: EngineParams,
+             skip_sanity_check: bool = True):
+        """``[(EvalInfo, [(Q, P, A)])]`` per fold: train on each fold's
+        training data and predict its queries through supplement and
+        serve (object Engine.eval, Engine.scala:728)."""
+        eval_data = self._data_source(engine_params).read_eval(ctx)
+        preparator = self._preparator(engine_params)
+        named_algos = self._algorithms(engine_params)
+        serving = self._serving(engine_params)
+        results = []
+        for fold_idx, (td, eval_info, qa_pairs) in enumerate(eval_data):
+            _sanity(td, f"fold {fold_idx} training data", skip_sanity_check)
+            pd = preparator.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for _, algo in named_algos]
+            results.append((eval_info, evaluate_fold(
+                named_algos, models, serving, qa_pairs)))
+        return results
+
+    def batch_eval(self, ctx, engine_params_list: Sequence[EngineParams]):
+        """BaseEngine.batchEval:82 — ``eval`` per params."""
+        return [(ep, self.eval(ctx, ep)) for ep in engine_params_list]
+
+
+def evaluate_fold(named_algos, models, serving, qa_pairs):
+    """One fold's predict pipeline (Engine.scala:767-812): supplement
+    each query, batch-predict per algorithm, align per query, serve."""
+    supplemented = [(i, serving.supplement(q))
+                    for i, (q, _a) in enumerate(qa_pairs)]
+    per_algo = [dict(algo.batch_predict(model, supplemented))
+                for (_name, algo), model in zip(named_algos, models)]
+    return [(q, serving.serve(q, [preds[i] for preds in per_algo]), a)
+            for i, (q, a) in enumerate(qa_pairs)]
+
+
+class StopAfterReadInterruption(Exception):
+    """The ``stop_after_read`` debug stop (CreateWorkflow.scala)."""
+
+    def __init__(self, training_data):
+        super().__init__("stopped after read")
+        self.training_data = training_data
+
+
+class StopAfterPrepareInterruption(Exception):
+    """The ``stop_after_prepare`` debug stop."""
+
+    def __init__(self, prepared_data):
+        super().__init__("stopped after prepare")
+        self.prepared_data = prepared_data

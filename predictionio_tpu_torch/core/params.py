@@ -20,6 +20,7 @@ None); ``pio train`` needs it.
 from __future__ import annotations
 
 import dataclasses
+import json
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -97,6 +98,24 @@ class EngineParams:
     algorithm_params_list: Sequence[Tuple[str, Any]] = ()
     serving_name: str = ""
     serving_params: Any = None
+
+    def to_json_dict(self) -> Dict[str, Any]:
+        """engineParamsToJson parity (JsonExtractor.scala:95): the
+        engine.json sections of these params (``best.json``)."""
+        return {
+            "datasource": {"name": self.data_source_name,
+                           "params": params_to_json(self.data_source_params)},
+            "preparator": {"name": self.preparator_name,
+                           "params": params_to_json(self.preparator_params)},
+            "algorithms": [
+                {"name": name, "params": params_to_json(p)}
+                for name, p in self.algorithm_params_list],
+            "serving": {"name": self.serving_name,
+                        "params": params_to_json(self.serving_params)},
+        }
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_json_dict(), sort_keys=True)
 
 
 def engine_params_from_json(

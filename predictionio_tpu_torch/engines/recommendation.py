@@ -1,6 +1,8 @@
 """Recommendation engine (ALS) (port of the reference's
-``engines/recommendation.py``, training, serving and the online fold-in
-hooks; the evaluation side comes with a later slice).
+``engines/recommendation.py``: training, serving, the online fold-in
+hooks, and evaluation: ``read_eval`` folds for the sequential loop,
+``read_eval_grid`` and ``ALSAlgorithm.sweep_eval`` for the batched
+sweep, and the ``PrecisionAtK`` and ``RMSEMetric`` metrics).
 
 Rate/buy events -> ratings -> ALS -> top-N item scores per user. Rate
 events keep their ``rating`` property; buy events weigh 4.0 and view
@@ -23,6 +25,9 @@ from predictionio_tpu_torch.core.base import (
     Algorithm, DataSource, FirstServing, Preparator,
 )
 from predictionio_tpu_torch.core.engine import Engine
+from predictionio_tpu_torch.core.metrics import (
+    AverageMetric, OptionAverageMetric,
+)
 from predictionio_tpu_torch.core.params import EngineParams, Params
 from predictionio_tpu_torch.data.bimap import assign_indices
 from predictionio_tpu_torch.data.eventstore import (
@@ -116,6 +121,11 @@ class PredictedResult:
 
 
 @dataclasses.dataclass
+class ActualResult:
+    ratings: List[Rating]
+
+
+@dataclasses.dataclass
 class DataSourceParams(Params):
     """Default = the customize-serving variant (rate + buy); the
     train-with-view-event variant sets eventNames=["view"]."""
@@ -168,6 +178,40 @@ class RecommendationDataSource(DataSource):
 
     def read_training(self, ctx) -> TrainingData:
         return TrainingData(columns=self._read_columns())
+
+    def _read_ratings(self) -> List[Rating]:
+        c = self._read_columns()
+        return [Rating(user=u, item=i, rating=float(v))
+                for u, i, v in zip(c.users, c.items, c.values)]
+
+    def read_eval(self, ctx):
+        """K-fold split of the training read's rows, in its order
+        (DataSource.scala:87-120; ``core/cross_validation``): each
+        held-out rating is one query of its user with that rating as
+        the actual."""
+        from predictionio_tpu_torch.core.cross_validation import k_fold
+
+        ep = self.params.eval_params or {}
+        k = int(ep.get("kFold", 3))
+        query_num = int(ep.get("queryNum", 10))
+        folds = []
+        for fold, (train, test) in enumerate(k_fold(self._read_ratings(),
+                                                    k)):
+            qa = [(Query(user=r.user, num=query_num),
+                   ActualResult(ratings=[r])) for r in test]
+            folds.append((TrainingData(ratings=train), {"fold": fold}, qa))
+        return folds
+
+    def read_eval_grid(self, ctx):
+        """One read for the whole batched sweep: the rating columns and
+        the fold count; the sweep assigns folds as index mod k over the
+        same rows, the assignment ``read_eval`` uses."""
+        from predictionio_tpu_torch.core.evaluation import EvalGrid
+
+        ep = self.params.eval_params or {}
+        return EvalGrid(data=self._read_columns(),
+                        k_fold=int(ep.get("kFold", 3)),
+                        query_num=int(ep.get("queryNum", 10)))
 
 
 class RecommendationPreparator(Preparator):
@@ -324,8 +368,136 @@ class ALSAlgorithm(Algorithm):
         return new
 
 
+    #: metric kinds ``sweep_eval`` computes on the device
+    SWEEP_KINDS = ("precision_at_k", "topn_mse", "zero")
+
+    def sweep_eval(self, ctx, grid, algo_params_list, metric,
+                   other_metrics=()):
+        """The batched k-fold x hyperparameter sweep (``pio eval``):
+        every (candidate, fold) unit of a group trains together over one
+        fold-masked layout, and the metrics are computed on the device
+        (``models/als_sweep``), on ``ctx.device``. Returns the
+        evaluator's sweep contract (``{scores, details, info}``), or
+        None to decline (a metric kind it cannot compute, or two
+        precision settings in one sweep)."""
+        from predictionio_tpu_torch.core.cross_validation import (
+            fold_assignments,
+        )
+        from predictionio_tpu_torch.core.evaluation import sweep_kind_of
+        from predictionio_tpu_torch.models.als_sweep import (
+            build_sweep_data, run_sweep,
+        )
+        from predictionio_tpu_torch.utils.server_config import (
+            TrainConfig, als_solver_config, read_server_json,
+        )
+
+        metrics = [metric, *other_metrics]
+        kinds = [sweep_kind_of(m) for m in metrics]
+        if any(k not in self.SWEEP_KINDS for k in kinds):
+            return None
+        prec_specs = {(m.k, m.rating_threshold)
+                      for m, k in zip(metrics, kinds)
+                      if k == "precision_at_k"}
+        if len(prec_specs) > 1:       # one rank pass per sweep
+            return None
+
+        cols = grid.data
+        fold_of = fold_assignments(grid.k_fold, len(cols))
+        t0 = time.perf_counter()
+        user_vocab, user_codes = assign_indices(cols.users)
+        item_vocab, item_codes = assign_indices(cols.items)
+        data = build_sweep_data(user_codes, item_codes, cols.values,
+                                fold_of, len(user_vocab), len(item_vocab))
+        build_s = time.perf_counter() - t0
+        # the server.json train section, read once for every candidate
+        train_cfg = TrainConfig.from_env(
+            read_server_json().get("train") or {})
+
+        def with_solver(p):
+            solver, block_size = als_solver_config(
+                getattr(p, "solver", None), config=train_cfg)
+            return ALSParams(
+                rank=p.rank, num_iterations=p.num_iterations, reg=p.reg,
+                seed=p.seed, implicit_prefs=p.implicit_prefs, alpha=p.alpha,
+                solver=solver, block_size=block_size)
+
+        candidates = [with_solver(p) for p in algo_params_list]
+        needs_rank = any(k in ("precision_at_k", "topn_mse") for k in kinds)
+        if prec_specs:
+            pk, threshold = next(iter(prec_specs))
+        else:
+            pk, threshold = grid.query_num, 2.0
+        rank_spec = ((grid.query_num, pk, threshold)
+                     if needs_rank else None)
+        result = run_sweep(data, candidates, rank_metrics=rank_spec,
+                           device=getattr(ctx, "device", None))
+
+        def score_of(m, c):
+            kind = sweep_kind_of(m)
+            if kind == "precision_at_k":
+                return c.precision
+            if kind == "topn_mse":
+                return c.topn_mse
+            return 0.0
+
+        scores = [(score_of(metric, c),
+                   [score_of(m, c) for m in other_metrics])
+                  for c in result.candidates]
+        details = [c.to_json_dict() for c in result.candidates]
+        info = {"mode": result.mode, "compileGroups": result.n_groups,
+                "batchSizes": result.batch_sizes, "kFold": grid.k_fold,
+                "candidates": len(candidates),
+                "seconds": {"build": build_s, **result.seconds}}
+        return {"scores": scores, "details": details, "info": info}
+
+
 class RecommendationServing(FirstServing):
     """First prediction wins."""
+
+
+# -- metrics ------------------------------------------------------------------
+
+class PrecisionAtK(OptionAverageMetric):
+    """Evaluation.scala:32-105 — the share of the top-k that is positive
+    (actual rating >= threshold); None when the actual is not
+    rateable."""
+
+    sweep_kind = "precision_at_k"
+
+    def __init__(self, k: int = 10, rating_threshold: float = 2.0):
+        self.k = k
+        self.rating_threshold = rating_threshold
+
+    def header(self) -> str:
+        return f"Precision@{self.k} (threshold={self.rating_threshold})"
+
+    def calculate_point(self, eval_info, query: Query,
+                        prediction: PredictedResult, actual: ActualResult):
+        positives = {r.item for r in actual.ratings
+                     if r.rating >= self.rating_threshold}
+        if not positives:
+            return None
+        top = [s.item for s in prediction.item_scores[:self.k]]
+        if not top:
+            return 0.0
+        return len(positives & set(top)) / min(self.k, len(top))
+
+
+class RMSEMetric(AverageMetric):
+    """Held-out squared error of the predicted score for (user, item):
+    the item's served score, or 0 when it is not served."""
+
+    smaller_is_better = True
+    sweep_kind = "topn_mse"
+
+    def header(self) -> str:
+        return "MSE (sqrt for RMSE)"
+
+    def calculate_point(self, eval_info, query, prediction, actual):
+        by_item = {s.item: s.score for s in prediction.item_scores}
+        errs = [(by_item.get(r.item, 0.0) - r.rating) ** 2
+                for r in actual.ratings]
+        return float(np.mean(errs)) if errs else 0.0
 
 
 def engine() -> Engine:

@@ -276,87 +276,115 @@ class ALSData:
 # Device sweeps
 # ---------------------------------------------------------------------------
 
-def _reg_per_segment(reg: float, cnt: torch.Tensor,
+def _reg_per_segment(reg: torch.Tensor, cnt: torch.Tensor,
                      weighted_reg: bool) -> torch.Tensor:
+    """Each unit's ridge per segment, ``[b, S]``, from its ``reg [b]``
+    and the segment counts ``cnt [b, S]``."""
     if weighted_reg:
-        return reg * torch.clamp_min(cnt, 1.0)
-    return torch.full_like(cnt, reg)
+        return reg[:, None] * torch.clamp_min(cnt, 1.0)
+    return reg[:, None].expand_as(cnt)
 
 
 def _normal_equations(factors: torch.Tensor,
                       gram_all: Optional[torch.Tensor], row_tgt, row_seg,
-                      row_val, row_w, reg: float, alpha: float, *,
-                      num_segments: int, implicit_prefs: bool,
-                      weighted_reg: bool, alpha_is_zero: bool,
-                      chunk_rows: int
+                      row_val, row_w, reg: torch.Tensor,
+                      alpha: torch.Tensor, *, num_segments: int,
+                      implicit_prefs: bool, weighted_reg: bool,
+                      alpha_is_zero: bool, chunk_rows: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every segment's normal equations against the frozen ``factors``
-    (rows in the padded ALX layout): ``(A [S,K,K], rhs [S,K], ridge
-    [S])``, solved as ``(A + ridge I) x = rhs``. Implicit feedback adds
-    the global Gramian ``gram_all`` (V^T V of all of ``factors``);
-    explicit feedback ignores it."""
+    for ``b`` units at once (a train is ``b = 1``): ``factors [b, F,
+    K]``, the shared padded rows (``row_val [R, L]``), each unit's
+    weights ``row_w [b, R, L]`` and its ``reg`` / ``alpha [b]``. Returns
+    ``(A [b,S,K,K], rhs [b,S,K], ridge [b,S])``, solved as ``(A + ridge
+    I) x = rhs``. Implicit feedback adds the global Gramian ``gram_all
+    [b, K, K]`` (V^T V of all of ``factors``); explicit feedback ignores
+    it."""
     if implicit_prefs:
         # Hu-Koren-Volinsky: p = [r > 0], c = 1 + alpha * |r|;
         # A_s = V^T V + sum (c-1) f f^T + lam I ; b_s = sum c p f, with
         # rhs values c*p/(c-1) so that value * weight = c * p exactly.
         # alpha == 0 is c = 1: the Gramian correction vanishes and the
         # rhs is a plain preference sum.
-        p = (row_val > 0).to(row_val.dtype)
+        p = (row_val > 0).to(row_val.dtype)[None]
         if alpha_is_zero:
             _, rhs, cnt = rows_gram_rhs(
                 factors, row_tgt, row_seg, p, row_w,
                 num_segments=num_segments, chunk_rows=chunk_rows)
-            k = factors.shape[1]
-            A = gram_all.expand(num_segments, k, k).contiguous()
+            b, _, k = factors.shape
+            A = gram_all[:, None].expand(b, num_segments, k, k)
         else:
-            cm1 = alpha * row_val.abs()                  # c - 1
+            cm1 = alpha[:, None, None] * row_val.abs()   # c - 1, [b, R, L]
             vals = torch.where(
                 cm1 > 0, (1.0 + cm1) * p / torch.clamp_min(cm1, 1e-12),
                 torch.zeros_like(cm1))
             gram, rhs, _ = rows_gram_rhs(
                 factors, row_tgt, row_seg, vals, row_w * cm1,
                 num_segments=num_segments, chunk_rows=chunk_rows)
-            cnt = segment_count(row_seg, row_w.sum(dim=1), num_segments)
-            A = gram_all[None, :, :] + gram
+            cnt = segment_count(row_seg, row_w.sum(dim=-1), num_segments)
+            A = gram_all[:, None] + gram
         return A, rhs, _reg_per_segment(reg, cnt, weighted_reg)
     gram, rhs, cnt = rows_gram_rhs(
-        factors, row_tgt, row_seg, row_val, row_w,
+        factors, row_tgt, row_seg, row_val[None], row_w,
         num_segments=num_segments, chunk_rows=chunk_rows)
     return gram, rhs, _reg_per_segment(reg, cnt, weighted_reg)
+
+
+def _solve_units(A: torch.Tensor, rhs: torch.Tensor,
+                 lam: torch.Tensor) -> torch.Tensor:
+    """Every unit's systems in ONE batched SPD solve (B1 on the card):
+    ``[b, S, K, K]`` flat to ``[b * S, K, K]``, each system's ridge in
+    ``diag``. Returns ``[b, S, K]``."""
+    b, s, k = rhs.shape
+    x = batched_spd_solve(A.reshape(b * s, k, k), rhs.reshape(b * s, k),
+                          diag=lam.reshape(b * s))
+    return x.view(b, s, k)
 
 
 def _half_sweep_dyn(opposite: torch.Tensor, row_tgt, row_seg, row_val,
                     row_w, seg_per_shard: int, *, reg, alpha,
                     implicit_prefs: bool, weighted_reg: bool,
                     alpha_is_zero: bool, chunk_rows: int) -> torch.Tensor:
-    """Solve this side's factors against the full opposite factor
-    matrix; rows are the padded ALX layout. One batched K x K solve."""
+    """Solve this side's factors of ``b`` units against their full
+    opposite factor matrices ``opposite [b, F, K]`` (rows in the padded
+    ALX layout, weights ``row_w [b, R, L]``, ``reg`` / ``alpha [b]``).
+    One batched K x K solve over every unit's systems; returns ``[b, S,
+    K]``."""
     A, rhs, lam = _normal_equations(
         opposite, _global_gram(opposite) if implicit_prefs else None,
         row_tgt, row_seg, row_val, row_w, reg, alpha,
         num_segments=seg_per_shard, implicit_prefs=implicit_prefs,
         weighted_reg=weighted_reg, alpha_is_zero=alpha_is_zero,
         chunk_rows=chunk_rows)
-    return batched_spd_solve(A, rhs, diag=lam)
+    return _solve_units(A, rhs, lam)
+
+
+def _unit_params(params: ALSParams, dev) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """``(reg [1], alpha [1])`` of one train on ``dev``."""
+    return (torch.tensor([params.reg], dtype=torch.float32, device=dev),
+            torch.tensor([params.alpha], dtype=torch.float32, device=dev))
 
 
 def _half_sweep(opposite: torch.Tensor, rows: ShardedRows,
-                params: ALSParams) -> torch.Tensor:
-    """Static-params wrapper over `_half_sweep_dyn` (the training
-    path)."""
+                params: ALSParams, reg: torch.Tensor,
+                alpha: torch.Tensor) -> torch.Tensor:
+    """One train's half-sweep (``b = 1`` of `_half_sweep_dyn`):
+    ``opposite [F, K]`` to ``[S, K]``."""
     return _half_sweep_dyn(
-        opposite, rows.tgt[0], rows.seg[0], rows.val[0], rows.w[0],
-        rows.seg_per_shard, reg=params.reg, alpha=params.alpha,
+        opposite[None], rows.tgt[0], rows.seg[0], rows.val[0],
+        rows.w[0][None], rows.seg_per_shard, reg=reg, alpha=alpha,
         implicit_prefs=params.implicit_prefs,
         weighted_reg=params.weighted_reg,
-        alpha_is_zero=(params.alpha == 0), chunk_rows=params.chunk_size)
+        alpha_is_zero=(params.alpha == 0), chunk_rows=params.chunk_size)[0]
 
 
 def _global_gram(opposite: torch.Tensor) -> torch.Tensor:
-    """The K x K Gramian of the full opposite factor matrix (the
-    implicit solver's V^T V term), once per half-sweep. One device: the
-    reference's sharded psum is the multi-GPU slice's."""
-    return opposite.T @ opposite
+    """The K x K Gramian of each unit's full opposite factor matrix
+    (``[b, F, K]`` to ``[b, K, K]``; the implicit solver's V^T V term),
+    once per half-sweep. One device: the reference's sharded psum is the
+    multi-GPU slice's."""
+    return opposite.transpose(-1, -2) @ opposite
 
 
 def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
@@ -365,28 +393,31 @@ def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
                              implicit_prefs: bool, weighted_reg: bool,
                              alpha_is_zero: bool, chunk_rows: int,
                              block_size: int) -> torch.Tensor:
-    """Block coordinate descent half-sweep (iALS++, arXiv:2110.14044):
-    for each rank block of width b, solve every row's b x b system
-    against the frozen remainder of its own factors (``x_prev``, updated
-    block by block), with the per-rating predictions maintained
-    incrementally. The per-segment counts and, for implicit feedback,
-    the global Gramian are built once and reused by every block."""
-    k = opposite.shape[1]
-    b = max(1, min(block_size, k))
+    """Block coordinate descent half-sweep (iALS++, arXiv:2110.14044)
+    for ``b`` units (``x_prev [b, S, K]``, ``opposite [b, F, K]``, the
+    rest as in `_half_sweep_dyn`): for each rank block of width B, solve
+    every row's B x B system against the frozen remainder of its own
+    factors (``x_prev``, updated block by block), with the per-rating
+    predictions maintained incrementally; one batched solve per block
+    over every unit's systems. The per-segment counts and, for implicit
+    feedback, the global Gramian are built once and reused by every
+    block."""
+    k = opposite.shape[-1]
+    bs = max(1, min(block_size, k))
     starts = block_starts(k, block_size)
-    # block buffers are [C, L, b] vs the full path's [C, L, K]
-    chunk_b = chunk_rows * max(1, k // b)
+    # block buffers are [b, C, L, B] vs the full path's [b, C, L, K]
+    chunk_b = chunk_rows * max(1, k // bs)
 
-    cnt = segment_count(row_seg, row_w.sum(dim=1), seg_per_shard)
+    cnt = segment_count(row_seg, row_w.sum(dim=-1), seg_per_shard)
     lam = _reg_per_segment(reg, cnt, weighted_reg)
     if implicit_prefs:
-        gram_all = _global_gram(opposite)                       # [K, K]
+        gram_all = _global_gram(opposite)                       # [b, K, K]
         p = (row_val > 0).to(row_val.dtype)
         if alpha_is_zero:
             gram_w = torch.zeros_like(row_w)
             rhs_val = row_w * p
         else:
-            cm1 = alpha * row_val.abs()                         # c - 1
+            cm1 = alpha[:, None, None] * row_val.abs()          # c - 1
             gram_w = row_w * cm1
             rhs_val = row_w * (1.0 + cm1) * p
     else:
@@ -395,42 +426,44 @@ def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
         rhs_val = row_w * row_val
 
     pred = row_predict_add(opposite, x_prev, row_tgt, row_seg,
-                           torch.zeros_like(row_val), chunk_rows=chunk_rows)
+                           torch.zeros_like(row_w), chunk_rows=chunk_rows)
 
     x = x_prev.clone()
     for j, s in enumerate(starts):
-        f_b = opposite[:, s:s + b]
-        x_b = x[:, s:s + b].clone()
+        f_b = opposite[..., s:s + bs]
+        x_b = x[..., s:s + bs].clone()
         gram, rhs = block_gram_rhs(
             f_b, x_b, row_tgt, row_seg, pred, rhs_val, gram_w,
             num_segments=seg_per_shard, chunk_rows=chunk_b)
         if implicit_prefs:
             # dense all-items term from the cached global Gramian:
             # A += G[B,B]; rhs -= (x G)[:,B] - x_B G[B,B]
-            g_col = gram_all[:, s:s + b]
-            g_bb = g_col[s:s + b]
-            gram = gram + g_bb[None, :, :]
+            g_col = gram_all[..., s:s + bs]                     # [b, K, B]
+            g_bb = g_col[:, s:s + bs]
+            gram = gram + g_bb[:, None]
             rhs = rhs - (x @ g_col - x_b @ g_bb)
-        y = batched_spd_solve(gram, rhs, diag=lam)
+        y = _solve_units(gram, rhs, lam)
         if j + 1 < len(starts):
             # fold this block's delta into the running predictions (the
             # last block's update feeds nothing)
             pred = row_predict_add(f_b, y - x_b, row_tgt, row_seg, pred,
                                    chunk_rows=chunk_b)
-        x[:, s:s + b] = y
+        x[..., s:s + bs] = y
     return x
 
 
 def _half_sweep_subspace(x_prev: torch.Tensor, opposite: torch.Tensor,
-                         rows: ShardedRows, params: ALSParams
+                         rows: ShardedRows, params: ALSParams,
+                         reg: torch.Tensor, alpha: torch.Tensor
                          ) -> torch.Tensor:
+    """One train's subspace half-sweep (``b = 1``): ``[S, K]``."""
     return _half_sweep_subspace_dyn(
-        x_prev, opposite, rows.tgt[0], rows.seg[0], rows.val[0], rows.w[0],
-        rows.seg_per_shard, reg=params.reg, alpha=params.alpha,
-        implicit_prefs=params.implicit_prefs,
+        x_prev[None], opposite[None], rows.tgt[0], rows.seg[0],
+        rows.val[0], rows.w[0][None], rows.seg_per_shard, reg=reg,
+        alpha=alpha, implicit_prefs=params.implicit_prefs,
         weighted_reg=params.weighted_reg,
         alpha_is_zero=(params.alpha == 0), chunk_rows=params.chunk_size,
-        block_size=params.block_size)
+        block_size=params.block_size)[0]
 
 
 def _init_item_factors(n_items: int, n_items_pad: int, k: int, seed: int,
@@ -525,13 +558,14 @@ def train_als(data: ALSData, params: ALSParams, device=None,
         U = torch.zeros((data.n_users_pad, k), dtype=torch.float32,
                         device=dev)
     start = it
+    reg, alpha = _unit_params(params, dev)
     while it < params.num_iterations:
         if params.solver == "subspace":
-            U = _half_sweep_subspace(U, V, data.by_user, params)
-            V = _half_sweep_subspace(V, U, data.by_item, params)
+            U = _half_sweep_subspace(U, V, data.by_user, params, reg, alpha)
+            V = _half_sweep_subspace(V, U, data.by_item, params, reg, alpha)
         else:
-            U = _half_sweep(V, data.by_user, params)
-            V = _half_sweep(U, data.by_item, params)
+            U = _half_sweep(V, data.by_user, params, reg, alpha)
+            V = _half_sweep(U, data.by_item, params, reg, alpha)
         it += 1
         if (checkpointer is not None and it < params.num_iterations
                 and (it - start) % checkpointer.interval == 0):
@@ -898,6 +932,7 @@ class FoldInSolver:
         self.device = self._dev.device
         self._shape = tuple(self._dev.shape)
         self._gram: Optional[torch.Tensor] = None
+        self._reg, self._alpha = _unit_params(params, self.device)
         self.last_solve: dict = {}
 
     @property
@@ -908,7 +943,7 @@ class FoldInSolver:
         """V^T V of the whole factor matrix, once per solver (implicit
         feedback only)."""
         if self._gram is None and self.params.implicit_prefs:
-            self._gram = _global_gram(self._dev)
+            self._gram = _global_gram(self._dev[None])
         return self._gram
 
     def solve(self, rated, values, weights=None) -> np.ndarray:
@@ -963,10 +998,11 @@ class FoldInSolver:
         p = self.params
         t0 = time.perf_counter()
         A, rhs, lam = _normal_equations(
-            self._dev, self._gram_dev(), torch.from_numpy(row_tgt).to(dev),
+            self._dev[None], self._gram_dev(),
+            torch.from_numpy(row_tgt).to(dev),
             torch.from_numpy(seg_arr).to(dev),
             torch.from_numpy(row_val).to(dev),
-            torch.from_numpy(row_w).to(dev), p.reg, p.alpha,
+            torch.from_numpy(row_w).to(dev)[None], self._reg, self._alpha,
             num_segments=b_pad, implicit_prefs=p.implicit_prefs,
             weighted_reg=p.weighted_reg, alpha_is_zero=(p.alpha == 0),
             chunk_rows=1024)
@@ -976,7 +1012,7 @@ class FoldInSolver:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-        out = batched_spd_solve(A, rhs, diag=lam)
+        out = batched_spd_solve(A[0], rhs[0], diag=lam[0])
         t2 = time.perf_counter()
         if cuda:
             end.record()

@@ -126,6 +126,24 @@ class EngineInstance:
     serving_params: str = ""
 
 
+@dataclasses.dataclass
+class EvaluationInstance:
+    """EvaluationInstances.scala:42 — one evaluation run and its results
+    (INIT, then EVALCOMPLETED or EVALFAILED)."""
+    id: str = ""
+    status: str = ""
+    start_time: _dt.datetime = dataclasses.field(default_factory=_utcnow)
+    end_time: _dt.datetime = dataclasses.field(default_factory=_utcnow)
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: Dict[str, str] = dataclasses.field(default_factory=dict)
+    runtime_conf: Dict[str, str] = dataclasses.field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     """Models.scala:33 — serialized model blob keyed by engine instance
@@ -242,6 +260,27 @@ class EngineInstances(abc.ABC):
 
     @abc.abstractmethod
     def update(self, i: EngineInstance) -> None: ...
+
+
+class EvaluationInstances(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, i: EvaluationInstance) -> str: ...
+
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_all(self) -> List[EvaluationInstance]: ...
+
+    @abc.abstractmethod
+    def get_completed(self) -> List[EvaluationInstance]:
+        """EVALCOMPLETED instances, latest start_time first."""
+
+    @abc.abstractmethod
+    def update(self, i: EvaluationInstance) -> None: ...
+
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> None: ...
 
 
 class Models(abc.ABC):

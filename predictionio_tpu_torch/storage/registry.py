@@ -43,6 +43,7 @@ _NOT_PORTED = {
 _SQLITE_KINDS = {
     "apps": "SqliteApps", "accesskeys": "SqliteAccessKeys",
     "channels": "SqliteChannels", "engineinstances": "SqliteEngineInstances",
+    "evaluationinstances": "SqliteEvaluationInstances",
     "releases": "SqliteReleases", "models": "SqliteModels",
     "events": "SqliteEvents",
 }
@@ -190,6 +191,10 @@ class Storage:
     @classmethod
     def get_meta_data_engine_instances(cls) -> base.EngineInstances:
         return cls._get("METADATA", "engineinstances")
+
+    @classmethod
+    def get_meta_data_evaluation_instances(cls) -> base.EvaluationInstances:
+        return cls._get("METADATA", "evaluationinstances")
 
     @classmethod
     def get_meta_data_releases(cls) -> base.Releases:

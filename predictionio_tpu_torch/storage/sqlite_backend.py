@@ -1,12 +1,12 @@
 """Event store, metadata and model blobs on sqlite3 (port of the
 reference's ``storage/sqlite_backend.py``: ``SqliteClient``,
 ``SqliteEvents`` and the apps, access keys, channels, engine instances,
-releases and models tables).
+evaluation instances, releases and models tables).
 
 The tables are byte-for-byte the reference's (one event table per app
 and channel, ``pio_event_<app>[_<channel>]``, ``pio_apps``,
 ``pio_accesskeys``, ``pio_channels``, ``pio_engineinstances``,
-``pio_releases``, ``pio_models``), so a store written by either package
+``pio_evaluationinstances``, ``pio_releases``, ``pio_models``), so a store written by either package
 is read by the other. All SQL uses bound
 parameters. Connections are per thread; WAL mode lets readers run during
 writes. The training read, :meth:`SqliteEvents.find_columns`, turns SQL
@@ -28,8 +28,8 @@ from predictionio_tpu_torch.data.datamap import DataMap
 from predictionio_tpu_torch.data.event import UTC, Event, millis as _to_ms
 from predictionio_tpu_torch.storage import base
 from predictionio_tpu_torch.storage.base import (
-    AccessKey, App, Channel, EngineInstance, Model, Release, StorageError,
-    UNFILTERED, generate_id,
+    AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
+    Release, StorageError, UNFILTERED, generate_id,
 )
 
 
@@ -569,6 +569,74 @@ def _row_to_ei(row) -> EngineInstance:
         runtime_conf=json.loads(row[10] or "{}"),
         data_source_params=row[11], preparator_params=row[12],
         algorithms_params=row[13], serving_params=row[14])
+
+
+_EVI_COLS = ("id, status, startTime, endTime, evaluationClass, "
+             "engineParamsGeneratorClass, batch, env, runtimeConf, "
+             "evaluatorResults, evaluatorResultsHTML, evaluatorResultsJSON")
+
+
+class SqliteEvaluationInstances(_MetaBase, base.EvaluationInstances):
+    def _ddl(self, conn):
+        conn.execute("""CREATE TABLE IF NOT EXISTS pio_evaluationinstances (
+            id TEXT PRIMARY KEY, status TEXT, startTime INTEGER, endTime INTEGER,
+            evaluationClass TEXT, engineParamsGeneratorClass TEXT, batch TEXT,
+            env TEXT, runtimeConf TEXT, evaluatorResults TEXT,
+            evaluatorResultsHTML TEXT, evaluatorResultsJSON TEXT)""")
+
+    def insert(self, i: EvaluationInstance) -> str:
+        i.id = i.id or generate_id()
+        self._exec(
+            f"INSERT INTO pio_evaluationinstances ({_EVI_COLS}) "
+            "VALUES (?,?,?,?,?,?,?,?,?,?,?,?)",
+            (i.id, i.status, _to_ms(i.start_time), _to_ms(i.end_time),
+             i.evaluation_class, i.engine_params_generator_class, i.batch,
+             json.dumps(i.env), json.dumps(i.runtime_conf),
+             i.evaluator_results, i.evaluator_results_html,
+             i.evaluator_results_json))
+        return i.id
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        row = self._query(
+            f"SELECT {_EVI_COLS} FROM pio_evaluationinstances WHERE id=?",
+            (instance_id,)).fetchone()
+        return _row_to_evi(row) if row else None
+
+    def get_all(self) -> List[EvaluationInstance]:
+        return [_row_to_evi(r) for r in self._query(
+            f"SELECT {_EVI_COLS} FROM pio_evaluationinstances")]
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        return [_row_to_evi(r) for r in self._query(
+            f"SELECT {_EVI_COLS} FROM pio_evaluationinstances "
+            "WHERE status='EVALCOMPLETED' ORDER BY startTime DESC")]
+
+    def update(self, i: EvaluationInstance) -> None:
+        self._exec(
+            "UPDATE pio_evaluationinstances SET status=?, startTime=?, "
+            "endTime=?, evaluationClass=?, engineParamsGeneratorClass=?, "
+            "batch=?, env=?, runtimeConf=?, evaluatorResults=?, "
+            "evaluatorResultsHTML=?, evaluatorResultsJSON=? WHERE id=?",
+            (i.status, _to_ms(i.start_time), _to_ms(i.end_time),
+             i.evaluation_class, i.engine_params_generator_class, i.batch,
+             json.dumps(i.env), json.dumps(i.runtime_conf),
+             i.evaluator_results, i.evaluator_results_html,
+             i.evaluator_results_json, i.id))
+
+    def delete(self, instance_id: str) -> None:
+        self._exec("DELETE FROM pio_evaluationinstances WHERE id=?",
+                   (instance_id,))
+
+
+def _row_to_evi(row) -> EvaluationInstance:
+    return EvaluationInstance(
+        id=row[0], status=row[1], start_time=_from_ms(row[2]),
+        end_time=_from_ms(row[3]), evaluation_class=row[4],
+        engine_params_generator_class=row[5], batch=row[6],
+        env=json.loads(row[7] or "{}"),
+        runtime_conf=json.loads(row[8] or "{}"),
+        evaluator_results=row[9], evaluator_results_html=row[10],
+        evaluator_results_json=row[11])
 
 
 _REL_COLS = ("id, version, engineId, engineVersion, engineVariant, "

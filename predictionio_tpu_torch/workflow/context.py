@@ -19,12 +19,16 @@ logger = logging.getLogger("pio.torch.workflow")
 @dataclasses.dataclass
 class WorkflowParams:
     """WorkflowParams.scala:32 — the workflow-level settings the port
-    reads: the batch label, whether the models are saved, and the runtime
-    settings (``checkpoint_dir`` / ``checkpoint_interval``; the
-    reference's sparkConf)."""
+    reads: the batch label, whether the models are saved, the train's
+    sanity-check skip and debug stops, and the runtime settings
+    (``checkpoint_dir`` / ``checkpoint_interval``; the reference's
+    sparkConf)."""
 
     batch: str = ""
     save_model: bool = True
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
     runtime_conf: Dict[str, str] = dataclasses.field(default_factory=dict)
 
 

@@ -37,9 +37,11 @@ def run_train(engine: Engine, engine_params: EngineParams,
               device: DeviceLike = None
               ) -> Tuple[EngineInstance, TrainResult]:
     """Train and record; returns the COMPLETED instance and the
-    TrainResult (raises on failure). ``ctx`` defaults to a context on
-    ``device`` (``cuda`` unless the caller asks for the CPU) with the
-    checkpointer ``workflow_params.runtime_conf`` names."""
+    TrainResult (raises on failure; ``workflow_params.stop_after_*``
+    raise the engine's ``StopAfter*Interruption``, leaving the instance
+    INIT). ``ctx`` defaults to a context on ``device`` (``cuda`` unless
+    the caller asks for the CPU) with the checkpointer
+    ``workflow_params.runtime_conf`` names."""
     from predictionio_tpu_torch.deploy.releases import record_release
 
     wp = workflow_params or WorkflowParams()
@@ -69,7 +71,10 @@ def run_train(engine: Engine, engine_params: EngineParams,
     instance.id = instances.insert(instance)
     logger.info("EngineInstance %s created (INIT)", instance.id)
 
-    result = engine.train(ctx, engine_params)
+    result = engine.train(ctx, engine_params,
+                          skip_sanity_check=wp.skip_sanity_check,
+                          stop_after_read=wp.stop_after_read,
+                          stop_after_prepare=wp.stop_after_prepare)
     blob = None
     if wp.save_model:
         blob = serialize_models(engine.persist_models(ctx, result))

@@ -11,8 +11,9 @@ the CPU on their own.
   (``PIO_FOLDIN=1``) and applies once, and a fifth runs ``deploy
   --feedback --log-url`` through the CLI, answers a query and a failing
   one, then stops it with ``undeploy``, and two more train and deploy
-  the e-commerce and similar-product engines through the CLI, each with
-  the same finding;
+  the e-commerce and similar-product engines through the CLI, and
+  another runs ``eval`` through the CLI, batched then ``--sequential``,
+  each with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``
   among them) or in chip_smoke.py;
@@ -413,6 +414,73 @@ def test_engine_train_and_deploy_load_no_jax(tmp_path, engine_name):
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
+_EVAL_MODULE = """
+from predictionio_tpu_torch.core.evaluation import Evaluation
+from predictionio_tpu_torch.core.params import EngineParams
+from predictionio_tpu_torch.engines.recommendation import (
+    AlgorithmParams, DataSourceParams, PrecisionAtK, RMSEMetric, engine)
+evaluation = Evaluation(engine=engine(), metric=PrecisionAtK(k=3),
+                        other_metrics=[RMSEMetric()], output_path=BEST)
+evaluation.engine_params_list = [EngineParams(
+    data_source_params=DataSourceParams(app_name="Guard",
+                                        eval_params={"kFold": 2}),
+    algorithm_params_list=[("als", AlgorithmParams(num_iterations=2))])]
+"""
+
+_EVAL_CHILD = r"""
+import json, os, sys
+tmp, module = sys.argv[1], sys.argv[2]
+os.environ.update({
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "ev.db"),
+    **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+       for r in ("METADATA", "EVENTDATA", "MODELDATA")
+       for k, v in (("NAME", "pio"), ("SOURCE", "DB"))}})
+with open(os.path.join(tmp, "guard_eval.py"), "w") as f:
+    f.write(f"BEST = {os.path.join(tmp, 'best.json')!r}\n" + module)
+sys.path.insert(0, tmp)
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+store = Storage.get_events()
+store.init_channel(app_id)
+store.insert_batch([
+    Event(event="rate", entity_type="user", entity_id=f"u{u}",
+          target_entity_type="item", target_entity_id=f"i{(u * 7 + j) % 9}",
+          properties={"rating": float(1 + (u + j) % 5)})
+    for u in range(12) for j in range(4)], app_id)
+for extra in ([], ["--sequential"]):
+    assert main(["eval", "guard_eval:evaluation", "--grid", "rank=2,3",
+                 "--device", "cpu", *extra]) == 0
+assert len(Storage.get_meta_data_evaluation_instances().get_completed()) == 2
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_eval_cli_loads_no_jax(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-c", _EVAL_CHILD, str(tmp_path), _EVAL_MODULE],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert json.loads(lines[-2])["mode"] == "sequential"
+    assert lines[-1] == "[]", out.stdout
+
+
+def test_scan_covers_the_evaluation_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"core/evaluation.py", "core/metrics.py",
+            "core/cross_validation.py", "models/als_sweep.py",
+            "workflow/evaluate.py"} <= scanned
+
+
 def test_scan_covers_the_staged_rollout_modules():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
                if PKG in p.parents}
@@ -538,6 +606,40 @@ def _train_cooccurrence():
                               2, 2, 3)
 
 
+def _run_sweep():
+    from predictionio_tpu_torch.core.cross_validation import (
+        fold_assignments,
+    )
+    from predictionio_tpu_torch.models.als import ALSParams
+    from predictionio_tpu_torch.models.als_sweep import (
+        build_sweep_data, run_sweep,
+    )
+
+    data = build_sweep_data(np.array([0, 1, 1, 0]), np.array([1, 0, 1, 0]),
+                            np.array([3.0, 4.0, 2.0, 5.0], np.float32),
+                            fold_assignments(2, 4), 2, 2)
+    return run_sweep(data, [ALSParams(rank=2, num_iterations=1)])
+
+
+def _run_evaluation():
+    from predictionio_tpu_torch.core.evaluation import Evaluation
+    from predictionio_tpu_torch.engines.recommendation import (
+        PrecisionAtK, default_engine_params, engine,
+    )
+    from predictionio_tpu_torch.workflow.evaluate import run_evaluation
+
+    return run_evaluation(Evaluation(engine(), PrecisionAtK()),
+                          [default_engine_params("x")])
+
+
+def _cli_eval():
+    from predictionio_tpu_torch.cli.main import main
+
+    return main(["eval", "predictionio_tpu_torch.core.evaluation:Evaluation",
+                 "predictionio_tpu_torch.core.evaluation:"
+                 "EngineParamsGenerator"])
+
+
 def _similarity_model():
     from predictionio_tpu_torch.engines.similarproduct import (
         SimilarityModel,
@@ -551,7 +653,9 @@ def _similarity_model():
                                    "build_scorer", "cli deploy",
                                    "train_als", "cli train", "run_train",
                                    "load_for_deploy", "FoldInSolver",
-                                   "train_cooccurrence", "SimilarityModel"])
+                                   "train_cooccurrence", "SimilarityModel",
+                                   "run_sweep", "run_evaluation",
+                                   "cli eval"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -564,7 +668,10 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "load_for_deploy": lambda: _load_for_deploy(tmp_path),
             "FoldInSolver": _foldin_solver,
             "train_cooccurrence": _train_cooccurrence,
-            "SimilarityModel": _similarity_model}[entry]
+            "SimilarityModel": _similarity_model,
+            "run_sweep": _run_sweep,
+            "run_evaluation": _run_evaluation,
+            "cli eval": _cli_eval}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

@@ -273,6 +273,45 @@ Phases, each reported on its own lines:
                    instances and one EVALFAILED. The kernels phase holds
                    B1 at the four eval shapes too.
 
+11. ``batchpredict`` — ``pio batchpredict`` (``workflow/batch_predict``),
+                   in three legs. Leg 2, after the canary phase, on the
+                   serve cell's 10M x 64 model in this process
+                   (twostage, tile 16384, scan rank 32, shortlist 1024;
+                   chunk 1,024, pipelined): 16,384 plain queries of num
+                   10 (16 full chunks, B2 at B = 1,024, c 2), then 2
+                   chunks in which 1 query in 6 carries a one-item
+                   blackList (a dense [1,024, 10M] mask a chunk, c 16);
+                   each part: B2 launches equal to its chunks, no lane
+                   fallback, the scorer still on twostage, 64 spread
+                   rows (every masked row of the first masked chunk too)
+                   equal to an exact recompute on the card (ids up to
+                   ties, scores within 1e-4) with recall@10 >= 0.99;
+                   rows/s and the split: read/decode, score, B2 (CUDA
+                   events), uploads, rescore, serialize, file writes.
+                   Leg 1, after it: the reference bench's
+                   cfg_batch_predict shape (bench.py:2251-2300; 5,000
+                   users x 2,000 items, rank 32, num 50, 40,000 queries,
+                   chunk 1,024, exact scorer) through
+                   ``run_batch_predict(loaded=...)``, inline, pipelined
+                   and as a 2-process fleet on the one card (ready/go
+                   rendezvous, manifest merge), best of 2 each:
+                   queries/s, which scorer path ran, the three outputs
+                   the same answers (ids and order exact, scores within
+                   1e-5 relative); no kernel runs there. Leg 3, inside
+                   the lifecycle after eval's CLI leg: ``batchpredict``
+                   through the CLI on the latest release, one query per
+                   user and 5 planted malformed lines (``invalid`` 5, the
+                   sidecar those rows), a 2-shard CLI run into the same
+                   output name (the merge holds the single run's
+                   answers), and a deployed query server answering 60 of
+                   the users as the batch run did (ids exact, scores
+                   within rel 1e-5 / abs 1e-6). The kernels phase holds
+                   B2 at B = 1,024 too (unmasked c 2, masked c 16 at 10M
+                   items): the kernel at the full B, 16 spread rows
+                   (the first and the last) held to the plain version run
+                   on those rows; ``plain_ms`` is that subset's,
+                   ``library_ms`` the composite in blocks of 128 rows.
+
 Each phase's launch counts are its own: zeroed just before the phase
 drives its path and read just after (in the process that launched).
 Then it prints one JSON line describing each kernel (times from this
@@ -289,6 +328,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import queue
@@ -1508,6 +1548,10 @@ def lifecycle_phase(seed: int, port: int):
         t0 = time.perf_counter()
         eval_cli = eval_cli_leg(env, work, "SmokeApp")
         eval_cli["leg_s"] = time.perf_counter() - t0
+        # 10. the batchpredict phase's CLI leg, on the same store
+        t0 = time.perf_counter()
+        bp_cli = batchpredict_cli_leg(env, work, variant, key, port)
+        bp_cli["leg_s"] = time.perf_counter() - t0
         events_srv.stop()
         check(events_srv.proc.returncode == 0, "the event server did not "
               f"drain and exit cleanly (rc {events_srv.proc.returncode})")
@@ -1524,7 +1568,8 @@ def lifecycle_phase(seed: int, port: int):
         report = {"ingest": ingest_report, "train": t1, "train_v2": t2,
                   **reload_report, "checkpoint": ckpt,
                   "queries": len(picks) + 11, "foldin": foldin,
-                  "feedback": feedback, "eval_cli": eval_cli}
+                  "feedback": feedback, "eval_cli": eval_cli,
+                  "batchpredict_cli": bp_cli}
         log("lifecycle: " + json.dumps(report))
         return report
     finally:
@@ -4112,6 +4157,710 @@ def kernels_tie_rows(seed: int):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# batchpredict phase: `pio batchpredict` (workflow/batch_predict.py)
+# ---------------------------------------------------------------------------
+
+#: leg 1, the reference bench's cfg_batch_predict (bench.py:2251-2300):
+#: catalog, rank, num, queries, chunk, shards, best of
+BP_BENCH = dict(n_users=5000, n_items=2000, rank=32, num=50,
+                queries=40_000, chunk=1024, shards=2, reps=2, seed=11)
+#: leg 2, the serve cell's model through B2: unmasked queries (16 full
+#: chunks of num 10), masked chunks (1 query in 6 with a one-item
+#: blackList), rows held to an exact recompute per part
+BP_WIDTH = dict(chunk=1024, queries=16_384, masked_chunks=2, num=10,
+                mask_every=6, sample=64)
+#: leg 3, the CLI on the lifecycle's store: malformed lines planted at
+#: these line numbers, users compared with the deployed query server
+BP_CLI = dict(planted=(0, 7, 100, 500, 1000), num=10, compare=60)
+#: B2 at a full chunk: rows held to the plain version (the first and
+#: the last among them), and the library composite's block of rows
+BP_KERNEL = dict(b=1024, rows=16, library_block=128)
+#: scores of the same ids in two outputs: f32 sums in another order
+BP_RTOL = 1e-5
+#: the query server's answers against a batch run's (the reference's
+#: `_assert_same_answers`, tests/test_batch_predict.py:609-636)
+BP_ANSWER_RTOL, BP_ANSWER_ATOL = 1e-5, 1e-6
+
+
+def _bp_rows(b: int, n: int):
+    """``n`` row indices spread over ``[0, b)``, the first and the last
+    among them."""
+    import numpy as np
+
+    return sorted({int(x) for x in np.linspace(0, b - 1, n).round()})
+
+
+def kernels_chunk_rows(seed: int, n_items: int):
+    """B2 at a full batch-predict chunk (B = 1,024) at the serving
+    shapes, unmasked at the two-stage c of a plain query and masked at
+    c 16: the kernel at the full B, a spread of its rows held to the
+    plain version run on just those rows (the plain version at the full
+    B would need 40 GB of f32 scores); ``plain_ms`` is that subset's,
+    ``library_ms`` the library composite over blocks of 128 rows,
+    summed."""
+    import torch
+
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.ops.scoring import (
+        shortlist_per_tile, shortlist_topc, shortlist_topc_reference,
+        twostage_cand,
+    )
+
+    dev = torch.device(DEV)
+    c = BP_KERNEL
+    b, r, t = c["b"], SCAN_RANK, TILE
+    nt = -(-n_items // t)
+    per_tile = shortlist_per_tile(SHORTLIST, nt, t)
+    g = torch.Generator(device=dev).manual_seed(seed + 1024)
+    tiles = torch.randint(-127, 128, (nt, t, r), generator=g, device=dev,
+                          dtype=torch.int8)
+    scales = (0.5 + torch.rand((nt, t), generator=g, device=dev)) / 127.0
+    deq = (tiles.float() * scales[..., None]).reshape(nt * t, r)
+    u = torch.randn((b, r), generator=g, device=dev)
+    rows = _bp_rows(b, c["rows"])
+    sel = torch.tensor(rows, device=dev)
+    out = []
+    max_err = 0.0
+    for masked in (False, True):
+        cand = twostage_cand(per_tile, nt, t, BP_WIDTH["num"], masked)
+        mask = None
+        if masked:
+            # 30% excluded, as the kernels phase's masked rows; drawn in
+            # blocks of rows (a [B, nt*T] f32 draw would need 40 GB)
+            mask = torch.empty((b, nt * t), dtype=torch.bool, device=dev)
+            for i in range(0, b, 64):
+                mask[i:i + 64] = torch.rand((min(64, b - i), nt * t),
+                                            generator=g, device=dev) < 0.3
+        kernels.reset_counts()
+        got = shortlist_topc(u, tiles, scales, n_items, mask, cand)
+        synchronize()
+        check(kernels.SHORTLIST_LAUNCHES == 1,
+              "shortlist wrapper did not launch its kernel at B=1024")
+        m_sub = None if mask is None else mask[sel]
+        wide = shortlist_topc_reference(u[sel], tiles, scales, n_items,
+                                        m_sub, cand + 1)
+        k = len(rows)
+        err, problems = compare_shortlist(
+            (got[0][sel], got[1][sel]),
+            (wide[0].reshape(k, nt, cand + 1),
+             wide[1].reshape(k, nt, cand + 1)), cand)
+        check(not problems, f"shortlist B={b} c={cand} masked={masked} "
+              f"(rows {rows}): {'; '.join(problems)}")
+        max_err = max(max_err, err)
+        del wide
+        ms = cuda_ms(lambda: shortlist_topc(u, tiles, scales, n_items,
+                                            mask, cand), iters=5)
+        device_ms = graph_ms(lambda: shortlist_topc(
+            u, tiles, scales, n_items, mask, cand), launches=2, reps=3)
+        u_sub = u[sel].contiguous()
+        plain_ms = cuda_ms(lambda: shortlist_topc_reference(
+            u_sub, tiles, scales, n_items, m_sub, cand), iters=1)
+
+        def library():
+            # the two-call composite of the kernels phase, over blocks of
+            # rows (a [B, N] f32 score matrix at B=1024 is 40 GB)
+            blk = c["library_block"]
+            res = []
+            for i in range(0, b, blk):
+                sc = torch.matmul(u[i:i + blk], deq.T)
+                sc[:, n_items:] = float("-inf")
+                if mask is not None:
+                    sc.masked_fill_(mask[i:i + blk], float("-inf"))
+                res.append(torch.topk(sc.view(-1, nt, t), cand, dim=2))
+                del sc
+            return res
+
+        library_ms = cuda_ms(library, iters=1)
+        plan = kernels.shortlist_plan(b, nt, t, r, cand, masked)
+        bound, bound_by = shortlist_bound_ms(b, n_items, r, cand, nt,
+                                             masked, plan.tensor_cores)
+        row = {"B": b, "c": cand, "masked": masked, "ms": ms,
+               "device_ms": device_ms, "plain_ms": plain_ms,
+               "plain_rows": len(rows), "library_ms": library_ms,
+               "library": f"composite in blocks of {c['library_block']} "
+                          "rows, summed",
+               "bound_ms": bound, "bound_by": bound_by,
+               "max_abs_err": err, "held_rows": rows,
+               "plan": plan.as_dict()}
+        out.append(row)
+        log("kernels: shortlist chunk " + json.dumps(row))
+        del mask, m_sub
+        torch.cuda.empty_cache()
+    del tiles, scales, deq
+    torch.cuda.empty_cache()
+    kernels.reset_counts()
+    return out, max_err
+
+
+def bp_bench_result(device, c: dict):
+    """The reference bench's synthetic trained recommendation engine
+    (``_batchpredict_result``, bench.py:2106-2128) at shape ``c``: seeded
+    normal factors, zero-padded ids; the same in every process of a
+    fleet."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.engine import TrainResult
+    from predictionio_tpu_torch.core.params import EngineParams
+    from predictionio_tpu_torch.engines.recommendation import (
+        ALSAlgorithm, AlgorithmParams, RecommendationServing,
+    )
+    from predictionio_tpu_torch.models.als import ALSModel
+
+    rng = np.random.default_rng(c["seed"])
+    model = ALSModel.from_arrays(
+        np.asarray([f"u{i:06d}" for i in range(c["n_users"])], dtype=object),
+        np.asarray([f"i{i:06d}" for i in range(c["n_items"])], dtype=object),
+        rng.normal(size=(c["n_users"], c["rank"])).astype(np.float32),
+        rng.normal(size=(c["n_items"], c["rank"])).astype(np.float32),
+        device=device)
+    return TrainResult(models=[model],
+                       algorithms=[ALSAlgorithm(AlgorithmParams())],
+                       serving=RecommendationServing(),
+                       engine_params=EngineParams())
+
+
+def _bp_wait(paths, procs, what: str, timeout_s: float = 600):
+    deadline = time.monotonic() + timeout_s
+    while not all(os.path.exists(p) for p in paths):
+        for p in procs:
+            if p.poll() is not None and p.returncode != 0:
+                raise SmokeFailure(f"{what}: a shard exited "
+                                   f"{p.returncode}: {p.stderr.read()[-2000:]}")
+        check(time.monotonic() < deadline, f"{what}: timed out")
+        time.sleep(0.005)
+
+
+def bp_fleet_worker() -> int:
+    """One shard of leg 1's fleet (``python3 -c "import chip_smoke;
+    chip_smoke.bp_fleet_worker()"`` with ``PIO_PROCESS_ID`` /
+    ``PIO_NUM_PROCESSES`` and ``CHIP_SMOKE_BP_{INPUT,OUTPUT,WARM}``, the
+    parent's shape and device in ``CHIP_SMOKE_BP_{SHAPE,DEVICE}``): it
+    builds the model and warms up, says it is ready, then scores one
+    round each time the parent says go (the rendezvous keeps process
+    start-up out of the timed window, as the reference bench does)."""
+    sys.path.insert(0, str(ROOT))
+    from predictionio_tpu_torch.workflow.batch_predict import (
+        run_batch_predict,
+    )
+
+    c = json.loads(os.environ["CHIP_SMOKE_BP_SHAPE"])
+    result = bp_bench_result(os.environ["CHIP_SMOKE_BP_DEVICE"], c)
+    out = os.environ["CHIP_SMOKE_BP_OUTPUT"]
+    rank = os.environ["PIO_PROCESS_ID"]
+    warm_out = f"{out}.warm-{rank}"
+    run_batch_predict(None, None, os.environ["CHIP_SMOKE_BP_WARM"],
+                      warm_out, chunk_size=c["chunk"], loaded=(result, None),
+                      worker=(0, 1))
+    os.unlink(warm_out)
+    pathlib.Path(f"{out}.ready-{rank}").write_text("ready")
+    for k in range(c["reps"]):
+        deadline = time.monotonic() + 600
+        while not os.path.exists(f"{out}.go-{k}"):
+            if time.monotonic() > deadline:
+                return 3
+            time.sleep(0.002)
+        run_batch_predict(None, None, os.environ["CHIP_SMOKE_BP_INPUT"],
+                          f"{out}.{k}", chunk_size=c["chunk"],
+                          loaded=(result, None))
+        pathlib.Path(f"{out}.done-{k}-{rank}").write_text("done")
+    return 0
+
+
+def _bp_lines(path):
+    with open(path) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def same_predictions(got_path, want_path, what: str,
+                     rtol: float = BP_RTOL) -> dict:
+    """Two batch-predict outputs hold the same answers: byte-equal files,
+    or the same query echo, item ids and order with scores within
+    ``rtol``. Returns the line count, whether the files are byte-equal
+    and the largest relative score gap."""
+    import numpy as np
+
+    if pathlib.Path(got_path).read_bytes() == pathlib.Path(
+            want_path).read_bytes():
+        return {"lines": len(_bp_lines(want_path)), "byte_equal": True,
+                "max_rel_gap": 0.0}
+    got, want = _bp_lines(got_path), _bp_lines(want_path)
+    check(len(got) == len(want), f"{what}: {len(got)} lines, expected "
+          f"{len(want)}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g["query"] == w["query"], f"{what}: line {i}'s query differs")
+        gs, ws = g["prediction"]["itemScores"], w["prediction"]["itemScores"]
+        check([x["item"] for x in gs] == [x["item"] for x in ws],
+              f"{what}: line {i}'s items differ")
+        a = np.array([x["score"] for x in gs], np.float64)
+        b = np.array([x["score"] for x in ws], np.float64)
+        if len(a):
+            gap = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+            worst = max(worst, gap)
+            check(bool(np.allclose(a, b, rtol=rtol, atol=0.0)),
+                  f"{what}: line {i}'s scores differ by {gap} relative")
+    return {"lines": len(got), "byte_equal": False, "max_rel_gap": worst}
+
+
+def bp_bench_leg():
+    """Leg 1: the reference bench's shape through ``run_batch_predict
+    (loaded=...)`` on the card, exact scorer: inline, pipelined and a
+    2-process fleet on the one card (manifest merge), best of 2 each;
+    the three outputs hold the same answers. No Pallas kernel runs
+    here: it measures the workflow's host side."""
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.ops import kernels, scoring
+    from predictionio_tpu_torch.utils.server_config import ScorerConfig
+    from predictionio_tpu_torch.workflow.batch_predict import (
+        run_batch_predict,
+    )
+
+    c = BP_BENCH
+    work = WORK / "batchpredict_bench"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    scoring.set_process_scorer_config(ScorerConfig(mode="exact"))
+    procs = []
+    try:
+        inp, warm = work / "queries.jsonl", work / "warm.jsonl"
+        lines = [json.dumps({"user": f"u{i % c['n_users']:06d}",
+                             "num": c["num"]}) + "\n"
+                 for i in range(c["queries"])]
+        inp.write_text("".join(lines))
+        warm.write_text("".join(lines[:c["chunk"] + 1]))
+        # the fleet starts first: its processes build and warm up while
+        # this one runs its own sides
+        env = dict(os.environ, PIO_NUM_PROCESSES=str(c["shards"]),
+                   CHIP_SMOKE_BP_INPUT=str(inp), CHIP_SMOKE_BP_WARM=str(warm),
+                   CHIP_SMOKE_BP_OUTPUT=str(work / "fleet.jsonl"),
+                   CHIP_SMOKE_BP_SHAPE=json.dumps(c),
+                   CHIP_SMOKE_BP_DEVICE=DEV)
+        env.pop("PIO_TRACE_CONTEXT", None)
+        t_spawn = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; sys.exit(chip_smoke.bp_fleet_worker())"],
+            cwd=str(ROOT), env=dict(env, PIO_PROCESS_ID=str(p)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            for p in range(c["shards"])]
+        result = bp_bench_result(DEV, c)
+        model = result.models[0]
+        paths = {"host": 0, "device": 0}
+        use_host = ALSModel._use_host
+
+        def counted(self, n_rows, any_mask):
+            host = use_host(self, n_rows, any_mask)
+            paths["host" if host else "device"] += 1
+            return host
+
+        ALSModel._use_host = counted
+        try:
+            run_batch_predict(None, None, str(warm), str(work / "w.jsonl"),
+                              chunk_size=c["chunk"], loaded=(result, None))
+            paths.update(host=0, device=0)
+            sides = {}
+            kernels.reset_counts()
+            for name, pipelined in (("inline", False), ("pipelined", True)):
+                best = None
+                for k in range(c["reps"]):
+                    out = work / f"{name}-{k}.jsonl"
+                    t0 = time.perf_counter()
+                    rep = run_batch_predict(
+                        None, None, str(inp), str(out),
+                        chunk_size=c["chunk"], loaded=(result, None),
+                        pipelined=pipelined)
+                    wall = time.perf_counter() - t0
+                    check(rep.written == c["queries"] and rep.invalid == 0
+                          and rep.lane_fallbacks == 0,
+                          f"batchpredict leg 1 {name}: {rep}")
+                    if best is None or wall < best["seconds"]:
+                        best = {"seconds": wall, "out": str(out),
+                                "chunks": rep.chunks, "lane": rep.lane}
+                best["queries_per_s"] = c["queries"] / best["seconds"]
+                sides[name] = best
+            check(kernels.counts() == {"shortlist": 0, "spd_solve": 0},
+                  f"batchpredict leg 1 launched {kernels.counts()}")
+        finally:
+            ALSModel._use_host = use_host
+        # the fleet: both shards ready, then each round timed from the go
+        # signal to the last shard's done marker (the merge included)
+        fleet = work / "fleet.jsonl"
+        _bp_wait([f"{fleet}.ready-{p}" for p in range(c["shards"])], procs,
+                 "batchpredict leg 1 fleet set-up")
+        spawn_s = time.perf_counter() - t_spawn
+        rounds = []
+        for k in range(c["reps"]):
+            t0 = time.perf_counter()
+            pathlib.Path(f"{fleet}.go-{k}").write_text("go")
+            _bp_wait([f"{fleet}.done-{k}-{p}" for p in range(c["shards"])],
+                     procs, f"batchpredict leg 1 fleet round {k}")
+            rounds.append(time.perf_counter() - t0)
+        for p in procs:
+            check(p.wait(timeout=120) == 0,
+                  f"batchpredict leg 1: a shard exited {p.returncode}")
+        k = min(range(len(rounds)), key=rounds.__getitem__)
+        sides["fleet"] = {"seconds": rounds[k], "out": f"{fleet}.{k}",
+                          "rounds_s": rounds, "spawn_s": spawn_s,
+                          "queries_per_s": c["queries"] / rounds[k],
+                          "shards": c["shards"]}
+        held = {name: same_predictions(sides[name]["out"],
+                                       sides["inline"]["out"],
+                                       f"batchpredict leg 1 {name}")
+                for name in ("pipelined", "fleet")}
+        report = {"shape": {k2: c[k2] for k2 in ("n_users", "n_items",
+                                                 "rank", "num", "queries",
+                                                 "chunk")},
+                  "scorer": "exact", "scorer_paths": paths,
+                  "sides": {n: {k2: v for k2, v in s.items() if k2 != "out"}
+                            for n, s in sides.items()},
+                  "held_to_inline": held,
+                  "model_device": str(model.device)}
+        log("batchpredict: leg 1 " + json.dumps(report))
+        return report
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        scoring.set_process_scorer_config(None)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+class _StageClock:
+    """Leg 2's split of the scorer stage, by wrapping the scorer's own
+    steps for the run: the shortlist kernel's device time (CUDA events
+    around each call), the exact rescore, the uploads and the whole
+    two-stage top-k (host clocks), the file writes."""
+
+    def __init__(self):
+        self.events, self.host = [], {}
+
+    def add(self, name, dt):
+        self.host[name] = self.host.get(name, 0.0) + dt
+
+    def __enter__(self):
+        import torch
+
+        from predictionio_tpu_torch.ops import scoring
+        from predictionio_tpu_torch.workflow import batch_predict
+
+        self._saved = [(scoring, "shortlist_topc", scoring.shortlist_topc),
+                       (scoring.ItemScorer, "topk", scoring.ItemScorer.topk),
+                       (scoring.ItemScorer, "_rescore_exact",
+                        scoring.ItemScorer._rescore_exact),
+                       (scoring.ItemScorer, "_to_device",
+                        scoring.ItemScorer._to_device),
+                       (batch_predict._JsonlSink, "write_chunk",
+                        batch_predict._JsonlSink.write_chunk)]
+        clock = self
+
+        def timed(name, fn):
+            def wrapper(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    clock.add(name, time.perf_counter() - t0)
+            return wrapper
+
+        kernel = scoring.shortlist_topc
+
+        def shortlist(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kernel(*a, **k)
+            end.record()
+            clock.events.append((start, end))
+            return out
+
+        scoring.shortlist_topc = shortlist
+        scoring.ItemScorer.topk = timed("topk_s", self._saved[1][2])
+        scoring.ItemScorer._rescore_exact = timed("rescore_s",
+                                                  self._saved[2][2])
+        scoring.ItemScorer._to_device = timed("upload_s", self._saved[3][2])
+        batch_predict._JsonlSink.write_chunk = timed("file_write_s",
+                                                     self._saved[4][2])
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+    def split(self, registry, seconds: float, rows: int) -> dict:
+        synchronize()
+        spans = registry.get("pio_span_duration_seconds")
+        span_s = {s: spans.sum_(span=f"batchpredict_{s}")
+                  for s in ("read", "score", "write")}
+        b2 = sum(s.elapsed_time(e) for s, e in self.events)
+        return {"wall_s": seconds, "rows_per_s": rows / seconds,
+                "read_decode_s": span_s["read"],
+                "score_s": span_s["score"],
+                "b2_device_ms": b2, "b2_calls": len(self.events),
+                "twostage_topk_s": self.host.get("topk_s", 0.0),
+                "upload_s": self.host.get("upload_s", 0.0),
+                "rescore_s": self.host.get("rescore_s", 0.0),
+                "model_rest_s": span_s["score"] - self.host.get("topk_s",
+                                                                0.0),
+                "serialize_s": span_s["write"] - self.host.get(
+                    "file_write_s", 0.0),
+                "file_write_s": self.host.get("file_write_s", 0.0)}
+
+
+def bp_width_leg(seed, users, items, U, V):
+    """Leg 2: the serve cell's 10M x 64 model through ``run_batch_predict``
+    at chunk 1,024 under the two-stage scorer (B2 once a chunk): 16 full
+    chunks of plain queries, then 2 chunks in which 1 query in 6 carries
+    a one-item blackList (a dense [chunk, 10M] mask a chunk). Each part:
+    B2 launches equal to its chunks, no lane fallback, a spread of 64
+    rows equal to an exact recompute on the card (ids up to ties, scores
+    within 1e-4) with recall@10 >= 0.99, the gate still on twostage;
+    rows/s and the stage split."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.core.engine import TrainResult
+    from predictionio_tpu_torch.core.params import EngineParams
+    from predictionio_tpu_torch.engines.recommendation import (
+        ALSAlgorithm, AlgorithmParams, RecommendationServing,
+    )
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.obs.registry import MetricsRegistry
+    from predictionio_tpu_torch.ops import kernels, scoring
+    from predictionio_tpu_torch.utils.server_config import ScorerConfig
+    from predictionio_tpu_torch.workflow.batch_predict import (
+        run_batch_predict,
+    )
+
+    c = BP_WIDTH
+    n_items, rank = V.shape
+    work = WORK / "batchpredict_width"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    scoring.set_process_scorer_config(ScorerConfig(
+        mode="twostage", tile_items=TILE, shortlist=SHORTLIST))
+    try:
+        model = ALSModel.from_arrays(users, items, U, V, device=DEV)
+        t0 = time.perf_counter()
+        scorer = scoring.scorer_for(model, model.V)
+        build_s = time.perf_counter() - t0
+        check(scorer is not None and scorer.active_mode == "twostage"
+              and scorer.scan_rank == SCAN_RANK,
+              f"batchpredict leg 2: scorer {scorer and scorer.status()}")
+        result = TrainResult(models=[model],
+                             algorithms=[ALSAlgorithm(AlgorithmParams())],
+                             serving=RecommendationServing(),
+                             engine_params=EngineParams())
+        rng = np.random.default_rng(seed + 10)
+        U_dev = torch.from_numpy(U).to(DEV)
+        V_dev = model.V_device
+        parts = {}
+        for part, n_q, masked in (
+                ("unmasked", c["queries"], False),
+                ("masked", c["masked_chunks"] * c["chunk"], True)):
+            picks = rng.integers(0, len(users), n_q)
+            black = rng.integers(0, n_items, n_q)
+            queries = []
+            for j in range(n_q):
+                q = {"user": str(users[picks[j]]), "num": c["num"]}
+                if masked and j % c["mask_every"] == 0:
+                    q["blackList"] = [str(items[black[j]])]
+                queries.append(q)
+            inp, out = work / f"{part}.jsonl", work / f"{part}-out.jsonl"
+            inp.write_text("".join(json.dumps(q) + "\n" for q in queries))
+            registry = MetricsRegistry()
+            gc.collect()
+            kernels.reset_counts()
+            with _StageClock() as clock:
+                t0 = time.perf_counter()
+                rep = run_batch_predict(None, None, str(inp), str(out),
+                                        chunk_size=c["chunk"],
+                                        loaded=(result, None),
+                                        registry=registry)
+                wall = time.perf_counter() - t0
+            launches = kernels.counts()["shortlist"]
+            split = clock.split(registry, wall, rep.written)
+            check(rep.written == n_q and rep.invalid == 0,
+                  f"batchpredict leg 2 {part}: {rep}")
+            check(rep.chunks == n_q // c["chunk"] and launches == rep.chunks,
+                  f"batchpredict leg 2 {part}: {launches} B2 launches for "
+                  f"{rep.chunks} chunks")
+            check(rep.lane == "columnar" and rep.lane_fallbacks == 0,
+                  f"batchpredict leg 2 {part}: lane {rep.lane}, "
+                  f"{rep.lane_fallbacks} fallbacks")
+            check(model._scorer_cache[2] is scorer and scorer.active_mode
+                  == "twostage", "batchpredict leg 2: the scorer was "
+                  "rebuilt or demoted")
+            # a spread of rows against an exact recompute on the card
+            lines = _bp_lines(out)
+            sample = _bp_rows(n_q, c["sample"])
+            if masked:      # and every masked row among the first chunk's
+                sample = sorted(set(sample) | {
+                    j for j in range(0, c["chunk"], c["mask_every"])})
+            hits, max_err = 0, 0.0
+            for j in sample:
+                q, line = queries[j], lines[j]
+                check(line["query"] == q, f"leg 2: line {j} is not query {j}")
+                sc = V_dev @ U_dev[int(picks[j])]
+                if "blackList" in q:
+                    sc[int(black[j])] = float("-inf")
+                vals, idx = torch.topk(sc, c["num"])
+                vals = vals.cpu().numpy()
+                want = [str(items[i]) for i in idx.tolist()]
+                got = line["prediction"]["itemScores"]
+                check(len(got) == c["num"], f"leg 2: row {j} got {len(got)}")
+                got_ids = [x["item"] for x in got]
+                err = np.abs(np.array([x["score"] for x in got]) - vals)
+                max_err = max(max_err, float(err.max()))
+                check(bool((err <= 1e-4 * np.maximum(1.0, np.abs(vals)))
+                           .all()), f"leg 2 {part}: row {j}'s scores differ "
+                      f"from the exact top-10 by {float(err.max())}")
+                for a, b_, v in zip(got_ids, want, vals):
+                    tied = np.abs(vals - v) <= 1e-4 * max(1.0, abs(v))
+                    check(a == b_ or a in {want[t] for t in
+                                           np.flatnonzero(tied)},
+                          f"leg 2 {part}: row {j} {got_ids}, exact {want}")
+                check("blackList" not in q or q["blackList"][0]
+                      not in got_ids, f"leg 2: row {j} served an excluded "
+                      "item")
+                hits += len(set(got_ids) & set(want))
+            recall = hits / (c["num"] * len(sample))
+            check(recall >= 0.99, f"batchpredict leg 2 {part}: recall@10 "
+                  f"{recall} over {len(sample)} rows")
+            b_pad, n_pad = c["chunk"], scorer.n_tiles * scorer.tile
+            parts[part] = {
+                "queries": n_q, "chunks": rep.chunks, "b2_launches": launches,
+                "lane": rep.lane, "lane_fallbacks": rep.lane_fallbacks,
+                "held_rows": len(sample), "recall_at_10": recall,
+                "max_score_abs_err": max_err, **split,
+                "cand_per_tile": scoring.twostage_cand(
+                    scorer.cand_per_tile, scorer.n_tiles, scorer.tile,
+                    c["num"], masked),
+                "mask_bytes_per_chunk": ({
+                    "host_rows": c["chunk"] * n_items,
+                    "host_padded": b_pad * n_pad,
+                    "device": b_pad * n_pad} if masked else None),
+                "rescore_gather_bytes_per_chunk": c["chunk"] * scoring.
+                twostage_cand(scorer.cand_per_tile, scorer.n_tiles,
+                              scorer.tile, c["num"], masked)
+                * scorer.n_tiles * rank * 4}
+            log(f"batchpredict: leg 2 {part} " + json.dumps(parts[part]))
+            out.unlink()
+        report = {"scorer": scorer.status(), "scorer_build_s": build_s,
+                  "parts": parts,
+                  "launches": sum(p["b2_launches"] for p in parts.values())}
+        del model, result, U_dev
+        return report
+    finally:
+        scoring.set_process_scorer_config(None)
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        import torch
+
+        torch.cuda.empty_cache()
+
+
+def batchpredict_cli_leg(env, work, variant, key: str, port: int):
+    """Leg 3, inside the lifecycle on its store: ``batchpredict`` through
+    the CLI on the variant's latest instance, one query per user and 5
+    planted malformed lines; then a 2-shard CLI run (``PIO_PROCESS_ID`` /
+    ``PIO_NUM_PROCESSES``) into the same output name; then a query server
+    deployed from the same instance answers a sample of the users as
+    the batch run did."""
+    import numpy as np
+
+    c = BP_CLI
+    bp = work / "batchpredict"
+    bp.mkdir(parents=True, exist_ok=True)
+    users = [f"u{u}" for u in range(ML100K["n_users"] + 100)]
+    lines = [json.dumps({"user": u, "num": c["num"]}) for u in users]
+    planted = []
+    for j, at in enumerate(c["planted"]):
+        lines.insert(at, "{not json" if j % 2 == 0
+                     else json.dumps({"wrongField": j}))
+        planted.append(at)
+    inp, out = bp / "queries.jsonl", bp / "preds.jsonl"
+    inp.write_text("\n".join(lines) + "\n")
+    args = ["batchpredict", "--variant", str(variant), "--input", str(inp),
+            "--output", str(out), "--device", DEV]
+    t0 = time.perf_counter()
+    single = json.loads(_cli(args, env)[-1])
+    single["wall_s"] = time.perf_counter() - t0
+    log("lifecycle: batchpredict " + json.dumps(single))
+    check(single["written"] == len(users) and single["invalid"]
+          == len(planted) and single["lane_fallbacks"] == 0,
+          f"batchpredict CLI: {single}")
+    errors = _bp_lines(f"{out}.errors.jsonl")
+    check([e["row"] for e in errors] == planted,
+          f"batchpredict CLI: sidecar rows {[e['row'] for e in errors]}, "
+          f"planted {planted}")
+    first = bp / "single.jsonl"
+    os.replace(out, first)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", *args],
+        cwd=str(ROOT), env=dict(env, PIO_PROCESS_ID=str(r),
+                                PIO_NUM_PROCESSES="2"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    shards = []
+    for p in procs:
+        so, se = p.communicate(timeout=600)
+        check(p.returncode == 0, f"batchpredict CLI shard failed: {se[-2000:]}")
+        shards.append(json.loads(so.strip().splitlines()[-1]))
+    shard_s = time.perf_counter() - t0
+    check(sum(s["merged"] for s in shards) == 1
+          and sum(s["written"] for s in shards) == len(users),
+          f"batchpredict CLI shards: {shards}")
+    held = same_predictions(out, first, "batchpredict CLI 2-shard merge")
+    check(len(_bp_lines(f"{out}.errors.jsonl")) == len(planted),
+          "batchpredict CLI: the merged sidecar lost rows")
+    # the same queries to a query server deployed from the same instance
+    server = Server(["deploy", "--variant", str(variant), "--port",
+                     str(port), "--device", DEV, "--accesskey", key], env,
+                    tag="lifecycle")
+    try:
+        qc = Client(server.wait_ready(timeout_s=300))
+        _, root, _ = qc.call("GET", "/")
+        check(root["engineInstance"]["id"] == single["instance"],
+              f"deploy serves {root['engineInstance']['id']}, batchpredict "
+              f"scored {single['instance']}")
+        by_user = {ln["query"]["user"]: ln["prediction"]
+                   for ln in _bp_lines(first)}
+        picks = np.random.default_rng(7).choice(len(users), c["compare"],
+                                                replace=False)
+        worst = 0.0
+        for j in picks.tolist():
+            status, body, _ = qc.call("POST", "/queries.json",
+                                      {"user": users[j], "num": c["num"]})
+            check(status == 200, f"query for {users[j]} answered {status}")
+            want = by_user[users[j]]["itemScores"]
+            got = body["itemScores"]
+            check([x["item"] for x in got] == [x["item"] for x in want],
+                  f"batchpredict CLI: {users[j]} served {got}, batch {want}")
+            for a, b_ in zip(got, want):
+                worst = max(worst, abs(a["score"] - b_["score"]))
+                check(math.isclose(a["score"], b_["score"],
+                                   rel_tol=BP_ANSWER_RTOL,
+                                   abs_tol=BP_ANSWER_ATOL),
+                      f"batchpredict CLI: {users[j]} scores {got} vs {want}")
+        status, _, _ = qc.call("POST", f"/stop?accessKey={key}")
+        check(status == 200 and server.proc.wait(timeout=60) == 0,
+              "batchpredict CLI: the query server did not stop")
+    finally:
+        server.stop()
+    report = {"single": single, "shards": shards, "shard_wall_s": shard_s,
+              "merge_held": held, "planted": len(planted),
+              "compared_users": int(len(picks)),
+              "max_score_abs_gap_vs_server": worst,
+              "b2_launches": single["launches"]["shortlist"]
+              + sum(s["launches"]["shortlist"] for s in shards)}
+    log("lifecycle: batchpredict CLI " + json.dumps(report))
+    return report
+
+
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
              canary, engines, evals) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
@@ -4236,6 +4985,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.3f} s")
         # 3. kernels
         rows, max_err, shape = kernels_phase(args.seed, args.items)
+        chunk_rows, chunk_err = kernels_chunk_rows(args.seed, args.items)
         eng_rows, eng_err = kernels_engine_shapes(args.seed)
         tie_rows = kernels_tie_rows(args.seed)
         spd_rows, spd_err = spd_kernels_phase(args.seed)
@@ -4293,6 +5043,18 @@ def main() -> int:
         canary["feedback"] = lifecycle["feedback"]
         canary["phase_s"] = time.perf_counter() - t0
         log("canary: " + json.dumps(canary))
+        # 11. batchpredict, leg 2 on the serve cell's model (its last
+        #     user), then leg 1; leg 3 ran inside the lifecycle
+        t0 = time.perf_counter()
+        bp_width = bp_width_leg(args.seed, *served)
+        del served
+        gc.collect()
+        bp_bench = bp_bench_leg()
+        batchpredict = {"width": bp_width, "bench": bp_bench,
+                        "cli": lifecycle["batchpredict_cli"],
+                        "kernel_rows": chunk_rows,
+                        "legs_1_2_s": time.perf_counter() - t0}
+        log("batchpredict: " + json.dumps(batchpredict))
         # 9. engines, leg 1: the three engines through the CLI
         t0 = time.perf_counter()
         engines = engines_cli_legs(args.seed, args.port)
@@ -4313,7 +5075,7 @@ def main() -> int:
         "source": "predictionio_tpu_torch/csrc/shortlist.cu",
         "replaces": "predictionio_tpu/ops/scoring.py:885",
         "launches": serve["shortlist_launches"],
-        "max_abs_err": max(max_err, eng_err),
+        "max_abs_err": max(max_err, eng_err, chunk_err),
         "ms": main_row["ms"],
         "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4331,8 +5093,11 @@ def main() -> int:
             "engines_similarproduct_cli":
                 engines["similarproduct"]["b2_launches"],
             "engines_similar_width":
-                engines["similar_width"]["b2_launches"]},
+                engines["similar_width"]["b2_launches"],
+            "batchpredict": bp_width["launches"]
+            + lifecycle["batchpredict_cli"]["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
+        "chunk_rows": chunk_rows,
         "engine_shapes": eng_rows,
         "tie_rows": tie_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,

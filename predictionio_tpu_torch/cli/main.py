@@ -22,6 +22,10 @@ click), with the reference's commands, flags and exit codes:
         [--ip localhost] [--port 8000] [--accesskey K] [--device cpu]
         [--feedback --event-server-app APP] [--log-url URL]
         [--log-prefix P]
+    python -m predictionio_tpu_torch.cli.main batchpredict [-v engine.json]
+        --input Q.jsonl --output P.jsonl [--engine-instance-id ID |
+        --release SEL] [--chunk-size N] [--output-format jsonl]
+        [--input-format jsonl] [--device cpu]
     python -m predictionio_tpu_torch.cli.main undeploy [--ip localhost]
         [--port 8000] [--accesskey K]
     python -m predictionio_tpu_torch.cli.main releases [-v engine.json]
@@ -64,6 +68,19 @@ the serving path up, then serves. ``--feedback`` with
 that app (the answer carries its ``prId``); ``--log-url`` receives each
 failed query's error, prefixed by ``--log-prefix``. Models run on
 ``cuda`` unless ``--device cpu`` is given.
+
+``batchpredict`` scores a JSON-lines file of queries offline with the
+latest COMPLETED instance of the variant, or ``--engine-instance-id``, or
+``--release`` (``workflow.batch_predict.run_batch_predict``: pipelined,
+the engine.json ``batchpredict`` section and ``PIO_BATCHPREDICT_*`` as
+the reference reads them). It pins the engine.json ``scorer`` section
+first, as ``deploy`` does, so that batch runs and serving score alike.
+Run one process a shard with ``PIO_PROCESS_ID`` / ``PIO_NUM_PROCESSES``
+into one ``--output``: the last to finish merges the fragments. It
+prints the reference's lines, then one JSON line: written, invalid,
+chunks, pad waste, seconds, rows/s, lane, lane fallbacks, the kernel
+launch counts, the worker and whether this process merged. A fault of
+the card or of a kernel fails the command (non-zero exit).
 
 ``undeploy`` stops a running query server (``POST /stop``).
 
@@ -568,6 +585,102 @@ def deploy(args) -> int:
     return 0
 
 
+def batchpredict(args) -> int:
+    """Offline batch scoring (Console.scala:331, BatchPredict.scala:71)."""
+    from predictionio_tpu_torch.deploy.releases import resolve_release
+    from predictionio_tpu_torch.deploy.warm import DeployError
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.ops.scoring import set_process_scorer_config
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.utils.server_config import (
+        batchpredict_config, scorer_config,
+    )
+    from predictionio_tpu_torch.workflow.batch_predict import (
+        check_formats, run_batch_predict,
+    )
+
+    # the device first: without a card (and without --device cpu) this
+    # raises before anything is read or written
+    device = resolve_device(args.device)
+    engine, variant, engine_id, variant_id = _load_variant(args.variant)
+    variant_conf = variant.get("batchpredict")
+    try:
+        check_formats(args.input_path, args.output_path, args.input_format,
+                      args.output_format, batchpredict_config(variant_conf))
+    except ValueError as e:
+        _fail(f"{e}. Aborting.")
+    # offline scoring honors the same scorer-mode chain as serving, so
+    # batch runs and the query server score alike
+    scfg = scorer_config(variant.get("scorer"))
+    set_process_scorer_config(scfg)
+    if scfg.mode != "exact":
+        print(f"[INFO] Scoring kernel {scfg.mode} (tile "
+              f"{scfg.tile_items} items)", flush=True)
+    instances = Storage.get_meta_data_engine_instances()
+    if args.release:
+        release = resolve_release(Storage.get_meta_data_releases(),
+                                  engine_id, "1", variant_id, args.release)
+        if release is None:
+            _fail(f"Release {args.release} not found (see `releases`). "
+                  "Aborting.")
+        instance = instances.get(release.instance_id)
+        if instance is not None and instance.status == "COMPLETED":
+            print(f"[INFO] Scoring with release v{release.version} "
+                  f"(instance {release.instance_id})", flush=True)
+    elif args.engine_instance_id:
+        instance = instances.get(args.engine_instance_id)
+    else:
+        instance = instances.get_latest_completed(engine_id, "1",
+                                                  variant_id)
+    if instance is None or instance.status != "COMPLETED":
+        _fail("No COMPLETED engine instance found. Aborting.")
+    kernels.reset_counts()
+    try:
+        report = run_batch_predict(
+            engine, instance, args.input_path, args.output_path,
+            chunk_size=args.chunk_size, output_format=args.output_format,
+            input_format=args.input_format, variant_conf=variant_conf,
+            device=device)
+    except DeployError as e:
+        _fail(f"{e}. Aborting.")
+    if report.merged:
+        print(f"[INFO] Wrote {report.total_written} predictions to "
+              f"{report.output_path}")
+        if report.fleet:
+            totals = report.fleet.get("counterTotals", {})
+            scored = totals.get("pio_batchpredict_queries_total")
+            print(f"[INFO] Fleet view ({len(report.fleet.get('processes', []))}"
+                  f" process(es)) -> {report.output_path}.fleet.json"
+                  + (f"; fleet queries scored {scored:g}"
+                     if scored is not None else ""))
+    else:
+        rank, size = report.worker
+        print(f"[INFO] Shard {rank}/{size} wrote {report.written} "
+              f"predictions to fragment {report.output_path} "
+              "(awaiting merge by the last shard)")
+    if report.invalid or (report.total_invalid or 0):
+        n_bad = report.total_invalid if report.merged else report.invalid
+        print(f"[WARN] Skipped {n_bad} invalid queries "
+              f"-> {report.errors_path}")
+    if report.trace_id:
+        print(f"[INFO] Trace id {report.trace_id} (in the .fleet.json of "
+              "a sharded run)")
+    print(json.dumps({
+        "written": report.written, "invalid": report.invalid,
+        "total_written": report.total_written,
+        "total_invalid": report.total_invalid,
+        "chunks": report.chunks, "pad_waste": report.pad_waste,
+        "seconds": report.seconds,
+        "rows_per_second": report.rows_per_second,
+        "lane": report.lane, "lane_fallbacks": report.lane_fallbacks,
+        "launches": kernels.counts(), "worker": list(report.worker),
+        "merged": report.merged, "output": report.output_path,
+        "errors": report.errors_path, "instance": instance.id,
+        "device": str(device)}), flush=True)
+    return 0
+
+
 def releases(args) -> int:
     from predictionio_tpu_torch.storage.registry import Storage
 
@@ -750,6 +863,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prefix prepended to remote log payloads")
     d.add_argument("--device", default=None, help="cuda (default) or cpu")
     d.set_defaults(func=deploy)
+
+    b = sub.add_parser("batchpredict", help="score a file of queries "
+                                             "offline")
+    b.add_argument("--variant", "-v", default="engine.json")
+    b.add_argument("--input", dest="input_path", required=True,
+                   help="queries: one JSON object per line")
+    b.add_argument("--output", dest="output_path", required=True,
+                   help="predictions: JSON-lines")
+    b.add_argument("--engine-instance-id", default=None)
+    b.add_argument("--release", default=None,
+                   help="score with this release (id, version or vN)")
+    b.add_argument("--chunk-size", type=int, default=None,
+                   help="maximal scoring bucket (default: the batchpredict "
+                        "section / PIO_BATCHPREDICT_CHUNK_SIZE; 1024)")
+    b.add_argument("--output-format", choices=["jsonl"], default=None)
+    b.add_argument("--input-format", choices=["jsonl"], default=None)
+    b.add_argument("--device", default=None, help="cuda (default) or cpu")
+    b.set_defaults(func=batchpredict)
 
     u = sub.add_parser("undeploy", help="stop a deployed query server")
     u.add_argument("--ip", default="localhost")

@@ -303,6 +303,16 @@ class ALSAlgorithm(Algorithm):
                 ItemScore(item=it, score=s) for it, s in r]))
             for (i, _), r in zip(queries, recs)]
 
+    def batch_predict_columnar(self, model: ALSModel, queries):
+        """The offline lane of ``workflow/batch_predict``: the scores of
+        :meth:`batch_predict`, returned as the JSON-ready wire dicts
+        directly, without an ``ItemScore`` a recommended item. Its
+        serialized output is byte-identical to ``batch_predict``'s."""
+        recs = model.recommend_batch([_request(q) for _, q in queries])
+        return [
+            (i, {"itemScores": [{"item": it, "score": s} for it, s in r]})
+            for (i, _), r in zip(queries, recs)]
+
     def warmup_query(self, model: ALSModel) -> Optional[Query]:
         """Deploy warm-up probe: any known user drives the bucketed
         scorer family."""

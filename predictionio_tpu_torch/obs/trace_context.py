@@ -1,0 +1,337 @@
+"""Cross-process trace propagation + the in-memory flight recorder (a
+copy of the reference's ``obs/trace_context.py``).
+
+* :class:`TraceContext` — a compact ``trace_id:span_id`` pair carried on
+  every internal hop: spawned shard processes inherit it via the
+  ``PIO_TRACE_CONTEXT`` env var (see :func:`child_env`), thread hops
+  carry it via ``tracing.capture_context()`` + ``tracing.carried()``.
+  The wire form is the reference's, so a context either package writes
+  is read by the other.
+
+* :class:`FlightRecorder` — a bounded in-memory ring of recently
+  completed traces plus a second ring of lifecycle events. Shard
+  processes export their records in their obs snapshot (``obs/fleet``)
+  so the merger's recorder shows one trace id spanning the parent and
+  every shard.
+
+Dependency-free: nothing here imports torch or a server.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Dict, List, Optional
+
+#: env var a parent run sets for spawned shard processes
+TRACE_ENV = "PIO_TRACE_CONTEXT"
+#: HTTP header carrying the encoded context between servers
+TRACE_HEADER = "X-Pio-Trace"
+
+#: ring capacities — bounded by construction, a recorder can never grow
+#: /debug/traces.json without limit
+DEFAULT_TRACE_CAPACITY = 256
+DEFAULT_EVENT_CAPACITY = 256
+
+#: ring-size knobs, env > server.json "trace" section > default (the
+#: global recorder is built at import, before any config object exists,
+#: so these resolve here rather than through ServerConfig)
+TRACE_CAPACITY_ENV = "PIO_TRACE_CAPACITY"
+TRACE_EVENT_CAPACITY_ENV = "PIO_TRACE_EVENT_CAPACITY"
+
+#: pinned traces (SLO-breach exemplar evidence) kept beyond the ring —
+#: bounded: at most this many trace ids, each capped at _PIN_SPAN_CAP
+DEFAULT_PIN_CAPACITY = 64
+_PIN_SPAN_CAP = 64
+
+
+def _configured_capacity(env_name: str, file_key: str,
+                         default: int) -> int:
+    """Ring capacity from env, else server.json {"trace": {file_key}},
+    else the default; malformed or non-positive values fall back (a bad
+    knob must never keep the recorder from constructing)."""
+    raw = os.environ.get(env_name)
+    if raw is None:
+        try:
+            from predictionio_tpu_torch.utils.server_config import \
+                read_server_json
+
+            raw = (read_server_json().get("trace") or {}).get(file_key)
+        except Exception:
+            raw = None
+    try:
+        value = int(raw) if raw is not None else default
+    except (TypeError, ValueError):
+        return default
+    return value if value > 0 else default
+
+
+def new_trace_id() -> str:
+    return uuid.uuid4().hex
+
+
+def new_span_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceContext:
+    """The wire form of "where in which trace am I": a trace id plus the
+    span id of the hop that carried it (the receiver's parent span)."""
+
+    trace_id: str
+    span_id: str
+
+    def encode(self) -> str:
+        return f"{self.trace_id}:{self.span_id}"
+
+    @classmethod
+    def decode(cls, raw: Optional[str]) -> Optional["TraceContext"]:
+        """Parse an encoded context; malformed input returns None (a bad
+        header or env var must never fail a request or a job)."""
+        if not raw:
+            return None
+        parts = raw.strip().split(":")
+        if len(parts) != 2 or not parts[0] or not parts[1]:
+            return None
+        if not all(c.isalnum() or c in "-_" for c in parts[0] + parts[1]):
+            return None
+        return cls(parts[0][:64], parts[1][:64])
+
+    def child(self) -> "TraceContext":
+        """A fresh span under the same trace (what a hop hands onward)."""
+        return TraceContext(self.trace_id, new_span_id())
+
+    @classmethod
+    def root(cls) -> "TraceContext":
+        return cls(new_trace_id(), new_span_id())
+
+
+def from_env(environ=None) -> Optional[TraceContext]:
+    """The context a parent process handed this one, if any."""
+    return TraceContext.decode((environ or os.environ).get(TRACE_ENV))
+
+
+def child_env(ctx: Optional[TraceContext], base: Optional[dict] = None
+              ) -> dict:
+    """A copy of ``base`` (default: os.environ) with ``PIO_TRACE_CONTEXT``
+    set to a child span of ``ctx`` — the env a parent run gives a spawned
+    shard process so one trace id spans the whole fleet."""
+    env = dict(base if base is not None else os.environ)
+    if ctx is not None:
+        env[TRACE_ENV] = ctx.child().encode()
+    return env
+
+
+class FlightRecorder:
+    """Bounded ring buffers of recent traces + lifecycle events.
+
+    Thread-safe; records are plain dicts (JSON-ready). Traces land here
+    when a job or hop completes (``tracing.carried``, ``tracing.adopt``);
+    lifecycle events are recorded at their decision points, each stamped
+    with the trace id active at the time so the two rings
+    cross-reference."""
+
+    def __init__(self, capacity: Optional[int] = None,
+                 event_capacity: Optional[int] = None):
+        if capacity is None:
+            capacity = _configured_capacity(
+                TRACE_CAPACITY_ENV, "traceCapacity",
+                DEFAULT_TRACE_CAPACITY)
+        if event_capacity is None:
+            event_capacity = _configured_capacity(
+                TRACE_EVENT_CAPACITY_ENV, "eventCapacity",
+                DEFAULT_EVENT_CAPACITY)
+        self._lock = threading.Lock()
+        self._traces: "deque[dict]" = deque(maxlen=max(1, capacity))
+        self._events: "deque[dict]" = deque(maxlen=max(1, event_capacity))
+        #: records EVER appended (rings drop, these only grow) — the
+        #: telemetry loop's incremental-persistence cursors ride them
+        self._trace_count = 0
+        self._event_count = 0
+        #: trace_id -> records kept beyond ring eviction (insertion
+        #: order doubles as FIFO eviction order past DEFAULT_PIN_CAPACITY)
+        self._pinned: Dict[str, List[dict]] = {}
+        self._pin_capacity = DEFAULT_PIN_CAPACITY
+
+    # -- traces --------------------------------------------------------------
+    def record_trace(self, record: dict) -> None:
+        with self._lock:
+            self._traces.append(record)
+            self._trace_count += 1
+            pinned = self._pinned.get(record.get("traceId"))
+            if pinned is not None and len(pinned) < _PIN_SPAN_CAP:
+                pinned.append(record)
+
+    def record_span(self, *, trace_id: str, span_id: str,
+                    parent_span_id: Optional[str], name: str,
+                    duration_s: float, spans: Optional[Dict] = None,
+                    status: str = "ok", process: Optional[str] = None,
+                    attrs: Optional[dict] = None) -> dict:
+        record = {
+            "traceId": trace_id,
+            "spanId": span_id,
+            "parentSpanId": parent_span_id,
+            "name": name,
+            "ts": time.time(),
+            "durationSec": round(duration_s, 6),
+            "spans": {k: round(v, 6) for k, v in (spans or {}).items()},
+            "status": status,
+            "process": process if process is not None else _process_label(),
+        }
+        if attrs:
+            record["attrs"] = attrs
+        self.record_trace(record)
+        return record
+
+    # -- lifecycle events ----------------------------------------------------
+    def record_event(self, kind: str, detail: Optional[dict] = None,
+                     trace_id: Optional[str] = None) -> dict:
+        """One lifecycle event (deploy, swap, fold-in apply, canary
+        verdict, SLO breach, ...), stamped with the active trace id when
+        none is given."""
+        if trace_id is None:
+            # late import: tracing imports this module, not vice versa
+            from predictionio_tpu_torch.obs import tracing
+
+            trace = tracing.current_trace()
+            trace_id = trace.trace_id if trace is not None else None
+        # reserved fields win over detail keys (a detail carrying "kind"
+        # must not relabel the event)
+        record = {**(detail or {}), "kind": kind, "ts": time.time(),
+                  "traceId": trace_id, "process": _process_label()}
+        with self._lock:
+            self._events.append(record)
+            self._event_count += 1
+        return record
+
+    # -- pinning (exemplar evidence outlives the ring) -----------------------
+    def pin(self, trace_id: Optional[str]) -> None:
+        """Keep `trace_id`'s records past ring eviction: existing ring
+        matches are copied aside and future spans of the trace are
+        retained too. Bounded: FIFO-evicts the oldest pinned trace past
+        the pin capacity, each trace capped at a fixed span count. The
+        SLO engine pins its breach exemplars so the p99 culprit is still
+        resolvable by `pio traces --trace-id` long after the burst that
+        buried it."""
+        if not trace_id:
+            return
+        with self._lock:
+            if trace_id not in self._pinned:
+                while len(self._pinned) >= self._pin_capacity:
+                    self._pinned.pop(next(iter(self._pinned)))
+                self._pinned[trace_id] = [
+                    t for t in self._traces
+                    if t.get("traceId") == trace_id][:_PIN_SPAN_CAP]
+
+    def pinned_ids(self) -> List[str]:
+        with self._lock:
+            return list(self._pinned)
+
+    # -- readout -------------------------------------------------------------
+    def traces(self, trace_id: Optional[str] = None,
+               limit: Optional[int] = None,
+               since_ts: Optional[float] = None) -> List[dict]:
+        with self._lock:
+            out = list(self._traces)
+            if trace_id is not None:
+                seen = {id(t) for t in out}
+                for t in self._pinned.get(trace_id, ()):
+                    if id(t) not in seen:
+                        out.append(t)
+                out.sort(key=lambda t: t.get("ts", 0))
+        if trace_id is not None:
+            out = [t for t in out if t.get("traceId") == trace_id]
+        if since_ts is not None:
+            out = [t for t in out if t.get("ts", 0) >= since_ts]
+        if limit is not None:
+            out = out[-limit:]
+        return out
+
+    def events(self, limit: Optional[int] = None,
+               since_ts: Optional[float] = None) -> List[dict]:
+        with self._lock:
+            out = list(self._events)
+        if since_ts is not None:
+            out = [e for e in out if e.get("ts", 0) >= since_ts]
+        if limit is not None:
+            out = out[-limit:]
+        return out
+
+    def tail(self, trace_cursor: int, event_cursor: int
+             ) -> "tuple[List[dict], List[dict], int, int]":
+        """Records appended since the given cursors (the running
+        append counts a previous :meth:`tail` returned) — the telemetry
+        loop's incremental persistence read. Records that already fell
+        off a ring before the read are gone (the ring IS the bound);
+        returns (new_traces, new_events, trace_cursor', event_cursor')."""
+        with self._lock:
+            t_total, e_total = self._trace_count, self._event_count
+            new_t = (list(self._traces)[-min(t_total - trace_cursor,
+                                             len(self._traces)):]
+                     if t_total > trace_cursor else [])
+            new_e = (list(self._events)[-min(e_total - event_cursor,
+                                             len(self._events)):]
+                     if e_total > event_cursor else [])
+        return new_t, new_e, t_total, e_total
+
+    def import_records(self, traces: List[dict], events: List[dict],
+                       process: Optional[str] = None) -> None:
+        """Merge another process's exported rings (fleet aggregation:
+        shard obs snapshots land in the merger's recorder so one trace
+        id spans parent + shards)."""
+        with self._lock:
+            for t in traces or ():
+                entry = dict(t)
+                if process is not None:
+                    entry.setdefault("process", process)
+                self._traces.append(entry)
+                self._trace_count += 1
+            for e in events or ():
+                entry = dict(e)
+                if process is not None:
+                    entry.setdefault("process", process)
+                self._events.append(entry)
+                self._event_count += 1
+
+    def to_json(self, trace_id: Optional[str] = None,
+                limit: Optional[int] = None,
+                since_ts: Optional[float] = None) -> dict:
+        return {"traces": self.traces(trace_id, limit, since_ts),
+                "events": self.events(limit, since_ts),
+                "pinned": self.pinned_ids()}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._traces.clear()
+            self._events.clear()
+            self._pinned.clear()
+
+
+def _process_label() -> str:
+    """This process's identity in fleet views: the PIO_* shard contract
+    when present, else the bare pid."""
+    if "PIO_NUM_PROCESSES" in os.environ:
+        rank = os.environ.get("PIO_PROCESS_ID", "0")
+        size = os.environ.get("PIO_NUM_PROCESSES")
+        return f"{rank}/{size}"
+    return str(os.getpid())
+
+
+_recorder = FlightRecorder()
+
+
+def recorder() -> FlightRecorder:
+    """The process-global flight recorder (servers expose it at
+    /debug/traces.json; workflows and lifecycle paths record into it)."""
+    return _recorder
+
+
+def record_event(kind: str, detail: Optional[dict] = None,
+                 trace_id: Optional[str] = None) -> dict:
+    """Convenience: record a lifecycle event on the global recorder."""
+    return _recorder.record_event(kind, detail, trace_id)

@@ -86,6 +86,11 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built or launched, or refused
+    the plan it was given."""
+
+
 def reset_counts() -> None:
     """Zero every launch count."""
     global SHORTLIST_LAUNCHES, SPD_SOLVE_LAUNCHES
@@ -105,7 +110,7 @@ def counts() -> Dict[str, int]:
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise KernelError("nvcc not found: the CUDA kernels cannot be built")
     return found
 
 
@@ -119,7 +124,7 @@ def build_all() -> Dict[str, str]:
     """Compile every ``csrc/*.cu`` whose library is missing, one ``nvcc``
     per source, all started together. Returns ``{name: nvcc output}``
     for the sources built now (ptxas register/shared-memory report
-    included). Raises ``RuntimeError`` if any build fails."""
+    included). Raises ``KernelError`` if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending = []
     for src in sorted(CSRC.glob("*.cu")):
@@ -140,7 +145,7 @@ def build_all() -> Dict[str, str]:
             continue
         os.replace(tmp, out)      # atomic: a reader never sees half a file
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelError("nvcc failed for " + "\n".join(failed))
     return logs
 
 
@@ -183,7 +188,38 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.pio_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+        raise KernelError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+#: words of torch's messages for a fault of the card or its libraries
+_DEVICE_WORDS = ("CUDA", "cuBLAS", "CUBLAS", "cuDNN", "CUDNN", "NCCL")
+
+
+def is_device_error(exc: Optional[BaseException]) -> bool:
+    """True when ``exc``, or an exception it was raised from or during,
+    is a fault of the card or of a kernel wrapper: a ``KernelError``,
+    anything raised inside this module (a wrapper refusing its inputs),
+    torch's out-of-memory and accelerator errors, or a ``RuntimeError``
+    naming CUDA or one of its libraries. Callers that isolate one
+    query's faults (``workflow/batch_predict``) let these propagate."""
+    accel = getattr(torch, "AcceleratorError", None)
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if isinstance(exc, (KernelError, torch.cuda.OutOfMemoryError)):
+            return True
+        if accel is not None and isinstance(exc, accel):
+            return True
+        if isinstance(exc, RuntimeError) and any(
+                w in str(exc) for w in _DEVICE_WORDS):
+            return True
+        tb = exc.__traceback__
+        while tb is not None:
+            if tb.tb_frame.f_code.co_filename == __file__:
+                return True
+            tb = tb.tb_next
+        exc = exc.__cause__ or exc.__context__
+    return False
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -444,7 +480,7 @@ def _shortlist_launch(plan: ShortlistPlan, u: torch.Tensor,
             int(plan.sort_smem), int(plan.tensor_cores), plan.smem_bytes,
             stream)
     if err == _CUDA_ERROR_INVALID_VALUE:
-        raise RuntimeError(
+        raise KernelError(
             f"shortlist kernel refused plan {plan} for B={b} nt={nt} T={t} "
             f"R={r} c={cand} (a plan it does not take, or shared memory "
             f"laid out otherwise than the host's formula)")

@@ -1,13 +1,15 @@
-"""Scorer, ingest, training-solver, fold-in and deploy knobs: the
-``scorer``, ``ingest``, ``train``, ``foldin`` and ``deploy`` sections of
-the reference's ``utils/server_config.py`` (``ScorerConfig``,
-``scorer_config``, ``IngestConfig``, ``TrainConfig``,
+"""Scorer, ingest, training-solver, fold-in, deploy and batch-predict
+knobs: the ``scorer``, ``ingest``, ``train``, ``foldin``, ``deploy`` and
+``batchpredict`` sections of the reference's ``utils/server_config.py``
+(``ScorerConfig``, ``scorer_config``, ``IngestConfig``, ``TrainConfig``,
 ``als_solver_config``, ``FoldinConfig``, ``foldin_config``,
-``DeployConfig``, ``deploy_config``), with their precedence unchanged —
-server.json section < engine.json (the top-level ``scorer`` and
-``foldin`` sections, the algorithm's ``solver`` params) <
+``DeployConfig``, ``deploy_config``, ``BatchPredictConfig``,
+``batchpredict_config``), with their precedence unchanged —
+server.json section < engine.json (the top-level ``scorer``, ``foldin``
+and ``batchpredict`` sections, the algorithm's ``solver`` params) <
 ``PIO_SCORER_*`` / ``PIO_INGEST_*`` / ``PIO_ALS_*`` / ``PIO_FOLDIN*`` /
-``PIO_DEPLOY_*`` / ``PIO_CANARY_*`` environment.
+``PIO_DEPLOY_*`` / ``PIO_CANARY_*`` / ``PIO_BATCHPREDICT_*``
+environment.
 
 The server.json path is resolved as the reference resolves it:
 ``PIO_SERVER_CONF``, else ``$PIO_CONF_DIR/server.json``, else
@@ -467,3 +469,100 @@ def als_solver_config(algo_solver=None,
     if env_cfg.als_block_size is not None:
         block = env_cfg.als_block_size
     return mode, block
+
+
+@dataclasses.dataclass
+class BatchPredictConfig:
+    """Offline batch-scoring tuning (the ``PIO_BATCHPREDICT_*`` knobs;
+    server.json ``batchpredict`` section, camelCase keys).
+
+    ``chunk_size`` is the maximal scoring bucket: chunks pad up the
+    power-of-two ladder to it (ops/bucketing), so a run scores at most
+    ``bucket_count(chunk_size)`` batch shapes, as serving does.
+    ``queue_chunks`` bounds both pipeline queues (reader→
+    scorer and scorer→writer), capping host memory at roughly
+    ``2 * queue_chunks * chunk_size`` buffered rows. ``pipelined=False``
+    runs the same stages inline on one thread (the measurement baseline;
+    also the safest setting when debugging an engine's batch_predict).
+    ``output_format`` names the format for output paths without a
+    recognized extension; an explicit ``--output-format`` flag and a
+    recognized extension (``.parquet``/``.pq`` → columnar, ``.jsonl``/
+    ``.json``/``.ndjson`` → JSON-lines) both outrank it, so a host-wide
+    default can never mislabel an extensioned file. The knob takes the
+    reference's values; ``workflow/batch_predict`` refuses ``parquet``
+    (not ported yet).
+    """
+
+    chunk_size: int = 1024
+    queue_chunks: int = 4
+    pipelined: bool = True
+    output_format: Optional[str] = None   # None | "jsonl" | "parquet"
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None,
+                 variant: Optional[dict] = None) -> "BatchPredictConfig":
+        """Per-knob precedence, weakest first: server.json ``batchpredict``
+        section (``data``) < engine.json ``batchpredict`` section
+        (``variant``) < ``PIO_BATCHPREDICT_*`` env. Malformed knobs are
+        logged and fall back, same contract as ServingConfig."""
+        data = data or {}
+        variant = variant or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+
+        def as_format(v):
+            s = str(v).strip().lower()
+            if s not in ("jsonl", "parquet"):
+                raise ValueError(s)
+            return s
+
+        sources = (
+            ("chunkSize", data.get("chunkSize"), "chunk_size", int),
+            ("queueChunks", data.get("queueChunks"), "queue_chunks", int),
+            ("pipelined", data.get("pipelined"), "pipelined", as_bool),
+            ("outputFormat", data.get("outputFormat"), "output_format",
+             as_format),
+            ("engine.json chunkSize", variant.get("chunkSize"),
+             "chunk_size", int),
+            ("engine.json queueChunks", variant.get("queueChunks"),
+             "queue_chunks", int),
+            ("engine.json pipelined", variant.get("pipelined"),
+             "pipelined", as_bool),
+            ("engine.json outputFormat", variant.get("outputFormat"),
+             "output_format", as_format),
+            ("PIO_BATCHPREDICT_CHUNK_SIZE",
+             os.environ.get("PIO_BATCHPREDICT_CHUNK_SIZE"),
+             "chunk_size", int),
+            ("PIO_BATCHPREDICT_QUEUE_CHUNKS",
+             os.environ.get("PIO_BATCHPREDICT_QUEUE_CHUNKS"),
+             "queue_chunks", int),
+            ("PIO_BATCHPREDICT_PIPELINED",
+             os.environ.get("PIO_BATCHPREDICT_PIPELINED"),
+             "pipelined", as_bool),
+            ("PIO_BATCHPREDICT_OUTPUT_FORMAT",
+             os.environ.get("PIO_BATCHPREDICT_OUTPUT_FORMAT"),
+             "output_format", as_format),
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed batchpredict knob %s=%r",
+                               name, raw)
+        cfg.chunk_size = max(1, cfg.chunk_size)
+        cfg.queue_chunks = max(1, cfg.queue_chunks)
+        return cfg
+
+
+def batchpredict_config(variant_section: Optional[dict] = None
+                        ) -> BatchPredictConfig:
+    """Resolve the batch-scoring knobs a `pio batchpredict` run should
+    use: ``variant_section`` is the engine.json ``batchpredict`` section,
+    which overrides the host-level server.json section; the
+    ``PIO_BATCHPREDICT_*`` env vars override both (the established
+    precedence: env > engine.json > server.json)."""
+    data = read_server_json().get("batchpredict") or {}
+    return BatchPredictConfig.from_env(data, variant_section)

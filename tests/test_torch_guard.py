@@ -13,10 +13,12 @@ the CPU on their own.
   one, then stops it with ``undeploy``, and two more train and deploy
   the e-commerce and similar-product engines through the CLI, and
   another runs ``eval`` through the CLI, batched then ``--sequential``,
-  each with the same finding;
+  and another ``batchpredict`` through the CLI, whole and in two
+  shards, each with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
-  modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``
-  among them) or in chip_smoke.py;
+  modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``,
+  and the batch-predict slice's obs core, worker contract and kill
+  points among them) or in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
 """
@@ -473,6 +475,72 @@ def test_eval_cli_loads_no_jax(tmp_path):
     assert lines[-1] == "[]", out.stdout
 
 
+_BATCHPREDICT_CHILD = r"""
+import json, os, sys
+tmp = sys.argv[1]
+os.environ.update({
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "bp.db"),
+    **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+       for r in ("METADATA", "EVENTDATA", "MODELDATA")
+       for k, v in (("NAME", "pio"), ("SOURCE", "DB"))}})
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+store = Storage.get_events()
+store.init_channel(app_id)
+store.insert_batch([
+    Event(event="rate", entity_type="user", entity_id=f"u{u}",
+          target_entity_type="item", target_entity_id=f"i{(u * 7 + j) % 9}",
+          properties={"rating": float(1 + (u + j) % 5)})
+    for u in range(12) for j in range(4)], app_id)
+variant = os.path.join(tmp, "engine.json")
+with open(variant, "w") as f:
+    json.dump({"datasource": {"params": {"appName": "Guard"}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": 3, "numIterations": 2}}]}, f)
+assert main(["train", "--variant", variant, "--device", "cpu"]) == 0
+inp, out = os.path.join(tmp, "q.jsonl"), os.path.join(tmp, "p.jsonl")
+with open(inp, "w") as f:
+    f.write("".join(json.dumps({"user": f"u{u}", "num": 3}) + "\n"
+                    for u in range(14)) + "not json\n")
+args = ["batchpredict", "--variant", variant, "--input", inp, "--output",
+        out, "--device", "cpu", "--chunk-size", "4"]
+assert main(args) == 0
+single = open(out).read()
+for rank in (0, 1):
+    os.environ.update(PIO_PROCESS_ID=str(rank), PIO_NUM_PROCESSES="2")
+    assert main(args) == 0
+assert open(out).read() == single and len(single.splitlines()) == 14
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_batchpredict_cli_loads_no_jax(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-c", _BATCHPREDICT_CHILD, str(tmp_path)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert json.loads(lines[-2])["merged"] is True
+    assert lines[-1] == "[]", out.stdout
+
+
+def test_scan_covers_the_batch_predict_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"workflow/batch_predict.py", "obs/registry.py",
+            "obs/trace_context.py", "obs/tracing.py", "obs/batch_stats.py",
+            "obs/fleet.py", "parallel/distributed.py",
+            "storage/faults.py"} <= scanned
+
+
 def test_scan_covers_the_evaluation_modules():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
                if PKG in p.parents}
@@ -640,6 +708,25 @@ def _cli_eval():
                  "EngineParamsGenerator"])
 
 
+def _run_batch_predict(tmp_path):
+    from predictionio_tpu_torch.engines.recommendation import engine
+    from predictionio_tpu_torch.storage.base import EngineInstance
+    from predictionio_tpu_torch.workflow.batch_predict import (
+        run_batch_predict,
+    )
+
+    return run_batch_predict(engine(), EngineInstance(id="x"),
+                             str(tmp_path / "q.jsonl"),
+                             str(tmp_path / "p.jsonl"))
+
+
+def _cli_batchpredict(tmp_path):
+    from predictionio_tpu_torch.cli.main import main
+
+    return main(["batchpredict", "--input", str(tmp_path / "q.jsonl"),
+                 "--output", str(tmp_path / "p.jsonl")])
+
+
 def _similarity_model():
     from predictionio_tpu_torch.engines.similarproduct import (
         SimilarityModel,
@@ -655,7 +742,8 @@ def _similarity_model():
                                    "load_for_deploy", "FoldInSolver",
                                    "train_cooccurrence", "SimilarityModel",
                                    "run_sweep", "run_evaluation",
-                                   "cli eval"])
+                                   "cli eval", "run_batch_predict",
+                                   "cli batchpredict"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -671,7 +759,9 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "SimilarityModel": _similarity_model,
             "run_sweep": _run_sweep,
             "run_evaluation": _run_evaluation,
-            "cli eval": _cli_eval}[entry]
+            "cli eval": _cli_eval,
+            "run_batch_predict": lambda: _run_batch_predict(tmp_path),
+            "cli batchpredict": lambda: _cli_batchpredict(tmp_path)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

@@ -312,6 +312,57 @@ Phases, each reported on its own lines:
                    on those rows; ``plain_ms`` is that subset's,
                    ``library_ms`` the composite in blocks of 128 rows.
 
+12. ``obs``      — the serving observability plane, after the serve
+                   phase, on its 10M x 64 model through B2. Legs 1, 3
+                   and 4 on a ``deploy`` of the serve phase's model file
+                   with tracing, the anatomy, a server.json SLO spec (a
+                   latency objective at 16 ms and an errors one, the
+                   reference's 300 s / 3600 s windows) and telemetry at
+                   a 1 s interval under a fresh PIO_HOME. Leg 1: 34
+                   queries from one client, 384 from 8 (cfg_telemetry's
+                   per_level and n_clients, bench.py:2502-2503); every
+                   traced request has each stage of
+                   ``SERVING_WALL_STAGES`` and they sum to its
+                   middleware wall within 10% or 0.5 ms; B2's launches
+                   equal the micro-batches scored and the ``shortlist``
+                   dispatches; each stage's p50/p99 beside the HTTP
+                   ones. Leg 4: ``POST /debug/profile`` for 2 s while 8
+                   clients run 384 more: the trace names
+                   ``shortlist_kernel``, a second capture 409, no query
+                   fails. Leg 3: ``/history/range.json`` counts every
+                   query sent, ``/slo.json``'s latency window equals the
+                   served histogram's share above 16 ms, ``/capacity.
+                   json``'s scorer bytes are the scorer's tiles and
+                   scales and within the allocator's live bytes. Then,
+                   in this process: leg 2, the plane's p99 cost at 8
+                   clients, alternating best-of-3 (bench.py:1140-1238,
+                   :2538-2591): tracing with an SLO engine ticking every
+                   50 ms against ``PIO_TRACING=0``, the anatomy against
+                   ``PIO_ANATOMY=0`` (tracing on both) and telemetry at
+                   a 50 ms scrape against none, recorded beside the
+                   reference's 5% + 0.3 ms (not gated); leg 3's restart: a server with
+                   the SLO spec and telemetry runs a canary of a v2
+                   (the served users over a 4,096-item catalog) at 0.2
+                   and stops mid-rollout; a second server on the same
+                   store rehydrates the SLO windows (the history's span)
+                   and resumes the split at the persisted accumulator;
+                   a second live writer of the store gets TSDBLocked;
+                   and the reference bench's store legs (10,000 series x
+                   12 ticks: samples/s, a range read, a quantile over
+                   time). The lifecycle also starts its event server
+                   with ``--stats``: after the REST ingest its /metrics
+                   counts each ``/batch/events.json`` request by status,
+                   ``/stats.json`` the events by name, and every submit
+                   has its ``flush_wait`` and ``commit`` stages. The
+                   foldin phase's SLO leg, in the lifecycle on v2: the
+                   served traffic breaches a 0.5 ms latency objective, a
+                   fold-in tick of 32 of leg 1's stream users defers
+                   (``pio_foldin_applies_total{outcome="deferred"}``,
+                   the rows pending, no launch); once the 2 s window
+                   clears the next tick applies them through one B1
+                   launch and one ``spd_solve`` dispatch, their answers
+                   the exact top-10 of leg 1's plain-solve rows.
+
 Each phase's launch counts are its own: zeroed just before the phase
 drives its path and read just after (in the process that launched).
 Then it prints one JSON line describing each kernel (times from this
@@ -1371,6 +1422,43 @@ def smoke_store(work):
     return env
 
 
+def event_server_obs(client, key: str, ingest_requests: int,
+                     by_name: dict) -> dict:
+    """The event server's plane after the lifecycle's REST ingest (the
+    ingest's requests, a bad key's 401 and one batch with a malformed
+    event): ``/metrics.json`` counts each ``/batch/events.json`` request
+    by status, ``/stats.json`` (``--stats``) counts the events by name,
+    and every submit to the write buffer has its ``flush_wait`` and
+    ``commit`` stages."""
+    _, mj, _ = client.call("GET", "/metrics.json")
+    by_status = {}
+    for smp in mj["pio_http_request_duration_seconds"]["samples"]:
+        lb = smp["labels"]
+        if lb["handler"] == "/batch/events.json":
+            by_status[lb["status"]] = smp["count"]
+    check(by_status == {"200": ingest_requests + 1, "401": 1},
+          f"the event server's /metrics counts /batch/events.json "
+          f"{by_status}, sent {ingest_requests + 1} + one 401")
+    status, st, _ = client.call("GET", f"/stats.json?accessKey={key}")
+    check(status == 200, f"/stats.json answered {status}")
+    got = {}
+    for row in st["longLive"]:
+        if row["status"] == 201:
+            got[row["event"]] = got.get(row["event"], 0) + row["count"]
+    check(got == by_name, f"/stats.json counts {got}, ingested {by_name}")
+    stages = {smp["labels"]["stage"]: smp["count"] for smp in
+              mj["pio_anatomy_stage_seconds"]["samples"]
+              if smp["labels"]["path"] == "ingest"}
+    check(stages == {"flush_wait": ingest_requests + 1,
+                     "commit": ingest_requests + 1},
+          f"ingest anatomy counts {stages}, submits {ingest_requests + 1}")
+    walls = {smp["labels"]["stage"]: 1e3 * smp["avg"] for smp in
+             mj["pio_anatomy_stage_seconds"]["samples"]
+             if smp["labels"]["path"] == "ingest"}
+    return {"batch_requests_by_status": by_status, "stats": got,
+            "ingest_stage_mean_ms": walls}
+
+
 def lifecycle_phase(seed: int, port: int):
     import numpy as np
 
@@ -1384,7 +1472,7 @@ def lifecycle_phase(seed: int, port: int):
     try:
         # 1. event server, app and keys ------------------------------------
         events_srv = Server(["eventserver", "--ip", "127.0.0.1", "--port",
-                             "0"], env, tag="lifecycle")
+                             "0", "--stats"], env, tag="lifecycle")
         es_port = events_srv.wait_ready(timeout_s=120)
         out = _cli(["app", "new", "SmokeApp"], env)
         key = next(x for x in out if "Access Key:" in x).split()[-1]
@@ -1435,11 +1523,14 @@ def lifecycle_phase(seed: int, port: int):
               == [201] * 49 + [400],
               f"a batch with one malformed event answered {status} "
               f"{[r['status'] for r in body]}")
+        ingest_obs = event_server_obs(client, key, len(lat), {
+            "rate": len(ratings), "buy": c["buys"], "view": 49})
         ingest_report = {
             "events": n1, "requests": len(lat), "clients": 8,
             "events_per_s": n1 / wall, "wall_s": wall,
             "request_p50_ms": float(np.percentile(lat, 50)),
-            "request_p99_ms": float(np.percentile(lat, 99))}
+            "request_p99_ms": float(np.percentile(lat, 99)),
+            "obs": ingest_obs}
         log("lifecycle: ingest " + json.dumps(ingest_report))
 
         # 3. train -> instance 1, release v1 -------------------------------
@@ -1542,6 +1633,10 @@ def lifecycle_phase(seed: int, port: int):
         foldin = foldin_lifecycle_leg(seed, env, variant, key, es_port,
                                       port, m2)
         foldin["leg_s"] = time.perf_counter() - t0
+        # 7b. the foldin phase's SLO leg, in this process on v2
+        t0 = time.perf_counter()
+        foldin_slo = foldin_slo_leg(m2)
+        foldin_slo["leg_s"] = time.perf_counter() - t0
         # 8. the canary phase's CLI leg, on v2 and the same store
         feedback = feedback_leg(seed, env, variant, key, port, app_id, m2)
         # 9. the eval phase's CLI leg, on the same store
@@ -1568,6 +1663,7 @@ def lifecycle_phase(seed: int, port: int):
         report = {"ingest": ingest_report, "train": t1, "train_v2": t2,
                   **reload_report, "checkpoint": ckpt,
                   "queries": len(picks) + 11, "foldin": foldin,
+                  "foldin_slo": foldin_slo,
                   "feedback": feedback, "eval_cli": eval_cli,
                   "batchpredict_cli": bp_cli}
         log("lifecycle: " + json.dumps(report))
@@ -1839,6 +1935,116 @@ def _wait_quiet(qc, after_ticks: int, what: str, timeout_s: float = 120):
         check(time.monotonic() < deadline, f"fold-in did not settle after "
               f"{what}: {json.dumps(f)[:500]}")
         time.sleep(0.05)
+
+
+#: the SLO-gated fold-in leg: a latency objective at the first bucket
+#: edge (0.5 ms) that served queries breach, over a 2 s window, so the
+#: breach clears 2 s after the traffic stops
+FOLDIN_SLO = dict(users=32, queries=20, spec={
+    "objectives": [{"name": "p99", "kind": "latency", "thresholdS": 0.0005,
+                    "budget": 0.01}],
+    "windows": [{"seconds": 2, "burnThreshold": 1.0}],
+    "evalIntervalS": 0.1})
+
+
+def foldin_slo_leg(m2):
+    """The foldin phase's SLO leg, at leg 1's shape, in this process on
+    the lifecycle's store: a server of v2 with an SLO spec and fold-in
+    on; the traffic breaches the latency objective, a fold-in tick of
+    the first stream users of leg 1 defers and leaves them pending; once
+    the breach clears the next tick applies them through B1 (one
+    launch, one ``spd_solve`` dispatch), and their answers are those of
+    leg 1's apply (the exact top-10 of rows folded from v2's factors and
+    the stored events by the plain solve)."""
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.deploy.foldin import (
+        read_entities_ratings, upsert_factor_rows,
+    )
+    from predictionio_tpu_torch.deploy.warm import EngineInstance
+    from predictionio_tpu_torch.engines.recommendation import (
+        default_engine_params, engine,
+    )
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.obs import profiler
+    from predictionio_tpu_torch.obs.slo import SLOSpec
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.server.query_server import QueryServer
+    from predictionio_tpu_torch.utils.server_config import (
+        FoldinConfig, ScorerConfig,
+    )
+
+    c, f = ML100K, FOLDIN_SLO
+    users = [f"fold{n:04d}" for n in range(f["users"])]
+    params = default_engine_params("SmokeApp", rank=c["rank"],
+                                   num_iterations=c["iters"], reg=c["reg"])
+    result = engine().prepare_deploy(params, [m2])
+    server = QueryServer(
+        engine(), result, EngineInstance(id="foldin-slo"),
+        scorer_config=ScorerConfig(mode="exact"),
+        slo_spec=SLOSpec.from_dict(f["spec"]),
+        foldin_config=FoldinConfig(enabled=True, apply_interval_s=3600.0,
+                                   max_pending=256))
+    lt = _LoopThread()
+    try:
+        qc = Client(lt.run(server.start("127.0.0.1", 0)))
+        ctl = server._foldin
+        check(ctl is not None, "foldin slo: the controller did not arm")
+        qc.call("GET", "/slo.json")          # the windows' baseline
+        for j in range(f["queries"]):
+            status, _, _ = qc.call("POST", "/queries.json", {
+                "user": str(m2.user_vocab[j]), "num": 10})
+            check(status == 200, f"foldin slo: a query answered {status}")
+        _, slo, _ = qc.call("GET", "/slo.json")
+        check(slo["breached"], f"foldin slo: the traffic did not breach "
+              f"{slo}")
+        ctl.offer([Event(event="rate", entity_type="user", entity_id=u,
+                         target_entity_type="item",
+                         target_entity_id=str(m2.item_vocab[0]),
+                         properties=DataMap({"rating": 3.0}))
+                   for u in users])
+        b1_0 = kernels.counts()["spd_solve"]
+        check(ctl.apply_pending() is None
+              and ctl.outcomes.get("deferred") == 1
+              and ctl.pending_rows() == len(users)
+              and kernels.counts()["spd_solve"] == b1_0,
+              f"foldin slo: the tick under a breach did not defer "
+              f"({ctl.outcomes}, {ctl.pending_rows()} pending)")
+        deadline = time.monotonic() + 30
+        while slo["breached"]:
+            check(time.monotonic() < deadline, "foldin slo: the breach "
+                  "did not clear")
+            time.sleep(0.2)
+            _, slo, _ = qc.call("GET", "/slo.json")
+        d0 = profiler.dispatch_calls().get("spd_solve", 0)
+        stats = ctl.apply_pending()
+        launches = kernels.counts()["spd_solve"] - b1_0
+        dispatches = profiler.dispatch_calls().get("spd_solve", 0) - d0
+        check(stats is not None and stats["users"] == len(users)
+              and launches == dispatches == ctl.solves == 1,
+              f"foldin slo: the apply after the breach {stats}, B1 "
+              f"{launches} launches, {dispatches} dispatches")
+        spec = result.algorithms[0].foldin_spec(m2, params)
+
+        def recompute():
+            uv, U = upsert_factor_rows(m2.user_vocab, m2.U, _fold_rows(
+                spec, m2.V, m2.item_vocab,
+                read_entities_ratings(spec, users)))
+            return ALSModel.from_arrays(uv, m2.item_vocab, U, m2.V,
+                                        device=DEV)
+
+        want = _plain_solve(recompute)
+        err, _ = check_top10(qc, want, users, "foldin slo")
+        report = {"deferred": ctl.outcomes.get("deferred"),
+                  "applied": ctl.outcomes.get("applied"),
+                  "users": len(users), "b1_launches": launches,
+                  "spd_solve_dispatches": dispatches,
+                  "max_score_abs_err": err}
+        log("foldin: slo " + json.dumps(report))
+        return report
+    finally:
+        lt.run(server.close())
+        lt.stop()
 
 
 def foldin_lifecycle_leg(seed, env, variant, key, es_port, port, m2):
@@ -3154,8 +3360,662 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict,
               "serving")
         return serve
     finally:
+        # the model file stays for the obs phase; main removes WORK
         server.stop()
-        shutil.rmtree(WORK, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# obs phase: the serving observability plane on the serve cell's model
+# ---------------------------------------------------------------------------
+
+#: the phase's traffic: 34 queries from one client (the serve phase's
+#: count), then 384 from 8 clients (cfg_telemetry's per_level and
+#: n_clients, bench.py:2502-2503); leg 2's protocol (bench.py:1198-1238,
+#: :2538-2591): alternating best-of-3 p99, a 50 ms scrape; the store
+#: legs at the bench's sizes (:2596-2640); live device bytes beyond the
+#: serving unit's tensors a capacity read may find (small tensors)
+OBS = dict(serial=34, clients=8, per_level=384, repeats=3, scrape_s=0.05,
+           interval_s=1.0, profile_s=2.0, store_series=10_000,
+           store_ticks=12, canary_items=4096, canary_queries=23,
+           slack_bytes=64 << 20)
+#: a latency objective at a histogram bucket edge (0.5 ms x 2^5), so the
+#: burn read back is exact; the reference's default windows
+OBS_SLO = {"objectives": [
+    {"name": "p99", "kind": "latency", "thresholdS": 0.016, "budget": 0.01},
+    {"name": "errors", "kind": "errors", "budget": 0.01}],
+    "windows": [{"seconds": 300, "burnThreshold": 14.4},
+                {"seconds": 3600, "burnThreshold": 6.0}],
+    "evalIntervalS": 1.0}
+#: the reference's limit on the plane's p99 cost (bench.py:1233-1238)
+OBS_LIMIT_PCT, OBS_LIMIT_ABS_MS = 5.0, 0.3
+
+
+def _metric(doc: dict, name: str):
+    return doc.get(name, {}).get("samples", [])
+
+
+def _clients_run(port: int, users, n: int, clients: int, seed: int,
+                 failures: list, until: threading.Event = None):
+    """``n`` plain queries of num 10 from ``clients`` threads, each on
+    its own keep-alive connection (with ``until``: each client goes on
+    through its share again until the event is set); returns the
+    latencies in seconds (of 200s; anything else lands in
+    ``failures``)."""
+    import itertools
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    picks = rng.integers(0, len(users), size=n)
+    per = -(-n // clients)
+    lat, lock = [], threading.Lock()
+
+    def run(lo):
+        c = Client(port)
+        share = picks[lo:lo + per]
+        for k, ui in enumerate(share if until is None
+                               else itertools.cycle(share)):
+            if until is not None and k >= len(share) and until.is_set():
+                return
+            try:
+                status, body, dt = c.call("POST", "/queries.json", {
+                    "user": str(users[ui]), "num": 10})
+            except Exception as e:          # noqa: BLE001 — reported
+                failures.append(repr(e))
+                return
+            with lock:
+                if status == 200:
+                    lat.append(dt)
+                else:
+                    failures.append(f"{status} {str(body)[:200]}")
+
+    threads = [threading.Thread(target=run, args=(lo,))
+               for lo in range(0, n, per)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "obs: clients hung")
+    return lat
+
+
+def dispatch_s(metrics_json: dict) -> float:
+    """The ``shortlist`` family's dispatch seconds in a /metrics.json."""
+    return next((s["value"] for s in _metric(
+        metrics_json, "pio_device_dispatch_seconds_total")
+        if s["labels"]["family"] == "shortlist"), 0.0)
+
+
+def _stage_split(traces, ids):
+    """Per request of ``ids``: its wall stages, their sum and the
+    middleware's wall; checks that the stages tile it."""
+    import numpy as np
+
+    from predictionio_tpu_torch.obs.anatomy import (
+        SERVING_WALL_STAGES, TRACE_STAGE_PREFIX,
+    )
+
+    by_id = {t["traceId"]: t for t in traces
+             if t["name"] == "query_server POST /queries.json"}
+    missing = [i for i in ids if i not in by_id]
+    check(not missing, f"obs: {len(missing)} requests have no trace")
+    rows = []
+    for rid in ids:
+        t = by_id[rid]
+        st = {s: t["spans"].get(TRACE_STAGE_PREFIX + s)
+              for s in SERVING_WALL_STAGES}
+        check(None not in st.values(), f"obs: request {rid} lacks stages "
+              f"{[s for s, v in st.items() if v is None]}")
+        wall = t["durationSec"]
+        gap = wall - sum(st.values())
+        check(abs(gap) <= max(0.1 * wall, 0.0005),
+              f"obs: request {rid}'s stages sum to {sum(st.values())} s "
+              f"against its wall {wall} s")
+        rows.append((st, wall, gap))
+    out = {s: {"p50_ms": float(np.percentile([r[0][s] for r in rows], 50))
+               * 1e3,
+               "p99_ms": float(np.percentile([r[0][s] for r in rows], 99))
+               * 1e3} for s in SERVING_WALL_STAGES}
+    walls = np.array([r[1] for r in rows]) * 1e3
+    gaps = np.array([r[2] for r in rows]) * 1e3
+    out["wall"] = {"p50_ms": float(np.percentile(walls, 50)),
+                   "p99_ms": float(np.percentile(walls, 99))}
+    out["unattributed_max_ms"] = float(np.abs(gaps).max())
+    return out
+
+
+def obs_server_leg(seed: int, users, shape: dict):
+    """Legs 1, 3 (history, SLO, capacity) and 4 on a ``deploy`` of the
+    serve cell's model (saved by the serve phase) with tracing, the
+    anatomy, an SLO spec and telemetry at a 1 s interval under a fresh
+    PIO_HOME."""
+    import numpy as np
+
+    from predictionio_tpu_torch.obs.anatomy import STAGE_HISTOGRAM
+
+    o = OBS
+    home = WORK / "obs" / "home"
+    shutil.rmtree(home, ignore_errors=True)
+    (home / "conf").mkdir(parents=True)
+    (home / "conf" / "server.json").write_text(json.dumps({"slo": OBS_SLO}))
+    env = dict(os.environ, PIO_HOME=str(home), PIO_SCORER_MODE="twostage",
+               PIO_SCORER_TILE_ITEMS=str(TILE),
+               PIO_SCORER_SHORTLIST=str(SHORTLIST),
+               PIO_TELEMETRY_INTERVAL_S=str(o["interval_s"]),
+               PIO_TRACE_CAPACITY="4096")
+    server = Server(["deploy", "--model", str(WORK / "als_model.npz"),
+                     "--port", "0", "--device", DEV], env, tag="obs")
+    try:
+        t0 = time.perf_counter()
+        port = server.wait_ready(timeout_s=600)
+        deploy_s = time.perf_counter() - t0
+        client = Client(port)
+        _, root0, _ = client.call("GET", "/")
+        scorer = root0["scorer"][0]
+        check(scorer["activeMode"] == "twostage"
+              and (scorer["scanRank"], scorer["tileItems"],
+                   scorer["tiles"]) == (shape["R"], shape["T"],
+                                        shape["nt"]),
+              f"obs: the deploy serves {scorer}")
+        status, slo0, _ = client.call("GET", "/slo.json")  # the baseline
+        check(status == 200 and slo0["enabled"], f"obs: /slo.json {slo0}")
+        _, mj0, _ = client.call("GET", "/metrics.json")
+
+        # leg 1: 34 queries from one client, 384 from 8 ----------------------
+        rng = np.random.default_rng(seed + 11)
+        ids, serial_lat = [], []
+        for ui in rng.integers(0, len(users), size=o["serial"]):
+            client.conn.request("POST", "/queries.json", body=json.dumps(
+                {"user": str(users[ui]), "num": 10}))
+            t_q = time.perf_counter()
+            resp = client.conn.getresponse()
+            body = resp.read()
+            serial_lat.append(time.perf_counter() - t_q)
+            check(resp.status == 200, f"obs: a query answered {resp.status}"
+                  f" {body[:200]}")
+            ids.append(resp.getheader("X-Request-ID"))
+        failures = []
+        conc_lat = _clients_run(port, users, o["per_level"], o["clients"],
+                                seed + 12, failures)
+        check(not failures, f"obs: {len(failures)} queries failed at 8 "
+              f"clients, first {failures[:3]}")
+        _, tr, _ = client.call("GET", "/debug/traces.json?limit=4096")
+        traces = tr["traces"]
+        serial_split = _stage_split(traces, ids)
+        conc_ids = [t["traceId"] for t in traces
+                    if t["name"] == "query_server POST /queries.json"
+                    and t["traceId"] not in set(ids)]
+        check(len(conc_ids) == o["per_level"], f"obs: {len(conc_ids)} "
+              f"traced requests at 8 clients of {o['per_level']}")
+        conc_split = _stage_split(traces, conc_ids)
+        _, root1, _ = client.call("GET", "/")
+        _, mj, _ = client.call("GET", "/metrics.json")
+        launches = root1["kernelLaunches"]["shortlist"]
+        batches = root1["microBatches"]["batches"] - \
+            root0["microBatches"]["batches"]
+        scored = sum(s["value"] for s in _metric(
+            mj, "pio_scoring_batches_total")
+            if s["labels"]["mode"] == "twostage")
+        dispatch = root1["dispatchCalls"].get("shortlist", 0) - \
+            root0["dispatchCalls"].get("shortlist", 0)
+        check(launches == batches == dispatch,
+              f"obs: B2 launched {launches} times for {batches} batches, "
+              f"{dispatch} shortlist dispatches")
+        n_sent = o["serial"] + o["per_level"]
+        stage_counts = {s["labels"]["stage"]: s["count"] for s in _metric(
+            mj, STAGE_HISTOGRAM) if s["labels"]["path"] == "serving"}
+        check(all(v == n_sent for v in stage_counts.values())
+              and len(stage_counts) == 8,
+              f"obs: pio_anatomy_stage_seconds counts {stage_counts}")
+        leg1 = {
+            "serial": dict(serial_split, http=_lat(
+                [x * 1e3 for x in serial_lat])),
+            "clients8": dict(conc_split, http=_lat(
+                [x * 1e3 for x in conc_lat])),
+            "b2_launches": launches, "batches": batches,
+            "scoring_batches_total": scored,
+            "shortlist_dispatches": dispatch,
+            "dispatch_launch_ms_mean": 1e3 * (
+                dispatch_s(mj) - dispatch_s(mj0)) / max(1, dispatch),
+            "batch_sizes": root1["microBatches"]["sizes"]}
+        log("obs: leg 1 " + json.dumps(leg1))
+
+        # leg 4: a 2 s profile while 8 clients run --------------------------
+        prof_dir = WORK / "obs" / "profile"
+        answers = {}
+
+        def capture(key, delay):
+            time.sleep(delay)
+            c = Client(port)
+            answers[key] = c.call("POST", "/debug/profile", {
+                "seconds": o["profile_s"], "dir": str(prof_dir)})
+
+        grabs = [threading.Thread(target=capture, args=(k, d))
+                 for k, d in (("first", 0.0), ("second", 0.5))]
+        for g in grabs:
+            g.start()
+        # the clients run until the capture has answered: a process's
+        # first capture spends seconds starting the profiler (CUPTI)
+        # before its window opens
+        captured = threading.Event()
+        watcher = threading.Thread(target=lambda: (
+            grabs[0].join(timeout=300), captured.set()))
+        watcher.start()
+        failures = []
+        prof_lat = _clients_run(port, users, o["per_level"], o["clients"],
+                                seed + 13, failures, until=captured)
+        watcher.join(timeout=300)
+        for g in grabs:
+            g.join(timeout=120)
+        check(not failures, f"obs: {len(failures)} queries failed during "
+              f"the capture, first {failures[:3]}")
+        status, out, _ = answers["first"]
+        check(status == 200, f"obs: POST /debug/profile answered {status} "
+              f"{out}")
+        check(answers["second"][0] == 409, "obs: a second capture answered "
+              f"{answers['second'][0]}, not 409")
+        trace_path = pathlib.Path(out["traceDir"]) / "trace.json"
+        text = trace_path.read_text()
+        check("shortlist_kernel" in text, "obs: the profile's trace does "
+              "not name shortlist_kernel")
+        leg4 = {"capture_s": out["seconds"],
+                "capture_request_s": answers["first"][2],
+                "queries_during": len(prof_lat),
+                "trace_mb": trace_path.stat().st_size / 1e6,
+                "kernel_events": text.count("shortlist_kernel"),
+                "dispatch_table": out["dispatch"],
+                "http_during_capture": _lat([x * 1e3 for x in prof_lat])}
+        log("obs: leg 4 " + json.dumps(leg4))
+
+        # leg 3: history, SLO and capacity ----------------------------------
+        n_ok = n_sent + len(prof_lat)
+        time.sleep(2.5 * o["interval_s"])        # a scrape past the last
+        _, hist, _ = client.call(
+            "GET", "/history/range.json?name=pio_query_duration_seconds")
+        points = hist["series"][0]["points"] if hist["series"] else []
+        check(points and points[-1][1] == n_ok, "obs: the history's last "
+              f"pio_query_duration_seconds point counts "
+              f"{points[-1][1] if points else None}, sent {n_ok}")
+        _, slo, _ = client.call("GET", "/slo.json")
+        _, mj, _ = client.call("GET", "/metrics.json")
+        qd = _metric(mj, "pio_query_duration_seconds")[0]
+        bad = qd["count"] - qd["buckets"]["0.016"]
+        lat_obj = next(x for x in slo["objectives"] if x["name"] == "p99")
+        w = lat_obj["windows"][0]
+        want_burn = (bad / qd["count"]) / 0.01
+        check(w["total"] == n_ok and w["bad"] == bad
+              and abs(w["burn"] - want_burn) <= 1e-3,
+              f"obs: /slo.json latency window {w}, served {n_ok} with "
+              f"{bad} above 16 ms")
+        _, cap, _ = client.call("GET", "/capacity.json")
+        unit = cap["units"][0]
+        dev_bytes = cap["process"]["deviceBytes"]
+        check(unit["scorerBytes"] == scorer["factorBytes"] > 0
+              and dev_bytes >= unit["residentBytes"] >= unit["scorerBytes"]
+              and dev_bytes - unit["residentBytes"] <= OBS["slack_bytes"],
+              f"obs: capacity {unit['scorerBytes']} scorer / "
+              f"{unit['residentBytes']} resident / {dev_bytes} on the card, "
+              f"the scorer's status {scorer['factorBytes']}")
+        leg3 = {"history_points": len(points),
+                "slo": {x["name"]: x["windows"][0] for x in
+                        slo["objectives"]},
+                "above_16ms": bad, "served": n_ok,
+                "capacity": {"scorer_bytes": unit["scorerBytes"],
+                             "resident_bytes": unit["residentBytes"],
+                             "device_bytes": dev_bytes,
+                             "untracked_bytes": dev_bytes
+                             - unit["residentBytes"],
+                             "watermark_bytes":
+                                 cap["process"]["deviceWatermarkBytes"],
+                             "host_rss_bytes":
+                                 cap["process"]["hostRssBytes"]}}
+        _, root2, _ = client.call("GET", "/")
+        b2 = root2["kernelLaunches"]["shortlist"]
+        log("obs: leg 3 (server) " + json.dumps(leg3))
+        return {"deploy_s": deploy_s, "leg1": leg1, "leg3": leg3,
+                "leg4": leg4, "b2_launches": b2}
+    finally:
+        server.stop()
+
+
+def obs_overhead_leg(seed, users, eng, result):
+    """Leg 2: the plane's p99 cost at 8 clients, alternating best-of-3
+    as the reference bench does (bench.py:1140-1238, :2538-2591), each
+    sweep a fresh server in this process: tracing plus an SLO engine
+    evaluating every 50 ms against ``PIO_TRACING=0`` without one; the
+    anatomy against ``PIO_ANATOMY=0`` (tracing on both); telemetry at a
+    50 ms scrape against none."""
+    import tempfile
+
+    import numpy as np
+
+    from predictionio_tpu_torch.deploy.warm import EngineInstance
+    from predictionio_tpu_torch.obs.slo import (
+        SLOObjective, SLOSpec, SLOWindow,
+    )
+    from predictionio_tpu_torch.obs.telemetry import TelemetryRecorder
+    from predictionio_tpu_torch.server.query_server import QueryServer
+    from predictionio_tpu_torch.utils.server_config import (
+        ScorerConfig, TelemetryConfig,
+    )
+
+    o = OBS
+    scfg = ScorerConfig(mode="twostage", tile_items=TILE,
+                        shortlist=SHORTLIST)
+    # the reference's: full evaluation work, a threshold it never flips
+    slo = SLOSpec(objectives=[
+        SLOObjective("latency", "latency", threshold_s=0.256, budget=0.01),
+        SLOObjective("errors", "errors", budget=0.01)],
+        windows=[SLOWindow(2.0, 1e12)], eval_interval_s=0.05)
+
+    def sweep(env, telemetry=None, slo_spec=None):
+        os.environ.update(env)
+        server = QueryServer(eng, result, EngineInstance(id="obs-leg2"),
+                             scorer_config=scfg, telemetry=telemetry,
+                             slo_spec=slo_spec)
+        lt = _LoopThread()
+        try:
+            port = lt.run(server.start("127.0.0.1", 0))
+            failures = []
+            _clients_run(port, users, o["per_level"], o["clients"],
+                         seed + 21, failures)                # warm-up
+            lat = np.array(_clients_run(
+                port, users, o["per_level"], o["clients"], seed + 22,
+                failures)) * 1e3
+            check(not failures, f"obs: leg 2 failures {failures[:3]}")
+            return (float(np.percentile(lat, 50)),
+                    float(np.percentile(lat, 99)))
+        finally:
+            lt.run(server.close())
+            lt.stop()
+
+    def telemetry():
+        root = tempfile.mkdtemp(prefix="obs-telemetry-",
+                                dir=str(WORK / "obs"))
+        return TelemetryRecorder("query_server", TelemetryConfig(
+            dir=root, interval_s=o["scrape_s"])).start(restore=False)
+
+    on = {"PIO_TRACING": "1", "PIO_ANATOMY": "1"}
+    legs = {
+        "tracing_slo": (dict(on, PIO_TRACING="0"), {},
+                        on, {"slo_spec": slo}),
+        "anatomy": (dict(on, PIO_ANATOMY="0"), {}, on, {}),
+        "telemetry": (on, {}, on, {"telemetry": True})}
+    saved = {k: os.environ.get(k) for k in on}
+    out = {}
+    try:
+        for name, (off_env, off_kw, on_env, on_kw) in legs.items():
+            runs = {"on": [], "off": []}
+            for _ in range(o["repeats"]):
+                runs["off"].append(sweep(off_env, **off_kw))
+                kw = dict(on_kw)
+                if kw.pop("telemetry", False):
+                    kw["telemetry"] = telemetry()
+                runs["on"].append(sweep(on_env, **kw))
+            p99_on = min(r[1] for r in runs["on"])
+            p99_off = min(r[1] for r in runs["off"])
+            limit = p99_off * (1 + OBS_LIMIT_PCT / 100.0) + OBS_LIMIT_ABS_MS
+            out[name] = {
+                "p99_on_ms": p99_on, "p99_off_ms": p99_off,
+                "overhead_pct": 100.0 * (p99_on - p99_off) / p99_off,
+                "limit_ms": limit, "within_limit": p99_on <= limit,
+                "p50_on_ms": min(r[0] for r in runs["on"]),
+                "p50_off_ms": min(r[0] for r in runs["off"]),
+                "runs_on": runs["on"], "runs_off": runs["off"]}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def obs_restart_leg(seed, users, items, U, eng, result, rel1, inst1):
+    """Leg 3's restart, in this process: a server with an SLO spec and
+    telemetry (1 s) into a fresh store runs a canary of v2 at 0.2 and is
+    stopped mid-rollout; a second server on the same store rehydrates
+    the SLO engine and resumes the canary's split from the last
+    persisted accumulator. A second live writer gets TSDBLocked."""
+    from predictionio_tpu_torch.obs.registry import MetricsRegistry
+    from predictionio_tpu_torch.obs.slo import SLOSpec
+    from predictionio_tpu_torch.obs.telemetry import TelemetryRecorder
+    from predictionio_tpu_torch.server.query_server import QueryServer
+    from predictionio_tpu_torch.utils.server_config import (
+        DeployConfig, FoldinConfig, ScorerConfig, TelemetryConfig,
+    )
+
+    o = OBS
+    tel_root = WORK / "obs" / "restart"
+    shutil.rmtree(tel_root, ignore_errors=True)
+    cfg = TelemetryConfig(dir=str(tel_root), interval_s=o["interval_s"])
+    spec = SLOSpec.from_dict(OBS_SLO)
+    body = {"version": 2, "canaryFraction": 0.2,
+            "canaryMinSamples": 10 ** 6, "canaryPromoteAfter": 10 ** 6}
+
+    def make():
+        reg = MetricsRegistry()
+        rec = TelemetryRecorder("query_server-obs", cfg,
+                                registries=[reg]).start()
+        return QueryServer(
+            eng, result, inst1, release=rel1, registry=reg, telemetry=rec,
+            slo_spec=spec,
+            scorer_config=ScorerConfig(mode="twostage", tile_items=TILE,
+                                       shortlist=SHORTLIST),
+            foldin_config=FoldinConfig(enabled=False),
+            deploy_config=DeployConfig(warmup=True))
+
+    import numpy as np
+
+    from predictionio_tpu_torch.obs.slo import history_cumulative_pairs
+    from predictionio_tpu_torch.obs.tsdb import TSDBReader
+
+    rng = np.random.default_rng(seed + 31)
+    lt = _LoopThread()
+    server = make()
+    try:
+        c = Client(lt.run(server.start("127.0.0.1", 0)))
+        c.call("GET", "/slo.json")
+        for ui in rng.integers(0, len(users), size=o["serial"]):
+            status, _, _ = c.call("POST", "/queries.json",
+                                  {"user": str(users[ui]), "num": 10})
+            check(status == 200, f"obs: restart leg query {status}")
+        time.sleep(1.5 * o["interval_s"])        # a scrape of these
+        t0 = time.perf_counter()
+        status, out, _ = c.call("POST", "/deploy.json", body)
+        prepare_s = time.perf_counter() - t0
+        check(status == 200 and "canary" in out, f"obs: canary {out}")
+        for ui in rng.integers(0, len(users), size=o["canary_queries"]):
+            status, _, _ = c.call("POST", "/queries.json",
+                                  {"user": str(users[ui]), "num": 10})
+            check(status == 200, f"obs: canary query {status}")
+        acc = server._canary.controller.splitter.state()
+        _, slo_a, _ = c.call("GET", "/slo.json")
+        time.sleep(1.5 * o["interval_s"])
+        # a second live writer on the store: refused
+        probe = subprocess.run(
+            [sys.executable, "-c",
+             "import sys\n"
+             "from predictionio_tpu_torch.obs.tsdb import TSDB, TSDBLocked\n"
+             "try:\n    TSDB(sys.argv[1])\nexcept TSDBLocked:\n"
+             "    sys.exit(3)\n",
+             str(server._telemetry.db.dir)], cwd=str(ROOT),
+            capture_output=True, text=True, timeout=120)
+        check(probe.returncode == 3, "obs: a second writer was not refused "
+              f"(rc {probe.returncode}) {probe.stderr[-500:]}")
+        lt.run(server.close())                   # stopped mid-rollout
+        # the history begins at the first scrape that saw a query: the
+        # restarted engine's windows span from there to the last one
+        reader = TSDBReader([str(tel_root / "query_server-obs")])
+        first = {o_.name: history_cumulative_pairs(reader, o_, 0)[0]
+                 for o_ in spec.objectives}
+        server = make()
+        restored = sum(len(r) for r in server._slo._rings.values())
+        c = Client(lt.run(server.start("127.0.0.1", 0)))
+        _, slo_b, _ = c.call("GET", "/slo.json")
+        for name in ("p99", "errors"):
+            wa = next(x for x in slo_a["objectives"]
+                      if x["name"] == name)["windows"][0]
+            wb = next(x for x in slo_b["objectives"]
+                      if x["name"] == name)["windows"][0]
+            _, bad0, total0 = first[name]
+            check((wb["bad"], wb["total"]) == (wa["bad"] - bad0,
+                                                wa["total"] - total0)
+                  and wb["total"] > 0,
+                  f"obs: SLO {name} before the restart {wa}, after {wb}, "
+                  f"the history's first point {first[name]}")
+        status, out, _ = c.call("POST", "/deploy.json", body)
+        check(status == 200, f"obs: the second canary answered {status}")
+        acc_b = server._canary.controller.splitter.state()
+        check(acc_b == acc, f"obs: the splitter resumed at {acc_b}, was "
+              f"{acc}")
+        c.call("POST", "/rollback.json")
+        return {"canary_prepare_s": prepare_s, "splitter_acc": acc,
+                "slo_rehydrated_samples": restored,
+                "slo_before_restart": {x["name"]: x["windows"][0]
+                                       for x in slo_a["objectives"]},
+                "slo_after_restart": {x["name"]: x["windows"][0]
+                                      for x in slo_b["objectives"]}}
+    finally:
+        lt.run(server.close())
+        lt.stop()
+
+
+def obs_store_leg():
+    """The reference bench's store legs at its own sizes
+    (bench.py:2596-2640): a 10,000-series snapshot appended 12 times
+    (samples/s), then one metric's range read and a quantile over time
+    (ms). Host work: the store never touches the card."""
+    import tempfile
+
+    from predictionio_tpu_torch.obs.registry import MetricsRegistry
+    from predictionio_tpu_torch.obs.tsdb import TSDB, TSDBReader
+
+    n, ticks = OBS["store_series"], OBS["store_ticks"]
+    reg = MetricsRegistry()
+    wide = reg.counter("pio_bench_wide_total", "bench fanout", ("shard",))
+    wide.max_series = n + 8
+    lat = reg.histogram("pio_bench_lat_seconds", "bench latency",
+                        ("shard",), buckets=(0.01, 0.1, 1.0))
+    for i in range(n):
+        wide.inc(float(i % 7 + 1), shard=f"s{i:05d}")
+    root = tempfile.mkdtemp(prefix="obs-tsdb-", dir=str(WORK / "obs"))
+    db = TSDB(os.path.join(root, "bench"))
+    t0 = time.perf_counter()
+    written = 0
+    for tick in range(ticks):
+        for i in range(0, n, 97):
+            wide.inc(1.0, shard=f"s{i:05d}")
+        for i in range(128):
+            lat.observe(0.05 * (i % 3 + 1), shard=f"s{i % 64:05d}")
+        written += db.append_snapshot(reg.to_snapshot(),
+                                      ts_ms=1_700_000_000_000 + 1000 * tick)
+    db.flush()
+    write_s = time.perf_counter() - t0
+    reader = TSDBReader([db.dir])
+    t0 = time.perf_counter()
+    series = reader.series("pio_bench_lat_seconds")
+    range_ms = 1e3 * (time.perf_counter() - t0)
+    check(series and len(series[0].points) == ticks, "obs: the store's "
+          "range read lost samples")
+    t0 = time.perf_counter()
+    q99 = reader.quantile_over_time("pio_bench_lat_seconds", 0.99)
+    quantile_ms = 1e3 * (time.perf_counter() - t0)
+    check(q99 is not None, "obs: no quantile over the store")
+    rates = reader.rate("pio_bench_wide_total", labels={"shard": "s00000"})
+    check(rates and rates[0]["increase"] > 0, "obs: no rate")
+    db.close()
+    return {"series": n, "ticks": ticks, "samples": written,
+            "samples_per_s": written / write_s, "write_s": write_s,
+            "range_ms": range_ms, "quantile_ms": quantile_ms, "q99": q99}
+
+
+def obs_phase(seed: int, shape: dict, users, items, U, V):
+    """The ``obs`` phase: the serve cell's model under the observability
+    plane. Returns its report; ``b2_launches`` sums the launches of the
+    deploy's legs (its own counts) and of this process's legs (counted
+    from zero just before them)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.deploy.releases import record_release
+    from predictionio_tpu_torch.engines.recommendation import (
+        default_engine_params, engine,
+    )
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.server.query_server import QueryServer
+    from predictionio_tpu_torch.storage.base import App, EngineInstance, Model
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.utils.server_config import ScorerConfig
+    from predictionio_tpu_torch.workflow.serialization import (
+        serialize_models,
+    )
+
+    t_phase = time.perf_counter()
+    work = WORK / "obs"
+    work.mkdir(parents=True, exist_ok=True)
+    report = {"card": card_line()}
+    report.update(obs_server_leg(seed, users, shape))
+    report["store"] = obs_store_leg()
+    log("obs: store " + json.dumps(report["store"]))
+
+    n_items, rank = V.shape
+    (work / "pio.db").unlink(missing_ok=True)
+    Storage.configure({
+        "sources": {"DB": {"TYPE": "sqlite", "PATH": str(work / "pio.db")}},
+        "repositories": {r: {"NAME": "pio", "SOURCE": "DB"}
+                         for r in ("METADATA", "EVENTDATA",
+                                   "MODELDATA")}})
+    app_id = Storage.get_meta_data_apps().insert(App(id=0, name="ObsApp"))
+    Storage.get_events().init_channel(app_id)
+
+    def instance(n):
+        inst = EngineInstance(
+            id=f"obs-v{n}", status="COMPLETED", engine_id="obs-engine",
+            engine_version="1", engine_variant="default",
+            data_source_params=json.dumps({"appName": "ObsApp"}),
+            algorithms_params=json.dumps(
+                [{"name": "als", "params": {"rank": rank}}]))
+        Storage.get_meta_data_engine_instances().insert(inst)
+        return inst
+
+    inst1 = instance(1)
+    rel1 = record_release(inst1, 0.0)
+    # v2, the canary: the served users over a 4,096-item catalog (the
+    # split under test does not depend on the candidate's width)
+    rng = np.random.default_rng(seed + 5)
+    V2 = rng.standard_normal((OBS["canary_items"], rank),
+                             dtype=np.float32)
+    blob = serialize_models([ALSModel.from_arrays(
+        users, items[:OBS["canary_items"]], U, V2, device="cpu")])
+    inst2 = instance(2)
+    Storage.get_model_data_models().insert(Model(id=inst2.id, models=blob))
+    check(record_release(inst2, 0.0, blob).version == 2,
+          "obs: v2 did not register as release 2")
+    del blob
+    model = ALSModel.from_arrays(users, items, U, V, device=DEV)
+    eng = engine()
+    result = eng.prepare_deploy(
+        default_engine_params("ObsApp", rank=rank), [model])
+    t0 = time.perf_counter()
+    QueryServer(eng, result, inst1, scorer_config=ScorerConfig(
+        mode="twostage", tile_items=TILE, shortlist=SHORTLIST)).warm()
+    report["in_process_build_s"] = time.perf_counter() - t0
+    check(model._scorer_cache[2].active, "obs: the scorer was demoted")
+    kernels.reset_counts()
+    report["leg2"] = obs_overhead_leg(seed, users, eng, result)
+    log("obs: leg 2 " + json.dumps(report["leg2"]))
+    report["restart"] = obs_restart_leg(seed, users, items, U, eng, result,
+                                        rel1, inst1)
+    log("obs: leg 3 (restart) " + json.dumps(report["restart"]))
+    in_process = kernels.counts()["shortlist"]
+    report["b2_launches"] += in_process
+    report["b2_launches_in_process"] = in_process
+    Storage.reset()
+    del model, result
+    gc.collect()
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -4885,7 +5745,8 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
         "route": "cuda",
         "source": "predictionio_tpu_torch/csrc/spd_solve.cu",
         "replaces": "predictionio_tpu/ops/linalg.py:106",
-        "launches": train["full"]["launches"] + sum(eval_launches.values()),
+        "launches": train["full"]["launches"] + sum(eval_launches.values())
+        + lifecycle["foldin_slo"]["b1_launches"],
         "max_abs_err": spd_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -4915,6 +5776,7 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
                 k: [v["launches_batched"], v["launches_one_at_a_time"]]
                 for k, v in width["solver"].items()},
             "canary_held_foldin": canary["held_foldin"]["b1_launches"],
+            "foldin_slo": lifecycle["foldin_slo"]["b1_launches"],
             "engines_ecommerce_train":
                 engines["ecommerce"]["train"]["launches"]["spd_solve"],
             "engines_ecommerce_unseen_train": engines["ecommerce"][
@@ -4938,6 +5800,28 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
     }
 
 
+def partial_run(args, shape) -> int:
+    """``--only``: the named phases after the kernels phase, for
+    debugging on the card; no kernels line and no result."""
+    phases = set(args.only.split(","))
+    bad = phases - {"serve", "obs", "lifecycle"}
+    check(not bad, f"--only takes serve, obs, lifecycle; got {sorted(bad)}")
+    if phases & {"serve", "obs"}:
+        served = build_model(args.seed, args.items, SERVE_USERS,
+                             SERVE_RANK)
+        serve_phase(args.seed, args.items, args.port, shape, *served)
+        if "obs" in phases:
+            log("obs: " + json.dumps(obs_phase(args.seed, shape, *served)))
+        shutil.rmtree(WORK, ignore_errors=True)
+        del served
+        gc.collect()
+    if "lifecycle" in phases:
+        lifecycle_phase(args.seed, args.port)
+    print(f"chip_smoke: partial run ({args.only}): no result",
+          file=sys.stderr)
+    return 4
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4945,6 +5829,10 @@ def main() -> int:
                     help="catalogue size of the serve phase (cut only to "
                          "fit the time limit; at least 4194304)")
     ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
+                    help="run only these of serve, obs, lifecycle after the "
+                         "build and the kernels phase (a partial run: it "
+                         "prints no result and exits 4)")
     args = ap.parse_args()
     if args.items < 1 << 22:
         ap.error("--items below 4194304 is not a cut this smoke allows")
@@ -4985,6 +5873,8 @@ def main() -> int:
             f"{time.perf_counter() - t0:.3f} s")
         # 3. kernels
         rows, max_err, shape = kernels_phase(args.seed, args.items)
+        if args.only:
+            return partial_run(args, shape)
         chunk_rows, chunk_err = kernels_chunk_rows(args.seed, args.items)
         eng_rows, eng_err = kernels_engine_shapes(args.seed)
         tie_rows = kernels_tie_rows(args.seed)
@@ -5036,6 +5926,11 @@ def main() -> int:
         #    just before the queries and read just after)
         serve = serve_phase(args.seed, args.items, args.port, shape,
                             *served)
+        # 12. obs, on the same model: the deploy's legs count their own
+        #     launches, this process's from zero just before them
+        obs = obs_phase(args.seed, shape, *served)
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("obs: " + json.dumps(obs))
         # 8. canary, on the same model in this process (its CLI leg ran
         #    inside the lifecycle, on v2)
         t0 = time.perf_counter()
@@ -5095,7 +5990,8 @@ def main() -> int:
             "engines_similar_width":
                 engines["similar_width"]["b2_launches"],
             "batchpredict": bp_width["launches"]
-            + lifecycle["batchpredict_cli"]["b2_launches"]},
+            + lifecycle["batchpredict_cli"]["b2_launches"],
+            "obs": obs["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
         "chunk_rows": chunk_rows,
         "engine_shapes": eng_rows,

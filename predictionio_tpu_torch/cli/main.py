@@ -244,7 +244,7 @@ def eventserver(args) -> int:
         print(f"[INFO] Event Server listening on http://{args.ip}:{port}",
               flush=True)
 
-    run_event_server(args.ip, args.port, on_ready=ready)
+    run_event_server(args.ip, args.port, on_ready=ready, stats=args.stats)
     return 0
 
 
@@ -517,8 +517,13 @@ def deploy(args) -> int:
         create_query_server, run_query_server,
     )
     from predictionio_tpu_torch.storage.base import EngineInstance
+    from predictionio_tpu_torch.obs.registry import (
+        MetricsRegistry, default_registry,
+    )
+    from predictionio_tpu_torch.obs.slo import slo_spec_from_server_json
+    from predictionio_tpu_torch.obs.telemetry import build_recorder
     from predictionio_tpu_torch.utils.server_config import (
-        deploy_config, foldin_config, scorer_config,
+        deploy_config, foldin_config, scorer_config, telemetry_config,
     )
     from predictionio_tpu_torch.workflow.serialization import load_model
     from predictionio_tpu_torch.workflow.train import load_for_deploy
@@ -560,7 +565,16 @@ def deploy(args) -> int:
           f"{summary['users']} users x {summary['items']} items, rank "
           f"{summary['rank']}, on {getattr(model, 'device', None)} "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    # durable telemetry (env > engine.json "telemetry" > server.json;
+    # PIO_TELEMETRY=0 off) in the store query_server-<port>, and the
+    # server.json "slo" objectives (PIO_SLO=0 off)
+    registry = MetricsRegistry()
+    telemetry = build_recorder(
+        "query_server", telemetry_config(variant.get("telemetry")),
+        instance=str(args.port), registries=[registry, default_registry()])
     server = create_query_server(engine, result, instance,
+                                 registry=registry, telemetry=telemetry,
+                                 slo_spec=slo_spec_from_server_json(),
                                  scorer_config=scfg, release=release,
                                  access_key=args.accesskey,
                                  foldin_config=fic,
@@ -750,6 +764,252 @@ def undeploy(args) -> int:
     return 0
 
 
+# -- observability (cli/main.py:888-1198 of the reference) ------------------
+
+def _parse_duration_s(text) -> float:
+    """'30m' / '2h' / '45s' / '1d' / plain seconds -> float seconds."""
+    text = str(text).strip().lower()
+    units = {"s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
+    try:
+        if text and text[-1] in units:
+            return float(text[:-1]) * units[text[-1]]
+        return float(text)
+    except ValueError:
+        _fail(f"{text!r} is not a duration (try 30m, 2h, 45s)")
+
+
+def _get_json(url: str) -> dict:
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return json.loads(r.read().decode())
+    except Exception as e:
+        _fail(f"Unable to read {url}: {e}")
+
+
+def traces(args) -> int:
+    """Read a live server's flight recorder (GET /debug/traces.json)."""
+    import urllib.parse
+
+    params = {"limit": str(args.limit)}
+    if args.trace_id:
+        params["traceId"] = args.trace_id
+    if args.since:
+        params["sinceS"] = str(_parse_duration_s(args.since))
+    doc = _get_json(f"http://{args.ip}:{args.port}/debug/traces.json?"
+                    + urllib.parse.urlencode(params))
+    if args.as_json:
+        print(json.dumps(doc, indent=1, sort_keys=True), flush=True)
+        return 0
+    for t in doc.get("traces", []):
+        spans = " ".join(f"{k}={v * 1e3:.1f}ms"
+                         for k, v in (t.get("spans") or {}).items())
+        print(f"[INFO] {t.get('traceId', '?')[:12]} "
+              f"{t.get('name')} {t.get('durationSec', 0) * 1e3:.1f}ms "
+              f"[{t.get('status')}] proc={t.get('process')}"
+              + (f" | {spans}" if spans else ""), flush=True)
+    if args.show_events:
+        for e in doc.get("events", []):
+            tid = (e.get("traceId") or "-")[:12]
+            rest = {k: v for k, v in e.items()
+                    if k not in ("kind", "ts", "traceId", "process")}
+            print(f"[INFO] event {e.get('kind')} trace={tid} {rest}",
+                  flush=True)
+    print(f"[INFO] {len(doc.get('traces', []))} trace record(s), "
+          f"{len(doc.get('events', []))} lifecycle event(s).", flush=True)
+    return 0
+
+
+def profile(args) -> int:
+    """Capture a bounded device profile from a live query server (POST
+    /debug/profile): a torch.profiler trace plus the per-family
+    dispatch table."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://{args.ip}:{args.port}/debug/profile"
+    if args.accesskey:
+        url += f"?accessKey={args.accesskey}"
+    body = json.dumps({"seconds": args.seconds,
+                       **({"dir": args.outdir} if args.outdir else {})}
+                      ).encode()
+    req = urllib.request.Request(
+        url, data=body, method="POST",
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=args.seconds + 30) as r:
+            out = json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            message = json.loads(e.read().decode()).get("message", str(e))
+        except Exception:
+            message = str(e)
+        _fail(f"Profile failed: {message}")
+    except Exception as e:
+        _fail(f"Unable to reach query server: {e}")
+    print(f"[INFO] Captured {out.get('seconds')}s device profile "
+          f"-> {out.get('traceDir')}", flush=True)
+    dispatch = out.get("dispatch") or {}
+    if dispatch:
+        print("[INFO] Dispatch seconds by kernel family "
+              "(cumulative since process start):", flush=True)
+        for family, secs in dispatch.items():
+            print(f"[INFO]   {family:<24} {secs:.3f}s", flush=True)
+    else:
+        print("[INFO] No dispatch attribution recorded yet "
+              "(PIO_DISPATCH_ATTRIBUTION=0, or nothing dispatched).",
+              flush=True)
+    return 0
+
+
+def slo(args) -> int:
+    """Read a live query server's SLO burn-rate evaluation (/slo.json)."""
+    doc = _get_json(f"http://{args.ip}:{args.port}/slo.json")
+    if not doc.get("enabled"):
+        print("[INFO] SLO engine disabled "
+              '(configure server.json {"slo": {...}}).', flush=True)
+        return 0
+    state = "BREACHED" if doc.get("breached") else "ok"
+    print(f"[INFO] SLO status: {state}", flush=True)
+    for obj in doc.get("objectives", []):
+        mark = "BREACHED" if obj.get("breached") else "ok"
+        if obj.get("window") == "cold":
+            mark += " (cold: history does not span the window yet)"
+        windows = ", ".join(
+            f"{int(w['seconds'])}s burn {w['burn']:.2f}/{w['burnThreshold']}"
+            for w in obj.get("windows", []))
+        print(f"[INFO]   {obj['name']} ({obj['kind']}): {mark} "
+              f"[{windows}]", flush=True)
+    return 0
+
+
+def capacity(args) -> int:
+    """Read a live server's device-memory ledger (GET /capacity.json)."""
+    doc = _get_json(f"http://{args.ip}:{args.port}/capacity.json")
+    if args.as_json:
+        print(json.dumps(doc, indent=1, sort_keys=True), flush=True)
+        return 0
+
+    def _mb(n):
+        return f"{float(n or 0) / (1 << 20):.1f}MiB"
+
+    proc = doc.get("process") or {}
+    print(f"[INFO] process: device {_mb(proc.get('deviceBytes'))} "
+          f"across {int(proc.get('deviceArrays') or 0)} array(s), "
+          f"watermark {_mb(proc.get('deviceWatermarkBytes'))}, "
+          f"host RSS {_mb(proc.get('hostRssBytes'))}", flush=True)
+    units = doc.get("units") or []
+    for u in units:
+        print(f"[INFO] unit {u.get('role')}: resident "
+              f"{_mb(u.get('residentBytes'))} (scorer "
+              f"{_mb(u.get('scorerBytes'))}) release "
+              f"v{u.get('release')} instance "
+              f"{u.get('engineInstanceId')}", flush=True)
+        for m in u.get("models") or []:
+            print(f"[INFO]   {m.get('model')}: factors "
+                  f"{_mb(m.get('modelFactorBytes'))} + scorer "
+                  f"{_mb(m.get('scorerFactorBytes'))} + shortlist "
+                  f"{_mb(m.get('shortlistBytes'))}", flush=True)
+    if not units:
+        print("[INFO] no serving units reported (the event server "
+              "answers process-level only).", flush=True)
+    return 0
+
+
+def _history_reader(dirpath):
+    from predictionio_tpu_torch.obs import fleet
+    from predictionio_tpu_torch.utils.server_config import telemetry_config
+
+    root = dirpath or telemetry_config().root_dir()
+    return root, fleet.history_reader(root)
+
+
+def metrics_series(args) -> int:
+    """List the persisted series: name, labels, sample count, range."""
+    root, reader = _history_reader(args.dirpath)
+    listing = reader.series(name=args.name)
+    for info in listing:
+        if not info.points:
+            continue
+        span = (info.points[-1][0] - info.points[0][0]) / 1000.0
+        print(f"[INFO] {info.name} {info.labels} [{info.kind}] "
+              f"{len(info.points)} sample(s) over {span:.0f}s", flush=True)
+    print(f"[INFO] {len(listing)} series in {root}.", flush=True)
+    return 0
+
+
+def metrics_query(args) -> int:
+    """Range-query a metric's persisted history, merged across every
+    local process's store (each labeled with its ``process``)."""
+    root, reader = _history_reader(args.dirpath)
+    name = args.metric
+    since_ms = int((time.time() - _parse_duration_s(args.since)) * 1000)
+    labels = {}
+    for spec in args.label_filters:
+        if "=" not in spec:
+            _fail(f"--label expects KEY=VALUE, got {spec!r}")
+        k, v = spec.split("=", 1)
+        labels[k] = v
+    labels = labels or None
+    if args.quantile is not None:
+        value = reader.quantile_over_time(name, args.quantile,
+                                          labels=labels, since_ms=since_ms)
+        if args.as_json:
+            print(json.dumps({"name": name, "quantile": args.quantile,
+                              "value": value}), flush=True)
+        elif value is None:
+            print(f"[INFO] no histogram data for {name} in the window "
+                  f"(root {root}).", flush=True)
+        else:
+            print(f"[INFO] {name} p{args.quantile * 100:g} over "
+                  f"{args.since}: {value:.6g}", flush=True)
+        return 0
+    if args.as_rate:
+        rates = reader.rate(name, labels=labels, since_ms=since_ms)
+        if args.as_json:
+            print(json.dumps({"name": name, "series": rates}), flush=True)
+            return 0
+        for r in rates:
+            print(f"[INFO] {name} {r['labels']}: {r['rate']:.4g}/s "
+                  f"(+{r['increase']:.6g} over {r['seconds']:.0f}s)",
+                  flush=True)
+        if not rates:
+            print(f"[INFO] no data for {name} in the window (root "
+                  f"{root}).", flush=True)
+        return 0
+    series = reader.series(name=name, labels=labels, since_ms=since_ms)
+    if args.as_json:
+        out = []
+        for info in series:
+            points = ([[ts, sum(c), s] for ts, c, s in info.points]
+                      if info.kind == "histogram"
+                      else [[ts, v] for ts, v in info.points])
+            out.append({"labels": info.labels, "kind": info.kind,
+                        "points": points})
+        print(json.dumps({"name": name, "series": out}), flush=True)
+        return 0
+    shown = 0
+    for info in series:
+        if not info.points:
+            continue
+        shown += 1
+        if info.kind == "histogram":
+            first, last = info.points[0], info.points[-1]
+            print(f"[INFO] {name} {info.labels} [histogram]: count "
+                  f"{sum(first[1]):g} -> {sum(last[1]):g} over "
+                  f"{len(info.points)} sample(s)", flush=True)
+        else:
+            values = [p[1] for p in info.points]
+            print(f"[INFO] {name} {info.labels} [{info.kind}]: "
+                  f"{values[0]:g} -> {values[-1]:g} over {len(values)} "
+                  f"sample(s)", flush=True)
+    if not shown:
+        print(f"[INFO] no data for {name} in the window (root {root}).",
+              flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.cli.main")
@@ -783,6 +1043,8 @@ def build_parser() -> argparse.ArgumentParser:
     e = sub.add_parser("eventserver", help="serve the event REST API")
     e.add_argument("--ip", default="localhost")
     e.add_argument("--port", default=7070, type=int)
+    e.add_argument("--stats", action="store_true",
+                   help="keep ingest statistics at /stats.json")
     e.set_defaults(func=eventserver)
 
     i = sub.add_parser("import", help="import events from a JSON-lines "
@@ -901,6 +1163,73 @@ def build_parser() -> argparse.ArgumentParser:
     rb.add_argument("--port", default=8000, type=int)
     rb.add_argument("--accesskey", default=None)
     rb.set_defaults(func=rollback)
+
+    tr = sub.add_parser("traces", help="read a live server's flight "
+                                       "recorder (/debug/traces.json)")
+    tr.add_argument("--ip", default="localhost")
+    tr.add_argument("--port", default=8000, type=int)
+    tr.add_argument("--trace-id", dest="trace_id", default=None,
+                    help="only spans of this trace id")
+    tr.add_argument("--limit", type=int, default=20,
+                    help="most recent N trace records (default 20)")
+    tr.add_argument("--since", default=None, metavar="30m",
+                    help="only records newer than this (45s, 30m, 2h)")
+    tr.add_argument("--events", dest="show_events", action="store_true",
+                    help="also print lifecycle events")
+    tr.add_argument("--json", dest="as_json", action="store_true",
+                    help="raw /debug/traces.json body")
+    tr.set_defaults(func=traces)
+
+    pf = sub.add_parser("profile", help="capture a bounded device profile "
+                                        "from a live query server")
+    pf.add_argument("--ip", default="localhost")
+    pf.add_argument("--port", default=8000, type=int)
+    pf.add_argument("--accesskey", default=None)
+    pf.add_argument("--seconds", type=float, default=2.0,
+                    help="capture window (capped server-side at 60s)")
+    pf.add_argument("--dir", dest="outdir", default=None,
+                    help="trace output directory (server-side path)")
+    pf.set_defaults(func=profile)
+
+    so = sub.add_parser("slo", help="read a live query server's SLO "
+                                    "burn-rate evaluation (/slo.json)")
+    so.add_argument("--ip", default="localhost")
+    so.add_argument("--port", default=8000, type=int)
+    so.set_defaults(func=slo)
+
+    cp = sub.add_parser("capacity", help="read a live server's "
+                                         "device-memory ledger")
+    cp.add_argument("--ip", default="localhost")
+    cp.add_argument("--port", default=8000, type=int)
+    cp.add_argument("--json", dest="as_json", action="store_true",
+                    help="raw /capacity.json body")
+    cp.set_defaults(func=capacity)
+
+    mt = sub.add_parser("metrics", help="query the durable local "
+                                        "telemetry stores").add_subparsers(
+        dest="metrics_cmd", required=True)
+    ms = mt.add_parser("series", help="list the persisted series")
+    ms.add_argument("--dir", dest="dirpath", default=None,
+                    help="telemetry root (default $PIO_HOME/telemetry or "
+                         "PIO_TELEMETRY_DIR)")
+    ms.add_argument("--name", default=None, help="only this metric")
+    ms.set_defaults(func=metrics_series)
+    mq = mt.add_parser("query", help="range-query a metric's history")
+    mq.add_argument("metric")
+    mq.add_argument("--since", default="1h", metavar="30m",
+                    help="trailing window (45s, 30m, 2h, 1d; default 1h)")
+    mq.add_argument("--rate", dest="as_rate", action="store_true",
+                    help="per-second rate + increase over the window")
+    mq.add_argument("--quantile", type=float, default=None,
+                    help="histogram quantile over the window, e.g. 0.99")
+    mq.add_argument("--label", dest="label_filters", action="append",
+                    default=[], metavar="KEY=VALUE",
+                    help="label filter (repeatable)")
+    mq.add_argument("--dir", dest="dirpath", default=None,
+                    help="telemetry root (default $PIO_HOME/telemetry or "
+                         "PIO_TELEMETRY_DIR)")
+    mq.add_argument("--json", dest="as_json", action="store_true")
+    mq.set_defaults(func=metrics_query)
     return p
 
 

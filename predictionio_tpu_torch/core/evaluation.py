@@ -376,6 +376,10 @@ class MetricEvaluator:
                 details.append({"index": i, **vec["details"][i]})
             sweep_info = vec["info"]
         else:
+            from predictionio_tpu_torch.obs.eval_stats import (
+                eval_candidates_counter,
+            )
+
             runner = CachedEvalRunner(engine)
             for i, ep in enumerate(engine_params_list):
                 t0 = time.perf_counter()
@@ -390,6 +394,8 @@ class MetricEvaluator:
                 details.append({
                     "index": i, "group": "sequential",
                     "wallTimeS": round(time.perf_counter() - t0, 4)})
+            eval_candidates_counter().inc(len(engine_params_list),
+                                          mode="sequential")
             sweep_info = {"mode": "sequential", "compileGroups": None,
                           "batchSizes": [],
                           "candidates": len(engine_params_list)}

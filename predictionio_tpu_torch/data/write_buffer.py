@@ -43,6 +43,10 @@ from collections import deque
 from typing import Callable, List, Optional, Sequence
 
 from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.obs.anatomy import (
+    anatomy_enabled, anatomy_metrics, observe_ingest_batch,
+)
+from predictionio_tpu_torch.obs.tracing import current_trace
 from predictionio_tpu_torch.storage.base import StorageError, generate_id
 
 logger = logging.getLogger("pio.torch.writebuffer")
@@ -119,13 +123,19 @@ def _attempt(fn: Callable, args) -> "concurrent.futures.Future":
 
 
 class _Pending:
-    __slots__ = ("events", "app_id", "channel_id", "future")
+    """One submit. ``t_submit`` and ``req_trace`` (the submitting
+    request's Trace) feed the ingest anatomy."""
+
+    __slots__ = ("events", "app_id", "channel_id", "future", "t_submit",
+                 "req_trace")
 
     def __init__(self, events, app_id, channel_id, future):
         self.events = events
         self.app_id = app_id
         self.channel_id = channel_id
         self.future = future
+        self.t_submit = time.perf_counter()
+        self.req_trace = current_trace()
 
 
 class WriteBuffer:
@@ -135,8 +145,13 @@ class WriteBuffer:
     def __init__(self, store_fn: Callable, *, queue_max: int = 8192,
                  flush_max: int = 256, linger_s: float = 0.002,
                  retries: int = 4, backoff_s: float = 0.05,
-                 backoff_cap_s: float = 1.0, flush_timeout_s: float = 30.0):
+                 backoff_cap_s: float = 1.0, flush_timeout_s: float = 30.0,
+                 registry=None):
         self._store_fn = store_fn
+        #: the ingest anatomy (``flush_wait``, ``commit``) on this
+        #: registry, when one is given
+        self._anatomy = (anatomy_metrics(registry)
+                         if registry is not None else None)
         self.queue_max = max(1, queue_max)
         self.flush_max = max(1, flush_max)
         self.linger_s = max(0.0, linger_s)
@@ -223,6 +238,7 @@ class WriteBuffer:
             groups.setdefault((p.app_id, p.channel_id), []).append(p)
         for (app_id, channel_id), pendings in groups.items():
             events = [e for p in pendings for e in p.events]
+            t_flush_start = time.perf_counter()
             try:
                 ids = self._flush_group(events, app_id, channel_id)
             except Exception as e:  # noqa: BLE001 — fanned out to callers
@@ -230,6 +246,14 @@ class WriteBuffer:
                     if p.future.set_running_or_notify_cancel():
                         p.future.set_exception(_as_storage_error(e))
                 continue
+            if self._anatomy is not None and anatomy_enabled():
+                try:
+                    observe_ingest_batch(
+                        self._anatomy,
+                        [(p.t_submit, p.req_trace) for p in pendings],
+                        t_flush_start, time.perf_counter() - t_flush_start)
+                except Exception:
+                    logger.exception("ingest anatomy observation failed")
             pos = 0
             for p in pendings:
                 n = len(p.events)

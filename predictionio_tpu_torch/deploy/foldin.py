@@ -38,13 +38,19 @@ import dataclasses
 import logging
 import threading
 import time
-from collections import Counter, OrderedDict, deque
+from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from predictionio_tpu_torch.data.bimap import batch_lookup, vocab_index
 from predictionio_tpu_torch.models.als import ALSParams, FoldInSolver
+from predictionio_tpu_torch.obs.foldin_stats import (
+    foldin_applied_rows, foldin_applies, foldin_apply_seconds,
+    foldin_batch_rows, foldin_event_to_applied, foldin_pending,
+    foldin_solve_seconds,
+)
+from predictionio_tpu_torch.obs.registry import MetricsRegistry
 from predictionio_tpu_torch.storage.base import Release
 from predictionio_tpu_torch.utils.server_config import FoldinConfig
 
@@ -284,9 +290,12 @@ class FoldInController:
     ingest writer thread, applies on the server's deploy executor (or
     the caller's thread), and the swap is one reference assignment."""
 
-    def __init__(self, server, config: FoldinConfig):
+    def __init__(self, server, config: FoldinConfig, registry=None):
         self.server = server
         self.config = config
+        # the server's registry; a bare controller keeps its own
+        reg = (registry or getattr(server, "registry", None)
+               or MetricsRegistry())
         sup = resolve_foldin(server.result)
         if sup is None:
             raise FoldinUnsupported(
@@ -313,8 +322,16 @@ class FoldInController:
         #: batched solves run (one B1 call each on the card)
         self.solves = 0
         self.last_apply_s: Optional[float] = None
-        #: apply ticks by outcome: applied | empty | raced | held | error
-        self.outcomes: Dict[str, int] = Counter()
+        #: the reference's ``pio_foldin_*`` series (obs/foldin_stats);
+        #: apply ticks by outcome: applied | empty | raced | held |
+        #: deferred | error
+        self._m_pending = foldin_pending(reg)
+        self._m_batch = foldin_batch_rows(reg)
+        self._m_solve = foldin_solve_seconds(reg)
+        self._m_apply = foldin_apply_seconds(reg)
+        self._m_rows = foldin_applied_rows(reg)
+        self._m_applies = foldin_applies(reg)
+        self._m_latency = foldin_event_to_applied(reg)
         #: the recent applies' splits (see `_apply`)
         self.apply_log: "deque[dict]" = deque(maxlen=APPLY_LOG)
 
@@ -322,6 +339,15 @@ class FoldInController:
     def pending_rows(self) -> int:
         with self._lock:
             return len(self._dirty_users) + len(self._dirty_items)
+
+    def _update_pending_gauge(self) -> None:
+        self._m_pending.set(float(self.pending_rows()))
+
+    @property
+    def outcomes(self) -> Dict[str, int]:
+        """Apply ticks by outcome so far."""
+        return {labels["outcome"]: int(v)
+                for labels, v in self._m_applies.samples()}
 
     def _resolve_app(self) -> Optional[Tuple[int, Optional[int]]]:
         if self._app is None:
@@ -359,8 +385,9 @@ class FoldInController:
                 self._mark_locked(e.event, e.entity_type, e.entity_id,
                                   e.target_entity_type, e.target_entity_id,
                                   now)
-            kick = (len(self._dirty_users) + len(self._dirty_items)
-                    >= self.config.max_pending)
+            pending = len(self._dirty_users) + len(self._dirty_items)
+        self._m_pending.set(float(pending))
+        kick = pending >= self.config.max_pending
         if kick and self._kick is not None:
             self._kick.set()
 
@@ -447,6 +474,7 @@ class FoldInController:
             # seen-id set drops the repeat
             self._watermark_ms = max(self._watermark_ms,
                                      int(cols["event_time_ms"].max()))
+        self._update_pending_gauge()
 
     # -- apply ---------------------------------------------------------------
     def _solver_for(self, factors: np.ndarray, params: ALSParams,
@@ -514,9 +542,12 @@ class FoldInController:
             return {}
         t0 = time.perf_counter()
         rows = solver.solve(rated, values)
+        dt = time.perf_counter() - t0
         self.solves += 1
+        self._m_solve.observe(dt)
+        self._m_batch.observe(float(len(kept)))
         split["solves"].append(dict(solver.last_solve, side=side,
-                                    seconds=time.perf_counter() - t0))
+                                    seconds=dt))
         return {ent: rows[i] for i, ent in enumerate(kept)}
 
     def _warm_grown_catalog(self, unit) -> float:
@@ -546,7 +577,16 @@ class FoldInController:
         apply failed."""
         t_start = time.perf_counter()
         if getattr(self.server, "_canary", None) is not None:
-            self.outcomes["held"] += 1
+            self._m_applies.inc(outcome="held")
+            return None
+        slo = getattr(self.server, "_slo", None)
+        if slo is not None and slo.breached(exclude_kinds=("freshness",)):
+            # while the serving latency/error SLO burns, a swap could make
+            # things worse: the deltas stay pending until the burn clears.
+            # Freshness breaches are excluded: deferring the apply is
+            # exactly what would deepen one.
+            self._m_applies.inc(outcome="deferred")
+            logger.warning("fold-in apply deferred: serving SLO breached")
             return None
         try:
             self.pull()
@@ -565,8 +605,9 @@ class FoldInController:
                 iid, ts = self._dirty_items.popitem(last=False)
                 items[iid] = ts
             counts, self._counts = self._counts, {}
+        self._update_pending_gauge()
         if not users and not items and not counts:
-            self.outcomes["empty"] += 1
+            self._m_applies.inc(outcome="empty")
             return None
 
         def requeue() -> None:
@@ -578,6 +619,7 @@ class FoldInController:
                     self._dirty_items.setdefault(iid, ts)
                 for tid, c in counts.items():
                     self._counts[tid] = self._counts.get(tid, 0.0) + c
+            self._update_pending_gauge()
 
         from predictionio_tpu_torch.deploy.warm import FoldinSwapRaced
 
@@ -585,21 +627,24 @@ class FoldInController:
             stats = self._apply(users, items, counts)
         except FoldinSwapRaced as e:
             requeue()
-            self.outcomes["raced"] += 1
+            self._m_applies.inc(outcome="raced")
             logger.info("fold-in apply raced a cutover, deltas requeued: "
                         "%s", e)
             return None
         except Exception:
             requeue()
-            self.outcomes["error"] += 1
+            self._m_applies.inc(outcome="error")
             raise
-        self.outcomes["applied"] += 1
+        self._m_applies.inc(outcome="applied")
         self.applies += 1
         dt = time.perf_counter() - t_start
         self.last_apply_s = dt
+        self._m_apply.observe(dt)
         now = time.monotonic()
         waits = [now - ts for ts in list(users.values())
                  + list(items.values())]
+        for w in waits:
+            self._m_latency.observe(max(0.0, w))
         stats.update(apply=self.applies, pull_s=t_pulled - t_start,
                      apply_s=dt,
                      max_event_to_applied_s=max(waits) if waits else None)
@@ -693,6 +738,10 @@ class FoldInController:
         split.update(model_s=t1 - t0, register_s=t2 - t1, swap_s=t4 - t3)
         self.applied_users += len(user_rows)
         self.applied_items += len(item_rows)
+        if user_rows:
+            self._m_rows.inc(len(user_rows), side="user")
+        if item_rows:
+            self._m_rows.inc(len(item_rows), side="item")
         if item_rows and deferred:
             # users whose ratings named a then-unknown item that has just
             # folded in: requeue them so the next tick completes their row

@@ -17,6 +17,7 @@ import logging
 import time
 from typing import Any, Callable, List, Optional, Sequence
 
+from predictionio_tpu_torch.obs.registry import MetricsRegistry, default_registry
 from predictionio_tpu_torch.ops.bucketing import bucket_size
 from predictionio_tpu_torch.storage.base import EngineInstance, Release
 
@@ -167,3 +168,63 @@ def verify_unit(unit: ServingUnit,
     if not out or isinstance(out[0], Exception):
         err = out[0] if out else RuntimeError("empty result")
         raise DeployError(f"verify query failed: {err!r}")
+
+
+# ---------------------------------------------------------------------------
+# pio_deploy_* metric handles
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DeployMetrics:
+    phase_hist: Any       # pio_deploy_phase_duration_seconds{phase}
+    swap_total: Any       # pio_deploy_swap_total{mode, outcome}
+    rollback_total: Any   # pio_deploy_rollback_total{reason}
+    promote_total: Any    # pio_deploy_promote_total{reason}
+    requests_total: Any   # pio_deploy_requests_total{role}
+    canary_fraction: Any  # pio_deploy_canary_fraction gauge
+    canary_splitter_acc: Any  # pio_deploy_canary_splitter_acc gauge
+    active_version: Any   # pio_deploy_active_release_version gauge
+    warmup_shapes: Any    # pio_deploy_warmup_shapes_total counter
+
+
+def deploy_metrics(registry: Optional[MetricsRegistry] = None
+                   ) -> DeployMetrics:
+    """Get-or-create the deploy metric family on `registry`
+    (idempotent; the reference's series)."""
+    reg = registry or default_registry()
+    return DeployMetrics(
+        phase_hist=reg.histogram(
+            "pio_deploy_phase_duration_seconds",
+            "Wall time of each deploy phase (load/warmup/verify/swap/drain)",
+            labelnames=("phase",)),
+        swap_total=reg.counter(
+            "pio_deploy_swap_total",
+            "Release cutovers by mode (warm/cold) and outcome",
+            labelnames=("mode", "outcome")),
+        rollback_total=reg.counter(
+            "pio_deploy_rollback_total",
+            "Rollbacks by trigger (slo_latency/slo_errors/operator)",
+            labelnames=("reason",)),
+        promote_total=reg.counter(
+            "pio_deploy_promote_total",
+            "Canary promotions by trigger (healthy/operator)",
+            labelnames=("reason",)),
+        requests_total=reg.counter(
+            "pio_deploy_requests_total",
+            "Queries routed per serving role during a staged rollout",
+            labelnames=("role",)),
+        canary_fraction=reg.gauge(
+            "pio_deploy_canary_fraction",
+            "Traffic fraction currently routed to the canary (0 = none)"),
+        canary_splitter_acc=reg.gauge(
+            "pio_deploy_canary_splitter_acc",
+            "Canary splitter's error-diffusion accumulator — persisted "
+            "through the telemetry store so a restarted server resumes "
+            "the exact mid-stream split instead of re-seeding at zero"),
+        active_version=reg.gauge(
+            "pio_deploy_active_release_version",
+            "Release version currently serving full traffic (0 = unversioned)"),
+        warmup_shapes=reg.counter(
+            "pio_deploy_warmup_shapes_total",
+            "Bucket shapes driven through warmup passes"),
+    )

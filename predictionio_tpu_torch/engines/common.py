@@ -9,7 +9,6 @@ templates); every ALS engine resolves its training solver here.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import json
 import os
@@ -84,14 +83,16 @@ class EntityEventCache:
     come from memory. The TTL (default 1 s, ``PIO_ENTITY_CACHE_TTL_S``)
     bounds the staleness: a just-viewed item may be recommended for up
     to ``ttl_s`` more. Hits and misses are counted per lookup kind in
-    ``hits`` / ``misses`` (the reference's
-    ``pio_serving_entity_cache_{hits,misses}_total`` series; plain
-    counters until the port has the metrics registry)."""
+    ``pio_serving_entity_cache_{hits,misses}_total``."""
 
     MAX_ENTRIES = 4096
 
     def __init__(self, app_name: str, channel_name: Optional[str] = None,
-                 ttl_s: Optional[float] = None):
+                 ttl_s: Optional[float] = None, registry=None):
+        from predictionio_tpu_torch.obs.foldin_stats import (
+            entity_cache_hits, entity_cache_misses,
+        )
+
         self.app_name = app_name
         self.channel_name = channel_name
         if ttl_s is None:
@@ -103,16 +104,17 @@ class EntityEventCache:
         self.ttl_s = max(0.0, ttl_s)
         self._lock = threading.Lock()
         self._cache: dict = {}
-        self.hits: collections.Counter = collections.Counter()
-        self.misses: collections.Counter = collections.Counter()
+        #: ``pio_serving_entity_cache_{hits,misses}_total{lookup}``
+        self._hits = entity_cache_hits(registry)
+        self._misses = entity_cache_misses(registry)
 
     def _get(self, key, lookup: str):
         with self._lock:
             hit = self._cache.get(key)
             if hit is not None and time.monotonic() - hit[0] < self.ttl_s:
-                self.hits[lookup] += 1
+                self._hits.inc(lookup=lookup)
                 return hit[1]
-            self.misses[lookup] += 1
+        self._misses.inc(lookup=lookup)
         return None
 
     def _put(self, key, value) -> None:

@@ -29,6 +29,10 @@ import torch
 
 from predictionio_tpu_torch.core.params import Params
 from predictionio_tpu_torch.data.bimap import vocab_index
+from predictionio_tpu_torch.obs.tracing import span
+from predictionio_tpu_torch.obs.train_stats import (
+    als_block_sweeps, als_gramian_cache_hits, als_half_sweep_seconds,
+)
 from predictionio_tpu_torch.ops.bucketing import bucket_size, pad_rows
 from predictionio_tpu_torch.ops.linalg import batched_spd_solve
 from predictionio_tpu_torch.ops.segment import (
@@ -559,22 +563,48 @@ def train_als(data: ALSData, params: ALSParams, device=None,
                         device=dev)
     start = it
     reg, alpha = _unit_params(params, dev)
-    while it < params.num_iterations:
-        if params.solver == "subspace":
-            U = _half_sweep_subspace(U, V, data.by_user, params, reg, alpha)
-            V = _half_sweep_subspace(V, U, data.by_item, params, reg, alpha)
-        else:
-            U = _half_sweep(V, data.by_user, params, reg, alpha)
-            V = _half_sweep(U, data.by_item, params, reg, alpha)
-        it += 1
-        if (checkpointer is not None and it < params.num_iterations
-                and (it - start) % checkpointer.interval == 0):
-            state = {"V": V[:data.n_items]}
+    # the solve's wall: the sweeps and the download that waits for them,
+    # snapshot writes excluded
+    t0 = time.perf_counter()
+    save_s = 0.0
+    with span("als_solve"):
+        while it < params.num_iterations:
             if params.solver == "subspace":
-                state["U"] = U[:data.n_users]
-            checkpointer.save(it, state, fingerprint=fp)
-    return (U[:data.n_users].cpu().numpy(),
-            V[:data.n_items].cpu().numpy())
+                U = _half_sweep_subspace(U, V, data.by_user, params, reg,
+                                         alpha)
+                V = _half_sweep_subspace(V, U, data.by_item, params, reg,
+                                         alpha)
+            else:
+                U = _half_sweep(V, data.by_user, params, reg, alpha)
+                V = _half_sweep(U, data.by_item, params, reg, alpha)
+            it += 1
+            if (checkpointer is not None and it < params.num_iterations
+                    and (it - start) % checkpointer.interval == 0):
+                t_save = time.perf_counter()
+                state = {"V": V[:data.n_items]}
+                if params.solver == "subspace":
+                    state["U"] = U[:data.n_users]
+                checkpointer.save(it, state, fingerprint=fp)
+                save_s += time.perf_counter() - t_save
+        out = (U[:data.n_users].cpu().numpy(),
+               V[:data.n_items].cpu().numpy())
+    _observe_train(params, it - start, time.perf_counter() - t0 - save_s)
+    return out
+
+
+def _observe_train(params: ALSParams, iters_run: int,
+                   solve_s: float) -> None:
+    """The reference's half-sweep accounting (``obs/train_stats``):
+    per-half-sweep wall derived from the solve's wall, and for the
+    subspace solver its block solves, every one after a half-sweep's
+    first served from that half-sweep's Gramian."""
+    half_sweeps = max(1, 2 * iters_run)
+    als_half_sweep_seconds().observe(solve_s / half_sweeps,
+                                     solver=params.solver)
+    if params.solver == "subspace":
+        n_blocks = len(block_starts(params.rank, params.block_size))
+        als_block_sweeps().inc(half_sweeps * n_blocks)
+        als_gramian_cache_hits().inc(half_sweeps * max(0, n_blocks - 1))
 
 
 def _coo_hash_commutative(user_idx, item_idx, ratings) -> int:

@@ -46,6 +46,10 @@ from predictionio_tpu_torch.models import als as als_mod
 from predictionio_tpu_torch.models.als import (
     ALSParams, _auto_row_len, _row_positions, validate_solver,
 )
+from predictionio_tpu_torch.obs.eval_stats import (
+    eval_batch_size, eval_candidates_counter, eval_compile_groups,
+)
+from predictionio_tpu_torch.obs.tracing import span
 from predictionio_tpu_torch.utils.device import resolve_device, synchronize
 
 #: units (candidate x fold) per launch; larger groups split into launches
@@ -418,14 +422,18 @@ def run_sweep(data: ALSSweepData, candidates: Sequence[ALSParams], *,
             V0 = _initial_factors(launch, candidates, static.rank,
                                   data.n_items, prev_v, warm_start, dev)
             t0 = time.perf_counter()
-            U, V = _train_units(user, item, static, max_iters, fold_c,
-                                reg_c, alpha_c, iters_c, V0, data.n_users)
-            synchronize(dev)
+            with span("eval_train_group"):
+                U, V = _train_units(user, item, static, max_iters, fold_c,
+                                    reg_c, alpha_c, iters_c, V0,
+                                    data.n_users)
+                synchronize(dev)
             seconds["train"] += time.perf_counter() - t0
-            t0 = time.perf_counter()
-            out = _unit_metrics(U, V, entries, fold_c, rank_metrics)
-            seconds["metric"] += time.perf_counter() - t0
             batch_sizes.append(len(launch))
+            eval_batch_size().observe(len(launch))
+            t0 = time.perf_counter()
+            with span("eval_metrics"):
+                out = _unit_metrics(U, V, entries, fold_c, rank_metrics)
+            seconds["metric"] += time.perf_counter() - t0
             for j, (ci, _f) in enumerate(launch):
                 sums[ci] += out[j]
             if warm_start:
@@ -450,6 +458,8 @@ def run_sweep(data: ALSSweepData, candidates: Sequence[ALSParams], *,
                 res.topn_mse = float(tse / nt) if nt else float("nan")
             results[ci] = res
 
+    eval_candidates_counter().inc(len(candidates), mode=mode)
+    eval_compile_groups().set(len(group_items))
     return SweepResult(
         candidates=[results[i] for i in range(len(candidates))],
         n_groups=len(group_items), batch_sizes=batch_sizes, mode=mode,

@@ -40,6 +40,7 @@ import torch
 from predictionio_tpu_torch.data.bimap import vocab_index
 from predictionio_tpu_torch.ops.topk import host_topk
 from predictionio_tpu_torch.utils.device import resolve_device, synchronize
+from predictionio_tpu_torch.utils.profiling import phase
 
 #: max dense entries of the CPU path before host pair counting: it
 #: holds A (f32) and the full [n_items, n_items] count matrix
@@ -148,10 +149,13 @@ def cooccurrence_topn_slabs(user_idx: np.ndarray, item_idx: np.ndarray,
     k = int(min(n_top, n_items))
     _, _, slab = slab_geometry(n_users, n_items)
     t0 = time.perf_counter()
-    at_host = incidence(user_idx, item_idx, n_users, n_items)
+    # the reference's phases (``pio_phase_duration_seconds`` of a run)
+    with phase("incidence_build"):
+        at_host = incidence(user_idx, item_idx, n_users, n_items)
     t1 = time.perf_counter()
-    at = torch.from_numpy(at_host).to(dev).view(torch.int8)
-    synchronize(dev)
+    with phase("incidence_transfer"):
+        at = torch.from_numpy(at_host).to(dev).view(torch.int8)
+        synchronize(dev)
     t2 = time.perf_counter()
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)

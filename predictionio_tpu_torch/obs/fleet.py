@@ -1,6 +1,5 @@
 """Fleet metric aggregation: many processes, one merged view (the
-reference's ``obs/fleet.py`` without its ``history_dirs`` /
-``history_reader``, which read ``obs/tsdb`` stores, not ported yet).
+reference's ``obs/fleet.py``).
 
 * :func:`snapshot` exports a registry's raw state (plus the process's
   flight-recorder rings) as one JSON document;
@@ -187,3 +186,38 @@ def import_into_recorder(view: FleetView) -> None:
     flight recorder, so /debug/traces.json on the merger shows the whole
     fleet's spans under one trace id."""
     recorder().import_records(view.traces(), view.events())
+
+
+# ---------------------------------------------------------------------------
+# fleet-wide HISTORY: merging per-process tsdb stores (obs/tsdb.py)
+# ---------------------------------------------------------------------------
+
+def history_dirs(root: str) -> Dict[str, str]:
+    """The per-process telemetry stores under a telemetry root: each
+    service's scrape loop (obs/telemetry.py) owns ``<root>/<service>/``;
+    the subdirectory name becomes the merged view's ``process`` label."""
+    try:
+        names = sorted(os.listdir(root))
+    except OSError:
+        return {}
+    return {n: os.path.join(root, n) for n in names
+            if os.path.isdir(os.path.join(root, n))}
+
+
+def history_reader(root_or_dirs):
+    """A fleet-wide :class:`tsdb.TSDBReader`: pass the telemetry root
+    (service stores are discovered and labeled per process) or an
+    explicit ``{process: dir}`` map / dir list. This is what
+    the ``/history`` routes and ``pio metrics`` read: every server
+    answers range queries for the
+    whole host's history, not just its own store."""
+    from predictionio_tpu_torch.obs.tsdb import TSDBReader
+
+    if isinstance(root_or_dirs, str):
+        dirs = history_dirs(root_or_dirs)
+        if not dirs and os.path.isdir(root_or_dirs):
+            # a bare store directory (single process) works too
+            dirs = {os.path.basename(root_or_dirs.rstrip("/")):
+                    root_or_dirs}
+        return TSDBReader(dirs)
+    return TSDBReader(root_or_dirs)

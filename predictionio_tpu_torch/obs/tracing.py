@@ -1,6 +1,6 @@
 """Tracing: request ids, the contextvar span API and cross-hop carry (a
-copy of the reference's ``obs/tracing.py``; its HTTP middleware,
-``obs/middleware.py``, is not ported yet).
+copy of the reference's ``obs/tracing.py``; the HTTP middleware that
+opens a trace per request is ``obs/middleware``).
 
 ``span("name")`` anywhere below an active trace records a named stage
 timing without threading arguments through every signature. A trace has
@@ -21,6 +21,7 @@ import contextlib
 import contextvars
 import json
 import logging
+import os
 import time
 import uuid
 from typing import Dict, List, Optional, Tuple
@@ -37,6 +38,18 @@ _request_id_var: contextvars.ContextVar[Optional[str]] = \
     contextvars.ContextVar("pio_request_id", default=None)
 _trace_var: contextvars.ContextVar[Optional["Trace"]] = \
     contextvars.ContextVar("pio_trace", default=None)
+
+
+REQUEST_ID_HEADER = "X-Request-ID"
+
+#: env kill-switch for the tracing layer (metrics stay on): the bench
+#: measures its overhead against exactly this off state
+TRACING_ENV = "PIO_TRACING"
+
+
+def tracing_enabled() -> bool:
+    return os.environ.get(TRACING_ENV, "1").strip().lower() not in (
+        "0", "false", "no", "off")
 
 
 def new_request_id() -> str:

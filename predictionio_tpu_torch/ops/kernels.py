@@ -25,10 +25,13 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from predictionio_tpu_torch.obs import anatomy, profiler
 
 #: shortlist kernel launches in this process (csrc/shortlist.cu)
 SHORTLIST_LAUNCHES = 0
@@ -412,6 +415,25 @@ def shortlist_plan(b: int, nt: int, tile: int, rank: int, cand: int,
                      f"memory: B={b} T={tile} R={rank} c={cand}")
 
 
+def _attributed(family: str, launch):
+    """Run ``launch()`` under the dispatch attribution (obs/profiler,
+    obs/anatomy): its host wall goes to
+    ``pio_device_dispatch_seconds_total{family}`` and to the active
+    micro-batch's breakdown. Launch time, not kernel time: the launch
+    is asynchronous."""
+    attributed = profiler.dispatch_attribution_enabled()
+    if not attributed and not anatomy.anatomy_enabled():
+        return launch()
+    t0 = time.perf_counter()
+    try:
+        return launch()
+    finally:
+        dt = time.perf_counter() - t0
+        if attributed:
+            profiler.note_dispatch(family, dt)
+        anatomy.note_dispatch(dt)
+
+
 def shortlist_topc_cuda(u: torch.Tensor, tiles: torch.Tensor,
                         scales: torch.Tensor, n_items: int,
                         mask: Optional[torch.Tensor], cand: int
@@ -419,8 +441,14 @@ def shortlist_topc_cuda(u: torch.Tensor, tiles: torch.Tensor,
     """Launch csrc/shortlist.cu on CUDA tensors: ``u [B,R] f32``,
     ``tiles [nt,T,R] int8``, ``scales [nt,T] f32``, ``mask [B,nt*T]
     bool`` or None -> ``(vals [B,nt*cand] f32, ids [B,nt*cand] i32)``,
-    under :func:`shortlist_plan`. One CUDA launch. Runs on the current
-    stream and does not synchronise."""
+    under :func:`shortlist_plan`. One CUDA launch, attributed to the
+    dispatch family ``shortlist``. Runs on the current stream and does
+    not synchronise."""
+    return _attributed("shortlist", functools.partial(
+        _shortlist_checked, u, tiles, scales, n_items, mask, cand))
+
+
+def _shortlist_checked(u, tiles, scales, n_items, mask, cand):
     dev = u.device
     if dev.type != "cuda":
         raise ValueError(f"shortlist kernel needs CUDA tensors, got {dev}")
@@ -504,8 +532,14 @@ def spd_solve_cuda(A: torch.Tensor, b: torch.Tensor,
     ``b [S,K] f32``, ``diag [S] f32`` or None -> ``x [S,K] f32`` with
     ``(A[s] + diag[s] I + jitter I) x[s] = b[s]``, for 1 <= K <= 64. The
     kernel adds both terms to the diagonal as it loads A, in that order,
-    and reads only A's lower triangle; A is not written. Runs on the
+    and reads only A's lower triangle; A is not written. One CUDA
+    launch, attributed to the dispatch family ``spd_solve``. Runs on the
     current stream and does not synchronise."""
+    return _attributed("spd_solve", functools.partial(
+        _spd_solve_checked, A, b, diag, jitter))
+
+
+def _spd_solve_checked(A, b, diag, jitter):
     global SPD_SOLVE_LAUNCHES
     dev = A.device
     if dev.type != "cuda":

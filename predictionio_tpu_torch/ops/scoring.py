@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.obs.scoring_stats import scoring_metrics
 from predictionio_tpu_torch.ops import kernels
 from predictionio_tpu_torch.ops.bucketing import bucket_size
 from predictionio_tpu_torch.ops.topk import host_topk, merge_topk
@@ -354,6 +355,9 @@ class ItemScorer:
             n_pad = self.n_tiles * self.tile
             mask_pad = np.ones((b_pad, n_pad), bool)
             mask_pad[:b, :self.n_items] = mask
+        m = scoring_metrics()
+        m.batches.inc(mode=self.active_mode)
+        m.tiles.inc(self.n_tiles)
         if self.active_mode == "twostage":
             scores, idx = self._topk_twostage(u, k, mask_pad)
         else:
@@ -403,6 +407,9 @@ class ItemScorer:
             self._to_device(u_scan), self._tiles, self._scales,
             self.n_items, self._to_device(mask_pad), cand)
         approx, ids = approx.cpu().numpy(), ids.cpu().numpy()
+        m = scoring_metrics()
+        m.shortlist.observe(float(ids.shape[1]))
+        m.rescore_fraction.observe(ids.shape[1] / max(1, self.n_items))
         # stage 2: EXACT f32 rescore of the shortlist
         return self._rescore_exact(u, approx, ids, k)
 
@@ -502,6 +509,9 @@ def build_scorer(V: np.ndarray, cfg=None,
                  cfg.min_recall if min_recall is None else min_recall)
     scorer.gate_s = time.perf_counter() - t_gate
     scorer.build_s = time.perf_counter() - t_build
+    m = scoring_metrics()
+    m.quant_error.set(scorer.quant_error, mode=scorer.mode)
+    m.parity_recall.set(scorer.recall_probe, mode=scorer.mode)
     return scorer
 
 
@@ -542,6 +552,7 @@ def _parity_gate(scorer: ItemScorer, v: np.ndarray,
             "on a %dx%d catalog — falling back to exact serving",
             scorer.mode, k, recall, min_recall, scorer.n_items,
             scorer.rank)
+        scoring_metrics().parity_fallback.inc(mode=scorer.mode)
         scorer.active_mode = "exact"
         # a demoted scorer must not hold quantized copies nobody reads
         scorer._tiles = None

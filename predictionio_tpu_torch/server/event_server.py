@@ -9,6 +9,7 @@
   POST   /batch/events.json   -> per-event statuses in the
                                  original order, at most
                                  ``maxEventsPerBatch``         (:340)
+  GET    /stats.json          -> ingest counters (``--stats``)  (:421)
   GET    /plugins.json        -> the registered input blockers
                                  and sniffers                  (:155)
   *      /plugins/<type>/<name>/<args...> -> that plugin's
@@ -29,9 +30,14 @@ routes before the insert; one that raises rejects the event with 403
 and its message. Input sniffers see each stored event after the
 insert.
 
+Every request runs under the observability middleware
+(``obs/middleware``); ``/metrics``, ``/metrics.json``,
+``/debug/traces.json``, ``/capacity.json`` and ``/history/*.json`` are
+served unauthenticated, as in the reference. The write buffer observes
+each submit's ``flush_wait`` and ``commit`` anatomy stages.
+
 The HTTP layer is the port's stdlib one (``server/http``); the
-reference's ``/stats.json``, webhooks, ``/metrics`` and history routes
-are not ported yet.
+reference's webhooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,16 +53,29 @@ from predictionio_tpu_torch.data.event import (
     Event, EventValidationError, parse_event_time, validate_event,
 )
 from predictionio_tpu_torch.data.write_buffer import BufferFull, WriteBuffer
+from predictionio_tpu_torch.obs.capacity import (
+    capacity_routes, register_capacity_metrics,
+)
+from predictionio_tpu_torch.obs.middleware import (
+    metrics_routes, observability_middleware,
+)
+from predictionio_tpu_torch.obs.registry import (
+    MetricsRegistry, default_registry,
+)
+from predictionio_tpu_torch.obs.telemetry import (
+    build_recorder, history_reader_factory, history_routes,
+)
 from predictionio_tpu_torch.server.http import (
     HttpError, HttpServer, Request, serve_until_stopped,
 )
 from predictionio_tpu_torch.server.plugins import (
     EVENTSERVER_GROUP, PluginContext,
 )
+from predictionio_tpu_torch.server.stats import Stats
 from predictionio_tpu_torch.storage.base import StorageError
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.server_config import (
-    IngestConfig, ingest_config,
+    IngestConfig, ingest_config, telemetry_config,
 )
 
 logger = logging.getLogger("pio.torch.eventserver")
@@ -79,8 +98,19 @@ class EventServer:
     the blocking form."""
 
     def __init__(self, ingest: Optional[IngestConfig] = None,
-                 plugin_context: Optional[PluginContext] = None):
+                 plugin_context: Optional[PluginContext] = None,
+                 stats: bool = False,
+                 registry: Optional[MetricsRegistry] = None,
+                 telemetry=None):
         self.ingest_config = ingest or ingest_config()
+        #: ``--stats``: per-app ingest bookkeeping at ``/stats.json``
+        self.stats_enabled = stats
+        self.registry = registry or MetricsRegistry()
+        self.stats = Stats(registry=self.registry)
+        register_capacity_metrics(self.registry)
+        #: the durable-telemetry recorder (``obs/telemetry``), owned by
+        #: this server when given: stopped last on close
+        self.telemetry = telemetry
         self.plugins = plugin_context or PluginContext(EVENTSERVER_GROUP)
         ic = self.ingest_config
         self.buffer: Optional[WriteBuffer] = None
@@ -90,7 +120,7 @@ class EventServer:
                 flush_max=ic.flush_max, linger_s=ic.linger_s,
                 retries=ic.retries, backoff_s=ic.backoff_s,
                 backoff_cap_s=ic.backoff_cap_s,
-                flush_timeout_s=ic.flush_timeout_s)
+                flush_timeout_s=ic.flush_timeout_s, registry=self.registry)
         self._http = HttpServer([
             ("GET", "/", self.handle_root),
             ("POST", "/events.json", self.handle_create),
@@ -98,9 +128,14 @@ class EventServer:
             ("GET", "/events/{event_id}.json", self.handle_get),
             ("DELETE", "/events/{event_id}.json", self.handle_delete),
             ("POST", "/batch/events.json", self.handle_batch),
+            ("GET", "/stats.json", self.handle_stats),
             ("GET", "/plugins.json", self.handle_plugins),
             ("*", "/plugins/{tail:.*}", self.handle_plugin_rest),
-        ])
+            *metrics_routes(self.registry, default_registry()),
+            *capacity_routes(),
+            *history_routes(history_reader_factory(self.telemetry)),
+        ], middleware=observability_middleware(self.registry,
+                                               "event_server"))
         #: set to shut :func:`run_event_server` down
         self.stopped = asyncio.Event()
 
@@ -112,9 +147,13 @@ class EventServer:
         """Stop accepting, then flush every buffered event: accepted
         events are never dropped by a graceful shutdown."""
         await self._http.close()
+        loop = asyncio.get_running_loop()
         if self.buffer is not None:
-            await asyncio.get_running_loop().run_in_executor(
-                None, self.buffer.stop)
+            await loop.run_in_executor(None, self.buffer.stop)
+        if self.telemetry is not None:
+            # last: the final drain persists what the shutdown emitted
+            await loop.run_in_executor(None, self.telemetry.stop)
+            self.telemetry = None
 
     # -- auth ---------------------------------------------------------------
     @staticmethod
@@ -195,6 +234,8 @@ class EventServer:
         except StorageError as e:
             return self._storage_status(), {"message": str(e)}
         self._sniff(auth, event)
+        if self.stats_enabled:
+            self.stats.bookkeeping(auth.app_id, 201, event)
         return 201, {"eventId": event_id}
 
     async def handle_find(self, req: Request):
@@ -308,6 +349,8 @@ class EventServer:
             else:
                 for (i, event), event_id in zip(to_insert, ids):
                     self._sniff(auth, event)
+                    if self.stats_enabled:
+                        self.stats.bookkeeping(auth.app_id, 201, event)
                     results[i] = {"status": 201, "eventId": event_id}
         return 200, results
 
@@ -329,6 +372,13 @@ class EventServer:
             except Exception:
                 logger.exception("input sniffer failed")
 
+    async def handle_stats(self, req: Request):
+        auth = await self._auth(req)
+        if not self.stats_enabled:
+            return 404, {"message": "To see stats, launch Event Server "
+                                    "with --stats argument."}
+        return 200, self.stats.get(auth.app_id)
+
     async def handle_plugins(self, _req: Request):
         return 200, {"plugins": self.plugins.describe()}
 
@@ -348,7 +398,15 @@ class EventServer:
 
 
 def run_event_server(host: str = "localhost", port: int = DEFAULT_PORT,
-                     on_ready=None) -> None:
+                     on_ready=None, stats: bool = False) -> None:
     """Serve until SIGINT or SIGTERM, then drain the write buffer.
-    ``on_ready(port)`` runs once the socket is bound."""
-    serve_until_stopped(EventServer(), host, port, on_ready)
+    ``on_ready(port)`` runs once the socket is bound. Durable telemetry
+    runs as ``telemetry_config()`` resolves it (``PIO_TELEMETRY=0``
+    off), in the store ``event_server-<port>``."""
+    registry = MetricsRegistry()
+    telemetry = build_recorder("event_server", telemetry_config(),
+                               instance=str(port),
+                               registries=[registry, default_registry()])
+    serve_until_stopped(EventServer(stats=stats, registry=registry,
+                                    telemetry=telemetry),
+                        host, port, on_ready)

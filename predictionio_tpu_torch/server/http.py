@@ -11,12 +11,20 @@ payload, headers)``, or raises :class:`HttpError`. An unknown path
 answers 404, a known path with another method 405, a handler that
 raises anything else 500 with ``{"message": ...}``; the server keeps
 serving.
+
+A handler that answers something other than JSON returns a
+:class:`RawBody` as its payload (``/metrics``: the Prometheus text
+exposition). A server may pass a ``middleware`` (``obs/middleware``):
+it runs around every dispatch, unknown paths and wrong methods
+included, and sees the route's pattern as the handler label
+(``__unmatched__`` when no route took the request).
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import http
 import json
 import logging
@@ -48,6 +56,19 @@ class Request:
         return json.loads(self.body)
 
 
+@dataclasses.dataclass
+class RawBody:
+    """A payload sent as these bytes under this ``Content-Type``, not as
+    JSON."""
+
+    data: bytes
+    content_type: str
+
+
+#: the handler label of a request no route took (the reference's)
+UNMATCHED = "__unmatched__"
+
+
 class HttpError(Exception):
     """Raised by a handler to answer ``status`` with ``payload``."""
 
@@ -62,6 +83,10 @@ class _BadRequest(Exception):
 
 
 Handler = Callable[[Request], Awaitable[tuple]]
+#: ``middleware(request, handler_label, call)``: ``call()`` dispatches
+#: and returns ``(status, payload, headers)``; so does the middleware
+Middleware = Callable[[Request, str, Callable[[], Awaitable[tuple]]],
+                      Awaitable[tuple]]
 
 
 def _compile(pattern: str) -> "re.Pattern":
@@ -79,9 +104,11 @@ class HttpServer:
     """Routes and the connection loop. ``start`` binds on the running
     event loop and returns the port (``port=0`` picks a free one)."""
 
-    def __init__(self, routes: List[Tuple[str, str, Handler]]):
-        self._routes = [(method, _compile(pattern), handler)
+    def __init__(self, routes: List[Tuple[str, str, Handler]],
+                 middleware: Optional[Middleware] = None):
+        self._routes = [(method, pattern, _compile(pattern), handler)
                         for method, pattern, handler in routes]
+        self._middleware = middleware
         self._server: Optional[asyncio.AbstractServer] = None
         #: open connections -> whether a request is being handled on it
         self._conns: Dict[asyncio.StreamWriter, bool] = {}
@@ -107,7 +134,7 @@ class HttpServer:
     async def dispatch(self, req: Request
                        ) -> Tuple[int, Any, Dict[str, str]]:
         allowed = []
-        for method, regex, handler in self._routes:
+        for method, pattern, regex, handler in self._routes:
             m = regex.match(req.path)
             if m is None:
                 continue
@@ -115,18 +142,22 @@ class HttpServer:
                 allowed.append(method)
                 continue
             req.params = m.groupdict()
-            try:
-                out = await handler(req)
-            except HttpError as e:
-                return e.status, e.payload, {}
-            except Exception as e:      # the server must keep serving
-                logger.exception("handler failed")
-                return 500, {"message": repr(e)}, {}
-            return out if len(out) == 3 else (out[0], out[1], {})
+            return await self._run(req, pattern,
+                                   functools.partial(_call, handler, req))
         if allowed:
-            return 405, {"message": f"{req.path} takes "
-                                    f"{'/'.join(allowed)}"}, {}
-        return 404, {"message": f"no route {req.path}"}, {}
+            out = (405, {"message": f"{req.path} takes "
+                                    f"{'/'.join(allowed)}"}, {})
+        else:
+            out = (404, {"message": f"no route {req.path}"}, {})
+
+        async def answer():
+            return out
+        return await self._run(req, UNMATCHED, answer)
+
+    async def _run(self, req: Request, label: str, call):
+        if self._middleware is None:
+            return await call()
+        return await self._middleware(req, label, call)
 
     async def _read_request(self, reader: asyncio.StreamReader,
                             writer: asyncio.StreamWriter
@@ -202,6 +233,18 @@ class HttpServer:
             writer.close()
 
 
+async def _call(handler: Handler, req: Request
+                ) -> Tuple[int, Any, Dict[str, str]]:
+    try:
+        out = await handler(req)
+    except HttpError as e:
+        return e.status, e.payload, {}
+    except Exception as e:      # the server must keep serving
+        logger.exception("handler failed")
+        return 500, {"message": repr(e)}, {}
+    return out if len(out) == 3 else (out[0], out[1], {})
+
+
 def _reason(status: int) -> str:
     try:
         return http.HTTPStatus(status).phrase
@@ -211,10 +254,14 @@ def _reason(status: int) -> str:
 
 async def _respond(writer: asyncio.StreamWriter, status: int, payload: Any,
                    headers: Dict[str, str], keep_alive: bool) -> None:
-    data = json.dumps(payload).encode()
+    if isinstance(payload, RawBody):
+        data, ctype = payload.data, payload.content_type
+    else:
+        data = json.dumps(payload).encode()
+        ctype = "application/json; charset=utf-8"
     extra = "".join(f"{k}: {v}\r\n" for k, v in headers.items())
     head = (f"HTTP/1.1 {status} {_reason(status)}\r\n"
-            "Content-Type: application/json; charset=utf-8\r\n"
+            f"Content-Type: {ctype}\r\n"
             f"Content-Length: {len(data)}\r\n{extra}"
             f"Connection: {'keep-alive' if keep_alive else 'close'}"
             "\r\n\r\n")

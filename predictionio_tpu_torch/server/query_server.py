@@ -18,11 +18,27 @@ reference's ``server/query_server.py``):
                           resident standby (else the newest older
                           release from the registry)
   GET  /plugins.json   -> the registered output blockers and sniffers
+  GET  /slo.json       -> the SLO burn-rate evaluation (``obs/slo``)
+  POST /debug/profile  -> a bounded ``torch.profiler`` capture
+  GET  /capacity.json  -> the device-memory ledger (``obs/capacity``)
+  GET  /metrics, /metrics.json, /debug/traces.json -> the registries
+                          and the flight recorder (``obs/middleware``)
+  GET  /history/series.json, /history/range.json -> the telemetry
+                          store's history (``obs/telemetry``)
   POST /stop           -> graceful shutdown
 
-``/reload``, ``/deploy.json``, ``/rollback.json`` and ``/stop`` take
-the ``accessKey`` query parameter when the server was given one
-(``deploy --accesskey``).
+``/reload``, ``/deploy.json``, ``/rollback.json``, ``/debug/profile``
+and ``/stop`` take the ``accessKey`` query parameter when the server was
+given one (``deploy --accesskey``).
+
+Every request runs under the observability middleware (request id,
+trace, ``pio_http_request_duration_seconds``). A batched query's
+critical path is split by ``obs/anatomy`` into queue wait, linger,
+assemble, device (closed once the result is on the host), serve and
+serialize. With an SLO spec the burn-rate engine ticks on the server's
+loop; with a telemetry recorder the registries persist to its store,
+the SLO rings rehydrate from it and a canary's splitter resumes from
+its last persisted accumulator.
 
 Every swap keeps the outgoing unit resident as the rollback standby
 (its batcher is retired); a unit's device copies are dropped only once
@@ -60,6 +76,8 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
+import contextvars
 import dataclasses
 import datetime as _dt
 import functools
@@ -71,8 +89,6 @@ import typing
 import urllib.request
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
-
-import numpy as np
 
 from predictionio_tpu_torch.core.engine import Engine, TrainResult
 from predictionio_tpu_torch.core.params import params_from_json
@@ -87,7 +103,27 @@ from predictionio_tpu_torch.deploy.releases import (
 )
 from predictionio_tpu_torch.deploy.warm import (
     DeployError, FoldinSwapRaced, ServingUnit, WarmupReport, build_unit,
-    compute_vectorized, verify_unit, warmup_unit,
+    compute_vectorized, deploy_metrics, verify_unit, warmup_unit,
+)
+from predictionio_tpu_torch.obs import profiler
+from predictionio_tpu_torch.obs.anatomy import (
+    SERVING_PATH, AnatomyMetrics, BatchBreakdown, active_breakdown,
+    anatomy_enabled, anatomy_metrics, note_stage, observe_serving_batch,
+    observe_stage, pop_breakdown, push_breakdown,
+)
+from predictionio_tpu_torch.obs.capacity import (
+    capacity_routes, register_capacity_metrics, unit_capacity,
+)
+from predictionio_tpu_torch.obs.middleware import (
+    metrics_routes, observability_middleware,
+)
+from predictionio_tpu_torch.obs.registry import (
+    MetricsRegistry, default_registry,
+)
+from predictionio_tpu_torch.obs.slo import SLOEngine, SLOSpec
+from predictionio_tpu_torch.obs.trace_context import record_event
+from predictionio_tpu_torch.obs.tracing import (
+    capture_context, carried, current_trace, span, span_histogram,
 )
 from predictionio_tpu_torch.server.http import (
     HttpServer, Request, serve_until_stopped,
@@ -129,6 +165,54 @@ REMOTE_LOG_TIMEOUT_S = 5.0
 #: lifecycle events (swaps, canary starts and verdicts) kept for
 #: ``GET /deploy/status.json``
 RECENT_DEPLOY_EVENTS = 64
+
+
+#: when the answer a request awaited from its micro-batch was ready (set
+#: by :meth:`MicroBatcher.submit` in the awaiting request's context)
+_ANSWER_READY: contextvars.ContextVar[Optional[float]] = \
+    contextvars.ContextVar("pio_answer_ready", default=None)
+
+
+@contextlib.contextmanager
+def _stage(hist, name: str):
+    """Stage timing against a pre-resolved span histogram handle (no
+    registry lock per stage); the stage also lands in the carried
+    request trace and in the active micro-batch's anatomy breakdown."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        hist.observe(dt, span=name)
+        trace = current_trace()
+        if trace is not None:
+            trace.add(name, dt)
+        note_stage(name, dt)
+
+
+class _TiledBreakdown(BatchBreakdown):
+    """A micro-batch's breakdown whose stages tile the batch's wall: each
+    stage runs from the previous one's end (the batch's start for the
+    first) to its own end, so a wait between two stages (for the
+    interpreter lock, say) is booked to the stage it delayed, and the
+    last stage runs on to the time the answers are handed back."""
+
+    __slots__ = ("ends",)
+
+    def __init__(self):
+        super().__init__()
+        self.ends: Dict[str, float] = {}
+
+    def add_stage(self, name: str, seconds: float) -> None:
+        self.ends[name] = time.perf_counter()
+
+    def tile(self, t_start: float, t_end: float) -> None:
+        order = sorted(self.ends.items(), key=lambda kv: kv[1])
+        prev = t_start
+        for i, (name, end) in enumerate(order):
+            end = t_end if i == len(order) - 1 else end
+            self.stages[name] = end - prev
+            prev = end
 
 
 def _to_jsonable(obj: Any) -> Any:
@@ -187,7 +271,8 @@ class MicroBatcher:
 
     def __init__(self, predict_batch, max_batch: int = MAX_BATCH,
                  linger_s: Optional[float] = None, inflight: int = INFLIGHT,
-                 executor: Optional[ThreadPoolExecutor] = None):
+                 executor: Optional[ThreadPoolExecutor] = None,
+                 registry: Optional[MetricsRegistry] = None):
         self._predict_batch = predict_batch
         self.max_batch = max(1, max_batch)
         self.linger_s = linger_s
@@ -202,6 +287,23 @@ class MicroBatcher:
         self._last_arrival: Optional[float] = None
         #: sizes of the batches dispatched so far (count per size)
         self.batch_sizes: collections.Counter = collections.Counter()
+        self._registry = registry
+        self._size_hist = self._inflight_gauge = self._span_hist = None
+        self._anatomy: Optional[AnatomyMetrics] = None
+        if registry is not None:
+            self._anatomy = anatomy_metrics(registry)
+            self._size_hist = registry.histogram(
+                "pio_batch_size",
+                "Queries coalesced per micro-batch drain",
+                buckets=tuple(float(1 << i) for i in range(11)))
+            self._inflight_gauge = registry.gauge(
+                "pio_batch_inflight",
+                "Micro-batches currently running on the predict executor")
+            registry.gauge_callback(
+                "pio_batch_queue_depth",
+                "Queries waiting in the micro-batch queue",
+                lambda: float(self.queue_depth()))
+            self._span_hist = span_histogram(registry)
 
     # -- arrival-rate estimate (adaptive linger input) -----------------------
     def _note_arrival(self) -> None:
@@ -227,6 +329,9 @@ class MicroBatcher:
             return 0.0
         return min(self.adaptive_linger_max_s, 2.0 * ewma)
 
+    def queue_depth(self) -> int:
+        return self._queue.qsize() if self._queue is not None else 0
+
     def idle(self) -> bool:
         """Nothing queued and no batch in flight."""
         return ((self._queue is None or self._queue.empty())
@@ -243,10 +348,21 @@ class MicroBatcher:
                 pass
 
     # -- submit/worker -------------------------------------------------------
-    async def submit(self, query):
+    async def submit(self, query, t_start: Optional[float] = None):
+        """Score ``query`` in the next micro-batch. ``t_start`` (default:
+        now) is where the request's anatomy queue wait starts: the
+        handler passes its own start, so the body parse and the query's
+        extraction are booked to the wait too."""
         loop = asyncio.get_running_loop()
         self._note_arrival()
         fut = loop.create_future()
+        # the submitting request's trace context (the executor thread's
+        # batch spans stay linked to it), its start time and its Trace
+        # (the per-request anatomy); the last slot gets the time the
+        # batch's answers were ready
+        entry = [query, fut, capture_context(),
+                 time.perf_counter() if t_start is None else t_start,
+                 current_trace(), None]
         while True:
             if self._task is None or self._task.done():
                 self._queue = asyncio.Queue()
@@ -254,9 +370,12 @@ class MicroBatcher:
                 self._task = loop.create_task(
                     self._worker(self._queue, self._sem))
             task, queue = self._task, self._queue
-            queue.put_nowait((query, fut))
+            queue.put_nowait(entry)
             if not task.done() or fut.done():
-                return await fut
+                try:
+                    return await fut
+                finally:
+                    _ANSWER_READY.set(entry[5])
             # the worker completed between the liveness check and the
             # put: its drain may have missed our entry — requeue onto a
             # fresh worker
@@ -275,16 +394,32 @@ class MicroBatcher:
                     while len(batch) < self.max_batch and not queue.empty():
                         batch.append(queue.get_nowait())
                     linger = self._linger_window()
+                    linger_dt = 0.0
                     if linger > 0.0 and len(batch) < self.max_batch:
+                        t0 = time.perf_counter()
                         await asyncio.sleep(linger)
+                        linger_dt = time.perf_counter() - t0
+                        if self._span_hist is not None:
+                            self._span_hist.observe(linger_dt,
+                                                    span="batch_linger")
                         while (len(batch) < self.max_batch
                                and not queue.empty()):
                             batch.append(queue.get_nowait())
                     self.batch_sizes[len(batch)] += 1
+                    if self._size_hist is not None:
+                        self._size_hist.observe(float(len(batch)))
+                    # the batch runs under the first traced submitter's
+                    # context (coalesced siblings ride the same batch)
+                    ctx = next((entry[2] for entry in batch
+                                if entry[2] is not None), None)
+                    meta = [(entry[3], entry[4]) for entry in batch]
                     ex_fut = loop.run_in_executor(
-                        self._executor, self._predict_batch,
-                        [entry[0] for entry in batch])
+                        self._executor, self._run_batch,
+                        [entry[0] for entry in batch], ctx, meta,
+                        linger_dt)
                     self._inflight_now += 1
+                    if self._inflight_gauge is not None:
+                        self._inflight_gauge.set(float(self._inflight_now))
                     ex_fut.add_done_callback(
                         functools.partial(self._finish_batch, batch, sem))
                     dispatched = True
@@ -296,23 +431,70 @@ class MicroBatcher:
             # fail everything not yet dispatched so no handler hangs
             while not queue.empty():
                 batch.append(queue.get_nowait())
-            for _query, fut in batch:
+            for entry in batch:
+                fut = entry[1]
                 if not fut.done():
                     fut.set_exception(
                         RuntimeError("query micro-batch worker stopped"))
+
+    def _run_batch(self, queries, ctx, meta, linger_s: float):
+        """Executor side: re-enter the submitting request's trace when one
+        was captured, so the ``serving_batch`` hop and its stage spans
+        land in the flight recorder under the request's trace id.
+        Returns the answers and the time they were ready.
+
+        The anatomy's queue wait runs until this thread starts the batch
+        (a wait for an executor thread is a wait in the queue), and the
+        request's serialize stage from the time the answers were ready
+        (the loop's resumption of the handler is part of the tail), so
+        the stages tile the request's wall."""
+        t_dispatch = time.perf_counter()
+        if ctx is None:
+            return self._run_measured(queries, meta, linger_s, t_dispatch)
+        with carried(ctx, "serving_batch", registry=self._registry,
+                     span_hist=self._span_hist,
+                     attrs={"batch": len(queries)}):
+            return self._run_measured(queries, meta, linger_s, t_dispatch)
+
+    def _run_measured(self, queries, meta, linger_s: float,
+                      t_dispatch: float):
+        """Run the batch under an anatomy breakdown; each member's stages
+        are observed before the futures resolve, so they are on the
+        request's trace when the middleware records it."""
+        if self._anatomy is None or not anatomy_enabled():
+            return self._predict_batch(queries), time.perf_counter()
+        bd = _TiledBreakdown()
+        token = push_breakdown(bd)
+        try:
+            results = self._predict_batch(queries)
+        finally:
+            pop_breakdown(token)
+        t_ready = time.perf_counter()
+        try:
+            bd.tile(t_dispatch, t_ready)
+            observe_serving_batch(self._anatomy, bd, meta, linger_s,
+                                  t_dispatch)
+        except Exception:
+            logger.exception("anatomy observation failed")
+        return results, t_ready
 
     def _finish_batch(self, batch, sem: asyncio.Semaphore, ex_fut) -> None:
         """On the event loop when a dispatched batch settles: free the
         slot, then route per-query results/errors to their handlers."""
         self._inflight_now -= 1
+        if self._inflight_gauge is not None:
+            self._inflight_gauge.set(float(self._inflight_now))
         sem.release()
+        t_ready = None
         try:
-            results = ex_fut.result()
+            results, t_ready = ex_fut.result()
         except BaseException as e:   # noqa: BLE001 — must never orphan futs
             err = e if isinstance(e, Exception) else \
                 RuntimeError(f"micro-batch dispatch failed: {e!r}")
             results = [err] * len(batch)
-        for (_query, fut), res in zip(batch, results):
+        for entry, res in zip(batch, results):
+            fut = entry[1]
+            entry[5] = t_ready
             if fut.done():
                 continue
             if isinstance(res, Exception):
@@ -353,8 +535,14 @@ class QueryServer:
                  feedback_app_name: Optional[str] = None,
                  log_url: Optional[str] = None,
                  log_prefix: str = "",
-                 plugin_context: Optional[PluginContext] = None):
+                 plugin_context: Optional[PluginContext] = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 slo_spec: Optional[SLOSpec] = None,
+                 telemetry=None):
         self.engine = engine
+        #: this server's metrics; ``/metrics`` renders it merged with the
+        #: process-wide default registry
+        self.registry = registry or MetricsRegistry()
         self.start_time = _dt.datetime.now(tz=_dt.timezone.utc)
         self.max_batch = max(1, max_batch)
         #: resolved scoring-kernel knobs, pinned process-wide so every
@@ -396,6 +584,29 @@ class QueryServer:
             max_workers=1, thread_name_prefix="pio-deploy")
         self._linger_s = linger_s
         self._inflight = inflight
+        #: batch-stage span histogram, resolved once (the executor must
+        #: not take the registry lock per stage)
+        self._span_hist = span_histogram(self.registry)
+        #: anatomy stage histograms (serialize is observed per request)
+        self._anatomy = anatomy_metrics(self.registry)
+        register_capacity_metrics(self.registry, self._capacity_units)
+        self._pad_waste = self.registry.counter(
+            "pio_batch_pad_waste_rows_total",
+            "Throwaway rows added padding batches up to their shape "
+            "bucket (the price of a bounded compile-shape set)")
+        self._deploy = deploy_metrics(self.registry)
+        self._query_hist = self.registry.histogram(
+            "pio_query_duration_seconds",
+            "Query hot-path wall time by engine variant",
+            labelnames=("engine_variant",))
+        self._query_failures = self.registry.counter(
+            "pio_query_failures_total",
+            "Failed queries by engine variant and cause "
+            "(bad_json = client garbage, predict_error = engine failure)",
+            labelnames=("engine_variant", "reason"))
+        self._feedback_hist = self.registry.histogram(
+            "pio_feedback_write_duration_seconds",
+            "Feedback-loop event store write wall time")
         self._unit = ServingUnit(
             instance=instance, result=train_result,
             vectorized=compute_vectorized(train_result), release=release)
@@ -412,6 +623,26 @@ class QueryServer:
         #: one reload, deploy or rollback at a time
         self._reload_lock = asyncio.Lock()
         self._tasks: set = set()
+        self._deploy.active_version.set(float(self._unit.release_version))
+        #: the SLO burn-rate engine (``obs/slo``) when a spec was given:
+        #: ticked on the server's loop and at each ``/slo.json`` read;
+        #: fold-in defers its applies while a serving objective burns
+        self._slo = (SLOEngine(self.registry, slo_spec)
+                     if slo_spec is not None else None)
+        self._slo_task: Optional[asyncio.Task] = None
+        #: the durable-telemetry recorder (``obs/telemetry``), owned by
+        #: this server when given: stopped last on close, and the SLO
+        #: rings rehydrate from its history
+        self._telemetry = telemetry
+        if self._telemetry is not None and self._slo is not None:
+            try:
+                self._slo.rehydrate(self._telemetry.reader())
+            except Exception:
+                logger.exception("SLO rehydration from history failed")
+        from predictionio_tpu_torch.obs.telemetry import (
+            history_reader_factory, history_routes,
+        )
+
         self._http = HttpServer([
             ("GET", "/", self.handle_root),
             ("POST", "/queries.json", self.handle_query),
@@ -422,24 +653,21 @@ class QueryServer:
             ("POST", "/rollback.json", self.handle_rollback),
             ("GET", "/plugins.json", self.handle_plugins),
             ("POST", "/stop", self.handle_stop),
-        ])
+            ("GET", "/slo.json", self.handle_slo),
+            ("POST", "/debug/profile", self.handle_profile),
+            *capacity_routes(self._capacity_units),
+            *metrics_routes(self.registry, default_registry()),
+            *history_routes(history_reader_factory(self._telemetry)),
+        ], middleware=observability_middleware(self.registry,
+                                               "query_server"))
         #: set by POST /stop; :func:`run_query_server` then shuts down
         self.stopped = asyncio.Event()
         self._stats_lock = threading.Lock()
-        self._query_count = 0
-        self._query_seconds = 0.0
-        self._recent = collections.deque(maxlen=1024)
-        #: the deploy counters (the reference's ``pio_deploy_*`` series):
-        #: queries by role, promotes by reason, rollbacks by reason slug,
-        #: swaps by "mode/outcome"
-        self._deploy_counts: Dict[str, collections.Counter] = {
-            k: collections.Counter()
-            for k in ("requests", "promotes", "rollbacks", "swaps")}
         self._deploy_events = collections.deque(maxlen=RECENT_DEPLOY_EVENTS)
-        #: the feedback loop's event-store writes
-        self._feedback_writes = 0
+        #: feedback writes that failed (their durations are
+        #: ``pio_feedback_write_duration_seconds``), and the longest write
         self._feedback_failures = 0
-        self._feedback_seconds = collections.deque(maxlen=1024)
+        self._feedback_max_s: Optional[float] = None
         self.last_serving_sec = 0.0
         self.last_warmup: Optional[WarmupReport] = None
         self.warmup_launches: Dict[str, int] = {}
@@ -460,11 +688,22 @@ class QueryServer:
         unit.batcher = MicroBatcher(
             functools.partial(self._predict_batch_unit, unit),
             max_batch=self.max_batch, linger_s=self._linger_s,
-            inflight=self._inflight, executor=self._predict_executor)
+            inflight=self._inflight, executor=self._predict_executor,
+            registry=self.registry)
 
-    def _count(self, counter: str, key: str) -> None:
-        with self._stats_lock:
-            self._deploy_counts[counter][key] += 1
+    def _live_units(self):
+        units = [("active", self._unit)]
+        if self._standby is not None:
+            units.append(("standby", self._standby))
+        canary = self._canary
+        if canary is not None:
+            units.append(("canary", canary.unit))
+        return units
+
+    def _capacity_units(self) -> List[dict]:
+        """Per-unit residency for ``/capacity.json`` and the
+        ``pio_capacity_unit_resident_bytes`` gauge."""
+        return [unit_capacity(u, role) for role, u in self._live_units()]
 
     def _record(self, kind: str, **fields) -> None:
         """One lifecycle event (the reference's ``record_event``), kept
@@ -516,6 +755,11 @@ class QueryServer:
         t2 = time.perf_counter()
         verify_unit(unit, predict, query)
         t3 = time.perf_counter()
+        for phase, seconds in (("load", t1 - t0), ("warmup", t2 - t1),
+                               ("verify", t3 - t2)):
+            if phase != "warmup" or not report.skipped:
+                self._deploy.phase_hist.observe(seconds, phase=phase)
+        self._deploy.warmup_shapes.inc(len(report.buckets))
         logger.info("prepared instance %s: load %.3fs, warm-up %.3fs, "
                     "verify %.3fs", instance.id, t1 - t0, t2 - t1, t3 - t2)
         return unit, report, {
@@ -536,7 +780,8 @@ class QueryServer:
             old, self._unit = self._unit, unit
             dropped = self._standby
             self._standby = old if keep_standby else None
-        self._count("swaps", f"{mode}/ok")
+        self._deploy.swap_total.inc(mode=mode, outcome="ok")
+        self._deploy.active_version.set(float(unit.release_version))
         self._record("swap", mode=mode, reason=reason,
                      engineInstanceId=unit.instance.id,
                      releaseVersion=unit.release_version or None)
@@ -565,7 +810,8 @@ class QueryServer:
         keeps them for an instant rollback). A unit made active again
         meanwhile is left alone: its batcher serves."""
         batcher = unit.batcher
-        deadline = time.monotonic() + self.deploy_config.drain_timeout_s
+        t0 = time.monotonic()
+        deadline = t0 + self.deploy_config.drain_timeout_s
         while batcher is not None and not batcher.idle() \
                 and time.monotonic() < deadline:
             if unit is self._unit:
@@ -575,6 +821,8 @@ class QueryServer:
             return
         if batcher is not None:
             await batcher.shutdown()
+            self._deploy.phase_hist.observe(time.monotonic() - t0,
+                                            phase="drain")
         canary = self._canary
         if unit is self._standby or (canary is not None
                                      and unit is canary.unit):
@@ -617,17 +865,18 @@ class QueryServer:
             self._attach_batcher(unit)
         with self._swap_lock:
             if expected_base is not None and self._unit is not expected_base:
-                self._count("swaps", "foldin/raced")
+                self._deploy.swap_total.inc(mode="foldin", outcome="raced")
                 raise FoldinSwapRaced(
                     "serving unit changed during the fold-in solve (now "
                     f"instance {self._unit.instance.id})")
             if self._canary is not None:
-                self._count("swaps", "foldin/raced")
+                self._deploy.swap_total.inc(mode="foldin", outcome="raced")
                 raise FoldinSwapRaced(
                     "canary window opened during the fold-in solve")
             old, self._unit = self._unit, unit
             dropped, self._standby = self._standby, unit.foldin_of
-        self._count("swaps", "foldin/ok")
+        self._deploy.swap_total.inc(mode="foldin", outcome="ok")
+        self._deploy.active_version.set(float(unit.release_version))
         self._record("swap", mode="foldin",
                      engineInstanceId=unit.instance.id,
                      releaseVersion=unit.release_version or None,
@@ -678,7 +927,30 @@ class QueryServer:
         picks a free one). Starts the fold-in controller when enabled."""
         bound = await self._http.start(host, port)
         self._start_foldin()
+        self._start_slo()
         return bound
+
+    def _start_slo(self) -> None:
+        """Periodic SLO evaluation on the server's loop: the burn-rate
+        gauges and breach events update every evaluation interval even
+        when nothing reads ``/slo.json``. The tick reads the registry
+        only (no tensor, no device sync)."""
+        if self._slo is None or self._slo_task is not None:
+            return
+
+        async def _loop():
+            interval = self._slo.spec.eval_interval_s
+            while True:
+                await asyncio.sleep(interval)
+                try:
+                    self._slo.tick()
+                except Exception:
+                    logger.exception("SLO evaluation failed")
+
+        self._slo_task = asyncio.get_running_loop().create_task(_loop())
+        logger.info("SLO engine armed: %d objective(s), eval every %.2fs",
+                    len(self._slo.spec.objectives),
+                    self._slo.spec.eval_interval_s)
 
     def _start_foldin(self) -> None:
         """Start the online fold-in controller when it is enabled and the
@@ -708,6 +980,13 @@ class QueryServer:
         """Stop accepting, stop fold-in, join an in-flight apply or
         reload, settle the retirements, then stop the batchers."""
         await self._http.close()
+        if self._slo_task is not None:
+            self._slo_task.cancel()
+            try:
+                await self._slo_task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._slo_task = None
         if self._foldin is not None:
             await self._foldin.aclose()
         await asyncio.get_running_loop().run_in_executor(
@@ -721,6 +1000,12 @@ class QueryServer:
             if unit is not None and unit.batcher is not None:
                 await unit.batcher.shutdown()
         self._predict_executor.shutdown(wait=False)
+        if self._telemetry is not None:
+            # last: the final drain includes the records the steps above
+            # emitted; the store's single-writer claim is released here
+            await asyncio.get_running_loop().run_in_executor(
+                None, self._telemetry.stop)
+            self._telemetry = None
 
     def _authorized(self, req: Request) -> bool:
         return not self.access_key or \
@@ -731,14 +1016,16 @@ class QueryServer:
         """Engine/instance info + serving stats; also the scorer status,
         the kernel launch counts of this process since it was warm (a
         ``/reload``'s or ``/deploy.json``'s warm-up, a shadow's scoring
-        and the fold-in solves count among them), the serving unit's
-        micro-batches, the fold-in status and the feedback writes."""
+        and the fold-in solves count among them), the attributed kernel
+        dispatches per family since the process started
+        (``obs/profiler``), the serving unit's micro-batches, the fold-in
+        status and the feedback writes."""
+        count = int(self._query_hist.total_count())
+        total = self._query_hist.total_sum()
+        fb_writes = int(self._feedback_hist.total_count())
         with self._stats_lock:
-            count, total = self._query_count, self._query_seconds
-            recent = list(self._recent)
-            fb = list(self._feedback_seconds)
-            fb_writes, fb_failures = (self._feedback_writes,
-                                      self._feedback_failures)
+            fb_failures, fb_max = (self._feedback_failures,
+                                   self._feedback_max_s)
         uptime = (_dt.datetime.now(tz=_dt.timezone.utc)
                   - self.start_time).total_seconds()
         unit = self._unit
@@ -757,29 +1044,28 @@ class QueryServer:
             "requestCount": count,
             "queryCount": count,
             "avgServingSec": (total / count) if count else 0.0,
-            "p95ServingSec": (float(np.percentile(recent, 95))
-                              if recent else 0.0),
+            "p95ServingSec": self._query_hist.quantile(0.95),
             "lastServingSec": self.last_serving_sec,
             "scorer": unit_scorer_status(unit.result),
             "warmup": (self.last_warmup.to_dict()
                        if self.last_warmup is not None else None),
             "kernelLaunches": kernels.counts(),
+            "dispatchCalls": profiler.dispatch_calls(),
             "warmupKernelLaunches": self.warmup_launches,
             "microBatches": self._batch_counts(unit),
             "foldin": self.foldin_status(),
             "feedback": {
                 "enabled": self._feedback_target is not None,
                 "writes": fb_writes, "failures": fb_failures,
-                "p50WriteSec": float(np.median(fb)) if fb else None,
-                "maxWriteSec": max(fb) if fb else None},
+                "p50WriteSec": (self._feedback_hist.quantile(0.5)
+                                if fb_writes else None),
+                "maxWriteSec": fb_max},
         }
 
     @staticmethod
     def _batch_counts(unit: ServingUnit) -> Optional[dict]:
-        """The serving unit's micro-batches so far, by size (the
-        reference's per-batch serving observations, plain counts until
-        the port has the metrics registry); None when the unit does not
-        batch."""
+        """The serving unit's micro-batches so far, by size (across
+        units, ``pio_batch_size``); None when the unit does not batch."""
         batcher = unit.batcher
         if batcher is None or not unit.vectorized:
             return None
@@ -828,7 +1114,7 @@ class QueryServer:
                     self._deploy_executor, self._prepare_unit, latest,
                     release)
             except DeployError as e:
-                self._count("swaps", f"{mode}/failed")
+                self._deploy.swap_total.inc(mode=mode, outcome="failed")
                 return 500, {"message": str(e)}
             self.last_warmup = report
             await self._swap_to(unit, mode=mode, reason="reload")
@@ -894,7 +1180,7 @@ class QueryServer:
                     self._deploy_executor, self._prepare_unit, instance,
                     release, body.get("warmup"), body.get("warmupQuery"))
             except DeployError as e:
-                self._count("swaps", f"{mode}/failed")
+                self._deploy.swap_total.inc(mode=mode, outcome="failed")
                 await self._settle_writes([self._set_release_status(
                     release, "ROLLED_BACK", f"prepare failed: {e}")])
                 return 500, {"message": str(e)}
@@ -905,8 +1191,11 @@ class QueryServer:
             cfg = self._canary_config(body)
             if cfg is not None:
                 controller = CanaryController(cfg)
+                self._restore_canary_splitter(controller)
                 self._canary = CanaryState(unit=unit, controller=controller,
                                            config=controller.config)
+                self._deploy.canary_fraction.set(
+                    0.0 if cfg.shadow else controller.config.fraction)
                 await self._settle_writes([self._set_release_status(
                     release, "CANARY", "shadow" if cfg.shadow else
                     f"fraction={controller.config.fraction}")])
@@ -972,13 +1261,16 @@ class QueryServer:
         decision, reason = verdict
         t0 = time.perf_counter()
         try:
+            self._deploy.canary_fraction.set(0.0)
             if decision == "promote":
-                self._count("promotes", "healthy"
-                            if reason.startswith("healthy") else reason)
+                self._deploy.promote_total.inc(
+                    reason="healthy" if reason.startswith("healthy")
+                    else reason)
                 await self._swap_to(canary.unit, mode="canary",
                                     reason=reason)
             else:
-                self._count("rollbacks", reason.split(":", 1)[0])
+                self._deploy.rollback_total.inc(
+                    reason=reason.split(":", 1)[0])
                 await self._settle_writes([self._set_release_status(
                     canary.unit.release, "ROLLED_BACK", reason)])
                 logger.warning("canary rolled back: %s", reason)
@@ -1050,7 +1342,7 @@ class QueryServer:
             if target is None:
                 return 404, {"message": "No previous release to roll "
                                         "back to."}
-            self._count("rollbacks", "operator")
+            self._deploy.rollback_total.inc(reason="operator")
             rolled_back = await self._swap_to(
                 target, mode="rollback", reason="operator rollback",
                 retire_old=False, keep_standby=False)
@@ -1093,8 +1385,6 @@ class QueryServer:
         """The active, standby and canary units, the deploy counters and
         recent lifecycle events, and the fold-in status."""
         unit, standby, canary = self._unit, self._standby, self._canary
-        with self._stats_lock:
-            counts = {k: dict(v) for k, v in self._deploy_counts.items()}
         return 200, {
             "active": {
                 "engineInstanceId": unit.instance.id,
@@ -1115,9 +1405,94 @@ class QueryServer:
                            if self.last_warmup is not None else None),
             "foldin": self.foldin_status(),
             "scorer": unit_scorer_status(unit.result),
-            "deploy": {**counts,
+            "deploy": {**self._deploy_counts(),
                        "recentEvents": list(self._deploy_events)},
         }
+
+    def _deploy_counts(self) -> Dict[str, Dict[str, int]]:
+        """The deploy counters as ``/deploy/status.json`` answers them:
+        queries by role, promotes by reason, rollbacks by reason slug,
+        swaps by "mode/outcome"."""
+        def by(counter, key):
+            return {key(labels): int(v) for labels, v in counter.samples()}
+
+        d = self._deploy
+        return {
+            "requests": by(d.requests_total, lambda lb: lb["role"]),
+            "promotes": by(d.promote_total, lambda lb: lb["reason"]),
+            "rollbacks": by(d.rollback_total, lambda lb: lb["reason"]),
+            "swaps": by(d.swap_total,
+                        lambda lb: f"{lb['mode']}/{lb['outcome']}")}
+
+    async def handle_slo(self, _req: Request) -> Tuple[int, Any]:
+        """The burn-rate engine's evaluation; a read also ticks the engine
+        so a breach is visible within one evaluation window."""
+        if self._slo is None:
+            return 200, {
+                "enabled": False,
+                "message": 'no SLO spec configured (server.json "slo")'}
+        try:
+            status = self._slo.tick()
+        except Exception as e:
+            logger.exception("SLO evaluation failed")
+            return 500, {"enabled": True, "error": str(e)}
+        return 200, {
+            "enabled": True,
+            "release": {
+                "engineInstanceId": self.instance.id,
+                "releaseVersion": self._unit.release_version or None,
+            },
+            **status}
+
+    async def handle_profile(self, req: Request) -> Tuple[int, Any]:
+        """A bounded ``torch.profiler`` capture (``obs/profiler``) plus the
+        per-family dispatch table; runs on the deploy executor, so
+        serving keeps answering. 409 while another capture runs, 501
+        when the profiler is unavailable."""
+        if not self._authorized(req):
+            return 401, {"message": "Unauthorized"}
+        try:
+            body = req.json() if req.body else {}
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+            seconds = float(body.get("seconds", 1.0) or 1.0)
+            outdir = body.get("dir")
+        except (json.JSONDecodeError, UnicodeDecodeError, TypeError,
+                ValueError) as e:
+            return 400, {"message": str(e)}
+        # the capture is reserved here, on the loop: a second request
+        # answers 409 at once instead of queueing behind the first on
+        # the one-thread deploy executor
+        if not profiler.reserve():
+            return 409, {"message": "a profile capture is already running"}
+        loop = asyncio.get_running_loop()
+        try:
+            out = await loop.run_in_executor(
+                self._deploy_executor, functools.partial(
+                    profiler.capture, seconds, outdir, reserved=True))
+        except RuntimeError as e:
+            return 501, {"message": str(e)}
+        record_event("profile_capture", {"seconds": out["seconds"],
+                                         "traceDir": out["traceDir"]})
+        return 200, out
+
+    def _restore_canary_splitter(self, controller) -> None:
+        """Re-seed the canary splitter's diffusion accumulator from the
+        telemetry store: a restart mid-canary resumes the split from the
+        last persisted ``pio_deploy_canary_splitter_acc`` point instead
+        of zero."""
+        if self._telemetry is None:
+            return
+        try:
+            points = [p for info in self._telemetry.reader().series(
+                "pio_deploy_canary_splitter_acc") for p in info.points]
+            if points:
+                controller.splitter.restore(max(points)[1])
+                self._deploy.canary_splitter_acc.set(
+                    controller.splitter.state())
+        except Exception:
+            logger.exception("canary splitter restore failed; starting "
+                             "from a zero accumulator")
 
     async def handle_stop(self, req: Request) -> Tuple[int, Any]:
         if not self._authorized(req):
@@ -1129,23 +1504,35 @@ class QueryServer:
     # -- hot path ------------------------------------------------------------
     async def handle_query(self, req: Request) -> Tuple[int, Any]:
         t0 = time.perf_counter()
+        variant = self.instance.engine_variant
         try:
             data = req.json()
         except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            self._query_failures.inc(engine_variant=variant,
+                                     reason="bad_json")
             return 400, {"message": str(e)}
         # route once: everything this request touches rides the units
         # snapshotted here, so a concurrent swap never mixes halves
         role, unit, canary = ROLE_INCUMBENT, self._unit, self._canary
-        if canary is not None and canary.controller.decided is None \
-                and canary.controller.splitter.route():
-            role, unit = ROLE_CANARY, canary.unit
+        if canary is not None and canary.controller.decided is None:
+            if canary.controller.splitter.route():
+                role, unit = ROLE_CANARY, canary.unit
+            # published so the telemetry scrape persists it: a restarted
+            # server resumes the split from here
+            self._deploy.canary_splitter_acc.set(
+                canary.controller.splitter.state())
         t_predict = time.perf_counter()
+        _ANSWER_READY.set(None)
         try:
-            query = self._extract_query(data)
-            prediction = await self._predict_via(unit, query)
+            with span("extract_query"):
+                query = self._extract_query(data)
+            with span("predict"):
+                prediction = await self._predict_via(unit, query, t0)
         except Exception as e:
             self._observe_role(canary, role, time.perf_counter() - t_predict,
                                ok=False)
+            self._query_failures.inc(engine_variant=variant,
+                                     reason="predict_error")
             logger.exception("query failed")
             if self.log_url:
                 self._remote_log(
@@ -1153,6 +1540,9 @@ class QueryServer:
             return 400, {"message": str(e)}
         self._observe_role(canary, role, time.perf_counter() - t_predict,
                            ok=True)
+        # the tail starts when the answer was ready (a batched answer's
+        # wait for the loop to resume this handler belongs to it)
+        t_serialize = _ANSWER_READY.get() or time.perf_counter()
         if (canary is not None and canary.config.shadow
                 and canary.controller.decided is None):
             # mirror the query into the candidate off the response path;
@@ -1178,19 +1568,22 @@ class QueryServer:
                 sniffer.process(self.instance, data, pred_json)
             except Exception:
                 logger.exception("output sniffer failed")
+        if anatomy_enabled():
+            # the post-predict tail: feedback scheduling, blockers,
+            # sniffers, JSON conversion
+            observe_stage(self._anatomy, SERVING_PATH, "serialize",
+                          time.perf_counter() - t_serialize,
+                          current_trace())
         dt = time.perf_counter() - t0
-        with self._stats_lock:
-            self._query_count += 1
-            self._query_seconds += dt
-            self._recent.append(dt)
         self.last_serving_sec = dt
+        self._query_hist.observe(dt, engine_variant=variant)
         return 200, pred_json
 
     def _observe_role(self, canary: Optional[CanaryState], role: str,
                       seconds: float, ok: bool) -> None:
         """Count the query under its role and, during a rollout, feed the
         judge; a verdict is acted on off the request path."""
-        self._count("requests", role)
+        self._deploy.requests_total.inc(role=role)
         if canary is None or canary is not self._canary:
             return
         verdict = canary.controller.observe(role, seconds, ok)
@@ -1237,9 +1630,10 @@ class QueryServer:
             with self._stats_lock:
                 self._feedback_failures += 1
             return
+        dt = time.perf_counter() - t0
+        self._feedback_hist.observe(dt)
         with self._stats_lock:
-            self._feedback_writes += 1
-            self._feedback_seconds.append(time.perf_counter() - t0)
+            self._feedback_max_s = max(self._feedback_max_s or 0.0, dt)
 
     def _extract_query(self, body):
         qc = _query_class(self.result)
@@ -1249,11 +1643,12 @@ class QueryServer:
             raise ValueError("a query must be a JSON object")
         return params_from_json(body, qc)
 
-    async def _predict_via(self, unit: ServingUnit, query):
+    async def _predict_via(self, unit: ServingUnit, query,
+                           t_start: Optional[float] = None):
         """Through the unit's batcher when vectorized, else per-request
         on the predict pool."""
         if unit.vectorized:
-            return await unit.batcher.submit(query)
+            return await unit.batcher.submit(query, t_start)
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(
             self._predict_executor, self._predict_unit, unit, query)
@@ -1280,31 +1675,42 @@ class QueryServer:
         n = len(queries)
         out: List[Any] = [None] * n
         ok = []
-        for i, q in enumerate(queries):
-            try:
-                ok.append((i, result.serving.supplement(q)))
-            except Exception as e:
-                out[i] = e
-        if not ok:
-            return out
-        bucket = bucket_size(len(ok), self.max_batch)
-        waste = padding_waste(len(ok), bucket)
-        if waste:
-            pad_q = ok[-1][1]
-            batch = ok + [(n + j, pad_q) for j in range(waste)]
-        else:
-            batch = ok
-        try:
-            per_query = {i: [] for i, _ in ok}
-            for algo, model in zip(result.algorithms, result.models):
-                for i, p in algo.batch_predict(model, batch):
-                    if i in per_query:      # pad rows sliced off
-                        per_query[i].append(p)
-            for i, _ in ok:
+        with _stage(self._span_hist, "batch_assemble"):
+            for i, q in enumerate(queries):
                 try:
-                    out[i] = result.serving.serve(queries[i], per_query[i])
+                    ok.append((i, result.serving.supplement(q)))
                 except Exception as e:
                     out[i] = e
+            if not ok:
+                return out
+            bucket = bucket_size(len(ok), self.max_batch)
+            waste = padding_waste(len(ok), bucket)
+            bd = active_breakdown()
+            if bd is not None:
+                bd.note_padding(len(ok), waste, bucket)
+            if waste:
+                pad_q = ok[-1][1]
+                batch = ok + [(n + j, pad_q) for j in range(waste)]
+                self._pad_waste.inc(waste)
+            else:
+                batch = ok
+        try:
+            per_query = {i: [] for i, _ in ok}
+            # the device stage closes once the answers are on the host
+            # (the model layer's download waits for the kernel), so the
+            # kernel's time is never booked to serve or serialize
+            with _stage(self._span_hist, "batch_device"):
+                for algo, model in zip(result.algorithms, result.models):
+                    for i, p in algo.batch_predict(model, batch):
+                        if i in per_query:      # pad rows sliced off
+                            per_query[i].append(p)
+            with _stage(self._span_hist, "batch_serve"):
+                for i, _ in ok:
+                    try:
+                        out[i] = result.serving.serve(queries[i],
+                                                      per_query[i])
+                    except Exception as e:
+                        out[i] = e
         except Exception:
             # the batch path failed (a poison query inside a vectorized
             # batch_predict): isolate by per-query predict

@@ -472,6 +472,103 @@ def als_solver_config(algo_solver=None,
 
 
 @dataclasses.dataclass
+class TelemetryConfig:
+    """Durable-telemetry tuning (the ``PIO_TELEMETRY*`` knobs;
+    server.json ``telemetry`` section, camelCase keys; an engine.json
+    top-level ``telemetry`` section overrides the host file, env
+    overrides both — the established precedence).
+
+    ``enabled=True`` starts a per-process scrape loop (obs/telemetry.py)
+    persisting the registry snapshot plus new flight-recorder records
+    into an embedded crash-safe time-series store (obs/tsdb.py) every
+    ``interval_s`` — the substrate under ``/history/*.json``, the fleet
+    console, ``pio metrics query``, SLO rehydration, and the
+    ``PIO_TELEMETRY=0``
+    kills the whole loop regardless of file config. Stores live under
+    ``dir`` (default ``$PIO_HOME/telemetry``), one subdirectory per
+    service so a restarted process continues its own history;
+    ``retention_s`` bounds the history (sweep + compaction run on the
+    scrape loop), ``segment_max_bytes`` / ``segment_max_age_s`` bound
+    the active append segment before it rolls.
+    """
+
+    enabled: bool = True
+    interval_s: float = 10.0
+    retention_s: float = 7 * 86400.0
+    dir: Optional[str] = None
+    segment_max_bytes: int = 4 << 20
+    segment_max_age_s: float = 3600.0
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None,
+                 variant: Optional[dict] = None) -> "TelemetryConfig":
+        """Per-knob precedence, weakest first: server.json ``telemetry``
+        section (``data``) < engine.json ``telemetry`` section
+        (``variant``) < ``PIO_TELEMETRY*`` env. Malformed knobs are
+        logged and fall back, same contract as ServingConfig."""
+        data = data or {}
+        variant = variant or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+        file_keys = (
+            ("enabled", "enabled", as_bool),
+            ("intervalS", "interval_s", float),
+            ("retentionS", "retention_s", float),
+            ("dir", "dir", str),
+            ("segmentMaxBytes", "segment_max_bytes", int),
+            ("segmentMaxAgeS", "segment_max_age_s", float),
+        )
+        env_keys = (
+            ("PIO_TELEMETRY", "enabled", as_bool),
+            ("PIO_TELEMETRY_INTERVAL_S", "interval_s", float),
+            ("PIO_TELEMETRY_RETENTION_S", "retention_s", float),
+            ("PIO_TELEMETRY_DIR", "dir", str),
+            ("PIO_TELEMETRY_SEGMENT_BYTES", "segment_max_bytes", int),
+            ("PIO_TELEMETRY_SEGMENT_AGE_S", "segment_max_age_s", float),
+        )
+        sources = (
+            [(k, data.get(k), attr, conv) for k, attr, conv in file_keys]
+            + [(f"engine.json {k}", variant.get(k), attr, conv)
+               for k, attr, conv in file_keys]
+            + [(k, os.environ.get(k), attr, conv)
+               for k, attr, conv in env_keys]
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed telemetry knob %s=%r",
+                               name, raw)
+        cfg.interval_s = max(0.05, cfg.interval_s)
+        cfg.retention_s = max(cfg.interval_s, cfg.retention_s)
+        cfg.segment_max_bytes = max(1 << 12, cfg.segment_max_bytes)
+        cfg.segment_max_age_s = max(cfg.interval_s, cfg.segment_max_age_s)
+        return cfg
+
+    def root_dir(self) -> str:
+        """The telemetry root (service stores are subdirectories)."""
+        if self.dir:
+            return self.dir
+        return os.path.join(pio_home(), "telemetry")
+
+    def service_dir(self, service: str) -> str:
+        return os.path.join(self.root_dir(), service)
+
+
+def telemetry_config(variant_section: Optional[dict] = None
+                     ) -> TelemetryConfig:
+    """Resolve the telemetry knobs a server should run with:
+    ``variant_section`` is the engine.json top-level ``telemetry``
+    section, which overrides the host-level server.json section; the
+    ``PIO_TELEMETRY*`` env vars override both."""
+    data = read_server_json().get("telemetry") or {}
+    return TelemetryConfig.from_env(data, variant_section)
+
+
+@dataclasses.dataclass
 class BatchPredictConfig:
     """Offline batch-scoring tuning (the ``PIO_BATCHPREDICT_*`` knobs;
     server.json ``batchpredict`` section, camelCase keys).

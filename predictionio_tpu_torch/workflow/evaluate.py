@@ -27,6 +27,7 @@ from predictionio_tpu_torch.utils.device import DeviceLike
 from predictionio_tpu_torch.workflow.context import (
     WorkflowContext, WorkflowParams,
 )
+from predictionio_tpu_torch.workflow.instrument import workflow_run_metrics
 
 logger = logging.getLogger("pio.torch.workflow")
 
@@ -58,7 +59,8 @@ def run_evaluation(evaluation: Evaluation,
     instance.id = instances.insert(instance)
     logger.info("EvaluationInstance %s created (INIT)", instance.id)
     try:
-        result = evaluation.run(ctx, engine_params_list)
+        with workflow_run_metrics("evaluate", "pio_eval"):
+            result = evaluation.run(ctx, engine_params_list)
     except BaseException as e:
         # a failed sweep must not stay INIT (listed as forever starting);
         # BaseException on purpose, so an interrupt mid-sweep is recorded

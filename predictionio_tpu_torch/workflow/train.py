@@ -25,6 +25,7 @@ from predictionio_tpu_torch.utils.device import DeviceLike
 from predictionio_tpu_torch.workflow.context import (
     WorkflowContext, WorkflowParams,
 )
+from predictionio_tpu_torch.workflow.instrument import workflow_run_metrics
 from predictionio_tpu_torch.workflow.serialization import serialize_models
 
 logger = logging.getLogger("pio.torch.workflow")
@@ -71,20 +72,21 @@ def run_train(engine: Engine, engine_params: EngineParams,
     instance.id = instances.insert(instance)
     logger.info("EngineInstance %s created (INIT)", instance.id)
 
-    result = engine.train(ctx, engine_params,
-                          skip_sanity_check=wp.skip_sanity_check,
-                          stop_after_read=wp.stop_after_read,
-                          stop_after_prepare=wp.stop_after_prepare)
-    blob = None
-    if wp.save_model:
-        blob = serialize_models(engine.persist_models(ctx, result))
-        Storage.get_model_data_models().insert(
-            Model(id=instance.id, models=blob))
-        logger.info("models saved (%d bytes) for instance %s", len(blob),
-                    instance.id)
-    instance.status = "COMPLETED"
-    instance.end_time = _dt.datetime.now(tz=UTC)
-    instances.update(instance)
+    with workflow_run_metrics("train", "pio_train"):
+        result = engine.train(ctx, engine_params,
+                              skip_sanity_check=wp.skip_sanity_check,
+                              stop_after_read=wp.stop_after_read,
+                              stop_after_prepare=wp.stop_after_prepare)
+        blob = None
+        if wp.save_model:
+            blob = serialize_models(engine.persist_models(ctx, result))
+            Storage.get_model_data_models().insert(
+                Model(id=instance.id, models=blob))
+            logger.info("models saved (%d bytes) for instance %s", len(blob),
+                        instance.id)
+        instance.status = "COMPLETED"
+        instance.end_time = _dt.datetime.now(tz=UTC)
+        instances.update(instance)
 
     record_release(instance,
                    train_seconds=(instance.end_time - instance.start_time

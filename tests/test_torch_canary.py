@@ -705,11 +705,15 @@ async def test_foldin_holds_while_a_canary_is_judged(port_store):
 
     import collections
 
+    from predictionio_tpu_torch.obs.foldin_stats import foldin_applies
+    from predictionio_tpu_torch.obs.registry import MetricsRegistry
+
     for ctl_class in (ref_foldin.FoldInController,
                       port_foldin.FoldInController):
         holder = types.SimpleNamespace(
             server=types.SimpleNamespace(_canary=object()),
-            outcomes=collections.Counter())
+            outcomes=collections.Counter(),
+            _m_applies=foldin_applies(MetricsRegistry()))
         assert ctl_class.apply_pending(holder) is None
 
 

@@ -14,11 +14,13 @@ the CPU on their own.
   the e-commerce and similar-product engines through the CLI, and
   another runs ``eval`` through the CLI, batched then ``--sequential``,
   and another ``batchpredict`` through the CLI, whole and in two
-  shards, each with the same finding;
+  shards, and another ``eventserver --stats``, a deploy with telemetry
+  and an SLO spec, ``slo``, ``capacity``, ``traces`` and ``metrics
+  series|query``, each with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``,
-  and the batch-predict slice's obs core, worker contract and kill
-  points among them) or in chip_smoke.py;
+  the batch-predict slice's obs core, worker contract and kill points,
+  and the observability plane among them) or in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
 """
@@ -530,6 +532,133 @@ def test_batchpredict_cli_loads_no_jax(tmp_path):
     lines = out.stdout.strip().splitlines()
     assert json.loads(lines[-2])["merged"] is True
     assert lines[-1] == "[]", out.stdout
+
+
+_OBS_CHILD = r"""
+import http.client, json, os, socket, sys, threading, time
+import numpy as np
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.models.als import ALSModel
+from predictionio_tpu_torch.workflow.serialization import save_model
+
+tmp = sys.argv[1]
+os.environ.update({
+    "PIO_HOME": tmp, "PIO_TELEMETRY_INTERVAL_S": "0.2",
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "o.db"),
+    **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+       for r in ("METADATA", "EVENTDATA", "MODELDATA")
+       for k, v in (("NAME", "pio"), ("SOURCE", "DB"))}})
+os.makedirs(os.path.join(tmp, "conf"))
+with open(os.path.join(tmp, "conf", "server.json"), "w") as f:
+    json.dump({"slo": {"objectives": [{"name": "p99", "kind": "latency",
+                                       "thresholdS": 5.0}],
+                       "evalIntervalS": 0.1}}, f)
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+def call(port, method, path, body=None):
+    for _ in range(600):
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            c.request(method, path, body=None if body is None
+                      else json.dumps(body))
+            r = c.getresponse()
+            return r.status, r.read()
+        except ConnectionRefusedError:
+            time.sleep(0.05)
+
+assert main(["app", "new", "Guard", "--access-key", "k"]) == 0
+es = free_port()
+threading.Thread(target=main, args=(["eventserver", "--port", str(es),
+                                     "--stats"],), daemon=True).start()
+events = [{"event": "rate" if i % 3 else "buy", "entityType": "user",
+           "entityId": f"u{i % 4}", "targetEntityType": "item",
+           "targetEntityId": f"i{i}"} for i in range(9)]
+status, _ = call(es, "POST", "/batch/events.json?accessKey=k", events)
+assert status == 200
+status, body = call(es, "GET", "/stats.json?accessKey=k")
+stats = json.loads(body)
+assert sum(e["count"] for e in stats["longLive"]) == 9, stats
+status, body = call(es, "GET", "/metrics")
+assert b'handler="/batch/events.json",status="200"} 1' in body, body
+
+rng = np.random.default_rng(0)
+path = os.path.join(tmp, "m.npz")
+save_model(path, ALSModel.from_arrays(
+    np.array(["u0", "u1"]), np.array(["a", "b", "c"]),
+    rng.standard_normal((2, 4)), rng.standard_normal((3, 4)), device="cpu"))
+qs = free_port()
+rc = []
+deploy = threading.Thread(target=lambda: rc.append(main([
+    "deploy", "--model", path, "--port", str(qs), "--device", "cpu"])))
+deploy.start()
+for _ in range(5):
+    assert call(qs, "POST", "/queries.json", {"user": "u1", "num": 2})[0] \
+        == 200
+time.sleep(0.5)
+print("CLI-OUTPUT-BEGIN", flush=True)
+assert main(["slo", "--port", str(qs)]) == 0
+assert main(["capacity", "--json", "--port", str(qs)]) == 0
+assert main(["traces", "--port", str(qs), "--limit", "3"]) == 0
+assert main(["profile", "--port", str(qs), "--seconds", "0.2", "--dir",
+             os.path.join(tmp, "profile")]) == 0
+assert main(["undeploy", "--port", str(qs)]) == 0
+deploy.join(timeout=30)
+assert rc == [0], rc
+tel = os.path.join(tmp, "telemetry")
+assert main(["metrics", "series", "--dir", tel,
+             "--name", "pio_query_duration_seconds"]) == 0
+assert main(["metrics", "query", "pio_query_duration_seconds", "--dir",
+             tel, "--json"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad), flush=True)
+os._exit(0)
+"""
+
+
+def test_obs_cli_eventserver_stats_and_telemetry_load_no_jax(tmp_path):
+    """``eventserver --stats``, a deploy with telemetry and an SLO spec,
+    then ``slo``, ``capacity --json``, ``traces``, ``profile`` and
+    ``metrics series|query`` through the CLI."""
+    out = subprocess.run([sys.executable, "-c", _OBS_CHILD, str(tmp_path)],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "[]", out.stdout
+    cli = lines[lines.index("CLI-OUTPUT-BEGIN") + 1:-1]
+    assert cli[0] == "[INFO] SLO status: ok", cli
+    assert cli[1].startswith("[INFO]   p99 (latency): ok"), cli
+    doc_end = next(i for i, line in enumerate(cli) if line == "}")
+    cap = json.loads("\n".join(cli[2:doc_end + 1]))
+    assert cap["units"][0]["role"] == "active"
+    assert set(cap["process"]) == {"deviceBytes", "deviceArrays",
+                                   "deviceWatermarkBytes", "hostRssBytes"}
+    rest = cli[doc_end + 1:]
+    assert any("query_server POST /queries.json" in x for x in rest), rest
+    assert any(x.startswith("[INFO] Captured") for x in rest), rest
+    assert any(x.startswith("[INFO] pio_query_duration_seconds") and
+               "[histogram]" in x for x in rest), rest
+    series = json.loads(rest[-1])["series"]
+    assert series and series[0]["points"][-1][1] == 5
+
+
+def test_scan_covers_the_observability_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"obs/middleware.py", "obs/anatomy.py", "obs/profiler.py",
+            "obs/tsdb.py", "obs/telemetry.py", "obs/slo.py",
+            "obs/capacity.py", "obs/device_stats.py",
+            "obs/scoring_stats.py", "obs/train_stats.py",
+            "obs/eval_stats.py", "obs/foldin_stats.py",
+            "storage/logstore.py", "server/stats.py",
+            "workflow/instrument.py", "utils/profiling.py"} <= scanned
 
 
 def test_scan_covers_the_batch_predict_modules():

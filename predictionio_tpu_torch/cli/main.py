@@ -32,6 +32,13 @@ click), with the reference's commands, flags and exit codes:
         [--status S]
     python -m predictionio_tpu_torch.cli.main rollback [--ip localhost]
         [--port 8000] [--accesskey K]
+    python -m predictionio_tpu_torch.cli.main router [-v engine.json]
+        [--ip localhost] [--port P] [--replicas N] [--replica-url URL ...]
+        [--accesskey K] [--device cpu]
+    python -m predictionio_tpu_torch.cli.main orchestrate [-v engine.json]
+        [--once] [--force] [--cycles N] [--server HOST:PORT]
+        [--accesskey K] [--state-dir D] [--eval-class EVAL] [--device cpu]
+    python -m predictionio_tpu_torch.cli.main status [--fleet PATH]
 
 The engine.json's ``engineFactory`` names one of the ported engines
 (recommendation, ecommerce, similarproduct, recommended_user) by the
@@ -86,6 +93,19 @@ the card or of a kernel fails the command (non-zero exit).
 
 ``rollback`` asks a running query server to roll back
 (``POST /rollback.json``) and prints what it serves now.
+
+``router`` spawns ``--replicas`` ``deploy`` replicas of the variant on
+``PIO_ROUTER_BASE_PORT + rank`` (or fronts ``--replica-url`` replicas)
+and serves them behind one port (``server/router``): the spread,
+health ejection, retries on another replica, fleet-sequenced
+``/deploy.json`` and ``/rollback.json``, and the autoscaler
+(``PIO_FLEET_*``). SIGTERM stops the router and its replicas.
+
+``orchestrate`` runs the continuous-training loop over the variant
+(``deploy/orchestrator``); ``--once`` exits 1 unless its cycle
+promoted.
+
+``status`` checks every storage backend, or prints a fleet view.
 
 The storage is the one ``PIO_STORAGE_*`` configures (``storage/registry``).
 """
@@ -1010,6 +1030,232 @@ def metrics_query(args) -> int:
     return 0
 
 
+# -- the serving fleet (router), continuous training (orchestrate) and
+#    status ----------------------------------------------------------------
+
+def router(args) -> int:
+    """Serve a replicated fleet behind one router (``server/router``):
+    spawn N ``deploy`` replicas under the worker-env contract (one trace
+    id spans router -> replica -> device), spread queries with the
+    error-diffusion splitter, sequence fleet cutovers, and autoscale on
+    the SLO burn signal when server.json/env enable it. The router
+    itself computes nothing and never touches the card; each replica
+    runs on ``--device`` (default ``cuda``)."""
+    import subprocess
+
+    from predictionio_tpu_torch.server.router import run_router
+    from predictionio_tpu_torch.utils.server_config import router_config
+
+    cfg = router_config()
+    if args.port is not None:
+        cfg.port = args.port
+    if args.replicas is not None:
+        cfg.replicas = max(1, args.replicas)
+
+    spawn = None
+    if not args.replica_urls:
+        from predictionio_tpu_torch.parallel.distributed import worker_env
+
+        def spawn(rank):
+            """One replica = one ``deploy`` subprocess on base_port +
+            rank, carrying the router's trace context and the
+            PIO_PROCESS_ID/PIO_NUM_PROCESSES contract."""
+            from predictionio_tpu_torch.server.router import ReplicaHandle
+
+            port_r = cfg.base_port + rank
+            argv = [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+                    "deploy", "--variant", args.variant, "--ip", args.ip,
+                    "--port", str(port_r)]
+            if args.accesskey:
+                argv += ["--accesskey", args.accesskey]
+            if args.device:
+                argv += ["--device", args.device]
+            env = worker_env(rank, max(cfg.replicas, rank + 1),
+                             base=dict(os.environ))
+            proc = subprocess.Popen(argv, env=env)
+            print(f"[INFO] Spawned replica {rank} (pid {proc.pid}) on "
+                  f"{args.ip}:{port_r}", flush=True)
+            return ReplicaHandle(rank=rank,
+                                 url=f"http://{args.ip}:{port_r}",
+                                 proc=proc)
+
+    print(f"[INFO] Router starting at {args.ip}:{cfg.port} over "
+          + (f"{len(args.replica_urls)} existing replica(s)"
+             if args.replica_urls else f"{cfg.replicas} replica(s)"),
+          flush=True)
+
+    def ready(port):
+        print(f"[INFO] Router listening on http://{args.ip}:{port}",
+              flush=True)
+
+    run_router(config=cfg, ip=args.ip, spawn=spawn,
+               replica_urls=tuple(args.replica_urls), on_ready=ready)
+    return 0
+
+
+def orchestrate(args) -> int:
+    """Continuous-training orchestrator: the closed Lambda loop
+    (``deploy/orchestrator``). Recurring train -> eval gate ->
+    batchpredict smoke -> SLO-judged canary -> promote over the release
+    registry, with crash-safe phase state (kill it anywhere; the next
+    start converges), data-driven retrain triggers (ingest volume,
+    fold-in pressure, SLO burn) and jittered backoff on failure. The
+    workflows run on ``--device`` (default ``cuda``)."""
+    from predictionio_tpu_torch.deploy.orchestrator import (
+        build_orchestrator,
+    )
+
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    # the device first: without a card (and without --device cpu) this
+    # raises before anything is read or written
+    resolve_device(args.device)
+    if not os.path.exists(args.variant):
+        _fail(f"{args.variant} does not exist. Aborting.")
+    orch = build_orchestrator(args.variant, eval_path=args.eval_class,
+                              server=args.server,
+                              access_key=args.accesskey,
+                              state_dir=args.state_dir, device=args.device)
+    cfg = orch.cfg
+    print(f"[INFO] Orchestrating {orch.engine_id}/{orch.engine_variant} "
+          f"(state in {orch.store.state_dir})", flush=True)
+    print(f"[INFO] Triggers: ingest>={cfg.min_ingest_events or 'off'}"
+          f" foldin>={cfg.foldin_pending_max or 'off'}"
+          f" slo={'on' if cfg.slo_trigger else 'off'}; "
+          f"cooldown {cfg.cooldown_s:g}s, check every "
+          f"{cfg.interval_s:g}s", flush=True)
+    print("[INFO] Canary plane: "
+          + (f"live server {args.server}" if args.server
+             else "release registry"), flush=True)
+    if args.once or args.force:
+        action = orch.recover()
+        if action:
+            print(f"[INFO] Recovery: {action}", flush=True)
+        doc = orch.tick(force=args.force)
+        if doc is None:
+            print("[INFO] No trigger fired; nothing to do.", flush=True)
+            return 0
+        _echo_cycle(doc)
+        return 0 if doc.outcome == "promoted" else 1
+    try:
+        done = orch.run(cycles=args.cycles)
+    except KeyboardInterrupt:
+        print("[INFO] Orchestrator stopped.", flush=True)
+        return 0
+    print(f"[INFO] Orchestrator exiting after {done} cycle(s).", flush=True)
+    return 0
+
+
+def _echo_cycle(doc) -> None:
+    print(f"[INFO] Cycle {doc.cycle_id} ({doc.trigger}): "
+          f"{doc.outcome} — {doc.reason}", flush=True)
+    if doc.candidate_release_version:
+        print(f"[INFO]   candidate release "
+              f"v{doc.candidate_release_version}"
+              + (f" | eval score {doc.eval_score}"
+                 if doc.eval_score is not None else ""), flush=True)
+    trace = (doc.trace or ":").split(":")[0]
+    print(f"[INFO]   trace id {trace} (follow with `traces "
+          f"--trace-id {trace}` on a live server)", flush=True)
+
+
+def status(args) -> int:
+    """Verify the storage configuration (Console.scala:435,
+    Management.scala:99); with ``--fleet``, print a sharded run's merged
+    per-process metric view, or a telemetry root's stores."""
+    if args.fleet_path:
+        return _print_fleet(args.fleet_path)
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    print("[INFO] Inspecting predictionio_tpu_torch installation...",
+          flush=True)
+    try:
+        Storage.verify_all_data_objects()
+    except Exception as e:
+        _fail(f"Unable to connect to all storage backends: {e}")
+    print("[INFO] All storage backends are properly configured.",
+          flush=True)
+    print("[INFO] Your system is all ready to go.", flush=True)
+    return 0
+
+
+def _print_fleet(path) -> int:
+    """The merged fleet view: per-process counters, exact fleet totals,
+    and the trace ids spanning the run. A directory is read as a
+    durable-telemetry root instead (``obs/fleet.history_reader``): one
+    summary line per process store."""
+    if os.path.isdir(path):
+        return _print_fleet_history(path)
+    if not path.endswith(".fleet.json") and not os.path.exists(path):
+        path = f"{path}.fleet.json"
+    elif os.path.isfile(f"{path}.fleet.json"):
+        path = f"{path}.fleet.json"
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        _fail(f"cannot read fleet view {path}: {e}")
+    print(f"[INFO] Fleet view {path}: "
+          f"{len(doc.get('processes', []))} process(es) "
+          f"{doc.get('processes')}", flush=True)
+    totals = doc.get("counterTotals", {})
+    metrics = doc.get("metrics", {})
+    for name in sorted(totals):
+        print(f"[INFO] {name} fleet total: {totals[name]:g}")
+        for sample in metrics.get(name, {}).get("samples", []):
+            labels = sample.get("labels", {})
+            proc = labels.get("process", "?")
+            rest = {k: v for k, v in labels.items() if k != "process"}
+            suffix = f" {rest}" if rest else ""
+            print(f"[INFO]   process {proc}{suffix}: "
+                  f"{sample.get('value'):g}")
+    trace_ids = []
+    for t in doc.get("traces", []):
+        tid = t.get("traceId")
+        if tid and tid not in trace_ids:
+            trace_ids.append(tid)
+    for tid in trace_ids:
+        spans = [t for t in doc.get("traces", [])
+                 if t.get("traceId") == tid]
+        procs = sorted({t.get("process", "?") for t in spans})
+        print(f"[INFO] trace {tid}: {len(spans)} span(s) across "
+              f"processes {procs}")
+    sys.stdout.flush()
+    return 0
+
+
+def _print_fleet_history(root) -> int:
+    """Fleet-wide history summary over a telemetry root: the merged
+    per-process stores (one ``process`` label per service directory)."""
+    import datetime as _dt
+
+    from predictionio_tpu_torch.obs import fleet
+
+    reader = fleet.history_reader(root)
+    by_process = {}
+    for info in reader.series():
+        if not info.points:
+            continue
+        proc = info.labels.get("process", "?")
+        count, newest = by_process.get(proc, (0, 0))
+        by_process[proc] = (count + 1, max(newest, info.points[-1][0]))
+    if not by_process:
+        print(f"[INFO] No telemetry stores under {root}.", flush=True)
+        return 0
+    print(f"[INFO] Telemetry root {root}: {len(by_process)} process "
+          "store(s)")
+    for proc, (count, newest) in sorted(by_process.items()):
+        when = _dt.datetime.fromtimestamp(newest / 1000.0)
+        print(f"[INFO]   {proc}: {count} series, newest sample "
+              f"{when.strftime('%Y-%m-%d %H:%M:%S')}")
+    for _ts, e in reader.events()[-10:]:
+        print(f"[INFO]   event {e.get('kind')} "
+              f"proc={e.get('process', '?')} "
+              f"trace={(e.get('traceId') or '-')[:12]}")
+    sys.stdout.flush()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.cli.main")
@@ -1230,6 +1476,57 @@ def build_parser() -> argparse.ArgumentParser:
                          "PIO_TELEMETRY_DIR)")
     mq.add_argument("--json", dest="as_json", action="store_true")
     mq.set_defaults(func=metrics_query)
+    ro = sub.add_parser("router", help="serve a replicated fleet of query "
+                        "servers behind one router")
+    ro.add_argument("--variant", "-v", default="engine.json")
+    ro.add_argument("--ip", default="localhost")
+    ro.add_argument("--port", default=None, type=int,
+                    help="router port (default PIO_ROUTER_PORT / "
+                         "server.json)")
+    ro.add_argument("--replicas", default=None, type=int,
+                    help="query-server replicas to spawn (default "
+                         "PIO_ROUTER_REPLICAS / server.json)")
+    ro.add_argument("--replica-url", dest="replica_urls", action="append",
+                    default=[], help="front an existing replica instead of "
+                    "spawning (repeatable); disables the spawner")
+    ro.add_argument("--accesskey", default=None,
+                    help="key forwarded to spawned replicas' deploy APIs")
+    ro.add_argument("--device", default=None,
+                    help="device of each spawned replica: cuda (default) "
+                         "or cpu")
+    ro.set_defaults(func=router)
+
+    oc = sub.add_parser("orchestrate", help="continuous training: trigger "
+                        "-> train -> eval -> smoke -> canary -> promote")
+    oc.add_argument("--variant", "-v", default="engine.json")
+    oc.add_argument("--once", action="store_true",
+                    help="one trigger evaluation (and one cycle if it "
+                         "fires), then exit")
+    oc.add_argument("--force", action="store_true",
+                    help="fire one manual cycle immediately (skips the "
+                         "data-driven triggers and the cooldown window)")
+    oc.add_argument("--cycles", type=int, default=None,
+                    help="exit after this many completed cycles (default: "
+                         "run forever)")
+    oc.add_argument("--server", default=None, metavar="HOST:PORT",
+                    help="drive a live query server's deploy API for the "
+                         "canary phase (default: registry-only plane)")
+    oc.add_argument("--accesskey", default=None)
+    oc.add_argument("--state-dir", default=None,
+                    help="crash-safe cycle-document directory (default "
+                         "$PIO_HOME/orchestrator or PIO_ORCH_STATE_DIR)")
+    oc.add_argument("--eval-class", default=None,
+                    help="Evaluation path for the eval-gate phase (skipped "
+                         "when absent)")
+    oc.add_argument("--device", default=None, help="cuda (default) or cpu")
+    oc.set_defaults(func=orchestrate)
+
+    st = sub.add_parser("status", help="verify the storage configuration")
+    st.add_argument("--fleet", dest="fleet_path", default=None,
+                    help="show the merged fleet view of a sharded run (the "
+                         "<output>.fleet.json a batchpredict merge commits, "
+                         "or the output path), or a telemetry root")
+    st.set_defaults(func=status)
     return p
 
 

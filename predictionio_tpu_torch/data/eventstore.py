@@ -90,6 +90,17 @@ class EventStoreClient:
             required=required)
 
     @staticmethod
+    def snapshot_digest(app_name: str, channel_name: Optional[str] = None
+                        ) -> Optional[str]:
+        """Cheap content fingerprint of the app's event namespace (None
+        when the backend cannot produce one): equal digests promise an
+        identical rescan."""
+        app_id, channel_id = resolve_app(app_name, channel_name)
+        store = Storage.get_events()
+        fn = getattr(store, "snapshot_digest", None)
+        return fn(app_id, channel_id) if fn is not None else None
+
+    @staticmethod
     def training_columns(app_name: str, channel_name: Optional[str] = None,
                          **filters) -> Dict[str, np.ndarray]:
         """The training read (single-process ``training_scan`` +

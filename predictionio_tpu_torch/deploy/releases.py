@@ -83,8 +83,15 @@ def record_release(instance: EngineInstance, train_seconds: float,
                   "timeMs": int(time.time() * 1000),
                   "reason": "train completed"}],
     )
+    from predictionio_tpu_torch.storage.faults import maybe_kill
+
     try:
+        # a kill on either side of the insert is the "train completed but
+        # its manifest may or may not exist" window the orchestrator's
+        # recovery converges
+        maybe_kill("releases:insert:pre")
         Storage.get_meta_data_releases().insert(release)
+        maybe_kill("releases:insert:committed")
     except Exception:
         logger.exception("release registration failed for instance %s",
                          instance.id)

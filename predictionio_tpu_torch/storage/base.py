@@ -261,6 +261,9 @@ class EngineInstances(abc.ABC):
     @abc.abstractmethod
     def update(self, i: EngineInstance) -> None: ...
 
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> None: ...
+
 
 class EvaluationInstances(abc.ABC):
     @abc.abstractmethod
@@ -342,7 +345,11 @@ class Releases(abc.ABC):
                    reason: str = "") -> Optional[Release]:
         """Move a release to ``status``, appending to its history.
         Returns the updated release (None when unknown). Re-asserting the
-        current status is a no-op: no second history entry, no write."""
+        current status is a no-op: no second history entry, no write.
+        Kill points ``releases:set-status:pre|committed`` sit on either
+        side of the write (``storage/faults``)."""
+        from predictionio_tpu_torch.storage.faults import maybe_kill
+
         if status not in RELEASE_STATUSES:
             raise ValueError(f"unknown release status {status!r}")
         release = self.get(release_id)
@@ -350,11 +357,13 @@ class Releases(abc.ABC):
             return None
         if release.status == status:
             return release
+        maybe_kill("releases:set-status:pre")
         release.status = status
         release.history = list(release.history) + [{
             "status": status, "timeMs": int(time.time() * 1000),
             "reason": reason}]
         self.update(release)
+        maybe_kill("releases:set-status:committed")
         return release
 
 
@@ -450,3 +459,11 @@ class EventStore(abc.ABC):
             entity_type=entity_type,
             event_names=list(AGGREGATOR_EVENT_NAMES))
         return aggregate_properties_columns(cols, required=required)
+
+    def snapshot_digest(self, app_id: int,
+                        channel_id: Optional[int] = None) -> Optional[str]:
+        """Cheap fingerprint of the namespace's current contents, or None
+        when the backend cannot produce one. Equal digests mean a
+        repeated scan would return the same rows (the orchestrator's
+        ingest trigger reads it before counting fresh events)."""
+        return None

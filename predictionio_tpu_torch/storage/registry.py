@@ -165,6 +165,15 @@ class Storage:
                     client = sb.SqliteClient(source.get("PATH", ":memory:"))
                     cls._clients[name] = client
                 obj = getattr(sb, _SQLITE_KINDS[kind])(client)
+                if kind == "events":
+                    from predictionio_tpu_torch.storage import faults
+
+                    if faults.env_enabled():
+                        # chaos mode: any PIO_FAULT_* fault knob wraps the
+                        # event store in the fault injector (evaluated
+                        # once per cache fill: arm the env before first
+                        # use)
+                        obj = faults.FaultyEvents.from_env(obj)
             else:
                 where = _NOT_PORTED.get(stype)
                 if where is None:
@@ -208,3 +217,19 @@ class Storage:
     def get_events(cls) -> base.EventStore:
         """The event store."""
         return cls._get("EVENTDATA", "events")
+
+    @classmethod
+    def verify_all_data_objects(cls) -> bool:
+        """Storage.verifyAllDataObjects:372 (``pio status``): open every
+        data object, and create and drop a channel-0 event table."""
+        cls.get_meta_data_apps()
+        cls.get_meta_data_access_keys()
+        cls.get_meta_data_channels()
+        cls.get_meta_data_engine_instances()
+        cls.get_meta_data_evaluation_instances()
+        cls.get_meta_data_releases()
+        cls.get_model_data_models()
+        events = cls.get_events()
+        events.init_channel(0, None)
+        events.remove_channel(0, None)
+        return True

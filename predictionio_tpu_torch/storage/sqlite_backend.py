@@ -545,6 +545,10 @@ class SqliteEngineInstances(_MetaBase, base.EngineInstances):
             "AND engineVariant=? ORDER BY startTime DESC",
             (engine_id, engine_version, engine_variant))]
 
+    def delete(self, instance_id: str) -> None:
+        self._exec("DELETE FROM pio_engineinstances WHERE id=?",
+                   (instance_id,))
+
     def update(self, i: EngineInstance) -> None:
         self._exec(
             "UPDATE pio_engineinstances SET status=?, startTime=?, "

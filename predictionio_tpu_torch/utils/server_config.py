@@ -1,15 +1,21 @@
-"""Scorer, ingest, training-solver, fold-in, deploy and batch-predict
-knobs: the ``scorer``, ``ingest``, ``train``, ``foldin``, ``deploy`` and
-``batchpredict`` sections of the reference's ``utils/server_config.py``
-(``ScorerConfig``, ``scorer_config``, ``IngestConfig``, ``TrainConfig``,
+"""Scorer, ingest, training-solver, fold-in, deploy, batch-predict,
+telemetry, orchestrator, router and fleet knobs: the ``scorer``,
+``ingest``, ``train``, ``foldin``, ``deploy``, ``batchpredict``,
+``telemetry``, ``orchestrator``, ``router`` and ``fleet`` sections of the
+reference's ``utils/server_config.py`` (``ScorerConfig``,
+``scorer_config``, ``IngestConfig``, ``TrainConfig``,
 ``als_solver_config``, ``FoldinConfig``, ``foldin_config``,
 ``DeployConfig``, ``deploy_config``, ``BatchPredictConfig``,
-``batchpredict_config``), with their precedence unchanged —
+``batchpredict_config``, ``TelemetryConfig``, ``OrchestratorConfig``,
+``orchestrator_config``, ``RouterConfig``, ``router_config``,
+``FleetConfig``, ``fleet_config``), with their precedence unchanged —
 server.json section < engine.json (the top-level ``scorer``, ``foldin``
 and ``batchpredict`` sections, the algorithm's ``solver`` params) <
 ``PIO_SCORER_*`` / ``PIO_INGEST_*`` / ``PIO_ALS_*`` / ``PIO_FOLDIN*`` /
-``PIO_DEPLOY_*`` / ``PIO_CANARY_*`` / ``PIO_BATCHPREDICT_*``
-environment.
+``PIO_DEPLOY_*`` / ``PIO_CANARY_*`` / ``PIO_BATCHPREDICT_*`` /
+``PIO_TELEMETRY*`` / ``PIO_ORCH_*`` environment (the ``router`` and
+``fleet`` sections have no engine.json level: server.json <
+``PIO_ROUTER_*`` / ``PIO_FLEET_*``).
 
 The server.json path is resolved as the reference resolves it:
 ``PIO_SERVER_CONF``, else ``$PIO_CONF_DIR/server.json``, else
@@ -663,3 +669,337 @@ def batchpredict_config(variant_section: Optional[dict] = None
     precedence: env > engine.json > server.json)."""
     data = read_server_json().get("batchpredict") or {}
     return BatchPredictConfig.from_env(data, variant_section)
+
+
+@dataclasses.dataclass
+class OrchestratorConfig:
+    """Continuous-training orchestrator tuning (the ``PIO_ORCH_*``
+    knobs; server.json ``orchestrator`` section, camelCase keys; an
+    engine.json top-level ``orchestrator`` section overrides the host
+    file, env overrides both — the established precedence).
+
+    The orchestrator (deploy/orchestrator.py, ``pio orchestrate``) runs
+    the closed train → eval-gate → batchpredict-smoke → canary →
+    promote loop. ``interval_s`` is the trigger-check cadence;
+    ``cooldown_s`` is the minimum gap between one cycle ending and the
+    next trigger firing (the flap-suppression window — a trigger
+    condition that oscillates cannot thrash retrains faster than this).
+    Data-driven triggers: ``min_ingest_events`` fresh events since the
+    last cycle's snapshot watermark (0 disables),
+    ``foldin_pending_max`` fold-in rows pending (0 disables), and
+    ``slo_trigger`` (a burning serving SLO). Each phase runs under
+    ``phase_timeout_s`` with ``phase_retries`` retries backed off with
+    full jitter from ``phase_backoff_s`` (capped at
+    ``phase_backoff_cap_s``); a failed CYCLE backs the next trigger off
+    by a jittered exponential from ``cycle_backoff_s`` (capped at
+    ``cycle_backoff_cap_s``) on top of the cooldown.
+    ``min_eval_score`` gates promotion on the eval sweep's best score
+    (None = no bar); ``smoke_queries`` names a query file for the
+    batchpredict smoke phase (None skips it); ``canary_hold_s`` is how
+    long the registry-plane canary observes the SLO engine before
+    judging, while ``canary_verdict_timeout_s`` bounds how long the
+    HTTP plane waits for a LIVE query server's own canary verdict
+    (sample-count judged — give it time for real traffic) before
+    aborting the rollout. ``state_dir`` holds the crash-safe cycle
+    documents (default ``$PIO_HOME/orchestrator``).
+    """
+
+    interval_s: float = 30.0
+    cooldown_s: float = 300.0
+    min_ingest_events: int = 500
+    foldin_pending_max: int = 0
+    slo_trigger: bool = True
+    phase_timeout_s: float = 3600.0
+    phase_retries: int = 2
+    phase_backoff_s: float = 1.0
+    phase_backoff_cap_s: float = 30.0
+    cycle_backoff_s: float = 60.0
+    cycle_backoff_cap_s: float = 3600.0
+    min_eval_score: Optional[float] = None
+    canary_hold_s: float = 5.0
+    canary_verdict_timeout_s: float = 600.0
+    #: trailing window the registry-plane canary judge baselines the
+    #: candidate's p99/error-rate against, read from the durable
+    #: telemetry store (0 disables the history baseline)
+    history_window_s: float = 3600.0
+    smoke_queries: Optional[str] = None
+    state_dir: Optional[str] = None
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None,
+                 variant: Optional[dict] = None) -> "OrchestratorConfig":
+        """Per-knob precedence, weakest first: server.json
+        ``orchestrator`` section (``data``) < engine.json
+        ``orchestrator`` section (``variant``) < ``PIO_ORCH_*`` env.
+        Malformed knobs are logged and fall back, same contract as
+        ServingConfig."""
+        data = data or {}
+        variant = variant or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+        file_keys = (
+            ("intervalS", "interval_s", float),
+            ("cooldownS", "cooldown_s", float),
+            ("minIngestEvents", "min_ingest_events", int),
+            ("foldinPendingMax", "foldin_pending_max", int),
+            ("sloTrigger", "slo_trigger", as_bool),
+            ("phaseTimeoutS", "phase_timeout_s", float),
+            ("phaseRetries", "phase_retries", int),
+            ("phaseBackoffS", "phase_backoff_s", float),
+            ("phaseBackoffCapS", "phase_backoff_cap_s", float),
+            ("cycleBackoffS", "cycle_backoff_s", float),
+            ("cycleBackoffCapS", "cycle_backoff_cap_s", float),
+            ("minEvalScore", "min_eval_score", float),
+            ("canaryHoldS", "canary_hold_s", float),
+            ("canaryVerdictTimeoutS", "canary_verdict_timeout_s", float),
+            ("historyWindowS", "history_window_s", float),
+            ("smokeQueries", "smoke_queries", str),
+            ("stateDir", "state_dir", str),
+        )
+        env_keys = (
+            ("PIO_ORCH_INTERVAL_S", "interval_s", float),
+            ("PIO_ORCH_COOLDOWN_S", "cooldown_s", float),
+            ("PIO_ORCH_MIN_INGEST_EVENTS", "min_ingest_events", int),
+            ("PIO_ORCH_FOLDIN_PENDING_MAX", "foldin_pending_max", int),
+            ("PIO_ORCH_SLO_TRIGGER", "slo_trigger", as_bool),
+            ("PIO_ORCH_PHASE_TIMEOUT_S", "phase_timeout_s", float),
+            ("PIO_ORCH_PHASE_RETRIES", "phase_retries", int),
+            ("PIO_ORCH_PHASE_BACKOFF_S", "phase_backoff_s", float),
+            ("PIO_ORCH_PHASE_BACKOFF_CAP_S", "phase_backoff_cap_s", float),
+            ("PIO_ORCH_CYCLE_BACKOFF_S", "cycle_backoff_s", float),
+            ("PIO_ORCH_CYCLE_BACKOFF_CAP_S", "cycle_backoff_cap_s", float),
+            ("PIO_ORCH_MIN_EVAL_SCORE", "min_eval_score", float),
+            ("PIO_ORCH_CANARY_HOLD_S", "canary_hold_s", float),
+            ("PIO_ORCH_CANARY_VERDICT_TIMEOUT_S",
+             "canary_verdict_timeout_s", float),
+            ("PIO_ORCH_HISTORY_WINDOW_S", "history_window_s", float),
+            ("PIO_ORCH_SMOKE_QUERIES", "smoke_queries", str),
+            ("PIO_ORCH_STATE_DIR", "state_dir", str),
+        )
+        sources = (
+            [(k, data.get(k), attr, conv) for k, attr, conv in file_keys]
+            + [(f"engine.json {k}", variant.get(k), attr, conv)
+               for k, attr, conv in file_keys]
+            + [(k, os.environ.get(k), attr, conv)
+               for k, attr, conv in env_keys]
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed orchestrator knob %s=%r",
+                               name, raw)
+        cfg.interval_s = max(0.01, cfg.interval_s)
+        cfg.cooldown_s = max(0.0, cfg.cooldown_s)
+        cfg.min_ingest_events = max(0, cfg.min_ingest_events)
+        cfg.foldin_pending_max = max(0, cfg.foldin_pending_max)
+        cfg.phase_timeout_s = max(0.01, cfg.phase_timeout_s)
+        cfg.phase_retries = max(0, cfg.phase_retries)
+        cfg.canary_hold_s = max(0.0, cfg.canary_hold_s)
+        cfg.canary_verdict_timeout_s = max(1.0,
+                                           cfg.canary_verdict_timeout_s)
+        cfg.history_window_s = max(0.0, cfg.history_window_s)
+        return cfg
+
+
+def orchestrator_config(variant_section: Optional[dict] = None
+                        ) -> OrchestratorConfig:
+    """Resolve the orchestrator knobs a `pio orchestrate` run should
+    use: ``variant_section`` is the engine.json ``orchestrator``
+    section, which overrides the host-level server.json section; the
+    ``PIO_ORCH_*`` env vars override both (the established precedence:
+    env > engine.json > server.json)."""
+    data = read_server_json().get("orchestrator") or {}
+    return OrchestratorConfig.from_env(data, variant_section)
+
+
+@dataclasses.dataclass
+class RouterConfig:
+    """Serving-fleet router tuning (the ``PIO_ROUTER_*`` knobs;
+    server.json ``router`` section, camelCase keys; env overrides the
+    file, the established precedence).
+
+    The router (server/router.py, ``pio router``) spreads queries over
+    ``replicas`` query-server replicas with the canary error-diffusion
+    splitter generalized to N arms — exact realized fractions, no RNG.
+    Replicas are health-checked every ``health_interval_s`` against
+    their ``/slo.json`` + ``/deploy/status.json``; one leaves rotation
+    after ``health_fail_after`` consecutive failures and rejoins on the
+    first healthy probe; while it KEEPS failing, its probes back off
+    exponentially (interval, 2x, 4x, ... capped at
+    ``health_backoff_cap_s``) so a dead port is not hammered at
+    ``health_interval_s`` forever — the cap bounds how stale a
+    restarted replica's re-admission can be. ``proxy_retries`` is how
+    many OTHER replicas a
+    failed proxy attempt tries before surfacing the error (a replica
+    mid-restart must not fail user queries); ``drain_timeout_s`` bounds
+    how long scale-down waits for a draining replica's in-flight
+    queries. ``base_port`` seeds spawned replicas' ports (replica rank r
+    listens on ``base_port + r``); ``persist_splitter`` restores the
+    error-diffusion accumulators from the durable telemetry store on
+    restart so a restarted router resumes its exact split mid-stream.
+    """
+
+    port: int = 8100
+    replicas: int = 2
+    base_port: int = 8200
+    health_interval_s: float = 2.0
+    health_fail_after: int = 3
+    health_backoff_cap_s: float = 30.0
+    proxy_retries: int = 1
+    drain_timeout_s: float = 10.0
+    persist_splitter: bool = True
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None) -> "RouterConfig":
+        """server.json ``router`` section overlaid by ``PIO_ROUTER_*``
+        env vars (env wins); malformed knobs are logged and fall back,
+        same contract as ServingConfig."""
+        data = data or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+        file_keys = (
+            ("port", "port", int),
+            ("replicas", "replicas", int),
+            ("basePort", "base_port", int),
+            ("healthIntervalS", "health_interval_s", float),
+            ("healthFailAfter", "health_fail_after", int),
+            ("healthBackoffCapS", "health_backoff_cap_s", float),
+            ("proxyRetries", "proxy_retries", int),
+            ("drainTimeoutS", "drain_timeout_s", float),
+            ("persistSplitter", "persist_splitter", as_bool),
+        )
+        env_keys = (
+            ("PIO_ROUTER_PORT", "port", int),
+            ("PIO_ROUTER_REPLICAS", "replicas", int),
+            ("PIO_ROUTER_BASE_PORT", "base_port", int),
+            ("PIO_ROUTER_HEALTH_INTERVAL_S", "health_interval_s", float),
+            ("PIO_ROUTER_HEALTH_FAIL_AFTER", "health_fail_after", int),
+            ("PIO_ROUTER_HEALTH_BACKOFF_CAP_S", "health_backoff_cap_s",
+             float),
+            ("PIO_ROUTER_PROXY_RETRIES", "proxy_retries", int),
+            ("PIO_ROUTER_DRAIN_TIMEOUT_S", "drain_timeout_s", float),
+            ("PIO_ROUTER_PERSIST_SPLITTER", "persist_splitter", as_bool),
+        )
+        sources = (
+            [(k, data.get(k), attr, conv) for k, attr, conv in file_keys]
+            + [(k, os.environ.get(k), attr, conv)
+               for k, attr, conv in env_keys]
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed router knob %s=%r",
+                               name, raw)
+        cfg.replicas = max(1, cfg.replicas)
+        cfg.health_interval_s = max(0.05, cfg.health_interval_s)
+        cfg.health_fail_after = max(1, cfg.health_fail_after)
+        # the cap can never undercut one interval (backoff only grows)
+        cfg.health_backoff_cap_s = max(cfg.health_interval_s,
+                                       cfg.health_backoff_cap_s)
+        cfg.proxy_retries = max(0, cfg.proxy_retries)
+        cfg.drain_timeout_s = max(0.0, cfg.drain_timeout_s)
+        return cfg
+
+
+def router_config() -> RouterConfig:
+    """Resolve the router knobs a ``pio router`` run should use:
+    server.json ``router`` section overlaid by ``PIO_ROUTER_*`` env."""
+    return RouterConfig.from_env(read_server_json().get("router") or {})
+
+
+@dataclasses.dataclass
+class FleetConfig:
+    """SLO-driven autoscaling tuning (the ``PIO_FLEET_*`` knobs;
+    server.json ``fleet`` section, camelCase keys; env overrides the
+    file, the established precedence).
+
+    The fleet controller (deploy/fleet.py) runs inside the router
+    process and drives replica count off the durable SLO burn-rate
+    history through the orchestrator's committed-phase-transition
+    discipline: scale UP one replica once the serving SLO has burned
+    for ``burn_sustain_s`` continuously (to at most ``max_replicas``),
+    scale DOWN one replica once fleet-wide QPS has sat under
+    ``idle_qps`` for ``idle_sustain_s`` (to at least ``min_replicas``;
+    the victim drains before it stops — zero dropped queries is the
+    contract). ``cooldown_s`` separates consecutive scaling decisions
+    (flap suppression); ``state_dir`` holds the crash-safe fleet
+    documents (default ``$PIO_HOME/fleet``).
+    """
+
+    enabled: bool = True
+    min_replicas: int = 1
+    max_replicas: int = 4
+    burn_sustain_s: float = 30.0
+    idle_qps: float = 0.5
+    idle_sustain_s: float = 120.0
+    cooldown_s: float = 60.0
+    state_dir: Optional[str] = None
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None) -> "FleetConfig":
+        """server.json ``fleet`` section overlaid by ``PIO_FLEET_*``
+        env vars (env wins); malformed knobs are logged and fall back,
+        same contract as ServingConfig."""
+        data = data or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+        file_keys = (
+            ("enabled", "enabled", as_bool),
+            ("minReplicas", "min_replicas", int),
+            ("maxReplicas", "max_replicas", int),
+            ("burnSustainS", "burn_sustain_s", float),
+            ("idleQps", "idle_qps", float),
+            ("idleSustainS", "idle_sustain_s", float),
+            ("cooldownS", "cooldown_s", float),
+            ("stateDir", "state_dir", str),
+        )
+        env_keys = (
+            ("PIO_FLEET_AUTOSCALE", "enabled", as_bool),
+            ("PIO_FLEET_MIN_REPLICAS", "min_replicas", int),
+            ("PIO_FLEET_MAX_REPLICAS", "max_replicas", int),
+            ("PIO_FLEET_BURN_SUSTAIN_S", "burn_sustain_s", float),
+            ("PIO_FLEET_IDLE_QPS", "idle_qps", float),
+            ("PIO_FLEET_IDLE_SUSTAIN_S", "idle_sustain_s", float),
+            ("PIO_FLEET_COOLDOWN_S", "cooldown_s", float),
+            ("PIO_FLEET_STATE_DIR", "state_dir", str),
+        )
+        sources = (
+            [(k, data.get(k), attr, conv) for k, attr, conv in file_keys]
+            + [(k, os.environ.get(k), attr, conv)
+               for k, attr, conv in env_keys]
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed fleet knob %s=%r",
+                               name, raw)
+        cfg.min_replicas = max(1, cfg.min_replicas)
+        cfg.max_replicas = max(cfg.min_replicas, cfg.max_replicas)
+        cfg.burn_sustain_s = max(0.0, cfg.burn_sustain_s)
+        cfg.idle_qps = max(0.0, cfg.idle_qps)
+        cfg.idle_sustain_s = max(0.0, cfg.idle_sustain_s)
+        cfg.cooldown_s = max(0.0, cfg.cooldown_s)
+        return cfg
+
+    def resolved_state_dir(self) -> str:
+        if self.state_dir:
+            return self.state_dir
+        return os.path.join(pio_home(), "fleet")
+
+
+def fleet_config() -> FleetConfig:
+    """Resolve the autoscaler knobs a fleet controller should use:
+    server.json ``fleet`` section overlaid by ``PIO_FLEET_*`` env."""
+    return FleetConfig.from_env(read_server_json().get("fleet") or {})

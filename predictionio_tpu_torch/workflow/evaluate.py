@@ -5,9 +5,10 @@ CoreWorkflow.runEvaluation, CoreWorkflow.scala:104-165).
 An instance is inserted as INIT, the evaluation runs (MetricEvaluator
 over the params list) on the workflow context's device, and the
 instance is marked EVALCOMPLETED with the results in their one-liner,
-HTML and JSON forms; a failure of any kind marks it EVALFAILED and
-re-raises. The reference's trace adoption waits for the port's ``obs``
-substrate.
+HTML and JSON forms; a failure of any kind (an injected kill included)
+marks it EVALFAILED and re-raises. The sweep is one trace
+(``obs/tracing.adopt``): it joins the trace ``PIO_TRACE_CONTEXT`` or the
+calling thread carries.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from predictionio_tpu_torch.core.evaluation import (
 )
 from predictionio_tpu_torch.core.params import EngineParams
 from predictionio_tpu_torch.data.event import UTC
+from predictionio_tpu_torch.obs.trace_context import record_event
+from predictionio_tpu_torch.obs.tracing import adopt
 from predictionio_tpu_torch.storage.base import EvaluationInstance
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.device import DeviceLike
@@ -59,8 +62,12 @@ def run_evaluation(evaluation: Evaluation,
     instance.id = instances.insert(instance)
     logger.info("EvaluationInstance %s created (INIT)", instance.id)
     try:
-        with workflow_run_metrics("evaluate", "pio_eval"):
-            result = evaluation.run(ctx, engine_params_list)
+        with adopt("evaluate", attrs={"instance": instance.id}):
+            with workflow_run_metrics("evaluate", "pio_eval"):
+                result = evaluation.run(ctx, engine_params_list)
+            # recorded inside the adopted trace so the completion event
+            # carries the sweep's trace id
+            record_event("eval_completed", {"instance": instance.id})
     except BaseException as e:
         # a failed sweep must not stay INIT (listed as forever starting);
         # BaseException on purpose, so an interrupt mid-sweep is recorded

@@ -6,7 +6,9 @@ An EngineInstance row is inserted as INIT, the engine trains on the
 workflow context's device, the models go into the model store under the
 instance's id, the instance is marked COMPLETED and registered as its
 variant's next release. A failed train leaves the instance INIT, so it
-is never deployed; a completed one clears its checkpoints.
+is never deployed; a completed one clears its checkpoints. The run is one
+trace (``obs/tracing.adopt``): it joins the trace ``PIO_TRACE_CONTEXT``
+or the calling thread carries.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional, Tuple
 from predictionio_tpu_torch.core.engine import Engine, TrainResult
 from predictionio_tpu_torch.core.params import EngineParams, params_to_json
 from predictionio_tpu_torch.data.event import UTC
+from predictionio_tpu_torch.obs.trace_context import record_event
+from predictionio_tpu_torch.obs.tracing import adopt
 from predictionio_tpu_torch.storage.base import EngineInstance, Model
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.device import DeviceLike
@@ -72,21 +76,29 @@ def run_train(engine: Engine, engine_params: EngineParams,
     instance.id = instances.insert(instance)
     logger.info("EngineInstance %s created (INIT)", instance.id)
 
-    with workflow_run_metrics("train", "pio_train"):
-        result = engine.train(ctx, engine_params,
-                              skip_sanity_check=wp.skip_sanity_check,
-                              stop_after_read=wp.stop_after_read,
-                              stop_after_prepare=wp.stop_after_prepare)
-        blob = None
-        if wp.save_model:
-            blob = serialize_models(engine.persist_models(ctx, result))
-            Storage.get_model_data_models().insert(
-                Model(id=instance.id, models=blob))
-            logger.info("models saved (%d bytes) for instance %s", len(blob),
-                        instance.id)
-        instance.status = "COMPLETED"
-        instance.end_time = _dt.datetime.now(tz=UTC)
-        instances.update(instance)
+    # the whole run is one trace: a parent pipeline (or a multi-process
+    # launcher) hands its context via PIO_TRACE_CONTEXT, and an
+    # in-process parent (an orchestrator cycle) via the active trace, so
+    # this train's record joins the parent's trace id
+    with adopt("train", attrs={"instance": instance.id,
+                               "variant": engine_variant}):
+        with workflow_run_metrics("train", "pio_train"):
+            result = engine.train(ctx, engine_params,
+                                  skip_sanity_check=wp.skip_sanity_check,
+                                  stop_after_read=wp.stop_after_read,
+                                  stop_after_prepare=wp.stop_after_prepare)
+            blob = None
+            if wp.save_model:
+                blob = serialize_models(engine.persist_models(ctx, result))
+                Storage.get_model_data_models().insert(
+                    Model(id=instance.id, models=blob))
+                logger.info("models saved (%d bytes) for instance %s",
+                            len(blob), instance.id)
+            instance.status = "COMPLETED"
+            instance.end_time = _dt.datetime.now(tz=UTC)
+            instances.update(instance)
+        record_event("train_completed", {
+            "instance": instance.id, "variant": engine_variant})
 
     record_release(instance,
                    train_seconds=(instance.end_time - instance.start_time

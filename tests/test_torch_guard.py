@@ -649,6 +649,232 @@ def test_obs_cli_eventserver_stats_and_telemetry_load_no_jax(tmp_path):
     assert series and series[0]["points"][-1][1] == 5
 
 
+_ROUTER_CHILD = r"""
+import http.client, json, os, signal, sys, threading, time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+mode, variant, router_port = sys.argv[1], sys.argv[2], int(sys.argv[3])
+argv = ["router", "-v", variant, "--ip", "127.0.0.1",
+        "--port", str(router_port)]
+if mode == "url":
+    class Stub(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def _send(self, doc):
+            data = json.dumps(doc).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            self._send({"breached": False} if self.path.startswith("/slo")
+                       else {"active": {"releaseVersion": 1}})
+
+        def do_POST(self):
+            self.rfile.read(int(self.headers.get("Content-Length") or 0))
+            self._send({"itemScores": [{"item": "a", "score": 1.0},
+                                       {"item": "b", "score": 0.5}]})
+
+        def log_message(self, *args):
+            pass
+
+    stub = ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+    threading.Thread(target=stub.serve_forever, daemon=True).start()
+    argv += ["--replica-url", f"http://127.0.0.1:{stub.server_address[1]}"]
+else:
+    argv += ["--replicas", "1", "--device", "cpu"]
+
+result = {}
+
+def call(method, path, body=None):
+    c = http.client.HTTPConnection("127.0.0.1", router_port, timeout=30)
+    c.request(method, path, body=None if body is None else json.dumps(body))
+    r = c.getresponse()
+    return r.status, json.loads(r.read())
+
+def drive():
+    try:
+        deadline = time.time() + 150
+        while time.time() < deadline:
+            try:
+                _, doc = call("GET", "/fleet/status.json")
+                if doc["replicas"] and all(r["healthy"]
+                                           for r in doc["replicas"]):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        result["query"] = call("POST", "/queries.json",
+                               {"user": "u1", "num": 2})
+        torch = sys.modules.get("torch")
+        result["torch_imported"] = torch is not None
+        result["cuda_initialized"] = bool(
+            torch is not None and torch.cuda.is_initialized())
+        result["bad"] = sorted(
+            m for m in sys.modules
+            if any(m == t or m.startswith(t + ".") for t in (
+                "jax", "predictionio_tpu", "aiohttp", "click")))
+    finally:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+threading.Thread(target=drive, daemon=True).start()
+from predictionio_tpu_torch.cli.main import main
+result["rc"] = main(argv)
+print(json.dumps(result), flush=True)
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _store_env(tmp):
+    env = {"PIO_HOME": str(tmp), "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+           "PIO_STORAGE_SOURCES_DB_PATH": str(tmp / "pio.db")}
+    for r in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{r}_NAME"] = "pio"
+        env[f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE"] = "DB"
+    return env
+
+
+@pytest.fixture()
+def trained_variant(tmp_path, monkeypatch):
+    """An app with rate events and one CPU-trained release of it, in a
+    sqlite store the children find through ``PIO_STORAGE_*``."""
+    from predictionio_tpu_torch.data import eventstore
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.engines.recommendation import engine
+    from predictionio_tpu_torch.storage.base import App
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.workflow.train import run_train
+
+    env = _store_env(tmp_path)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    Storage.reset()
+    eventstore.clear_cache()
+    try:
+        app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+        Storage.get_events().init_channel(app_id)
+        Storage.get_events().insert_batch([
+            Event(event="rate", entity_type="user", entity_id=f"u{u}",
+                  target_entity_type="item",
+                  target_entity_id=f"i{(u * 7 + j) % 9}",
+                  properties={"rating": float(1 + (u + j) % 5)})
+            for u in range(12) for j in range(4)], app_id)
+        variant = {"id": "default",
+                   "engineFactory":
+                       "predictionio_tpu_torch.engines.recommendation:engine",
+                   "datasource": {"params": {"appName": "Guard"}},
+                   "algorithms": [{"name": "als", "params": {
+                       "rank": 3, "numIterations": 2}}]}
+        path = tmp_path / "engine.json"
+        path.write_text(json.dumps(variant))
+        eng = engine()
+        run_train(eng, eng.engine_params_from_json(variant),
+                  engine_factory=variant["engineFactory"], device="cpu")
+    finally:
+        Storage.reset()
+        eventstore.clear_cache()
+    return path, {**dict(__import__("os").environ), **env}
+
+
+@pytest.mark.parametrize("mode", ["url", "spawn"])
+def test_router_cli_loads_no_jax_and_no_cuda(trained_variant, mode):
+    """``router`` over one ``--replica-url`` stub, and over one replica
+    it spawns with ``--device cpu``: a query answers through it, and the
+    router process imports neither jax, the reference, aiohttp nor click,
+    nor torch (so it never initialises CUDA); SIGTERM stops it and the
+    replica it spawned."""
+    variant, env = trained_variant
+    env["PIO_ROUTER_BASE_PORT"] = str(_free_port())
+    env["PIO_TELEMETRY_INTERVAL_S"] = "0.2"
+    out = subprocess.run(
+        [sys.executable, "-c", _ROUTER_CHILD, mode, str(variant),
+         str(_free_port())], cwd=str(ROOT), env=env, capture_output=True,
+        text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    status, body = result["query"]
+    assert status == 200 and len(body["itemScores"]) == 2, result
+    assert result["bad"] == [] and result["rc"] == 0, result
+    assert result["torch_imported"] is False, result
+    assert result["cuda_initialized"] is False, result
+    if mode == "spawn":
+        assert "Spawned replica 0" in out.stdout, out.stdout
+        pid = int(out.stdout.split("(pid ")[1].split(")")[0])
+        with pytest.raises(OSError):
+            __import__("os").kill(pid, 0)      # the replica was stopped
+
+
+_ORCH_STATUS_CHILD = r"""
+import json, os, sys
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.obs.registry import MetricsRegistry
+from predictionio_tpu_torch.obs.telemetry import TelemetryRecorder
+from predictionio_tpu_torch.utils.server_config import TelemetryConfig
+
+variant, tmp = sys.argv[1], sys.argv[2]
+assert main(["orchestrate", "-v", variant, "--once", "--force",
+             "--state-dir", os.path.join(tmp, "state"),
+             "--device", "cpu"]) == 0
+print("CLI-STATUS-BEGIN", flush=True)
+assert main(["status"]) == 0
+root = os.path.join(tmp, "telemetry-root")
+reg = MetricsRegistry()
+reg.counter("pio_router_requests_total", "q",
+            labelnames=("replica", "status")).inc(replica="0", status="200")
+rec = TelemetryRecorder("router-8100", TelemetryConfig(dir=root,
+                                                       interval_s=60.0),
+                        registries=[reg]).start()
+rec.stop()
+assert main(["status", "--fleet", root]) == 0
+fleet = os.path.join(tmp, "p.jsonl.fleet.json")
+with open(fleet, "w") as f:
+    json.dump({"processes": ["0/2", "1/2"],
+               "counterTotals": {"pio_batchpredict_rows_total": 7.0},
+               "metrics": {"pio_batchpredict_rows_total": {"samples": [
+                   {"labels": {"process": "0/2"}, "value": 4.0},
+                   {"labels": {"process": "1/2"}, "value": 3.0}]}},
+               "traces": [{"traceId": "t1", "process": "0/2"},
+                          {"traceId": "t1", "process": "1/2"}]}, f)
+assert main(["status", "--fleet", os.path.join(tmp, "p.jsonl")]) == 0
+bad = sorted(m for m in sys.modules
+             if any(m == t or m.startswith(t + ".") for t in (
+                 "jax", "predictionio_tpu", "aiohttp", "click")))
+print(json.dumps(bad), flush=True)
+"""
+
+
+def test_orchestrate_and_status_cli_load_no_jax(trained_variant, tmp_path):
+    """``orchestrate --once --force`` (a promoted cycle), ``status``,
+    ``status --fleet`` over a telemetry root and over a sharded run's
+    fleet view, through the CLI in one process."""
+    variant, env = trained_variant
+    env["PIO_ORCH_PHASE_RETRIES"] = "0"
+    out = subprocess.run(
+        [sys.executable, "-c", _ORCH_STATUS_CHILD, str(variant),
+         str(tmp_path)], cwd=str(ROOT), env=env, capture_output=True,
+        text=True, timeout=180)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "[]", out.stdout
+    assert any("promoted" in x and "(manual)" in x for x in lines), lines
+    assert "candidate release v2" in out.stdout     # v1 was the seed
+    status = lines[lines.index("CLI-STATUS-BEGIN") + 1:-1]
+    assert "[INFO] Your system is all ready to go." in status
+    assert any("Telemetry root" in x and "1 process store(s)" in x
+               for x in status), status
+    assert "[INFO] pio_batchpredict_rows_total fleet total: 7" in status
+    assert any(x.startswith("[INFO] trace t1: 2 span(s)") for x in status)
+
+
 def test_scan_covers_the_observability_modules():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
                if PKG in p.parents}
@@ -685,14 +911,22 @@ def test_scan_covers_the_staged_rollout_modules():
             "server/query_server.py", "cli/main.py"} <= scanned
 
 
+def test_scan_covers_the_fleet_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"server/router.py", "server/http_client.py", "deploy/fleet.py",
+            "deploy/orchestrator.py", "obs/orch_stats.py", "utils/retry.py",
+            "storage/faults.py"} <= scanned
+    assert ROOT / "chip_smoke.py" in _port_sources()
+
+
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _forbidden(name: str) -> bool:
-    return (name == "jax" or name.startswith("jax.")
-            or name == "predictionio_tpu"
-            or name.startswith("predictionio_tpu."))
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "predictionio_tpu", "aiohttp", "click"))
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -856,6 +1090,13 @@ def _cli_batchpredict(tmp_path):
                  "--output", str(tmp_path / "p.jsonl")])
 
 
+def _cli_orchestrate(tmp_path):
+    from predictionio_tpu_torch.cli.main import main
+
+    return main(["orchestrate", "-v", str(tmp_path / "engine.json"),
+                 "--once", "--force"])
+
+
 def _similarity_model():
     from predictionio_tpu_torch.engines.similarproduct import (
         SimilarityModel,
@@ -872,7 +1113,7 @@ def _similarity_model():
                                    "train_cooccurrence", "SimilarityModel",
                                    "run_sweep", "run_evaluation",
                                    "cli eval", "run_batch_predict",
-                                   "cli batchpredict"])
+                                   "cli batchpredict", "cli orchestrate"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -890,7 +1131,8 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "run_evaluation": _run_evaluation,
             "cli eval": _cli_eval,
             "run_batch_predict": lambda: _run_batch_predict(tmp_path),
-            "cli batchpredict": lambda: _cli_batchpredict(tmp_path)}[entry]
+            "cli batchpredict": lambda: _cli_batchpredict(tmp_path),
+            "cli orchestrate": lambda: _cli_orchestrate(tmp_path)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

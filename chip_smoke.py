@@ -226,7 +226,7 @@ Phases, each reported on its own lines:
                    exact lane), each the first algorithm's exact
                    recompute, B2 launches = 2 x the fused batches, both
                    scorers active; recommended-user at the smoke's own
-                   shape (6,040 users, 200,000 follows without
+                   shape (6,040 users, 100,000 follows without
                    self-follows; rank 10, 10 iterations), 20 queries
                    against a numpy recompute. Every train launches B1 2 x
                    iterations per ALS algorithm, counted from zero.
@@ -279,9 +279,10 @@ Phases, each reported on its own lines:
                    serve cell's 10M x 64 model in this process
                    (twostage, tile 16384, scan rank 32, shortlist 1024;
                    chunk 1,024, pipelined): 16,384 plain queries of num
-                   10 (16 full chunks, B2 at B = 1,024, c 2), then 2
-                   chunks in which 1 query in 6 carries a one-item
-                   blackList (a dense [1,024, 10M] mask a chunk, c 16);
+                   10 (16 full chunks, B2 at B = 1,024, c 2), then 1
+                   chunk (cut from 2 for the time limit) in which 1 query
+                   in 6 carries a one-item blackList (a dense [1,024,
+                   10M] mask a chunk, c 16);
                    each part: B2 launches equal to its chunks, no lane
                    fallback, the scorer still on twostage, 64 spread
                    rows (every masked row of the first masked chunk too)
@@ -337,7 +338,8 @@ Phases, each reported on its own lines:
                    json``'s scorer bytes are the scorer's tiles and
                    scales and within the allocator's live bytes. Then,
                    in this process: leg 2, the plane's p99 cost at 8
-                   clients, alternating best-of-3 (bench.py:1140-1238,
+                   clients, alternating best-of-2 (the bench's best-of-3,
+                   cut for the time limit; bench.py:1140-1238,
                    :2538-2591): tracing with an SLO engine ticking every
                    50 ms against ``PIO_TRACING=0``, the anatomy against
                    ``PIO_ANATOMY=0`` (tracing on both) and telemetry at
@@ -402,7 +404,8 @@ Phases, each reported on its own lines:
                    tier alone: the reference bench's fleet_scaling leg 1
                    (bench.py:2805-2958) over stub replicas (the port's
                    ``HttpServer``, 20 ms service, 1 slot, 3 clients a
-                   replica, 4 s at 1, 2 and 4 replicas): no drop, an
+                   replica, 2 s at 1, 2 and 4 replicas, cut from the
+                   bench's 4 s for the time limit): no drop, an
                    exact spread, qps(4)/qps(1) >= 3 and p99(4) <= 2
                    p99(1) + 5 ms; no kernel runs there. Leg 3, one cycle
                    of ``orchestrate`` through the CLI on a store of its
@@ -426,6 +429,52 @@ Phases, each reported on its own lines:
                    the CLI and writes its flight recorder and launch
                    counts out on exit.
 
+14. ``multitenant`` — ``pio multiserve``'s host (``server/multitenant``),
+                   after the fleet phase, in three legs. Leg 2 on the
+                   serve cell's 10M x 64 model, stored as a COMPLETED
+                   instance, ``localfs`` blob and release that both
+                   tenants serve, in a host in this process (served over HTTP on a loop
+                   thread): ``rec`` twostage (tile 16384, shortlist 1024,
+                   B2) and ``rec8`` fused int8 (the plain torch scan, no
+                   kernel), a reload wait of 120 s and no background
+                   sweep. A block of 64 queries (num 10, one user each,
+                   the same users in every block) to each, then the
+                   budget set to 1.2x the larger tenant's ledger bytes
+                   (both never fit) and a sweep, then a second block to
+                   each: each tenant evicted and warm-reloaded, every
+                   answer 200 and equal to its first block's (ids up to
+                   ties, scores within 1e-4), ``rec``'s the exact top-10
+                   on the card by the serve phase's rule, B2 launches
+                   equal to ``rec``'s micro-batches and none for
+                   ``rec8`` (each block after its first query, which may
+                   reload), every eviction lowering
+                   ``torch.cuda.memory_allocated()`` by at least the
+                   tenant's ledger ``residentBytes`` less 1 MiB, every
+                   reload back at the bytes before its eviction, and
+                   ``pio_mt_resident_bytes_total`` within the budget
+                   after each sweep; eviction ms, each reload's split
+                   (load, warm-up, verify, the scorer build within them,
+                   swap), the first query after an eviction and each
+                   tenant's steady p50/p99. Leg 1: the reference bench's
+                   cfg_multitenant (bench.py:3139-3465; 20,000 items x
+                   64, 400 users, seed 23): recommendation under fused
+                   int8, similar-product under fused bf16 and
+                   recommended-user, each first served alone (32 untimed
+                   queries, then 300), then consolidated in one host
+                   under 0.8x the standalone residencies' sum (two
+                   passes, 16 untimed queries before each tenant's 300, a
+                   sweep after each): evictions and warm reloads > 0,
+                   every answer 200, the end residency <= budget < the
+                   standalone sum; the p50/p99 of both runs reported
+                   beside the reference's 1.15x slack (not gated). Leg 3,
+                   inside the lifecycle after batchpredict's CLI leg:
+                   ``multiserve`` in its own process with two tenants of
+                   the ML-100k variant, queries through
+                   ``/t/NAME/queries.json`` (each the exact top-10 of
+                   v2), ``/tenants.json``, ``/residency.json`` and each
+                   tenant's ``deploy/status.json`` through the mount, and
+                   neither jax nor the reference in its ``sys.modules``.
+
 Each phase's launch counts are its own: zeroed just before the phase
 drives its path and read just after (in the process that launched).
 Then it prints one JSON line describing each kernel (times from this
@@ -447,6 +496,7 @@ import os
 import pathlib
 import queue
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -1405,39 +1455,53 @@ def ingest(port: int, key: str, events, threads: int = 8, per: int = 50):
     return ids, lat, wall
 
 
-def check_top10(client, model, users, tag: str):
-    """Each user's served top-10 against the exact top-10 of ``model``'s
-    factors on the card: same ids up to ties within 1e-4, scores within
-    1e-4. Returns (max score error, latencies in ms)."""
-    import numpy as np
+def _factors_on_card(model, tag: str):
     import torch
 
     U = torch.from_numpy(model.U).to(DEV)
     V = torch.from_numpy(model.V).to(DEV)
     check(bool(torch.isfinite(U).all() and torch.isfinite(V).all()),
           f"{tag}: trained factors are not finite")
+    return U, V
+
+
+def _top10_err(U, V, model, user: str, body, tag: str) -> float:
+    """One served top-10 against the exact top-10 of ``model``'s factors
+    ``U``, ``V`` on the card: same ids up to ties within 1e-4, scores
+    within 1e-4. Returns the largest score error."""
+    import numpy as np
+    import torch
+
+    got = body["itemScores"]
+    vals, idx = torch.topk(V @ U[model.user_index(user)], 10)
+    want_ids = [str(model.item_vocab[j]) for j in idx.tolist()]
+    vals = vals.cpu().numpy()
+    got_ids = [x["item"] for x in got]
+    check(len(got) == 10, f"{tag}: {user} got {len(got)} items")
+    err = np.abs(np.array([x["score"] for x in got]) - vals)
+    check(bool((err <= 1e-4 * np.maximum(1.0, np.abs(vals))).all()),
+          f"{tag}: {user}'s scores differ from the exact top-10 by "
+          f"{float(err.max())}")
+    for a, b_, v in zip(got_ids, want_ids, vals):
+        tied = np.abs(vals - v) <= 1e-4 * max(1.0, abs(v))
+        check(a == b_ or a in {want_ids[j]
+                               for j in np.flatnonzero(tied)},
+              f"{tag}: {user} served {got_ids}, exact {want_ids}")
+    return float(err.max())
+
+
+def check_top10(client, model, users, tag: str):
+    """Each user's served top-10 against the exact top-10 of ``model``'s
+    factors on the card (``_top10_err``). Returns (max score error,
+    latencies in ms)."""
+    U, V = _factors_on_card(model, tag)
     max_err, lat = 0.0, []
     for user in users:
         status, body, dt = client.call("POST", "/queries.json",
                                        {"user": user, "num": 10})
         check(status == 200, f"{tag}: query for {user} answered {status}")
         lat.append(dt * 1e3)
-        got = body["itemScores"]
-        vals, idx = torch.topk(V @ U[model.user_index(user)], 10)
-        want_ids = [str(model.item_vocab[j]) for j in idx.tolist()]
-        vals = vals.cpu().numpy()
-        got_ids = [x["item"] for x in got]
-        check(len(got) == 10, f"{tag}: {user} got {len(got)} items")
-        err = np.abs(np.array([x["score"] for x in got]) - vals)
-        max_err = max(max_err, float(err.max()))
-        check(bool((err <= 1e-4 * np.maximum(1.0, np.abs(vals))).all()),
-              f"{tag}: {user}'s scores differ from the exact top-10 by "
-              f"{float(err.max())}")
-        for a, b_, v in zip(got_ids, want_ids, vals):
-            tied = np.abs(vals - v) <= 1e-4 * max(1.0, abs(v))
-            check(a == b_ or a in {want_ids[j]
-                                   for j in np.flatnonzero(tied)},
-                  f"{tag}: {user} served {got_ids}, exact {want_ids}")
+        max_err = max(max_err, _top10_err(U, V, model, user, body, tag))
     return max_err, lat
 
 
@@ -1710,6 +1774,9 @@ def lifecycle_phase(seed: int, port: int):
         t0 = time.perf_counter()
         bp_cli = batchpredict_cli_leg(env, work, variant, key, port)
         bp_cli["leg_s"] = time.perf_counter() - t0
+        # 11. the multitenant phase's CLI leg, on the same store
+        mt_cli = multiserve_cli_leg(env, work, variant, m2, t2["instance"])
+        log("multitenant: cli " + json.dumps(mt_cli))
         events_srv.stop()
         check(events_srv.proc.returncode == 0, "the event server did not "
               f"drain and exit cleanly (rc {events_srv.proc.returncode})")
@@ -1728,7 +1795,7 @@ def lifecycle_phase(seed: int, port: int):
                   "queries": len(picks) + 11, "foldin": foldin,
                   "foldin_slo": foldin_slo,
                   "feedback": feedback, "eval_cli": eval_cli,
-                  "batchpredict_cli": bp_cli}
+                  "batchpredict_cli": bp_cli, "multiserve_cli": mt_cli}
         log("lifecycle: " + json.dumps(report))
         return report
     finally:
@@ -2476,9 +2543,46 @@ def foldin_solver_leg(V_dev, n_items: int):
     return out
 
 
+def card_quantization_matches_numpy(V, scorer, rows: int = 65536) -> bool:
+    """The scorer build quantizes on the card: its int8 codes and scales
+    for ``rows`` rotated catalog rows (one of them zero) must equal the
+    reference's numpy ``rint(v / s)`` bit for bit."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import scoring
+
+    v = np.ascontiguousarray(V[:rows] @ scorer._rotation, np.float32)
+    v[1] = 0.0
+    s = np.abs(v).max(axis=1) / 127.0
+    s = np.where(s == 0, 1.0, s).astype(np.float32)
+    q = np.clip(np.rint(v / s[:, None]), -127, 127).astype(np.int8)
+    q_card, s_card = scoring._quantize_int8(torch.from_numpy(v).to(DEV))
+    check(q_card.device.type == "cuda", "quantized off the card")
+    same = bool(np.array_equal(q_card.cpu().numpy(), q)
+                and np.array_equal(s_card.cpu().numpy(), s))
+    check(same, "the card's int8 quantization differs from numpy's")
+    return same
+
+
 def _applies_after(ctl, n: int):
     """The controller's logged applies after its n-th."""
     return [a for a in ctl.apply_log.copy() if a["apply"] > n]
+
+
+def _settled_applies(ctl, n: int, users0: int, timeout_s: float = 10.0):
+    """The controller's logged applies after its n-th, once they hold
+    every user row applied since ``applied_users`` read ``users0``: an
+    apply counts its rows (and its swap is served) before it logs
+    itself, so a reader that saw the rows can be ahead of the log."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        applies = _applies_after(ctl, n)
+        if sum(a.get("users", 0) for a in applies) \
+                >= ctl.applied_users - users0 \
+                or time.monotonic() > deadline:
+            return applies
+        time.sleep(0.002)
 
 
 def _timed(fn) -> float:
@@ -2544,6 +2648,7 @@ def foldin_width_leg(seed, users, items, U, V):
         scorer0 = model._scorer_cache[2]
         check(scorer0.active_mode == "twostage", "the width leg's scorer "
               f"serves {scorer0.active_mode}")
+        quant_equal = card_quantization_matches_numpy(V, scorer0)
         t0 = time.perf_counter()
         V_dev = model.V_device                       # the solver's copy
         synchronize()
@@ -2594,7 +2699,7 @@ def foldin_width_leg(seed, users, items, U, V):
         for w in range(2):                    # the first applies upload V
             stream_one(f"warm{w:04d}")
             probe_until(f"warm{w:04d}")
-        a0 = ctl.applies
+        a0, u0 = ctl.applies, ctl.applied_users
         kernels.reset_counts()
         scored[0] = 0
         lat = []
@@ -2609,8 +2714,8 @@ def foldin_width_leg(seed, users, items, U, V):
         stream_s = time.perf_counter() - t_stream
         for uid in stream:
             probe_until(uid, deadline_s=10.0)
+        stream_applies = _settled_applies(ctl, a0, u0)
         launches = kernels.counts()
-        stream_applies = _applies_after(ctl, a0)
         check(not errors, f"width leg applies failed: {errors[:3]}")
         unit = server._unit
         m_now = unit.result.models[0]
@@ -2640,6 +2745,7 @@ def foldin_width_leg(seed, users, items, U, V):
         report = {
             "card": card_line(), "items": n_items, "rank": rank,
             "scorer_build_s": build_s, "v_upload_s": upload_s,
+            "card_quantization_bit_equal": quant_equal,
             "solver": solver, "stream_users": len(stream),
             "probed": len(lat), "p50_event_to_reflected_s": p50,
             "p95_event_to_reflected_s": p95, "p95_bound_s": bound,
@@ -2859,13 +2965,13 @@ def canary_phase(seed, users, items, U, V):
             return inst
 
         # v1: the serve cell's model, served from this process; v2 and v3
-        # from seed + 1 and seed + 2, stored as blobs
+        # drawn on the card from seed + 1 and seed + 2, stored as blobs
         inst1 = instance(1)
         rel1 = record_release(inst1, 0.0)
         factors = {1: (U, V)}
         t0 = time.perf_counter()
         for n in (2, 3):
-            _, _, Un, Vn = build_model(seed + n - 1, n_items, n_users, rank)
+            Un, Vn = card_factors(seed + n - 1, n_items, n_users, rank)
             blob = serialize_models([ALSModel.from_arrays(
                 users, items, Un, Vn, device="cpu")])
             inst = instance(n)
@@ -3018,7 +3124,7 @@ def canary_phase(seed, users, items, U, V):
         applied_s = time.perf_counter() - t_verdict
         check(ctl.applied_users == cf["users"], f"{ctl.applied_users} of "
               f"{cf['users']} held users folded after the verdict")
-        applies = _applies_after(ctl, applies0)
+        applies = _settled_applies(ctl, applies0, 0)
         solves = [sv for a in applies for sv in a["solves"]]
         b1 = kernels.counts()["spd_solve"] - spd0
         check(b1 >= 1 and b1 == len(solves)
@@ -3144,18 +3250,29 @@ def item_ids(n: int, width: int = 8):
 
 def build_model(seed: int, n_items: int, n_users: int, rank: int):
     """Factors with the geometrically decaying spectrum of the reference
-    bench's top-k scoring config (trained ALS factor Gramians decay)."""
+    bench's top-k scoring config (trained ALS factor Gramians decay),
+    drawn on the card (``card_factors``), and their ids."""
     import numpy as np
 
-    rng = np.random.default_rng(seed)
-    spec = np.power(10.0, -1.5 * np.arange(rank) / max(1, rank - 1)
-                    ).astype(np.float32)
-    V = rng.standard_normal((n_items, rank), dtype=np.float32)
-    V *= spec
-    U = rng.standard_normal((n_users, rank), dtype=np.float32)
-    U *= spec
+    U, V = card_factors(seed, n_items, n_users, rank)
     users = np.array([f"u{i:06d}" for i in range(n_users)])
     return users, item_ids(n_items), U, V
+
+
+def card_factors(seed: int, n_items: int, n_users: int, rank: int):
+    """(U, V): standard normal rows under a geometrically decaying
+    spectrum, drawn on the card from ``seed`` and brought to the host:
+    numpy takes seconds for a 10M-row draw, the card milliseconds."""
+    import numpy as np
+    import torch
+
+    spec = torch.from_numpy(np.power(
+        10.0, -1.5 * np.arange(rank) / max(1, rank - 1)).astype(
+            np.float32)).to(DEV)
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    V = (torch.randn((n_items, rank), generator=g, device=DEV) * spec).cpu()
+    U = (torch.randn((n_users, rank), generator=g, device=DEV) * spec).cpu()
+    return U.numpy(), V.numpy()
 
 
 def model_layer_p50_ms(users, items, U, V, rows) -> float:
@@ -3437,10 +3554,11 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict,
 #: the phase's traffic: 34 queries from one client (the serve phase's
 #: count), then 384 from 8 clients (cfg_telemetry's per_level and
 #: n_clients, bench.py:2502-2503); leg 2's protocol (bench.py:1198-1238,
-#: :2538-2591): alternating best-of-3 p99, a 50 ms scrape; the store
+#: :2538-2591): alternating best-of-3 p99, cut to best-of-2 for the time
+#: limit, a 50 ms scrape; the store
 #: legs at the bench's sizes (:2596-2640); live device bytes beyond the
 #: serving unit's tensors a capacity read may find (small tensors)
-OBS = dict(serial=34, clients=8, per_level=384, repeats=3, scrape_s=0.05,
+OBS = dict(serial=34, clients=8, per_level=384, repeats=2, scrape_s=0.05,
            interval_s=1.0, profile_s=2.0, store_series=10_000,
            store_ticks=12, canary_items=4096, canary_queries=23,
            slack_bytes=64 << 20)
@@ -3745,8 +3863,9 @@ def obs_server_leg(seed: int, users, shape: dict):
 
 
 def obs_overhead_leg(seed, users, eng, result):
-    """Leg 2: the plane's p99 cost at 8 clients, alternating best-of-3
-    as the reference bench does (bench.py:1140-1238, :2538-2591), each
+    """Leg 2: the plane's p99 cost at 8 clients, alternating best-of-N
+    (``OBS["repeats"]``; the reference bench's best-of-3,
+    bench.py:1140-1238, :2538-2591), each
     sweep a fresh server in this process: tracing plus an SLO engine
     evaluating every 50 ms against ``PIO_TRACING=0`` without one; the
     anatomy against ``PIO_ANATOMY=0`` (tracing on both); telemetry at a
@@ -4228,8 +4347,9 @@ SIMILAR = dict(n_users=6040, n_items=3706, nnz=250_000, seed=2,
 #: tests/test_torch_engines.py); 1024 keeps both ALS scorers on B2. The
 #: phase reports both gates on the stored factors.
 #: recommended-user: the reference names no bench shape for it; this
-#: one is the smoke's own (ML-1M's users following each other)
-FOLLOW = dict(n_users=6040, nnz=200_000, seed=6, rank=10, iters=10,
+#: one is the smoke's own (ML-1M's users following each other; 100,000
+#: follows, cut from 200,000 for the time limit)
+FOLLOW = dict(n_users=6040, nnz=100_000, seed=6, rank=10, iters=10,
               queries=20)
 #: the width leg's batch sizes of similar-product queries
 WIDTH_BATCHES = (1, 8, 64)
@@ -4806,22 +4926,86 @@ def follow_leg(seed: int, port: int, work):
             server.stop()
 
 
-def engines_cli_legs(seed: int, port: int):
-    """Leg 1 of the engines phase: the three engines through the CLI,
-    each on its own store, removed afterwards."""
+#: the engines phase's CLI legs, each run by ``engines_leg_worker``
+ENGINE_LEGS = {"ecommerce": ecommerce_leg, "similarproduct": similar_leg,
+               "recommended_user": follow_leg}
+
+
+def engines_leg_worker() -> int:
+    """One CLI leg of the engines phase in a process of its own
+    (``python3 -c "import chip_smoke; chip_smoke.engines_leg_worker()"
+    NAME SEED PORT``), on the parent's device and shapes
+    (``CHIP_SMOKE_ENGINES``): the leg's store is configured in this
+    process only, and the leg's report, with its wall seconds, is the
+    last line."""
+    global DEV
+    sys.path.insert(0, str(ROOT))
     from predictionio_tpu_torch.storage.registry import Storage
 
-    out = {}
+    name, seed, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    parent = json.loads(os.environ["CHIP_SMOKE_ENGINES"])
+    DEV = parent.pop("device")
+    for key, shape in parent.items():
+        globals()[key].update(shape)
+    t0 = time.perf_counter()
     try:
-        for name, leg in (("ecommerce", ecommerce_leg),
-                          ("similarproduct", similar_leg),
-                          ("recommended_user", follow_leg)):
-            t0 = time.perf_counter()
-            out[name] = leg(seed, port, WORK / "engines" / name)
-            out[name]["leg_s"] = time.perf_counter() - t0
+        report = ENGINE_LEGS[name](seed, port, WORK / "engines" / name)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
     finally:
         Storage.reset()
+    report["leg_s"] = time.perf_counter() - t0
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def engines_cli_legs(seed: int, port: int):
+    """Leg 1 of the engines phase: the three engines through the CLI,
+    each on its own store in a process of its own, the three at once
+    (they share only the card); their output is relayed in leg order and
+    their stores removed afterwards."""
+    logs = WORK / "engines_logs"
+    shutil.rmtree(logs, ignore_errors=True)
+    logs.mkdir(parents=True)
+    procs = {}
+    out = {}
+    try:
+        for k, name in enumerate(ENGINE_LEGS):
+            with open(logs / f"{name}.out", "w") as fo, \
+                    open(logs / f"{name}.err", "w") as fe:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     "sys.exit(chip_smoke.engines_leg_worker())", name,
+                     str(seed), str(port + k if port else 0)],
+                    cwd=str(ROOT), stdout=fo, stderr=fe,
+                    start_new_session=True, env=dict(
+                        os.environ, CHIP_SMOKE_ENGINES=json.dumps({
+                            "device": DEV, "ECOMM": ECOMM,
+                            "SIMILAR": SIMILAR, "FOLLOW": FOLLOW})))
+        deadline = time.monotonic() + 900
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                check(False, f"engines: the {name} leg ran past 900 s")
+        for name, proc in procs.items():
+            lines = (logs / f"{name}.out").read_text().splitlines()
+            err = (logs / f"{name}.err").read_text()
+            for line in lines[:-1]:
+                log(line)
+            if err:
+                sys.stderr.write(err[-20000:])
+            check(proc.returncode == 0 and lines, f"engines: the {name} "
+                  f"leg exited {proc.returncode}: {err[-2000:]}")
+            out[name] = json.loads(lines[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:       # the leg's servers go with it
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
         shutil.rmtree(WORK / "engines", ignore_errors=True)
+        shutil.rmtree(logs, ignore_errors=True)
     return out
 
 
@@ -5099,7 +5283,7 @@ BP_BENCH = dict(n_users=5000, n_items=2000, rank=32, num=50,
 #: leg 2, the serve cell's model through B2: unmasked queries (16 full
 #: chunks of num 10), masked chunks (1 query in 6 with a one-item
 #: blackList), rows held to an exact recompute per part
-BP_WIDTH = dict(chunk=1024, queries=16_384, masked_chunks=2, num=10,
+BP_WIDTH = dict(chunk=1024, queries=16_384, masked_chunks=1, num=10,
                 mask_every=6, sample=64)
 #: leg 3, the CLI on the lifecycle's store: malformed lines planted at
 #: these line numbers, users compared with the deployed query server
@@ -5544,7 +5728,8 @@ class _StageClock:
 def bp_width_leg(seed, users, items, U, V):
     """Leg 2: the serve cell's 10M x 64 model through ``run_batch_predict``
     at chunk 1,024 under the two-stage scorer (B2 once a chunk): 16 full
-    chunks of plain queries, then 2 chunks in which 1 query in 6 carries
+    chunks of plain queries, then ``masked_chunks`` chunks (1: cut from 2
+    for the time limit) in which 1 query in 6 carries
     a one-item blackList (a dense [chunk, 10M] mask a chunk). Each part:
     B2 launches equal to its chunks, no lane fallback, a spread of 64
     rows equal to an exact recompute on the card (ids up to ties, scores
@@ -5798,8 +5983,10 @@ def batchpredict_cli_leg(env, work, variant, key: str, port: int):
 # ---------------------------------------------------------------------------
 
 #: leg 1: the reference bench's fleet_scaling leg 1 (bench.py:2805-2958):
-#: 20 ms injected service time, 1 slot, 3 clients a replica, 4 s stages
-FLEET_STUB = dict(service_ms=20.0, slots=1, clients_per=3, stage_s=4.0,
+#: 20 ms injected service time, 1 slot, 3 clients a replica; 2 s stages
+#: (about 100 queries a replica), cut from the bench's 4 s for the time
+#: limit
+FLEET_STUB = dict(service_ms=20.0, slots=1, clients_per=3, stage_s=2.0,
                   stages=(1, 2, 4), min_scaling=3.0, p99_ratio=2.0,
                   p99_slack_ms=5.0)
 #: leg 2: the serve cell's model behind ``router --replicas 2``; the
@@ -6123,7 +6310,7 @@ def _wait(pred, what: str, timeout_s: float, step_s: float = 0.1):
         time.sleep(step_s)
 
 
-def fleet_replicas_leg(seed: int, users, items, U, V) -> dict:
+def fleet_replicas_leg(seed: int, users, items, U, V, blob: bytes) -> dict:
     """Leg 2: the serve cell's model behind ``router --replicas 2``
     through the CLI, the replicas on the card (module docstring)."""
     import numpy as np
@@ -6182,13 +6369,10 @@ def fleet_replicas_leg(seed: int, users, items, U, V) -> dict:
         Storage.get_meta_data_engine_instances().insert(inst)
         return inst
 
-    blob = serialize_models([ALSModel.from_arrays(users, items, U, V,
-                                                  device="cpu")])
     inst1 = instance(1)
     Storage.get_model_data_models().insert(Model(id=inst1.id, models=blob))
     rel1 = record_release(inst1, 0.0, blob)
     Storage.get_meta_data_releases().set_status(rel1.id, "LIVE", "fleet v1")
-    del blob
     report["v1_stored_s"] = time.perf_counter() - t0
     variant = work / "engine.json"
     variant.write_text(json.dumps({
@@ -6887,16 +7071,589 @@ def fleet_orchestrate_leg(seed: int) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def fleet_phase(seed: int, users, items, U, V) -> dict:
+def served_blob(users, items, U, V) -> bytes:
+    """The serve cell's model as a stored blob, serialized once for the
+    phases that store it (fleet leg 2's v1, multitenant leg 2's
+    tenants)."""
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.workflow.serialization import (
+        serialize_models,
+    )
+
+    t0 = time.perf_counter()
+    blob = serialize_models([ALSModel.from_arrays(users, items, U, V,
+                                                  device="cpu")])
+    log(f"fleet: the serve cell's model serialized once "
+        f"({len(blob) / 1e6:.0f} MB) in {time.perf_counter() - t0:.3f} s")
+    return blob
+
+
+def fleet_phase(seed: int, users, items, U, V, blob: bytes) -> dict:
     """The ``fleet`` phase: leg 2 on the serve cell's model, then legs 1
     and 3."""
     t0 = time.perf_counter()
-    report = {"replicas": fleet_replicas_leg(seed, users, items, U, V)}
+    report = {"replicas": fleet_replicas_leg(seed, users, items, U, V,
+                                             blob)}
     report["replicas"]["leg_s"] = time.perf_counter() - t0
     t1 = time.perf_counter()
     report["router"] = fleet_router_leg()
     report["router"]["leg_s"] = time.perf_counter() - t1
     report["orchestrate"] = fleet_orchestrate_leg(seed)
+    report["phase_s"] = time.perf_counter() - t0
+    return report
+
+
+#: leg 1 of the ``multitenant`` phase: the reference bench's
+#: cfg_multitenant (bench.py:3139-3465), its widths, seed and protocol
+MT_BENCH = dict(n_items=20_000, n_users=400, rank=64, seed=23, queries=300,
+                passes=2, warm=16, baseline_warm=32, budget_fraction=0.8,
+                p99_slack=1.15, batch_max=32, drain_s=10.0)
+#: leg 2: two tenants over the serve cell's factors, alternating blocks
+#: of ``block`` queries, the budget 1.2x the larger tenant's bytes
+MT_WIDTH = dict(block=64, blocks=2, num=10, budget_factor=1.2,
+                reload_wait_s=120.0)
+#: an eviction frees the tenant's ledger bytes less this (the allocator
+#: rounds each block up, and a freed tensor's block may be shared)
+MT_FREE_SLACK = 1 << 20
+
+
+def _mt_drive(client, path: str, mk_query, n: int, base: int = 0,
+              lat=None, answers=None) -> None:
+    """``n`` queries ``mk_query(base + i)`` one after another; each must
+    answer 200."""
+    for i in range(n):
+        query = mk_query(base + i)
+        status, body, dt = client.call("POST", path, query)
+        check(status == 200, f"multitenant: {path} answered {status} "
+              f"{body}")
+        if lat is not None:
+            lat.append(dt * 1e3)
+        if answers is not None:
+            answers.append((query, body))
+
+
+def mt_bench_leg() -> dict:
+    """Leg 1: the reference bench's three engine families, each first
+    served alone, then consolidated behind one host under a budget of
+    0.8x the standalone residencies' sum (module docstring)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.core.engine import TrainResult
+    from predictionio_tpu_torch.core.params import EngineParams
+    from predictionio_tpu_torch.deploy.releases import record_release
+    from predictionio_tpu_torch.engines import recommendation as rec_mod
+    from predictionio_tpu_torch.engines import recommended_user as ru_mod
+    from predictionio_tpu_torch.engines import similarproduct as sp_mod
+    from predictionio_tpu_torch.engines.common import Item
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.server.multitenant import (
+        MultiTenantServer, TenantSpec,
+    )
+    from predictionio_tpu_torch.server.query_server import QueryServer
+    from predictionio_tpu_torch.storage.base import EngineInstance, Model
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.utils.server_config import (
+        DeployConfig, MultiTenantConfig, ScorerConfig,
+    )
+    from predictionio_tpu_torch.workflow.serialization import (
+        serialize_models,
+    )
+
+    c = MT_BENCH
+    n_items, n_users, rank = c["n_items"], c["n_users"], c["rank"]
+    rng = np.random.default_rng(c["seed"])
+
+    def ids(prefix, n):
+        return np.sort(np.asarray([f"{prefix}{i:06d}" for i in range(n)],
+                                  dtype=object))
+
+    def unit_rows(a):
+        return a / np.linalg.norm(a, axis=1, keepdims=True)
+
+    # the bench's draws, in its order
+    rec_model = ALSModel.from_arrays(
+        ids("u", n_users), ids("i", n_items),
+        rng.normal(size=(n_users, rank)).astype(np.float32),
+        rng.normal(size=(n_items, rank)).astype(np.float32), device=DEV)
+    sp_model = sp_mod.SimilarityModel(
+        item_vocab=ids("i", n_items),
+        V=unit_rows(rng.normal(size=(n_items, rank)).astype(np.float32)),
+        items={i: Item(categories=None) for i in range(n_items)},
+        device=DEV)
+    ru_model = ru_mod.RecommendedUserModel(
+        user_vocab=ids("u", n_items),
+        V=unit_rows(rng.normal(size=(n_items, rank)).astype(np.float32)),
+        users={}, device=DEV)
+    tenants = [
+        ("rec", rec_mod, rec_model,
+         rec_mod.ALSAlgorithm(rec_mod.AlgorithmParams(rank=rank)),
+         rec_mod.RecommendationServing(), ScorerConfig(mode="fused_int8"),
+         lambda i: {"user": f"u{i % n_users:06d}", "num": 10}),
+        ("sim", sp_mod, sp_model, sp_mod.ALSAlgorithm(),
+         sp_mod.SimilarProductServing(), ScorerConfig(mode="fused_bf16"),
+         lambda i: {"items": [f"i{i % n_items:06d}"], "num": 10}),
+        ("social", ru_mod, ru_model, ru_mod.ALSAlgorithm(),
+         ru_mod.RecommendedUserServing(), None,
+         lambda i: {"users": [f"u{i % n_items:06d}"], "num": 10}),
+    ]
+    work = WORK / "multitenant_bench"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    Storage.configure({
+        "sources": {"DB": {"TYPE": "sqlite", "PATH": str(work / "mt.db")}},
+        "repositories": {r: {"NAME": "pio", "SOURCE": "DB"} for r in (
+            "METADATA", "EVENTDATA", "MODELDATA")}})
+    deploy_cfg = DeployConfig(warmup=False, drain_timeout_s=c["drain_s"])
+    specs = {}
+    for name, mod, model, algo, serving, scorer, _ in tenants:
+        inst = EngineInstance(
+            id=f"bench-mt-{name}", status="COMPLETED",
+            engine_id="bench-multitenant", engine_version="1",
+            engine_variant=name,
+            data_source_params=json.dumps({"appName": f"{name}App"}),
+            algorithms_params=json.dumps(
+                [{"name": "als", "params": {"rank": rank}}]))
+        Storage.get_meta_data_engine_instances().insert(inst)
+        blob = serialize_models([model])
+        Storage.get_model_data_models().insert(Model(id=inst.id,
+                                                     models=blob))
+        specs[name] = TenantSpec(
+            name=name, engine=mod.engine(),
+            train_result=TrainResult(models=[model], algorithms=[algo],
+                                     serving=serving,
+                                     engine_params=EngineParams()),
+            instance=inst, release=record_release(inst, 0.0, blob),
+            scorer_config=scorer, deploy_config=deploy_cfg,
+            max_batch=c["batch_max"], linger_s=0.0)
+    del rec_model, sp_model, ru_model
+    report = {"card": card_line(), "items": n_items, "rank": rank,
+              "users": n_users, "queries_per_tenant": c["queries"],
+              "p99_slack": c["p99_slack"]}
+    lt = _LoopThread()
+    try:
+        # standalone baselines: one tenant's server at a time (its own
+        # config stamped on its holders, as a tenant's is)
+        base_p50, base_p99, standalone = {}, {}, {}
+        for name, *_, mk in tenants:
+            spec = specs[name]
+            server = QueryServer(
+                spec.engine, spec.train_result, spec.instance,
+                scorer_config=spec.scorer_config, release=spec.release,
+                deploy_config=deploy_cfg, max_batch=c["batch_max"],
+                linger_s=0.0, pin_process_scorer=False)
+            client = Client(lt.run(server.start("127.0.0.1", 0)))
+            try:
+                _mt_drive(client, "/queries.json", mk, c["baseline_warm"])
+                lat = []
+                gc.collect()
+                gc.disable()
+                try:
+                    _mt_drive(client, "/queries.json", mk, c["queries"],
+                              base=c["baseline_warm"], lat=lat)
+                finally:
+                    gc.enable()
+                base_p50[name] = float(np.percentile(lat, 50))
+                base_p99[name] = float(np.percentile(lat, 99))
+                standalone[name] = server.warm_bytes
+            finally:
+                lt.run(server.close())
+        total = sum(standalone.values())
+        check(total > 0, f"multitenant: no standalone residency "
+              f"{standalone}")
+        budget = int(c["budget_fraction"] * total)
+        host = MultiTenantServer(list(specs.values()), config=(
+            MultiTenantConfig(budget_bytes=budget, reload_wait_s=30.0,
+                              sweep_interval_s=3600.0, min_resident=1,
+                              admission=False)))
+        client = Client(lt.run(host.start("127.0.0.1", 0)))
+        lat = {t[0]: [] for t in tenants}
+        try:
+            for p in range(c["passes"]):
+                for name, *_, mk in tenants:
+                    path = f"/t/{name}/queries.json"
+                    # untimed: the first is the miss that reloads
+                    _mt_drive(client, path, mk, c["warm"],
+                              base=100_000 + p * c["warm"])
+                    gc.collect()
+                    gc.disable()
+                    try:
+                        _mt_drive(client, path, mk, c["queries"],
+                                  base=p * c["queries"], lat=lat[name])
+                    finally:
+                        gc.enable()
+                    lt.run(host.enforce_budget())
+                    check(host.resident_bytes() <= budget,
+                          f"multitenant: {host.resident_bytes()} resident "
+                          f"bytes over the budget {budget}")
+            any_server = next(iter(host.tenants.values())).server
+            report.update({
+                "standalone_resident_bytes": standalone,
+                "standalone_total": total, "budget_bytes": budget,
+                "evictions": int(any_server._evict_total.value(
+                    reason="budget")),
+                "warm_reloads": int(any_server._reload_total.value(
+                    status="warm_reload")),
+                "resident_bytes_end": host.resident_bytes(),
+                "resident_tenants_end": sorted(
+                    t.name for t in host.tenants.values()
+                    if t.server.resident),
+                "baseline_p50_ms": base_p50, "baseline_p99_ms": base_p99,
+                "consolidated_p50_ms": {
+                    k: float(np.percentile(v, 50)) for k, v in lat.items()},
+                "consolidated_p99_ms": {
+                    k: float(np.percentile(v, 99)) for k, v in lat.items()}})
+        finally:
+            lt.run(host.close())
+        # the bench's gates 1 and 2; its p99 parity (gate 3) is reported
+        check(report["evictions"] > 0 and report["warm_reloads"] > 0,
+              f"multitenant: the cycle did not turn: {report['evictions']} "
+              f"evictions, {report['warm_reloads']} warm reloads")
+        check(report["resident_bytes_end"] <= budget < total,
+              f"multitenant: end residency {report['resident_bytes_end']}"
+              f", budget {budget}, standalone sum {total}")
+        report["p99_ratio"] = {
+            k: report["consolidated_p99_ms"][k] / base_p99[k]
+            for k in base_p99}
+        return report
+    finally:
+        lt.stop()
+        Storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def mt_width_leg(seed: int, users, items, U, V, blob: bytes) -> dict:
+    """Leg 2: two tenants over the serve cell's 10M x 64 factors, one
+    through B2 (twostage) and one fused int8, under a budget that holds
+    one of them (module docstring)."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.deploy.releases import record_release
+    from predictionio_tpu_torch.engines.recommendation import (
+        default_engine_params, engine,
+    )
+    from predictionio_tpu_torch.models.als import ALSModel
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.server.multitenant import (
+        MultiTenantServer, TenantSpec,
+    )
+    from predictionio_tpu_torch.storage.base import EngineInstance, Model
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.utils.server_config import (
+        DeployConfig, MultiTenantConfig, ScorerConfig,
+    )
+
+    w = MT_WIDTH
+    n_items, rank = V.shape
+    work = WORK / "multitenant"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    Storage.configure({
+        "sources": {"DB": {"TYPE": "sqlite", "PATH": str(work / "pio.db")},
+                    "FS": {"TYPE": "localfs", "PATH": str(work / "models")}},
+        "repositories": {
+            "METADATA": {"NAME": "pio", "SOURCE": "DB"},
+            "EVENTDATA": {"NAME": "pio", "SOURCE": "DB"},
+            "MODELDATA": {"NAME": "pio", "SOURCE": "FS"}}})
+    scorers = {
+        "rec": ScorerConfig(mode="twostage", tile_items=TILE,
+                            shortlist=SHORTLIST),
+        "rec8": ScorerConfig(mode="fused_int8", tile_items=TILE)}
+    report = {"card": card_line(), "items": n_items, "rank": rank,
+              "users": len(users), "block": w["block"],
+              "scorers": {k: v.mode for k, v in scorers.items()}}
+    t0 = time.perf_counter()
+    # one stored instance and release, served by both tenants (as two
+    # --tenant flags naming one variant are)
+    inst = EngineInstance(
+        id="mt-serve", status="COMPLETED", engine_id=RECOMMENDATION,
+        engine_version="1", engine_variant="multitenant",
+        data_source_params=json.dumps({"appName": "MTApp"}),
+        algorithms_params=json.dumps(
+            [{"name": "als", "params": {"rank": rank}}]))
+    Storage.get_meta_data_engine_instances().insert(inst)
+    Storage.get_model_data_models().insert(Model(id=inst.id, models=blob))
+    release = record_release(inst, 0.0, blob)
+    eng = engine()
+    specs = [TenantSpec(
+        name=name, engine=eng,
+        train_result=eng.prepare_deploy(
+            default_engine_params("MTApp", rank=rank),
+            [ALSModel.from_arrays(users, items, U, V, device=DEV)]),
+        instance=inst, release=release, scorer_config=cfg,
+        deploy_config=DeployConfig(warmup=False, drain_timeout_s=10.0))
+        for name, cfg in scorers.items()]
+    report["stored_s"] = time.perf_counter() - t0
+    host = MultiTenantServer(specs, config=MultiTenantConfig(
+        budget_bytes=0, reload_wait_s=w["reload_wait_s"],
+        sweep_interval_s=3600.0, min_resident=1, admission=False))
+    del specs
+    evictions, reloads = [], []
+    pre_evict_bytes = {}
+
+    def watch(name):
+        """Measure each eviction of tenant ``name`` wherever the host
+        makes it: the allocator's live bytes before and after, beside
+        the ledger's bytes of what it evicts."""
+        server = host.tenants[name].server
+        evict = server.evict_to_warm
+
+        async def measured(reason="budget"):
+            ledger = server.warm_bytes
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t_e = time.perf_counter()
+            ok = await evict(reason)
+            ms = (time.perf_counter() - t_e) * 1e3
+            torch.cuda.synchronize()
+            freed = before - torch.cuda.memory_allocated()
+            if ok:
+                pre_evict_bytes[name] = ledger
+                evictions.append({"tenant": name, "reason": reason,
+                                  "ledger_bytes": ledger,
+                                  "freed_bytes": freed, "ms": ms})
+                check(freed >= ledger - MT_FREE_SLACK,
+                      f"multitenant: evicting {name} freed {freed} bytes "
+                      f"of the card, its ledger says {ledger}")
+            return ok
+
+        server.evict_to_warm = measured
+
+    for name in scorers:
+        watch(name)
+    lt = _LoopThread()
+    client = Client(lt.run(host.start("127.0.0.1", 0)))
+    rng = np.random.default_rng(seed + 13)
+    picks = [str(users[i]) for i in rng.choice(len(users), w["block"],
+                                                replace=False)]
+    answers = {name: [] for name in scorers}
+    steady = {name: [] for name in scorers}
+    blocks = []
+
+    def resident_total() -> float:
+        _, mj, _ = client.call("GET", "/metrics.json")
+        return _metric(mj, "pio_mt_resident_bytes_total")[0]["value"]
+
+    def block(name: str, b: int) -> None:
+        server = host.tenants[name].server
+        was_resident = server.resident
+        n_evicted = len(evictions)
+        c0 = kernels.counts()["shortlist"]
+        path = f"/t/{name}/queries.json"
+        status, first, first_dt = client.call(
+            "POST", path, {"user": picks[0], "num": w["num"]})
+        check(status == 200, f"multitenant: {name}'s first query of block "
+              f"{b} answered {status} {first}")
+        c1 = kernels.counts()["shortlist"]
+        n0 = sum(server._unit.batcher.batch_sizes.values())
+        got = [({"user": picks[0]}, first)]
+        _mt_drive(client, path, lambda i: {"user": picks[i],
+                                           "num": w["num"]},
+                  w["block"] - 1, base=1, lat=steady[name], answers=got)
+        c2 = kernels.counts()["shortlist"]
+        batches = sum(server._unit.batcher.batch_sizes.values()) - n0
+        want = batches if scorers[name].mode == "twostage" else 0
+        check(c2 - c1 == want, f"multitenant: {name} launched B2 "
+              f"{c2 - c1} times for {batches} micro-batches")
+        if not was_resident:
+            reloads.append({"tenant": name, "block": b,
+                            **server.last_warm_reload})
+            check(server.warm_bytes == pre_evict_bytes[name],
+                  f"multitenant: {name} reloaded to {server.warm_bytes} "
+                  f"bytes, {pre_evict_bytes[name]} before its eviction")
+        lt.run(host.enforce_budget())
+        total = resident_total()
+        check(host.config.budget_bytes == 0
+              or total <= host.config.budget_bytes,
+              f"multitenant: {total} resident bytes over the budget "
+              f"{host.config.budget_bytes}")
+        answers[name].append(got)
+        blocks.append({"tenant": name, "block": b,
+                       "was_resident": was_resident,
+                       "first_query_ms": first_dt * 1e3,
+                       "first_query_b2": c1 - c0,
+                       "b2_launches": c2 - c1, "micro_batches": batches,
+                       "evictions_in_block": len(evictions) - n_evicted,
+                       "resident_bytes_total": total})
+
+    try:
+        kernels.reset_counts()
+        t_traffic = time.perf_counter()
+        block("rec", 1)
+        block("rec8", 1)
+        sizes = {n: host.tenants[n].server.warm_bytes for n in scorers}
+        budget = int(w["budget_factor"] * max(sizes.values()))
+        check(sum(sizes.values()) > budget,
+              f"multitenant: both tenants ({sizes}) fit the budget "
+              f"{budget}")
+        host.config.budget_bytes = budget
+        log(f"multitenant: ledger bytes {sizes}, budget {budget}")
+        lt.run(host.enforce_budget())
+        check(resident_total() <= budget, "multitenant: the sweep left "
+              "the tenants over the budget")
+        block("rec", 2)
+        block("rec8", 2)
+        report["b2_launches"] = kernels.counts()["shortlist"]
+        report["traffic_s"] = time.perf_counter() - t_traffic
+        report.update({"ledger_bytes": sizes, "budget_bytes": budget,
+                       "blocks": blocks, "evictions": evictions,
+                       "warm_reloads": reloads})
+        check({e["tenant"] for e in evictions} == set(scorers)
+              and {r["tenant"] for r in reloads} == set(scorers),
+              f"multitenant: evicted {[e['tenant'] for e in evictions]}, "
+              f"reloaded {[r['tenant'] for r in reloads]}")
+        for name in scorers:
+            first, second = answers[name]
+            identical = 0
+            for (q, a), (_, b) in zip(first, second):
+                _same_answers(b, a, f"multitenant {name} {q['user']} "
+                              "across the eviction")
+                identical += a == b
+            report.setdefault("identical_across_eviction", {})[name] = \
+                identical
+            report.setdefault("steady", {})[name] = _lat(steady[name])
+    finally:
+        lt.run(host.close())
+        lt.stop()
+        Storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    del host
+    gc.collect()
+    index = {str(u): i for i, u in enumerate(users)}
+    V_dev = torch.from_numpy(V).to(DEV)
+    try:
+        flat = [(q["user"], 200, body) for blk in answers["rec"]
+                for q, body in blk]
+        report["rec_exact"] = _exact_answers(U, V_dev, index, flat,
+                                             "multitenant rec")
+        # not gated: int8 over-fetches 4k and rescores in f32
+        flat = [(q["user"], 200, body) for blk in answers["rec8"]
+                for q, body in blk]
+        try:
+            report["rec8_exact"] = _exact_answers(U, V_dev, index, flat,
+                                                  "multitenant rec8")
+        except SmokeFailure as e:
+            report["rec8_exact"] = {"not_gated": str(e)}
+    finally:
+        del V_dev
+        torch.cuda.empty_cache()
+    return report
+
+
+_MT_CLI_CHILD = r"""
+import http.client, json, os, signal, sys, threading, time
+
+variant, port, device = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+users = sys.argv[4].split(",")
+result = {}
+
+def call(method, path, body=None):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    t0 = time.perf_counter()
+    c.request(method, path, body=None if body is None else json.dumps(body),
+              headers={"Content-Type": "application/json"})
+    r = c.getresponse()
+    return r.status, json.loads(r.read()), time.perf_counter() - t0
+
+def drive():
+    try:
+        deadline = time.time() + 240
+        while time.time() < deadline:
+            try:
+                call("GET", "/")
+                break
+            except OSError:
+                time.sleep(0.1)
+        result["up_s"] = time.perf_counter() - T0
+        result["queries"] = {
+            t: [call("POST", f"/t/{t}/queries.json", {"user": u, "num": 10})
+                for u in users] for t in ("ml100k-a", "ml100k-b")}
+        result["tenants"] = call("GET", "/tenants.json")
+        result["residency"] = call("GET", "/residency.json")
+        result["status"] = {t: call("GET", f"/t/{t}/deploy/status.json")
+                            for t in ("ml100k-a", "ml100k-b")}
+        result["bad"] = sorted(
+            m for m in sys.modules
+            if any(m == t or m.startswith(t + ".")
+                   for t in ("jax", "predictionio_tpu")))
+    finally:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+T0 = time.perf_counter()
+threading.Thread(target=drive, daemon=True).start()
+from predictionio_tpu_torch.cli.main import main
+result["rc"] = main(["multiserve", "--tenant", f"ml100k-a={variant}",
+                     "--tenant", f"ml100k-b={variant}", "--ip", "127.0.0.1",
+                     "--port", str(port), "--device", device])
+print("MT-RESULT " + json.dumps(result), flush=True)
+"""
+
+
+def multiserve_cli_leg(env, work, variant, model, instance_id: str) -> dict:
+    """Leg 3, inside the lifecycle on its latest release: ``pio
+    multiserve`` in its own process with two tenants of the ML-100k
+    variant; one query a tenant per user through ``/t/NAME/
+    queries.json`` (each the exact top-10 of ``model``), the host's
+    documents and each tenant's ``deploy/status.json`` through the
+    mount; the process's ``sys.modules`` holds neither jax nor the
+    reference."""
+    import numpy as np
+
+    home = work / "mt_home"
+    home.mkdir(parents=True, exist_ok=True)
+    picks = [str(u) for u in np.asarray(model.user_vocab)[:3]]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _MT_CLI_CHILD, str(variant),
+         str(_free_ports(1)), DEV, ",".join(picks)],
+        cwd=str(ROOT), env=dict(env, PIO_HOME=str(home)),
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    line = next((x for x in out.stdout.splitlines()
+                 if x.startswith("MT-RESULT ")), None)
+    check(out.returncode == 0 and line is not None,
+          f"multiserve: rc {out.returncode}: {out.stdout[-1500:]} "
+          f"{out.stderr[-2500:]}")
+    res = json.loads(line.split(" ", 1)[1])
+    check(res["rc"] == 0 and res["bad"] == [],
+          f"multiserve: rc {res['rc']}, modules {res['bad'][:5]}")
+    max_err = 0.0
+    U, V = _factors_on_card(model, "multiserve")
+    for tenant, calls in res["queries"].items():
+        for user, (status, body, _dt) in zip(picks, calls):
+            check(status == 200, f"multiserve: {tenant} answered {status}")
+            max_err = max(max_err, _top10_err(
+                U, V, model, user, body, f"multiserve {tenant}"))
+    status, doc, _ = res["tenants"]
+    check(status == 200 and [(t["tenant"], t["resident"],
+                              t["engineInstanceId"]) for t in doc["tenants"]]
+          == [("ml100k-a", True, instance_id), ("ml100k-b", True,
+                                                instance_id)],
+          f"multiserve: /tenants.json {status} {doc}")
+    check(res["residency"][0] == 200, "multiserve: /residency.json "
+          f"answered {res['residency'][0]}")
+    for tenant, (status, doc, _) in res["status"].items():
+        check(status == 200 and doc["resident"] is True
+              and doc["active"]["engineInstanceId"] == instance_id,
+              f"multiserve: /t/{tenant}/deploy/status.json {status} {doc}")
+    return {"wall_s": wall, "up_s": res["up_s"], "max_score_abs_err":
+            max_err, "query_ms": [c[2] * 1e3 for calls in
+                                  res["queries"].values() for c in calls],
+            "modules_clean": True}
+
+
+def multitenant_phase(seed: int, users, items, U, V, blob: bytes,
+                      cli: dict) -> dict:
+    """The ``multitenant`` phase: leg 2 on the serve cell's model (its
+    blob ``blob``), then leg 1; leg 3 ran inside the lifecycle
+    (``cli``)."""
+    t0 = time.perf_counter()
+    report = {"width": mt_width_leg(seed, users, items, U, V, blob)}
+    report["width"]["leg_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    report["bench"] = mt_bench_leg()
+    report["bench"]["leg_s"] = time.perf_counter() - t1
+    report["cli"] = cli
     report["phase_s"] = time.perf_counter() - t0
     return report
 
@@ -6985,23 +7742,30 @@ def partial_run(args, shape) -> int:
     """``--only``: the named phases after the kernels phase, for
     debugging on the card; no kernels line and no result."""
     phases = set(args.only.split(","))
-    bad = phases - {"serve", "obs", "lifecycle", "fleet"}
-    check(not bad, f"--only takes serve, obs, lifecycle, fleet; got "
-          f"{sorted(bad)}")
-    if phases & {"serve", "obs", "fleet"}:
+    bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant"}
+    check(not bad, f"--only takes serve, obs, lifecycle, fleet, "
+          f"multitenant; got {sorted(bad)}")
+    cli = None
+    if "lifecycle" in phases:
+        cli = lifecycle_phase(args.seed, args.port)["multiserve_cli"]
+    if phases & {"serve", "obs", "fleet", "multitenant"}:
         served = build_model(args.seed, args.items, SERVE_USERS,
                              SERVE_RANK)
         if phases & {"serve", "obs"}:
             serve_phase(args.seed, args.items, args.port, shape, *served)
         if "obs" in phases:
             log("obs: " + json.dumps(obs_phase(args.seed, shape, *served)))
+        if phases & {"fleet", "multitenant"}:
+            blob = served_blob(*served)
         if "fleet" in phases:
-            log("fleet: " + json.dumps(fleet_phase(args.seed, *served)))
+            log("fleet: " + json.dumps(fleet_phase(args.seed, *served,
+                                                   blob)))
+        if "multitenant" in phases:
+            log("multitenant: " + json.dumps(multitenant_phase(
+                args.seed, *served, blob, cli=cli)))
         shutil.rmtree(WORK, ignore_errors=True)
         del served
         gc.collect()
-    if "lifecycle" in phases:
-        lifecycle_phase(args.seed, args.port)
     print(f"chip_smoke: partial run ({args.only}): no result",
           file=sys.stderr)
     return 4
@@ -7015,9 +7779,10 @@ def main() -> int:
                          "fit the time limit; at least 4194304)")
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
-                    help="run only these of serve, obs, lifecycle, fleet "
-                         "after the build and the kernels phase (a partial "
-                         "run: it prints no result and exits 4)")
+                    help="run only these of serve, obs, lifecycle, fleet, "
+                         "multitenant after the build and the kernels "
+                         "phase (a partial run: it prints no result and "
+                         "exits 4)")
     args = ap.parse_args()
     if args.items < 1 << 22:
         ap.error("--items below 4194304 is not a cut this smoke allows")
@@ -7132,9 +7897,16 @@ def main() -> int:
         #     the router tier alone (leg 1), an orchestrated cycle
         #     (leg 3); each replica and the orchestrator count their own
         #     launches
-        fleet = fleet_phase(args.seed, *served)
+        blob = served_blob(*served)
+        fleet = fleet_phase(args.seed, *served, blob)
         log("fleet: " + json.dumps(fleet))
-        del served
+        # 14. multitenant: two tenants over the same model (leg 2), the
+        #     reference bench's three families (leg 1); leg 3 ran inside
+        #     the lifecycle
+        multitenant = multitenant_phase(args.seed, *served, blob,
+                                        cli=lifecycle["multiserve_cli"])
+        log("multitenant: " + json.dumps(multitenant))
+        del served, blob
         gc.collect()
         t0 = time.perf_counter()
         bp_bench = bp_bench_leg()
@@ -7186,7 +7958,8 @@ def main() -> int:
             + lifecycle["batchpredict_cli"]["b2_launches"],
             "obs": obs["b2_launches"],
             "fleet_replicas": fleet["replicas"]["b2_launches"],
-            "fleet_orchestrate": fleet["orchestrate"]["b2_launches"]},
+            "fleet_orchestrate": fleet["orchestrate"]["b2_launches"],
+            "multitenant": multitenant["width"]["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
         "chunk_rows": chunk_rows,
         "engine_shapes": eng_rows,

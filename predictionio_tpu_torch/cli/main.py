@@ -22,6 +22,9 @@ click), with the reference's commands, flags and exit codes:
         [--ip localhost] [--port 8000] [--accesskey K] [--device cpu]
         [--feedback --event-server-app APP] [--log-url URL]
         [--log-prefix P]
+    python -m predictionio_tpu_torch.cli.main multiserve
+        --tenant NAME=engine.json [--tenant ...] [--ip localhost]
+        [--port 8800] [--accesskey K] [--device cpu]
     python -m predictionio_tpu_torch.cli.main batchpredict [-v engine.json]
         --input Q.jsonl --output P.jsonl [--engine-instance-id ID |
         --release SEL] [--chunk-size N] [--output-format jsonl]
@@ -75,6 +78,14 @@ the serving path up, then serves. ``--feedback`` with
 that app (the answer carries its ``prId``); ``--log-url`` receives each
 failed query's error, prefixed by ``--log-prefix``. Models run on
 ``cuda`` unless ``--device cpu`` is given.
+
+``multiserve`` hosts N engine variants in one process
+(``server/multitenant``): each ``--tenant NAME=engine.json`` serves the
+latest COMPLETED instance of that variant, with its release and its
+engine.json ``scorer``, ``foldin`` and ``slo`` sections, at
+``/t/NAME/queries.json`` (its other routes under ``/t/NAME/``), under
+the device-memory budget and admission knobs of ``PIO_MT_*`` /
+server.json ``multitenant``. SIGTERM stops it.
 
 ``batchpredict`` scores a JSON-lines file of queries offline with the
 latest COMPLETED instance of the variant, or ``--engine-instance-id``, or
@@ -616,6 +627,66 @@ def deploy(args) -> int:
               flush=True)
 
     run_query_server(server, args.ip, args.port, on_ready=ready)
+    return 0
+
+
+def multiserve(args) -> int:
+    """Serve N engine variants from one process under one device-memory
+    budget (``server/multitenant``): per-tenant routes at
+    ``/t/NAME/queries.json``, LRU warm eviction and reload under
+    ``PIO_MT_DEVICE_BUDGET_BYTES``, per-tenant scorer residency, and
+    SLO-burn admission."""
+    from predictionio_tpu_torch.deploy.warm import DeployError
+    from predictionio_tpu_torch.server.multitenant import (
+        DEFAULT_PORT, TenantSpec, run_multitenant_server,
+    )
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.utils.server_config import (
+        foldin_config, scorer_config,
+    )
+    from predictionio_tpu_torch.workflow.train import load_for_deploy
+
+    port = DEFAULT_PORT if args.port is None else args.port
+    specs = []
+    instances = Storage.get_meta_data_engine_instances()
+    for entry in args.tenant_specs:
+        name, sep, variant_path = entry.partition("=")
+        if not sep or not name or not variant_path:
+            _fail(f"--tenant wants NAME=VARIANT_PATH, got {entry!r}. "
+                  "Aborting.")
+        engine, variant, engine_id, variant_id = _load_variant(variant_path)
+        instance = instances.get_latest_completed(engine_id, "1",
+                                                  variant_id)
+        if instance is None:
+            _fail(f"Tenant {name!r}: no COMPLETED engine instance for "
+                  f"{variant_path}. Run `train` first. Aborting.")
+        release = _release_of(instance)
+        scfg = scorer_config(variant.get("scorer"))
+        try:
+            result, _ctx = load_for_deploy(engine, instance,
+                                           device=args.device)
+        except DeployError as e:
+            _fail(f"Tenant {name!r}: {e}. Aborting.")
+        print(f"[INFO] Tenant {name!r}: instance {instance.id}"
+              + (f" (release v{release.version})" if release else "")
+              + f", scorer {scfg.mode}", flush=True)
+        specs.append(TenantSpec(
+            name=name, engine=engine, train_result=result,
+            instance=instance, release=release, scorer_config=scfg,
+            foldin_config=foldin_config(variant.get("foldin")),
+            slo=variant.get("slo")))
+    print(f"[INFO] Hosting {len(specs)} tenant(s) at {args.ip}:{port}",
+          flush=True)
+
+    def ready(bound):
+        print(f"[INFO] Multi-tenant server listening on "
+              f"http://{args.ip}:{bound}", flush=True)
+
+    try:
+        run_multitenant_server(specs, ip=args.ip, port=port,
+                               on_ready=ready, access_key=args.accesskey)
+    except ValueError as e:         # a tenant name the host refuses
+        _fail(f"{e}. Aborting.")
     return 0
 
 
@@ -1371,6 +1442,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prefix prepended to remote log payloads")
     d.add_argument("--device", default=None, help="cuda (default) or cpu")
     d.set_defaults(func=deploy)
+
+    m = sub.add_parser("multiserve", help="host several engine variants "
+                       "in one process under one device-memory budget")
+    m.add_argument("--tenant", "-t", dest="tenant_specs", action="append",
+                   required=True, metavar="NAME=VARIANT_PATH",
+                   help="co-host the latest COMPLETED instance of this "
+                        "variant as tenant NAME (repeatable)")
+    m.add_argument("--ip", default="localhost")
+    m.add_argument("--port", default=None, type=int,
+                   help="port (default 8800; 0 picks a free one)")
+    m.add_argument("--accesskey", default=None,
+                   help="key guarding every tenant's /stop, /reload and "
+                        "deploy API")
+    m.add_argument("--device", default=None, help="cuda (default) or cpu")
+    m.set_defaults(func=multiserve)
 
     b = sub.add_parser("batchpredict", help="score a file of queries "
                                              "offline")

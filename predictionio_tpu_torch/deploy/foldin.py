@@ -476,6 +476,12 @@ class FoldInController:
                                      int(cols["event_time_ms"].max()))
         self._update_pending_gauge()
 
+    def release_device(self) -> None:
+        """Forget the solver (its device copy of the factors) and the
+        vocab cache (a model): the server's unit was evicted."""
+        self._solver_cache = None
+        self._vocab_cache = None
+
     # -- apply ---------------------------------------------------------------
     def _solver_for(self, factors: np.ndarray, params: ALSParams,
                     device, factors_device=None) -> FoldInSolver:
@@ -571,12 +577,14 @@ class FoldInController:
         caller's thread): pull, take up to ``max_pending`` dirty rows,
         solve, hand the engine the rows, swap. Returns the tick's split
         (see `_apply`) or None when nothing was pending or the swap
-        raced a cutover, or while a canary is judged (``held``: the
-        incumbent it is judged against must not drift, so the deltas stay
-        pending until the verdict); raises (after requeueing) when the
-        apply failed."""
+        raced a cutover, or while a canary is judged or the unit is
+        evicted to warm state (``held``: the incumbent a canary is judged
+        against must not drift, and a warm unit has no factors, so the
+        deltas stay pending); raises (after requeueing) when the apply
+        failed."""
         t_start = time.perf_counter()
-        if getattr(self.server, "_canary", None) is not None:
+        if getattr(self.server, "_canary", None) is not None \
+                or self.server._unit.result is None:
             self._m_applies.inc(outcome="held")
             return None
         slo = getattr(self.server, "_slo", None)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 from predictionio_tpu_torch.obs import device_stats
 from predictionio_tpu_torch.obs.registry import MetricsRegistry, default_registry
@@ -156,11 +156,15 @@ def capacity_document(units_fn: Optional[Callable[[], Iterable[Dict]]]
 # ---------------------------------------------------------------------------
 
 def register_capacity_metrics(registry: MetricsRegistry = None,
-                              units_fn: Optional[Callable] = None
+                              units_fn: Optional[Callable] = None,
+                              labelnames: Sequence[str] = ("role",)
                               ) -> MetricsRegistry:
     """Idempotently register the capacity gauges; with a `units_fn`
     (query server) the per-unit resident gauge reports one sample per
-    unit role — role, not instance id, keeps the cardinality fixed."""
+    unit role — role, not instance id, keeps the cardinality fixed. A
+    multi-tenant host labels each sample with its tenant too
+    (``labelnames=("tenant", "role")``; each unit dict carries the
+    keys), after unregistering the gauge its tenants' servers made."""
     reg = registry or default_registry()
     reg.gauge_callback(
         DEVICE_BYTES_GAUGE,
@@ -174,14 +178,14 @@ def register_capacity_metrics(registry: MetricsRegistry = None,
         HOST_RSS_GAUGE, "Sampled host resident-set size", host_rss_bytes)
     if units_fn is not None:
         def _unit_samples():
-            return [({"role": str(u.get("role", "?"))},
+            return [({k: str(u.get(k, "?")) for k in labelnames},
                      float(u.get("residentBytes", 0)))
                     for u in units_fn()]
         reg.gauge_callback(
             UNIT_RESIDENT_GAUGE,
             "Device-resident bytes per serving unit (factors + quantized "
             "scorer)",
-            _unit_samples, labelnames=("role",))
+            _unit_samples, labelnames=tuple(labelnames))
     return reg
 
 

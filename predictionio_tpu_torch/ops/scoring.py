@@ -18,8 +18,11 @@ four scorers that never build the ``[B,N]`` score matrix:
   factor copy. Final scores are exact; only shortlist membership is
   approximate.
 
-Quantization, the rotation and tile packing stay in numpy so the bytes
-the port serves are bit-identical to the reference's. Every non-exact
+The rotation stays in numpy so the bytes the port serves are
+bit-identical to the reference's; quantization and tile packing run in
+torch on the scorer's device (elementwise IEEE operations, so their bytes
+are the reference's too), which keeps a 10M-item build off the host's
+single-threaded numpy passes. Every non-exact
 scorer is parity-gated at build against the exact scorer: below
 ``min_recall`` recall@10 it is demoted to exact serving.
 
@@ -244,7 +247,7 @@ def twostage_cand(per_tile: int, n_tiles: int, tile: int, k: int,
 
 
 # ---------------------------------------------------------------------------
-# quantization + packing (numpy: bit-identical to the reference)
+# quantization + packing (bit-identical to the reference's numpy)
 # ---------------------------------------------------------------------------
 
 def _pow2_tile(tile_items: int, n_items: int) -> int:
@@ -254,23 +257,36 @@ def _pow2_tile(tile_items: int, n_items: int) -> int:
     return min(t, bucket_size(n_items))
 
 
-def _pack_tiles(arr: np.ndarray, tile: int):
+def _pack_tiles(arr, tile: int):
     """[N, K] -> ([n_tiles, tile, K], n_pad): pad item rows up to a
-    whole tile grid (pad rows are sentineled by id inside the scans)."""
+    whole tile grid (pad rows are sentineled by id inside the scans).
+    Takes a numpy array or a tensor (padded on its device)."""
     n = arr.shape[0]
     n_pad = -(-n // tile) * tile
     if n_pad != n:
-        arr = np.concatenate(
-            [arr, np.zeros((n_pad - n,) + arr.shape[1:], arr.dtype)])
+        pad_shape = (n_pad - n,) + tuple(arr.shape[1:])
+        arr = (torch.cat([arr, arr.new_zeros(pad_shape)])
+               if isinstance(arr, torch.Tensor) else
+               np.concatenate([arr, np.zeros(pad_shape, arr.dtype)]))
     return arr.reshape(n_pad // tile, tile, *arr.shape[1:]), n_pad
 
 
-def _quantize_int8(v: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+def _quantize_int8(v):
     """Symmetric per-row int8: q = round(v / s), s = row-max / 127.
-    Zero rows get scale 1 so dequantization stays finite."""
-    s = np.abs(v).max(axis=1) / 127.0
-    s = np.where(s == 0, 1.0, s).astype(np.float32)
-    q = np.clip(np.rint(v / s[:, None]), -127, 127).astype(np.int8)
+    Zero rows get scale 1 so dequantization stays finite. Runs on the
+    tensor's device; a numpy ``v`` is quantized on the CPU and comes back
+    as numpy. f32 division and round-half-even make it bit-identical to
+    the reference's ``np.rint(v / s)``; the row max is divided by a
+    tensor of 127s, since CUDA divides by a Python scalar as a product
+    with its reciprocal, which rounds differently."""
+    if isinstance(v, np.ndarray):
+        q, s = _quantize_int8(torch.from_numpy(
+            np.ascontiguousarray(v, np.float32)))
+        return q.numpy(), s.numpy()
+    m = v.abs().amax(dim=1)
+    s = m / torch.full_like(m, 127.0)
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    q = torch.round(v / s[:, None]).clamp_(-127, 127).to(torch.int8)
     return q, s
 
 
@@ -468,20 +484,22 @@ def build_scorer(V: np.ndarray, cfg=None,
             rot, dims = _principal_rotation(v)
             rotation = np.ascontiguousarray(rot[:, :dims])
             scan_rank = dims
-            v_scan = np.ascontiguousarray((v @ rotation).astype(np.float32))
-        q, s = _quantize_int8(v_scan)
+            v_scan = np.ascontiguousarray(v @ rotation, np.float32)
+        q, s = _quantize_int8(torch.from_numpy(v_scan).to(device))
         quant_error = _sampled_quant_error(v_scan, q, s)
-        tiles = torch.from_numpy(_pack_tiles(q, tile)[0])
-        scales = torch.from_numpy(_pack_tiles(s, tile)[0])
+        tiles = _pack_tiles(q, tile)[0]
+        scales = _pack_tiles(s, tile)[0]
+        del q, s
         quantization = "int8"
     elif mode == "fused_bf16":
-        tiles = torch.from_numpy(_pack_tiles(v, tile)[0]).to(torch.bfloat16)
-        quant_error = _sampled_quant_error(
-            v, torch.from_numpy(v).to(torch.bfloat16).float().numpy(), None)
+        vb = torch.from_numpy(v).to(device).to(torch.bfloat16)
+        quant_error = _sampled_quant_error(v, vb, None)
+        tiles = _pack_tiles(vb, tile)[0]
+        del vb
         scales = None
         quantization = "bfloat16"
     else:   # fused (f32, tiled — memory unchanged, [B,N] never built)
-        tiles = torch.from_numpy(_pack_tiles(v, tile)[0])
+        tiles = _pack_tiles(torch.from_numpy(v).to(device), tile)[0]
         scales = None
         quantization = "float32"
 
@@ -515,15 +533,18 @@ def build_scorer(V: np.ndarray, cfg=None,
     return scorer
 
 
-def _sampled_quant_error(v: np.ndarray, q: np.ndarray,
-                         s: Optional[np.ndarray]) -> float:
-    """Max relative dequantization error over a row sample."""
+def _sampled_quant_error(v: np.ndarray, q: torch.Tensor,
+                         s: Optional[torch.Tensor]) -> float:
+    """Max relative dequantization error over a row sample (``q`` and
+    ``s`` on the scorer's device; only the sampled rows come back)."""
     n = v.shape[0]
     rows = np.linspace(0, n - 1,
                        num=min(QUANT_ERROR_SAMPLE_ROWS, n)).astype(int)
     vv = v[rows]
-    deq = (q[rows].astype(np.float32) * s[rows, None] if s is not None
-           else q[rows].astype(np.float32))
+    idx = torch.from_numpy(rows).to(q.device)
+    deq = q[idx].float().cpu().numpy()
+    if s is not None:
+        deq = deq * s[idx].cpu().numpy()[:, None]
     denom = max(float(np.abs(vv).max()), 1e-30)
     return float(np.abs(deq - vv).max() / denom)
 

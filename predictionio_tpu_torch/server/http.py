@@ -18,6 +18,14 @@ exposition). A server may pass a ``middleware`` (``obs/middleware``):
 it runs around every dispatch, unknown paths and wrong methods
 included, and sees the route's pattern as the handler label
 (``__unmatched__`` when no route took the request).
+
+A server may :meth:`~HttpServer.mount` another server's routes under a
+prefix (the multi-tenant host mounts each tenant's query server under
+``/t/{name}/``, where the reference uses aiohttp's ``add_subapp``). The
+mounting server's own routes outrank a mount; a path they do not take
+that starts with the prefix is matched against the mounted routes with
+the prefix cut to ``/``. Only the mounting server's middleware runs
+around it, so a request is observed once.
 """
 
 from __future__ import annotations
@@ -109,6 +117,8 @@ class HttpServer:
         self._routes = [(method, pattern, _compile(pattern), handler)
                         for method, pattern, handler in routes]
         self._middleware = middleware
+        #: prefix ("/t/alpha/") -> the server whose routes it mounts
+        self._mounts: Dict[str, "HttpServer"] = {}
         self._server: Optional[asyncio.AbstractServer] = None
         #: open connections -> whether a request is being handled on it
         self._conns: Dict[asyncio.StreamWriter, bool] = {}
@@ -131,17 +141,40 @@ class HttpServer:
                 writer.close()
         await self._server.wait_closed()
 
-    async def dispatch(self, req: Request
-                       ) -> Tuple[int, Any, Dict[str, str]]:
-        allowed = []
-        for method, pattern, regex, handler in self._routes:
-            m = regex.match(req.path)
+    def mount(self, prefix: str, server: "HttpServer") -> None:
+        """Serve ``server``'s routes under ``prefix`` (its handlers see
+        the whole path; their pattern, under the prefix, is the handler
+        label). The mounted server's middleware does not run."""
+        self._mounts["/" + prefix.strip("/") + "/"] = server
+
+    def _match(self, path: str, method: str, allowed: list):
+        """The first route taking ``path`` and ``method``:
+        ``(pattern, handler, params)``, or None; the methods of routes
+        that take the path only are appended to ``allowed``."""
+        for r_method, pattern, regex, handler in self._routes:
+            m = regex.match(path)
             if m is None:
                 continue
-            if method not in ("*", req.method):
-                allowed.append(method)
+            if r_method not in ("*", method):
+                allowed.append(r_method)
                 continue
-            req.params = m.groupdict()
+            return pattern, handler, m.groupdict()
+        return None
+
+    async def dispatch(self, req: Request
+                       ) -> Tuple[int, Any, Dict[str, str]]:
+        allowed: list = []
+        found = self._match(req.path, req.method, allowed)
+        if found is None:
+            for prefix, sub in self._mounts.items():
+                if req.path.startswith(prefix):
+                    found = sub._match(req.path[len(prefix) - 1:],
+                                       req.method, allowed)
+                    if found is not None:
+                        found = (prefix[:-1] + found[0],) + found[1:]
+                    break
+        if found is not None:
+            pattern, handler, req.params = found
             return await self._run(req, pattern,
                                    functools.partial(_call, handler, req))
         if allowed:

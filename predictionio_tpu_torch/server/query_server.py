@@ -50,6 +50,16 @@ starts with the server and swaps drifted models in through
 :meth:`QueryServer.swap_foldin_unit`, whose standby is the pre-fold-in
 base; it holds its deltas while a canary is judged.
 
+Warm residency (the multi-tenant host, ``server/multitenant``):
+:meth:`QueryServer.evict_to_warm` swaps in a factor-less unit (instance
+and release kept) and releases the device tensors of the old unit, its
+standby and their fold-in bases; the next query (or
+:meth:`QueryServer.ensure_resident`) reloads it through the deploy's
+load, warm-up and verify ladder, single-flight, and answers 503 with
+Retry-After past its wait. A server built with
+``pin_process_scorer=False`` stamps its scorer config on its own model
+holders instead of pinning the process's.
+
 A staged rollout (``deploy/canary``) routes each query once, by the
 canary's error-diffusion splitter, to the incumbent's or the
 candidate's own micro-batcher; under shadow every query is answered by
@@ -136,6 +146,7 @@ from predictionio_tpu_torch.ops.bucketing import bucket_size, padding_waste
 from predictionio_tpu_torch.ops.scoring import (
     set_process_scorer_config, unit_scorer_status,
 )
+from predictionio_tpu_torch.storage import faults
 from predictionio_tpu_torch.storage.base import (
     EngineInstance, Release, generate_id,
 )
@@ -503,6 +514,25 @@ class MicroBatcher:
                 fut.set_result(res)
 
 
+def _release_device(unit: ServingUnit) -> None:
+    """Drop the device copies of a unit's models (the exact scorer's V,
+    the quantized scorer's tiles)."""
+    for model in getattr(unit.result, "models", ()) or ():
+        release = getattr(model, "release_device", None)
+        if release is not None:
+            release()
+
+
+def _drop_factors(unit: ServingUnit) -> None:
+    """Release a unit, and the fold-in base it drifted from, down to
+    nothing: their device copies (a drift shares its base's), then the
+    references to models, batcher and base."""
+    for u in (unit, unit.foldin_of):
+        if u is not None:
+            _release_device(u)
+            u.result = u.batcher = u.foldin_of = None
+
+
 @dataclasses.dataclass
 class CanaryState:
     """One staged rollout in flight: the candidate unit and its judge."""
@@ -538,7 +568,8 @@ class QueryServer:
                  plugin_context: Optional[PluginContext] = None,
                  registry: Optional[MetricsRegistry] = None,
                  slo_spec: Optional[SLOSpec] = None,
-                 telemetry=None):
+                 telemetry=None,
+                 pin_process_scorer: bool = True):
         self.engine = engine
         #: this server's metrics; ``/metrics`` renders it merged with the
         #: process-wide default registry
@@ -548,7 +579,16 @@ class QueryServer:
         #: resolved scoring-kernel knobs, pinned process-wide so every
         #: scoring surface (models, warm-up) sees ONE mode
         self.scorer_config = scorer_config or ScorerConfig.from_env()
-        set_process_scorer_config(self.scorer_config)
+        #: a multi-tenant host passes pin_process_scorer=False: its
+        #: servers cannot all own the one process pin, so each stamps its
+        #: config on its own model holders (ops/scoring.
+        #: holder_scorer_config): one tenant holds int8 factors while
+        #: another holds bf16 in the same process
+        self._pin_process_scorer = bool(pin_process_scorer)
+        if self._pin_process_scorer:
+            set_process_scorer_config(self.scorer_config)
+        else:
+            self._stamp_scorer_override(train_result)
         #: guards /reload, /deploy.json, /rollback.json and /stop when
         #: set (``deploy --accesskey``)
         self.access_key = access_key
@@ -607,6 +647,25 @@ class QueryServer:
         self._feedback_hist = self.registry.histogram(
             "pio_feedback_write_duration_seconds",
             "Feedback-loop event store write wall time")
+        self._reload_total = self.registry.counter(
+            "pio_reload_total", "Model reload attempts by outcome",
+            labelnames=("status",))
+        self._evict_total = self.registry.counter(
+            "pio_unit_evictions_total",
+            "Serving units evicted to warm on-host state (factors "
+            "dropped, params + release pointer retained)",
+            labelnames=("reason",))
+        #: warm residency (the multi-tenant budgeter): an evicted server
+        #: serves a WARM unit (instance and release kept, factors dropped)
+        #: and reloads it through the deploy ladder on the next hit;
+        #: ``_reload_event`` is the single-flight latch queries wait on,
+        #: ``_warm_bytes`` the last resident attribution (the budgeter's
+        #: projection of a reload's cost)
+        self._reload_event: Optional[asyncio.Event] = None
+        self._warm_bytes = 0
+        #: the last warm reload's phases (loadS, warmupS, verifyS,
+        #: scorerBuildS within them, swapS)
+        self.last_warm_reload: Optional[dict] = None
         self._unit = ServingUnit(
             instance=instance, result=train_result,
             vectorized=compute_vectorized(train_result), release=release)
@@ -744,9 +803,10 @@ class QueryServer:
         unit = build_unit(self.engine, instance, release,
                           device=self.device)
         t1 = time.perf_counter()
+        self._stamp_scorer_override(unit.result)
         self._attach_batcher(unit)
         predict = functools.partial(self._predict_batch_unit, unit)
-        query = (self._extract_query(warmup_query_json)
+        query = (self._extract_query(warmup_query_json, unit.result)
                  if warmup_query_json is not None else None)
         if self._effective_warmup(warmup):
             report = warmup_unit(unit, predict, self.max_batch, query)
@@ -827,10 +887,160 @@ class QueryServer:
         if unit is self._standby or (canary is not None
                                      and unit is canary.unit):
             return
-        for model in unit.result.models:
-            release = getattr(model, "release_device", None)
-            if release is not None:
-                release()
+        _release_device(unit)
+
+    # -- warm eviction / reload (the multi-tenant budgeter) ------------------
+    def _stamp_scorer_override(self, result) -> None:
+        """A server that does not own the process scorer pin (one of a
+        multi-tenant host's) stamps its scorer config on every model
+        holder, where ``holder_scorer_config`` reads it before the pin."""
+        if self._pin_process_scorer or result is None:
+            return
+        for model in getattr(result, "models", ()) or ():
+            try:
+                model._scorer_cfg_override = self.scorer_config
+            except AttributeError:      # a slotted holder: the pin rules
+                pass
+
+    @property
+    def resident(self) -> bool:
+        """Whether the active unit holds its factors."""
+        return self._unit.result is not None
+
+    @property
+    def warm_bytes(self) -> int:
+        """The last known device attribution: the live bytes while
+        resident, the pre-eviction footprint while warm (what a reload
+        will cost)."""
+        if self.resident:
+            return int(sum(u.get("residentBytes", 0)
+                           for u in self._capacity_units()))
+        return self._warm_bytes
+
+    async def evict_to_warm(self, reason: str = "budget") -> bool:
+        """Drop the active unit to warm on-host state: the instance and
+        the release pointer stay, the factors go (the unit's and the
+        standby's models, their device copies and scorers, the fold-in
+        controller's solver). The cutover installs a new factor-less
+        unit under ``_swap_lock``, so a fold-in swap racing the eviction
+        loses (FoldinSwapRaced). Queued and in-flight batches finish on
+        the old unit's batcher first. Refused (False) while a canary is
+        judged (the judge needs its incumbent), while a reload is in
+        flight, and on a unit that is already warm.
+
+        Nothing that serves keeps a reference to the dropped tensors, so
+        the caching allocator takes their blocks back for the next
+        tenant's reload; its cache is not emptied here."""
+        if self._canary is not None or self._reload_event is not None:
+            return False
+        with self._swap_lock:
+            old = self._unit
+            if old.result is None:
+                return False
+            warm = ServingUnit(instance=old.instance, result=None,
+                               vectorized=False, release=old.release)
+            self._unit = warm
+            standby, self._standby = self._standby, None
+        # the attribution BEFORE the factors drop: the budgeter projects
+        # the reload's cost from it
+        self._warm_bytes = int(unit_capacity(old, "active")["residentBytes"])
+        await self._drain(old.batcher)
+        faults.maybe_kill("mt:evict:drained")
+        for unit in (old, standby):
+            if unit is not None:
+                _drop_factors(unit)
+        if self._foldin is not None:
+            # after any apply in flight on the deploy executor: its
+            # solver holds a device copy of the evicted factors
+            await asyncio.get_running_loop().run_in_executor(
+                self._deploy_executor, self._foldin.release_device)
+        self._evict_total.inc(reason=reason)
+        self._deploy.swap_total.inc(mode="evict", outcome="ok")
+        self._record("evict", reason=reason,
+                     engineInstanceId=warm.instance.id,
+                     releaseVersion=warm.release_version or None,
+                     residentBytes=self._warm_bytes)
+        logger.info("evicted instance %s to warm state (%s, %d bytes)",
+                    warm.instance.id, reason, self._warm_bytes)
+        faults.maybe_kill("mt:evict:committed")
+        return True
+
+    async def _drain(self, batcher: Optional[MicroBatcher]) -> None:
+        """Let a batcher's queued and in-flight batches finish (at most
+        the drain timeout), then stop it."""
+        if batcher is None:
+            return
+        deadline = time.monotonic() + self.deploy_config.drain_timeout_s
+        while not batcher.idle() and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        await batcher.shutdown()
+
+    async def ensure_resident(self, wait_s: Optional[float] = None) -> bool:
+        """Start (or join) the single-flight warm reload and wait for it,
+        at most ``wait_s`` (default: the deploy drain timeout). True when
+        the active unit is resident on return."""
+        if self._unit.result is not None:
+            return True
+        ev = self._reload_event
+        if ev is None:
+            self._reload_event = ev = asyncio.Event()
+            self._spawn(self._reload_from_warm(ev))
+        timeout = (wait_s if wait_s is not None
+                   else self.deploy_config.drain_timeout_s)
+        try:
+            await asyncio.wait_for(asyncio.shield(ev.wait()), timeout)
+        except asyncio.TimeoutError:
+            return False
+        return self._unit.result is not None
+
+    async def _reload_from_warm(self, ev: asyncio.Event) -> None:
+        """The reload half of the cycle: the deploy's own load -> warm-up
+        -> verify ladder (the unit that swaps in is never half-resident),
+        then a compare-and-swap over the warm placeholder. A deploy or
+        rollback that landed meanwhile wins: the reloaded unit is
+        dropped, never installed over it."""
+        warm = self._unit
+        loop = asyncio.get_running_loop()
+        try:
+            unit, _report, phases = await loop.run_in_executor(
+                self._deploy_executor, self._prepare_unit, warm.instance,
+                warm.release)
+            faults.maybe_kill("mt:reload:loaded")
+            t0 = time.perf_counter()
+            with self._swap_lock:
+                raced = self._unit is not warm
+                if not raced:
+                    self._unit = unit
+            if raced:
+                await self._drain(unit.batcher)
+                _drop_factors(unit)
+                self._reload_total.inc(status="warm_reload_raced")
+                return
+            self.last_warm_reload = {
+                **{k: phases[k] for k in ("loadS", "warmupS", "verifyS")},
+                # the scorer build (in the first scoring: warm-up, else
+                # verify) and its parity gate
+                "scorerBuildS": sum(st.get("buildSeconds", 0.0)
+                                    for st in phases["scorer"]),
+                "swapS": time.perf_counter() - t0}
+            self._deploy.swap_total.inc(mode="warm_reload", outcome="ok")
+            self._deploy.active_version.set(float(unit.release_version))
+            self._reload_total.inc(status="warm_reload")
+            self._record("swap", mode="warm_reload",
+                         engineInstanceId=unit.instance.id,
+                         releaseVersion=unit.release_version or None,
+                         **self.last_warm_reload)
+            faults.maybe_kill("mt:reload:committed")
+        except DeployError:
+            self._reload_total.inc(status="warm_reload_failed")
+            self._deploy.swap_total.inc(mode="warm_reload",
+                                        outcome="failed")
+            logger.exception("warm reload failed; the unit stays warm")
+        finally:
+            # waiters wake either way: resident -> serve, still warm -> a
+            # clean 503, and the next hit retries the reload
+            self._reload_event = None
+            ev.set()
 
     # -- online fold-in cutover (deploy/foldin.py) ---------------------------
     def build_foldin_unit(self, new_models, applied_rows: int,
@@ -848,6 +1058,7 @@ class QueryServer:
             release=drift_release or base.release)
         unit.foldin_of = base.foldin_of or base
         unit.foldin_rows = base.foldin_rows + applied_rows
+        self._stamp_scorer_override(result)
         return unit
 
     def swap_foldin_unit(self, unit: ServingUnit, loop=None,
@@ -926,9 +1137,15 @@ class QueryServer:
         """Bind and start accepting; returns the bound port (``port=0``
         picks a free one). Starts the fold-in controller when enabled."""
         bound = await self._http.start(host, port)
+        self.start_background()
+        return bound
+
+    def start_background(self) -> None:
+        """Start the fold-in controller and the SLO loop on the running
+        loop, without a socket (a multi-tenant host serves this server's
+        routes itself)."""
         self._start_foldin()
         self._start_slo()
-        return bound
 
     def _start_slo(self) -> None:
         """Periodic SLO evaluation on the server's loop: the burn-rate
@@ -1038,7 +1255,10 @@ class QueryServer:
                 "startTime": unit.instance.start_time.isoformat(),
                 "releaseVersion": unit.release_version or None,
             },
-            "algorithms": [type(a).__name__ for a in unit.result.algorithms],
+            "resident": unit.result is not None,
+            "algorithms": [type(a).__name__ for a in
+                           (unit.result.algorithms
+                            if unit.result is not None else ())],
             "startTime": self.start_time.isoformat(),
             "uptimeSeconds": uptime,
             "requestCount": count,
@@ -1405,6 +1625,7 @@ class QueryServer:
                            if self.last_warmup is not None else None),
             "foldin": self.foldin_status(),
             "scorer": unit_scorer_status(unit.result),
+            "resident": unit.result is not None,
             "deploy": {**self._deploy_counts(),
                        "recentEvents": list(self._deploy_events)},
         }
@@ -1514,6 +1735,16 @@ class QueryServer:
         # route once: everything this request touches rides the units
         # snapshotted here, so a concurrent swap never mixes halves
         role, unit, canary = ROLE_INCUMBENT, self._unit, self._canary
+        if unit.result is None:
+            # warm-evicted under the device-memory budget: start (or
+            # join) the single-flight reload and wait, bounded; past the
+            # bound a clean 503 with Retry-After, not an unbounded queue
+            if not await self.ensure_resident():
+                self._query_failures.inc(engine_variant=variant,
+                                         reason="not_resident")
+                return 503, {"message": "serving unit is reloading; "
+                                        "retry"}, {"Retry-After": "1"}
+            role, unit, canary = ROLE_INCUMBENT, self._unit, self._canary
         if canary is not None and canary.controller.decided is None:
             if canary.controller.splitter.route():
                 role, unit = ROLE_CANARY, canary.unit
@@ -1635,8 +1866,8 @@ class QueryServer:
         with self._stats_lock:
             self._feedback_max_s = max(self._feedback_max_s or 0.0, dt)
 
-    def _extract_query(self, body):
-        qc = _query_class(self.result)
+    def _extract_query(self, body, result: Optional[TrainResult] = None):
+        qc = _query_class(result if result is not None else self.result)
         if qc is None:
             return body
         if not isinstance(body, dict):

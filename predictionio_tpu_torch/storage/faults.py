@@ -13,7 +13,9 @@
 
 * **kill points** — named crash sites inside a multi-step write (a
   batch predict's chunk write, an orchestrator phase boundary, a
-  release-registry commit). :func:`maybe_kill` raises
+  release-registry commit, a warm eviction's or warm reload's step:
+  ``mt:evict:drained``, ``mt:evict:committed``, ``mt:reload:loaded``,
+  ``mt:reload:committed``). :func:`maybe_kill` raises
   :class:`CrashError` (a BaseException, so ordinary retry/except blocks
   cannot swallow it: the in-process stand-in for ``kill -9``) the first
   time each armed point is reached. Armed via ``PIO_FAULT_KILL`` (comma

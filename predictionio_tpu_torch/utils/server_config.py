@@ -1,21 +1,23 @@
 """Scorer, ingest, training-solver, fold-in, deploy, batch-predict,
-telemetry, orchestrator, router and fleet knobs: the ``scorer``,
-``ingest``, ``train``, ``foldin``, ``deploy``, ``batchpredict``,
-``telemetry``, ``orchestrator``, ``router`` and ``fleet`` sections of the
+telemetry, orchestrator, router, fleet and multi-tenant knobs: the
+``scorer``, ``ingest``, ``train``, ``foldin``, ``deploy``,
+``batchpredict``, ``telemetry``, ``orchestrator``, ``router``, ``fleet``
+and ``multitenant`` sections of the
 reference's ``utils/server_config.py`` (``ScorerConfig``,
 ``scorer_config``, ``IngestConfig``, ``TrainConfig``,
 ``als_solver_config``, ``FoldinConfig``, ``foldin_config``,
 ``DeployConfig``, ``deploy_config``, ``BatchPredictConfig``,
 ``batchpredict_config``, ``TelemetryConfig``, ``OrchestratorConfig``,
 ``orchestrator_config``, ``RouterConfig``, ``router_config``,
-``FleetConfig``, ``fleet_config``), with their precedence unchanged —
+``FleetConfig``, ``fleet_config``, ``MultiTenantConfig``,
+``multitenant_config``), with their precedence unchanged —
 server.json section < engine.json (the top-level ``scorer``, ``foldin``
 and ``batchpredict`` sections, the algorithm's ``solver`` params) <
 ``PIO_SCORER_*`` / ``PIO_INGEST_*`` / ``PIO_ALS_*`` / ``PIO_FOLDIN*`` /
 ``PIO_DEPLOY_*`` / ``PIO_CANARY_*`` / ``PIO_BATCHPREDICT_*`` /
-``PIO_TELEMETRY*`` / ``PIO_ORCH_*`` environment (the ``router`` and
-``fleet`` sections have no engine.json level: server.json <
-``PIO_ROUTER_*`` / ``PIO_FLEET_*``).
+``PIO_TELEMETRY*`` / ``PIO_ORCH_*`` environment (the ``router``,
+``fleet`` and ``multitenant`` sections have no engine.json level:
+server.json < ``PIO_ROUTER_*`` / ``PIO_FLEET_*`` / ``PIO_MT_*``).
 
 The server.json path is resolved as the reference resolves it:
 ``PIO_SERVER_CONF``, else ``$PIO_CONF_DIR/server.json``, else
@@ -1003,3 +1005,86 @@ def fleet_config() -> FleetConfig:
     """Resolve the autoscaler knobs a fleet controller should use:
     server.json ``fleet`` section overlaid by ``PIO_FLEET_*`` env."""
     return FleetConfig.from_env(read_server_json().get("fleet") or {})
+
+
+@dataclasses.dataclass
+class MultiTenantConfig:
+    """Multi-tenant host tuning (the ``PIO_MT_*`` knobs; server.json
+    ``multitenant`` section, camelCase keys; env overrides the file,
+    the established precedence).
+
+    ``budget_bytes`` is the shared device-memory residency budget the
+    host keeps all tenants' scorer factors under (0 = unlimited: never
+    evict). ``reload_wait_s`` bounds how long a query hitting a warm
+    (evicted) tenant waits for the warm-reload ladder before a clean
+    503. ``sweep_interval_s`` paces the background LRU budget sweep,
+    ``min_resident`` is the floor the sweep never evicts below,
+    ``admission`` arms the per-tenant SLO-burn 429 path and
+    ``retry_after_s`` is the Retry-After it advertises.
+    ``max_tenant_series`` caps the per-metric series the ``tenant``
+    label may create before new tenants collapse into the registry's
+    ``other`` overflow bucket (established tenants keep their series).
+    """
+
+    budget_bytes: int = 0
+    reload_wait_s: float = 10.0
+    sweep_interval_s: float = 2.0
+    min_resident: int = 1
+    admission: bool = True
+    retry_after_s: float = 1.0
+    max_tenant_series: int = 256
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None) -> "MultiTenantConfig":
+        """server.json ``multitenant`` section overlaid by ``PIO_MT_*``
+        env vars (env wins); malformed knobs are logged and fall back,
+        same contract as ServingConfig."""
+        data = data or {}
+        cfg = cls()
+        as_bool = lambda v: str(v).strip().lower() not in (  # noqa: E731
+            "0", "false", "no", "off", "")
+        file_keys = (
+            ("budgetBytes", "budget_bytes", int),
+            ("reloadWaitS", "reload_wait_s", float),
+            ("sweepIntervalS", "sweep_interval_s", float),
+            ("minResident", "min_resident", int),
+            ("admission", "admission", as_bool),
+            ("retryAfterS", "retry_after_s", float),
+            ("maxTenantSeries", "max_tenant_series", int),
+        )
+        env_keys = (
+            ("PIO_MT_DEVICE_BUDGET_BYTES", "budget_bytes", int),
+            ("PIO_MT_RELOAD_WAIT_S", "reload_wait_s", float),
+            ("PIO_MT_SWEEP_INTERVAL_S", "sweep_interval_s", float),
+            ("PIO_MT_MIN_RESIDENT", "min_resident", int),
+            ("PIO_MT_ADMISSION", "admission", as_bool),
+            ("PIO_MT_RETRY_AFTER_S", "retry_after_s", float),
+            ("PIO_MT_MAX_TENANT_SERIES", "max_tenant_series", int),
+        )
+        sources = (
+            [(k, data.get(k), attr, conv) for k, attr, conv in file_keys]
+            + [(k, os.environ.get(k), attr, conv)
+               for k, attr, conv in env_keys]
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed multitenant knob %s=%r",
+                               name, raw)
+        cfg.budget_bytes = max(0, cfg.budget_bytes)
+        cfg.reload_wait_s = max(0.1, cfg.reload_wait_s)
+        cfg.sweep_interval_s = max(0.05, cfg.sweep_interval_s)
+        cfg.min_resident = max(0, cfg.min_resident)
+        cfg.retry_after_s = max(0.0, cfg.retry_after_s)
+        cfg.max_tenant_series = max(1, cfg.max_tenant_series)
+        return cfg
+
+
+def multitenant_config() -> MultiTenantConfig:
+    """Resolve the multi-tenant host knobs: server.json ``multitenant``
+    section overlaid by ``PIO_MT_*`` env."""
+    return MultiTenantConfig.from_env(
+        read_server_json().get("multitenant") or {})

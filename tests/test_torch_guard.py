@@ -16,7 +16,8 @@ the CPU on their own.
   and another ``batchpredict`` through the CLI, whole and in two
   shards, and another ``eventserver --stats``, a deploy with telemetry
   and an SLO spec, ``slo``, ``capacity``, ``traces`` and ``metrics
-  series|query``, each with the same finding;
+  series|query``, and another ``multiserve`` over two tenants, each
+  with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``,
   the batch-predict slice's obs core, worker contract and kill points,
@@ -811,6 +812,74 @@ def test_router_cli_loads_no_jax_and_no_cuda(trained_variant, mode):
         pid = int(out.stdout.split("(pid ")[1].split(")")[0])
         with pytest.raises(OSError):
             __import__("os").kill(pid, 0)      # the replica was stopped
+
+
+_MULTISERVE_CHILD = r"""
+import http.client, json, os, signal, sys, threading, time
+
+variant, port = sys.argv[1], int(sys.argv[2])
+result = {}
+
+def call(method, path, body=None):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    c.request(method, path, body=None if body is None else json.dumps(body))
+    r = c.getresponse()
+    return r.status, json.loads(r.read())
+
+def drive():
+    try:
+        deadline = time.time() + 150
+        while time.time() < deadline:
+            try:
+                call("GET", "/")
+                break
+            except OSError:
+                time.sleep(0.1)
+        result["queries"] = [call("POST", f"/t/{t}/queries.json",
+                                  {"user": "u1", "num": 2})
+                             for t in ("alpha", "beta")]
+        result["tenants"] = call("GET", "/tenants.json")
+        result["residency"] = call("GET", "/residency.json")
+        result["status"] = call("GET", "/t/beta/deploy/status.json")
+        result["bad"] = sorted(
+            m for m in sys.modules
+            if any(m == t or m.startswith(t + ".") for t in (
+                "jax", "predictionio_tpu", "aiohttp", "click")))
+    finally:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+threading.Thread(target=drive, daemon=True).start()
+from predictionio_tpu_torch.cli.main import main
+result["rc"] = main(["multiserve", "--tenant", f"alpha={variant}",
+                     "--tenant", f"beta={variant}", "--ip", "127.0.0.1",
+                     "--port", str(port), "--device", "cpu"])
+print(json.dumps(result), flush=True)
+"""
+
+
+def test_multiserve_cli_loads_no_jax(trained_variant):
+    """``multiserve`` hosts two tenants of one CPU-trained variant: each
+    answers through ``/t/NAME/queries.json``, the host's documents and a
+    tenant's own ``deploy/status.json`` answer, and the process imports
+    neither jax, the reference, aiohttp nor click; SIGTERM stops it."""
+    variant, env = trained_variant
+    env["PIO_TELEMETRY"] = "0"
+    out = subprocess.run(
+        [sys.executable, "-c", _MULTISERVE_CHILD, str(variant),
+         str(_free_port())], cwd=str(ROOT), env=env, capture_output=True,
+        text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [(s, len(b["itemScores"])) for s, b in result["queries"]] == \
+        [(200, 2), (200, 2)], result
+    status, doc = result["tenants"]
+    assert status == 200 and [t["tenant"] for t in doc["tenants"]] == \
+        ["alpha", "beta"] and all(t["resident"] for t in doc["tenants"])
+    assert result["residency"][0] == 200, result
+    status, doc = result["status"]
+    assert status == 200 and doc["resident"] is True, result
+    assert result["bad"] == [] and result["rc"] == 0, result
+    assert "Tenant 'alpha'" in out.stdout and "Tenant 'beta'" in out.stdout
 
 
 _ORCH_STATUS_CHILD = r"""

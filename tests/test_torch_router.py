@@ -796,14 +796,28 @@ def test_port_router_autoscale_e2e_zero_drops(tmp_path):
             assert await _wait_for(
                 lambda: len(list(history.glob("*.json"))) == 2,
                 timeout_s=10.0)
+            # this test's actions only (the recorder is process-wide);
+            # the tick's thread archives an action BEFORE it records
+            # the action's last event, so wait for that event too
+            ids = {json.loads(p.read_text())["action_id"]
+                   for p in history.glob("*.json")}
+
+            def scale_events():
+                by_action = {}
+                for e in port_trace.recorder().events():
+                    if e["kind"] == "fleet_scale" \
+                            and e.get("actionId") in ids:
+                        by_action.setdefault(e["actionId"], []).append(e)
+                return by_action
+
+            assert await _wait_for(
+                lambda: sum(len(es) for es in scale_events().values()) == 4,
+                timeout_s=10.0), scale_events()
             stop.set()
             await task
             assert statuses and set(statuses) == {200}
             assert sum(v for _, v in router._dropped.samples()) == 0
-            by_action = {}
-            for e in port_trace.recorder().events():
-                if e["kind"] == "fleet_scale":
-                    by_action.setdefault(e["actionId"], []).append(e)
+            by_action = scale_events()
             outcomes = {es[0]["action"]: [e["status"] for e in es]
                         for es in by_action.values()}
             assert outcomes == {"scale_up": ["start", "done"],

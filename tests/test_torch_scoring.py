@@ -1,7 +1,8 @@
 """The port's scorers (predictionio_tpu_torch/ops/scoring.py) against the
 reference's (predictionio_tpu/ops/scoring.py), on the same numpy inputs:
 
-* quantization, the principal rotation and tile packing are bit-equal;
+* quantization, the principal rotation and tile packing are bit-equal,
+  and so are the tiles and scales a built scorer holds;
 * the shortlist kernel's plain version matches the reference's
   ``_shortlist_scan`` (masked and unmasked, c in {1, 4, 16}, a ragged
   last tile) and, unmasked, the Pallas kernel in interpret mode;
@@ -191,6 +192,31 @@ def test_item_scorer_topk_matches_reference(mode):
         assert np.array_equal(fin, np.isfinite(sc_p))
         assert np.array_equal(np.asarray(ix_p)[fin], np.asarray(ix_r)[fin])
         np.testing.assert_allclose(sc_p[fin], sc_r[fin], rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", NONEXACT_MODES)
+def test_built_scorer_bytes_match_reference(mode):
+    """The built scorer's device tiles and scales (quantized and packed in
+    torch) are the reference's bytes, a ragged last tile and a zero row
+    included."""
+    V = _factors(300, k=16, seed=9)
+    V[7] = 0.0
+    r = ref.build_scorer(V, RefConfig(mode=mode, tile_items=128))
+    p = port.build_scorer(V, ScorerConfig(mode=mode, tile_items=128),
+                          device=CPU)
+    assert p.active and r.active
+
+    def raw(a):
+        a = np.asarray(a)
+        return a.view(np.int16) if a.dtype.itemsize == 2 else a
+
+    got = p._tiles.view(torch.int16) if p._tiles.dtype == torch.bfloat16 \
+        else p._tiles
+    assert np.array_equal(got.numpy(), raw(r._tiles))
+    if r._scales is None:
+        assert p._scales is None
+    else:
+        assert np.array_equal(p._scales.numpy(), np.asarray(r._scales))
 
 
 def test_parity_gate_demotes_like_reference():

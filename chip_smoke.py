@@ -114,8 +114,9 @@ Phases, each reported on its own lines:
                    a LIVE drift release over v2, v2 RETIRED; then
                    ``rollback``: the sampled and control answers byte
                    for byte as before, the new users unknown, the drift
-                   ROLLED_BACK. Leg 2, after the lifecycle, on the serve
-                   cell's model (built once, in this process):
+                   ROLLED_BACK. Leg 2, beside the lifecycle after the
+                   eval legs, on the serve cell's model (built once, in
+                   this process):
                    ``FoldInSolver`` over the 10M x 64 factors on the card,
                    256 users x 8 ratings batched (1 launch) against one
                    at a time (256), explicit and implicit (the Gramian
@@ -200,12 +201,12 @@ Phases, each reported on its own lines:
                    ids, ``ALSAlgorithm.batch_predict`` under twostage at
                    B in {1, 8, 64} (B2 at T = 16384, two tiles, c = 256):
                    every answer the exact lane's, one B2 launch a batch.
-                   Leg 1, after the canary phase, each engine through the
-                   CLI on its own sqlite store (events written with
-                   ``insert_batch``, the engine.json naming the
-                   reference's factory string): e-commerce at
-                   cfg_ecommerce's shape (bench.py:741-760; 2,000 x
-                   1,500, 200,000 views and buys, 4 categories, 10
+                   Leg 1, beside the train phase (see "Order" below),
+                   each engine through the CLI on its own sqlite store
+                   (events written with ``insert_batch``, the
+                   engine.json naming the reference's factory string):
+                   e-commerce at cfg_ecommerce's shape (bench.py:741-760;
+                   2,000 x 1,500, 200,000 views and buys, 4 categories, 10
                    unavailable items; rank 10, 10 iterations), its query
                    paths (known users, categories, whiteList, blackList,
                    an unknown user's recent views, popularity) against a
@@ -290,7 +291,8 @@ Phases, each reported on its own lines:
                    ties, scores within 1e-4) with recall@10 >= 0.99;
                    rows/s and the split: read/decode, score, B2 (CUDA
                    events), uploads, rescore, serialize, file writes.
-                   Leg 1, after it: the reference bench's
+                   Leg 1, during the build in a process of its own
+                   (see "Order" below): the reference bench's
                    cfg_batch_predict shape (bench.py:2251-2300; 5,000
                    users x 2,000 items, rank 32, num 50, 40,000 queries,
                    chunk 1,024, exact scorer) through
@@ -407,10 +409,11 @@ Phases, each reported on its own lines:
                    replica, 2 s at 1, 2 and 4 replicas, cut from the
                    bench's 4 s for the time limit): no drop, an
                    exact spread, qps(4)/qps(1) >= 3 and p99(4) <= 2
-                   p99(1) + 5 ms; no kernel runs there. Leg 3, one cycle
-                   of ``orchestrate`` through the CLI on a store of its
-                   own at the ML-100k shape (100,000 ratings written
-                   directly): ``train`` and ``deploy`` of a baseline, a
+                   p99(1) + 5 ms; no kernel runs there. Leg 3, beside
+                   the train phase, one cycle of ``orchestrate`` through
+                   the CLI on a store of its own at the ML-100k shape
+                   (100,000 ratings written directly): ``train`` and
+                   ``deploy`` of a baseline, a
                    first ``orchestrate --once`` (no trigger; the
                    watermark), 600 fresh events over REST, then
                    ``orchestrate --once --server --eval-class`` with a
@@ -474,6 +477,57 @@ Phases, each reported on its own lines:
                    v2), ``/tenants.json``, ``/residency.json`` and each
                    tenant's ``deploy/status.json`` through the mount, and
                    neither jax nor the reference in its ``sys.modules``.
+15. ``classify`` — the classification template (``models/naive_bayes``,
+                   ``models/logreg``, ``models/forest``,
+                   ``engines/classification``), right after the build,
+                   in three legs. Leg
+                   1: the reference bench's naive_bayes_spam
+                   (bench.py:247-255, :712-738; 20,000 documents x 2,000
+                   vocabulary of Poisson counts, seed 3, 40% spam):
+                   ``train_multinomial_nb`` then ``predict`` on the same
+                   X, both through the device branch (the model's branch
+                   counts), accuracy > 0.9, log_prior/log_prob within
+                   1e-5 of the float64 recompute (bench.py:258-269),
+                   every label equal to the host branch's on a copy of
+                   X; train and predict best of 3 with the cold compaction
+                   and upload apart; the count and score products timed
+                   alone (CUDA events) beside their bounds. Leg 2 on the
+                   same corpus: logistic regression (200 Adam steps, lr
+                   0.1, reg 1e-4) from ``initial_W(seed 0)``, its W and b
+                   within 1e-4 * max(1, max |W|) of the port's CPU run
+                   from the same W (the CPU test's tolerance), a step's
+                   time as (200 steps - 0 steps) / 200; the forest (10
+                   trees, depth 4, 32 bins, auto: 45 features a node,
+                   gini) with each level's histogram time, its votes equal
+                   to a numpy walk of its own trees at full width, its
+                   node arrays equal to the CPU fit's on the first 4,000
+                   documents; one level's histogram timed alone at the
+                   deepest level's shape. Leg 3: the template through the
+                   CLI on a fresh store: 10,000 ``$set`` users of the
+                   classification_app law (tests/test_engines.py:129-145)
+                   over the event server, ``template get classification``,
+                   ``train`` of ``naive``, ``logreg`` and ``randomforest``
+                   at once (the engine.json naming the reference's factory
+                   string), their ``deploy``s and one ``eval`` (Accuracy,
+                   eval_k 3, the three algorithms) at once; 200 queries a
+                   variant, each answering the label a numpy recompute from
+                   the stored model gives; logreg's Accuracy > 0.85;
+                   every train, deploy and eval process holding neither
+                   jax nor the reference in ``sys.modules``; in this
+                   process a second ``aggregate_scan`` of the unchanged
+                   app hits the scan cache and the scan after one more
+                   event misses it. No kernel runs in this phase.
+
+Order, for the time limit: batchpredict's leg 1 (no kernel) runs in a
+process of its own while nvcc builds; then the classify phase, alone;
+after the kernels phase, the lifecycle (with the eval, batchpredict and
+multitenant CLI legs inside it, the three at once), the engines' three
+CLI legs and the fleet's orchestrated cycle run each in a process of its
+own, each on its own store, while this process runs the train phase,
+the engines' width leg, eval legs 1-2 and the fold-in width leg; then
+the other phases on the serve cell's model, one at a time. The kernels
+phase and the phases of the serve cell share the card with no other
+work; a leg run beside others has its times taken under that load.
 
 Each phase's launch counts are its own: zeroed just before the phase
 drives its path and read just after (in the process that launched).
@@ -1308,33 +1362,49 @@ failing.engine_params_list = _params("NoSuchApp")
 def eval_cli_leg(env, work, app: str):
     """Leg 3 of the eval phase, on the lifecycle's store: ``eval`` of a
     user's evaluation module through the CLI, batched over the grid
-    (B1 2 x groups x iterations), then ``--sequential`` on its ranks at
-    the first reg (2 x candidates x folds x iterations), picking the
-    batched run's best of those two; a failing evaluation leaves
-    EVALFAILED."""
+    (B1 2 x groups x iterations), ``--sequential`` on its ranks at the
+    first reg (2 x candidates x folds x iterations), picking the batched
+    run's best of those two, and a failing evaluation that leaves
+    EVALFAILED: the three at once, each in its own process."""
     import numpy as np
 
     from predictionio_tpu_torch.storage.registry import Storage
 
     c = EVAL_CLI
-    best_path = work / "best.json"
-    (work / "smoke_eval.py").write_text(
-        f"BEST = {str(best_path)!r}\nAPP = {app!r}\n"
-        f"FOLDS = {c['folds']}\nITERS = {c['iters']}\n" + _EVAL_MODULE)
+    # one module a run that writes its best params, as the runs go at once
+    best_path, seq_best = work / "best.json", work / "best_seq.json"
+    for module, best in (("smoke_eval", best_path),
+                         ("smoke_eval_seq", seq_best)):
+        (work / f"{module}.py").write_text(
+            f"BEST = {str(best)!r}\nAPP = {app!r}\n"
+            f"FOLDS = {c['folds']}\nITERS = {c['iters']}\n" + _EVAL_MODULE)
     env = dict(env, PYTHONPATH=os.pathsep.join(
         [str(work)] + [p for p in [env.get("PYTHONPATH")] if p]))
     grid = [f"rank={','.join(map(str, c['ranks']))}",
             f"reg={','.join(map(str, c['regs']))}"]
 
-    def run(*extra):
+    def run(module, *extra):
         t0 = time.perf_counter()
-        out = _cli(["eval", "smoke_eval:evaluation", "--device", DEV,
+        out = _cli(["eval", f"{module}:evaluation", "--device", DEV,
                     *extra], env)
         line = json.loads(out[-1])
         line["wall_s"] = time.perf_counter() - t0
         return line
 
-    batched = run("--grid", grid[0], "--grid", grid[1])
+    def failing():
+        return subprocess.run(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+             "eval", "smoke_eval:failing", "--device", DEV], cwd=str(ROOT),
+            env=env, capture_output=True, text=True, timeout=600)
+
+    # the ranks at the first reg: the pair differs in rank, not only in
+    # the ridge, so their scores are apart by more than the run-to-run
+    # noise of near-tied top-10 edges
+    batched, sequential, proc = _together(
+        lambda: run("smoke_eval", "--grid", grid[0], "--grid", grid[1]),
+        lambda: run("smoke_eval_seq", "--grid", grid[0], "--grid",
+                    f"reg={c['regs'][0]}", "--sequential"),
+        failing)
     log("lifecycle: eval batched " + json.dumps(batched))
     n_cand = len(c["ranks"]) * len(c["regs"])
     want = 2 * len(c["ranks"]) * c["iters"]
@@ -1346,12 +1416,10 @@ def eval_cli_leg(env, work, app: str):
           f"{want}")
     check(json.loads(best_path.read_text()) == batched["best_params"],
           "eval CLI: best.json is not the best candidate's params")
-    # the ranks at the first reg: the pair differs in rank, not only in
-    # the ridge, so their scores are apart by more than the run-to-run
-    # noise of near-tied top-10 edges
-    sequential = run("--grid", grid[0], "--grid", f"reg={c['regs'][0]}",
-                     "--sequential")
     log("lifecycle: eval sequential " + json.dumps(sequential))
+    check(json.loads(seq_best.read_text()) == sequential["best_params"],
+          "eval CLI: the sequential run's best.json is not its best "
+          "candidate's params")
     want_seq = 2 * len(c["ranks"]) * c["folds"] * c["iters"]
     check(sequential["mode"] == "sequential"
           and sequential["launches"]["spd_solve"] == want_seq,
@@ -1363,10 +1431,6 @@ def eval_cli_leg(env, work, app: str):
     check(sequential["best_idx"] == int(np.argmax(pair)),
           f"eval CLI: sequential best #{sequential['best_idx']} "
           f"({sequential['scores']}), batched {pair}")
-    proc = subprocess.run(
-        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "eval",
-         "smoke_eval:failing", "--device", DEV], cwd=str(ROOT), env=env,
-        capture_output=True, text=True, timeout=600)
     check(proc.returncode == 1 and "[ERROR] Evaluation failed"
           in proc.stdout, f"eval CLI: the failing evaluation exited "
           f"{proc.returncode}: {proc.stdout[-500:]}")
@@ -1766,16 +1830,20 @@ def lifecycle_phase(seed: int, port: int):
         foldin_slo["leg_s"] = time.perf_counter() - t0
         # 8. the canary phase's CLI leg, on v2 and the same store
         feedback = feedback_leg(seed, env, variant, key, port, app_id, m2)
-        # 9. the eval phase's CLI leg, on the same store
-        t0 = time.perf_counter()
-        eval_cli = eval_cli_leg(env, work, "SmokeApp")
-        eval_cli["leg_s"] = time.perf_counter() - t0
-        # 10. the batchpredict phase's CLI leg, on the same store
-        t0 = time.perf_counter()
-        bp_cli = batchpredict_cli_leg(env, work, variant, key, port)
-        bp_cli["leg_s"] = time.perf_counter() - t0
-        # 11. the multitenant phase's CLI leg, on the same store
-        mt_cli = multiserve_cli_leg(env, work, variant, m2, t2["instance"])
+        # 9-11. the eval, batchpredict and multitenant phases' CLI legs,
+        #     at once on the same store: none writes what another reads
+        def timed(leg, *args):
+            t0 = time.perf_counter()
+            rep = leg(*args)
+            rep["leg_s"] = time.perf_counter() - t0
+            return rep
+
+        eval_cli, bp_cli, mt_cli = _together(
+            lambda: timed(eval_cli_leg, env, work, "SmokeApp"),
+            lambda: timed(batchpredict_cli_leg, env, work, variant, key,
+                          port),
+            lambda: multiserve_cli_leg(env, work, variant, m2,
+                                       t2["instance"]))
         log("multitenant: cli " + json.dumps(mt_cli))
         events_srv.stop()
         check(events_srv.proc.returncode == 0, "the event server did not "
@@ -3304,12 +3372,16 @@ class Server:
     """A server command of the port's CLI (``deploy``, ``eventserver``)
     in a subprocess; its stdout lines are relayed until it listens."""
 
-    def __init__(self, args, env: dict, tag: str = "serve"):
+    def __init__(self, args, env: dict, tag: str = "serve",
+                 checked: bool = False):
         self.tag = tag
+        # checked: through _CHECKED_CLI, whose last line names the
+        # forbidden modules the process held (read by forbidden_modules)
+        launcher = (["-c", _CHECKED_CLI] if checked
+                    else ["-m", "predictionio_tpu_torch.cli.main"])
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
-             *args], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
-            text=True)
+            [sys.executable, *launcher, *args], cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, text=True)
         self.lines: "queue.Queue[str]" = queue.Queue()
         #: every line so far (a router's carries its replicas' lines)
         self.history: list = []
@@ -4926,30 +4998,41 @@ def follow_leg(seed: int, port: int, work):
             server.stop()
 
 
-#: the engines phase's CLI legs, each run by ``engines_leg_worker``
-ENGINE_LEGS = {"ecommerce": ecommerce_leg, "similarproduct": similar_leg,
-               "recommended_user": follow_leg}
+#: the legs that run each in a process of its own (``leg_worker``),
+#: beside this process's work: the batchpredict phase's leg 1 (no kernel)
+#: during the build; the lifecycle, the engines phase's three CLI legs
+#: and the fleet phase's orchestrated cycle while this process trains.
+#: Each has its own store and its own port (``--port`` plus its index
+#: here, or 0); they share only the card.
+BACKGROUND_LEGS = {
+    "lifecycle": lambda seed, port, work: lifecycle_phase(seed, port),
+    "ecommerce": ecommerce_leg, "similarproduct": similar_leg,
+    "recommended_user": follow_leg,
+    "orchestrate": lambda seed, port, work: fleet_orchestrate_leg(seed),
+    "bp_bench": lambda seed, port, work: bp_bench_leg()}
+#: the shapes a background leg reads, passed on in ``CHIP_SMOKE_LEGS``
+LEG_SHAPES = ("ECOMM", "SIMILAR", "FOLLOW", "ML100K", "FLEET_ORCH",
+              "EVAL_CLI", "BP_CLI", "BP_BENCH", "FOLDIN", "FEEDBACK")
 
 
-def engines_leg_worker() -> int:
-    """One CLI leg of the engines phase in a process of its own
-    (``python3 -c "import chip_smoke; chip_smoke.engines_leg_worker()"
-    NAME SEED PORT``), on the parent's device and shapes
-    (``CHIP_SMOKE_ENGINES``): the leg's store is configured in this
-    process only, and the leg's report, with its wall seconds, is the
-    last line."""
+def leg_worker() -> int:
+    """One background leg in a process of its own (``python3 -c "import
+    chip_smoke; chip_smoke.leg_worker()" NAME SEED PORT``), on the
+    parent's device and shapes (``CHIP_SMOKE_LEGS``): the leg's store is
+    configured in this process only, and the leg's report, with its
+    wall seconds, is the last line."""
     global DEV
     sys.path.insert(0, str(ROOT))
     from predictionio_tpu_torch.storage.registry import Storage
 
     name, seed, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-    parent = json.loads(os.environ["CHIP_SMOKE_ENGINES"])
+    parent = json.loads(os.environ["CHIP_SMOKE_LEGS"])
     DEV = parent.pop("device")
     for key, shape in parent.items():
         globals()[key].update(shape)
     t0 = time.perf_counter()
     try:
-        report = ENGINE_LEGS[name](seed, port, WORK / "engines" / name)
+        report = BACKGROUND_LEGS[name](seed, port, WORK / "legs" / name)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4960,35 +5043,58 @@ def engines_leg_worker() -> int:
     return 0
 
 
-def engines_cli_legs(seed: int, port: int):
-    """Leg 1 of the engines phase: the three engines through the CLI,
-    each on its own store in a process of its own, the three at once
-    (they share only the card); their output is relayed in leg order and
-    their stores removed afterwards."""
-    logs = WORK / "engines_logs"
-    shutil.rmtree(logs, ignore_errors=True)
-    logs.mkdir(parents=True)
+def start_legs(names, seed: int, port: int) -> dict:
+    """Start the named background legs, each in a process of its own
+    with a ``PIO_HOME`` of its own (a server's telemetry store takes one
+    writer); their output goes to files until ``finish_legs``."""
+    logs = WORK / "legs_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CHIP_SMOKE_LEGS=json.dumps(
+        dict({k: globals()[k] for k in LEG_SHAPES}, device=DEV)))
     procs = {}
-    out = {}
     try:
-        for k, name in enumerate(ENGINE_LEGS):
+        for name in names:
+            k = list(BACKGROUND_LEGS).index(name)
+            env["PIO_HOME"] = str(WORK / "legs_home" / name)
             with open(logs / f"{name}.out", "w") as fo, \
                     open(logs / f"{name}.err", "w") as fe:
                 procs[name] = subprocess.Popen(
                     [sys.executable, "-c", "import sys, chip_smoke; "
-                     "sys.exit(chip_smoke.engines_leg_worker())", name,
-                     str(seed), str(port + k if port else 0)],
+                     "sys.exit(chip_smoke.leg_worker())", name, str(seed),
+                     str(port + k if port else 0)],
                     cwd=str(ROOT), stdout=fo, stderr=fe,
-                    start_new_session=True, env=dict(
-                        os.environ, CHIP_SMOKE_ENGINES=json.dumps({
-                            "device": DEV, "ECOMM": ECOMM,
-                            "SIMILAR": SIMILAR, "FOLLOW": FOLLOW})))
+                    start_new_session=True, env=env)
+    except BaseException:
+        stop_legs(procs)
+        raise
+    return procs
+
+
+def stop_legs(procs: dict) -> None:
+    """Kill what is left of these background legs (a leg's servers go
+    with it) and remove their stores and logs."""
+    for name, proc in procs.items():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        shutil.rmtree(WORK / "legs" / name, ignore_errors=True)
+        shutil.rmtree(WORK / "legs_home" / name, ignore_errors=True)
+        for ext in ("out", "err"):
+            (WORK / "legs_logs" / f"{name}.{ext}").unlink(missing_ok=True)
+
+
+def finish_legs(procs: dict) -> dict:
+    """Wait for these background legs; their output relayed in leg order
+    and their reports by name."""
+    logs = WORK / "legs_logs"
+    out = {}
+    try:
         deadline = time.monotonic() + 900
         for name, proc in procs.items():
             try:
                 proc.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                check(False, f"engines: the {name} leg ran past 900 s")
+                check(False, f"legs: the {name} leg ran past 900 s")
         for name, proc in procs.items():
             lines = (logs / f"{name}.out").read_text().splitlines()
             err = (logs / f"{name}.err").read_text()
@@ -4996,16 +5102,11 @@ def engines_cli_legs(seed: int, port: int):
                 log(line)
             if err:
                 sys.stderr.write(err[-20000:])
-            check(proc.returncode == 0 and lines, f"engines: the {name} "
+            check(proc.returncode == 0 and lines, f"legs: the {name} "
                   f"leg exited {proc.returncode}: {err[-2000:]}")
             out[name] = json.loads(lines[-1])
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:       # the leg's servers go with it
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-        shutil.rmtree(WORK / "engines", ignore_errors=True)
-        shutil.rmtree(logs, ignore_errors=True)
+        stop_legs(procs)
     return out
 
 
@@ -6237,6 +6338,29 @@ def _join(threads, what: str, timeout_s: float = 600):
     check(not any(t.is_alive() for t in threads), f"{what}: clients hung")
 
 
+def _together(*fns):
+    """Call each of ``fns`` in a thread of its own, all at once; their
+    results in order. The first failure is raised once every call has
+    ended."""
+    out, errors = [None] * len(fns), []
+
+    def run(j, fn):
+        try:
+            out[j] = fn()
+        except BaseException as e:      # re-raised below, in this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(j, fn), daemon=True)
+               for j, fn in enumerate(fns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
 def _exact_answers(U, V_dev, index, answers, tag: str) -> dict:
     """(user, status, body) answers of a twostage scorer against the
     exact f32 scores on the card, the serve phase's rule: every served
@@ -7088,9 +7212,11 @@ def served_blob(users, items, U, V) -> bytes:
     return blob
 
 
-def fleet_phase(seed: int, users, items, U, V, blob: bytes) -> dict:
-    """The ``fleet`` phase: leg 2 on the serve cell's model, then legs 1
-    and 3."""
+def fleet_phase(seed: int, users, items, U, V, blob: bytes,
+                orchestrate: dict | None = None) -> dict:
+    """The ``fleet`` phase: leg 2 on the serve cell's model, then leg 1,
+    then leg 3 unless its report is given (the whole smoke runs it as a
+    background leg)."""
     t0 = time.perf_counter()
     report = {"replicas": fleet_replicas_leg(seed, users, items, U, V,
                                              blob)}
@@ -7098,7 +7224,7 @@ def fleet_phase(seed: int, users, items, U, V, blob: bytes) -> dict:
     t1 = time.perf_counter()
     report["router"] = fleet_router_leg()
     report["router"]["leg_s"] = time.perf_counter() - t1
-    report["orchestrate"] = fleet_orchestrate_leg(seed)
+    report["orchestrate"] = orchestrate or fleet_orchestrate_leg(seed)
     report["phase_s"] = time.perf_counter() - t0
     return report
 
@@ -7658,6 +7784,563 @@ def multitenant_phase(seed: int, users, items, U, V, blob: bytes,
     return report
 
 
+# ---------------------------------------------------------------------------
+# classify phase
+# ---------------------------------------------------------------------------
+
+#: leg 1: the reference bench's naive_bayes_spam (bench.py:247-255,
+#: :712-738): documents x vocabulary of Poisson counts, seed 3, 40% spam;
+#: train and predict best of ``reps``; accuracy above ``min_accuracy``
+#: (the bench's assert); log_prior / log_prob within ``tol`` of the
+#: float64 numpy recompute (bench.py:258-269)
+NB_SPAM = dict(n_docs=20_000, vocab=2_000, seed=3, spam=0.4, reps=3,
+               min_accuracy=0.9, tol=1e-5)
+#: leg 2, on the same corpus: the template's logistic regression and
+#: random forest (auto: ceil(sqrt(2000)) = 45 features a node), the
+#: forest's node arrays held to the CPU fit on the first
+#: ``forest_check_docs`` documents, logreg's W and b to the CPU run on
+#: the first ``logreg_check_docs``
+CLS_WIDTH = dict(
+    logreg=dict(iterations=200, learning_rate=0.1, reg=1e-4, seed=0),
+    forest=dict(num_trees=10, max_depth=4, max_bins=32,
+                feature_subset_strategy="auto", impurity="gini", seed=0),
+    forest_check_docs=4_000, logreg_check_docs=20_000, reps=3)
+#: logreg on the card against the port's CPU run from the same initial W:
+#: |dW|, |db| <= LOGREG_TOL * max(1, max |W|), the CPU test's tolerance
+#: (tests/test_torch_classification.py)
+LOGREG_TOL = 1e-4
+#: leg 3: the template through the CLI on the classification_app law of
+#: tests/test_engines.py:129-145 at ``users`` users; ``queries`` queries
+#: a deployed variant; ``pio eval`` with eval_k folds
+CLS_CLI = dict(users=10_000, seed=5, queries=200, eval_k=3)
+CLS_ALGOS = ("naive", "logreg", "randomforest")
+CLS_ATTRS = ("attr0", "attr1", "attr2")
+
+#: runs the port's CLI in this interpreter (``python -c _CHECKED_CLI
+#: ARGS`` is ``python -m predictionio_tpu_torch.cli.main ARGS``), then
+#: prints the jax or reference modules the process held as its last line
+_CHECKED_CLI = r"""
+import json, sys
+from predictionio_tpu_torch.cli.main import main
+try:
+    rc = main(sys.argv[1:])
+finally:
+    print("modules: " + json.dumps(sorted(
+        m for m in sys.modules
+        if any(m == t or m.startswith(t + ".")
+               for t in ("jax", "predictionio_tpu")))), flush=True)
+sys.exit(rc)
+"""
+
+
+def forbidden_modules(lines, what: str) -> None:
+    """The ``_CHECKED_CLI`` line of a process's output must name no
+    module."""
+    found = [x for x in lines if x.startswith("modules: ")]
+    check(bool(found), f"{what}: no modules line")
+    mods = json.loads(found[-1][len("modules: "):])
+    check(mods == [], f"{what} loaded {mods[:5]}")
+
+
+def nb_spam_data():
+    """bench.py's _nb_data: (X [N, V] float32 counts, labels)."""
+    import numpy as np
+
+    c = NB_SPAM
+    rng = np.random.default_rng(c["seed"])
+    labels = np.where(rng.random(c["n_docs"]) < c["spam"], "spam", "ham")
+    X = rng.poisson(
+        np.where((labels == "spam")[:, None],
+                 rng.random(c["vocab"]) * 2.0, rng.random(c["vocab"]) * 1.2)
+    ).astype(np.float32)
+    return X, labels
+
+
+def plain_row(name: str, ms: float, nbytes: float, ops: float,
+              shape: dict) -> dict:
+    """A plain-PyTorch computation's time beside its bound: the larger of
+    its bytes (each input read once, each output written once) over HBM
+    and its operations over the f32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_FLOPS * 1e3
+    return {"name": name, "ms": ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "operations": ops, "shape": shape}
+
+
+def _best_wall(fn, reps: int):
+    """(best seconds of ``reps`` calls of ``fn``, its last result); the
+    card is synchronised around each call."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def classify_nb_leg():
+    """Leg 1: multinomial NB at the spam width, the device branch."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import naive_bayes
+    from predictionio_tpu_torch.ops import device_cache
+    from predictionio_tpu_torch.utils.profiling import collect_phases
+
+    c = NB_SPAM
+    t_leg = time.perf_counter()
+    X, labels = nb_spam_data()
+    device_cache.clear()
+    phases = {}
+    synchronize()
+    t0 = time.perf_counter()
+    with collect_phases(phases):      # the cold call: compact + upload
+        model = naive_bayes.train_multinomial_nb(X, labels, device=DEV)
+        pred = model.predict(X)
+    synchronize()
+    cold_s = time.perf_counter() - t0
+    check(model.branches == {"train_device": 1, "predict_device": 1},
+          f"NB at {X.shape}: branches {dict(model.branches)}, expected "
+          "the device branch for the train and the predict")
+    train_s, model = _best_wall(
+        lambda: naive_bayes.train_multinomial_nb(X, labels, device=DEV),
+        c["reps"])
+    check(model.branches == {"train_device": 1},
+          f"NB: the timed train took {dict(model.branches)}")
+    predict_s, pred = _best_wall(lambda: model.predict(X), c["reps"])
+    check(model.branches["predict_device"] == c["reps"],
+          f"NB: the timed predicts took {dict(model.branches)}")
+    acc = float((pred == labels).mean())
+    check(acc > c["min_accuracy"], f"NB accuracy {acc}")
+    # the float64 recompute of bench.py's base_naive_bayes
+    vocab, codes = np.unique(labels, return_inverse=True)
+    counts = np.stack([X[codes == k].sum(0, dtype=np.float64)
+                       for k in range(len(vocab))])
+    prior = np.log(np.bincount(codes) / len(labels))
+    prob = np.log((counts + 1.0) / (counts + 1.0).sum(1, keepdims=True))
+    err = max(float(np.abs(model.log_prior - prior).max()),
+              float(np.abs(model.log_prob - prob).max()))
+    check(list(model.label_vocab) == list(vocab) and err <= c["tol"],
+          f"NB: log_prior/log_prob {err} from the float64 recompute")
+    # the host branch on the same values (a copy: not resident)
+    saved = naive_bayes.DEVICE_MIN_SIZE
+    naive_bayes.DEVICE_MIN_SIZE = X.size + 1
+    try:
+        X_host = X.copy()
+        host = naive_bayes.train_multinomial_nb(X_host, labels, device=DEV)
+        host_pred = host.predict(X_host)
+    finally:
+        naive_bayes.DEVICE_MIN_SIZE = saved
+    check(host.branches == {"train_host_gemm": 1, "predict_host": 1},
+          f"NB host side took {dict(host.branches)}")
+    check(bool((host_pred == pred).all()), "NB: the device branch's labels "
+          f"differ from the host branch's at "
+          f"{int((host_pred != pred).sum())} documents")
+    # the two device products alone, on the resident X
+    dev = torch.device(DEV)
+    resident = naive_bayes.resident_x(X, model.device)
+    codes_d = torch.from_numpy(codes.astype(np.int64)).to(model.device)
+    lp, pri = model.params_on(model.device)
+    n, v, n_labels = X.shape[0], X.shape[1], len(vocab)
+    count_ms = cuda_ms(lambda: naive_bayes.count_product(
+        resident, codes_d, n_labels), 20)
+    score_ms = cuda_ms(lambda: naive_bayes.score_product(
+        resident, lp, pri), 20)
+    xbytes = resident[0].numel() * resident[0].element_size()
+    rows = [plain_row("nb_count_product", count_ms,
+                      xbytes + n * 8 + n_labels * v * 4,
+                      2 * n_labels * n * v,
+                      {"N": n, "F": v, "L": n_labels,
+                       "x_dtype": str(resident[0].dtype)}),
+            plain_row("nb_score_product", score_ms,
+                      xbytes + n_labels * v * 4 + n_labels * 4
+                      + n * n_labels * 4, 2 * n * v * n_labels,
+                      {"N": n, "F": v, "L": n_labels,
+                       "x_dtype": str(resident[0].dtype)})]
+    del resident, codes_d
+    device_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"shape": list(X.shape), "device": str(dev),
+              "accuracy": acc, "train_s": train_s, "predict_s": predict_s,
+              "cold_s": cold_s,
+              "compact_s": phases.get("nb_compact", 0.0),
+              "transfer_s": phases.get("nb_transfer", 0.0),
+              "x_dtype": str(naive_bayes._compact_for_transfer(X).dtype),
+              "max_param_err": err, "rows": rows,
+              "leg_s": time.perf_counter() - t_leg}
+    log("classify: nb " + json.dumps(report))
+    return report
+
+
+def forest_walk(m, X):
+    """A forest's class codes for X, in numpy: host binning, the
+    lockstep walk of every tree, the vote (ties to the lowest code)."""
+    import numpy as np
+
+    xq = np.stack([np.searchsorted(m.thresholds[j], X[:, j], side="left")
+                   for j in range(X.shape[1])], 1)
+    n = len(X)
+    node = np.zeros((m.feat.shape[0], n), np.int64)
+    cols = np.arange(n)[None, :]
+    for d in range(m.max_depth):
+        idx = 2 ** d - 1 + node
+        f = np.take_along_axis(m.feat, idx, 1)
+        t = np.take_along_axis(m.thr, idx, 1)
+        node = node * 2 + (xq[cols, f] > t)
+    pred = np.take_along_axis(m.leaf.astype(np.int64), node, 1)
+    votes = np.zeros((n, len(m.classes)), np.int64)
+    for row in pred:
+        np.add.at(votes, (cols[0], row), 1)
+    return np.argmax(votes, 1)
+
+
+def classify_width_leg():
+    """Leg 2: logistic regression and the forest at the spam width on
+    the card, each held to the port's CPU run."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import forest, logreg
+
+    c = CLS_WIDTH
+    t_leg = time.perf_counter()
+    X, labels = nb_spam_data()
+    n, v = X.shape
+    lp = logreg.LogRegParams(**c["logreg"])
+    init = logreg.initial_W(v, 2, lp.seed)
+    synchronize()
+    t0 = time.perf_counter()
+    lr = logreg.train_logreg(X, labels, lp, device=DEV, init_W=init)
+    fit_s = time.perf_counter() - t0
+    lr_acc = float((lr.predict(X) == labels).mean())
+    upload_s, _ = _best_wall(lambda: logreg.train_logreg(
+        X, labels, logreg.LogRegParams(**dict(c["logreg"], iterations=0)),
+        device=DEV, init_W=init), c["reps"])
+    steps_s, _ = _best_wall(lambda: logreg.train_logreg(
+        X, labels, lp, device=DEV, init_W=init), c["reps"])
+    step_ms = (steps_s - upload_s) / lp.iterations * 1e3
+    k = c["logreg_check_docs"]
+    t0 = time.perf_counter()
+    cpu = logreg.train_logreg(X[:k], labels[:k], lp, device="cpu",
+                              init_W=init)
+    cpu_s = time.perf_counter() - t0
+    card = lr if k == n else logreg.train_logreg(
+        X[:k], labels[:k], lp, device=DEV, init_W=init)
+    scale = max(1.0, float(np.abs(cpu.W).max()))
+    lr_err = max(float(np.abs(card.W - cpu.W).max()),
+                 float(np.abs(card.b - cpu.b).max()))
+    check(lr_err <= LOGREG_TOL * scale, f"logreg on the card: W/b "
+          f"{lr_err} from the CPU run (tolerance {LOGREG_TOL * scale})")
+    logreg_row = plain_row(
+        "logreg_adam_step", step_ms, n * v * 4 + n * 8 + 4 * (v * 2 + 2),
+        2 * (2 * n * v * 2), {"N": n, "F": v, "L": 2})
+
+    fp = forest.ForestParams(**c["forest"])
+    levels = []
+    synchronize()
+    t0 = time.perf_counter()
+    fm = forest.train_forest(X, labels, fp, device=DEV, timings=levels)
+    forest_fit_s = time.perf_counter() - t0
+    predict_s, codes = _best_wall(lambda: fm.predict_codes(X), c["reps"])
+    f_acc = float((fm.classes[codes] == labels).mean())
+    walk = forest_walk(fm, X)
+    check(bool((walk == codes).all()), f"forest: the card's votes differ "
+          f"from a numpy walk of its trees at {int((walk != codes).sum())}"
+          " documents")
+    k = c["forest_check_docs"]
+    t0 = time.perf_counter()
+    f_cpu = forest.train_forest(X[:k], labels[:k], fp, device="cpu")
+    forest_cpu_s = time.perf_counter() - t0
+    f_card = forest.train_forest(X[:k], labels[:k], fp, device=DEV)
+    for field in ("thresholds", "feat", "thr", "leaf"):
+        check(np.array_equal(getattr(f_card, field), getattr(f_cpu, field)),
+              f"forest: the card's {field} differ from the CPU fit's on "
+              f"{k} documents")
+    # one level's histogram alone at the deepest level's shape (node ids
+    # drawn uniformly over the level's 8 nodes)
+    xq = fm.binize(X)                  # the fit's own bins
+    boot, _ = forest.draw_bags(n, v, fp)
+    width = 2 ** (fp.max_depth - 1)
+    g = torch.Generator().manual_seed(1)
+    dev = fm._on_device()[0].device
+    xq_d = torch.from_numpy(xq.astype(np.uint8)).to(dev)
+    y_d = torch.from_numpy(np.unique(labels, return_inverse=True)[1]
+                           .astype(np.int64)).to(dev)
+    boot_d = torch.from_numpy(boot.astype(np.int64)).to(dev)
+    node_d = torch.randint(0, width, boot.shape, generator=g).to(dev)
+    hist_ms = cuda_ms(lambda: forest._level_histogram(
+        xq_d, y_d, boot_d, node_d, width, fp.max_bins, 2), 5)
+    t_all = fp.num_trees
+    cells = t_all * width * v * fp.max_bins * 2
+    hist_row = plain_row(
+        "forest_level_histogram", hist_ms,
+        n * v + n * 8 + 2 * t_all * n * 8 + cells * 8, t_all * n * v,
+        {"T": t_all, "N": n, "F": v, "B": fp.max_bins, "C": 2,
+         "width": width})
+    del xq_d, y_d, boot_d, node_d
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {
+        "logreg": {"fit_s": fit_s, "accuracy": lr_acc, "step_ms": step_ms,
+                   "upload_s": upload_s,
+                   "cpu_check_docs": c["logreg_check_docs"], "cpu_s": cpu_s,
+                   "max_abs_err": lr_err, "tolerance": LOGREG_TOL * scale},
+        "forest": {"fit_s": forest_fit_s, "predict_s": predict_s,
+                   "accuracy": f_acc, "level_histogram_s": levels,
+                   "cpu_check_docs": c["forest_check_docs"],
+                   "cpu_fit_s": forest_cpu_s,
+                   "features_a_node": int(forest._subset_size(
+                       fp.feature_subset_strategy, v))},
+        "rows": [logreg_row, hist_row],
+        "leg_s": time.perf_counter() - t_leg}
+    log("classify: width " + json.dumps(report))
+    return report
+
+
+def cls_recompute(m, X):
+    """The labels a stored classifier gives the rows of X, in numpy."""
+    import numpy as np
+
+    kind = type(m).__name__
+    if kind == "MultinomialNBModel":
+        return m.label_vocab[np.argmax(
+            X @ m.log_prob.T + m.log_prior[None, :], 1)]
+    if kind == "LogRegModel":
+        return m.label_vocab[np.argmax(X @ m.W + m.b, 1)]
+    return m.classes[forest_walk(m, X)]
+
+
+_CLS_EVAL_MODULE = """
+from predictionio_tpu_torch.core.evaluation import Evaluation
+from predictionio_tpu_torch.core.params import EngineParams
+from predictionio_tpu_torch.engines.classification import (
+    Accuracy, DataSourceParams, default_engine_params, engine,
+)
+
+evaluation = Evaluation(engine=engine(), metric=Accuracy(), output_path=BEST)
+evaluation.engine_params_list = [EngineParams(
+    data_source_params=DataSourceParams(app_name=APP, eval_k=EVAL_K),
+    algorithm_params_list=default_engine_params(
+        APP, a).algorithm_params_list) for a in ALGOS]
+"""
+
+
+def classify_cli_leg(seed: int):
+    """Leg 3: the classification template through the CLI: events over
+    the event server, ``template get``, three trains at once, three
+    deploys and one ``eval`` at once; every process's modules checked."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.ingest import aggregate_scan
+    from predictionio_tpu_torch.obs.registry import default_registry
+
+    c = CLS_CLI
+    work = WORK / "classify"
+    env = smoke_store(work)
+    env = dict(env, PIO_HOME=str(work / "home"), PYTHONPATH=os.pathsep.join(
+        [str(work), str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p]))
+    app = "ClsApp"
+    servers = []
+    eval_proc = None
+    t_leg = time.perf_counter()
+    try:
+        events_srv = Server(["eventserver", "--ip", "127.0.0.1", "--port",
+                             "0"], env, tag="classify")
+        servers.append(events_srv)
+        es_port = events_srv.wait_ready(timeout_s=120)
+        out = _cli(["app", "new", app], env)
+        key = next(x for x in out if "Access Key:" in x).split()[-1]
+        rng = np.random.default_rng(c["seed"])
+        wire = []
+        for i in range(c["users"]):
+            a0 = float(rng.integers(0, 8))
+            a1 = float(rng.integers(0, 8))
+            a2 = float(rng.integers(0, 4))
+            wire.append({"event": "$set", "entityType": "user",
+                         "entityId": f"u{i}", "properties": {
+                             "plan": 1.0 if a0 > a1 else 0.0, "attr0": a0,
+                             "attr1": a1, "attr2": a2}})
+        _ids, ingest_lat, ingest_s = ingest(es_port, key, wire)
+        out = _cli(["template", "get", "classification",
+                    str(work / "tpl")], env)
+        template = json.loads((work / "tpl" / "engine.json").read_text())
+        check(template["algorithms"][0]["name"] == "naive",
+              f"template get classification: {template}")
+        variants = {}
+        for algo in CLS_ALGOS:
+            variants[algo] = work / f"{algo}.json"
+            variants[algo].write_text(json.dumps(dict(
+                template, id=algo,
+                engineFactory=reference_factory("classification"),
+                datasource={"params": {"appName": app}},
+                algorithms=[{"name": algo, "params": {}}])))
+
+        # the eval and the three trains at once (the eval reads the
+        # store only)
+        t0 = time.perf_counter()
+        best = work / "best.json"
+        (work / "cls_eval.py").write_text(
+            f"BEST = {str(best)!r}\nAPP = {app!r}\n"
+            f"EVAL_K = {c['eval_k']}\nALGOS = {CLS_ALGOS!r}\n"
+            + _CLS_EVAL_MODULE)
+        # its output to files: nothing reads it until the queries end
+        with open(work / "eval.out", "w") as fo, \
+                open(work / "eval.err", "w") as fe:
+            eval_proc = subprocess.Popen(
+                [sys.executable, "-c", _CHECKED_CLI, "eval",
+                 "cls_eval:evaluation", "--device", DEV], cwd=str(ROOT),
+                env=env, stdout=fo, stderr=fe)
+        procs = {a: subprocess.Popen(
+            [sys.executable, "-c", _CHECKED_CLI, "train", "--variant",
+             str(variants[a]), "--device", DEV], cwd=str(ROOT), env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for a in CLS_ALGOS}
+        trains = {}
+        for a, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"classify: train {a} exited "
+                  f"{proc.returncode}: {out[-1000:]} {err[-2000:]}")
+            lines = out.strip().splitlines()
+            forbidden_modules(lines, f"classify: the {a} train")
+            trains[a] = json.loads(lines[-2])
+        trains_s = time.perf_counter() - t0
+        log("classify: trains " + json.dumps(trains))
+        check(trains["naive"]["labels"] == 2
+              and trains["randomforest"]["trees"] == 10,
+              f"classify: trained {[trains[a]['models'] for a in trains]}")
+        models = {a: _stored_models(trains[a]["instance"])[0]
+                  for a in CLS_ALGOS}
+
+        # three deploys at once
+        t1 = time.perf_counter()
+        # each deploy its own PIO_HOME (its telemetry store)
+        deploys = {a: Server(["deploy", "--variant", str(variants[a]),
+                              "--ip", "127.0.0.1", "--port", "0",
+                              "--device", DEV],
+                             dict(env, PIO_HOME=str(work / f"home-{a}")),
+                             tag=f"classify {a}", checked=True)
+                   for a in CLS_ALGOS}
+        servers.extend(deploys.values())
+        ports = {a: srv.wait_ready(timeout_s=300)
+                 for a, srv in deploys.items()}
+        deploy_s = time.perf_counter() - t1
+        qrng = np.random.default_rng(seed + 70)
+        Q = np.stack([qrng.integers(0, 8, c["queries"]),
+                      qrng.integers(0, 8, c["queries"]),
+                      qrng.integers(0, 4, c["queries"])], 1).astype(
+            np.float32)
+        answered = {}
+        for a in CLS_ALGOS:
+            want = [float(x) for x in cls_recompute(models[a], Q)]
+            client = Client(ports[a])
+            lat = []
+            for q, w in zip(Q.tolist(), want):
+                status, body, dt = client.call(
+                    "POST", "/queries.json", dict(zip(CLS_ATTRS, q)))
+                check(status == 200 and body == {"label": w},
+                      f"classify: {a} answered {status} {body} to {q}, "
+                      f"the stored model says {w}")
+                lat.append(dt * 1e3)
+            status, _, _ = client.call("POST", "/stop")
+            check(status == 200 and deploys[a].proc.wait(timeout=60) == 0,
+                  f"classify: the {a} deploy did not stop")
+            answered[a] = {"latency": _lat(lat),
+                           "labels": sorted(set(want))}
+        for a, srv in deploys.items():
+            while srv.lines.get(timeout=30) != "":
+                pass
+            forbidden_modules([x.rstrip() for x in srv.history],
+                              f"classify: the {a} deploy")
+        eval_proc.wait(timeout=600)
+        out = (work / "eval.out").read_text()
+        err = (work / "eval.err").read_text()
+        check(eval_proc.returncode == 0, f"classify: eval exited "
+              f"{eval_proc.returncode}: {out[-1000:]} {err[-2000:]}")
+        lines = out.strip().splitlines()
+        forbidden_modules(lines, "classify: the eval")
+        evaluated = json.loads(lines[-2])
+        scores = [s for s, _ in evaluated["scores"]]
+        check(evaluated["candidates"] == 3 and all(0 < s <= 1
+                                                   for s in scores)
+              and scores[1] > 0.85 and best.exists(),
+              f"classify: eval scores {scores}")
+        cli_s = time.perf_counter() - t0
+
+        # this process: an unchanged app hits the scan cache, a new
+        # event misses it
+        reg = default_registry()
+
+        def cache_counts():
+            return tuple(
+                (reg.get(f"pio_ingest_cache_{k}_total").value(app=app)
+                 if reg.get(f"pio_ingest_cache_{k}_total") is not None
+                 and reg.get(f"pio_ingest_cache_{k}_total").contains(
+                     app=app) else 0.0) for k in ("hits", "misses"))
+
+        required = ["plan", *CLS_ATTRS]
+        c0 = cache_counts()
+        first = aggregate_scan(app, "user", required=required)
+        c1 = cache_counts()
+        again = aggregate_scan(app, "user", required=required)
+        c2 = cache_counts()
+        check(c1[1] - c0[1] == 1 and c2[0] - c1[0] == 1
+              and c2[1] == c1[1] and set(again) == set(first),
+              f"classify: scan cache counts {c0} {c1} {c2}")
+        status, _, _ = Client(es_port).call(
+            "POST", f"/events.json?accessKey={key}",
+            {"event": "$set", "entityType": "user",
+             "entityId": f"u{c['users']}", "properties": {
+                 "plan": 1.0, "attr0": 5.0, "attr1": 1.0, "attr2": 0.0}})
+        check(status == 201, f"classify: one more event answered {status}")
+        after = aggregate_scan(app, "user", required=required)
+        c3 = cache_counts()
+        check(c3[1] - c2[1] == 1 and c3[0] == c2[0]
+              and len(after) == len(first) + 1,
+              f"classify: after one more event {c2} -> {c3}, "
+              f"{len(after)} users")
+        report = {"users": c["users"], "ingest_s": ingest_s,
+                  "ingest_latency": _lat(ingest_lat), "trains": trains,
+                  "trains_s": trains_s, "deploys_up_s": deploy_s,
+                  "answered": answered, "eval": evaluated,
+                  "trains_deploys_queries_eval_s": cli_s,
+                  "scan_cache": {"smoke": {"before": c0, "first": c1,
+                                           "again": c2, "after_event": c3},
+                                 "eval": evaluated["ingest"]},
+                  "leg_s": time.perf_counter() - t_leg}
+        log("classify: cli " + json.dumps(report))
+        return report
+    finally:
+        for srv in servers:
+            srv.stop()
+        if eval_proc is not None and eval_proc.poll() is None:
+            eval_proc.kill()
+            eval_proc.wait()
+        from predictionio_tpu_torch.storage.registry import Storage
+
+        Storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def classify_phase(seed: int) -> dict:
+    """The ``classify`` phase: NB at the spam width (leg 1), logistic
+    regression and the forest on the same corpus (leg 2), the template
+    through the CLI (leg 3)."""
+    from predictionio_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    report = {"nb": classify_nb_leg(), "width": classify_width_leg()}
+    report["cli"] = classify_cli_leg(seed)
+    report["launches"] = kernels.counts()
+    report["rows"] = report["nb"]["rows"] + report["width"]["rows"]
+    report["phase_s"] = time.perf_counter() - t0
+    return report
+
+
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
              canary, engines, evals, fleet) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
@@ -7742,9 +8425,12 @@ def partial_run(args, shape) -> int:
     """``--only``: the named phases after the kernels phase, for
     debugging on the card; no kernels line and no result."""
     phases = set(args.only.split(","))
-    bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant"}
+    bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant",
+                    "classify"}
     check(not bad, f"--only takes serve, obs, lifecycle, fleet, "
-          f"multitenant; got {sorted(bad)}")
+          f"multitenant, classify; got {sorted(bad)}")
+    if "classify" in phases:
+        log("classify: " + json.dumps(classify_phase(args.seed)))
     cli = None
     if "lifecycle" in phases:
         cli = lifecycle_phase(args.seed, args.port)["multiserve_cli"]
@@ -7780,9 +8466,9 @@ def main() -> int:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
                     help="run only these of serve, obs, lifecycle, fleet, "
-                         "multitenant after the build and the kernels "
-                         "phase (a partial run: it prints no result and "
-                         "exits 4)")
+                         "multitenant, classify after the build and the "
+                         "kernels phase (a partial run: it prints no "
+                         "result and exits 4)")
     args = ap.parse_args()
     if args.items < 1 << 22:
         ap.error("--items below 4194304 is not a cut this smoke allows")
@@ -7808,9 +8494,19 @@ def main() -> int:
         name = torch.cuda.get_device_name(0)
         log(f"env: {card} | torch {torch.__version__} | CUDA "
             f"{torch.version.cuda} | device {name}")
-        # 2. build
+        # 2. build, and meanwhile the batchpredict phase's leg 1 (no
+        #    kernel) in a process of its own
         t0 = time.perf_counter()
-        logs = kernels.build_all()
+        if args.only:
+            logs = kernels.build_all()
+        else:
+            bench_leg = start_legs(["bp_bench"], args.seed, args.port)
+            try:
+                logs = kernels.build_all()
+            except BaseException:
+                stop_legs(bench_leg)
+                raise
+        build_s = time.perf_counter() - t0
         for src, out in logs.items():
             for line in out.splitlines():
                 # ptxas: each instantiation's mangled name (its template
@@ -7819,8 +8515,20 @@ def main() -> int:
                                            "registers", "spill")) \
                         or "error" in line.lower():
                     log(f"build: {src}: {line.strip()}")
-        log(f"build: {sorted(logs) or 'cached'} in "
-            f"{time.perf_counter() - t0:.3f} s")
+        log(f"build: {sorted(logs) or 'cached'} in {build_s:.3f} s")
+        if not args.only:
+            bp_bench = finish_legs(bench_leg)["bp_bench"]
+            log(f"build: with batchpredict leg 1 beside it "
+                f"{time.perf_counter() - t0:.3f} s")
+            # 15. classify: naive Bayes, logistic regression and the
+            #     forest at the spam width, then the template through the
+            #     CLI; no kernel of the repo lies on its path
+            classify = classify_phase(args.seed)
+            check(not any(classify["launches"].values()),
+                  f"classify: launched {classify['launches']}")
+            log("classify: " + json.dumps(classify))
+            gc.collect()
+            torch.cuda.empty_cache()
         # 3. kernels
         rows, max_err, shape = kernels_phase(args.seed, args.items)
         if args.only:
@@ -7829,43 +8537,62 @@ def main() -> int:
         eng_rows, eng_err = kernels_engine_shapes(args.seed)
         tie_rows = kernels_tie_rows(args.seed)
         spd_rows, spd_err = spd_kernels_phase(args.seed)
-        # 4. train (the training path: counts zeroed just before each
-        #    train, read just after)
-        t0 = time.perf_counter()
-        train, held = train_phase(spd_rows)
-        log(f"train: phase took {time.perf_counter() - t0:.3f} s")
-        # 9. engines, leg 2 (the width leg) on the train phase's arrays
-        t0 = time.perf_counter()
-        eng_width = engines_width_leg(args.seed, held)
-        log(f"engines: width leg took {time.perf_counter() - t0:.3f} s")
-        # 10. eval, legs 2 (on the train phase's arrays) and 1; leg 3
-        #     runs inside the lifecycle (the CLI's processes count)
-        t0 = time.perf_counter()
-        eval_width = eval_width_leg(held)
-        del held
-        gc.collect()
-        torch.cuda.empty_cache()
-        eval_grid = eval_grid_leg()
-        eval_legs_s = time.perf_counter() - t0
-        log(f"eval: legs 1-2 took {eval_legs_s:.3f} s")
-        # 5. lifecycle (the train CLI's process counts its own launches)
-        t0 = time.perf_counter()
-        lifecycle = lifecycle_phase(args.seed, args.port)
-        log(f"lifecycle: phase took {time.perf_counter() - t0:.3f} s")
+        # 5, 9 (leg 1) and 13 (leg 3): the lifecycle (its CLI processes
+        #    count their own launches), the three engines through the CLI
+        #    and an orchestrated cycle, each in a process of its own,
+        #    while this process runs phases 4, 9 (leg 2), 10 (legs 1-2)
+        #    and 6 (leg 2)
+        t_legs = time.perf_counter()
+        legs = start_legs(["lifecycle", "ecommerce", "similarproduct",
+                           "recommended_user", "orchestrate"], args.seed,
+                          args.port)
+        try:
+            # 4. train (the training path: counts zeroed just before
+            #    each train, read just after)
+            t0 = time.perf_counter()
+            train, held = train_phase(spd_rows)
+            log(f"train: phase took {time.perf_counter() - t0:.3f} s")
+            # 9. engines, leg 2 (the width leg) on the train phase's
+            #    arrays
+            t0 = time.perf_counter()
+            eng_width = engines_width_leg(args.seed, held)
+            log(f"engines: width leg took {time.perf_counter() - t0:.3f} s")
+            # 10. eval, legs 2 (on the train phase's arrays) and 1; leg 3
+            #     runs inside the lifecycle (the CLI's processes count)
+            t0 = time.perf_counter()
+            eval_width = eval_width_leg(held)
+            del held
+            gc.collect()
+            torch.cuda.empty_cache()
+            eval_grid = eval_grid_leg()
+            eval_legs_s = time.perf_counter() - t0
+            log(f"eval: legs 1-2 took {eval_legs_s:.3f} s")
+            # 6. foldin, leg 2, on the serve cell's model (built once,
+            #    here); leg 1 runs inside the lifecycle (its deploy
+            #    process counts)
+            t0 = time.perf_counter()
+            served = build_model(args.seed, args.items, SERVE_USERS,
+                                 SERVE_RANK)
+            log(f"foldin: serve cell's model built in "
+                f"{time.perf_counter() - t0:.3f} s")
+            t0 = time.perf_counter()
+            width = foldin_width_leg(args.seed, *served)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"foldin: width leg took {time.perf_counter() - t0:.3f} s")
+        except BaseException:
+            stop_legs(legs)
+            raise
+        background = finish_legs(legs)
+        lifecycle = background.pop("lifecycle")
+        legs_s = time.perf_counter() - t_legs
+        log(f"lifecycle: phase took {lifecycle['leg_s']:.3f} s; with the "
+            f"train, engines, eval and fold-in legs beside it "
+            f"{legs_s:.3f} s")
         evals = {"grid": eval_grid, "width": eval_width,
                  "cli": lifecycle["eval_cli"], "legs_1_2_s": eval_legs_s}
         log("eval: " + json.dumps(evals))
-        # 6. foldin, leg 2, on the serve cell's model (built once, here);
-        #    leg 1 ran inside the lifecycle (its deploy process counted)
-        t0 = time.perf_counter()
-        served = build_model(args.seed, args.items, SERVE_USERS, SERVE_RANK)
-        log(f"foldin: serve cell's model built in "
-            f"{time.perf_counter() - t0:.3f} s")
-        t0 = time.perf_counter()
-        width = foldin_width_leg(args.seed, *served)
-        gc.collect()
-        torch.cuda.empty_cache()
-        log(f"foldin: width leg took {time.perf_counter() - t0:.3f} s")
+        # 6. foldin: B1 alone at the shapes both legs' applies gave it
         shapes = [(r["K"], r["S"]) for split in (
             lifecycle["foldin"]["apply_split"], width["apply_split"],
             width["item_fold"]["apply_split"])
@@ -7889,16 +8616,18 @@ def main() -> int:
         canary["phase_s"] = time.perf_counter() - t0
         log("canary: " + json.dumps(canary))
         # 11. batchpredict, leg 2 on the serve cell's model (its last
-        #     user), then leg 1; leg 3 ran inside the lifecycle
+        #     user); leg 1 ran beside the build, leg 3 inside the
+        #     lifecycle
         t0 = time.perf_counter()
         bp_width = bp_width_leg(args.seed, *served)
         bp_s = time.perf_counter() - t0
         # 13. fleet: a router over replicas of the same model (leg 2),
-        #     the router tier alone (leg 1), an orchestrated cycle
-        #     (leg 3); each replica and the orchestrator count their own
-        #     launches
+        #     the router tier alone (leg 1); leg 3, an orchestrated cycle,
+        #     ran beside the train phase; each replica and the
+        #     orchestrator count their own launches
         blob = served_blob(*served)
-        fleet = fleet_phase(args.seed, *served, blob)
+        fleet = fleet_phase(args.seed, *served, blob,
+                            orchestrate=background.pop("orchestrate"))
         log("fleet: " + json.dumps(fleet))
         # 14. multitenant: two tenants over the same model (leg 2), the
         #     reference bench's three families (leg 1); leg 3 ran inside
@@ -7908,18 +8637,15 @@ def main() -> int:
         log("multitenant: " + json.dumps(multitenant))
         del served, blob
         gc.collect()
-        t0 = time.perf_counter()
-        bp_bench = bp_bench_leg()
         batchpredict = {"width": bp_width, "bench": bp_bench,
                         "cli": lifecycle["batchpredict_cli"],
                         "kernel_rows": chunk_rows,
-                        "legs_1_2_s": bp_s + time.perf_counter() - t0}
+                        "legs_1_2_s": bp_s + bp_bench["leg_s"]}
         log("batchpredict: " + json.dumps(batchpredict))
-        # 9. engines, leg 1: the three engines through the CLI
-        t0 = time.perf_counter()
-        engines = engines_cli_legs(args.seed, args.port)
-        engines.update(eng_width)
-        engines["cli_legs_s"] = time.perf_counter() - t0
+        # 9. engines, leg 1 (the three engines through the CLI) ran
+        #    beside the train phase
+        engines = dict(background, **eng_width)
+        engines["legs_window_s"] = legs_s
         log("engines: " + json.dumps(engines))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

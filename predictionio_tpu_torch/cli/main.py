@@ -8,6 +8,8 @@ click), with the reference's commands, flags and exit codes:
         [--key K] [--event NAME ...]
     python -m predictionio_tpu_torch.cli.main accesskey list [APP]
     python -m predictionio_tpu_torch.cli.main eventserver [--ip] [--port 7070]
+    python -m predictionio_tpu_torch.cli.main template list
+    python -m predictionio_tpu_torch.cli.main template get NAME [DIRECTORY]
     python -m predictionio_tpu_torch.cli.main import --appname APP
         [--channel C] --input events.jsonl
     python -m predictionio_tpu_torch.cli.main train [-v engine.json]
@@ -44,16 +46,18 @@ click), with the reference's commands, flags and exit codes:
     python -m predictionio_tpu_torch.cli.main status [--fleet PATH]
 
 The engine.json's ``engineFactory`` names one of the ported engines
-(recommendation, ecommerce, similarproduct, recommended_user) by the
-reference's factory string or the port's own.
+(recommendation, ecommerce, similarproduct, recommended_user,
+classification) by the reference's factory string or the port's own.
+``template get NAME`` scaffolds an engine.json for one of them.
 
 ``train`` runs ``workflow.train.run_train``: an EngineInstance (INIT,
 then COMPLETED), the model blob in the model store under its id, and the
 variant's next release; it prints one JSON line — users, items, nnz and
-rank of the first algorithm's model (null where its kind has none) and
-each model's, the seconds of the whole train (event read and records
+rank, or labels, features and trees, of the first algorithm's model
+(null where its kind has none) and each model's, the seconds of the whole train (event read and records
 included) and of the host-side data build, the kernel launch counts,
-the instance id and the release version. ``--out`` also writes the
+the training read's scan-cache hits and misses, the instance id and the
+release version. ``--out`` also writes the
 first model as an ``.npz`` file.
 
 ``eval`` runs ``workflow.evaluate.run_evaluation``: the evaluation
@@ -63,8 +67,9 @@ factory) over its own params list or the generator's, crossed with the
 EVALFAILED) and the best variant's ``best.json``. It prints the
 reference's lines, then one JSON line: the sweep's mode, groups, units
 per launch and seconds, the best candidate and its score, the kernel
-launch counts and the wall seconds. ``--sequential`` forces the
-per-candidate loop (``PIO_EVAL_VECTORIZE=0``).
+launch counts, the scan-cache hits and misses and the wall seconds.
+``--sequential`` forces the per-candidate loop
+(``PIO_EVAL_VECTORIZE=0``).
 
 ``deploy`` serves the latest COMPLETED instance of the variant, or
 ``--engine-instance-id``, or a release (``--release`` id, ``3`` or
@@ -132,7 +137,7 @@ from typing import List, Optional
 
 #: the engines the port serves, by module name under ``engines``
 _ENGINES = ("recommendation", "ecommerce", "similarproduct",
-            "recommended_user")
+            "recommended_user", "classification")
 
 
 def _fail(msg: str) -> None:
@@ -163,17 +168,44 @@ def _engine_of(variant: dict):
 
 def _model_summary(model) -> dict:
     """Sizes of a trained or loaded model of any ported engine (None
-    where the kind has no such side)."""
+    where the kind has no such side): users, items and rank of an ALS
+    model; labels, features and trees of a classifier."""
     inner = getattr(model, "model", model)      # cooccurrence wraps one
     users = getattr(inner, "user_vocab", None)
     items = getattr(inner, "item_vocab", None)
     V = getattr(model, "V", None)
+    labels = getattr(model, "label_vocab", getattr(model, "classes", None))
+    feat = getattr(model, "feat", None)
     info = getattr(model, "train_info", None) or {}
+    # a forest's thresholds [F, B-1], NB's log_prob [L, F], logreg's W [F, L]
+    features = None
+    if hasattr(model, "thresholds"):
+        features = int(model.thresholds.shape[0])
+    elif hasattr(model, "log_prob"):
+        features = int(model.log_prob.shape[1])
+    elif hasattr(model, "W"):
+        features = int(model.W.shape[0])
     return {"kind": type(model).__name__,
             "users": None if users is None else len(users),
             "items": None if items is None else len(items),
             "rank": None if V is None else int(V.shape[1]),
+            "labels": None if labels is None else len(labels),
+            "features": features,
+            "trees": None if feat is None else int(feat.shape[0]),
             "nnz": info.get("nnz"), "build_s": info.get("build_s")}
+
+
+def _ingest_counts() -> dict:
+    """This process's training-read cache hits and misses
+    (``pio_ingest_cache_{hits,misses}_total``, summed over apps)."""
+    from predictionio_tpu_torch.obs.registry import default_registry
+
+    out = {}
+    for key in ("hits", "misses"):
+        metric = default_registry().get(f"pio_ingest_cache_{key}_total")
+        out[key] = 0 if metric is None else int(
+            sum(v for _labels, v in metric.samples()))
+    return out
 
 
 def _load_variant(path: str):
@@ -187,6 +219,73 @@ def _load_variant(path: str):
     engine = _engine_of(variant)
     engine_id = variant.get("engineFactory") or type(engine).__name__
     return engine, variant, engine_id, variant.get("id", "default")
+
+
+# -- engine templates (Console.scala:595-605) --------------------------------
+
+#: the templates of the ported engines: name -> (engine module, datasource
+#: params, algorithms) of the engine.json ``template get`` scaffolds
+_TEMPLATES = {
+    "recommendation": ("recommendation", {"app_name": "MyApp"},
+                       [{"name": "als",
+                         "params": {"rank": 10, "num_iterations": 20,
+                                    "reg": 0.01, "seed": 3}}]),
+    "similarproduct": ("similarproduct", {"app_name": "MyApp"},
+                       [{"name": "als",
+                         "params": {"rank": 10, "num_iterations": 20}}]),
+    "classification": ("classification", {"app_name": "MyApp"},
+                       [{"name": "naive", "params": {"reg": 1.0}}]),
+    "ecommerce": ("ecommerce", {"app_name": "MyApp"},
+                  [{"name": "ecomm",
+                    "params": {"app_name": "MyApp", "rank": 10}}]),
+    "recommendeduser": ("recommended_user", {"app_name": "MyApp"},
+                        [{"name": "als",
+                          "params": {"rank": 10, "num_iterations": 20}}]),
+}
+
+
+def _template_factory(module: str) -> str:
+    return f"predictionio_tpu_torch.engines.{module}:engine"
+
+
+def template_list(_args) -> int:
+    """The built-in engine templates and their engineFactory."""
+    for name, (module, _ds, _algos) in _TEMPLATES.items():
+        print(f"[INFO] {name:<16} {_template_factory(module)}")
+    sys.stdout.flush()
+    return 0
+
+
+def template_get(args) -> int:
+    """Scaffold ``DIRECTORY/engine.json`` (default: a directory named
+    after the template) for a built-in template; the write is atomic."""
+    if args.name not in _TEMPLATES:
+        _fail(f"Unknown template {args.name}. "
+              f"Known: {', '.join(_TEMPLATES)}")
+    module, ds_params, algos = _TEMPLATES[args.name]
+    target_dir = args.directory or args.name
+    os.makedirs(target_dir, exist_ok=True)
+    target = os.path.join(target_dir, "engine.json")
+    # temp-write + rename: a crash leaves the previous file or none,
+    # never half of one
+    tmp = f"{target}.tmp-{os.getpid()}"
+    try:
+        with open(tmp, "w") as f:
+            json.dump({"id": "default",
+                       "description": f"{args.name} engine",
+                       "engineFactory": _template_factory(module),
+                       "datasource": {"params": ds_params},
+                       "algorithms": algos}, f, indent=2)
+        os.replace(tmp, target)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    print(f"[INFO] Engine template {args.name} written to {target}",
+          flush=True)
+    return 0
 
 
 # -- apps and keys (commands/App.scala, commands/AccessKey.scala) -----------
@@ -378,11 +477,13 @@ def train(args) -> int:
     print(json.dumps({
         "users": summary["users"], "items": summary["items"],
         "nnz": summary["nnz"], "rank": summary["rank"],
+        "labels": summary["labels"], "features": summary["features"],
+        "trees": summary["trees"],
         "device": str(ctx.device), "train_s": train_s,
         "build_s": summary["build_s"],
         "models": [_model_summary(m) for m in result.models],
-        "launches": kernels.counts(), "out": args.out,
-        "instance": instance.id,
+        "launches": kernels.counts(), "ingest": _ingest_counts(),
+        "out": args.out, "instance": instance.id,
         "release": release.version if release else None}), flush=True)
     return 0
 
@@ -497,7 +598,7 @@ def eval_cmd(args) -> int:
         "best_params": result.best_engine_params.to_json_dict(),
         "scores": [[s, o] for _ep, s, o in result.engine_params_scores],
         "device": str(ctx.device), "launches": kernels.counts(),
-        "eval_s": eval_s}), flush=True)
+        "ingest": _ingest_counts(), "eval_s": eval_s}), flush=True)
     return 0
 
 
@@ -592,9 +693,14 @@ def deploy(args) -> int:
     scfg = scorer_config(variant.get("scorer"))
     fic = foldin_config(variant.get("foldin"))
     summary = _model_summary(model)
-    print(f"[INFO] Loaded {instance.id}: {summary['kind']}, "
-          f"{summary['users']} users x {summary['items']} items, rank "
-          f"{summary['rank']}, on {getattr(model, 'device', None)} "
+    shape = (f"{summary['labels']} labels x {summary['features']} "
+             f"features" + (f", {summary['trees']} trees"
+                            if summary["trees"] else "")
+             if summary["labels"] is not None else
+             f"{summary['users']} users x {summary['items']} items, rank "
+             f"{summary['rank']}")
+    print(f"[INFO] Loaded {instance.id}: {summary['kind']}, {shape}, on "
+          f"{getattr(model, 'device', None)} "
           f"({time.perf_counter() - t0:.3f} s)", flush=True)
     # durable telemetry (env > engine.json "telemetry" > server.json;
     # PIO_TELEMETRY=0 off) in the store query_server-<port>, and the
@@ -1356,6 +1462,17 @@ def build_parser() -> argparse.ArgumentParser:
     k = keys.add_parser("list", help="list access keys")
     k.add_argument("app_name", nargs="?", default=None)
     k.set_defaults(func=accesskey_list)
+
+    tp = sub.add_parser("template", help="engine templates"
+                        ).add_subparsers(dest="template_command",
+                                         required=True)
+    tp.add_parser("list", help="list the built-in engine templates"
+                  ).set_defaults(func=template_list)
+    tg = tp.add_parser("get", help="scaffold an engine.json for a "
+                                   "built-in template")
+    tg.add_argument("name")
+    tg.add_argument("directory", nargs="?", default=None)
+    tg.set_defaults(func=template_get)
 
     e = sub.add_parser("eventserver", help="serve the event REST API")
     e.add_argument("--ip", default="localhost")

@@ -1,6 +1,5 @@
 """App-name-facing event store facade (port of the reference's
-``data/eventstore.py``, with the single-process training read of
-``data/ingest.py``: ``training_scan`` + ``event_columns``).
+``data/eventstore.py``; its training read is ``data/ingest``'s).
 
 App name (+ channel name) -> (app_id, channel_id) resolution is cached,
 as in store/Common.scala:25-60. The multi-process sharded read belongs
@@ -49,8 +48,13 @@ def resolve_app(app_name: str, channel_name: Optional[str] = None
 
 
 def clear_cache() -> None:
+    """Forget the app/channel resolutions and the cached training
+    reads."""
     with _channel_cache_lock:
         _channel_cache.clear()
+    from predictionio_tpu_torch.data.ingest import clear_scan_cache
+
+    clear_scan_cache()
 
 
 class EventStoreClient:
@@ -103,13 +107,15 @@ class EventStoreClient:
     @staticmethod
     def training_columns(app_name: str, channel_name: Optional[str] = None,
                          **filters) -> Dict[str, np.ndarray]:
-        """The training read (single-process ``training_scan`` +
-        ``event_columns``): the store's numpy columns (the reference
-        reads a pyarrow table), without the time sort (training math is
-        permutation-invariant) unless the caller asks for it."""
-        filters.setdefault("ordered", False)
-        return EventStoreClient.find_columns(app_name, channel_name,
-                                             **filters)
+        """The training read (``data/ingest.training_columns``: the
+        reference's single-process ``training_scan`` + ``event_columns``):
+        the store's numpy columns (the reference reads a pyarrow table),
+        without the time sort (training math is permutation-invariant)
+        unless the caller asks for it, behind the snapshot-digest scan
+        cache (``cache=False`` bypasses it)."""
+        from predictionio_tpu_torch.data.ingest import training_columns
+
+        return training_columns(app_name, channel_name, **filters)
 
 
 def property_column(properties: np.ndarray, key: str,

@@ -84,7 +84,10 @@ def model_capacity(model) -> Dict:
     """One model's residency breakdown, counted from the tensors and
     arrays it holds (a scorer is built lazily: a unit that never scored
     holds none). ``residentBytes`` is the device bytes: the item
-    factors plus the scorer's tiles and scales."""
+    factors plus the scorer's tiles and scales, or what a model without
+    a scorer reports through ``device_bytes()`` (a forest's thresholds
+    and node arrays, naive Bayes' parameters and resident X) as its
+    ``modelFactorBytes``."""
     entry = {"model": type(model).__name__,
              "modelFactorBytes": 0, "scorerFactorBytes": 0,
              "shortlistBytes": 0, "exactBytes": 0, "residentBytes": 0,
@@ -92,6 +95,9 @@ def model_capacity(model) -> Dict:
     resident = getattr(model, "_resident", None)
     if resident is not None:
         entry["modelFactorBytes"] = _nbytes(resident[1])
+    device_bytes = getattr(model, "device_bytes", None)
+    if callable(device_bytes):
+        entry["modelFactorBytes"] += int(device_bytes())
     cached = getattr(model, "_scorer_cache", None)
     if cached is not None:
         scorer = cached[2]

@@ -97,12 +97,23 @@ class Storage:
         with cls._lock:
             cls._close_clients()
             cls._config = config
+        cls._drop_scan_cache()
 
     @classmethod
     def reset(cls) -> None:
         with cls._lock:
             cls._close_clients()
             cls._config = None
+        cls._drop_scan_cache()
+
+    @staticmethod
+    def _drop_scan_cache() -> None:
+        """Cached training reads belong to the PREVIOUS store: a fresh
+        backend can reproduce an old snapshot digest (same rowid window,
+        other rows), so reconfigure and reset drop them."""
+        from predictionio_tpu_torch.data.ingest import clear_scan_cache
+
+        clear_scan_cache()
 
     @classmethod
     def _close_clients(cls) -> None:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -40,3 +41,17 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def refuse_multi_device(mesh, what: str) -> None:
+    """The port trains each model on one device. A ``mesh`` of more than
+    one device (its ``devices``, or a sequence of devices) raises
+    ``NotImplementedError``: multi-device training is ROADMAP item A12,
+    not ported yet. ``None`` or one device passes."""
+    if mesh is None:
+        return
+    n = np.asarray(getattr(mesh, "devices", mesh), dtype=object).size
+    if n > 1:
+        raise NotImplementedError(
+            f"{what} over a mesh of {n} devices: multi-device training is "
+            "not ported to PyTorch yet (ROADMAP item A12)")

@@ -14,6 +14,13 @@ counts, count 0 as padding). Each blob slot carries its model's kind:
                         likealgo)
   ``cooccurrence``      similar-product's ``CooccurrenceEngineModel``
   ``recommended_user``  recommended-user's ``RecommendedUserModel``
+  ``nb``                classification's ``MultinomialNBModel``
+  ``logreg``            classification's ``LogRegModel``
+  ``forest``            classification's ``ForestModel`` (thresholds,
+                        node arrays and depth as arrays)
+
+A classifier's label vocabulary is JSON text (values and dtype), so a
+blob is never unpickled.
 
 * :func:`save_model` / :func:`load_model`: one model in an ``.npz``
   file (``train --out``, ``deploy --model``); an ALS model keeps the
@@ -74,6 +81,18 @@ def _unjson(a: np.ndarray):
     return json.loads(str(a))
 
 
+def _labels_json(labels: np.ndarray) -> np.ndarray:
+    """A label vocabulary as JSON text: its values and numpy dtype
+    (``object`` for the engines' string labels)."""
+    return _json({"dtype": str(labels.dtype),
+                  "values": np.asarray(labels).tolist()})
+
+
+def _labels_of(a: np.ndarray) -> np.ndarray:
+    doc = _unjson(a)
+    return np.asarray(doc["values"], dtype=np.dtype(doc["dtype"]))
+
+
 def _items_json(items) -> np.ndarray:
     """``{index: Item}`` as ``{"index": categories or null}``."""
     return _json({str(i): it.categories for i, it in items.items()})
@@ -127,6 +146,9 @@ def _codecs() -> Dict[str, Tuple[type, Callable, Callable]]:
         CooccurrenceEngineModel, SimilarityModel,
     )
     from predictionio_tpu_torch.models.cooccurrence import CooccurrenceModel
+    from predictionio_tpu_torch.models.forest import ForestModel
+    from predictionio_tpu_torch.models.logreg import LogRegModel
+    from predictionio_tpu_torch.models.naive_bayes import MultinomialNBModel
 
     def ecomm_in(z, device):
         V = z["V"]
@@ -150,6 +172,20 @@ def _codecs() -> Dict[str, Tuple[type, Callable, Callable]]:
                 item_vocab=z["item_vocab"],
                 top_cooccurrences=_top_dict(z["top_ids"], z["top_counts"])),
             items=_items_of(z["items"]), device=device)
+
+    def forest_out(m):
+        return {"classes": _labels_json(m.classes),
+                "thresholds": np.asarray(m.thresholds, np.float32),
+                "feat": np.asarray(m.feat, np.int32),
+                "thr": np.asarray(m.thr, np.int32),
+                "leaf": np.asarray(m.leaf, np.int32),
+                "max_depth": np.asarray(int(m.max_depth), np.int64)}
+
+    def forest_in(z, device):
+        return ForestModel(classes=_labels_of(z["classes"]),
+                           thresholds=z["thresholds"], feat=z["feat"],
+                           thr=z["thr"], leaf=z["leaf"],
+                           max_depth=int(z["max_depth"]), device=device)
 
     return {
         "als": (ALSModel, _arrays,
@@ -176,6 +212,24 @@ def _codecs() -> Dict[str, Tuple[type, Callable, Callable]]:
             lambda z, device: RecommendedUserModel(
                 user_vocab=z["user_vocab"], V=z["V"],
                 users=_unjson(z["users"]), device=device)),
+        "nb": (
+            MultinomialNBModel,
+            lambda m: {"label_vocab": _labels_json(m.label_vocab),
+                       "log_prior": np.asarray(m.log_prior, np.float32),
+                       "log_prob": np.asarray(m.log_prob, np.float32)},
+            lambda z, device: MultinomialNBModel(
+                label_vocab=_labels_of(z["label_vocab"]),
+                log_prior=z["log_prior"], log_prob=z["log_prob"],
+                device=device)),
+        "logreg": (
+            LogRegModel,
+            lambda m: {"label_vocab": _labels_json(m.label_vocab),
+                       "W": np.asarray(m.W, np.float32),
+                       "b": np.asarray(m.b, np.float32)},
+            lambda z, device: LogRegModel(
+                label_vocab=_labels_of(z["label_vocab"]), W=z["W"],
+                b=z["b"])),
+        "forest": (ForestModel, forest_out, forest_in),
     }
 
 
@@ -184,7 +238,8 @@ def _encode(model, codecs) -> Tuple[str, dict]:
         if type(model) is cls:
             return kind, out(model)
     raise TypeError(
-        f"the port persists ALS models only ({', '.join(codecs)}), not "
+        f"the port persists these model kinds only ({', '.join(codecs)}), "
+        f"not "
         f"{type(model).__name__}")
 
 

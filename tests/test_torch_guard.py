@@ -16,12 +16,14 @@ the CPU on their own.
   and another ``batchpredict`` through the CLI, whole and in two
   shards, and another ``eventserver --stats``, a deploy with telemetry
   and an SLO spec, ``slo``, ``capacity``, ``traces`` and ``metrics
-  series|query``, and another ``multiserve`` over two tenants, each
-  with the same finding;
+  series|query``, and another ``multiserve`` over two tenants, and
+  another trains the three classification algorithms, deploys one and
+  runs ``eval`` through the CLI, each with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``,
   the batch-predict slice's obs core, worker contract and kill points,
-  and the observability plane among them) or in chip_smoke.py;
+  the observability plane and the classification slice among them) or
+  in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
 """
@@ -475,6 +477,100 @@ def test_eval_cli_loads_no_jax(tmp_path):
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
     lines = out.stdout.strip().splitlines()
     assert json.loads(lines[-2])["mode"] == "sequential"
+    assert lines[-1] == "[]", out.stdout
+
+
+_CLASSIFY_EVAL_MODULE = """
+from predictionio_tpu_torch.core.evaluation import Evaluation
+from predictionio_tpu_torch.core.params import EngineParams
+from predictionio_tpu_torch.engines.classification import (
+    Accuracy, DataSourceParams, default_engine_params, engine)
+evaluation = Evaluation(engine=engine(), metric=Accuracy(), output_path=None)
+evaluation.engine_params_list = [EngineParams(
+    data_source_params=DataSourceParams(app_name="Guard", eval_k=3),
+    algorithm_params_list=default_engine_params(
+        "Guard", a).algorithm_params_list)
+    for a in ("naive", "logreg", "randomforest")]
+"""
+
+_CLASSIFY_CHILD = r"""
+import http.client, json, os, socket, sys, threading, time
+tmp, module = sys.argv[1], sys.argv[2]
+os.environ.update({
+    "PIO_HOME": tmp,
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "c.db"),
+    **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+       for r in ("METADATA", "EVENTDATA", "MODELDATA")
+       for k, v in (("NAME", "pio"), ("SOURCE", "DB"))}})
+with open(os.path.join(tmp, "guard_cls_eval.py"), "w") as f:
+    f.write(module)
+sys.path.insert(0, tmp)
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+store = Storage.get_events()
+store.init_channel(app_id)
+store.insert_batch([
+    Event(event="$set", entity_type="user", entity_id=f"u{u}",
+          properties={"plan": float(u % 5 > u % 3), "attr0": float(u % 5),
+                      "attr1": float(u % 3), "attr2": float(u % 2)})
+    for u in range(30)], app_id)
+variants = []
+for algo in ("naive", "logreg", "randomforest"):
+    variants.append(os.path.join(tmp, f"{algo}.json"))
+    with open(variants[-1], "w") as f:
+        json.dump({"id": algo, "engineFactory":
+                   "predictionio_tpu.engines.classification:engine",
+                   "datasource": {"params": {"appName": "Guard"}},
+                   "algorithms": [{"name": algo, "params": {}}]}, f)
+    assert main(["train", "--variant", variants[-1], "--device", "cpu"]) == 0
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+rc = []
+deploy = threading.Thread(target=lambda: rc.append(main([
+    "deploy", "--variant", variants[2], "--port", str(port), "--device",
+    "cpu"])))
+deploy.start()
+
+def post(body):
+    for _ in range(600):
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            c.request("POST", "/queries.json", body=json.dumps(body))
+            r = c.getresponse()
+            return r.status, json.loads(r.read())
+        except ConnectionRefusedError:
+            time.sleep(0.05)
+
+status, body = post({"attr0": 4.0, "attr1": 0.0, "attr2": 1.0})
+assert status == 200 and set(body) == {"label"}, (status, body)
+assert main(["undeploy", "--port", str(port)]) == 0
+deploy.join(timeout=30)
+assert rc == [0], rc
+assert main(["eval", "guard_cls_eval:evaluation", "--device", "cpu"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_classification_train_deploy_eval_load_no_jax(tmp_path):
+    """``train`` of the three classification algorithms, ``deploy`` of
+    the forest and ``eval`` (Accuracy, k = 3) through the CLI, the
+    engine.json naming the reference's factory string."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CLASSIFY_CHILD, str(tmp_path),
+         _CLASSIFY_EVAL_MODULE],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert json.loads(lines[-2])["candidates"] == 3
     assert lines[-1] == "[]", out.stdout
 
 
@@ -989,6 +1085,15 @@ def test_scan_covers_the_fleet_modules():
     assert ROOT / "chip_smoke.py" in _port_sources()
 
 
+def test_scan_covers_the_classification_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"engines/classification.py", "models/naive_bayes.py",
+            "models/logreg.py", "models/forest.py", "models/vectorizer.py",
+            "models/markov_chain.py", "ops/device_cache.py",
+            "data/ingest.py"} <= scanned
+
+
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -1175,6 +1280,24 @@ def _similarity_model():
                            V=np.ones((1, 2), np.float32), items={})
 
 
+def _classifier(fit):
+    from predictionio_tpu_torch.models import forest, logreg, naive_bayes
+
+    X = np.arange(12, dtype=np.float32).reshape(6, 2)
+    y = ["a", "b"] * 3
+    if fit == "ForestModel.predict":
+        m = forest.train_forest(X, y, forest.ForestParams(num_trees=2),
+                                device="cpu")
+        m.device = None
+        m.release_device()
+        return m.predict(X)
+    return {"train_multinomial_nb": lambda: naive_bayes.train_multinomial_nb(
+                X, y),
+            "train_logreg": lambda: logreg.train_logreg(X, y),
+            "train_forest": lambda: forest.train_forest(
+                X, y, forest.ForestParams(num_trees=2))}[fit]()
+
+
 @pytest.mark.parametrize("entry", ["ALSModel.from_arrays", "load_model",
                                    "build_scorer", "cli deploy",
                                    "train_als", "cli train", "run_train",
@@ -1182,7 +1305,9 @@ def _similarity_model():
                                    "train_cooccurrence", "SimilarityModel",
                                    "run_sweep", "run_evaluation",
                                    "cli eval", "run_batch_predict",
-                                   "cli batchpredict", "cli orchestrate"])
+                                   "cli batchpredict", "cli orchestrate",
+                                   "train_multinomial_nb", "train_logreg",
+                                   "train_forest", "ForestModel.predict"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -1201,7 +1326,8 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "cli eval": _cli_eval,
             "run_batch_predict": lambda: _run_batch_predict(tmp_path),
             "cli batchpredict": lambda: _cli_batchpredict(tmp_path),
-            "cli orchestrate": lambda: _cli_orchestrate(tmp_path)}[entry]
+            "cli orchestrate": lambda: _cli_orchestrate(tmp_path)}.get(
+                entry, lambda: _classifier(entry))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
 

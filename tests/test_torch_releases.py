@@ -332,7 +332,7 @@ def test_blob_round_trip_with_retrain_slot(store):
     assert back[1] is None and back[2] is None
     np.testing.assert_array_equal(back[0].U, m.U)
     assert list(back[0].item_vocab) == ["a", "b"]
-    with pytest.raises(TypeError, match="ALS models only"):
+    with pytest.raises(TypeError, match="persists these model kinds only"):
         serialize_models([object()])
 
 

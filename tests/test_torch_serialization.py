@@ -166,5 +166,5 @@ def test_reference_pickle_is_refused_not_unpickled(monkeypatch):
                  slots=np.asarray(1, np.int64),
                  **{"0/kind": np.asarray("pickled")})
         deserialize_models(buf.getvalue(), device="cpu")
-    with pytest.raises(TypeError, match="ALS models only"):
+    with pytest.raises(TypeError, match="persists these model kinds only"):
         serialize_models([object()])

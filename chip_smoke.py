@@ -517,14 +517,47 @@ Phases, each reported on its own lines:
                    process a second ``aggregate_scan`` of the unchanged
                    app hits the scan cache and the scan after one more
                    event misses it. No kernel runs in this phase.
+16. ``sessionrec`` — the session-recommendation template
+                   (``ops/attention``, ``models/seqrec``,
+                   ``engines/sessionrec``), in two legs. Leg 1, in this
+                   process: the template's widths (d_model 64, 2 heads, 2
+                   layers, max_len 32, batch 128, lr 1e-3, seed 7; 1
+                   epoch, cut from the template's 10 for the leg's 60 s)
+                   over ML-20M's catalog as BERT4Rec uses it
+                   (138,493 users x 26,744 items, V 26,745), sessions of
+                   2-64 items from ``--seed`` with a planted law (the
+                   next item the current + 1 with probability 0.8, else
+                   a Zipf-popular one): the first step's loss and
+                   gradients on the card against the port's CPU run of
+                   the same step from the same init and batch (loss
+                   within 1e-5 relative, each gradient within 1e-4
+                   relative Frobenius norm); ``train_seqrec`` on the card
+                   (the last epoch's mean loss below the first 10
+                   steps'); 1,000 ``recommend_next(..., 10)`` on the card
+                   against the CPU model of the same arrays (scores
+                   within 1e-4, ids equal up to near-ties) and the
+                   planted law's hit@10 (recorded); a step timed alone
+                   (host clock synchronised, CUDA events), a few under
+                   the profiler (top device ops, idle share) beside the
+                   step's bound. Leg 2, in a process of its own: the
+                   template through the CLI on a fresh store: 2,000
+                   users' 5-30 views along a cyclic 200-item catalog
+                   over the event server, ``template get sessionrec``,
+                   ``train`` and ``deploy`` (the engine.json naming the
+                   reference's factory string), 200 queries over HTTP,
+                   each the stored model's answer recomputed on the CPU,
+                   the learned successor in the top 10 of at least half;
+                   neither jax nor the reference in the train's or the
+                   deploy's ``sys.modules``. No kernel runs in this phase.
 
 Order, for the time limit: batchpredict's leg 1 (no kernel) runs in a
 process of its own while nvcc builds; then the classify phase, alone;
 after the kernels phase, the lifecycle (with the eval, batchpredict and
 multitenant CLI legs inside it, the three at once), the engines' three
-CLI legs and the fleet's orchestrated cycle run each in a process of its
-own, each on its own store, while this process runs the train phase,
-the engines' width leg, eval legs 1-2 and the fold-in width leg; then
+CLI legs, the fleet's orchestrated cycle and sessionrec's leg 2 run each
+in a process of its own, each on its own store, while this process runs
+the train phase, the engines' width leg, eval legs 1-2, sessionrec's
+leg 1 and the fold-in width leg; then
 the other phases on the serve cell's model, one at a time. The kernels
 phase and the phases of the serve cell share the card with no other
 work; a leg run beside others has its times taken under that load.
@@ -5009,10 +5042,13 @@ BACKGROUND_LEGS = {
     "ecommerce": ecommerce_leg, "similarproduct": similar_leg,
     "recommended_user": follow_leg,
     "orchestrate": lambda seed, port, work: fleet_orchestrate_leg(seed),
-    "bp_bench": lambda seed, port, work: bp_bench_leg()}
+    "bp_bench": lambda seed, port, work: bp_bench_leg(),
+    "sessionrec": lambda seed, port, work: sessionrec_cli_leg(seed, port,
+                                                              work)}
 #: the shapes a background leg reads, passed on in ``CHIP_SMOKE_LEGS``
 LEG_SHAPES = ("ECOMM", "SIMILAR", "FOLLOW", "ML100K", "FLEET_ORCH",
-              "EVAL_CLI", "BP_CLI", "BP_BENCH", "FOLDIN", "FEEDBACK")
+              "EVAL_CLI", "BP_CLI", "BP_BENCH", "FOLDIN", "FEEDBACK",
+              "SESSIONREC_CLI")
 
 
 def leg_worker() -> int:
@@ -8341,8 +8377,464 @@ def classify_phase(seed: int) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# sessionrec phase
+# ---------------------------------------------------------------------------
+
+#: leg 1: the catalog of ML-20M as BERT4Rec uses it (Sun et al. 2019:
+#: 138,493 users x 26,744 items), sessions of ``session_len`` items (the
+#: one cut: ML-20M's histories run longer, and ``pad_sessions`` keeps the
+#: last max_len + 1 of them) drawn from a planted law: the next item is
+#: the current one + 1 (mod the catalog) with probability ``p_next``,
+#: else a Zipf(``zipf``)-popular one; ``queries`` served next-item
+#: queries of ``num``, ``timed_steps`` steps timed alone and
+#: ``profiled_steps`` under the profiler
+SESSIONREC = dict(n_users=138_493, n_items=26_744, session_len=(2, 64),
+                  p_next=0.8, zipf=1.1, queries=1_000, num=10,
+                  timed_steps=50, profiled_steps=10)
+#: the template's widths (the reference's scaffold,
+#: predictionio_tpu/cli/main.py:1873-1877, and SeqRecParams' defaults),
+#: epochs cut from 10 to 1: the leg alone took 97.4 s at 10 epochs, 66.1
+#: s at 4 and 78.9 s at 3 on the card, past its 60 s (the step is host
+#: bound: 6.1-15.4 ms with the host's speed, an epoch of 1,081 steps
+#: 7.1-15.5 s)
+SR_PARAMS = dict(d_model=64, n_heads=2, n_layers=2, max_len=32,
+                 batch_size=128, learning_rate=1e-3, seed=7, epochs=1)
+#: the card's first step against the port's CPU run of it: the loss
+#: relative, every gradient in relative Frobenius norm
+SR_LOSS_TOL = 1e-5
+SR_GRAD_TOL = 1e-4
+#: served next-item scores against the CPU model's, absolute; ids equal
+#: except among scores within this of each other
+SR_SERVE_TOL = 1e-4
+#: leg 2: the template through the CLI on a fresh store: ``users`` users,
+#: each with ``views`` views along a cyclic ``n_items``-item catalog,
+#: ``queries`` queries of a user's last ``recent`` views; the learned
+#: successor in the top 10 of at least ``min_hit`` of them
+SESSIONREC_CLI = dict(users=2_000, views=(5, 30), n_items=200, queries=200,
+                      recent=3, min_hit=0.5)
+
+
+def planted_sessions(seed: int):
+    """Leg 1's sessions, item ids ``i00000``.. (sorted as their codes),
+    and the catalog's ids."""
+    import numpy as np
+
+    c = SESSIONREC
+    rng = np.random.default_rng(seed + 150)
+    n, users = c["n_items"], c["n_users"]
+    pop = 1.0 / np.arange(1, n + 1) ** c["zipf"]
+    pop = pop[rng.permutation(n)]
+    cdf = np.cumsum(pop / pop.sum())
+    lo, hi = c["session_len"]
+    lens = rng.integers(lo, hi + 1, size=users)
+    seqs = np.empty((users, hi), np.int64)
+    seqs[:, 0] = np.searchsorted(cdf, rng.random(users))
+    for j in range(1, hi):
+        draw = np.minimum(np.searchsorted(cdf, rng.random(users)), n - 1)
+        seqs[:, j] = np.where(rng.random(users) < c["p_next"],
+                              (seqs[:, j - 1] + 1) % n, draw)
+    names = np.asarray([f"i{k:05d}" for k in range(n)], dtype=object)
+    return [names[seqs[u, :lens[u]]].tolist() for u in range(users)], names
+
+
+def sr_masked_row(model, recent):
+    """The CPU recompute of a query: the ``[V]`` next-item scores of
+    ``model`` with the reference's masks (pad id, vocabulary padding,
+    every seen item) at -inf, float64; None without a known item."""
+    import numpy as np
+
+    codes = [c for it in recent if (c := model.item_code(it)) is not None]
+    if not codes:
+        return None
+    row = model.next_logits(codes).astype(np.float64)
+    row[0] = -np.inf
+    row[len(model.item_vocab) + 1:] = -np.inf
+    row[np.asarray(codes)] = -np.inf
+    return row
+
+
+def sr_same(got, row, model, num: int, tag: str) -> float:
+    """Served ``[(item, score)]`` against a recompute row: as many answers
+    as finite scores (at most num), distinct known items, each served
+    score within SR_SERVE_TOL of the best scores in order and of the
+    row's score of its own item (ids equal up to near-ties). Returns the
+    largest error."""
+    import numpy as np
+
+    if row is None:
+        check(got == [], f"{tag}: {got[:3]} for no known item")
+        return 0.0
+    best = np.sort(row[np.isfinite(row)])[::-1][:num]
+    check(len(got) == len(best), f"{tag}: {len(got)} answers, "
+          f"{len(best)} expected")
+    codes = [model.item_code(i) for i, _ in got]
+    check(None not in codes and len(set(codes)) == len(codes),
+          f"{tag}: unknown or repeated items {got[:5]}")
+    served = np.asarray([s for _, s in got], np.float64)
+    err = np.maximum(np.abs(served - best), np.abs(served - row[codes]))
+    check(bool((err <= SR_SERVE_TOL).all()),
+          f"{tag}: served {got[:4]}, best {best[:4].tolist()}")
+    return float(err.max()) if len(err) else 0.0
+
+
+def sr_step_bound(b: int, l: int, d: int, v: int) -> dict:
+    """A train step's bound: the three V-wide products (logits, their
+    gradients into the hidden states and into the embedding) at 2 b l d v
+    operations each, and the ``[b l, v]`` f32 logits written, read and
+    their gradient written."""
+    ops = 6.0 * b * l * d * v
+    nbytes = 3.0 * b * l * v * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_FLOPS * 1e3
+    return {"ms": max(by_bytes, by_ops), "operations": ops, "bytes": nbytes,
+            "by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def sr_serve_bound(params: dict, l: int, v: int, d: int,
+                   n_layers: int) -> dict:
+    """A query's bound: every parameter read once and the ``[v]`` row
+    written, against the forward's and the row's operations."""
+    nbytes = sum(a.nbytes for a in params.values()) + l * 8 + v * 4
+    ops = 2.0 * v * d + 2.0 * l * n_layers * (12 * d * d + 2 * l * d)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_FLOPS * 1e3
+    return {"ms": max(by_bytes, by_ops), "operations": ops, "bytes": nbytes,
+            "by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def sr_first_step(sessions, p):
+    """The first step of a train on the card and on the CPU from the same
+    init and batch: the loss relative and each gradient's relative
+    Frobenius distance. Returns the report and the padded ``(inputs,
+    targets)``."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import seqrec
+
+    vocab, inputs, targets = seqrec.encode_sessions(sessions, p.max_len)
+    state = seqrec._flatten(seqrec.init_params(
+        np.random.default_rng(p.seed), len(vocab), p))
+    idx = seqrec.epoch_order(len(inputs), p, 0)[
+        :min(p.batch_size, len(inputs))]
+    out = {}
+    for dev in (DEV, "cpu"):
+        net = seqrec.SeqRecNet.from_state(state, p.n_heads,
+                                          torch.device(dev))
+        loss = seqrec._loss_fn(
+            net, torch.from_numpy(inputs[idx].astype(np.int64)).to(dev),
+            torch.from_numpy(targets[idx].astype(np.int64)).to(dev))
+        loss.backward()
+        out[dev] = (float(loss.detach()),
+                    {k: prm.grad.detach().cpu().numpy()
+                     for k, prm in net.named_parameters()})
+    (loss_c, g_c), (loss_h, g_h) = out[DEV], out["cpu"]
+    grads = {k: _rel(g_c[k], g_h[k]) for k in g_h}
+    report = {"loss_card": loss_c, "loss_cpu": loss_h,
+              "loss_rel": abs(loss_c - loss_h) / abs(loss_h),
+              "grad_rel_max": max(grads.values()),
+              "grad_rel_by_param": grads, "n_vocab": len(vocab) + 1,
+              "sessions": len(inputs)}
+    check(report["loss_rel"] <= SR_LOSS_TOL,
+          f"sessionrec: first-step loss {loss_c} on the card, {loss_h} on "
+          f"the CPU")
+    check(report["grad_rel_max"] <= SR_GRAD_TOL,
+          f"sessionrec: first-step gradients {grads}")
+    return report, (inputs, targets)
+
+
+def sr_step_times(model, padded, p) -> dict:
+    """A step timed alone (a fresh net from the trained weights, the
+    run's batches): ms on the host clock synchronised and by CUDA events
+    over ``timed_steps`` steps; then ``profiled_steps`` steps under the
+    profiler: the top device ops, the device's busy ms and idle share."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from predictionio_tpu_torch.models import seqrec
+
+    c = SESSIONREC
+    inputs, targets = padded
+    order = seqrec.epoch_order(len(inputs), p, 0)
+    n = c["timed_steps"] + c["profiled_steps"] + 5
+    idx = torch.from_numpy(order[:n * p.batch_size].reshape(n, -1)).to(DEV)
+    x = torch.from_numpy(inputs.astype(np.int64)).to(DEV)
+    y = torch.from_numpy(targets.astype(np.int64)).to(DEV)
+    net = seqrec.SeqRecNet.from_state(model.params, p.n_heads,
+                                      torch.device(DEV))
+    step = seqrec.make_train_step(net, seqrec.make_optimizer(net, p), p)
+    for i in range(5):
+        step(x[idx[i]], y[idx[i]])
+    k = c["timed_steps"]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(5, 5 + k):
+        step(x[idx[i]], y[idx[i]])
+    end.record()
+    synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / k
+    event_ms = start.elapsed_time(end) / k
+    j = c["profiled_steps"]
+    synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(5 + k, 5 + k + j):
+            step(x[idx[i]], y[idx[i]])
+        synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in cuda) / 1e3
+    by_name: dict = {}
+    for e in cuda:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"step_ms_host": host_ms, "step_ms_events": event_ms,
+            "timed_steps": k, "profiled_steps": j,
+            "profiled_wall_ms_a_step": wall / j,
+            "device_busy_ms_a_step": busy / j if busy else None,
+            "idle_share": 1.0 - busy / wall if busy else None,
+            "device_ops_a_step": len(cuda) / j,
+            "top_device_ops_ms_a_step": [(name, ms / j) for name, ms in top]}
+
+
+def sessionrec_width_leg(seed: int) -> dict:
+    """Leg 1: the template's model at full width over the ML-20M-shaped
+    catalog: the first step held to the CPU's, 10 epochs of training,
+    1,000 served queries held to the CPU model's, the step's times and
+    profile beside its bound."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import seqrec
+
+    t_leg = time.perf_counter()
+    c = SESSIONREC
+    p = seqrec.SeqRecParams(**SR_PARAMS)
+    t0 = time.perf_counter()
+    sessions, names = planted_sessions(seed)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first, padded = sr_first_step(sessions, p)
+    first["seconds"] = time.perf_counter() - t0
+    check(first["n_vocab"] == c["n_items"] + 1,
+          f"sessionrec: vocabulary of {first['n_vocab']} rows")
+    losses, epochs = [], []
+    synchronize()
+    t0 = time.perf_counter()
+    model = seqrec.train_seqrec(None, sessions, p, device=DEV,
+                                losses=losses, timings=epochs)
+    synchronize()
+    train_s = time.perf_counter() - t0
+    per_epoch = len(losses) // p.epochs
+    first10 = float(np.mean(losses[:10]))
+    last_epoch = float(np.mean(losses[-per_epoch:]))
+    check(per_epoch == first["sessions"] // p.batch_size,
+          f"sessionrec: {per_epoch} steps an epoch")
+    check(np.isfinite(losses).all() and last_epoch < first10,
+          f"sessionrec: last epoch's loss {last_epoch}, first 10 steps' "
+          f"{first10}")
+
+    # serving: the card-trained model against the CPU model of its arrays
+    cpu = seqrec.SeqRecModel(item_vocab=model.item_vocab,
+                             params=model.params, hyper=p, device="cpu")
+    qrng = np.random.default_rng(seed + 151)
+    users = qrng.choice(len(sessions), size=c["queries"], replace=False)
+    for u in users[:5]:                 # warm-up, not timed
+        model.recommend_next(sessions[u], c["num"])
+    lat, err, hits = [], 0.0, 0
+    t_serve = time.perf_counter()
+    for u in users:
+        s = sessions[u]
+        recent = s[:int(qrng.integers(1, len(s)))]
+        t0 = time.perf_counter()
+        got = model.recommend_next(recent, c["num"])
+        lat.append((time.perf_counter() - t0) * 1e3)
+        err = max(err, sr_same(got, sr_masked_row(cpu, recent), cpu,
+                               c["num"], f"sessionrec: query {u}"))
+        succ = names[(int(recent[-1][1:]) + 1) % c["n_items"]]
+        hits += succ in {i for i, _ in got}
+    serve_s = time.perf_counter() - t_serve
+    t0 = time.perf_counter()
+    times = sr_step_times(model, padded, p)
+    times["seconds"] = time.perf_counter() - t0
+    b, l, d, v = p.batch_size, p.max_len, p.d_model, first["n_vocab"]
+    report = {
+        "shape": {"users": c["n_users"], "items": c["n_items"], "V": v,
+                  "events": int(sum(len(s) for s in sessions)),
+                  "session_len": c["session_len"], **SR_PARAMS},
+        "sessions_s": gen_s, "first_step": first,
+        "train_s": train_s, "epoch_s": epochs, "steps_an_epoch": per_epoch,
+        "loss_first10": first10, "loss_last_epoch": last_epoch,
+        "loss_by_epoch": [float(np.mean(losses[e * per_epoch:
+                                               (e + 1) * per_epoch]))
+                          for e in range(p.epochs)],
+        **times,
+        "step_bound": sr_step_bound(b, l, d, v),
+        "serve": {"queries": len(users), "latency": _lat(lat),
+                  "seconds_with_cpu_recompute": serve_s,
+                  "max_err": err, "hit_at_10": hits / len(users),
+                  "bound": sr_serve_bound(model.params, l, v, d,
+                                          p.n_layers)},
+        "device_bytes": model.device_bytes(),
+        "leg_s": time.perf_counter() - t_leg}
+    log("sessionrec: width " + json.dumps(report))
+    return report
+
+
+def sessionrec_cli_leg(seed: int, port: int, work) -> dict:
+    """Leg 2: the sessionrec template through the CLI on a fresh store:
+    views over the event server, ``template get sessionrec``, ``train``
+    and ``deploy`` (the engine.json naming the reference's factory
+    string), 200 queries over HTTP each equal to the stored model's
+    answer on the CPU, the learned successor's hits; no jax or reference
+    module in the train or the deploy."""
+    import datetime as dt
+
+    import numpy as np
+
+    from predictionio_tpu_torch.workflow.serialization import (
+        deserialize_models,
+    )
+
+    c = SESSIONREC_CLI
+    env = dict(smoke_store(work), PIO_HOME=str(work / "home"))
+    app = "SessApp"
+    servers = []
+    t_leg = time.perf_counter()
+    try:
+        events_srv = Server(["eventserver", "--ip", "127.0.0.1", "--port",
+                             "0"], env, tag="sessionrec")
+        servers.append(events_srv)
+        es_port = events_srv.wait_ready(timeout_s=120)
+        out = _cli(["app", "new", app], env)
+        key = next(x for x in out if "Access Key:" in x).split()[-1]
+        rng = np.random.default_rng(seed + 152)
+        base = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc)
+        sessions, wire = [], []
+        for u in range(c["users"]):
+            start = int(rng.integers(0, c["n_items"]))
+            s = [f"i{(start + j) % c['n_items']}"
+                 for j in range(int(rng.integers(c["views"][0],
+                                                 c["views"][1] + 1)))]
+            sessions.append(s)
+            wire += [{"event": "view", "entityType": "user",
+                      "entityId": f"u{u}", "targetEntityType": "item",
+                      "targetEntityId": it, "eventTime": (
+                          base + dt.timedelta(seconds=u * 100 + j)
+                      ).isoformat()} for j, it in enumerate(s)]
+        _ids, ingest_lat, ingest_s = ingest(es_port, key, wire)
+        _cli(["template", "get", "sessionrec", str(work / "tpl")], env)
+        template = json.loads((work / "tpl" / "engine.json").read_text())
+        check(template["algorithms"][0]["name"] == "seqrec",
+              f"template get sessionrec: {template}")
+        variant = work / "engine.json"
+        variant.write_text(json.dumps(dict(
+            template, engineFactory=reference_factory("sessionrec"),
+            datasource={"params": {"appName": app}})))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _CHECKED_CLI, "train", "--variant",
+             str(variant), "--device", DEV], cwd=str(ROOT), env=env,
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"sessionrec: train exited "
+              f"{proc.returncode}: {proc.stdout[-1000:]} "
+              f"{proc.stderr[-2000:]}")
+        lines = proc.stdout.strip().splitlines()
+        forbidden_modules(lines, "sessionrec: the train")
+        train = json.loads(lines[-2])
+        train["wall_s"] = time.perf_counter() - t0
+        check(train["items"] == c["n_items"] and train["d_model"] == 64
+              and not any(train["launches"].values()),
+              f"sessionrec: train {train}")
+        from predictionio_tpu_torch.storage.registry import Storage
+
+        blob = Storage.get_model_data_models().get(train["instance"])
+        check(blob is not None, "sessionrec: no model blob stored")
+        model = deserialize_models(blob.models, device="cpu")[0]
+
+        t1 = time.perf_counter()
+        deploy = Server(["deploy", "--variant", str(variant), "--ip",
+                         "127.0.0.1", "--port", "0", "--device", DEV],
+                        env, tag="sessionrec deploy", checked=True)
+        servers.append(deploy)
+        client = Client(deploy.wait_ready(timeout_s=300))
+        deploy_s = time.perf_counter() - t1
+        qrng = np.random.default_rng(seed + 153)
+        lat, err, hits = [], 0.0, 0
+        for u in qrng.choice(c["users"], size=c["queries"], replace=False):
+            recent = sessions[u][-c["recent"]:]
+            status, body, dt_s = client.call(
+                "POST", "/queries.json", {"items": recent, "num": 10})
+            check(status == 200 and set(body) == {"itemScores"},
+                  f"sessionrec: {status} {body}")
+            got = [(x["item"], x["score"]) for x in body["itemScores"]]
+            err = max(err, sr_same(got, sr_masked_row(model, recent), model,
+                                   10, f"sessionrec: cli query u{u}"))
+            lat.append(dt_s * 1e3)
+            succ = f"i{(int(recent[-1][1:]) + 1) % c['n_items']}"
+            hits += succ in {i for i, _ in got}
+        _, root, _ = client.call("GET", "/")
+        check(not any(root["kernelLaunches"].values()),
+              f"sessionrec: the deploy launched {root['kernelLaunches']}")
+        status, _, _ = client.call("POST", "/stop")
+        check(status == 200 and deploy.proc.wait(timeout=60) == 0,
+              "sessionrec: the deploy did not stop")
+        while deploy.lines.get(timeout=30) != "":
+            pass
+        forbidden_modules([x.rstrip() for x in deploy.history],
+                          "sessionrec: the deploy")
+        check(hits >= c["min_hit"] * c["queries"],
+              f"sessionrec: the successor in {hits} of {c['queries']} "
+              f"top-10s")
+        report = {"users": c["users"], "events": len(wire),
+                  "ingest_s": ingest_s, "ingest_latency": _lat(ingest_lat),
+                  "train": train, "deploy_up_s": deploy_s,
+                  "queries": c["queries"], "latency": _lat(lat),
+                  "max_err": err, "hit_at_10": hits / c["queries"],
+                  "deploy_launches": root["kernelLaunches"],
+                  "leg_s": time.perf_counter() - t_leg}
+        log("sessionrec: cli " + json.dumps(report))
+        return report
+    finally:
+        for srv in servers:
+            srv.stop()
+        from predictionio_tpu_torch.storage.registry import Storage
+
+        Storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def sessionrec_phase(seed: int, cli: dict) -> dict:
+    """The ``sessionrec`` phase: leg 1 in this process, its launch counts
+    zeroed just before and read just after; leg 2's report (run in a
+    process of its own) beside it."""
+    from predictionio_tpu_torch.ops import kernels
+
+    kernels.reset_counts()
+    report = {"width": sessionrec_width_leg(seed)}
+    report["launches"] = kernels.counts()
+    check(not any(report["launches"].values()),
+          f"sessionrec: launched {report['launches']}")
+    report["cli"] = cli
+    return report
+
+
+def sessionrec_launches(report: dict, kernel: str) -> int:
+    """A kernel's launches in the sessionrec phase: leg 1's (this
+    process) and leg 2's train and deploy processes'."""
+    cli = report["cli"]
+    return (report["launches"][kernel] + cli["train"]["launches"][kernel]
+            + cli["deploy_launches"][kernel])
+
+
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-             canary, engines, evals, fleet) -> dict:
+             canary, engines, evals, fleet, sessionrec) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
     the ML-20M train and of the eval phase's sweeps (each counted from
@@ -8410,6 +8902,7 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
             "engines_similar_width_train":
                 engines["similar_width"]["b1_launches"],
             "fleet_orchestrate": fleet["orchestrate"]["b1_launches"],
+            "sessionrec": sessionrec_launches(sessionrec, "spd_solve"),
             **eval_launches},
         "eval_shapes": [r for r in spd_rows if r["eval"]],
         "foldin": {
@@ -8426,11 +8919,17 @@ def partial_run(args, shape) -> int:
     debugging on the card; no kernels line and no result."""
     phases = set(args.only.split(","))
     bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant",
-                    "classify"}
+                    "classify", "sessionrec"}
     check(not bad, f"--only takes serve, obs, lifecycle, fleet, "
-          f"multitenant, classify; got {sorted(bad)}")
+          f"multitenant, classify, sessionrec; got {sorted(bad)}")
     if "classify" in phases:
         log("classify: " + json.dumps(classify_phase(args.seed)))
+    if "sessionrec" in phases:
+        # leg 1 alone on the card, then leg 2 in its worker process
+        report = sessionrec_phase(args.seed, None)
+        report["cli"] = finish_legs(start_legs(["sessionrec"], args.seed,
+                                               args.port))["sessionrec"]
+        log("sessionrec: " + json.dumps(report))
     cli = None
     if "lifecycle" in phases:
         cli = lifecycle_phase(args.seed, args.port)["multiserve_cli"]
@@ -8466,7 +8965,8 @@ def main() -> int:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
                     help="run only these of serve, obs, lifecycle, fleet, "
-                         "multitenant, classify after the build and the "
+                         "multitenant, classify, sessionrec after the build "
+                         "and the "
                          "kernels phase (a partial run: it prints no "
                          "result and exits 4)")
     args = ap.parse_args()
@@ -8544,8 +9044,8 @@ def main() -> int:
         #    and 6 (leg 2)
         t_legs = time.perf_counter()
         legs = start_legs(["lifecycle", "ecommerce", "similarproduct",
-                           "recommended_user", "orchestrate"], args.seed,
-                          args.port)
+                           "recommended_user", "orchestrate", "sessionrec"],
+                          args.seed, args.port)
         try:
             # 4. train (the training path: counts zeroed just before
             #    each train, read just after)
@@ -8567,6 +9067,14 @@ def main() -> int:
             eval_grid = eval_grid_leg()
             eval_legs_s = time.perf_counter() - t0
             log(f"eval: legs 1-2 took {eval_legs_s:.3f} s")
+            # 16. sessionrec, leg 1 (the model at full width; its
+            #     launches counted from zero around it); leg 2 runs
+            #     through the CLI in a process of its own
+            t0 = time.perf_counter()
+            sessionrec = sessionrec_phase(args.seed, None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"sessionrec: leg 1 took {time.perf_counter() - t0:.3f} s")
             # 6. foldin, leg 2, on the serve cell's model (built once,
             #    here); leg 1 runs inside the lifecycle (its deploy
             #    process counts)
@@ -8585,6 +9093,8 @@ def main() -> int:
             raise
         background = finish_legs(legs)
         lifecycle = background.pop("lifecycle")
+        sessionrec["cli"] = background.pop("sessionrec")
+        log("sessionrec: " + json.dumps(sessionrec))
         legs_s = time.perf_counter() - t_legs
         log(f"lifecycle: phase took {lifecycle['leg_s']:.3f} s; with the "
             f"train, engines, eval and fold-in legs beside it "
@@ -8685,13 +9195,14 @@ def main() -> int:
             "obs": obs["b2_launches"],
             "fleet_replicas": fleet["replicas"]["b2_launches"],
             "fleet_orchestrate": fleet["orchestrate"]["b2_launches"],
-            "multitenant": multitenant["width"]["b2_launches"]},
+            "multitenant": multitenant["width"]["b2_launches"],
+            "sessionrec": sessionrec_launches(sessionrec, "shortlist")},
         "foldin_scored_queries": width["scored_probes"],
         "chunk_rows": chunk_rows,
         "engine_shapes": eng_rows,
         "tie_rows": tie_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-                canary, engines, evals, fleet)]}
+                canary, engines, evals, fleet, sessionrec)]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

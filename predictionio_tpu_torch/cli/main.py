@@ -47,13 +47,15 @@ click), with the reference's commands, flags and exit codes:
 
 The engine.json's ``engineFactory`` names one of the ported engines
 (recommendation, ecommerce, similarproduct, recommended_user,
-classification) by the reference's factory string or the port's own.
+classification, sessionrec) by the reference's factory string or the
+port's own.
 ``template get NAME`` scaffolds an engine.json for one of them.
 
 ``train`` runs ``workflow.train.run_train``: an EngineInstance (INIT,
 then COMPLETED), the model blob in the model store under its id, and the
 variant's next release; it prints one JSON line — users, items, nnz and
-rank, or labels, features and trees, of the first algorithm's model
+rank, or labels, features and trees, or items and d_model, of the
+first algorithm's model
 (null where its kind has none) and each model's, the seconds of the whole train (event read and records
 included) and of the host-side data build, the kernel launch counts,
 the training read's scan-cache hits and misses, the instance id and the
@@ -137,7 +139,7 @@ from typing import List, Optional
 
 #: the engines the port serves, by module name under ``engines``
 _ENGINES = ("recommendation", "ecommerce", "similarproduct",
-            "recommended_user", "classification")
+            "recommended_user", "classification", "sessionrec")
 
 
 def _fail(msg: str) -> None:
@@ -169,7 +171,8 @@ def _engine_of(variant: dict):
 def _model_summary(model) -> dict:
     """Sizes of a trained or loaded model of any ported engine (None
     where the kind has no such side): users, items and rank of an ALS
-    model; labels, features and trees of a classifier."""
+    model; labels, features and trees of a classifier; items and
+    d_model of a session model."""
     inner = getattr(model, "model", model)      # cooccurrence wraps one
     users = getattr(inner, "user_vocab", None)
     items = getattr(inner, "item_vocab", None)
@@ -192,6 +195,8 @@ def _model_summary(model) -> dict:
             "labels": None if labels is None else len(labels),
             "features": features,
             "trees": None if feat is None else int(feat.shape[0]),
+            "d_model": getattr(getattr(model, "hyper", None), "d_model",
+                               None),
             "nnz": info.get("nnz"), "build_s": info.get("build_s")}
 
 
@@ -238,6 +243,10 @@ _TEMPLATES = {
     "ecommerce": ("ecommerce", {"app_name": "MyApp"},
                   [{"name": "ecomm",
                     "params": {"app_name": "MyApp", "rank": 10}}]),
+    "sessionrec": ("sessionrec", {"app_name": "MyApp"},
+                   [{"name": "seqrec",
+                     "params": {"d_model": 64, "n_heads": 2, "n_layers": 2,
+                                "max_len": 32, "epochs": 10}}]),
     "recommendeduser": ("recommended_user", {"app_name": "MyApp"},
                         [{"name": "als",
                           "params": {"rank": 10, "num_iterations": 20}}]),
@@ -478,7 +487,7 @@ def train(args) -> int:
         "users": summary["users"], "items": summary["items"],
         "nnz": summary["nnz"], "rank": summary["rank"],
         "labels": summary["labels"], "features": summary["features"],
-        "trees": summary["trees"],
+        "trees": summary["trees"], "d_model": summary["d_model"],
         "device": str(ctx.device), "train_s": train_s,
         "build_s": summary["build_s"],
         "models": [_model_summary(m) for m in result.models],
@@ -697,6 +706,8 @@ def deploy(args) -> int:
              f"features" + (f", {summary['trees']} trees"
                             if summary["trees"] else "")
              if summary["labels"] is not None else
+             f"{summary['items']} items, d_model {summary['d_model']}"
+             if summary["d_model"] is not None else
              f"{summary['users']} users x {summary['items']} items, rank "
              f"{summary['rank']}")
     print(f"[INFO] Loaded {instance.id}: {summary['kind']}, {shape}, on "

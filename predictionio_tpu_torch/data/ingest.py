@@ -211,3 +211,22 @@ def latest_per_pair(users: np.ndarray, items: np.ndarray,
         is_last = np.r_[cs[1:] != cs[:-1], True]
         winners = order[is_last]
     return users[winners], items[winners], values[winners]
+
+
+def sessions_by_entity(users: np.ndarray, items: np.ndarray,
+                       times: np.ndarray):
+    """Group an interaction scan into per-user time-ordered item lists
+    (the sessionrec data source's assembly): one lexsort and a segment
+    split, equal event times kept in scan order. Sessions come out in
+    sorted-user order, under the ``ingest_assemble`` span."""
+    if len(users) == 0:
+        return []
+    with span("ingest_assemble", registry=_registry()):
+        _, codes = assign_indices(users)
+        order = np.lexsort((np.arange(len(users)), times, codes))
+        codes_s = codes[order]
+        items_s = items[order]
+        starts = np.flatnonzero(np.r_[True, codes_s[1:] != codes_s[:-1]])
+        bounds = np.r_[starts, len(codes_s)]
+        return [items_s[bounds[i]:bounds[i + 1]].tolist()
+                for i in range(len(starts))]

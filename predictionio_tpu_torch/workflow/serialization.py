@@ -18,6 +18,9 @@ counts, count 0 as padding). Each blob slot carries its model's kind:
   ``logreg``            classification's ``LogRegModel``
   ``forest``            classification's ``ForestModel`` (thresholds,
                         node arrays and depth as arrays)
+  ``seqrec``            sessionrec's ``SeqRecModel`` (the item
+                        vocabulary, every parameter by its flat name
+                        under ``param/``, the hyperparameters as JSON)
 
 A classifier's label vocabulary is JSON text (values and dtype), so a
 blob is never unpickled.
@@ -36,6 +39,7 @@ blob is never unpickled.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import zipfile
@@ -149,6 +153,9 @@ def _codecs() -> Dict[str, Tuple[type, Callable, Callable]]:
     from predictionio_tpu_torch.models.forest import ForestModel
     from predictionio_tpu_torch.models.logreg import LogRegModel
     from predictionio_tpu_torch.models.naive_bayes import MultinomialNBModel
+    from predictionio_tpu_torch.models.seqrec import (
+        SeqRecModel, SeqRecParams,
+    )
 
     def ecomm_in(z, device):
         V = z["V"]
@@ -186,6 +193,19 @@ def _codecs() -> Dict[str, Tuple[type, Callable, Callable]]:
                            thresholds=z["thresholds"], feat=z["feat"],
                            thr=z["thr"], leaf=z["leaf"],
                            max_depth=int(z["max_depth"]), device=device)
+
+    def seqrec_out(m):
+        return {"item_vocab": _vocab(m.item_vocab),
+                "hyper": _json(dataclasses.asdict(m.hyper)),
+                **{f"param/{k}": np.asarray(v, np.float32)
+                   for k, v in m.params.items()}}
+
+    def seqrec_in(z, device):
+        return SeqRecModel(
+            item_vocab=z["item_vocab"],
+            params={k[len("param/"):]: v for k, v in z.items()
+                    if k.startswith("param/")},
+            hyper=SeqRecParams(**_unjson(z["hyper"])), device=device)
 
     return {
         "als": (ALSModel, _arrays,
@@ -230,6 +250,7 @@ def _codecs() -> Dict[str, Tuple[type, Callable, Callable]]:
                 label_vocab=_labels_of(z["label_vocab"]), W=z["W"],
                 b=z["b"])),
         "forest": (ForestModel, forest_out, forest_in),
+        "seqrec": (SeqRecModel, seqrec_out, seqrec_in),
     }
 
 

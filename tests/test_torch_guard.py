@@ -18,12 +18,13 @@ the CPU on their own.
   and an SLO spec, ``slo``, ``capacity``, ``traces`` and ``metrics
   series|query``, and another ``multiserve`` over two tenants, and
   another trains the three classification algorithms, deploys one and
-  runs ``eval`` through the CLI, each with the same finding;
+  runs ``eval`` through the CLI, and another trains and deploys the
+  sessionrec engine through the CLI, each with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``,
   the batch-predict slice's obs core, worker contract and kill points,
-  the observability plane and the classification slice among them) or
-  in chip_smoke.py;
+  the observability plane, the classification slice and the sessionrec
+  slice among them) or in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
 """
@@ -574,6 +575,79 @@ def test_classification_train_deploy_eval_load_no_jax(tmp_path):
     assert lines[-1] == "[]", out.stdout
 
 
+_SESSIONREC_CHILD = r"""
+import datetime, http.client, json, os, socket, sys, threading, time
+tmp = sys.argv[1]
+os.environ.update({
+    "PIO_HOME": tmp,
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "s.db"),
+    **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+       for r in ("METADATA", "EVENTDATA", "MODELDATA")
+       for k, v in (("NAME", "pio"), ("SOURCE", "DB"))}})
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+store = Storage.get_events()
+store.init_channel(app_id)
+t0 = datetime.datetime(2026, 1, 1, tzinfo=datetime.timezone.utc)
+store.insert_batch([
+    Event(event="view", entity_type="user", entity_id=f"u{u}",
+          target_entity_type="item", target_entity_id=f"i{(u + j) % 9}",
+          event_time=t0 + datetime.timedelta(minutes=u * 10 + j))
+    for u in range(20) for j in range(5)], app_id)
+assert main(["template", "get", "sessionrec", os.path.join(tmp, "tpl")]) == 0
+with open(os.path.join(tmp, "tpl", "engine.json")) as f:
+    variant = json.load(f)
+variant.update(engineFactory="predictionio_tpu.engines.sessionrec:engine",
+               datasource={"params": {"appName": "Guard"}})
+variant["algorithms"][0]["params"].update(d_model=16, n_layers=1, epochs=2)
+path = os.path.join(tmp, "engine.json")
+with open(path, "w") as f:
+    json.dump(variant, f)
+assert main(["train", "--variant", path, "--device", "cpu"]) == 0
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+rc = []
+deploy = threading.Thread(target=lambda: rc.append(main([
+    "deploy", "--variant", path, "--port", str(port), "--device", "cpu"])))
+deploy.start()
+for _ in range(600):
+    try:
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        c.request("POST", "/queries.json",
+                  body=json.dumps({"items": ["i1", "i2"], "num": 3}))
+        r = c.getresponse()
+        status, body = r.status, json.loads(r.read())
+        break
+    except ConnectionRefusedError:
+        time.sleep(0.05)
+assert status == 200 and len(body["itemScores"]) == 3, (status, body)
+assert main(["undeploy", "--port", str(port)]) == 0
+deploy.join(timeout=30)
+assert rc == [0], rc
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_sessionrec_train_and_deploy_load_no_jax(tmp_path):
+    """``template get sessionrec``, ``train`` and ``deploy`` of the
+    sessionrec engine through the CLI, the engine.json naming the
+    reference's factory string."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SESSIONREC_CHILD, str(tmp_path)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
 _BATCHPREDICT_CHILD = r"""
 import json, os, sys
 tmp = sys.argv[1]
@@ -1094,6 +1168,14 @@ def test_scan_covers_the_classification_modules():
             "data/ingest.py"} <= scanned
 
 
+def test_scan_covers_the_sessionrec_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"engines/sessionrec.py", "models/seqrec.py", "ops/attention.py",
+            "data/ingest.py", "workflow/serialization.py",
+            "cli/main.py"} <= scanned
+
+
 def _port_sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -1280,6 +1362,20 @@ def _similarity_model():
                            V=np.ones((1, 2), np.float32), items={})
 
 
+def _seqrec(entry):
+    from predictionio_tpu_torch.models import seqrec
+
+    sessions = [["a", "b", "c"], ["b", "c", "a"]]
+    p = seqrec.SeqRecParams(d_model=8, n_heads=2, n_layers=1, max_len=4,
+                            epochs=1, batch_size=2)
+    if entry == "train_seqrec":
+        return seqrec.train_seqrec(None, sessions, p)
+    m = seqrec.train_seqrec(None, sessions, p, device="cpu")
+    m.device = None
+    m.release_device()
+    return m.recommend_next(["a"], 2)
+
+
 def _classifier(fit):
     from predictionio_tpu_torch.models import forest, logreg, naive_bayes
 
@@ -1307,7 +1403,9 @@ def _classifier(fit):
                                    "cli eval", "run_batch_predict",
                                    "cli batchpredict", "cli orchestrate",
                                    "train_multinomial_nb", "train_logreg",
-                                   "train_forest", "ForestModel.predict"])
+                                   "train_forest", "ForestModel.predict",
+                                   "train_seqrec",
+                                   "SeqRecModel.recommend_next"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -1326,7 +1424,9 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "cli eval": _cli_eval,
             "run_batch_predict": lambda: _run_batch_predict(tmp_path),
             "cli batchpredict": lambda: _cli_batchpredict(tmp_path),
-            "cli orchestrate": lambda: _cli_orchestrate(tmp_path)}.get(
+            "cli orchestrate": lambda: _cli_orchestrate(tmp_path),
+            "train_seqrec": lambda: _seqrec(entry),
+            "SeqRecModel.recommend_next": lambda: _seqrec(entry)}.get(
                 entry, lambda: _classifier(entry))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

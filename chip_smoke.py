@@ -549,6 +549,40 @@ Phases, each reported on its own lines:
                    the learned successor in the top 10 of at least half;
                    neither jax nor the reference in the train's or the
                    deploy's ``sys.modules``. No kernel runs in this phase.
+17. ``loadtest`` — the partitioned event store, its commit lanes and
+                   ``pio loadtest``'s storm (``storage/partitioned``,
+                   ``storage/audit``, ``data/write_buffer``,
+                   ``loadtest/*``), in a process of its own (the fleet
+                   sets ``PIO_INGEST_PARTITIONS`` and ``PIO_SERVER_CONF``
+                   for its whole process), in three legs. Leg 1, host
+                   work only: the reference bench's ``ingest_write``
+                   partition curve (bench.py:1783-1866): 8,192 events
+                   open loop in batches of 256 with 24 outstanding,
+                   ``flush_max`` 256, ``linger_s`` 0.004, ``queue_max``
+                   2^20, a 30 ms commit wall injected by
+                   ``FaultyEvents(ops=("insert_batch",))``, P in {1, 2,
+                   4}, best of 2 at each: no drop, failure or timeout,
+                   8,192 rows held, the audit clean, events/s at each P
+                   and at least the bench's 2.5x at P 4 over P 1. Leg 2:
+                   cfg_loadtest's leg 1 (bench.py:3040-3077): a
+                   ``LocalFleet`` of 2 replicas with fold-in behind the
+                   router over 2 partitions (sqlite), the replicas, the
+                   orchestrator's trains and fold-in on the card;
+                   population 200,000, items 20,000, 24 s at 400/s,
+                   amplitude 0.5, mix 0.6 / 0.3 / 0.1, ``maxOutstanding``
+                   256, a retrain at 9.6 s, p99 bounds of 2,000 ms: every
+                   invariant of ``run_storm``'s report (freshness
+                   included), the exactly-once audit over every acked id,
+                   a cycle promoted mid-run, B1's launches counted from
+                   zero around the fleet equal to its trains' (6 each)
+                   and its fold-in solves, B2's reported (0 under the
+                   replicas' exact scorer, which the leg says); ops/s,
+                   each lane's ack p99, the audited events and the rows
+                   folded in. Leg 3, on leg 2's store: ``reshard -p 4``,
+                   ``reshard -p 2`` and ``compact`` through the CLI,
+                   after each the audit clean against the same ledger and
+                   the training read's rows those before it (as a
+                   multiset).
 
 Order, for the time limit: batchpredict's leg 1 (no kernel) runs in a
 process of its own while nvcc builds; then the classify phase, alone;
@@ -558,7 +592,8 @@ CLI legs, the fleet's orchestrated cycle and sessionrec's leg 2 run each
 in a process of its own, each on its own store, while this process runs
 the train phase, the engines' width leg, eval legs 1-2, sessionrec's
 leg 1 and the fold-in width leg; then
-the other phases on the serve cell's model, one at a time. The kernels
+the other phases on the serve cell's model, one at a time; then the
+loadtest phase, alone. The kernels
 phase and the phases of the serve cell share the card with no other
 work; a leg run beside others has its times taken under that load.
 
@@ -574,6 +609,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -3165,6 +3201,20 @@ def canary_phase(seed, users, items, U, V):
         check(ctl.pending_rows() == cf["users"], f"{ctl.pending_rows()} "
               f"rows pending of {cf['users']} streamed users")
         applies0 = ctl.applies
+        # the held fold-in may land at the first tick after the verdict:
+        # a tick between the verdict and the registry read straight after
+        # it skips (the next one applies), so that read sees the promote
+        # and not a drift over it (a tick never waits: the deploy
+        # executor it runs on also writes the release statuses)
+        read_gate = threading.Event()
+        tick = ctl.apply_pending
+
+        def gated_tick():
+            if read_gate.is_set() or ctl.server._canary is not None:
+                return tick()
+            return None
+
+        ctl.apply_pending = gated_tick
 
         # 3. sequential single queries until the verdict -----------------
         kernels.reset_counts()
@@ -3202,6 +3252,8 @@ def canary_phase(seed, users, items, U, V):
         t_verdict = time.perf_counter()
         _, rels, _ = client.call("GET", "/releases.json")
         statuses = {r["version"]: r["status"] for r in rels["releases"]}
+        read_gate.set()
+        ctl.apply_pending = tick
         check(statuses.get(2) == "LIVE" and statuses.get(1) == "RETIRED",
               f"straight after the verdict the registry reads {statuses}")
         events = verdict_st["deploy"]["recentEvents"]
@@ -5044,11 +5096,12 @@ BACKGROUND_LEGS = {
     "orchestrate": lambda seed, port, work: fleet_orchestrate_leg(seed),
     "bp_bench": lambda seed, port, work: bp_bench_leg(),
     "sessionrec": lambda seed, port, work: sessionrec_cli_leg(seed, port,
-                                                              work)}
+                                                              work),
+    "loadtest": lambda seed, port, work: loadtest_phase(seed, port, work)}
 #: the shapes a background leg reads, passed on in ``CHIP_SMOKE_LEGS``
 LEG_SHAPES = ("ECOMM", "SIMILAR", "FOLLOW", "ML100K", "FLEET_ORCH",
               "EVAL_CLI", "BP_CLI", "BP_BENCH", "FOLDIN", "FEEDBACK",
-              "SESSIONREC_CLI")
+              "SESSIONREC_CLI", "LT_CURVE", "LT_STORM")
 
 
 def leg_worker() -> int:
@@ -5134,7 +5187,8 @@ def finish_legs(procs: dict) -> dict:
         for name, proc in procs.items():
             lines = (logs / f"{name}.out").read_text().splitlines()
             err = (logs / f"{name}.err").read_text()
-            for line in lines[:-1]:
+            # a leg that failed printed no report: relay every line
+            for line in (lines[:-1] if proc.returncode == 0 else lines):
                 log(line)
             if err:
                 sys.stderr.write(err[-20000:])
@@ -8833,14 +8887,420 @@ def sessionrec_launches(report: dict, kernel: str) -> int:
             + cli["deploy_launches"][kernel])
 
 
+#: the reference bench's ingest_write partition curve (bench.py:1783-1866):
+#: 8,192 events submitted open loop in batches of 256 with 24 outstanding,
+#: a 30 ms commit wall injected into every insert_batch, 1, 2 and 4 commit
+#: lanes, best of 2 at each, and the bench's scaling floor at 4 over 1
+LT_CURVE = dict(events=8192, batch=256, outstanding=24, flush_max=256,
+                linger_s=0.004, queue_max=1 << 20, commit_ms=30.0,
+                partitions=(1, 2, 4), best_of=2, min_scaling=2.5)
+#: cfg_loadtest's leg 1 (bench.py:3040-3077): the sustained storm
+LT_STORM = dict(population=200_000, items=20_000, duration_s=24.0,
+                rate=400.0, amplitude=0.5, seed=7, replicas=2,
+                partitions=2, outstanding=256, retrain_at=0.4,
+                p99_ms=2000.0)
+#: B1 launches of one of the fleet's trains: its engine.json trains ALS
+#: for 3 iterations, one launch a half-sweep
+LT_TRAIN_LAUNCHES = 6
+#: the fleet's app (LocalFleet's first app) and its training read (the
+#: recommendation engine's scan shape)
+LT_APP = "loadtest"
+LT_SCAN = dict(entity_type="user", event_names=["rate", "buy"],
+               target_entity_type="item", ordered=False,
+               columns=("event", "entity_id", "target_entity_id",
+                        "properties"))
+
+
+def _curve_point(parts: int, rnd: int) -> dict:
+    """One open-loop drive of the curve against ``parts`` commit lanes,
+    every flush paying the injected commit wall; the store then holds
+    every acked id exactly once."""
+    import datetime as _dt
+
+    from predictionio_tpu_torch.data.event import UTC, Event
+    from predictionio_tpu_torch.data.write_buffer import WriteBuffer
+    from predictionio_tpu_torch.loadtest.harness import drive_open_loop
+    from predictionio_tpu_torch.obs.registry import MetricsRegistry
+    from predictionio_tpu_torch.storage.audit import audit_exactly_once
+    from predictionio_tpu_torch.storage.faults import FaultyEvents
+    from predictionio_tpu_torch.storage.partitioned import (
+        PartitionedEvents, SqlitePartitions,
+    )
+
+    c, app = LT_CURVE, 1
+    root = WORK / "loadtest" / f"curve_p{parts}_{rnd}"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    store = PartitionedEvents(SqlitePartitions(str(root / "events.db")),
+                              initial_count=parts)
+    store.init_channel(app)
+    walled = FaultyEvents(store, latency_s=c["commit_ms"] / 1000.0,
+                          ops=("insert_batch",))
+    buf = WriteBuffer(lambda: walled, flush_max=c["flush_max"],
+                      linger_s=c["linger_s"], queue_max=c["queue_max"],
+                      partitions=parts, registry=MetricsRegistry())
+    base = _dt.datetime(2026, 1, 1, tzinfo=UTC)
+    n = c["events"]
+    events = [Event(event="view", entity_type="user",
+                    entity_id=f"u{i % 5000}", target_entity_type="item",
+                    target_entity_id=f"i{i % 800}",
+                    event_time=base + _dt.timedelta(seconds=i))
+              for i in range(n)]
+    batches = [events[i:i + c["batch"]] for i in range(0, n, c["batch"])]
+    ledger = []
+    try:
+        res = drive_open_loop(
+            batches, lambda b: buf.submit(b, app),
+            max_outstanding=c["outstanding"], weight=len, timeout_s=600,
+            on_ack=lambda _b, fut: ledger.extend(fut.result()))
+        buf.stop()
+        check(not res.timed_out and res.dropped == 0 and res.failed == 0,
+              f"loadtest: curve P={parts} dropped={res.dropped} "
+              f"failed={res.failed} timed_out={res.timed_out}")
+        rows = len(store.find_columns(app, columns=("event_id",),
+                                      ordered=False)["event_id"])
+        check(rows == n, f"loadtest: curve P={parts} holds {rows} of "
+              f"{n} rows")
+        audit = audit_exactly_once(store, app, ledger)
+        check(audit.ok, f"loadtest: curve P={parts}: {audit.summary()}")
+        return {"events_per_s": res.events_per_s(),
+                "ack_p99_ms": res.p99_ms(), "flushes": buf.flushes,
+                "partitions": audit.partitions}
+    finally:
+        store.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def loadtest_curve_leg() -> dict:
+    """Leg 1: ``ingest_write``'s partition curve, host work only."""
+    c = LT_CURVE
+    t0 = time.perf_counter()
+    points = {}
+    for parts in c["partitions"]:
+        runs = [_curve_point(parts, r) for r in range(c["best_of"])]
+        best = max(runs, key=lambda r: r["events_per_s"])
+        points[parts] = dict(best, runs_events_per_s=[
+            r["events_per_s"] for r in runs])
+        log(f"loadtest: curve P={parts}: "
+            f"{best['events_per_s']:.1f} events/s (best of "
+            f"{c['best_of']}: {points[parts]['runs_events_per_s']}), "
+            f"ack p99 {best['ack_p99_ms']:.1f} ms, "
+            f"{best['flushes']} flushes, rows by partition "
+            f"{best['partitions']}")
+    lo, hi = c["partitions"][0], c["partitions"][-1]
+    scaling = points[hi]["events_per_s"] / points[lo]["events_per_s"]
+    check(scaling >= c["min_scaling"], f"loadtest: {scaling:.2f}x at "
+          f"P={hi} over P={lo}, under the bench's {c['min_scaling']}x")
+    return {"points": {str(k): v for k, v in points.items()},
+            "scaling": scaling, "leg_s": time.perf_counter() - t0}
+
+
+def _lt_storage(root: pathlib.Path) -> dict:
+    """The CLI's environment for the fleet's store, and the same store
+    configured in this process (the committed partition map decides the
+    layout; no partition knob is set)."""
+    from predictionio_tpu_torch.data import eventstore
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    env = {k: v for k, v in os.environ.items()
+           if k != "PIO_INGEST_PARTITIONS"}
+    env.update({
+        "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_DB_PATH": str(root / "meta.db"),
+        "PIO_STORAGE_SOURCES_EV_TYPE": "sqlite",
+        "PIO_STORAGE_SOURCES_EV_PATH": str(root / "events.db"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "pio_meta",
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio_model",
+        "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio_event",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "EV"})
+    Storage.configure({
+        "sources": {"DB": {"TYPE": "sqlite", "PATH": str(root / "meta.db")},
+                    "EV": {"TYPE": "sqlite",
+                           "PATH": str(root / "events.db")}},
+        "repositories": {
+            "METADATA": {"NAME": "pio_meta", "SOURCE": "DB"},
+            "MODELDATA": {"NAME": "pio_model", "SOURCE": "DB"},
+            "EVENTDATA": {"NAME": "pio_event", "SOURCE": "EV"}}})
+    eventstore.clear_cache()
+    return env
+
+
+def _lt_state(app_id: int):
+    """(every stored event id, the training read's rows sorted) of the
+    fleet's app."""
+    from predictionio_tpu_torch.data.ingest import training_columns
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    store = Storage.get_events()
+    check(hasattr(store, "partition_count"), "loadtest: the fleet's store "
+          "does not open partitioned")
+    ids = [e.event_id for e in store.find(app_id)]
+    cols = training_columns(LT_APP, cache=False, **LT_SCAN)
+    rows = sorted(zip(*[cols[k].tolist() for k in LT_SCAN["columns"]]),
+                  key=repr)
+    return ids, rows, store.partition_count
+
+
+class _StormTimeline:
+    """Where a storm's query latency goes: each query's submit offset and
+    round trip (wrapping the fleet's query lane), the retrain's cycle and
+    cutover times, and the fleet loop's lag (a 10 ms sleep's overshoot,
+    the loop every server and the client share)."""
+
+    def __init__(self, fleet):
+        import asyncio
+
+        self.t0 = time.perf_counter()
+        self.queries = []
+        self.marks = {}
+        self.lags = []
+        self._done = threading.Event()
+        submit, retrain = fleet.submit_query, fleet.run_retrain_cycle
+
+        def timed_query(payload):
+            t = time.perf_counter()
+            fut = submit(payload)
+            fut.add_done_callback(lambda _f, t=t: self.queries.append(
+                (t - self.t0, time.perf_counter() - t)))
+            return fut
+
+        def timed_retrain():
+            self.marks["retrain_start_s"] = time.perf_counter() - self.t0
+            orig_tick = fleet._orch.tick
+
+            def tick(force=False):
+                doc = orig_tick(force=force)
+                self.marks["cycle_end_s"] = time.perf_counter() - self.t0
+                return doc
+
+            fleet._orch.tick = tick
+            try:
+                return retrain()
+            finally:
+                fleet._orch.tick = orig_tick
+                self.marks["cutover_end_s"] = time.perf_counter() - self.t0
+
+        fleet.submit_query = timed_query
+        fleet.run_retrain_cycle = timed_retrain
+
+        async def monitor():
+            while not self._done.is_set():
+                t = time.perf_counter()
+                await asyncio.sleep(0.01)
+                lag = time.perf_counter() - t - 0.01
+                self.lags.append((t - self.t0, lag))
+
+        asyncio.run_coroutine_threadsafe(monitor(), fleet._loop)
+        self._cpu0 = self._thread_cpu()
+        self._proc0 = time.process_time()
+        self._wall0 = time.perf_counter()
+
+    @staticmethod
+    def _thread_cpu() -> dict:
+        """CPU seconds of this process's threads by name (digits
+        dropped, so a pool's threads add up), from /proc."""
+        tick = os.sysconf("SC_CLK_TCK")
+        names = {t.native_id: t.name for t in threading.enumerate()}
+        out = collections.Counter()
+        for tid, name in names.items():
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            out["".join(c for c in name if not c.isdigit()).rstrip("_-")] \
+                += (int(fields[11]) + int(fields[12])) / tick
+        return out
+
+    def stop(self) -> None:
+        self._done.set()
+        self._cpu = self._thread_cpu()
+        self._cpu.subtract(self._cpu0)
+        self._proc = time.process_time() - self._proc0
+        self._wall = time.perf_counter() - self._wall0
+
+    def summary(self) -> dict:
+        def p99(xs):
+            xs = sorted(xs)
+            return xs[min(len(xs) - 1, int(0.99 * len(xs)))] * 1e3 \
+                if xs else None
+
+        lo = self.marks.get("retrain_start_s", float("inf"))
+        hi = self.marks.get("cutover_end_s", lo)
+        inside = [d for t, d in self.queries if lo <= t <= hi + 1.0]
+        outside = [d for t, d in self.queries if not lo <= t <= hi + 1.0]
+        slow = [t for t, d in self.queries if d > 0.5]
+        lags = [d for _, d in self.lags]
+        cpu = {k: round(v, 2) for k, v in self._cpu.most_common(8)}
+        return {**{k: round(v, 3) for k, v in self.marks.items()},
+                "wall_s": round(self._wall, 3),
+                "thread_cpu_s": cpu,
+                "process_cpu_s": round(self._proc, 2),
+                "queries": len(self.queries),
+                "query_p99_ms_retrain_window": p99(inside),
+                "query_p99_ms_elsewhere": p99(outside),
+                "slow_queries_by_second": dict(sorted(collections.Counter(
+                    int(t) for t in slow).items())),
+                "loop_lag_p99_ms": p99(lags),
+                "loop_lag_max_ms": max(lags) * 1e3 if lags else None,
+                "loop_lags_over_100ms": [
+                    (round(t, 2), round(d * 1e3, 1))
+                    for t, d in self.lags if d > 0.1][:40]}
+
+
+def loadtest_storm_leg(work: pathlib.Path) -> dict:
+    """Leg 2: cfg_loadtest's sustained storm on the card (the replicas,
+    the orchestrator's trains and fold-in on ``DEV``), launch counts from
+    zero around the fleet's whole life. Leg 3: ``reshard -p 4``,
+    ``reshard -p 2`` and ``compact`` through the CLI on the storm's
+    store, the audit and the training read checked after each."""
+    from predictionio_tpu_torch.loadtest.fleet import LocalFleet
+    from predictionio_tpu_torch.loadtest.scenario import Scenario
+    from predictionio_tpu_torch.loadtest.simulator import run_storm
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.storage.audit import audit_exactly_once
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    s = LT_STORM
+    sc = Scenario.from_dict({
+        "name": "smoke-sustained", "population": s["population"],
+        "items": s["items"], "durationS": s["duration_s"],
+        "seed": s["seed"], "baseRate": s["rate"],
+        "amplitude": s["amplitude"],
+        "mix": {"events": 0.6, "queries": 0.3, "feedback": 0.1},
+        "replicas": s["replicas"], "partitions": s["partitions"],
+        "backend": "sqlite", "maxOutstanding": s["outstanding"],
+        "incidents": [{"kind": "retrain",
+                       "atS": round(s["duration_s"] * s["retrain_at"], 1)}],
+    })
+    root = work / "storm"
+    shutil.rmtree(root, ignore_errors=True)
+    fleet = LocalFleet(str(root), replicas=sc.replicas,
+                       partitions=sc.partitions, backend=sc.backend,
+                       device=DEV)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        fleet.start()
+        start_s = time.perf_counter() - t0
+        timeline = _StormTimeline(fleet)
+        t1 = time.perf_counter()
+        try:
+            report = run_storm(sc, fleet, ack_p99_bound_ms=s["p99_ms"],
+                               query_p99_bound_ms=s["p99_ms"])
+        finally:
+            timeline.stop()
+        storm_s = time.perf_counter() - t1
+    finally:
+        fleet.stop()
+    where = timeline.summary()
+    log(f"loadtest: storm timeline: {json.dumps(where)}")
+    synchronize()
+    launches = kernels.counts()
+    servers = [x for x in fleet._replica_servers if x is not None]
+    solves = sum(x._foldin.solves for x in servers
+                 if x._foldin is not None)
+    modes = sorted({x.scorer_config.mode for x in servers})
+    fails = [r for r in report["invariants"] if not r["ok"]]
+    check(report["ok"], f"loadtest: storm violated {fails}")
+    check(report["audit"]["ok"], f"loadtest: {report['audit']['summary']}")
+    promoted = [c for c in report["cycles"] if c["outcome"] == "promoted"]
+    check(bool(promoted), f"loadtest: no cycle promoted mid-run: "
+          f"{report['cycles']}")
+    trains = 1 + len(report["cycles"])          # the seed cycle's too
+    want_b1 = LT_TRAIN_LAUNCHES * trains + solves
+    check(launches["spd_solve"] == want_b1, f"loadtest: B1 launched "
+          f"{launches['spd_solve']} times, the {trains} trains and "
+          f"{solves} fold-in solves make {want_b1}")
+    check(solves > 0, "loadtest: fold-in solved nothing on the card")
+    if modes == ["exact"]:
+        check(launches["shortlist"] == 0, "loadtest: B2 launched under "
+              "the exact scorer")
+        b2_note = ("the replicas' scorer ran exact (the fleet sets no "
+                   "PIO_SCORER_MODE), so B2 is not on this path")
+    else:
+        check(launches["shortlist"] > 0, f"loadtest: scorer {modes} "
+              "never launched B2")
+        b2_note = f"the replicas' scorer ran {modes}"
+    lanes = report["lanes"]
+    ops_s = sum(r["acked"] for r in lanes.values()) / report["wall_s"]
+    log(f"loadtest: storm {ops_s:.1f} ops/s over {report['wall_s']} s "
+        f"({report['arrivals']} arrivals, {report['active_users']} users "
+        f"woke); ack p99 events {lanes['events']['ack_p99_ms']} ms, "
+        f"feedback {lanes['feedback']['ack_p99_ms']} ms, queries "
+        f"{lanes['queries']['ack_p99_ms']} ms; audited "
+        f"{report['audit']['expected']} events "
+        f"{report['audit']['partitions']}; folded "
+        f"{report['foldin_applied_rows']} rows; B1 {launches['spd_solve']}"
+        f" ({trains} trains x {LT_TRAIN_LAUNCHES} + {solves} fold-in "
+        f"solves), B2 {launches['shortlist']}: {b2_note}")
+
+    # leg 3: maintenance through the CLI on the storm's store
+    t2 = time.perf_counter()
+    env = _lt_storage(root)
+    app_id = fleet.app_id
+    ledger, rows0, count0 = _lt_state(app_id)
+    check(count0 == sc.partitions and len(ledger)
+          == report["audit"]["expected"], f"loadtest: the store holds "
+          f"{len(ledger)} ids over {count0} partitions after the storm")
+    steps = []
+    for args, count in ((["reshard", "-p", "4"], 4),
+                        (["reshard", "-p", "2"], 2),
+                        (["compact", "--appname", LT_APP, "--ttl-days",
+                          "36500"], 2)):
+        Storage.reset()
+        t3 = time.perf_counter()
+        out = _cli(args, env, timeout=300)
+        cli_s = time.perf_counter() - t3
+        _lt_storage(root)
+        store = Storage.get_events()
+        audit = audit_exactly_once(store, app_id, ledger)
+        _ids, rows, got_count = _lt_state(app_id)
+        check(audit.ok, f"loadtest: after {args}: {audit.summary()}")
+        check(rows == rows0, f"loadtest: after {args} the training read "
+              f"changed ({len(rows)} rows, {len(rows0)} before)")
+        check(got_count == count, f"loadtest: after {args} the store has "
+              f"{got_count} partitions")
+        steps.append({"args": args, "out": out[-1], "cli_s": cli_s,
+                      "partitions": audit.partitions})
+        log(f"loadtest: {' '.join(args)}: {out[-1]} ({cli_s:.3f} s); "
+            f"audit clean {audit.partitions}, {len(rows)} training rows")
+    check(steps[2]["out"].endswith('{"removed_rows": 0}'),
+          f"loadtest: compact removed rows: {steps[2]['out']}")
+    Storage.reset()
+    shutil.rmtree(root, ignore_errors=True)
+    return {"timeline": where, "storm": {k: report[k] for k in (
+                "ok", "wall_s", "arrivals", "active_users", "lanes",
+                "audit", "invariants", "cycles", "foldin_applied_rows")},
+            "ops_per_s": ops_s, "start_s": start_s, "storm_s": storm_s,
+            "launches": launches, "trains": trains, "foldin_solves": solves,
+            "scorer_modes": modes, "b2_note": b2_note,
+            "maintenance": steps,
+            "maintenance_s": time.perf_counter() - t2,
+            "training_rows": len(rows0)}
+
+
+def loadtest_phase(seed: int, port: int, work) -> dict:
+    """Phase 17 in its own process: the process-wide knobs the fleet sets
+    (``PIO_INGEST_PARTITIONS``, ``PIO_SERVER_CONF``) touch nothing else."""
+    t0 = time.perf_counter()
+    curve = loadtest_curve_leg()
+    storm = loadtest_storm_leg(pathlib.Path(work))
+    return {"curve": curve, **storm, "phase_s": time.perf_counter() - t0}
+
+
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-             canary, engines, evals, fleet, sessionrec) -> dict:
+             canary, engines, evals, fleet, sessionrec, loadtest) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
     the ML-20M train and of the eval phase's sweeps (each counted from
     zero); beside them the fold-in launches of both legs and of the
     canary's held fold-in, the engines' trains and e-commerce's fold-in,
-    B1's times at the applies' shapes and at the eval sweeps'."""
+    the load test's storm (its trains and fold-in, counted from zero
+    around the fleet), B1's times at the applies' shapes and at the eval
+    sweeps'."""
     fl = lifecycle["foldin"]
     grid, cli = evals["grid"]["launches"], evals["cli"]
     eval_launches = {
@@ -8858,7 +9318,8 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
         "source": "predictionio_tpu_torch/csrc/spd_solve.cu",
         "replaces": "predictionio_tpu/ops/linalg.py:106",
         "launches": train["full"]["launches"] + sum(eval_launches.values())
-        + lifecycle["foldin_slo"]["b1_launches"],
+        + lifecycle["foldin_slo"]["b1_launches"]
+        + loadtest["launches"]["spd_solve"],
         "max_abs_err": spd_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -8903,6 +9364,7 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
                 engines["similar_width"]["b1_launches"],
             "fleet_orchestrate": fleet["orchestrate"]["b1_launches"],
             "sessionrec": sessionrec_launches(sessionrec, "spd_solve"),
+            "loadtest_storm": loadtest["launches"]["spd_solve"],
             **eval_launches},
         "eval_shapes": [r for r in spd_rows if r["eval"]],
         "foldin": {
@@ -8919,9 +9381,13 @@ def partial_run(args, shape) -> int:
     debugging on the card; no kernels line and no result."""
     phases = set(args.only.split(","))
     bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant",
-                    "classify", "sessionrec"}
+                    "classify", "sessionrec", "loadtest"}
     check(not bad, f"--only takes serve, obs, lifecycle, fleet, "
-          f"multitenant, classify, sessionrec; got {sorted(bad)}")
+          f"multitenant, classify, sessionrec, loadtest; got "
+          f"{sorted(bad)}")
+    if "loadtest" in phases:
+        log("loadtest: " + json.dumps(finish_legs(start_legs(
+            ["loadtest"], args.seed, args.port))["loadtest"]))
     if "classify" in phases:
         log("classify: " + json.dumps(classify_phase(args.seed)))
     if "sessionrec" in phases:
@@ -8965,7 +9431,8 @@ def main() -> int:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
                     help="run only these of serve, obs, lifecycle, fleet, "
-                         "multitenant, classify, sessionrec after the build "
+                         "multitenant, classify, sessionrec, loadtest after "
+                         "the build "
                          "and the "
                          "kernels phase (a partial run: it prints no "
                          "result and exits 4)")
@@ -9147,6 +9614,15 @@ def main() -> int:
         log("multitenant: " + json.dumps(multitenant))
         del served, blob
         gc.collect()
+        torch.cuda.empty_cache()
+        # 17. loadtest: the partition curve, the sustained storm and the
+        #     maintenance commands, in a process of its own (the fleet
+        #     sets process-wide knobs), alone on the card
+        t0 = time.perf_counter()
+        loadtest = finish_legs(start_legs(["loadtest"], args.seed,
+                                          args.port))["loadtest"]
+        loadtest["with_process_s"] = time.perf_counter() - t0
+        log("loadtest: " + json.dumps(loadtest))
         batchpredict = {"width": bp_width, "bench": bp_bench,
                         "cli": lifecycle["batchpredict_cli"],
                         "kernel_rows": chunk_rows,
@@ -9196,13 +9672,14 @@ def main() -> int:
             "fleet_replicas": fleet["replicas"]["b2_launches"],
             "fleet_orchestrate": fleet["orchestrate"]["b2_launches"],
             "multitenant": multitenant["width"]["b2_launches"],
-            "sessionrec": sessionrec_launches(sessionrec, "shortlist")},
+            "sessionrec": sessionrec_launches(sessionrec, "shortlist"),
+            "loadtest_storm": loadtest["launches"]["shortlist"]},
         "foldin_scored_queries": width["scored_probes"],
         "chunk_rows": chunk_rows,
         "engine_shapes": eng_rows,
         "tie_rows": tie_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-                canary, engines, evals, fleet, sessionrec)]}
+                canary, engines, evals, fleet, sessionrec, loadtest)]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

@@ -43,6 +43,11 @@ click), with the reference's commands, flags and exit codes:
     python -m predictionio_tpu_torch.cli.main orchestrate [-v engine.json]
         [--once] [--force] [--cycles N] [--server HOST:PORT]
         [--accesskey K] [--state-dir D] [--eval-class EVAL] [--device cpu]
+    python -m predictionio_tpu_torch.cli.main compact (--appid N |
+        --appname APP) [--channel C] [--ttl-days D]
+    python -m predictionio_tpu_torch.cli.main reshard --partitions P
+    python -m predictionio_tpu_torch.cli.main loadtest [--scenario S.json]
+        [--example] [--dir D] [--report R.json] [--json] [--device cpu]
     python -m predictionio_tpu_torch.cli.main status [--fleet PATH]
 
 The engine.json's ``engineFactory`` names one of the ported engines
@@ -122,6 +127,17 @@ health ejection, retries on another replica, fleet-sequenced
 ``orchestrate`` runs the continuous-training loop over the variant
 (``deploy/orchestrator``); ``--once`` exits 1 unless its cycle
 promoted.
+
+``compact`` applies the event store's retention (``--ttl-days``);
+``reshard`` changes a partitioned store's partition count, exactly-once
+at every crash point (``storage/partitioned``). Both print the
+reference's lines.
+
+``loadtest`` storms an in-process fleet (``loadtest/``: an event server
+over ``PIO_INGEST_PARTITIONS`` commit lanes, replicas with fold-in
+behind a router, the orchestrator retraining mid-run) under a scenario
+file, or a multi-tenant host under a tenant scenario, and exits 1 unless
+every invariant held (``PIO_LOADTEST_*`` scale the scenario).
 
 ``status`` checks every storage backend, or prints a fleet view.
 
@@ -1444,6 +1460,184 @@ def _print_fleet_history(root) -> int:
     return 0
 
 
+def compact_cmd(args) -> int:
+    """Event-store maintenance: apply retention (a DELETE of the events
+    older than ``--ttl-days`` on sqlite, partition by partition on a
+    partitioned store). Run one compactor per app namespace at a time."""
+    from predictionio_tpu_torch.data.eventstore import resolve_app
+    from predictionio_tpu_torch.storage.base import StorageError
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    channel = args.channel
+    if args.appname:
+        try:
+            app_id, channel_id = resolve_app(args.appname, channel)
+        except StorageError as e:
+            _fail(f"{e}. Aborting.")
+    elif args.appid is not None:
+        app_id, channel_id = args.appid, None
+        if channel is not None:
+            # compaction is destructive: never fall back to the default
+            # channel when the named one cannot be resolved
+            matched = [c for c in Storage.get_meta_data_channels()
+                       .get_by_appid(app_id) if c.name == channel]
+            if not matched:
+                _fail(f"app {app_id} has no channel '{channel}'. "
+                      "Aborting.")
+            channel_id = matched[0].id
+    else:
+        _fail("--appid or --appname is required.")
+    try:
+        stats = Storage.get_events().compact(app_id, channel_id,
+                                             ttl_days=args.ttl_days)
+    except StorageError as e:
+        _fail(f"compaction failed: {e}")
+    print(f"[INFO] Compacted app {app_id}"
+          + (f" channel {channel_id}" if channel_id is not None else "")
+          + ": " + json.dumps(stats, sort_keys=True), flush=True)
+    return 0
+
+
+def reshard_cmd(args) -> int:
+    """Change the partitioned event store's partition count: copy every
+    app and channel namespace into a new generation of partitions
+    (idempotent inserts, original event ids), commit the partition map
+    atomically, then collect the old generation. Exactly-once at every
+    crash point; an interrupted run can be run again. Offline
+    maintenance: stop the event servers first."""
+    from predictionio_tpu_torch.storage.base import StorageError
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    store = Storage.get_events()
+    if not hasattr(store, "reshard"):
+        _fail("the configured event store is not partitioned. Set "
+              "PIO_INGEST_PARTITIONS>1 on a sqlite EVENTDATA source to "
+              "create one.")
+    apps = []
+    for app in Storage.get_meta_data_apps().get_all():
+        apps.append((app.id, None))
+        for ch in Storage.get_meta_data_channels().get_by_appid(app.id):
+            apps.append((app.id, ch.id))
+    try:
+        stats = store.reshard(args.partitions, apps)
+    except StorageError as e:
+        _fail(f"reshard failed (safe to re-run): {e}")
+    print(f"[INFO] Resharded {len(apps)} namespace(s): "
+          + json.dumps(stats, sort_keys=True), flush=True)
+    return 0
+
+
+def loadtest(args) -> int:
+    """Storm a whole in-process fleet (``loadtest``) with synthetic mixed
+    traffic (events, queries, feedback) under a declarative scenario and
+    assert the runtime invariants live: no dropped acks, exactly-once
+    ingest by post-run audit, one LIVE release, freshness held. The
+    replicas, the trains and fold-in run on ``--device`` (default
+    ``cuda``). The exit status is the verdict."""
+    import tempfile
+
+    from predictionio_tpu_torch.loadtest.scenario import (
+        Scenario, ScenarioError, example_scenario,
+    )
+
+    if args.show_example:
+        print(json.dumps(example_scenario(), indent=2, sort_keys=True),
+              flush=True)
+        return 0
+    try:
+        sc = (Scenario.load(args.scenario_path) if args.scenario_path
+              else Scenario.from_dict(example_scenario()))
+    except ScenarioError as e:
+        _fail(f"bad scenario: {e}")
+
+    from predictionio_tpu_torch.loadtest.fleet import (
+        LocalFleet, MultiTenantFleet,
+    )
+    from predictionio_tpu_torch.loadtest.simulator import (
+        run_storm, run_tenant_storm, storm_report_json,
+    )
+    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.utils.server_config import loadtest_config
+
+    # the device first: without a card (and without --device cpu) this
+    # raises before a fleet starts
+    resolve_device(args.device)
+    knobs = loadtest_config()
+    knobs.apply(sc)
+    workdir = args.workdir
+    tmp = None
+    if workdir is None:
+        tmp = tempfile.TemporaryDirectory(prefix="pio-loadtest-")
+        workdir = tmp.name
+    try:
+        if sc.tenants:
+            print(f"[INFO] Multi-tenant storm '{sc.name}': "
+                  f"{len(sc.tenants)} tenant(s) "
+                  f"[{', '.join(t.name for t in sc.tenants)}] "
+                  f"duration={sc.duration_s:g}s rate={sc.base_rate:g}/s "
+                  f"incidents={len(sc.incidents)}", flush=True)
+            fleet = MultiTenantFleet(workdir, sc.tenants,
+                                     device=args.device)
+            try:
+                fleet.start()
+                report = run_tenant_storm(sc, fleet)
+            finally:
+                fleet.stop()
+        else:
+            print(f"[INFO] Storm '{sc.name}': population={sc.population} "
+                  f"duration={sc.duration_s:g}s rate={sc.base_rate:g}/s "
+                  f"replicas={sc.replicas} partitions={sc.partitions} "
+                  f"backend={sc.backend} incidents={len(sc.incidents)}",
+                  flush=True)
+            fleet = LocalFleet(workdir, replicas=sc.replicas,
+                               partitions=sc.partitions, backend=sc.backend,
+                               device=args.device)
+            try:
+                fleet.start()
+                report = run_storm(sc, fleet)
+            finally:
+                fleet.stop()
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+    report_path = args.report_path
+    if report_path is None and knobs.report_dir:
+        os.makedirs(knobs.report_dir, exist_ok=True)
+        report_path = os.path.join(knobs.report_dir, f"{sc.name}.json")
+    if report_path:
+        tmp_report = f"{report_path}.tmp"
+        with open(tmp_report, "w") as f:
+            f.write(storm_report_json(report) + "\n")
+        os.replace(tmp_report, report_path)
+        print(f"[INFO] Report written to {report_path}", flush=True)
+
+    if args.as_json:
+        print(storm_report_json(report), flush=True)
+    else:
+        for lane, res in sorted(report.get("lanes", {}).items()):
+            print(f"[INFO] lane {lane}: offered={res['offered']} "
+                  f"acked={res['acked']} failed={res['failed']} "
+                  f"p99={res['ack_p99_ms']:.1f}ms")
+        for name, res in sorted(report.get("tenants", {}).items()):
+            print(f"[INFO] tenant {name}: offered={res['offered']} "
+                  f"acked={res['acked']} failed={res['failed']} "
+                  f"rejected={res['rejections']} "
+                  f"p99={res['ack_p99_ms']:.1f}ms")
+        for inv in report["invariants"]:
+            mark = "OK" if inv["ok"] else "FAIL"
+            print(f"[{mark}] {inv['name']}: {inv['detail']}")
+        sys.stdout.flush()
+    if not report["ok"]:
+        _fail("storm verdict: INVARIANT VIOLATED")
+    arrivals = report.get(
+        "arrivals",
+        sum(r["offered"] for r in report.get("tenants", {}).values()))
+    print(f"[INFO] storm verdict: OK ({arrivals} arrivals, "
+          f"{report['wall_s']:.1f}s wall)", flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m predictionio_tpu_torch.cli.main")
@@ -1734,6 +1928,42 @@ def build_parser() -> argparse.ArgumentParser:
                          "when absent)")
     oc.add_argument("--device", default=None, help="cuda (default) or cpu")
     oc.set_defaults(func=orchestrate)
+
+    co = sub.add_parser("compact", help="event-store maintenance: "
+                        "retention sweep")
+    co.add_argument("--appid", type=int, default=None)
+    co.add_argument("--appname", default=None)
+    co.add_argument("--channel", default=None)
+    co.add_argument("--ttl-days", type=float, default=None,
+                    help="drop events older than this many days")
+    co.set_defaults(func=compact_cmd)
+
+    rs = sub.add_parser("reshard", help="change the partitioned event "
+                        "store's partition count")
+    rs.add_argument("--partitions", "-p", type=int, required=True,
+                    help="new partition count for the event store")
+    rs.set_defaults(func=reshard_cmd)
+
+    lt = sub.add_parser("loadtest", help="storm an in-process fleet "
+                        "under a scenario and assert its invariants")
+    lt.add_argument("--scenario", "-s", dest="scenario_path", default=None,
+                    help="scenario JSON (loadtest/scenario schema); omit "
+                         "to run the built-in example scenario")
+    lt.add_argument("--example", "--show-example", dest="show_example",
+                    action="store_true",
+                    help="print an example scenario file and exit")
+    lt.add_argument("--dir", dest="workdir", default=None,
+                    help="fleet working directory (default: a temporary "
+                         "one, removed afterwards)")
+    lt.add_argument("--report", dest="report_path", default=None,
+                    help="write the verdict JSON here (default "
+                         "PIO_LOADTEST_REPORT_DIR/<scenario>.json when "
+                         "that knob is set, else standard output only)")
+    lt.add_argument("--json", dest="as_json", action="store_true",
+                    help="print the whole report JSON instead of the "
+                         "summary")
+    lt.add_argument("--device", default=None, help="cuda (default) or cpu")
+    lt.set_defaults(func=loadtest)
 
     st = sub.add_parser("status", help="verify the storage configuration")
     st.add_argument("--fleet", dest="fleet_path", default=None,

@@ -2,8 +2,11 @@
 ``data/eventstore.py``; its training read is ``data/ingest``'s).
 
 App name (+ channel name) -> (app_id, channel_id) resolution is cached,
-as in store/Common.scala:25-60. The multi-process sharded read belongs
-to a later slice of the port.
+as in store/Common.scala:25-60. Every read goes to the configured
+store, partitioned or not: a partitioned store's ``find_columns`` and
+``aggregate_properties`` scan its partitions at once
+(``storage/partitioned``). The multi-process sharded read belongs to a
+later slice of the port.
 """
 
 from __future__ import annotations

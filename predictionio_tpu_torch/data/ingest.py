@@ -15,8 +15,12 @@ flat numpy arrays, with no per-event Python objects.
   through the obs span histogram.
 
 The training read is :func:`training_columns`, which
-``EventStoreClient.training_columns`` calls. The reference's sharded
-multi-process read is not ported (ROADMAP item A12).
+``EventStoreClient.training_columns`` calls. On a partitioned event
+store (``storage/partitioned``) it reads the partitions at once through
+the store's ``find_columns``, and the cache keys on the store's
+composite digest (``pmap:P:`` and each partition's), so a write to any
+partition or a reshard misses. The reference's sharded multi-process
+read is not ported (ROADMAP item A12).
 """
 
 from __future__ import annotations

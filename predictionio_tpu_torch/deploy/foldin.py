@@ -27,9 +27,20 @@ deltas go back to pending. The first apply after a real deploy
 registers one drift release; the pre-fold-in unit stays resident as the
 rollback standby, and ``POST /rollback.json`` restores its answers.
 
-The reference's metrics registry and trace carry are not ported: the
-controller keeps plain counters and a log of its recent applies, which
-``status_dict`` (``GET /deploy/status.json``) reports.
+On a partitioned event store (``PIO_INGEST_PARTITIONS``,
+``storage/partitioned``) the pull scan reads the partitions at once and
+concatenates them, and the history read groups a tick's user ids by
+``partition_of``, so each partition is asked only for its own users
+(an entity's events all live in one partition); the item side's
+``target_entity_id`` is not hashed and asks every partition. Both
+return the rows the unpartitioned store returns.
+
+The controller counts into the registry series of ``obs/foldin_stats``
+(applies by outcome, applied and pending rows, the apply, solve and
+event-to-applied times) and keeps a log of its recent applies, which
+``status_dict`` (``GET /deploy/status.json``) reports. The reference's
+trace carry (an apply re-entering the trace of the request whose
+events it folds) is not ported (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -20,7 +20,9 @@ Auth (:92-142): the ``accessKey`` query parameter, else an
 ``Authorization: Basic <key:>`` header; a key restricted to some event
 names answers 403 for others; ``channel`` resolves through the app's
 channels. Writes go through the group-commit ``WriteBuffer``
-(``data/write_buffer``): a full queue answers 429 with Retry-After, a
+(``data/write_buffer``), one commit lane per partition of the event
+store (``PIO_INGEST_PARTITIONS``): a full lane answers 429 with
+Retry-After, a
 storage failure after the retries 503, and a shutdown drains the buffer.
 ``PIO_INGEST_BUFFER=0`` writes per request instead (a storage failure
 then answers 500, as in the reference).
@@ -120,7 +122,8 @@ class EventServer:
                 flush_max=ic.flush_max, linger_s=ic.linger_s,
                 retries=ic.retries, backoff_s=ic.backoff_s,
                 backoff_cap_s=ic.backoff_cap_s,
-                flush_timeout_s=ic.flush_timeout_s, registry=self.registry)
+                flush_timeout_s=ic.flush_timeout_s,
+                partitions=ic.partitions, registry=self.registry)
         self._http = HttpServer([
             ("GET", "/", self.handle_root),
             ("POST", "/events.json", self.handle_create),

@@ -1,6 +1,6 @@
 """An HTTP/1.1 client on the standard library's asyncio streams, for the
-router (the machine with the card has no aiohttp, whose
-``ClientSession`` the reference's router uses).
+router and the load test's fleet (the machine with the card has no
+aiohttp, whose ``ClientSession`` the reference's router uses).
 
 It keeps a pool of keep-alive connections per origin: ``server/http``
 answers HTTP/1.1 with keep-alive, and a fresh connection per proxied
@@ -44,6 +44,8 @@ class _Unanswered(HttpClientError):
 class Response:
     status: int
     body: bytes
+    #: header names lower-cased
+    headers: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def json(self) -> Any:
         return json.loads(self.body)
@@ -171,7 +173,7 @@ class HttpClient:
             raise HttpClientError(f"truncated answer: {e}") from None
         keep = (length is not None and version == "HTTP/1.1"
                 and headers.get("connection", "").lower() != "close")
-        return Response(status, data), keep
+        return Response(status, data, headers), keep
 
     async def close(self) -> None:
         self._closed = True

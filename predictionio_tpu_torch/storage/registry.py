@@ -10,6 +10,10 @@
   * ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,SOURCE}``
     — binds each repository to a source.
 
+An sqlite event store is partitioned (``storage/partitioned``) when
+``PIO_INGEST_PARTITIONS`` > 1 or a committed partition map is on disk
+beside its file; any fault injector wraps the partitioned store.
+
 Without those variables everything lives in one sqlite file under
 ``$PIO_HOME`` (default ``~/.pio_tpu``), ``data/pio.db``, as in the
 reference. Clients are created lazily and cached per source name;
@@ -19,6 +23,7 @@ reference. Clients are created lazily and cached per source name;
 
 from __future__ import annotations
 
+import logging
 import os
 import re
 import threading
@@ -26,6 +31,8 @@ from typing import Dict, Optional
 
 from predictionio_tpu_torch.storage import base
 from predictionio_tpu_torch.storage.base import StorageError
+
+log = logging.getLogger("pio.torch.storage")
 
 _SOURCE_RE = re.compile(r"^PIO_STORAGE_SOURCES_([^_]+)_([A-Z0-9_]+)$")
 _REPO_RE = re.compile(r"^PIO_STORAGE_REPOSITORIES_([^_]+)_(NAME|SOURCE)$")
@@ -117,6 +124,10 @@ class Storage:
 
     @classmethod
     def _close_clients(cls) -> None:
+        for obj in cls._objects.values():
+            # a partitioned event store owns its partitions' clients
+            if hasattr(obj, "partition_count"):
+                obj.close()
         for c in cls._clients.values():
             c.close()
         cls._clients = {}
@@ -178,6 +189,10 @@ class Storage:
                 obj = getattr(sb, _SQLITE_KINDS[kind])(client)
                 if kind == "events":
                     from predictionio_tpu_torch.storage import faults
+
+                    # partitions first, the fault injector around them
+                    # (the reference's order)
+                    obj = _maybe_partition(stype, client, obj)
 
                     if faults.env_enabled():
                         # chaos mode: any PIO_FAULT_* fault knob wraps the
@@ -244,3 +259,34 @@ class Storage:
         events.init_channel(0, None)
         events.remove_channel(0, None)
         return True
+
+
+def _ingest_partitions() -> int:
+    """The requested partition count, read from the environment (not
+    from server.json): the storage layer must agree on the layout with
+    offline commands (train, reshard) that load no server config. A
+    committed partition map on disk is authoritative either way
+    (``storage/partitioned.maybe_partitioned``)."""
+    try:
+        return int(os.environ.get("PIO_INGEST_PARTITIONS", "0") or 0)
+    except ValueError:
+        return 0
+
+
+def _maybe_partition(stype: str, client, obj):
+    """Wrap a freshly built event store in the partitioned router when
+    partitioning is requested or already committed on disk."""
+    requested = _ingest_partitions()
+    if stype == "sqlite":
+        from predictionio_tpu_torch.storage.partitioned import (
+            SqlitePartitions, maybe_partitioned,
+        )
+
+        return maybe_partitioned(
+            obj, lambda: SqlitePartitions(client.path), requested)
+    if requested > 1:
+        log.warning(
+            "PIO_INGEST_PARTITIONS=%d requested but the %r event store "
+            "does not support partitioning; running unpartitioned",
+            requested, stype)
+    return obj

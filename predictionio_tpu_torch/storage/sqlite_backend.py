@@ -106,6 +106,12 @@ SQL_COLUMN_OF = {
 }
 
 
+#: rows an insert statement carries (13 bound values each: under the
+#: 999 variables of older sqlite builds)
+_ROWS_PER_STATEMENT = 64
+_ROW_MARKS = "(" + ",".join("?" * 13) + ")"
+
+
 def event_table_name(app_id: int, channel_id: Optional[int]) -> str:
     """JDBCUtils.eventTableName:108 parity: pio_event_<app>[_<channel>]."""
     suffix = f"_{channel_id}" if channel_id is not None else ""
@@ -183,10 +189,25 @@ class SqliteEvents(base.EventStore):
             ))
         try:
             with self.client.write_lock():
-                self.client.conn().executemany(
-                    f"{verb} INTO {name} VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?)",
-                    rows)
-                self.client.conn().commit()
+                conn = self.client.conn()
+                try:
+                    # many rows a statement: the sqlite3 module drops and
+                    # retakes the GIL around every step, so executemany
+                    # pays that a row; under concurrent writers (the
+                    # commit lanes) the handoffs, not the inserts, cost
+                    for s in range(0, len(rows), _ROWS_PER_STATEMENT):
+                        chunk = rows[s:s + _ROWS_PER_STATEMENT]
+                        conn.execute(
+                            f"{verb} INTO {name} VALUES "
+                            + ",".join([_ROW_MARKS] * len(chunk)),
+                            [v for row in chunk for v in row])
+                    conn.commit()
+                except BaseException:
+                    # a connection outlives a failed insert (a lane's
+                    # flush thread keeps it): nothing of it may ride a
+                    # later commit
+                    conn.rollback()
+                    raise
         except sqlite3.OperationalError as ex:
             raise StorageError(
                 f"cannot insert into app {app_id} channel {channel_id}: {ex}. "
@@ -206,6 +227,25 @@ class SqliteEvents(base.EventStore):
             raise StorageError(
                 "insert_batch_idempotent requires pre-assigned event ids")
         return self._insert("INSERT OR IGNORE", events, app_id, channel_id)
+
+    def compact(self, app_id: int, channel_id: Optional[int] = None,
+                ttl_days: Optional[float] = None) -> dict:
+        """Retention sweep as one DELETE of the events older than
+        ``ttl_days`` (a row store has nothing to merge)."""
+        removed = 0
+        if ttl_days is not None:
+            name = event_table_name(app_id, channel_id)
+            cutoff = _to_ms(_dt.datetime.now(tz=UTC)
+                            - _dt.timedelta(days=ttl_days))
+            try:
+                with self.client.write_lock():
+                    cur = self.client.conn().execute(
+                        f"DELETE FROM {name} WHERE eventTime < ?", (cutoff,))
+                    self.client.conn().commit()
+            except sqlite3.OperationalError as ex:
+                raise StorageError(str(ex)) from ex
+            removed = cur.rowcount
+        return {"removed_rows": removed}
 
     def get(self, event_id: str, app_id: int,
             channel_id: Optional[int] = None) -> Optional[Event]:

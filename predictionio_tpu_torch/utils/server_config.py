@@ -307,9 +307,12 @@ class IngestConfig:
     ``linger_s``, ``retries`` retries with backoff from ``backoff_s``
     (capped at ``backoff_cap_s``) and ``flush_timeout_s`` per storage
     call. ``buffer=False`` writes per request. ``max_events_per_batch``
-    caps ``/batch/events.json`` (EventServer.scala:66). ``partitions`` >
-    1 (parallel commit lanes over a partitioned store) is not ported:
-    resolving it raises ``NotImplementedError``."""
+    caps ``/batch/events.json`` (EventServer.scala:66). ``partitions``
+    runs the buffer as that many parallel commit lanes, one per partition
+    of the event store (``storage/partitioned``); set
+    ``PIO_INGEST_PARTITIONS`` alike for the server and the offline
+    commands so the store's layout agrees (a committed partition map on
+    disk stays authoritative; a count change takes ``pio reshard``)."""
 
     max_events_per_batch: int = 50
     buffer: bool = True
@@ -365,14 +368,8 @@ class IngestConfig:
 
 def ingest_config() -> IngestConfig:
     """The event server's ingest knobs (server.json ``ingest`` section <
-    env). Partitioned ingest is refused, not run as one lane."""
-    cfg = IngestConfig.from_env(read_server_json().get("ingest") or {})
-    if cfg.partitions > 1:
-        raise NotImplementedError(
-            f"ingest partitions={cfg.partitions}: the partitioned event "
-            "store and its parallel commit lanes are not ported to "
-            "PyTorch yet")
-    return cfg
+    env)."""
+    return IngestConfig.from_env(read_server_json().get("ingest") or {})
 
 
 @dataclasses.dataclass
@@ -1088,3 +1085,86 @@ def multitenant_config() -> MultiTenantConfig:
     section overlaid by ``PIO_MT_*`` env."""
     return MultiTenantConfig.from_env(
         read_server_json().get("multitenant") or {})
+
+
+@dataclasses.dataclass
+class LoadtestConfig:
+    """Workload-simulator tuning (the ``PIO_LOADTEST_*`` knobs;
+    server.json ``loadtest`` section, camelCase keys; env wins).
+
+    They scale a scenario file without editing it: ``population`` and
+    ``duration_s`` replace the scenario's own values when set (> 0),
+    ``rate_scale`` multiplies its arrival rate, ``seed`` re-seeds the run
+    (>= 0), ``max_outstanding`` bounds the open-loop in-flight window of
+    each lane (> 0), and ``report_dir`` is where ``pio loadtest`` writes
+    the verdict JSON (empty: standard output only)."""
+
+    population: int = 0
+    duration_s: float = 0.0
+    rate_scale: float = 1.0
+    seed: int = -1
+    max_outstanding: int = 0
+    report_dir: str = ""
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None) -> "LoadtestConfig":
+        """server.json ``loadtest`` section overlaid by
+        ``PIO_LOADTEST_*`` env vars (env wins); malformed knobs are
+        logged and fall back."""
+        data = data or {}
+        cfg = cls()
+        file_keys = (
+            ("population", "population", int),
+            ("durationS", "duration_s", float),
+            ("rateScale", "rate_scale", float),
+            ("seed", "seed", int),
+            ("maxOutstanding", "max_outstanding", int),
+            ("reportDir", "report_dir", str),
+        )
+        env_keys = (
+            ("PIO_LOADTEST_POPULATION", "population", int),
+            ("PIO_LOADTEST_DURATION_S", "duration_s", float),
+            ("PIO_LOADTEST_RATE_SCALE", "rate_scale", float),
+            ("PIO_LOADTEST_SEED", "seed", int),
+            ("PIO_LOADTEST_OUTSTANDING", "max_outstanding", int),
+            ("PIO_LOADTEST_REPORT_DIR", "report_dir", str),
+        )
+        sources = (
+            [(k, data.get(k), attr, conv) for k, attr, conv in file_keys]
+            + [(k, os.environ.get(k), attr, conv)
+               for k, attr, conv in env_keys]
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed loadtest knob %s=%r",
+                               name, raw)
+        cfg.population = max(0, cfg.population)
+        cfg.duration_s = max(0.0, cfg.duration_s)
+        cfg.rate_scale = max(0.0, cfg.rate_scale)
+        cfg.max_outstanding = max(0, cfg.max_outstanding)
+        return cfg
+
+    def apply(self, scenario):
+        """Overlay the set knobs onto a Scenario in place and return it
+        (0 or negative: keep the scenario's own value)."""
+        if self.population > 0:
+            scenario.population = self.population
+        if self.duration_s > 0:
+            scenario.duration_s = self.duration_s
+        if self.rate_scale > 0 and self.rate_scale != 1.0:
+            scenario.base_rate = scenario.base_rate * self.rate_scale
+        if self.seed >= 0:
+            scenario.seed = self.seed
+        if self.max_outstanding > 0:
+            scenario.max_outstanding = self.max_outstanding
+        return scenario
+
+
+def loadtest_config() -> LoadtestConfig:
+    """The knobs a ``pio loadtest`` run uses: server.json ``loadtest``
+    section overlaid by ``PIO_LOADTEST_*`` env."""
+    return LoadtestConfig.from_env(read_server_json().get("loadtest") or {})

@@ -19,7 +19,9 @@ the CPU on their own.
   series|query``, and another ``multiserve`` over two tenants, and
   another trains the three classification algorithms, deploys one and
   runs ``eval`` through the CLI, and another trains and deploys the
-  sessionrec engine through the CLI, each with the same finding;
+  sessionrec engine through the CLI, and another runs ``reshard`` and
+  ``compact`` on a partitioned store and a storm through ``loadtest``,
+  each with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``,
   the batch-predict slice's obs core, worker contract and kill points,
@@ -1114,6 +1116,81 @@ def test_orchestrate_and_status_cli_load_no_jax(trained_variant, tmp_path):
     assert any(x.startswith("[INFO] trace t1: 2 span(s)") for x in status)
 
 
+_LOADTEST_CHILD = r"""
+import datetime, json, os, sys
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.registry import Storage
+
+tmp = sys.argv[1]
+os.environ.update({
+    "PIO_INGEST_PARTITIONS": "2",
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "pio.db"),
+    "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"})
+app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+store = Storage.get_events()
+store.init_channel(app_id)
+old = datetime.datetime(2020, 1, 1, tzinfo=datetime.timezone.utc)
+store.insert_batch([Event(event="view", entity_type="user",
+                          entity_id=f"u{i}", event_time=old)
+                    for i in range(30)], app_id)
+assert main(["reshard", "-p", "3"]) == 0
+assert main(["compact", "--appname", "Guard", "--ttl-days", "1"]) == 0
+Storage.reset()
+del os.environ["PIO_INGEST_PARTITIONS"]
+scenario = os.path.join(tmp, "storm.json")
+with open(scenario, "w") as f:
+    json.dump({"name": "guard", "population": 60, "items": 20,
+               "durationS": 2.0, "seed": 3, "baseRate": 20.0,
+               "replicas": 2, "partitions": 2, "maxOutstanding": 32,
+               "incidents": [{"kind": "retrain", "atS": 0.5}]}, f)
+assert main(["loadtest", "--scenario", scenario, "--device", "cpu",
+             "--dir", os.path.join(tmp, "fleet"),
+             "--report", os.path.join(tmp, "report.json")]) == 0
+bad = sorted(m for m in sys.modules
+             if any(m == t or m.startswith(t + ".") for t in (
+                 "jax", "predictionio_tpu", "aiohttp", "click")))
+print(json.dumps(bad), flush=True)
+"""
+
+
+def test_loadtest_compact_and_reshard_cli_load_no_jax(tmp_path):
+    """``reshard`` and ``compact`` on a partitioned store, then a storm
+    through ``loadtest`` (2 replicas, 2 partitions, a retrain) on the
+    CPU, through the CLI in one process."""
+    out = subprocess.run(
+        [sys.executable, "-c", _LOADTEST_CHILD, str(tmp_path)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "[]", out.stdout
+    assert lines[0] == ('[INFO] Resharded 1 namespace(s): {"copied": 30, '
+                        '"count": 3, "gen": 1, "old_count": 2}')
+    assert lines[1] == '[INFO] Compacted app 1: {"removed_rows": 30}'
+    assert any(x.startswith("[INFO] storm verdict: OK") for x in lines)
+    assert any(x.startswith("[OK] exactly_once_ingest") for x in lines)
+    report = json.loads((tmp_path / "report.json").read_text())
+    assert report["ok"] and report["audit"]["ok"]
+
+
+def test_scan_covers_the_loadtest_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"storage/partitioned.py", "storage/audit.py",
+            "obs/loadtest_stats.py", "loadtest/__init__.py",
+            "loadtest/harness.py", "loadtest/population.py",
+            "loadtest/scenario.py", "loadtest/invariants.py",
+            "loadtest/simulator.py", "loadtest/fleet.py",
+            "data/write_buffer.py"} <= scanned
+
+
 def test_scan_covers_the_observability_modules():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
                if PKG in p.parents}
@@ -1353,6 +1430,18 @@ def _cli_orchestrate(tmp_path):
                  "--once", "--force"])
 
 
+def _cli_loadtest(tmp_path):
+    from predictionio_tpu_torch.cli.main import main
+
+    return main(["loadtest", "--dir", str(tmp_path / "fleet")])
+
+
+def _local_fleet(tmp_path):
+    from predictionio_tpu_torch.loadtest.fleet import LocalFleet
+
+    return LocalFleet(str(tmp_path / "fleet")).start()
+
+
 def _similarity_model():
     from predictionio_tpu_torch.engines.similarproduct import (
         SimilarityModel,
@@ -1405,7 +1494,8 @@ def _classifier(fit):
                                    "train_multinomial_nb", "train_logreg",
                                    "train_forest", "ForestModel.predict",
                                    "train_seqrec",
-                                   "SeqRecModel.recommend_next"])
+                                   "SeqRecModel.recommend_next",
+                                   "cli loadtest", "LocalFleet.start"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -1426,7 +1516,9 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "cli batchpredict": lambda: _cli_batchpredict(tmp_path),
             "cli orchestrate": lambda: _cli_orchestrate(tmp_path),
             "train_seqrec": lambda: _seqrec(entry),
-            "SeqRecModel.recommend_next": lambda: _seqrec(entry)}.get(
+            "SeqRecModel.recommend_next": lambda: _seqrec(entry),
+            "cli loadtest": lambda: _cli_loadtest(tmp_path),
+            "LocalFleet.start": lambda: _local_fleet(tmp_path)}.get(
                 entry, lambda: _classifier(entry))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -583,17 +583,63 @@ Phases, each reported on its own lines:
                    after each the audit clean against the same ledger and
                    the training read's rows those before it (as a
                    multiset).
+18. ``distributed`` — multi-process ALS and the sharded scorer
+                   (``parallel/*``, ``models/als.build_distributed``,
+                   ``ops/scoring.ShardedScorer``), in three legs. Legs 1
+                   and 2 run in two processes of one gloo group on the
+                   card (``dist_worker``: the repo root on
+                   ``PYTHONPATH``, a free loopback port, gloo on ``lo``;
+                   a rendezvous or run past its bound fails the phase and
+                   kills both). Leg 1: the train phase's width (ML-20M
+                   ``synthetic_ratings``, seed 20; rank 10, 20
+                   iterations, reg 0.01, the ``full`` solver), each
+                   process holding its ``contiguous_range`` slice of the
+                   COO, ``build_distributed`` (one row exchange a side)
+                   and ``train_als`` over the 2-position process mesh,
+                   an uncounted train first: B1 40 times in each process
+                   counted from zero, U and V equal across the processes
+                   within 1e-5, both within ``TWIN_TOL`` of the train
+                   phase's one-process train from the same initial
+                   factors, the digest its ``ALSData.build``'s; the
+                   exchange's rows, bytes and seconds, the all-gathers'
+                   ms a half-sweep, the train's wall. Leg 2: the
+                   recommendation engine at the ML-100k shape on a sqlite
+                   store of its own (100,000 rate events written with
+                   ``insert_batch``): the DataSource's sharded read (a
+                   strict subset in each process, the two summing to the
+                   total) and ``ALSAlgorithm.train`` (B1 40 times in each
+                   process); the answers to 100 queries equal a
+                   one-process train's (ids up to ties, scores within
+                   1e-4). Leg 3, after the obs phase, alone on the card:
+                   the serve cell's model under ``PIO_SCORER_SHARDS=2``
+                   (twostage, tile 16384, shortlist 1024), in this process
+                   (12 batches, B 1 and 8, and a whitelist batch of 8
+                   inside the second shard): both shards twostage,
+                   ``maxShardFactorBytes`` <= half the catalog's f32
+                   bytes < ``exactBytes``, B2 launches = 2 x the batches,
+                   every top-10 the host's exact top-10 (ids up to ties,
+                   scores within 1e-5); then ``deploy`` of the serve
+                   phase's file with two shards over HTTP: the serve
+                   phase's 24 plain queries answered as the unsharded
+                   server answered them, B2 launches = 2 x the queries,
+                   the merged recall probe and p50 beside the unsharded
+                   p50. Between the two, mode ``exact`` with two shards
+                   in this process on the same batches: each shard's
+                   rows on the card and every batch allocating there (no
+                   host product), no B2, the same exact top-10s.
 
 Order, for the time limit: batchpredict's leg 1 (no kernel) runs in a
-process of its own while nvcc builds; then the classify phase, alone;
-after the kernels phase, the lifecycle (with the eval, batchpredict and
-multitenant CLI legs inside it, the three at once), the engines' three
-CLI legs, the fleet's orchestrated cycle and sessionrec's leg 2 run each
-in a process of its own, each on its own store, while this process runs
-the train phase, the engines' width leg, eval legs 1-2, sessionrec's
-leg 1 and the fold-in width leg; then
-the other phases on the serve cell's model, one at a time; then the
-loadtest phase, alone. The kernels
+process of its own while nvcc builds; then the distributed phase's legs
+1-2 with nothing beside them (their processes' launches are their own;
+leg 1's factors are held to the train phase's after it), then the
+classify phase alone; after the kernels phase, the lifecycle (with the
+eval, batchpredict and multitenant CLI legs inside it, the three at
+once), the engines' three CLI legs, the fleet's orchestrated cycle and
+sessionrec's leg 2 run each in a process of its own, each on its own
+store, while this process runs the train phase, the engines' width leg,
+eval legs 1-2, sessionrec's leg 1 and the fold-in width leg; then the
+other phases on the serve cell's model, one at a time (the distributed
+phase's leg 3 after obs); then the loadtest phase, alone. The kernels
 phase and the phases of the serve cell share the card with no other
 work; a leg run beside others has its times taken under that load.
 
@@ -1134,7 +1180,7 @@ def _train_leg(name, data, params, init_V, users, items, ratings,
           f"plain twin by {max(du, dv)} > {TWIN_TOL}")
     check(drmse <= TWIN_TOL, f"{name}: RMSE differs from the plain twin "
           f"by {drmse} > {TWIN_TOL}")
-    return report
+    return report, (U, V)
 
 
 def train_phase(spd_rows):
@@ -1143,6 +1189,7 @@ def train_phase(spd_rows):
     from predictionio_tpu_torch.models.als import (
         ALSData, ALSParams, _init_item_factors, block_starts,
     )
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
 
     c = ML20M
     t0 = time.perf_counter()
@@ -1153,19 +1200,19 @@ def train_phase(spd_rows):
     data = ALSData.build(users, items, ratings, c["n_users"], c["n_items"])
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    data = data.to(DEV)
+    data = data.put(make_mesh(devices=[torch.device(DEV)]))
     upload_s = time.perf_counter() - t0
     log(f"train: {c['nnz']} ratings, {c['n_users']} x {c['n_items']}: "
         f"synthesis {synth_s:.3f} s, build_s {build_s:.3f}, upload_s "
-        f"{upload_s:.3f} (rows by user {tuple(data.by_user.tgt.shape)}, "
-        f"by item {tuple(data.by_item.tgt.shape)})")
+        f"{upload_s:.3f} (rows by user {tuple(data.by_user.tgt[0].shape)}, "
+        f"by item {tuple(data.by_item.tgt[0].shape)})")
     dev = torch.device(DEV)
     params = ALSParams(rank=c["rank"], num_iterations=c["iters"],
                        reg=c["reg"], chunk_size=c["chunk"])
     init_V = _init_item_factors(data.n_items, data.n_items_pad, params.rank,
                                 params.seed, dev).cpu().numpy()
-    full = _train_leg("full", data, params, init_V, users, items, ratings,
-                      2 * c["iters"])
+    full, full_UV = _train_leg("full", data, params, init_V, users, items,
+                               ratings, 2 * c["iters"])
     # the kernel's share of a half-sweep, from the kernels phase's times
     # at the two half-sweeps' shapes (S users and S items, K = rank)
     by = {(r["K"], r["S"]): r["ms"] for r in spd_rows}
@@ -1180,8 +1227,8 @@ def train_phase(spd_rows):
     sub_V = _init_item_factors(data.n_items, data.n_items_pad, sc["rank"],
                                params.seed, dev).cpu().numpy()
     n_blocks = len(block_starts(sc["rank"], sc["block"]))
-    sub = _train_leg("subspace", data, sub_params, sub_V, users, items,
-                     ratings, 2 * sc["iters"] * n_blocks)
+    sub, _ = _train_leg("subspace", data, sub_params, sub_V, users, items,
+                        ratings, 2 * sc["iters"] * n_blocks)
     sub_ms = by.get((sc["block"], c["n_users"]), 0.0) + \
         by.get((sc["block"], c["n_items"]), 0.0)
     sub["kernel_share"] = sub_ms * n_blocks / (2 * sub["half_sweep_ms"])
@@ -1191,8 +1238,8 @@ def train_phase(spd_rows):
                            reg=c["reg"], chunk_size=c["chunk"])
     r64_V = _init_item_factors(data.n_items, data.n_items_pad, rc["rank"],
                                params.seed, dev).cpu().numpy()
-    r64 = _train_leg("full_r64", data, r64_params, r64_V, users, items,
-                     ratings, 2 * rc["iters"])
+    r64, _ = _train_leg("full_r64", data, r64_params, r64_V, users, items,
+                        ratings, 2 * rc["iters"])
     r64["kernel_share"] = (by[(rc["rank"], c["n_users"])]
                            + by[(rc["rank"], c["n_items"])]) \
         / (2 * r64["half_sweep_ms"])
@@ -1200,9 +1247,10 @@ def train_phase(spd_rows):
                "peak_device_bytes": torch.cuda.max_memory_allocated()}
     log("train: " + json.dumps({"summary": summary}))
     # the engines phase's width leg reuses the arrays and the uploaded
-    # layout
+    # layout; the distributed phase's leg 1 is held to the full leg's
+    # factors and the build's digest
     return summary, {"users": users, "items": items, "ratings": ratings,
-                     "data": data}
+                     "data": data, "full_UV": full_UV}
 
 
 # ---------------------------------------------------------------------------
@@ -3627,6 +3675,7 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict,
 
         hits = total = 0
         lat = []
+        plain_answers = {}
         max_score_err = 0.0
         last = 0
         for kind, ui, extra, allow, block in queries:
@@ -3643,6 +3692,8 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict,
                       "kernel")
                 continue
             lat.append((kind, dt))
+            if kind == "plain":
+                plain_answers[str(user)] = got
             check(now > last, f"{kind} query did not launch the shortlist "
                   "kernel")
             last = now
@@ -3698,6 +3749,8 @@ def serve_phase(seed: int, n_items: int, port: int, shape: dict,
         check(recall >= 0.99, f"recall@10 {recall:.4f} < 0.99 vs exact")
         check(launches > 0, "the shortlist kernel never launched while "
               "serving")
+        # the distributed phase's sharded deploy answers the same queries
+        serve["plain_answers"] = plain_answers
         return serve
     finally:
         # the model file stays for the obs phase; main removes WORK
@@ -5097,11 +5150,13 @@ BACKGROUND_LEGS = {
     "bp_bench": lambda seed, port, work: bp_bench_leg(),
     "sessionrec": lambda seed, port, work: sessionrec_cli_leg(seed, port,
                                                               work),
-    "loadtest": lambda seed, port, work: loadtest_phase(seed, port, work)}
+    "loadtest": lambda seed, port, work: loadtest_phase(seed, port, work),
+    "distributed": lambda seed, port, work: distributed_legs(seed, port,
+                                                             work)}
 #: the shapes a background leg reads, passed on in ``CHIP_SMOKE_LEGS``
 LEG_SHAPES = ("ECOMM", "SIMILAR", "FOLLOW", "ML100K", "FLEET_ORCH",
               "EVAL_CLI", "BP_CLI", "BP_BENCH", "FOLDIN", "FEEDBACK",
-              "SESSIONREC_CLI", "LT_CURVE", "LT_STORM")
+              "SESSIONREC_CLI", "LT_CURVE", "LT_STORM", "ML20M", "DIST")
 
 
 def leg_worker() -> int:
@@ -5292,14 +5347,18 @@ def engines_width_leg(seed: int, held):
     """Leg 2 of the engines phase, on the train phase's ML-20M arrays
     and data (regenerated from the seed if not held)."""
     if held is None:
+        import torch
+
         from predictionio_tpu_torch.models.als import ALSData
+        from predictionio_tpu_torch.parallel.mesh import make_mesh
 
         c = ML20M
         users, items, ratings = synthetic_ratings(
             c["n_users"], c["n_items"], c["nnz"], seed=c["seed"])
         held = {"users": users, "items": items,
                 "data": ALSData.build(users, items, ratings, c["n_users"],
-                                      c["n_items"]).to(DEV)}
+                                      c["n_items"]).put(
+                    make_mesh(devices=[torch.device(DEV)]))}
     t0 = time.perf_counter()
     cooc = cooccurrence_width_leg(seed, held["users"], held["items"])
     cooc["leg_s"] = time.perf_counter() - t0
@@ -9044,35 +9103,30 @@ def _lt_state(app_id: int):
 
 
 class _StormTimeline:
-    """Where a storm's query latency goes: each query's submit offset and
-    round trip (wrapping the fleet's query lane), the retrain's cycle and
-    cutover times, and the fleet loop's lag (a 10 ms sleep's overshoot,
-    the loop every server and the client share)."""
+    """Where a storm's query latency goes: the retrain's cycle and cutover
+    times and the fleet loop's lag (a 10 ms sleep's overshoot, the loop
+    the event server and the replicas share), on the storm's clock
+    beside each query's submit offset and round trip (``run_storm``'s
+    ``query_times``, taken in the traffic process). The storm's clock
+    starts ``retrain_at_s`` before the retrain incident fired, to within
+    its thread's wake-up."""
 
-    def __init__(self, fleet):
+    def __init__(self, fleet, retrain_at_s: float):
         import asyncio
 
-        self.t0 = time.perf_counter()
-        self.queries = []
+        self.retrain_at_s = retrain_at_s
         self.marks = {}
         self.lags = []
         self._done = threading.Event()
-        submit, retrain = fleet.submit_query, fleet.run_retrain_cycle
-
-        def timed_query(payload):
-            t = time.perf_counter()
-            fut = submit(payload)
-            fut.add_done_callback(lambda _f, t=t: self.queries.append(
-                (t - self.t0, time.perf_counter() - t)))
-            return fut
+        retrain = fleet.run_retrain_cycle
 
         def timed_retrain():
-            self.marks["retrain_start_s"] = time.perf_counter() - self.t0
+            self.marks["retrain_start_s"] = time.perf_counter()
             orig_tick = fleet._orch.tick
 
             def tick(force=False):
                 doc = orig_tick(force=force)
-                self.marks["cycle_end_s"] = time.perf_counter() - self.t0
+                self.marks["cycle_end_s"] = time.perf_counter()
                 return doc
 
             fleet._orch.tick = tick
@@ -9080,9 +9134,8 @@ class _StormTimeline:
                 return retrain()
             finally:
                 fleet._orch.tick = orig_tick
-                self.marks["cutover_end_s"] = time.perf_counter() - self.t0
+                self.marks["cutover_end_s"] = time.perf_counter()
 
-        fleet.submit_query = timed_query
         fleet.run_retrain_cycle = timed_retrain
 
         async def monitor():
@@ -9090,7 +9143,7 @@ class _StormTimeline:
                 t = time.perf_counter()
                 await asyncio.sleep(0.01)
                 lag = time.perf_counter() - t - 0.01
-                self.lags.append((t - self.t0, lag))
+                self.lags.append((t, lag))
 
         asyncio.run_coroutine_threadsafe(monitor(), fleet._loop)
         self._cpu0 = self._thread_cpu()
@@ -9121,24 +9174,29 @@ class _StormTimeline:
         self._proc = time.process_time() - self._proc0
         self._wall = time.perf_counter() - self._wall0
 
-    def summary(self) -> dict:
+    def summary(self, query_times) -> dict:
         def p99(xs):
             xs = sorted(xs)
             return xs[min(len(xs) - 1, int(0.99 * len(xs)))] * 1e3 \
                 if xs else None
 
-        lo = self.marks.get("retrain_start_s", float("inf"))
-        hi = self.marks.get("cutover_end_s", lo)
-        inside = [d for t, d in self.queries if lo <= t <= hi + 1.0]
-        outside = [d for t, d in self.queries if not lo <= t <= hi + 1.0]
-        slow = [t for t, d in self.queries if d > 0.5]
-        lags = [d for _, d in self.lags]
+        queries = [tuple(q) for q in query_times]
+        t0 = self.marks.get("retrain_start_s", self._wall0) \
+            - self.retrain_at_s
+        marks = {k: v - t0 for k, v in self.marks.items()}
+        lo = marks.get("retrain_start_s", float("inf"))
+        hi = marks.get("cutover_end_s", lo)
+        inside = [d for t, d in queries if lo <= t <= hi + 1.0]
+        outside = [d for t, d in queries if not lo <= t <= hi + 1.0]
+        slow = [t for t, d in queries if d > 0.5]
+        lag_list = [(t - t0, d) for t, d in self.lags]
+        lags = [d for _, d in lag_list]
         cpu = {k: round(v, 2) for k, v in self._cpu.most_common(8)}
-        return {**{k: round(v, 3) for k, v in self.marks.items()},
+        return {**{k: round(v, 3) for k, v in marks.items()},
                 "wall_s": round(self._wall, 3),
                 "thread_cpu_s": cpu,
                 "process_cpu_s": round(self._proc, 2),
-                "queries": len(self.queries),
+                "queries": len(queries),
                 "query_p99_ms_retrain_window": p99(inside),
                 "query_p99_ms_elsewhere": p99(outside),
                 "slow_queries_by_second": dict(sorted(collections.Counter(
@@ -9147,7 +9205,7 @@ class _StormTimeline:
                 "loop_lag_max_ms": max(lags) * 1e3 if lags else None,
                 "loop_lags_over_100ms": [
                     (round(t, 2), round(d * 1e3, 1))
-                    for t, d in self.lags if d > 0.1][:40]}
+                    for t, d in lag_list if d > 0.1][:40]}
 
 
 def loadtest_storm_leg(work: pathlib.Path) -> dict:
@@ -9185,17 +9243,19 @@ def loadtest_storm_leg(work: pathlib.Path) -> dict:
     try:
         fleet.start()
         start_s = time.perf_counter() - t0
-        timeline = _StormTimeline(fleet)
+        timeline = _StormTimeline(fleet, sc.incidents[0].at_s)
+        query_times = []
         t1 = time.perf_counter()
         try:
             report = run_storm(sc, fleet, ack_p99_bound_ms=s["p99_ms"],
-                               query_p99_bound_ms=s["p99_ms"])
+                               query_p99_bound_ms=s["p99_ms"],
+                               query_times=query_times)
         finally:
             timeline.stop()
         storm_s = time.perf_counter() - t1
     finally:
         fleet.stop()
-    where = timeline.summary()
+    where = timeline.summary(query_times)
     log(f"loadtest: storm timeline: {json.dumps(where)}")
     synchronize()
     launches = kernels.counts()
@@ -9291,15 +9351,543 @@ def loadtest_phase(seed: int, port: int, work) -> dict:
     return {"curve": curve, **storm, "phase_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# distributed phase: multi-process ALS and the sharded scorer
+# ---------------------------------------------------------------------------
+
+#: legs 1-2's processes, their rendezvous and run bounds, leg 2's
+#: queries; leg 3's query batches (B 1 and 8, one whitelist batch of 8
+#: concentrated in the second shard)
+DIST = dict(nproc=2, rendezvous_s=300, run_s=600, queries=100,
+            batches=(1,) * 8 + (8,) * 4, whitelist=500, http_queries=24)
+#: both processes of leg 1 hold the same full factors (they gather the
+#: same blocks): max |difference|
+DIST_SAME = 1e-5
+#: leg 3's served scores against the host's exact f32 scores
+SHARD_TOL = 1e-5
+
+
+def _dist_spawn(leg_cfg: dict, work: pathlib.Path):
+    """Start leg 1-2's processes (``dist_worker``), each with the repo
+    root on ``PYTHONPATH``, a free loopback port for the rendezvous and
+    gloo on the loopback interface; returns them with their log paths."""
+    port = _free_ports(1)
+    procs = []
+    t_spawn = time.time()
+    for pid in range(DIST["nproc"]):
+        env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+                   CHIP_SMOKE_DIST=json.dumps(dict(
+                       leg_cfg, pid=pid, port=port, t_spawn=t_spawn)))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+        for k in ("PIO_COORDINATOR_ADDRESS", "PIO_NUM_PROCESSES",
+                  "PIO_PROCESS_ID"):
+            env.pop(k, None)
+        out = open(work / f"dist{pid}.out", "w")
+        err = open(work / f"dist{pid}.err", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.dist_worker())"], cwd=str(ROOT),
+            stdout=out, stderr=err, start_new_session=True, env=env),
+            out, err))
+    return procs
+
+
+def _dist_wait(procs, work: pathlib.Path) -> list:
+    """Wait for leg 1-2's processes within ``DIST["run_s"]``; one that
+    fails or hangs fails the phase and both are killed. Returns their
+    reports in process order."""
+    deadline = time.monotonic() + DIST["run_s"]
+    try:
+        for pid, (proc, _, _) in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                check(False, f"distributed: process {pid} ran past "
+                      f"{DIST['run_s']} s (a hung rendezvous?)")
+            if proc.returncode != 0:
+                err = (work / f"dist{pid}.err").read_text()[-3000:]
+                check(False, f"distributed: process {pid} exited "
+                      f"{proc.returncode}: {err}")
+    finally:
+        for proc, out, err in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            out.close()
+            err.close()
+    reports = []
+    for pid in range(len(procs)):
+        lines = (work / f"dist{pid}.out").read_text().splitlines()
+        for line in lines[:-1]:
+            log(line)
+        reports.append(json.loads(lines[-1]))
+    return reports
+
+
+def dist_worker() -> int:
+    """One process of legs 1-2 (``python3 -c "import chip_smoke;
+    chip_smoke.dist_worker()"``, its settings in ``CHIP_SMOKE_DIST``):
+    joins the gloo group, runs leg 1 (the ML-20M train over a 2-position
+    process mesh) and leg 2 (the recommendation engine's sharded read and
+    train) and prints its report as the last line."""
+    global DEV
+    sys.path.insert(0, str(ROOT))
+    cfg = json.loads(os.environ["CHIP_SMOKE_DIST"])
+    DEV = cfg["device"]
+    ML20M.update(cfg["ML20M"])
+    ML100K.update(cfg["ML100K"])
+    from predictionio_tpu_torch.parallel.distributed import (
+        initialize_distributed, process_count, process_index,
+    )
+
+    pid, nproc = cfg["pid"], DIST["nproc"]
+    try:
+        initialize_distributed(f"127.0.0.1:{cfg['port']}", nproc, pid,
+                               timeout_s=DIST["rendezvous_s"])
+        check((process_index(), process_count()) == (pid, nproc),
+              f"distributed: process {pid} joined as "
+              f"{(process_index(), process_count())}")
+        report = {"pid": pid,
+                  "group_ready_s": time.time() - cfg["t_spawn"]}
+        import torch
+
+        torch.zeros(1, device=DEV)
+        report["device_ready_s"] = time.time() - cfg["t_spawn"]
+        report["leg1"] = _dist_leg1(pid, nproc,
+                                    pathlib.Path(cfg["factors"]))
+        report["leg2"] = _dist_leg2(cfg)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def _dist_leg1(pid: int, nproc: int, factors: pathlib.Path) -> dict:
+    """Leg 1 in one process: its contiguous slice of the ML-20M COO, the
+    row exchange and local pack (``build_distributed``), an uncounted
+    train, then the timed train with B1 counted from zero; its factors
+    go to ``factors``."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models.als import (
+        ALSParams, build_distributed, train_als,
+    )
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.parallel.distributed import contiguous_range
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    c = ML20M
+    t0 = time.perf_counter()
+    users, items, ratings = synthetic_ratings(c["n_users"], c["n_items"],
+                                              c["nnz"], seed=c["seed"])
+    lo, hi = contiguous_range(len(ratings), pid, nproc)
+    users, items, ratings = (users[lo:hi].copy(), items[lo:hi].copy(),
+                             ratings[lo:hi].copy())
+    synth_s = time.perf_counter() - t0
+    mesh = make_mesh(device=DEV)
+    check(mesh.size == nproc and mesh.spans_processes,
+          f"distributed: mesh {mesh}")
+    t0 = time.perf_counter()
+    data = build_distributed(mesh, users, items, ratings, c["n_users"],
+                             c["n_items"])
+    synchronize()
+    build_s = time.perf_counter() - t0
+    params = ALSParams(rank=c["rank"], num_iterations=c["iters"],
+                       reg=c["reg"], chunk_size=c["chunk"])
+    train_als(data, params, mesh=mesh)         # a process's first train
+    synchronize()
+    kernels.reset_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    U, V = train_als(data, params, mesh=mesh, stats=stats)
+    train_s = time.perf_counter() - t0
+    launches = kernels.counts()["spd_solve"]
+    np.save(factors / f"U{pid}.npy", U)
+    np.save(factors / f"V{pid}.npy", V)
+    gather = np.asarray(stats["gather_s"]) * 1e3
+    return {"local_ratings": hi - lo, "synth_s": synth_s,
+            "build_s": build_s, "exchange": data.exchange,
+            "digest": data.digest, "launches": launches,
+            "train_s": train_s, "half_sweeps": stats["half_sweeps"],
+            "half_sweep_ms": train_s / stats["half_sweeps"] * 1e3,
+            "gather_ms_mean": float(gather.mean()),
+            "gather_ms_max": float(gather.max()),
+            "gather_share": float(gather.sum() / 1e3 / train_s)}
+
+
+def _dist_leg2(cfg: dict) -> dict:
+    """Leg 2 in one process: the recommendation DataSource's sharded read
+    of leg 2's store, ``ALSAlgorithm.train`` over the process mesh (B1
+    counted from zero), and its answers to the leg's queries."""
+    import types
+
+    import torch
+
+    from predictionio_tpu_torch.data import eventstore
+    from predictionio_tpu_torch.engines.recommendation import (
+        ALSAlgorithm, AlgorithmParams, DataSourceParams,
+        RecommendationDataSource, RecommendationPreparator,
+    )
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    c = ML100K
+    Storage.configure(cfg["store"])
+    eventstore.clear_cache()
+    try:
+        t0 = time.perf_counter()
+        ds = RecommendationDataSource(DataSourceParams(app_name="DistApp"))
+        td = ds.read_training(None)
+        read_s = time.perf_counter() - t0
+        pd = RecommendationPreparator().prepare(None, td)
+        algo = ALSAlgorithm(AlgorithmParams(rank=c["rank"],
+                                            num_iterations=c["iters"],
+                                            reg=c["reg"]))
+        ctx = types.SimpleNamespace(mesh=make_mesh(device=DEV),
+                                    device=torch.device(DEV),
+                                    checkpointer=None)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        model = algo.train(ctx, pd)
+        train_s = time.perf_counter() - t0
+        launches = kernels.counts()["spd_solve"]
+        answers = [[[i, s] for i, s in r] for r in model.recommend_batch(
+            [(u, 10, (), None) for u in cfg["queries"]])]
+    finally:
+        Storage.reset()
+    return {"local_rows": len(td.columns.users), "read_s": read_s,
+            "train_s": train_s, "launches": launches,
+            "users": len(model.user_vocab), "items": len(model.item_vocab),
+            "answers": answers}
+
+
+def _dist_store(work: pathlib.Path, seed: int) -> dict:
+    """Leg 2's store: the ML-100k ratings as rate events (sqlite, written
+    with ``insert_batch``); returns its storage configuration."""
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    c = ML100K
+    smoke_store(work / "store")
+    conf = {"sources": {"SMOKE": {"TYPE": "sqlite",
+                                  "PATH": str(work / "store" / "pio.db")}},
+            "repositories": {
+                "METADATA": {"NAME": "pio_meta", "SOURCE": "SMOKE"},
+                "EVENTDATA": {"NAME": "pio_event", "SOURCE": "SMOKE"},
+                "MODELDATA": {"NAME": "pio_model", "SOURCE": "SMOKE"}}}
+    Storage.configure(conf)
+    app_id = _new_app("DistApp")
+    users, items, ratings = synthetic_ratings(
+        c["n_users"], c["n_items"], c["nnz"], seed=seed + 40)
+    Storage.get_events().insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{u}",
+              target_entity_type="item", target_entity_id=f"i{i}",
+              properties={"rating": float(r)})
+        for u, i, r in zip(users.tolist(), items.tolist(),
+                           ratings.tolist())], app_id)
+    return conf
+
+
+def distributed_legs(seed: int, port: int, work) -> dict:
+    """Legs 1-2 of the distributed phase (a background leg): leg 2's
+    store, the two processes of legs 1-2 on the card, and leg 2's
+    one-process twin here; leg 1's factors are held to the train
+    phase's one-process train by ``distributed_twin``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.data import eventstore
+    from predictionio_tpu_torch.engines.recommendation import (
+        ALSAlgorithm, AlgorithmParams, DataSourceParams,
+        RecommendationDataSource, RecommendationPreparator,
+    )
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    work = pathlib.Path(work)
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    store = _dist_store(work, seed)
+    store_s = time.perf_counter() - t0
+    queries = [f"u{u}" for u in range(DIST["queries"])]
+    # leg 1's factors outlive this leg's directory: distributed_twin
+    # reads them after the train phase, then removes them
+    factors = WORK / "dist_factors"
+    shutil.rmtree(factors, ignore_errors=True)
+    factors.mkdir(parents=True)
+    t0 = time.perf_counter()
+    reports = _dist_wait(_dist_spawn(dict(
+        device=DEV, factors=str(factors), ML20M=ML20M, ML100K=ML100K,
+        store=store, queries=queries), work), work)
+    procs_s = time.perf_counter() - t0
+    r0, r1 = (r["leg1"] for r in reports)
+    # leg 1: the same factors on both processes, 2 x iters launches each
+    want = 2 * ML20M["iters"]
+    for r in (r0, r1):
+        check(r["launches"] == want, f"distributed leg 1: {r['launches']} "
+              f"B1 launches in a process, expected {want}")
+    check(r0["digest"] == r1["digest"], "distributed leg 1: the processes' "
+          f"digests differ ({r0['digest']}, {r1['digest']})")
+    same = {}
+    for side in ("U", "V"):
+        a, b = (np.load(factors / f"{side}{p}.npy") for p in (0, 1))
+        same[side] = float(np.abs(a - b).max())
+        check(same[side] <= DIST_SAME, f"distributed leg 1: {side} "
+              f"differs across the processes by {same[side]} > "
+              f"{DIST_SAME}")
+    # leg 2: strict subsets summing to the whole, the same model
+    rows = [r["leg2"]["local_rows"] for r in reports]
+    check(all(0 < n < ML100K["nnz"] for n in rows)
+          and sum(rows) == ML100K["nnz"], f"distributed leg 2: the "
+          f"processes read {rows} of {ML100K['nnz']} rows")
+    want2 = 2 * ML100K["iters"]
+    for r in reports:
+        check(r["leg2"]["launches"] == want2, f"distributed leg 2: "
+              f"{r['leg2']['launches']} B1 launches, expected {want2}")
+    Storage.configure(store)
+    eventstore.clear_cache()
+    try:
+        c = ML100K
+        ds = RecommendationDataSource(DataSourceParams(app_name="DistApp"))
+        pd = RecommendationPreparator().prepare(None, ds.read_training(None))
+        kernels.reset_counts()
+        model = ALSAlgorithm(AlgorithmParams(
+            rank=c["rank"], num_iterations=c["iters"], reg=c["reg"])).train(
+            types.SimpleNamespace(device=torch.device(DEV),
+                                  checkpointer=None), pd)
+        one_launches = kernels.counts()["spd_solve"]
+        want_answers = model.recommend_batch(
+            [(u, 10, (), None) for u in queries])
+    finally:
+        Storage.reset()
+    max_err = 0.0
+    for r in reports:
+        for u, got, want in zip(queries, r["leg2"]["answers"],
+                                want_answers):
+            _same_answers(
+                {"itemScores": [{"item": i, "score": s} for i, s in got]},
+                {"itemScores": [{"item": i, "score": s} for i, s in want]},
+                f"distributed leg 2: {u}")
+            if got:
+                max_err = max(max_err, float(np.abs(
+                    np.array([s for _, s in got])
+                    - np.array([s for _, s in want])).max()))
+        r["leg2"].pop("answers")
+    return {"card": card_line(), "store_s": store_s,
+            "processes_s": procs_s, "procs": [
+                {k: r[k] for k in ("group_ready_s", "device_ready_s")}
+                for r in reports],
+            "leg1": {"per_process": [r0, r1], "factors": str(factors),
+                     "max_abs_diff_across_processes": same},
+            "leg2": {"per_process": [r["leg2"] for r in reports],
+                     "one_process_launches": one_launches,
+                     "queries": len(queries), "max_score_abs_err": max_err}}
+
+
+def distributed_twin(report: dict, full_UV, digest: str) -> dict:
+    """Leg 1's factors against the train phase's one-process train from
+    the same initial factors (its ``TWIN_TOL``), and the digest against
+    its ``ALSData.build``'s."""
+    import numpy as np
+
+    factors = pathlib.Path(report["leg1"]["factors"])
+    U, V = (np.load(factors / f"{s}0.npy") for s in ("U", "V"))
+    shutil.rmtree(factors, ignore_errors=True)
+    du, dv = _rel(U, full_UV[0]), _rel(V, full_UV[1])
+    check(max(du, dv) <= TWIN_TOL, f"distributed leg 1: factors differ "
+          f"from the one-process train by {max(du, dv)} > {TWIN_TOL}")
+    got = report["leg1"]["per_process"][0]["digest"]
+    check(got == digest, f"distributed leg 1: digest {got} is not the "
+          f"one-process build's {digest}")
+    return {"rel_diff_U": du, "rel_diff_V": dv, "digest": digest}
+
+
+def _check_sharded_answers(batches, got, U, V, what: str) -> float:
+    """Every scored user's top-10 against the host's exact f32 top-10
+    (ids up to ties, scores within ``SHARD_TOL``); the largest score
+    error."""
+    import numpy as np
+
+    from predictionio_tpu_torch.ops.topk import host_topk
+
+    max_err = 0.0
+    for (rows, m), (sc, ids) in zip(batches, got):
+        exact = U[rows] @ V.T
+        if m is not None:
+            exact = np.where(m, -np.inf, exact)
+        _, top = host_topk(exact, 10)
+        for k, ui in enumerate(rows):
+            want = [{"item": int(i), "score": float(exact[k, i])}
+                    for i in top[k]]
+            _same_answers({"itemScores": [
+                {"item": int(i), "score": float(s)}
+                for i, s in zip(ids[k], sc[k])]}, {"itemScores": want},
+                f"distributed leg 3 ({what}): user {ui}")
+            err = np.abs(sc[k] - exact[k, ids[k]])
+            max_err = max(max_err, float(err.max()))
+            check(bool((err <= SHARD_TOL * np.maximum(
+                1.0, np.abs(exact[k, ids[k]]))).all()),
+                f"distributed leg 3 ({what}): user {ui}'s scores off "
+                f"exact by {float(err.max())}")
+    return max_err
+
+
+def sharded_serve_leg(seed: int, port: int, users, items, U, V,
+                      unsharded: dict) -> dict:
+    """Leg 3: the serve cell's model under ``PIO_SCORER_SHARDS=2``
+    (twostage, B2 on both shards), in this process and then through
+    ``deploy`` over HTTP against the serve phase's unsharded answers;
+    then the same batches under mode ``exact`` with two shards, each
+    shard's product on the card."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.ops.scoring import build_sharded_scorer
+    from predictionio_tpu_torch.utils.server_config import ScorerConfig
+
+    n_items, shards = V.shape[0], 2
+    cfg = ScorerConfig(mode="twostage", tile_items=TILE,
+                       shortlist=SHORTLIST, shards=shards)
+    t0 = time.perf_counter()
+    scorer = build_sharded_scorer(V, cfg, device=DEV)
+    build_s = time.perf_counter() - t0
+    st = scorer.status()
+    log("distributed: sharded scorer " + json.dumps(
+        {k: v for k, v in st.items() if k != "shardStatus"}))
+    check(st["activeMode"] == "twostage", f"distributed leg 3: the sharded "
+          f"scorer serves {st['activeMode']!r}")
+    check(st["maxShardFactorBytes"] <= st["exactBytes"] / 2
+          < st["exactBytes"], f"distributed leg 3: a shard holds "
+          f"{st['maxShardFactorBytes']} bytes of {st['exactBytes']}")
+    rng = np.random.default_rng(seed + 3)
+    picks = rng.choice(len(users), size=sum(DIST["batches"]) + 8,
+                       replace=False)
+    lo, hi = scorer.ranges[1]
+    allow = np.sort(rng.choice(np.arange(lo, hi), size=DIST["whitelist"],
+                               replace=False))
+    mask = np.ones((8, n_items), bool)
+    mask[:, allow] = False
+    batches, start = [], 0
+    for b in DIST["batches"]:
+        batches.append((picks[start:start + b], None))
+        start += b
+    batches.append((picks[start:start + 8], mask))
+    synchronize()
+    kernels.reset_counts()
+    lat, got = [], []
+    for rows, m in batches:
+        t0 = time.perf_counter()
+        got.append(scorer.topk(U[rows], 10, mask=m))
+        lat.append(time.perf_counter() - t0)
+    launches = kernels.counts()["shortlist"]
+    check(launches == shards * len(batches), f"distributed leg 3: "
+          f"{launches} B2 launches, expected {shards} x {len(batches)}")
+    max_err = _check_sharded_answers(batches, got, U, V, "twostage")
+    inproc = {"build_s": build_s, "status": {
+        k: v for k, v in st.items() if k != "shardStatus"},
+        "shard_scan_ranks": [s["scanRank"] for s in st["shardStatus"]],
+        "batches": len(batches), "b2_launches": launches,
+        "max_score_abs_err": max_err,
+        "batch_ms_p50": float(np.median(np.array(lat) * 1e3))}
+    del scorer
+
+    # mode exact, two shards: each shard's rows stay on the card and its
+    # product runs there (the card's allocator serves every batch), no
+    # host product and no B2
+    t0 = time.perf_counter()
+    scorer = build_sharded_scorer(
+        V, ScorerConfig(mode="exact", shards=shards), device=DEV)
+    exact_build_s = time.perf_counter() - t0
+    check(scorer.status()["activeMode"] == "exact"
+          and len(scorer._v_devices) == shards
+          and all(v is not None and v.is_cuda for v in scorer._v_devices),
+          "distributed leg 3 (exact): a shard's rows are not on the card")
+    synchronize()
+    kernels.reset_counts()
+    lat, got, card_allocs = [], [], []
+    for rows, m in batches:
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        t0 = time.perf_counter()
+        got.append(scorer.topk(U[rows], 10, mask=m))
+        lat.append(time.perf_counter() - t0)
+        card_allocs.append(torch.cuda.memory_stats()[
+            "allocation.all.allocated"] - before)
+    check(min(card_allocs) >= shards, f"distributed leg 3 (exact): a "
+          f"batch made {min(card_allocs)} allocations on the card, fewer "
+          f"than its {shards} shards' products")
+    check(not any(kernels.counts().values()), f"distributed leg 3 (exact): "
+          f"launched {kernels.counts()}")
+    exact = {"build_s": exact_build_s, "batches": len(batches),
+             "card_allocations_min": min(card_allocs),
+             "max_score_abs_err": _check_sharded_answers(
+                 batches, got, U, V, "exact"),
+             "batch_ms_p50": float(np.median(np.array(lat) * 1e3))}
+    log("distributed: sharded exact " + json.dumps(exact))
+    del scorer
+
+    # over HTTP: the serve phase's model file, two shards
+    env = dict(os.environ, PIO_SCORER_MODE="twostage",
+               PIO_SCORER_TILE_ITEMS=str(TILE),
+               PIO_SCORER_SHORTLIST=str(SHORTLIST),
+               PIO_SCORER_SHARDS=str(shards))
+    server = Server(["deploy", "--model", str(WORK / "als_model.npz"),
+                     "--port", str(port), "--device", DEV], env,
+                    tag="distributed")
+    try:
+        t0 = time.perf_counter()
+        client = Client(server.wait_ready(timeout_s=600))
+        ready_s = time.perf_counter() - t0
+        _, root, _ = client.call("GET", "/")
+        (sst,) = root["scorer"]
+        check(sst.get("sharded") and sst["shards"] == shards
+              and sst["activeMode"] == "twostage", f"distributed leg 3: "
+              f"the deploy's scorer is {sst}")
+        check(all(v == 0 for v in root["kernelLaunches"].values()),
+              f"distributed leg 3: launch counts not zero before the "
+              f"queries: {root['kernelLaunches']}")
+        http_lat = []
+        for user, want in unsharded.items():
+            status, body, dt = client.call("POST", "/queries.json",
+                                           {"user": user, "num": 10})
+            check(status == 200, f"distributed leg 3: {user} answered "
+                  f"{status}")
+            http_lat.append(dt)
+            _same_answers(body, {"itemScores": want},
+                          f"distributed leg 3: {user} over HTTP")
+        _, root, _ = client.call("GET", "/")
+        http_launches = root["kernelLaunches"]["shortlist"]
+        check(http_launches == shards * len(unsharded),
+              f"distributed leg 3: {http_launches} B2 launches over HTTP, "
+              f"expected {shards} x {len(unsharded)}")
+    finally:
+        server.stop()
+    return {"card": card_line(), "in_process": inproc, "exact": exact,
+            "http": {"ready_s": ready_s, "queries": len(unsharded),
+                     "b2_launches": http_launches,
+                     "p50_ms": float(np.median(np.array(http_lat) * 1e3)),
+                     "recall_probe": sst["recallProbe"],
+                     "max_shard_factor_bytes": sst["maxShardFactorBytes"],
+                     "exact_bytes": sst["exactBytes"]}}
+
+
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-             canary, engines, evals, fleet, sessionrec, loadtest) -> dict:
+             canary, engines, evals, fleet, sessionrec, loadtest,
+             distributed) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
     the ML-20M train and of the eval phase's sweeps (each counted from
     zero); beside them the fold-in launches of both legs and of the
     canary's held fold-in, the engines' trains and e-commerce's fold-in,
     the load test's storm (its trains and fold-in, counted from zero
-    around the fleet), B1's times at the applies' shapes and at the eval
+    around the fleet), the distributed phase's trains (each process's
+    own count), B1's times at the applies' shapes and at the eval
     sweeps'."""
     fl = lifecycle["foldin"]
     grid, cli = evals["grid"]["launches"], evals["cli"]
@@ -9312,6 +9900,10 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
     c = ML20M
     row = next(r for r in spd_rows
                if r["K"] == c["rank"] and r["S"] == c["n_users"])
+    dist_train = [p["launches"]
+                  for p in distributed["leg1"]["per_process"]]
+    dist_engine = [p["launches"]
+                   for p in distributed["leg2"]["per_process"]]
     return {
         "name": "spd_solve",
         "route": "cuda",
@@ -9319,7 +9911,8 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
         "replaces": "predictionio_tpu/ops/linalg.py:106",
         "launches": train["full"]["launches"] + sum(eval_launches.values())
         + lifecycle["foldin_slo"]["b1_launches"]
-        + loadtest["launches"]["spd_solve"],
+        + loadtest["launches"]["spd_solve"]
+        + sum(dist_train) + sum(dist_engine),
         "max_abs_err": spd_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -9365,6 +9958,10 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
             "fleet_orchestrate": fleet["orchestrate"]["b1_launches"],
             "sessionrec": sessionrec_launches(sessionrec, "spd_solve"),
             "loadtest_storm": loadtest["launches"]["spd_solve"],
+            "distributed_train_per_process": dist_train,
+            "distributed_engine_per_process": dist_engine,
+            "distributed_engine_one_process":
+                distributed["leg2"]["one_process_launches"],
             **eval_launches},
         "eval_shapes": [r for r in spd_rows if r["eval"]],
         "foldin": {
@@ -9376,15 +9973,57 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
     }
 
 
+def ml20m_one_process():
+    """The train phase's full leg alone, for a partial run: ((U, V), the
+    build's digest) of the ML-20M train from the seeded initial
+    factors."""
+    import torch
+
+    from predictionio_tpu_torch.models.als import (
+        ALSData, ALSParams, _init_item_factors, train_als,
+    )
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    c = ML20M
+    users, items, ratings = synthetic_ratings(c["n_users"], c["n_items"],
+                                              c["nnz"], seed=c["seed"])
+    data = ALSData.build(users, items, ratings, c["n_users"],
+                         c["n_items"]).put(
+        make_mesh(devices=[torch.device(DEV)]))
+    params = ALSParams(rank=c["rank"], num_iterations=c["iters"],
+                       reg=c["reg"], chunk_size=c["chunk"])
+    init_V = _init_item_factors(data.n_items, data.n_items_pad, params.rank,
+                                params.seed, torch.device(DEV))
+    UV = train_als(data, params, device=DEV, init_V=init_V.cpu().numpy())
+    return UV, data.digest
+
+
 def partial_run(args, shape) -> int:
     """``--only``: the named phases after the kernels phase, for
     debugging on the card; no kernels line and no result."""
     phases = set(args.only.split(","))
     bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant",
-                    "classify", "sessionrec", "loadtest"}
+                    "classify", "sessionrec", "loadtest", "distributed"}
     check(not bad, f"--only takes serve, obs, lifecycle, fleet, "
-          f"multitenant, classify, sessionrec, loadtest; got "
+          f"multitenant, classify, sessionrec, loadtest, distributed; got "
           f"{sorted(bad)}")
+    if "distributed" in phases:
+        # legs 1-2, the one-process twin, then the serve phase (the
+        # unsharded answers) and leg 3 on its model
+        dist = finish_legs(start_legs(["distributed"], args.seed,
+                                      args.port))["distributed"]
+        dist["twin"] = distributed_twin(dist, *ml20m_one_process())
+        served = build_model(args.seed, args.items, SERVE_USERS,
+                             SERVE_RANK)
+        serve = serve_phase(args.seed, args.items, args.port, shape,
+                            *served)
+        dist["leg3"] = sharded_serve_leg(args.seed, args.port, *served,
+                                         serve.pop("plain_answers"))
+        dist["leg3"]["unsharded_p50_ms"] = serve["p50_ms_by_kind"]["plain"]
+        log("distributed: " + json.dumps(dist))
+        shutil.rmtree(WORK, ignore_errors=True)
+        del served
+        gc.collect()
     if "loadtest" in phases:
         log("loadtest: " + json.dumps(finish_legs(start_legs(
             ["loadtest"], args.seed, args.port))["loadtest"]))
@@ -9431,8 +10070,8 @@ def main() -> int:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
                     help="run only these of serve, obs, lifecycle, fleet, "
-                         "multitenant, classify, sessionrec, loadtest after "
-                         "the build "
+                         "multitenant, classify, sessionrec, loadtest, "
+                         "distributed after the build "
                          "and the "
                          "kernels phase (a partial run: it prints no "
                          "result and exits 4)")
@@ -9487,6 +10126,12 @@ def main() -> int:
             bp_bench = finish_legs(bench_leg)["bp_bench"]
             log(f"build: with batchpredict leg 1 beside it "
                 f"{time.perf_counter() - t0:.3f} s")
+            # 18. distributed, legs 1-2 (two processes on the card, their
+            #     launches counted in each), with nothing else running
+            t_dist = time.perf_counter()
+            distributed = finish_legs(start_legs(
+                ["distributed"], args.seed, args.port))["distributed"]
+            distributed["legs_1_2_window_s"] = time.perf_counter() - t_dist
             # 15. classify: naive Bayes, logistic regression and the
             #     forest at the spam width, then the template through the
             #     CLI; no kernel of the repo lies on its path
@@ -9519,6 +10164,9 @@ def main() -> int:
             t0 = time.perf_counter()
             train, held = train_phase(spd_rows)
             log(f"train: phase took {time.perf_counter() - t0:.3f} s")
+            # 18. distributed, leg 1 against the one-process train
+            distributed["twin"] = distributed_twin(
+                distributed, held.pop("full_UV"), held["data"].digest)
             # 9. engines, leg 2 (the width leg) on the train phase's
             #    arrays
             t0 = time.perf_counter()
@@ -9583,8 +10231,17 @@ def main() -> int:
         # 12. obs, on the same model: the deploy's legs count their own
         #     launches, this process's from zero just before them
         obs = obs_phase(args.seed, shape, *served)
-        shutil.rmtree(WORK, ignore_errors=True)
         log("obs: " + json.dumps(obs))
+        # 18. distributed, leg 3: the same model under two scorer shards,
+        #     in this process and through deploy (the serve phase's file)
+        t0 = time.perf_counter()
+        distributed["leg3"] = sharded_serve_leg(
+            args.seed, args.port, *served, serve.pop("plain_answers"))
+        distributed["leg3"]["leg_s"] = time.perf_counter() - t0
+        distributed["leg3"]["unsharded_p50_ms"] = \
+            serve["p50_ms_by_kind"]["plain"]
+        shutil.rmtree(WORK, ignore_errors=True)
+        log("distributed: " + json.dumps(distributed))
         # 8. canary, on the same model in this process (its CLI leg ran
         #    inside the lifecycle, on v2)
         t0 = time.perf_counter()
@@ -9673,13 +10330,18 @@ def main() -> int:
             "fleet_orchestrate": fleet["orchestrate"]["b2_launches"],
             "multitenant": multitenant["width"]["b2_launches"],
             "sessionrec": sessionrec_launches(sessionrec, "shortlist"),
-            "loadtest_storm": loadtest["launches"]["shortlist"]},
+            "loadtest_storm": loadtest["launches"]["shortlist"],
+            "distributed_sharded_in_process":
+                distributed["leg3"]["in_process"]["b2_launches"],
+            "distributed_sharded_http":
+                distributed["leg3"]["http"]["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
         "chunk_rows": chunk_rows,
         "engine_shapes": eng_rows,
         "tie_rows": tie_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
-                canary, engines, evals, fleet, sessionrec, loadtest)]}
+                canary, engines, evals, fleet, sessionrec, loadtest,
+                distributed)]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

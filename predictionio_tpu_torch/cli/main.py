@@ -133,9 +133,10 @@ promoted.
 at every crash point (``storage/partitioned``). Both print the
 reference's lines.
 
-``loadtest`` storms an in-process fleet (``loadtest/``: an event server
-over ``PIO_INGEST_PARTITIONS`` commit lanes, replicas with fold-in
-behind a router, the orchestrator retraining mid-run) under a scenario
+``loadtest`` storms a local fleet (``loadtest/``: an event server over
+``PIO_INGEST_PARTITIONS`` commit lanes, replicas with fold-in behind a
+router in a process of its own, the orchestrator retraining mid-run;
+the traffic from a process of its own) under a scenario
 file, or a multi-tenant host under a tenant scenario, and exits 1 unless
 every invariant held (``PIO_LOADTEST_*`` scale the scenario).
 
@@ -463,6 +464,10 @@ def train(args) -> int:
         _fail(f"{args.variant}: a train needs the datasource section "
               "(its appName)")
     runtime_conf = {}
+    if args.mesh_shape:
+        runtime_conf["mesh_shape"] = args.mesh_shape
+    if args.mesh_axes:
+        runtime_conf["mesh_axes"] = args.mesh_axes
     if args.checkpoint_dir:
         runtime_conf["checkpoint_dir"] = args.checkpoint_dir
         runtime_conf["checkpoint_interval"] = str(args.checkpoint_interval)
@@ -475,6 +480,13 @@ def train(args) -> int:
     # raises before anything is written
     ctx = WorkflowContext.create(mode="Training", batch=args.batch,
                                  workflow_params=wp, device=args.device)
+    # a multi-process train (PIO_COORDINATOR_ADDRESS, PIO_NUM_PROCESSES,
+    # PIO_PROCESS_ID) joins its process group; without them a no-op
+    from predictionio_tpu_torch.parallel.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed()
     kernels.reset_counts()
     t0 = time.perf_counter()
     try:
@@ -492,12 +504,16 @@ def train(args) -> int:
         return 0
     train_s = time.perf_counter() - t0
     model = result.models[0]
-    if args.out:
+    if args.out and instance is not None:
         save_model(args.out, model)
-    release = _release_of(instance)
-    print(f"[INFO] Training completed. Engine instance: {instance.id}"
-          + (f" (release v{release.version})" if release else ""),
-          flush=True)
+    release = _release_of(instance) if instance is not None else None
+    if instance is None:
+        print("[INFO] Training completed on this process; process 0 "
+              "records the instance.", flush=True)
+    else:
+        print(f"[INFO] Training completed. Engine instance: {instance.id}"
+              + (f" (release v{release.version})" if release else ""),
+              flush=True)
     summary = _model_summary(model)
     print(json.dumps({
         "users": summary["users"], "items": summary["items"],
@@ -508,7 +524,8 @@ def train(args) -> int:
         "build_s": summary["build_s"],
         "models": [_model_summary(m) for m in result.models],
         "launches": kernels.counts(), "ingest": _ingest_counts(),
-        "out": args.out, "instance": instance.id,
+        "out": args.out,
+        "instance": instance.id if instance is not None else None,
         "release": release.version if release else None}), flush=True)
     return 0
 
@@ -1528,7 +1545,7 @@ def reshard_cmd(args) -> int:
 
 
 def loadtest(args) -> int:
-    """Storm a whole in-process fleet (``loadtest``) with synthetic mixed
+    """Storm a whole local fleet (``loadtest``) with synthetic mixed
     traffic (events, queries, feedback) under a declarative scenario and
     assert the runtime invariants live: no dropped acks, exactly-once
     ingest by post-run audit, one LIVE release, freshness held. The
@@ -1703,6 +1720,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--skip-sanity-check", action="store_true")
     t.add_argument("--stop-after-read", action="store_true")
     t.add_argument("--stop-after-prepare", action="store_true")
+    t.add_argument("--mesh-shape", default=None,
+                   help="mesh shape, e.g. 2 or 4,2 (default: one "
+                        "position per process)")
+    t.add_argument("--mesh-axes", default=None,
+                   help="mesh axis names, e.g. data,model")
     t.add_argument("--checkpoint-dir", default=None,
                    help="mid-training checkpoint/resume directory")
     t.add_argument("--checkpoint-interval", default=10, type=int,

@@ -5,8 +5,10 @@ App name (+ channel name) -> (app_id, channel_id) resolution is cached,
 as in store/Common.scala:25-60. Every read goes to the configured
 store, partitioned or not: a partitioned store's ``find_columns`` and
 ``aggregate_properties`` scan its partitions at once
-(``storage/partitioned``). The multi-process sharded read belongs to a
-later slice of the port.
+(``storage/partitioned``). A multi-process train reads one shard a
+process: ``find_columns(shard=(index, count, snapshot))`` with the token
+one process took from :meth:`EventStoreClient.read_snapshot`
+(``data/ingest.training_scan``).
 """
 
 from __future__ import annotations
@@ -105,6 +107,19 @@ class EventStoreClient:
         app_id, channel_id = resolve_app(app_name, channel_name)
         store = Storage.get_events()
         fn = getattr(store, "snapshot_digest", None)
+        return fn(app_id, channel_id) if fn is not None else None
+
+    @staticmethod
+    def read_snapshot(app_name: str, channel_name: Optional[str] = None):
+        """The partitioned-read snapshot token of the configured store
+        (a sqlite rowid window, a partitioned store's composite), or None
+        when the store cannot partition. A multi-process train captures
+        it once, broadcasts it and passes ``shard=(index, count,
+        snapshot)`` to ``find_columns``, so every process reads one
+        stable set."""
+        app_id, channel_id = resolve_app(app_name, channel_name)
+        store = Storage.get_events()
+        fn = getattr(store, "read_snapshot", None)
         return fn(app_id, channel_id) if fn is not None else None
 
     @staticmethod

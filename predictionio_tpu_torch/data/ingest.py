@@ -14,21 +14,28 @@ flat numpy arrays, with no per-event Python objects.
   ``ingest_aggregate``, ``ingest_intern`` and ``ingest_assemble`` spans
   through the obs span histogram.
 
-The training read is :func:`training_columns`, which
-``EventStoreClient.training_columns`` calls. On a partitioned event
-store (``storage/partitioned``) it reads the partitions at once through
-the store's ``find_columns``, and the cache keys on the store's
-composite digest (``pmap:P:`` and each partition's), so a write to any
-partition or a reshard misses. The reference's sharded multi-process
-read is not ported (ROADMAP item A12).
+The training read is :func:`training_scan` (``training_columns`` is its
+replicated read, which ``EventStoreClient.training_columns`` calls). On
+a partitioned event store (``storage/partitioned``) it reads the
+partitions at once through the store's ``find_columns``, and the cache
+keys on the store's composite digest (``pmap:P:`` and each
+partition's), so a write to any partition or a reshard misses.
+
+* **shard/snapshot protocol** — in a multi-process run (a
+  ``torch.distributed`` process group) ``training_scan(sharded=True)``
+  partitions ONE snapshot window that process 0 captured and
+  broadcast: each process reads only its shard. Engines whose
+  algorithms re-key rows to their owners (the recommendation engine's
+  distributed ALS) opt in; every other read stays replicated.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -101,38 +108,101 @@ def _digest(app_name: str, channel_name: Optional[str]) -> Optional[str]:
     return EventStoreClient.snapshot_digest(app_name, channel_name)
 
 
-def training_columns(app_name: str, channel_name: Optional[str] = None, *,
-                     cache: bool = True, **filters) -> Dict[str, np.ndarray]:
+@dataclasses.dataclass
+class TrainingScan:
+    """One columnar training read.
+
+    ``columns`` holds the read's numpy columns; ``shard`` is the
+    partition tuple the scan used (None: unsharded); ``replicated`` is
+    True when a multi-process run wanted shards but the store cannot
+    partition: every process then holds the FULL set and the caller
+    keeps a disjoint slice (:meth:`local_slice`) before a distributed
+    build."""
+
+    columns: Dict[str, np.ndarray]
+    shard: Optional[tuple] = None
+    replicated: bool = False
+
+    def local_slice(self, arrays: Tuple[np.ndarray, ...]
+                    ) -> Tuple[np.ndarray, ...]:
+        """A strided disjoint slice for the replicated case; the arrays
+        as given otherwise (a sharded or single-process read is already
+        local)."""
+        if not self.replicated:
+            return arrays
+        from predictionio_tpu_torch.parallel.distributed import (
+            group_rank_size,
+        )
+
+        p, n = group_rank_size()
+        return tuple(a[p::n] for a in arrays)
+
+
+def training_scan(app_name: str, channel_name: Optional[str] = None, *,
+                  sharded: bool = False, cache: bool = True,
+                  **filters) -> TrainingScan:
     """The shared columnar training read: the store's numpy columns of
     the matching events (``find_columns`` filters and ``columns``),
     without the time sort unless the caller asks for it (training math
     is permutation-invariant), snapshot-digest cached, under the
-    ``ingest_scan`` span. Returns a fresh dict of read-only arrays."""
+    ``ingest_scan`` span. The columns are read-only arrays.
+
+    ``sharded=True`` opts into the multi-process shard/snapshot
+    protocol: process 0 captures ``read_snapshot()`` once and every
+    process receives it (``allgather_object``) and scans only its
+    partition ``(rank, world, snapshot)`` of that window. A store that
+    cannot partition reads in full on every process
+    (``replicated``)."""
     from predictionio_tpu_torch.data.eventstore import EventStoreClient
+    from predictionio_tpu_torch.parallel.distributed import group_rank_size
 
     filters.setdefault("ordered", False)
+    shard = None
+    replicated = False
+    rank, world = group_rank_size()
+    if sharded and world > 1:
+        from predictionio_tpu_torch.parallel.shuffle import allgather_object
+
+        # ONE process captures the snapshot; everyone partitions the same
+        # window (bounds computed apart skew under concurrent ingest)
+        snap = allgather_object(
+            EventStoreClient.read_snapshot(app_name, channel_name)
+            if rank == 0 else None)[0]
+        if snap is not None:
+            shard = (rank, world, snap)
+        else:
+            replicated = True
     key = None
     if cache and _cache_enabled():
         digest = _digest(app_name, channel_name)
         if digest is not None:
-            key = (app_name, channel_name, digest, None,
+            key = (app_name, channel_name, digest,
+                   shard[:2] if shard else None,
                    tuple(sorted(
                        (k, tuple(v) if isinstance(v, list) else v)
                        for k, v in filters.items())))
             hit = _cache_get(app_name, key)
             if hit is not None:
-                return dict(hit)
+                return TrainingScan(dict(hit), shard, replicated)
     t0 = time.perf_counter()
     with span("ingest_scan", registry=_registry()):
         cols = EventStoreClient.find_columns(app_name, channel_name,
-                                             **filters)
+                                             shard=shard, **filters)
     n = len(next(iter(cols.values()))) if cols else 0
     _count_rows(app_name, n, time.perf_counter() - t0)
     for a in cols.values():
         a.flags.writeable = False
     if key is not None:
         _cache_put(key, cols)
-    return dict(cols)
+    return TrainingScan(dict(cols), shard, replicated)
+
+
+def training_columns(app_name: str, channel_name: Optional[str] = None, *,
+                     cache: bool = True, **filters) -> Dict[str, np.ndarray]:
+    """The replicated training read (:func:`training_scan` unsharded):
+    a fresh dict of read-only numpy columns."""
+    return training_scan(app_name, channel_name, cache=cache,
+                         **filters).columns
 
 
 def aggregate_scan(app_name: str, entity_type: str,

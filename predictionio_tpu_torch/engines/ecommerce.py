@@ -42,6 +42,7 @@ from predictionio_tpu_torch.engines.common import (
     categories_match, item_meta_join, resolved_als_solver,
 )
 from predictionio_tpu_torch.models.als import ALSData, ALSParams, train_als
+from predictionio_tpu_torch.workflow.context import mesh_of
 
 #: training-time implicit confidence weights (genMLlibRating parity: a
 #: buy is worth BUY_WEIGHT views), shared with the fold-in spec so the
@@ -182,15 +183,17 @@ class ECommAlgorithm(Algorithm):
             raise ValueError("view/buy events cannot be empty")
         user_vocab, user_codes = assign_indices(users)
         item_vocab, item_codes = assign_indices(items)
+        mesh = mesh_of(ctx)
         data = ALSData.build(user_codes, item_codes, values,
-                             len(user_vocab), len(item_vocab))
+                             len(user_vocab), len(item_vocab),
+                             n_shards=mesh.size)
         solver, block = resolved_als_solver(self.params, logger)
         device = getattr(ctx, "device", None)
         U, V = train_als(data, ALSParams(
             rank=self.params.rank, num_iterations=self.params.num_iterations,
             reg=self.params.reg, alpha=self.params.alpha,
             implicit_prefs=True, seed=self.params.seed,
-            solver=solver, block_size=block), device=device)
+            solver=solver, block_size=block), mesh=mesh)
         buy_idx = batch_lookup(item_vocab, pd.buys.items)
         buy_idx = buy_idx[buy_idx >= 0]
         popular = {int(ix): int(c) for ix, c in

@@ -30,9 +30,7 @@ from predictionio_tpu_torch.core.metrics import (
 )
 from predictionio_tpu_torch.core.params import EngineParams, Params
 from predictionio_tpu_torch.data.bimap import assign_indices
-from predictionio_tpu_torch.data.eventstore import (
-    EventStoreClient, property_column,
-)
+from predictionio_tpu_torch.data.eventstore import property_column
 from predictionio_tpu_torch.engines.common import resolved_als_solver
 from predictionio_tpu_torch.models.als import (
     ALSData, ALSModel, ALSParams, train_als,
@@ -150,15 +148,26 @@ class RecommendationDataSource(DataSource):
 
     def _read_columns(self) -> RatingColumns:
         """The columnar training read: (user, item, value) arrays out of
-        the event store, with no per-event objects."""
+        the event store, with no per-event objects.
+
+        In a multi-process run the read is partitioned
+        (``training_scan(sharded=True)``): each process reads only its
+        shard of one snapshot, and the algorithm re-keys rows to their
+        owners (``models/als.build_distributed``)."""
+        from predictionio_tpu_torch.data.ingest import training_scan
+        from predictionio_tpu_torch.parallel.distributed import (
+            group_rank_size,
+        )
+
         names = self.params.event_names or ["rate", "buy"]
         weights = {**self.DEFAULT_WEIGHTS,
                    **(self.params.event_weights or {})}
-        cols = EventStoreClient.training_columns(
-            self.params.app_name, entity_type="user", event_names=names,
-            target_entity_type="item",
+        scan = training_scan(
+            self.params.app_name, sharded=True, entity_type="user",
+            event_names=names, target_entity_type="item",
             columns=("event", "entity_id", "target_entity_id",
                      "properties"))
+        cols = scan.columns
         events = cols["event"]
         is_rate = events == "rate"
         values = np.empty(len(events), np.float32)
@@ -169,12 +178,26 @@ class RecommendationDataSource(DataSource):
             # parse only the rate rows' properties
             values[is_rate] = property_column(cols["properties"][is_rate],
                                               "rating")
-        if np.isnan(values[is_rate]).any():
+        bad = bool(np.isnan(values[is_rate]).any())
+        if group_rank_size()[1] > 1:
+            # a data error lives in ONE process's shard; the raise is
+            # collective, or the others wait forever in the training
+            # collectives downstream
+            from predictionio_tpu_torch.parallel.shuffle import (
+                allgather_object,
+            )
+
+            bad = any(allgather_object(bad))
+        if bad:
             raise ValueError(
                 "rate event without a rating property "
                 "(DataSource.scala:66 MatchError parity)")
-        return RatingColumns(users=cols["entity_id"],
-                             items=cols["target_entity_id"], values=values)
+        # a store that cannot partition read the full set everywhere:
+        # keep a disjoint strided slice so the exchange by owner sees
+        # each rating once
+        users, items, values = scan.local_slice(
+            (cols["entity_id"], cols["target_entity_id"], values))
+        return RatingColumns(users=users, items=items, values=values)
 
     def read_training(self, ctx) -> TrainingData:
         return TrainingData(columns=self._read_columns())
@@ -257,16 +280,48 @@ class ALSAlgorithm(Algorithm):
         self.params = params or AlgorithmParams()
 
     def train(self, ctx, pd: PreparedData) -> ALSModel:
-        if not len(pd):
+        from predictionio_tpu_torch.parallel.distributed import (
+            group_rank_size,
+        )
+        from predictionio_tpu_torch.workflow.context import mesh_of
+
+        multiproc = group_rank_size()[1] > 1
+        n = len(pd)
+        if multiproc:
+            # the emptiness that matters is global: a process whose
+            # shard is empty still joins the collectives below
+            from predictionio_tpu_torch.parallel.shuffle import (
+                allgather_object,
+            )
+
+            n = sum(allgather_object(n))
+        if not n:
             raise ValueError(
                 "No ratings found. Check the appName or import data first "
                 "(ALSAlgorithm.scala:55 empty-check parity).")
         cols = pd.as_columns()
+        mesh = mesh_of(ctx)
         t0 = time.perf_counter()
-        user_vocab, user_codes = assign_indices(cols.users)
-        item_vocab, item_codes = assign_indices(cols.items)
-        data = ALSData.build(user_codes, item_codes, cols.values,
-                             len(user_vocab), len(item_vocab))
+        if multiproc:
+            # the partitioned pipeline: `cols` holds this process's shard;
+            # ids come from a collective vocabulary union and rows reach
+            # their owners through one exchange inside build_distributed
+            from predictionio_tpu_torch.models.als import build_distributed
+            from predictionio_tpu_torch.parallel.shuffle import global_vocab
+
+            user_vocab = global_vocab(np.asarray(cols.users))
+            item_vocab = global_vocab(np.asarray(cols.items))
+            user_codes = np.searchsorted(user_vocab, cols.users)
+            item_codes = np.searchsorted(item_vocab, cols.items)
+            data = build_distributed(mesh, user_codes, item_codes,
+                                     cols.values, len(user_vocab),
+                                     len(item_vocab))
+        else:
+            user_vocab, user_codes = assign_indices(cols.users)
+            item_vocab, item_codes = assign_indices(cols.items)
+            data = ALSData.build(user_codes, item_codes, cols.values,
+                                 len(user_vocab), len(item_vocab),
+                                 n_shards=mesh.size)
         build_s = time.perf_counter() - t0
         solver, block_size = resolved_als_solver(self.params, logger)
         als_params = ALSParams(
@@ -283,7 +338,7 @@ class ALSAlgorithm(Algorithm):
 
         device = getattr(ctx, "device", None)
         t0 = time.perf_counter()
-        U, V = train_als(data, als_params, device=device,
+        U, V = train_als(data, als_params, mesh=mesh,
                          checkpointer=checkpointer_of(ctx))
         model = ALSModel.from_arrays(user_vocab, item_vocab, U, V,
                                      device=device)
@@ -388,12 +443,20 @@ class ALSAlgorithm(Algorithm):
         fold-masked layout, and the metrics are computed on the device
         (``models/als_sweep``), on ``ctx.device``. Returns the
         evaluator's sweep contract (``{scores, details, info}``), or
-        None to decline (a metric kind it cannot compute, or two
-        precision settings in one sweep)."""
+        None to decline (a metric kind it cannot compute, two precision
+        settings in one sweep, or a multi-process run)."""
         from predictionio_tpu_torch.core.cross_validation import (
             fold_assignments,
         )
         from predictionio_tpu_torch.core.evaluation import sweep_kind_of
+        from predictionio_tpu_torch.parallel.distributed import (
+            group_rank_size,
+        )
+
+        if group_rank_size()[1] > 1:
+            # a multi-process read is sharded a process; the sweep builds
+            # from one process's view, so the sequential path runs instead
+            return None
         from predictionio_tpu_torch.models.als_sweep import (
             build_sweep_data, run_sweep,
         )

@@ -37,6 +37,7 @@ from predictionio_tpu_torch.data.eventstore import EventStoreClient
 from predictionio_tpu_torch.data.ingest import aggregate_scan, pair_counts
 from predictionio_tpu_torch.engines.common import resolved_als_solver
 from predictionio_tpu_torch.models.als import ALSData, ALSParams, train_als
+from predictionio_tpu_torch.workflow.context import mesh_of
 
 logger = logging.getLogger("pio.torch.engine.recommended_user")
 
@@ -182,8 +183,9 @@ class ALSAlgorithm(Algorithm):
                              "(mllibRatings require parity)")
         f_vocab, f_codes = assign_indices(followers)
         t_vocab, t_codes = assign_indices(followed)
+        mesh = mesh_of(ctx)
         data = ALSData.build(f_codes, t_codes, values, len(f_vocab),
-                             len(t_vocab))
+                             len(t_vocab), n_shards=mesh.size)
         solver, block = resolved_als_solver(self.params, logger)
         device = getattr(ctx, "device", None)
         _, V = train_als(data, ALSParams(
@@ -191,7 +193,7 @@ class ALSAlgorithm(Algorithm):
             num_iterations=self.params.num_iterations,
             reg=self.params.reg, alpha=self.params.alpha,
             implicit_prefs=True, seed=self.params.seed,
-            solver=solver, block_size=block), device=device)
+            solver=solver, block_size=block), mesh=mesh)
         norms = np.linalg.norm(V, axis=1, keepdims=True)
         V = V / np.where(norms == 0, 1.0, norms)
         return RecommendedUserModel(user_vocab=t_vocab, V=V,

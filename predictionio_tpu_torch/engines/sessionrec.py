@@ -82,7 +82,7 @@ class DataSourceParams(Params):
 class SessionDataSource(DataSource):
     """Per-user sessions ordered by eventTime, read whole (a session is
     never split across readers; the reference's multi-process note
-    applies to ROADMAP item A12)."""
+    applies to ROADMAP item A12, part 2)."""
 
     params_class = DataSourceParams
 

@@ -44,6 +44,7 @@ from predictionio_tpu_torch.engines.common import (
     item_meta_join, resolved_als_solver,
 )
 from predictionio_tpu_torch.models.als import ALSData, ALSParams, train_als
+from predictionio_tpu_torch.workflow.context import mesh_of
 from predictionio_tpu_torch.models.cooccurrence import (
     CooccurrenceModel, train_cooccurrence,
 )
@@ -221,15 +222,17 @@ class ALSAlgorithm(Algorithm):
             raise ValueError("items cannot be empty (use $set item events)")
         user_vocab, user_codes = assign_indices(users)
         item_vocab, item_codes = assign_indices(items)
+        mesh = mesh_of(ctx)
         data = ALSData.build(user_codes, item_codes, values,
-                             len(user_vocab), len(item_vocab))
+                             len(user_vocab), len(item_vocab),
+                             n_shards=mesh.size)
         solver, block = resolved_als_solver(self.params, logger)
         device = getattr(ctx, "device", None)
         _, V = train_als(data, ALSParams(
             rank=self.params.rank, num_iterations=self.params.num_iterations,
             reg=self.params.reg, alpha=self.params.alpha,
             implicit_prefs=True, seed=self.params.seed,
-            solver=solver, block_size=block), device=device)
+            solver=solver, block_size=block), mesh=mesh)
         norms = np.linalg.norm(V, axis=1, keepdims=True)
         V = V / np.where(norms == 0, 1.0, norms)
         return SimilarityModel(item_vocab=item_vocab, V=V,

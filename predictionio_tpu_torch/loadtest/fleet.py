@@ -17,11 +17,15 @@ would deploy them, scaled to one box:
   SLO-judged canary), whose promoted release the fleet rolls out
   through the router's sequenced ``/deploy.json``.
 
-Every server runs on one background asyncio loop thread, on the port's
-stdlib HTTP layer (``server/http``; the reference uses aiohttp, which
-the card's machine lacks). The simulator's lanes talk to it over real
-HTTP (``server/http_client``) through ``run_coroutine_threadsafe``
-futures, the Future shape the open-loop harness drives.
+The event server and the replicas run on one background asyncio loop
+thread, on the port's stdlib HTTP layer (``server/http``; the reference
+uses aiohttp, which the card's machine lacks); the router runs in a
+process of its own (``_router_main``), and so do the simulator's lanes
+(``simulator._traffic_main``), which talk to the fleet over real HTTP.
+The reference keeps every part on one loop; on the port's stdlib HTTP
+layer that one thread and one GIL carried the router's proxying and the
+callers' own sends beside the servers under test, and the storm's p99
+measured their queueing.
 
 The models (the replicas, the orchestrator's trains, fold-in) run on
 ``device``: ``cuda`` unless the caller passes ``"cpu"``. A fleet asked
@@ -46,6 +50,8 @@ import json
 import logging
 import os
 import socket
+import subprocess
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
@@ -65,6 +71,49 @@ REFERENCE_FACTORY = (__name__.split(".")[0].removesuffix("_torch")
 
 #: seconds an HTTP exchange of the fleet may take
 HTTP_TIMEOUT_S = 60.0
+
+#: seconds the router's process may take to answer with every replica
+#: healthy behind it
+ROUTER_READY_S = 90.0
+
+
+def _router_main() -> int:
+    """The fleet's router process (``LocalFleet._start_router``; its
+    settings as JSON in ``argv[1]``): serves on a free loopback port,
+    prints that port once every replica is healthy behind it, and closes
+    on SIGTERM."""
+    import signal
+
+    from predictionio_tpu_torch.obs.registry import MetricsRegistry
+    from predictionio_tpu_torch.server.router import Router
+    from predictionio_tpu_torch.utils.server_config import RouterConfig
+
+    cfg = json.loads(sys.argv[1])
+    router = Router(
+        RouterConfig(health_interval_s=cfg["health_interval_s"],
+                     health_fail_after=2, proxy_retries=2,
+                     health_backoff_cap_s=cfg["health_backoff_cap_s"]),
+        registry=MetricsRegistry(), replica_urls=cfg["replica_urls"])
+
+    async def _main() -> int:
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, router.stopped.set)
+        port = await router.start("127.0.0.1", 0)
+        try:
+            for rank in list(router.replicas):
+                if not await router.wait_replica_healthy(rank,
+                                                         timeout_s=30):
+                    print(f"replica {rank} never became healthy behind "
+                          "the router", flush=True)
+                    return 1
+            print(port, flush=True)
+            await router.stopped.wait()
+        finally:
+            await router.close()
+        return 0
+
+    return asyncio.run(_main())
 
 
 def _free_port() -> int:
@@ -174,7 +223,7 @@ class LocalFleet(_LoopOwner):
         self.seed_event_ids: List[str] = []
 
         self._event_server = None
-        self._router = None
+        self._router_proc: Optional[subprocess.Popen] = None
         self._replica_ports: List[int] = []
         self._replica_servers: List[Optional[object]] = []
         self._orch = None
@@ -216,6 +265,7 @@ class LocalFleet(_LoopOwner):
         from predictionio_tpu_torch.storage.registry import Storage
 
         try:
+            self._stop_router()
             if self._loop is not None:
                 self._run(self._shutdown_all(), timeout=60)
         except Exception:
@@ -385,77 +435,51 @@ class LocalFleet(_LoopOwner):
             self.replica_urls.append(url)
 
     def _start_router(self) -> None:
-        from predictionio_tpu_torch.obs.registry import MetricsRegistry
-        from predictionio_tpu_torch.server.router import Router
-        from predictionio_tpu_torch.utils.server_config import RouterConfig
+        """The router in a process of its own (``_router_main``), as ``pio
+        router`` runs it: on the fleet's loop its proxying would share one
+        thread and one GIL with the replicas it fronts. Returns once it
+        answers and every replica is healthy behind it."""
+        from predictionio_tpu_torch.loadtest.harness import (
+            child_env, read_line,
+        )
 
-        self._router = Router(
-            RouterConfig(health_interval_s=self.health_interval_s,
-                         health_fail_after=2, proxy_retries=2,
-                         health_backoff_cap_s=self.health_backoff_cap_s),
-            registry=MetricsRegistry(),
-            replica_urls=list(self.replica_urls))
-        port = self._run(self._router.start("127.0.0.1", 0), timeout=30)
-        self.router_url = f"http://127.0.0.1:{port}"
-        for rank in list(self._router.replicas):
-            if not self._run(self._router.wait_replica_healthy(
-                    rank, timeout_s=30), timeout=40):
-                raise RuntimeError(
-                    f"replica {rank} never became healthy behind the "
-                    "router")
+        cfg = {"health_interval_s": self.health_interval_s,
+               "health_backoff_cap_s": self.health_backoff_cap_s,
+               "replica_urls": list(self.replica_urls)}
+        self._router_proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; from {__name__} import _router_main; "
+             "sys.exit(_router_main())", json.dumps(cfg)],
+            stdout=subprocess.PIPE, env=child_env(),
+            start_new_session=True)
+        ready = read_line(self._router_proc.stdout, ROUTER_READY_S)
+        if not ready.strip().isdigit():
+            self._stop_router()
+            raise RuntimeError(
+                f"the router process never came up (said {ready!r})")
+        self.router_url = f"http://127.0.0.1:{int(ready)}"
+
+    def _stop_router(self) -> None:
+        proc, self._router_proc = self._router_proc, None
+        if proc is None:
+            return
+        if proc.poll() is None:
+            proc.terminate()        # SIGTERM: the router closes cleanly
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        proc.stdout.close()
 
     async def _shutdown_all(self) -> None:
         if self._client is not None:
             await self._client.close()
-        if self._router is not None:
-            await self._router.close()
         for server in self._replica_servers:
             if server is not None:
                 await server.close()
         if self._event_server is not None:
             await self._event_server.close()
-
-    # -- traffic lanes -------------------------------------------------------
-    def submit_event_batch(self, payloads: List[dict]):
-        """POST one batch to the event server; the returned Future
-        resolves to the acked event ids (the emitter's audit ledger). A
-        429 retries after the server's own Retry-After: shedding is
-        backpressure, not loss."""
-        return self._submit(self._post_events(payloads))
-
-    async def _post_events(self, payloads: List[dict]) -> List[str]:
-        url = (f"{self.event_url}/batch/events.json"
-               f"?accessKey={self.access_key}")
-        for _attempt in range(60):
-            resp, body = await self._post_json(url, payloads)
-            if resp.status == 429:
-                retry_after = float(
-                    resp.headers.get("retry-after", 0.1) or 0.1)
-                await asyncio.sleep(min(max(retry_after, 0.02), 0.5))
-                continue
-            if resp.status != 200:
-                raise RuntimeError(
-                    f"batch ingest HTTP {resp.status}: {body}")
-            ids = []
-            for entry in body:
-                if entry.get("status") != 201:
-                    raise RuntimeError(f"event rejected: {entry}")
-                ids.append(entry["eventId"])
-            return ids
-        raise RuntimeError("batch ingest shed 60 times — queue_max too "
-                           "small for the offered load")
-
-    def submit_query(self, payload: dict):
-        """POST one query through the router; resolves to the parsed
-        answer (raises on a non-200, so failures are counted)."""
-        return self._submit(self._post_query(payload))
-
-    async def _post_query(self, payload: dict) -> dict:
-        resp, body = await self._post_json(
-            f"{self.router_url}/queries.json", payload)
-        if resp.status != 200:
-            raise RuntimeError(f"query HTTP {resp.status}: {body}")
-        return body
 
     # -- incidents -----------------------------------------------------------
     def kill_replica(self, rank: int) -> None:

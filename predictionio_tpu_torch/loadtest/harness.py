@@ -20,11 +20,34 @@ The discipline, exactly as the ingest bench established it:
 from __future__ import annotations
 
 import dataclasses
+import os
+import select
 import threading
 import time
 from typing import Callable, Iterable, List, Optional, Sequence
 
-__all__ = ["LatencyLedger", "OpenLoopResult", "drive_open_loop"]
+__all__ = ["LatencyLedger", "OpenLoopResult", "drive_open_loop",
+           "child_env", "read_line"]
+
+#: the directory holding this package: a child process of the load test
+#: (the storm's traffic, the fleet's router) imports the package from it
+_PACKAGE_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def child_env() -> dict:
+    """This process's environment, with the package on ``PYTHONPATH``
+    (it is not installed: a ``python -c`` child finds it only so)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [_PACKAGE_PARENT] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def read_line(stream, timeout_s: float) -> str:
+    """One line from a child's pipe, or "" at its end or the deadline."""
+    ready, _, _ = select.select([stream], [], [], timeout_s)
+    return stream.readline().decode(errors="replace") if ready else ""
 
 
 class LatencyLedger:

@@ -2,8 +2,8 @@
 population × scenario × open-loop lanes × chaos × live invariants,
 producing one verdict dict.
 
-Three concurrent open-loop lanes drive the fleet the way production
-traffic would:
+Three concurrent open-loop lanes, in a process of their own, drive the
+fleet the way production traffic would:
 
 * **events** — behavioural ``rate`` events, batched to the event
   server's batch API; every acked event id lands in the emitter's
@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import json
 import logging
+import subprocess
+import sys
 import threading
 import time
 import urllib.request
@@ -32,7 +34,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from predictionio_tpu_torch.loadtest.harness import LatencyLedger, drive_open_loop
+from predictionio_tpu_torch.loadtest.harness import (
+    LatencyLedger, OpenLoopResult, child_env, drive_open_loop, read_line,
+)
 from predictionio_tpu_torch.loadtest.invariants import InvariantEngine
 from predictionio_tpu_torch.loadtest.population import Population, arrival_offsets
 from predictionio_tpu_torch.loadtest.scenario import Scenario
@@ -45,6 +49,13 @@ __all__ = ["run_storm", "run_tenant_storm"]
 
 #: events coalesced per batch POST (the SDK bulk-emitter shape)
 EVENT_BATCH = 64
+
+#: seconds an HTTP exchange of the storm's traffic may take
+HTTP_TIMEOUT_S = 60.0
+
+#: seconds the traffic process may take to start its lanes (it builds
+#: every event payload first)
+TRAFFIC_START_S = 120.0
 
 
 class _Lanes:
@@ -69,12 +80,21 @@ def run_storm(scenario: Scenario, fleet, *,
               query_p99_bound_ms: float = 2000.0,
               freshness_bound_s: float = 30.0,
               registry=None,
-              check_freshness: bool = True) -> dict:
+              check_freshness: bool = True,
+              query_times: Optional[list] = None) -> dict:
     """Drive one storm against a started :class:`LocalFleet` (or any
-    object with its lane/incident surface) and return the report dict
-    (``report["ok"]`` is the verdict)."""
+    object with its ``event_url``/``router_url``/``access_key`` and
+    incident surface) and return the report dict (``report["ok"]`` is
+    the verdict).
+
+    The three lanes run in a process of their own (``_traffic_main``),
+    as the fleet's callers would: in the fleet's process their sends,
+    reads and callbacks would share its GIL with the servers under test
+    and be counted in their latency. This process walks the incident
+    timeline on the lanes' clock and renders the verdict. A
+    ``query_times`` list gets each query's ``[submit offset, seconds]``
+    on the lanes' clock."""
     sc = scenario
-    pop = Population(sc.population, sc.items, seed=sc.seed)
     lanes = _Lanes(sc)
     engine = InvariantEngine(registry)
     m_offered = loadtest_stats.loadtest_offered(registry)
@@ -84,85 +104,12 @@ def run_storm(scenario: Scenario, fleet, *,
     m_ack_hist = loadtest_stats.loadtest_ack_seconds(registry)
     m_query_hist = loadtest_stats.loadtest_query_seconds(registry)
     m_active = loadtest_stats.loadtest_active_users(registry)
-
-    degrade = threading.Event()      #: degrade_quality incident in force
-    ledger: List[str] = []           #: acked event ids (audit ground truth)
-    ledger_lock = threading.Lock()
     timeout_s = sc.duration_s + 120.0
 
-    # -- event lane ----------------------------------------------------------
-    # payloads are pregenerated on this thread (deterministic, and the
-    # Population's RNG is not shared across driver threads)
-    event_batches: List[tuple] = []
-    for i in range(0, len(lanes.event_offsets), EVENT_BATCH):
-        offs = lanes.event_offsets[i:i + EVENT_BATCH]
-        payloads = [
-            pop.event_for(pop.next_user(), float(t)).to_dict()
-            for t in offs]
-        event_batches.append((float(offs[0]), payloads))
-
-    def submit_events(batch) -> object:
-        _off, payloads = batch
-        if degrade.is_set():
-            for p in payloads:
-                props = p.setdefault("properties", {})
-                props["rating"] = 1.0
-        return fleet.submit_event_batch(payloads)
-
-    def on_event_ack(_batch, fut) -> None:
-        ids = fut.result()
-        with ledger_lock:
-            ledger.extend(ids)
-
-    # -- query lane ----------------------------------------------------------
-    query_items = [
-        (uid, pop.query_for(uid))
-        for uid in (pop.next_user() for _ in lanes.query_offsets)]
-
-    def submit_query(item) -> object:
-        return fleet.submit_query(item[1])
-
-    def on_query_ack(item, fut) -> None:
-        uid = item[0]
-        try:
-            scores = fut.result().get("itemScores") or []
-        except Exception:
-            return
-        pop.record_recommendations(
-            uid, [str(s.get("item")) for s in scores if s.get("item")])
-
-    # -- feedback lane (built at submit time: needs the served slates) ------
-    feedback_items = [
-        (int(pop.next_user()), float(t)) for t in lanes.feedback_offsets]
-
-    def submit_feedback(item) -> object:
-        uid, at_s = item
-        ev = pop.feedback_for(uid, at_s) or pop.event_for(uid, at_s)
-        return fleet.submit_event_batch([ev.to_dict()])
-
-    results = {}
-
-    def _drive(name, items, submit, schedule, on_ack, weight=None):
-        results[name] = drive_open_loop(
-            items, submit, max_outstanding=sc.max_outstanding,
-            timeout_s=timeout_s, schedule=schedule, on_ack=on_ack,
-            weight=weight, ledger=LatencyLedger())
-
-    threads = [
-        threading.Thread(
-            target=_drive, name="storm-events",
-            args=("events", event_batches, submit_events,
-                  [b[0] for b in event_batches], on_event_ack,
-                  lambda b: len(b[1]))),
-        threading.Thread(
-            target=_drive, name="storm-queries",
-            args=("queries", query_items, submit_query,
-                  list(lanes.query_offsets), on_query_ack, None)),
-        threading.Thread(
-            target=_drive, name="storm-feedback",
-            args=("feedback", feedback_items, submit_feedback,
-                  list(lanes.feedback_offsets), on_event_ack, None)),
-    ]
+    traffic = _TrafficProcess({
+        "scenario": sc.to_dict(), "event_url": fleet.event_url,
+        "router_url": fleet.router_url, "access_key": fleet.access_key,
+        "timeout_s": timeout_s})
 
     # -- incident timeline ---------------------------------------------------
     retrain_threads: List[threading.Thread] = []
@@ -201,11 +148,11 @@ def run_storm(scenario: Scenario, fleet, *,
             t.start()
             restart_threads.append(t)
         elif incident.kind == "degrade_quality":
-            degrade.set()
+            traffic.set_degrade(True)
             if incident.duration_s > 0:
                 def _clear():
                     time.sleep(incident.duration_s)
-                    degrade.clear()
+                    traffic.set_degrade(False)
 
                 t = threading.Thread(target=_clear, name="storm-undegrade")
                 t.start()
@@ -221,22 +168,25 @@ def run_storm(scenario: Scenario, fleet, *,
             except Exception:
                 logger.exception("incident %s failed", incident.kind)
 
-    t_start = time.perf_counter()
-    incident_thread = threading.Thread(
-        target=_incident_loop, args=(t_start,), name="storm-incidents")
-    incident_thread.start()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout_s + 30)
+    try:
+        traffic.wait_started()
+        t_start = time.perf_counter()
+        incident_thread = threading.Thread(
+            target=_incident_loop, args=(t_start,), name="storm-incidents")
+        incident_thread.start()
+        out = traffic.result(timeout_s + 60)
+    finally:
+        traffic.close()
     incident_thread.join(30)
     for t in retrain_threads + restart_threads:
         t.join(180)
     wall_s = time.perf_counter() - t_start
+    results = {name: _lane_result(lane)
+               for name, lane in out["lanes"].items()}
 
     # -- settle + metrics ----------------------------------------------------
     fleet.drain_ingest()
-    m_active.set(float(pop.active_users))
+    m_active.set(float(out["active_users"]))
     for lane, res in results.items():
         m_offered.inc(res.offered, lane=lane)
         m_acked.inc(res.acked, lane=lane)
@@ -250,8 +200,7 @@ def run_storm(scenario: Scenario, fleet, *,
     engine.check_open_loop("no_dropped_acks", results["events"])
     engine.check_open_loop("no_dropped_queries", results["queries"])
     engine.check_open_loop("no_dropped_feedback", results["feedback"])
-    with ledger_lock:
-        ledger_ids = list(ledger)
+    ledger_ids = list(out["ledger"])
     # the fleet's pre-storm seed inserts were acked too — the audit
     # expects their ids alongside the storm's own
     ledger_ids.extend(getattr(fleet, "seed_event_ids", ()))
@@ -277,7 +226,7 @@ def run_storm(scenario: Scenario, fleet, *,
         "ok": engine.ok,
         "wall_s": round(wall_s, 2),
         "arrivals": lanes.total,
-        "active_users": pop.active_users,
+        "active_users": out["active_users"],
         "lanes": {name: res.as_dict() for name, res in results.items()},
         "audit": audit.as_dict(),
         "invariants": engine.report(),
@@ -287,7 +236,290 @@ def run_storm(scenario: Scenario, fleet, *,
             for c in fleet.cycles],
         "foldin_applied_rows": fleet.foldin_applied_rows(),
     }
+    if query_times is not None:
+        query_times.extend(out["query_times"])
     return report
+
+
+def _lane_result(lane: dict) -> OpenLoopResult:
+    """A lane's result as the traffic process reported it."""
+    ledger = LatencyLedger()
+    for seconds in lane["samples"]:
+        ledger.record(seconds)
+    return OpenLoopResult(
+        offered=lane["offered"], acked=lane["acked"],
+        failed=lane["failed"], wall_s=lane["wall_s"], ledger=ledger,
+        timed_out=lane["timed_out"])
+
+
+class _TrafficProcess:
+    """The storm's lanes in a child process (``_traffic_main``): its
+    settings go in as one JSON line on stdin, ``degrade 1``/``degrade
+    0`` lines follow; it prints ``started`` when the lanes start and
+    its result as one JSON line when they end."""
+
+    def __init__(self, spec: dict):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import sys; from {__name__} import _traffic_main; "
+             "sys.exit(_traffic_main())"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=child_env(),
+            start_new_session=True)
+        self._lock = threading.Lock()
+        self._send(json.dumps(spec))
+
+    def _send(self, line: str) -> None:
+        with self._lock:
+            try:
+                self.proc.stdin.write((line + "\n").encode())
+                self.proc.stdin.flush()
+            except (BrokenPipeError, ValueError):
+                pass        # the child ended: its result says why
+
+    def wait_started(self) -> None:
+        line = read_line(self.proc.stdout, TRAFFIC_START_S)
+        if line.strip() != "started":
+            raise RuntimeError(f"the storm's traffic process never "
+                               f"started (said {line!r})")
+
+    def set_degrade(self, on: bool) -> None:
+        self._send(f"degrade {int(bool(on))}")
+
+    def result(self, timeout_s: float) -> dict:
+        line = read_line(self.proc.stdout, timeout_s)
+        if not line.strip():
+            raise RuntimeError("the storm's traffic process ended without "
+                               "a result")
+        return json.loads(line)
+
+    def close(self) -> None:
+        with self._lock:
+            try:
+                self.proc.stdin.close()
+            except (BrokenPipeError, ValueError):
+                pass
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.proc.stdout.close()
+
+
+class _TrafficClient:
+    """The lanes' HTTP client on a loop thread of its own: event batches
+    to the event server (a 429 retries after its Retry-After: shedding
+    is backpressure, not loss), queries through the router."""
+
+    def __init__(self, event_url: str, router_url: str, access_key: str):
+        import asyncio
+
+        from predictionio_tpu_torch.server.http_client import HttpClient
+
+        self.event_url, self.router_url = event_url, router_url
+        self.access_key = access_key
+        self._loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(
+            target=self._loop.run_forever, name="storm-client", daemon=True)
+        self._thread.start()
+
+        async def _mk():
+            return HttpClient()
+
+        self._client = self._call(_mk()).result(10)
+
+    def _call(self, coro):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self._loop)
+
+    async def _post_json(self, url: str, payload) -> tuple:
+        resp = await self._client.request("POST", url, json_body=payload,
+                                          timeout=HTTP_TIMEOUT_S)
+        try:
+            body = resp.json()
+        except ValueError:
+            body = resp.body.decode(errors="replace")
+        return resp, body
+
+    def submit_event_batch(self, payloads: List[dict]):
+        """A Future resolving to the acked event ids."""
+        return self._call(self._post_events(payloads))
+
+    async def _post_events(self, payloads: List[dict]) -> List[str]:
+        import asyncio
+
+        url = (f"{self.event_url}/batch/events.json"
+               f"?accessKey={self.access_key}")
+        for _attempt in range(60):
+            resp, body = await self._post_json(url, payloads)
+            if resp.status == 429:
+                retry_after = float(
+                    resp.headers.get("retry-after", 0.1) or 0.1)
+                await asyncio.sleep(min(max(retry_after, 0.02), 0.5))
+                continue
+            if resp.status != 200:
+                raise RuntimeError(
+                    f"batch ingest HTTP {resp.status}: {body}")
+            ids = []
+            for entry in body:
+                if entry.get("status") != 201:
+                    raise RuntimeError(f"event rejected: {entry}")
+                ids.append(entry["eventId"])
+            return ids
+        raise RuntimeError("batch ingest shed 60 times — queue_max too "
+                           "small for the offered load")
+
+    def submit_query(self, payload: dict):
+        """A Future resolving to the parsed answer (raises on a non-200,
+        so failures are counted)."""
+        return self._call(self._post_query(payload))
+
+    async def _post_query(self, payload: dict) -> dict:
+        resp, body = await self._post_json(
+            f"{self.router_url}/queries.json", payload)
+        if resp.status != 200:
+            raise RuntimeError(f"query HTTP {resp.status}: {body}")
+        return body
+
+    def close(self) -> None:
+        self._call(self._client.close()).result(10)
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(10)
+        self._loop.close()
+
+
+def _drive_lanes(sc: Scenario, client, degrade: threading.Event,
+                 timeout_s: float, on_start) -> dict:
+    """The three open-loop lanes against ``client``
+    (:class:`_TrafficClient`); ``on_start()`` runs just before they
+    start. Returns each lane's counts and latency samples, the acked
+    event ids, the woken users and each query's ``[offset, seconds]``."""
+    pop = Population(sc.population, sc.items, seed=sc.seed)
+    lanes = _Lanes(sc)
+    ledger: List[str] = []           #: acked event ids (audit ground truth)
+    ledger_lock = threading.Lock()
+
+    # -- event lane ----------------------------------------------------------
+    # payloads are pregenerated on this thread (deterministic, and the
+    # Population's RNG is not shared across driver threads)
+    event_batches: List[tuple] = []
+    for i in range(0, len(lanes.event_offsets), EVENT_BATCH):
+        offs = lanes.event_offsets[i:i + EVENT_BATCH]
+        payloads = [
+            pop.event_for(pop.next_user(), float(t)).to_dict()
+            for t in offs]
+        event_batches.append((float(offs[0]), payloads))
+
+    def submit_events(batch) -> object:
+        _off, payloads = batch
+        if degrade.is_set():
+            for p in payloads:
+                props = p.setdefault("properties", {})
+                props["rating"] = 1.0
+        return client.submit_event_batch(payloads)
+
+    def on_event_ack(_batch, fut) -> None:
+        ids = fut.result()
+        with ledger_lock:
+            ledger.extend(ids)
+
+    # -- query lane ----------------------------------------------------------
+    query_items = [
+        (uid, pop.query_for(uid))
+        for uid in (pop.next_user() for _ in lanes.query_offsets)]
+    query_times: List[list] = []
+    t0 = [0.0]
+
+    def submit_query(item) -> object:
+        t = time.perf_counter()
+        fut = client.submit_query(item[1])
+        fut.add_done_callback(lambda _f, t=t: query_times.append(
+            [round(t - t0[0], 6), round(time.perf_counter() - t, 6)]))
+        return fut
+
+    def on_query_ack(item, fut) -> None:
+        uid = item[0]
+        try:
+            scores = fut.result().get("itemScores") or []
+        except Exception:
+            return
+        pop.record_recommendations(
+            uid, [str(s.get("item")) for s in scores if s.get("item")])
+
+    # -- feedback lane (built at submit time: needs the served slates) ------
+    feedback_items = [
+        (int(pop.next_user()), float(t)) for t in lanes.feedback_offsets]
+
+    def submit_feedback(item) -> object:
+        uid, at_s = item
+        ev = pop.feedback_for(uid, at_s) or pop.event_for(uid, at_s)
+        return client.submit_event_batch([ev.to_dict()])
+
+    results = {}
+
+    def _drive(name, items, submit, schedule, on_ack, weight=None):
+        results[name] = drive_open_loop(
+            items, submit, max_outstanding=sc.max_outstanding,
+            timeout_s=timeout_s, schedule=schedule, on_ack=on_ack,
+            weight=weight, ledger=LatencyLedger())
+
+    threads = [
+        threading.Thread(
+            target=_drive, name="storm-events",
+            args=("events", event_batches, submit_events,
+                  [b[0] for b in event_batches], on_event_ack,
+                  lambda b: len(b[1]))),
+        threading.Thread(
+            target=_drive, name="storm-queries",
+            args=("queries", query_items, submit_query,
+                  list(lanes.query_offsets), on_query_ack, None)),
+        threading.Thread(
+            target=_drive, name="storm-feedback",
+            args=("feedback", feedback_items, submit_feedback,
+                  list(lanes.feedback_offsets), on_event_ack, None)),
+    ]
+    on_start()
+    t0[0] = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s + 30)
+    with ledger_lock:
+        ids = list(ledger)
+    return {
+        "lanes": {name: {"offered": res.offered, "acked": res.acked,
+                         "failed": res.failed, "wall_s": res.wall_s,
+                         "timed_out": res.timed_out,
+                         "samples": res.ledger.samples()}
+                  for name, res in results.items()},
+        "ledger": ids, "active_users": pop.active_users,
+        "query_times": sorted(query_times)}
+
+
+def _traffic_main() -> int:
+    """The storm's traffic process (``_TrafficProcess``)."""
+    spec = json.loads(sys.stdin.readline())
+    sc = Scenario.from_dict(spec["scenario"])
+    degrade = threading.Event()
+
+    def _commands() -> None:
+        for line in sys.stdin:
+            cmd = line.split()
+            if cmd[:1] == ["degrade"]:
+                (degrade.set if cmd[1:] == ["1"] else degrade.clear)()
+
+    threading.Thread(target=_commands, name="storm-commands",
+                     daemon=True).start()
+    client = _TrafficClient(spec["event_url"], spec["router_url"],
+                            spec["access_key"])
+    try:
+        out = _drive_lanes(sc, client, degrade, spec["timeout_s"],
+                           on_start=lambda: print("started", flush=True))
+    finally:
+        client.close()
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def run_tenant_storm(scenario: Scenario, fleet, *,

@@ -1,5 +1,6 @@
-"""ALS matrix factorization on one device (port of the reference's
-``models/als.py``): training, and the ``ALSModel`` that serves.
+"""ALS matrix factorization on a mesh of positions (port of the
+reference's ``models/als.py``): training, and the ``ALSModel`` that
+serves.
 
 Training follows the reference's ALX layout: ratings packed on the host
 into padded per-segment rows sorted by user and by item (numpy, copied
@@ -10,6 +11,16 @@ hand-written kernel on the card). Explicit feedback uses ALS-WR
 weighted-lambda regularization; implicit feedback Hu-Koren-Volinsky
 confidence weighting with the shared V^T V Gramian. The ``subspace``
 solver is iALS++ block coordinate descent.
+
+Users and items are sharded in contiguous blocks over the mesh's
+positions (``parallel/mesh``; one position by default). Each half-sweep
+runs, for every local position in a plain loop, the one-shard sweep on
+that position's rows against the full opposite factors, then one
+``all_gather`` of the new factors (``parallel/collectives``) hands the
+next half-sweep its full opposite — across processes through the
+``torch.distributed`` group. :func:`build_distributed` assembles the
+layout from per-process rating shards with one row exchange by owner
+(``parallel/shuffle``).
 
 A model comes from training, from the reference's factor arrays
 (:meth:`ALSModel.from_arrays`) or from a ``.npz`` written by
@@ -100,9 +111,10 @@ class ShardedRows:
 
     Row r holds up to L ratings of ONE segment (heavy segments span
     several consecutive rows); shard s owns segments [s * seg_per_shard,
-    (s+1) * seg_per_shard). The port trains on one device, so D = 1; the
-    leading axis keeps the reference's layout. After
-    :meth:`ALSData.to` the arrays are tensors on the device."""
+    (s+1) * seg_per_shard), one shard a mesh position. The arrays hold
+    every shard, or this process's (``ALSData.positions``); after
+    :meth:`ALSData.put` they are lists of one ``[R, L]`` / ``[R]`` tensor
+    a local position, each on its position's device."""
 
     tgt: np.ndarray   # int32 [D, R, L] — opposite-side factor rows
     val: np.ndarray   # float32 [D, R, L] — rating values
@@ -226,7 +238,8 @@ def shard_rows(seg_idx: np.ndarray, tgt_idx: np.ndarray, values: np.ndarray,
 
 @dataclasses.dataclass
 class ALSData:
-    """Training layout: padded rows sorted both ways + dims (one shard)."""
+    """Training layout: padded rows sorted both ways + dims, one shard a
+    mesh position."""
 
     by_user: ShardedRows    # seg=user, tgt=item
     by_item: ShardedRows    # seg=item, tgt=user
@@ -235,17 +248,30 @@ class ALSData:
     n_users_pad: int
     n_items_pad: int
     nnz: int
-    #: order-independent digest of the COO triples (coo_digest)
+    #: order-independent digest of the COO triples (coo_digest); the
+    #: same however the ratings are spread over shards or processes
     digest: str = ""
+    #: the mesh positions [lo, hi) whose rows these arrays hold
+    #: (build_distributed); None: every position's
+    positions: Optional[Tuple[int, int]] = None
+    #: what build_distributed's row exchange moved (rows, bytes, seconds)
+    exchange: dict = dataclasses.field(default_factory=dict, compare=False,
+                                       repr=False)
+
+    @property
+    def n_shards(self) -> int:
+        """Mesh positions the layout was built for."""
+        return self.by_user.n_segments // self.by_user.seg_per_shard
 
     @classmethod
     def build(cls, user_idx: np.ndarray, item_idx: np.ndarray,
               ratings: np.ndarray, n_users: int, n_items: int,
-              row_len: Optional[int] = None) -> "ALSData":
+              n_shards: int = 1, row_len: Optional[int] = None
+              ) -> "ALSData":
         by_user = shard_rows(user_idx, item_idx, ratings, n_users,
-                             row_len=row_len)
+                             n_shards, row_len=row_len)
         by_item = shard_rows(item_idx, user_idx, ratings, n_items,
-                             row_len=row_len)
+                             n_shards, row_len=row_len)
         return cls(by_user=by_user, by_item=by_item,
                    n_users=n_users, n_items=n_items,
                    n_users_pad=by_user.n_segments,
@@ -253,26 +279,47 @@ class ALSData:
                    nnz=int(len(ratings)),
                    digest=coo_digest(user_idx, item_idx, ratings))
 
-    def to(self, device=None) -> "ALSData":
-        """The same layout with its row arrays uploaded to ``device``
-        once (default ``cuda``), so repeated trains reuse them. Idempotent
-        for data already there."""
-        dev = resolve_device(device)
+    def put(self, mesh) -> "ALSData":
+        """The layout with each local position's rows on its position's
+        device, uploaded once: a layout already placed on these devices
+        is returned as it is, so repeated trains reuse its tensors. The
+        layout holds every position's rows (sliced to this process's
+        here) or exactly this process's (:func:`build_distributed`)."""
+        local = mesh.local_positions()
+        lo, hi = local.start, local.stop
+        devs = mesh.local_devices()
+        held = self.positions or (0, self.n_shards)
+        if self.n_shards != mesh.size:
+            raise ValueError(
+                f"data built for {self.n_shards} shards but the mesh has "
+                f"{mesh.size} positions: build with n_shards=mesh.size")
+        if not (held[0] <= lo and hi <= held[1]):
+            raise ValueError(f"the layout holds positions {held}, this "
+                             f"process needs [{lo}, {hi})")
 
-        def up(a):
-            if isinstance(a, torch.Tensor) and a.device == dev:
-                return a
-            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
-            return t.to(dev)
+        def place(a, j, dev):
+            t = a[j] if isinstance(a, list) else torch.from_numpy(
+                np.ascontiguousarray(a[lo - held[0] + j]))
+            return t if t.device == dev else t.to(dev)
 
         def commit(rows: ShardedRows) -> ShardedRows:
-            return dataclasses.replace(rows, tgt=up(rows.tgt),
-                                       val=up(rows.val), w=up(rows.w),
-                                       seg=up(rows.seg))
+            def each(a):
+                return [place(a, j, d) for j, d in enumerate(devs)]
 
+            return dataclasses.replace(rows, tgt=each(rows.tgt),
+                                       val=each(rows.val), w=each(rows.w),
+                                       seg=each(rows.seg))
+
+        already = isinstance(self.by_user.tgt, list) \
+            and self.positions == (lo, hi)
+        if already and all(t.device == d for t, d in
+                           zip(self.by_user.tgt, devs)):
+            return self
         out = dataclasses.replace(self, by_user=commit(self.by_user),
-                                  by_item=commit(self.by_item))
-        synchronize(dev)
+                                  by_item=commit(self.by_item),
+                                  positions=(lo, hi))
+        for d in {str(d): d for d in devs}.values():
+            synchronize(d)
         return out
 
 
@@ -348,14 +395,19 @@ def _solve_units(A: torch.Tensor, rhs: torch.Tensor,
 def _half_sweep_dyn(opposite: torch.Tensor, row_tgt, row_seg, row_val,
                     row_w, seg_per_shard: int, *, reg, alpha,
                     implicit_prefs: bool, weighted_reg: bool,
-                    alpha_is_zero: bool, chunk_rows: int) -> torch.Tensor:
+                    alpha_is_zero: bool, chunk_rows: int,
+                    gram_all: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """Solve this side's factors of ``b`` units against their full
     opposite factor matrices ``opposite [b, F, K]`` (rows in the padded
     ALX layout, weights ``row_w [b, R, L]``, ``reg`` / ``alpha [b]``).
     One batched K x K solve over every unit's systems; returns ``[b, S,
-    K]``."""
+    K]``. Implicit feedback takes ``gram_all [b, K, K]`` (V^T V) when
+    the caller has it (a mesh's psum'd Gramian), else computes it."""
+    if implicit_prefs and gram_all is None:
+        gram_all = _global_gram(opposite)
     A, rhs, lam = _normal_equations(
-        opposite, _global_gram(opposite) if implicit_prefs else None,
+        opposite, gram_all if implicit_prefs else None,
         row_tgt, row_seg, row_val, row_w, reg, alpha,
         num_segments=seg_per_shard, implicit_prefs=implicit_prefs,
         weighted_reg=weighted_reg, alpha_is_zero=alpha_is_zero,
@@ -372,23 +424,43 @@ def _unit_params(params: ALSParams, dev) -> Tuple[torch.Tensor,
 
 def _half_sweep(opposite: torch.Tensor, rows: ShardedRows,
                 params: ALSParams, reg: torch.Tensor,
-                alpha: torch.Tensor) -> torch.Tensor:
-    """One train's half-sweep (``b = 1`` of `_half_sweep_dyn`):
-    ``opposite [F, K]`` to ``[S, K]``."""
+                alpha: torch.Tensor, j: int = 0,
+                gram_all: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One train's half-sweep (``b = 1`` of `_half_sweep_dyn`) on the
+    rows of local position ``j``: ``opposite [F, K]`` to ``[S, K]``."""
     return _half_sweep_dyn(
-        opposite[None], rows.tgt[0], rows.seg[0], rows.val[0],
-        rows.w[0][None], rows.seg_per_shard, reg=reg, alpha=alpha,
+        opposite[None], rows.tgt[j], rows.seg[j], rows.val[j],
+        rows.w[j][None], rows.seg_per_shard, reg=reg, alpha=alpha,
         implicit_prefs=params.implicit_prefs,
         weighted_reg=params.weighted_reg,
-        alpha_is_zero=(params.alpha == 0), chunk_rows=params.chunk_size)[0]
+        alpha_is_zero=(params.alpha == 0), chunk_rows=params.chunk_size,
+        gram_all=None if gram_all is None else gram_all[None])[0]
 
 
 def _global_gram(opposite: torch.Tensor) -> torch.Tensor:
     """The K x K Gramian of each unit's full opposite factor matrix
     (``[b, F, K]`` to ``[b, K, K]``; the implicit solver's V^T V term),
-    once per half-sweep. One device: the reference's sharded psum is the
-    multi-GPU slice's."""
+    once per half-sweep (:func:`_sharded_gram` on a mesh)."""
     return opposite.transpose(-1, -2) @ opposite
+
+
+def _sharded_gram(opposite: torch.Tensor, mesh) -> list:
+    """The Gramian of ``opposite [F, K]`` on a mesh (the reference's
+    sharded ``_global_gram``): position p reduces its slice of the rows
+    (``ceil(F / D)`` rows each, the last short) and one psum of the
+    ``[K, K]`` results combines them. One per local position."""
+    from predictionio_tpu_torch.parallel.collectives import psum
+
+    d = mesh.size
+    if d == 1:
+        return [_global_gram(opposite[None])[0]]
+    f = opposite.shape[0]
+    per = -(-f // d)
+    parts = []
+    for p, dev in zip(mesh.local_positions(), mesh.local_devices()):
+        sl = opposite[p * per:min(f, (p + 1) * per)].to(dev)
+        parts.append(sl.T @ sl)
+    return psum(parts, mesh, mesh.axis_names[0])
 
 
 def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
@@ -396,7 +468,9 @@ def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
                              seg_per_shard: int, *, reg, alpha,
                              implicit_prefs: bool, weighted_reg: bool,
                              alpha_is_zero: bool, chunk_rows: int,
-                             block_size: int) -> torch.Tensor:
+                             block_size: int,
+                             gram_all: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Block coordinate descent half-sweep (iALS++, arXiv:2110.14044)
     for ``b`` units (``x_prev [b, S, K]``, ``opposite [b, F, K]``, the
     rest as in `_half_sweep_dyn`): for each rank block of width B, solve
@@ -405,7 +479,8 @@ def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
     predictions maintained incrementally; one batched solve per block
     over every unit's systems. The per-segment counts and, for implicit
     feedback, the global Gramian are built once and reused by every
-    block."""
+    block. ``gram_all [b, K, K]`` is the implicit Gramian when the
+    caller has it (a mesh's psum'd one)."""
     k = opposite.shape[-1]
     bs = max(1, min(block_size, k))
     starts = block_starts(k, block_size)
@@ -415,7 +490,8 @@ def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
     cnt = segment_count(row_seg, row_w.sum(dim=-1), seg_per_shard)
     lam = _reg_per_segment(reg, cnt, weighted_reg)
     if implicit_prefs:
-        gram_all = _global_gram(opposite)                       # [b, K, K]
+        if gram_all is None:
+            gram_all = _global_gram(opposite)                   # [b, K, K]
         p = (row_val > 0).to(row_val.dtype)
         if alpha_is_zero:
             gram_w = torch.zeros_like(row_w)
@@ -458,16 +534,19 @@ def _half_sweep_subspace_dyn(x_prev: torch.Tensor, opposite: torch.Tensor,
 
 def _half_sweep_subspace(x_prev: torch.Tensor, opposite: torch.Tensor,
                          rows: ShardedRows, params: ALSParams,
-                         reg: torch.Tensor, alpha: torch.Tensor
+                         reg: torch.Tensor, alpha: torch.Tensor, j: int = 0,
+                         gram_all: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """One train's subspace half-sweep (``b = 1``): ``[S, K]``."""
+    """One train's subspace half-sweep (``b = 1``) on the rows of local
+    position ``j``: ``[S, K]``."""
     return _half_sweep_subspace_dyn(
-        x_prev[None], opposite[None], rows.tgt[0], rows.seg[0],
-        rows.val[0], rows.w[0][None], rows.seg_per_shard, reg=reg,
+        x_prev[None], opposite[None], rows.tgt[j], rows.seg[j],
+        rows.val[j], rows.w[j][None], rows.seg_per_shard, reg=reg,
         alpha=alpha, implicit_prefs=params.implicit_prefs,
         weighted_reg=params.weighted_reg,
         alpha_is_zero=(params.alpha == 0), chunk_rows=params.chunk_size,
-        block_size=params.block_size)[0]
+        block_size=params.block_size,
+        gram_all=None if gram_all is None else gram_all[None])[0]
 
 
 def _init_item_factors(n_items: int, n_items_pad: int, k: int, seed: int,
@@ -475,13 +554,15 @@ def _init_item_factors(n_items: int, n_items_pad: int, k: int, seed: int,
     """Initial item factors: standard normal from a generator seeded by
     ``seed``, divided by sqrt(k); padding rows start (and stay) zero, as
     in the reference (nonzero pads would pollute the implicit solvers'
-    global Gramian). torch cannot reproduce the reference's
-    ``jax.random`` draw: to start from the reference's factors pass
-    ``init_V`` to :func:`train_als`."""
+    global Gramian). The draw is ``[n_items, K]``, so it does not
+    depend on the padding a shard count gives: every process of a mesh
+    and a one-device train draw the same factors on one device type.
+    torch cannot reproduce the reference's ``jax.random`` draw: to start
+    from the reference's factors pass ``init_V`` to :func:`train_als`."""
     g = torch.Generator(device=device).manual_seed(int(seed))
-    V = torch.randn((n_items_pad, k), generator=g, device=device,
-                    dtype=torch.float32) / math.sqrt(k)
-    V[n_items:] = 0.0
+    V = torch.zeros((n_items_pad, k), dtype=torch.float32, device=device)
+    V[:n_items] = torch.randn((n_items, k), generator=g, device=device,
+                              dtype=torch.float32) / math.sqrt(k)
     return V
 
 
@@ -511,43 +592,156 @@ def _padded(rows: np.ndarray, n: int, n_pad: int, dev) -> torch.Tensor:
     return out
 
 
-def train_als(data: ALSData, params: ALSParams, device=None,
-              init_V: Optional[np.ndarray] = None, checkpointer=None
-              ) -> Tuple[np.ndarray, np.ndarray]:
-    """Train on one device and return host ``(U [n_users, K], V
-    [n_items, K])``.
+def _flat_mesh(mesh):
+    """The mesh's positions as one ``"data"`` axis in flat order (ALS
+    shards users and items over every position)."""
+    from predictionio_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
-    ``init_V`` (``[n_items, K]`` or ``[n_items_pad, K]``, numpy) replaces
-    the seeded initial item factors, e.g. with the reference's. The rows
-    are uploaded once (:meth:`ALSData.to`); each iteration runs the user
-    half-sweep against V, then the item half-sweep against the new U.
+    return Mesh(mesh.devices.reshape(-1), mesh.process_indices.reshape(-1),
+                (DATA_AXIS,), process_index=mesh.process_index)
+
+
+def _resume_state(checkpointer, fp, data: ALSData, params: ALSParams,
+                  mesh):
+    """``(step, V, U)`` of the snapshot to resume from (host arrays, U
+    None unless the snapshot carries it), or None. Across processes
+    process 0's snapshot decides and is broadcast, so every process
+    resumes alike (snapshot directories are per-process paths)."""
+    k = params.rank
+    snap = checkpointer.latest(fingerprint=fp)
+    # a snapshot at or past the target (a stale run with fewer
+    # iterations) would skip every sweep: train from scratch instead
+    ok = snap is not None and snap[0] < params.num_iterations \
+        and getattr(snap[1].get("V"), "shape", None) == (data.n_items, k)
+    su = snap[1].get("U") if ok else None
+    has_u = getattr(su, "shape", None) == (data.n_users, k)
+    if not mesh.spans_processes:
+        if not ok:
+            return None
+        return snap[0], np.asarray(snap[1]["V"], np.float32), \
+            (np.asarray(su, np.float32) if has_u else None)
+    from predictionio_tpu_torch.parallel.collectives import (
+        broadcast_one_to_all,
+    )
+
+    # only subspace snapshots carry U: gating on the solver (the same on
+    # every process) spares the full solver an n_users x k broadcast
+    want_u = params.solver == "subspace"
+    meta = np.zeros(3, np.int64)
+    v_buf = np.zeros((data.n_items, k), np.float32)
+    u_buf = np.zeros((data.n_users if want_u else 0, k), np.float32)
+    if mesh.process_index == 0 and ok:
+        meta[:] = (1, snap[0], int(want_u and has_u))
+        v_buf[:] = np.asarray(snap[1]["V"], np.float32)
+        if want_u and has_u:
+            u_buf[:] = np.asarray(su, np.float32)
+    meta, v_buf, u_buf = broadcast_one_to_all((meta, v_buf, u_buf))
+    if not int(meta[0]):
+        return None
+    return int(meta[1]), v_buf, (u_buf if int(meta[2]) else None)
+
+
+class _MeshSweeps:
+    """The half-sweeps of one train on a mesh: each local position's
+    one-shard sweep in a loop, then one all-gather of the new factors
+    (and, for implicit feedback, one psum of the opposite's Gramian).
+    The full factors live on this process's first local device (and a
+    copy on each other local device)."""
+
+    def __init__(self, mesh, params: ALSParams):
+        self.mesh = mesh
+        self.params = params
+        self.devs = mesh.local_devices()
+        #: (reg, alpha) of the train on each local device
+        self.units = {str(d): _unit_params(params, d) for d in self.devs}
+        self.positions = list(mesh.local_positions())
+        self.home = self.devs[0]
+        self.gather_s = []
+
+    def _on(self, full: torch.Tensor) -> dict:
+        return {str(d): full if d == self.home else full.to(d)
+                for d in self.devs}
+
+    def __call__(self, prev: torch.Tensor, opposite: torch.Tensor,
+                 rows: ShardedRows) -> torch.Tensor:
+        from predictionio_tpu_torch.parallel.collectives import all_gather
+
+        p = self.params
+        per = rows.seg_per_shard
+        opp = self._on(opposite)
+        prev_on = self._on(prev) if p.solver == "subspace" else None
+        grams = (_sharded_gram(opposite, self.mesh) if p.implicit_prefs
+                 and self.mesh.size > 1 else [None] * len(self.devs))
+        blocks = []
+        for j, (pos, dev) in enumerate(zip(self.positions, self.devs)):
+            key = str(dev)
+            reg, alpha = self.units[key]
+            if p.solver == "subspace":
+                x_prev = prev_on[key][pos * per:(pos + 1) * per]
+                blocks.append(_half_sweep_subspace(
+                    x_prev, opp[key], rows, p, reg, alpha, j=j,
+                    gram_all=grams[j]))
+            else:
+                blocks.append(_half_sweep(opp[key], rows, p, reg, alpha,
+                                          j=j, gram_all=grams[j]))
+        if self.mesh.size == 1:
+            return blocks[0]
+        t0 = time.perf_counter()
+        full = all_gather(blocks, self.mesh, self.mesh.axis_names[0])[0]
+        if self.mesh.spans_processes:
+            self.gather_s.append(time.perf_counter() - t0)
+        return full
+
+
+def train_als(data: ALSData, params: ALSParams, device=None,
+              init_V: Optional[np.ndarray] = None, checkpointer=None,
+              mesh=None, stats: Optional[dict] = None
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Train and return host ``(U [n_users, K], V [n_items, K])`` (on
+    every process of a mesh that spans processes).
+
+    ``mesh`` (``parallel/mesh``): the positions the users and items are
+    sharded over, one shard a position (``data`` built for ``mesh.size``
+    shards). Without one: a mesh of ``data.n_shards`` positions, all on
+    ``device``. ``init_V`` (``[n_items, K]`` or ``[n_items_pad, K]``,
+    numpy) replaces the seeded initial item factors, e.g. with the
+    reference's. The rows are uploaded once (:meth:`ALSData.put`); each
+    iteration runs the user half-sweep against V, then the item
+    half-sweep against the new U, on every local position, each followed
+    by one all-gather (B1 launches once a local position a half-sweep).
 
     With a ``workflow.checkpoint.Checkpointer`` the iterations run in
     chunks of ``checkpointer.interval`` and V (and U for ``subspace``,
     whose state is both) is snapshotted between chunks under
-    :func:`als_fingerprint`. A run whose latest snapshot of that
-    fingerprint is below ``num_iterations`` and fits the data resumes
-    from it and runs only the remaining iterations."""
+    :func:`als_fingerprint` (across processes by process 0 alone). A run
+    whose latest snapshot of that fingerprint is below
+    ``num_iterations`` and fits the data resumes from it and runs only
+    the remaining iterations; across processes process 0's snapshot
+    decides for all.
+
+    ``stats``, when given, receives ``gather_s`` (each cross-process
+    all-gather's seconds) and ``solve_s``."""
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
     validate_solver(params)
-    dev = resolve_device(device)
-    data = data.to(dev)
+    if mesh is None:
+        mesh = make_mesh(devices=[resolve_device(device)] * data.n_shards)
+    mesh = _flat_mesh(mesh)
+    data = data.put(mesh)
+    devs = mesh.local_devices()
+    dev = devs[0]
     k = params.rank
     it = 0
     V = U = None
     fp = None
     if checkpointer is not None:
         fp = als_fingerprint(data, params)
-        snap = checkpointer.latest(fingerprint=fp)
-        # a snapshot at or past the target (a stale run with fewer
-        # iterations) would skip every sweep: train from scratch instead
-        if snap is not None and snap[0] < params.num_iterations \
-                and getattr(snap[1].get("V"), "shape", None) \
-                == (data.n_items, k):
-            it, state = snap
-            V = _padded(state["V"], data.n_items, data.n_items_pad, dev)
-            su = state.get("U")
-            if getattr(su, "shape", None) == (data.n_users, k):
-                U = _padded(su, data.n_users, data.n_users_pad, dev)
+        resumed = _resume_state(checkpointer, fp, data, params, mesh)
+        if resumed is not None:
+            it, v, u = resumed
+            V = _padded(v, data.n_items, data.n_items_pad, dev)
+            if u is not None:
+                U = _padded(u, data.n_users, data.n_users_pad, dev)
     if V is None and init_V is None:
         V = _init_item_factors(data.n_items, data.n_items_pad, k,
                                params.seed, dev)
@@ -562,34 +756,142 @@ def train_als(data: ALSData, params: ALSParams, device=None,
         U = torch.zeros((data.n_users_pad, k), dtype=torch.float32,
                         device=dev)
     start = it
-    reg, alpha = _unit_params(params, dev)
+    sweep = _MeshSweeps(mesh, params)
+    writer = not mesh.spans_processes or mesh.process_index == 0
     # the solve's wall: the sweeps and the download that waits for them,
     # snapshot writes excluded
     t0 = time.perf_counter()
     save_s = 0.0
     with span("als_solve"):
         while it < params.num_iterations:
-            if params.solver == "subspace":
-                U = _half_sweep_subspace(U, V, data.by_user, params, reg,
-                                         alpha)
-                V = _half_sweep_subspace(V, U, data.by_item, params, reg,
-                                         alpha)
-            else:
-                U = _half_sweep(V, data.by_user, params, reg, alpha)
-                V = _half_sweep(U, data.by_item, params, reg, alpha)
+            U = sweep(U, V, data.by_user)
+            V = sweep(V, U, data.by_item)
             it += 1
             if (checkpointer is not None and it < params.num_iterations
                     and (it - start) % checkpointer.interval == 0):
                 t_save = time.perf_counter()
-                state = {"V": V[:data.n_items]}
-                if params.solver == "subspace":
-                    state["U"] = U[:data.n_users]
-                checkpointer.save(it, state, fingerprint=fp)
+                if writer:
+                    state = {"V": V[:data.n_items]}
+                    if params.solver == "subspace":
+                        state["U"] = U[:data.n_users]
+                    checkpointer.save(it, state, fingerprint=fp)
                 save_s += time.perf_counter() - t_save
         out = (U[:data.n_users].cpu().numpy(),
                V[:data.n_items].cpu().numpy())
-    _observe_train(params, it - start, time.perf_counter() - t0 - save_s)
+    solve_s = time.perf_counter() - t0 - save_s
+    _observe_train(params, it - start, solve_s)
+    if stats is not None:
+        stats.update(gather_s=list(sweep.gather_s), solve_s=solve_s,
+                     half_sweeps=2 * (it - start))
     return out
+
+
+def _process_shard_range(mesh) -> Tuple[int, int]:
+    """This process's contiguous run [lo, hi) of mesh positions (one
+    shard row a position along the flattened mesh)."""
+    local = _flat_mesh(mesh).local_positions()
+    return local.start, local.stop
+
+
+def build_distributed(mesh, user_idx: np.ndarray, item_idx: np.ndarray,
+                      ratings: np.ndarray, n_users: int, n_items: int,
+                      row_len: Optional[int] = None) -> ALSData:
+    """The training layout from PER-PROCESS rating shards, placed on the
+    mesh (:meth:`ALSData.put`).
+
+    Each process passes only the ratings its own storage shard produced
+    (``find_columns(shard=(p, P, snapshot))``); rows are re-keyed to
+    their segment owners by one row exchange per side
+    (``parallel/shuffle.exchange_rows``), and each process packs only
+    its own positions' rows. No process holds the global rating set.
+    The row count is bucketed over every process's, and the digest is
+    the one ``ALSData.build`` gives the union. A mesh within one process
+    is ``ALSData.build(..., n_shards=mesh.size).put(mesh)``."""
+    from predictionio_tpu_torch.parallel.shuffle import (
+        allgather_object, exchange_rows,
+    )
+
+    user_idx = np.ascontiguousarray(user_idx, np.int32)
+    item_idx = np.ascontiguousarray(item_idx, np.int32)
+    ratings = np.ascontiguousarray(ratings, np.float32)
+    flat = _flat_mesh(mesh)
+    n_shards = flat.size
+    if not flat.spans_processes:
+        return ALSData.build(user_idx, item_idx, ratings, n_users, n_items,
+                             n_shards, row_len=row_len).put(flat)
+
+    lo, hi = _process_shard_range(flat)
+    shards_here = hi - lo
+    # global sizes and the digest ride one metadata all-gather
+    meta = allgather_object({
+        "nnz": int(len(ratings)),
+        "hash": _coo_hash_commutative(user_idx, item_idx, ratings)})
+    nnz = sum(m["nnz"] for m in meta)
+    digest = _combine_coo_hashes(meta, nnz)
+    if row_len is None:
+        row_len = _auto_row_len(nnz, max(n_users, n_items))
+    payload = np.stack([user_idx, item_idx, ratings.view(np.int32)], axis=1)
+    # each position's owner read off the mesh itself
+    proc_of_shard = flat.process_indices.reshape(-1).astype(np.int32)
+    exchange = {"rows_out": 0, "rows_in": 0, "bytes_out": 0, "seconds": 0.0}
+
+    def one_side(n_segments: int, seg_col: int, tgt_col: int):
+        seg_per_shard = -(-max(n_segments, 1) // n_shards)
+        shard_of = np.minimum(payload[:, seg_col] // seg_per_shard,
+                              n_shards - 1)
+        dest = proc_of_shard[shard_of]
+        t0 = time.perf_counter()
+        mine = exchange_rows(dest, payload)
+        exchange["seconds"] += time.perf_counter() - t0
+        away = int((dest != flat.process_index).sum())
+        exchange["rows_out"] += away
+        exchange["bytes_out"] += away * payload.shape[1] * 4
+        exchange["rows_in"] += len(mine)
+        seg = mine[:, seg_col]
+        if seg.size and not (seg.min() >= lo * seg_per_shard
+                             and seg.max() < hi * seg_per_shard):
+            raise AssertionError(
+                "the exchange delivered segments outside this process's "
+                "positions: the shard ownership map is inconsistent")
+        order = np.argsort(seg, kind="stable")
+        seg_s = seg[order].astype(np.int64)
+        tgt_s = mine[order, tgt_col]
+        val_s = np.ascontiguousarray(mine[order, 2]).view(np.float32)
+        bounds = np.searchsorted(
+            seg_s, (lo + np.arange(shards_here + 1)) * seg_per_shard)
+        parts = []
+        for j in range(shards_here):
+            a, b = int(bounds[j]), int(bounds[j + 1])
+            parts.append(_build_rows(
+                seg_s[a:b] - (lo + j) * seg_per_shard, tgt_s[a:b],
+                val_s[a:b], None, row_len, seg_per_shard))
+        r_local = max(t.shape[0] for t, _, _, _ in parts)
+        # the padded row count agreed over every process
+        r_max = _bucket_rows(max(allgather_object(r_local)))
+        tgt, val, w, seg_rows = _stack_parts(parts, r_max, row_len,
+                                             seg_per_shard)
+        return ShardedRows(tgt=tgt, val=val, w=w, seg=seg_rows,
+                           seg_per_shard=seg_per_shard,
+                           n_segments=n_shards * seg_per_shard,
+                           row_len=row_len)
+
+    by_user = one_side(n_users, 0, 1)
+    by_item = one_side(n_items, 1, 0)
+    out = ALSData(by_user=by_user, by_item=by_item, n_users=n_users,
+                  n_items=n_items, n_users_pad=by_user.n_segments,
+                  n_items_pad=by_item.n_segments, nnz=nnz, digest=digest,
+                  positions=(lo, hi), exchange=exchange)
+    return out.put(flat)
+
+
+def _combine_coo_hashes(meta, nnz: int) -> str:
+    """The digest of the union of every process's ratings from their
+    commutative hashes (:func:`coo_digest` of the union)."""
+    total = np.uint64(0)
+    with np.errstate(over="ignore"):
+        for m in meta:
+            total += np.uint64(m["hash"])
+    return f"coo-{nnz}-{int(total):016x}"
 
 
 def _observe_train(params: ALSParams, iters_run: int,

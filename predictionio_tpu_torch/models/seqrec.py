@@ -26,7 +26,7 @@ user's time-ordered item stream (port of the reference's
 
 The reference's mesh branches (dp x tp sharding, ring attention over a
 ``"seq"`` axis) are not ported: a mesh of more than one device raises
-``NotImplementedError`` (ROADMAP item A12).
+``NotImplementedError`` (ROADMAP item A12, part 2).
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ class SeqRecParams(Params):
     epochs: int = 10
     seed: int = 7
     #: "flash" (the local blockwise attention) or "ring" (sequence
-    #: parallelism over a mesh's "seq" axis, not ported: ROADMAP A12)
+    #: parallelism over a mesh's "seq" axis, not ported: ROADMAP A12, part 2)
     attention_impl: str = "flash"
 
 
@@ -232,7 +232,7 @@ class SeqRecNet(nn.Module):
             if mesh is not None and "seq" in getattr(mesh, "axis_names", ()):
                 raise NotImplementedError(
                     "ring attention over a mesh's \"seq\" axis is not "
-                    "ported to PyTorch yet (ROADMAP item A12)")
+                    "ported to PyTorch yet (ROADMAP item A12, part 2)")
             raise ValueError('attention_impl="ring" requires a mesh with a '
                              '"seq" axis')
         l = seqs.shape[1]

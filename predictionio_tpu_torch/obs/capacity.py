@@ -104,10 +104,18 @@ def model_capacity(model) -> Dict:
         status = scorer.status()
         entry["scorer"] = status
         entry["exactBytes"] = int(status.get("exactBytes", 0))
-        entry["scorerFactorBytes"] = (_nbytes(scorer._tiles)
-                                      + _nbytes(scorer._scales))
-        entry["shortlistBytes"] = _nbytes(scorer._rotation)
-        entry["hostBytes"] = (_nbytes(scorer._v_host)
+        # a sharded scorer's bytes are its shards'; an exact or demoted
+        # shard's device rows count with the model's factors, as the
+        # unsharded exact scorer's resident V does
+        parts = [s for s in getattr(scorer, "shards", (scorer,))
+                 if s is not None]
+        entry["modelFactorBytes"] += sum(
+            _nbytes(v) for v in getattr(scorer, "_v_devices", ()))
+        entry["scorerFactorBytes"] = sum(
+            _nbytes(s._tiles) + _nbytes(s._scales) for s in parts)
+        entry["shortlistBytes"] = sum(_nbytes(s._rotation) for s in parts)
+        v_host = getattr(scorer, "_v_shards", None) or (scorer._v_host,)
+        entry["hostBytes"] = (sum(_nbytes(v) for v in v_host)
                               + entry["shortlistBytes"])
     entry["residentBytes"] = (entry["modelFactorBytes"]
                               + entry["scorerFactorBytes"])

@@ -13,7 +13,7 @@ of a left-padded session) outputs 0 — ``mha`` multiplies by ``max >
 NEG_INF / 2`` and ``_flash_finish`` divides by 1 where the denominator
 is 0. Scores and the recurrence stay in float32 whatever the input
 dtype. The reference's ring and Ulysses attention need a device mesh
-and are not ported (ROADMAP item A12).
+and are not ported (ROADMAP item A12, part 2).
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 
 The steady-state rule of the port is "put host data on the device once,
 then let every step use the resident tensors" (``models/als.py``
-``ALSData.to``). This module extends it to ad-hoc inputs (a classifier's
+``ALSData.put``). This module extends it to ad-hoc inputs (a classifier's
 document matrix): ``resident()`` keys a device tensor on the IDENTITY of
 the host arrays it was built from, so back-to-back train and predict
 calls over the same host data upload it once.

@@ -48,9 +48,7 @@ from predictionio_tpu_torch.ops import kernels
 from predictionio_tpu_torch.ops.bucketing import bucket_size
 from predictionio_tpu_torch.ops.topk import host_topk, merge_topk
 from predictionio_tpu_torch.utils.device import resolve_device
-from predictionio_tpu_torch.utils.server_config import (
-    SCORER_MODES, check_unsharded,
-)
+from predictionio_tpu_torch.utils.server_config import SCORER_MODES
 
 logger = logging.getLogger("pio.torch.scoring")
 
@@ -582,6 +580,188 @@ def _parity_gate(scorer: ItemScorer, v: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
+# model-parallel sharded scorer (factors past one device's memory)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardedScorer:
+    """Item factors sharded row-wise, one :class:`ItemScorer` a shard,
+    merged on the host.
+
+    Shard ``r`` of ``S`` owns rows ``[lo, hi)`` of ``V``
+    (``parallel/distributed.contiguous_range``) and its residency lands
+    on device ``r % n_devices`` (the serving device's type: every CUDA
+    device of the process, or the CPU). Each shard runs the configured
+    scorer over its rows only and emits a local top-k with exact f32
+    scores (quantized shards rescore exactly from their host slice, as
+    unsharded); local ids shift by ``lo`` into catalog ids and
+    ``ops/topk.merge_topk`` folds the lists into the global top-k. Every
+    catalog row belongs to one shard and every shard's scores are exact,
+    so a global winner is inside its shard's local top-k: the merge is
+    exact whenever the per-shard scorers are.
+
+    Mode ``exact`` keeps each shard's f32 rows on its shard's device and
+    serves the exact product there, as the unsharded exact scorer serves
+    ``V`` on the device; a shard whose parity gate demoted it likewise
+    serves the exact product over its own rows on its device (a
+    per-shard fallback, never a silent whole-catalog one)."""
+
+    mode: str                  # requested mode
+    active_mode: str           # mode when ALL shards serve it, else "exact"
+    n_items: int
+    rank: int
+    n_shards: int
+    ranges: tuple              # ((lo, hi), ...) a shard
+    shards: tuple              # a shard's ItemScorer; None = exact serving
+    factor_bytes: int          # device-resident bytes over all shards
+    max_shard_factor_bytes: int   # the per-device budget a shard must fit
+    exact_bytes: int
+    recall_probe: float
+    _v_shards: tuple = ()      # a shard's host f32 slice
+    _v_devices: tuple = ()     # an exact shard's f32 rows on its device
+
+    @property
+    def active(self) -> bool:
+        """A sharded scorer always serves: a demoted shard falls back to
+        the exact product over its own rows, not to the caller."""
+        return True
+
+    def topk(self, u_batch: np.ndarray, k: int,
+             mask: Optional[np.ndarray] = None
+             ) -> Tuple[np.ndarray, np.ndarray]:
+        """Global top-``k`` (scores, catalog ids): the shards' local
+        lists merged. ``mask`` [B, n_items] is sliced a shard, so a
+        whitelist concentrated in one shard sentinels every other shard
+        and the merge keeps only real survivors."""
+        b = u_batch.shape[0]
+        k = min(k, self.n_items)
+        if k <= 0:
+            empty = np.zeros((b, 0))
+            return empty.astype(np.float32), empty.astype(np.int64)
+        u = np.ascontiguousarray(np.asarray(u_batch, np.float32))
+        lists = []
+        for (lo, hi), scorer, v_dev in zip(self.ranges, self.shards,
+                                           self._v_devices):
+            m = None if mask is None else np.ascontiguousarray(
+                mask[:, lo:hi])
+            k_s = min(k, hi - lo)
+            if scorer is not None and scorer.active:
+                vals, ids = scorer.topk(u, k_s, mask=m)
+            else:
+                vals, ids = _exact_shard_topk(u, v_dev, k_s, m)
+            lists.append((vals, np.asarray(ids, np.int64) + lo))
+        return merge_topk(lists, k)
+
+    def status(self) -> dict:
+        """The status block (/deploy/status.json), sharded form."""
+        return {
+            "mode": self.mode,
+            "activeMode": self.active_mode,
+            "sharded": True,
+            "shards": self.n_shards,
+            "ranges": [list(r) for r in self.ranges],
+            "items": self.n_items,
+            "rank": self.rank,
+            "factorBytes": self.factor_bytes,
+            "maxShardFactorBytes": self.max_shard_factor_bytes,
+            "exactBytes": self.exact_bytes,
+            "recallProbe": round(self.recall_probe, 4),
+            "shardStatus": [s.status() for s in self.shards
+                            if s is not None],
+        }
+
+
+def _exact_shard_topk(u: np.ndarray, v_dev: torch.Tensor, k: int,
+                      mask: Optional[np.ndarray]):
+    """One exact shard's local top-``k`` on the shard's device: the
+    unsharded exact scorer's product and top-k over the shard's rows."""
+    from predictionio_tpu_torch.models.als import (
+        _topk_scores_batch, _topk_scores_batch_nomask,
+    )
+
+    u_dev = torch.from_numpy(u).to(v_dev.device)
+    if mask is None:
+        vals, ids = _topk_scores_batch_nomask(u_dev, v_dev, k)
+    else:
+        vals, ids = _topk_scores_batch(
+            u_dev, v_dev, torch.from_numpy(mask).to(v_dev.device), k)
+    return vals.cpu().numpy(), ids.cpu().numpy()
+
+
+def _shard_devices(device: torch.device) -> list:
+    """The devices shards are spread over: every CUDA device of the
+    process for a CUDA serving device, else the device itself."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def build_sharded_scorer(V: np.ndarray, cfg=None,
+                         min_recall: Optional[float] = None,
+                         shards: Optional[int] = None,
+                         device=None) -> ShardedScorer:
+    """Build a :class:`ShardedScorer` over ``V`` [N, K] f32: rows split
+    by ``contiguous_range``, one scorer a shard under the same config
+    (each parity-gated against its own shard's exact top-k), then the
+    MERGED result probed against the global exact top-k for the status
+    block's recall."""
+    from predictionio_tpu_torch.parallel.distributed import contiguous_range
+
+    device = resolve_device(device)
+    if cfg is None:
+        cfg = process_scorer_config()
+    if shards is None:
+        shards = int(getattr(cfg, "shards", 1) or 1)
+    v = np.ascontiguousarray(np.asarray(V), np.float32)
+    n_items, rank = v.shape
+    shards = max(1, min(shards, n_items))
+    devices = _shard_devices(device)
+    ranges, scorers, v_shards, v_devices = [], [], [], []
+    for r in range(shards):
+        lo, hi = contiguous_range(n_items, r, shards)
+        v_shard = np.ascontiguousarray(v[lo:hi])
+        dev = devices[r % len(devices)]
+        scorer = None
+        if cfg.mode != "exact":
+            scorer = build_scorer(v_shard, cfg, min_recall, device=dev)
+        # an exact or demoted shard serves the exact product on its
+        # device (on the CPU the tensor shares the host slice)
+        serves_exact = scorer is None or not scorer.active
+        ranges.append((lo, hi))
+        scorers.append(scorer)
+        v_shards.append(v_shard)
+        v_devices.append(torch.from_numpy(v_shard).to(dev)
+                         if serves_exact else None)
+    all_active = all(s is not None and s.active for s in scorers)
+    out = ShardedScorer(
+        mode=cfg.mode,
+        active_mode=cfg.mode if (all_active and cfg.mode != "exact")
+        else "exact",
+        n_items=n_items, rank=rank, n_shards=shards,
+        ranges=tuple(ranges), shards=tuple(scorers),
+        factor_bytes=sum(s.factor_bytes for s in scorers if s is not None),
+        max_shard_factor_bytes=max((s.factor_bytes for s in scorers
+                                    if s is not None), default=0),
+        exact_bytes=v.nbytes, recall_probe=1.0, _v_shards=tuple(v_shards),
+        _v_devices=tuple(v_devices))
+    # the global probe: merged lists against the whole catalog's exact
+    # top-k (the per-shard gates ran inside build_scorer; this one feeds
+    # the status block and catches a merge regression)
+    k = min(PARITY_PROBE_K, n_items)
+    if k > 0:
+        rows = np.linspace(0, n_items - 1,
+                           num=min(PARITY_PROBE_QUERIES, n_items)).astype(int)
+        probe = np.ascontiguousarray(v[rows])
+        _, exact_idx = host_topk(probe @ v.T, k)
+        _, got_idx = out.topk(probe, k)
+        hits = sum(len(set(a.tolist()) & set(b.tolist()))
+                   for a, b in zip(exact_idx, got_idx))
+        out.recall_probe = hits / float(exact_idx.shape[0] * k)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # model-side cache
 # ---------------------------------------------------------------------------
 
@@ -591,14 +771,16 @@ def _parity_gate(scorer: ItemScorer, v: np.ndarray,
 _BUILD_LOCK = threading.Lock()
 
 
-def scorer_for(holder, V: np.ndarray) -> Optional[ItemScorer]:
-    """The cached :class:`ItemScorer` for ``holder``'s factor matrix
-    ``V`` under the current scorer config, rebuilt when V's identity or
-    the config changed (a fold-in that swaps V requantizes). Returns
-    ``None`` in exact mode. The scorer lives on ``holder.device``."""
+def scorer_for(holder, V: np.ndarray):
+    """The cached scorer for ``holder``'s factor matrix ``V`` under the
+    current scorer config, rebuilt when V's identity or the config
+    changed (a fold-in that swaps V requantizes). Returns ``None`` in
+    unsharded exact mode; with ``shards > 1`` every mode, exact
+    included, routes through the :class:`ShardedScorer`. The scorer
+    lives on ``holder.device`` (a sharded one on its devices)."""
     cfg = holder_scorer_config(holder)
-    check_unsharded(cfg)
-    if cfg.mode == "exact":
+    shards = int(getattr(cfg, "shards", 1) or 1)
+    if cfg.mode == "exact" and shards <= 1:
         return None
     key = cfg.cache_key()
     cached = getattr(holder, "_scorer_cache", None)
@@ -607,14 +789,17 @@ def scorer_for(holder, V: np.ndarray) -> Optional[ItemScorer]:
     with _BUILD_LOCK:
         cached = getattr(holder, "_scorer_cache", None)   # lost the race?
         if cached is None or cached[0] is not V or cached[1] != key:
-            built = build_scorer(V, cfg, device=holder.device)
+            built = (build_sharded_scorer(V, cfg, device=holder.device)
+                     if shards > 1
+                     else build_scorer(V, cfg, device=holder.device))
             cached = (V, key, built)
             holder._scorer_cache = cached
     return cached[2]
 
 
 def unit_scorer_status(result) -> list:
-    """Status of every model in a TrainResult that has built a scorer."""
+    """Status of every model in a TrainResult that has built a scorer
+    (a sharded scorer's in its sharded form)."""
     out = []
     for model in getattr(result, "models", ()) or ():
         cached = getattr(model, "_scorer_cache", None)

@@ -1,20 +1,87 @@
-"""The worker contract of a multi-process run (the reference's
-``parallel/distributed.py``: ``resolve_worker``, ``worker_env``,
-``contiguous_range`` and ``process_count`` only).
+"""Multi-process runtime (port of the reference's
+``parallel/distributed.py``).
 
-An offline shard fleet (``pio batchpredict``) is N processes with two
-environment variables each, ``PIO_PROCESS_ID`` and
-``PIO_NUM_PROCESSES``; no collective runtime is needed for it. The
-reference's ``initialize_distributed`` (``jax.distributed``) is not
-ported yet: a process group of the port is one of
-``torch.distributed``, which ``resolve_worker`` reads when one is
-initialized.
+Every process runs the same program. :func:`initialize_distributed`
+joins them into one ``torch.distributed`` process group (``gloo``,
+rendezvous over TCP at the coordinator's address); meshes built
+afterwards (``parallel/mesh.make_mesh``) hold one position per process,
+and the collectives of ``parallel/collectives`` and ``parallel/shuffle``
+cross processes through the group. Tensors on the card are staged
+through host buffers for the collectives: gloo moves CPU tensors, and
+one card cannot hold two NCCL ranks.
+
+Env contract (the reference's):
+  PIO_COORDINATOR_ADDRESS  host:port of process 0's rendezvous store
+  PIO_NUM_PROCESSES        total process count
+  PIO_PROCESS_ID           this process's index
+
+An offline shard fleet (``pio batchpredict``) is N processes with the
+last two variables each and no process group (:func:`resolve_worker`).
 """
 
 from __future__ import annotations
 
+import datetime
+import logging
 import os
 from typing import Optional
+
+logger = logging.getLogger("pio.torch.distributed")
+
+#: seconds a rendezvous or a collective may wait for the other
+#: processes before it fails (torch.distributed's own default is 30 min)
+DEFAULT_TIMEOUT_S = 300.0
+
+_initialized = False
+
+
+def initialize_distributed(coordinator_address: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None,
+                           timeout_s: Optional[float] = None) -> None:
+    """Join the process group, with the ``PIO_*`` env fallbacks.
+
+    Idempotent; a no-op when neither an address nor a process count is
+    given (a single-process run). Otherwise it needs all three and calls
+    ``torch.distributed.init_process_group("gloo", init_method=
+    "tcp://<address>")``, which waits up to ``timeout_s`` for every
+    process to arrive and raises if one does not."""
+    global _initialized
+    if _initialized:
+        return
+    import torch.distributed as dist
+
+    coordinator_address = coordinator_address or os.environ.get(
+        "PIO_COORDINATOR_ADDRESS")
+    num_processes = num_processes if num_processes is not None else (
+        int(os.environ["PIO_NUM_PROCESSES"])
+        if "PIO_NUM_PROCESSES" in os.environ else None)
+    process_id = process_id if process_id is not None else (
+        int(os.environ["PIO_PROCESS_ID"])
+        if "PIO_PROCESS_ID" in os.environ else None)
+    if coordinator_address is None and num_processes is None:
+        logger.info("single-process run; no process group")
+        _initialized = True
+        return
+    if coordinator_address is None or num_processes is None \
+            or process_id is None:
+        raise ValueError(
+            "a multi-process run needs PIO_COORDINATOR_ADDRESS, "
+            "PIO_NUM_PROCESSES and PIO_PROCESS_ID (got "
+            f"{coordinator_address!r}, {num_processes!r}, {process_id!r})")
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process id {process_id} outside "
+                         f"[0, {num_processes})")
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator_address}",
+            world_size=int(num_processes), rank=int(process_id),
+            timeout=datetime.timedelta(
+                seconds=DEFAULT_TIMEOUT_S if timeout_s is None
+                else timeout_s))
+    logger.info("process group initialized: process %d/%d",
+                dist.get_rank(), dist.get_world_size())
+    _initialized = True
 
 
 def _torch_group() -> Optional["tuple[int, int]"]:
@@ -80,6 +147,34 @@ def contiguous_range(n: int, rank: int, size: int) -> "tuple[int, int]":
     return lo, lo + base + (1 if rank < extra else 0)
 
 
+def group_rank_size() -> "tuple[int, int]":
+    """(rank, world size) of the initialized process group, else
+    (0, 1): what decides whether a train runs across processes."""
+    group = _torch_group()
+    return group if group is not None else (0, 1)
+
+
 def process_count() -> int:
-    """Processes of this run (``resolve_worker``'s size)."""
-    return resolve_worker()[1]
+    """Processes of this run: the process group's size when one is
+    initialized, else ``resolve_worker``'s."""
+    group = _torch_group()
+    return group[1] if group is not None else resolve_worker()[1]
+
+
+def process_index() -> int:
+    """This process's index: its rank in the process group when one is
+    initialized, else ``resolve_worker``'s."""
+    group = _torch_group()
+    return group[0] if group is not None else resolve_worker()[0]
+
+
+def global_array_from_local(mesh, local, axis: str = "data"):
+    """The global tensor stitched from every position's block along
+    ``axis`` (concatenated in position order), on this process's first
+    local device. ``local`` is this process's blocks, one per local
+    position (a list, or a tensor whose first dimension counts them).
+    Collective: every process of the mesh calls it."""
+    from predictionio_tpu_torch.parallel.collectives import all_gather
+
+    blocks = list(local)
+    return all_gather(blocks, mesh, axis)[0]

@@ -431,7 +431,13 @@ class EventStore(abc.ABC):
         """Training-path read: the named columns of the matching events
         as numpy arrays (object arrays for strings, int64 for the
         ``*_ms`` times), with ``find``'s filters. ``ordered=False``
-        accepts any row order."""
+        accepts any row order. ``shard=(index, count[, snapshot])``
+        restricts the scan to one of ``count`` disjoint row partitions
+        (the multi-process partitioned training read); the readers of
+        one run pass one ``read_snapshot()`` token (third element), so
+        concurrent ingest cannot skew the partition bounds between them.
+        A backend that cannot partition refuses rather than hand every
+        process the full set."""
 
     def aggregate_properties(
         self,
@@ -467,3 +473,16 @@ class EventStore(abc.ABC):
         repeated scan would return the same rows (the orchestrator's
         ingest trigger reads it before counting fresh events)."""
         return None
+
+
+def shard_window(lo_all: int, hi_all: int, shard) -> "tuple[int, int]":
+    """One of ``count`` near-equal [lo, hi) sub-windows of a numeric
+    snapshot range: the partition arithmetic of range-sharded backends
+    (sqlite rowids). The last window clamps to the snapshot end, so
+    values arriving after the snapshot never leak into it."""
+    idx, count = shard[0], shard[1]
+    if not (0 <= idx < count):
+        raise StorageError(f"bad shard {shard}")
+    span = -(-(hi_all - lo_all) // count)
+    return (lo_all + idx * span,
+            min(lo_all + (idx + 1) * span, hi_all))

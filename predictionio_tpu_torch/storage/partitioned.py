@@ -46,8 +46,10 @@ partition. Differences from the reference:
   only for its own. ``target_entity_id`` is not hashed, so it fans out
   to every partition;
 * sqlite sub-stores only: :class:`ParquetPartitions` waits with the
-  parquet store (ROADMAP Queue 1 item 8), and a sharded read (a
-  ``shard`` of more than one reader) with multi-process training (A12).
+  parquet store (ROADMAP Queue 1 item 8). A sharded read
+  (``shard=(index, count[, snapshot])``, multi-process training) maps
+  the reader shards onto the partitions (:func:`shard_partitions`)
+  under the composite snapshot of :meth:`PartitionedEvents.read_snapshot`.
 """
 
 from __future__ import annotations
@@ -205,16 +207,6 @@ class ParquetPartitions:
 # ---------------------------------------------------------------------------
 # the store
 # ---------------------------------------------------------------------------
-
-def _check_unsharded(shard) -> None:
-    """A read of one whole reader shard passes; a sharded read of more
-    than one reader belongs to multi-process training."""
-    if shard is not None and int(shard[1]) > 1:
-        raise NotImplementedError(
-            f"a sharded event read ({shard[1]} readers) belongs to "
-            "multi-process training, which is not ported to PyTorch yet "
-            "(ROADMAP item A12)")
-
 
 class PartitionedEvents(base.EventStore):
     """P sqlite stores behind one EventStore, routed by entity hash.
@@ -377,14 +369,21 @@ class PartitionedEvents(base.EventStore):
         partition order; with the time order asked for (``ordered``,
         ``reversed_order`` or ``limit``), a stable sort on
         ``event_time_ms`` after the concatenation."""
-        _check_unsharded(filters.pop("shard", None))
+        shard = filters.pop("shard", None)
         limit = filters.get("limit")
         reversed_order = bool(filters.get("reversed_order", False))
         entity_id = filters.pop("entity_id", None)
-        if entity_id is not None:
-            pieces = self._entity_pieces(app_id, channel_id, entity_id)
+        if shard is not None:
+            # a reader shard's partitions; an entity filter applies in
+            # each of them as it stands
+            ents = {} if entity_id is None else {"entity_id": entity_id}
+            pieces = [(p, dict(ents, shard=inner))
+                      for p, inner in self._shard_pieces(shard)]
+        elif entity_id is not None:
+            pieces = [(p, {"entity_id": ents}) for p, ents in
+                      self._entity_pieces(app_id, channel_id, entity_id)]
         else:
-            pieces = [(p, None) for p in range(self._count)]
+            pieces = [(p, {}) for p in range(self._count)]
         want_limit = limit is not None and limit >= 0
         sort_needed = ordered or reversed_order or want_limit
         names = list(columns)
@@ -394,8 +393,7 @@ class PartitionedEvents(base.EventStore):
             inner = names + ["event_time_ms"]
 
         def scan_one(piece):
-            p, ents = piece
-            extra = {} if ents is None else {"entity_id": ents}
+            p, extra = piece
             return self._stores[p].find_columns(
                 app_id, channel_id, columns=inner,
                 ordered=False if sort_needed else ordered,
@@ -424,7 +422,45 @@ class PartitionedEvents(base.EventStore):
             out.pop("event_time_ms")
         return out
 
+    def _shard_pieces(self, shard) -> List[Tuple[int, Optional[tuple]]]:
+        """The shard protocol resolved onto ``(partition, inner_shard)``
+        scan pieces, checking a held composite snapshot against the
+        current partition count."""
+        snap = shard[2] if len(shard) > 2 else None
+        if snap is not None:
+            if not (isinstance(snap, (list, tuple)) and len(snap) == 3
+                    and snap[0] == "pmap"):
+                raise StorageError(
+                    "shard snapshot was not captured from this "
+                    "partitioned store; capture read_snapshot() here")
+            if int(snap[1]) != self._count:
+                raise StorageError(
+                    f"partition count changed under a held snapshot "
+                    f"({snap[1]} -> {self._count}, a reshard ran); "
+                    "capture a fresh read_snapshot() and retry")
+        pieces = []
+        for p, sub in shard_partitions(shard[0], shard[1], self._count):
+            psnap = snap[2][p] if snap is not None else None
+            if sub is not None:
+                inner = (sub[0], sub[1], psnap) if psnap is not None else sub
+            else:
+                # a whole partition under a held snapshot reads as the
+                # one-shard read of that snapshot
+                inner = (0, 1, psnap) if psnap is not None else None
+            pieces.append((p, inner))
+        return pieces
+
     # -- snapshots -----------------------------------------------------------
+    def read_snapshot(self, app_id: int,
+                      channel_id: Optional[int] = None):
+        """Composite snapshot: each partition's rowid window, tagged with
+        the partition count it was captured under. A reshard between
+        capture and read changes the count, and the sharded read then
+        refuses (capture again and retry) instead of skewing."""
+        return ("pmap", self._count,
+                tuple(s.read_snapshot(app_id, channel_id)
+                      for s in self._stores))
+
     def snapshot_digest(self, app_id: int,
                         channel_id: Optional[int] = None) -> Optional[str]:
         """The partitions' digests joined under the partition count: a

@@ -20,7 +20,7 @@ import json
 import sqlite3
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -283,15 +283,27 @@ class SqliteEvents(base.EventStore):
         limit: Optional[int] = None,
         reversed_order: bool = False,
         ordered: bool = True,
+        shard: Optional[Tuple] = None,
     ):
         """(sql, params) for a filtered event scan, shared by the row
         path (`find`) and the columnar training path (`find_columns`).
         ``entity_id`` and ``target_entity_id`` also take a list of ids
         (any of them matches: one scan for a fold-in tick's entities).
-        The reference's ``shard`` partitioning belongs to multi-process
-        training, which the port does not have yet."""
+        ``shard=(index, count[, snapshot])`` restricts the scan to one of
+        ``count`` near-equal rowid ranges (``base.shard_window``) of the
+        snapshot window ``read_snapshot`` gives: each process of a
+        multi-process train scans only its slice. Its readers pass one
+        window (third element); without one each computes its own."""
         name = event_table_name(app_id, channel_id)
         where, params = ["1=1"], []
+        if shard is not None:
+            if len(shard) > 2 and shard[2] is not None:
+                lo_all, hi_all = shard[2]
+            else:
+                lo_all, hi_all = self.read_snapshot(app_id, channel_id)
+            lo, hi = base.shard_window(lo_all, hi_all, shard)
+            where.append("rowid >= ? AND rowid < ?")
+            params.extend([lo, hi])
         if start_time is not None:
             where.append("eventTime >= ?")
             params.append(_to_ms(start_time))
@@ -333,6 +345,18 @@ class SqliteEvents(base.EventStore):
         except sqlite3.OperationalError as ex:
             raise StorageError(
                 f"cannot read app {app_id} channel {channel_id}: {ex}") from ex
+
+    def read_snapshot(self, app_id: int,
+                      channel_id: Optional[int] = None) -> Tuple[int, int]:
+        """Stable rowid window [lo, hi) for partitioned reads: captured
+        once (on one process), broadcast, and passed as ``shard=(idx,
+        count, snapshot)``, so every reader partitions the same rows
+        while an event server keeps ingesting (rows landing after the
+        snapshot are not part of this training read)."""
+        name = event_table_name(app_id, channel_id)
+        row = self._rows(f"SELECT MIN(rowid), MAX(rowid) FROM {name}", (),
+                         app_id, channel_id).fetchone()
+        return (row[0] or 0), (row[1] or 0) + 1
 
     def snapshot_digest(self, app_id: int,
                         channel_id: Optional[int] = None) -> str:

@@ -44,14 +44,16 @@ def synchronize(device: torch.device) -> None:
 
 
 def refuse_multi_device(mesh, what: str) -> None:
-    """The port trains each model on one device. A ``mesh`` of more than
-    one device (its ``devices``, or a sequence of devices) raises
-    ``NotImplementedError``: multi-device training is ROADMAP item A12,
-    not ported yet. ``None`` or one device passes."""
+    """The models of ROADMAP item A12's part 2 (naive Bayes, logistic
+    regression, the forest, seqrec) train on one device. A ``mesh`` of
+    more than one position (its ``devices``, or a sequence of devices)
+    raises ``NotImplementedError``; ``None`` or one position passes. ALS
+    trains over a mesh (A12 part 1)."""
     if mesh is None:
         return
     n = np.asarray(getattr(mesh, "devices", mesh), dtype=object).size
     if n > 1:
         raise NotImplementedError(
-            f"{what} over a mesh of {n} devices: multi-device training is "
-            "not ported to PyTorch yet (ROADMAP item A12)")
+            f"{what} over a mesh of {n} positions: its multi-device "
+            "training is not ported to PyTorch yet (ROADMAP item A12, "
+            "part 2)")

@@ -74,9 +74,9 @@ class ScorerConfig:
     against the exact path and falls back to exact below ``min_recall``
     recall@10.
 
-    ``shards`` > 1 (model-parallel serving over several cards) belongs to
-    the multi-GPU slice of the port: resolving it raises
-    ``NotImplementedError``.
+    ``shards`` > 1 splits the catalog row-wise into that many shards,
+    one scorer a shard, merged on the host (``ops/scoring.ShardedScorer``;
+    on one card every shard shares it).
     """
 
     mode: str = "exact"
@@ -134,22 +134,12 @@ class ScorerConfig:
         cfg.shortlist = max(16, cfg.shortlist)
         cfg.min_recall = min(1.0, max(0.0, cfg.min_recall))
         cfg.shards = max(1, cfg.shards)
-        check_unsharded(cfg)
         return cfg
 
     def cache_key(self) -> tuple:
         """What invalidates a built scorer when the config changes."""
         return (self.mode, self.tile_items, self.shortlist,
                 self.min_recall, self.shards)
-
-
-def check_unsharded(cfg: ScorerConfig) -> None:
-    """Sharded serving is not ported yet: refuse it instead of silently
-    serving one shard's worth of behaviour."""
-    if int(cfg.shards or 1) > 1:
-        raise NotImplementedError(
-            f"scorer shards={cfg.shards}: model-parallel serving "
-            "(ShardedScorer) is not ported to PyTorch yet")
 
 
 def scorer_config(variant_section: Optional[dict] = None) -> ScorerConfig:

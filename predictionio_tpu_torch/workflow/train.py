@@ -44,14 +44,26 @@ def run_train(engine: Engine, engine_params: EngineParams,
     """Train and record; returns the COMPLETED instance and the
     TrainResult (raises on failure; ``workflow_params.stop_after_*``
     raise the engine's ``StopAfter*Interruption``, leaving the instance
-    INIT). ``ctx`` defaults to a context on ``device`` (``cuda`` unless
+    INIT). In a multi-process run only process 0 records; the others
+    return ``(None, result)``. ``ctx`` defaults to a context on ``device`` (``cuda`` unless
     the caller asks for the CPU) with the checkpointer
     ``workflow_params.runtime_conf`` names."""
     from predictionio_tpu_torch.deploy.releases import record_release
+    from predictionio_tpu_torch.parallel.distributed import group_rank_size
 
     wp = workflow_params or WorkflowParams()
     ctx = ctx or WorkflowContext.create(
         mode="Training", batch=wp.batch, workflow_params=wp, device=device)
+    rank, world = group_rank_size()
+    if world > 1 and rank != 0:
+        # a multi-process train: every process trains (the collectives
+        # need all of them), process 0 alone records the instance, the
+        # models and the release; the others return no instance
+        result = engine.train(ctx, engine_params,
+                              skip_sanity_check=wp.skip_sanity_check,
+                              stop_after_read=wp.stop_after_read,
+                              stop_after_prepare=wp.stop_after_prepare)
+        return None, result
     instances = Storage.get_meta_data_engine_instances()
     instance = EngineInstance(
         status="INIT",

@@ -21,7 +21,9 @@ the CPU on their own.
   runs ``eval`` through the CLI, and another trains and deploys the
   sessionrec engine through the CLI, and another runs ``reshard`` and
   ``compact`` on a partitioned store and a storm through ``loadtest``,
-  each with the same finding;
+  and two processes in a gloo group run the collectives child
+  (``tests/torch_distributed_child.py``) and ``train --mesh-shape 2``
+  through the CLI, each with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``,
   the batch-predict slice's obs core, worker contract and kill points,
@@ -1180,6 +1182,97 @@ def test_loadtest_compact_and_reshard_cli_load_no_jax(tmp_path):
     assert report["ok"] and report["audit"]["ok"]
 
 
+_MESH_TRAIN_CHILD = r"""
+import json, os, sys
+from predictionio_tpu_torch.cli.main import main
+
+tmp, pid = sys.argv[1], int(sys.argv[2])
+os.environ.update({
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "pio.db"),
+    "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "DB",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"})
+if pid == 0:
+    # the events land before the rendezvous, so process 1 reads them
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.storage.base import App
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    app_id = Storage.get_meta_data_apps().insert(App(id=0, name="Guard"))
+    store = Storage.get_events()
+    store.init_channel(app_id)
+    store.insert_batch([
+        Event(event="rate", entity_type="user", entity_id=f"u{u}",
+              target_entity_type="item", target_entity_id=f"i{(u * 7 + j) % 9}",
+              properties={"rating": float(1 + (u + j) % 5)})
+        for u in range(12) for j in range(4)], app_id)
+variant = os.path.join(tmp, "engine.json")
+with open(variant, "w") as f:
+    json.dump({"datasource": {"params": {"appName": "Guard"}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": 3, "numIterations": 2}}]}, f)
+assert main(["train", "--variant", variant, "--mesh-shape", "2",
+             "--device", "cpu"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_two_process_mesh_train_cli_loads_no_jax(tmp_path):
+    """``train --mesh-shape 2`` as two processes of one gloo group (the
+    PIO_* contract): both train over the 2-position mesh, process 0
+    alone records the instance."""
+    import os
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:
+        from test_torch_parallel import free_port
+    finally:
+        sys.path.pop(0)
+    port = free_port()
+    procs = []
+    for pid in (0, 1):
+        env = dict(os.environ, PYTHONPATH=str(ROOT),
+                   PIO_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   PIO_NUM_PROCESSES="2", PIO_PROCESS_ID=str(pid))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _MESH_TRAIN_CHILD, str(tmp_path),
+             str(pid)], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=180)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(out.strip().splitlines())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    lines0, lines1 = outs
+    assert lines0[-1] == "[]" and lines1[-1] == "[]", outs
+    rec0, rec1 = json.loads(lines0[-2]), json.loads(lines1[-2])
+    assert rec0["nnz"] == rec1["nnz"] == 48
+    assert rec0["instance"] and rec1["instance"] is None
+
+
+def test_two_process_child_loads_no_jax(tmp_path):
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:
+        from test_torch_parallel import run_children
+    finally:
+        sys.path.pop(0)
+    results = run_children("collectives", tmp_path)
+    assert [r["forbidden_modules"] for r in results.values()] == [[], []]
+
+
 def test_scan_covers_the_loadtest_modules():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
                if PKG in p.parents}
@@ -1309,6 +1402,20 @@ def _build_scorer(**kw):
 
     v = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     return build_scorer(v, ScorerConfig(mode="twostage"), **kw)
+
+
+def _make_mesh():
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh()
+
+
+def _build_sharded_scorer():
+    from predictionio_tpu_torch.ops.scoring import build_sharded_scorer
+    from predictionio_tpu_torch.utils.server_config import ScorerConfig
+
+    v = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    return build_sharded_scorer(v, ScorerConfig(mode="twostage", shards=2))
 
 
 def _train_als():
@@ -1495,7 +1602,8 @@ def _classifier(fit):
                                    "train_forest", "ForestModel.predict",
                                    "train_seqrec",
                                    "SeqRecModel.recommend_next",
-                                   "cli loadtest", "LocalFleet.start"])
+                                   "cli loadtest", "LocalFleet.start",
+                                   "make_mesh", "build_sharded_scorer"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -1518,7 +1626,9 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "train_seqrec": lambda: _seqrec(entry),
             "SeqRecModel.recommend_next": lambda: _seqrec(entry),
             "cli loadtest": lambda: _cli_loadtest(tmp_path),
-            "LocalFleet.start": lambda: _local_fleet(tmp_path)}.get(
+            "LocalFleet.start": lambda: _local_fleet(tmp_path),
+            "make_mesh": _make_mesh,
+            "build_sharded_scorer": _build_sharded_scorer}.get(
                 entry, lambda: _classifier(entry))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -492,3 +492,93 @@ def test_storm_survives_a_replica_killed_and_restarted(tmp_path):
     assert report["audit"]["ok"] and restarted
     assert all(lane["dropped"] == 0 and lane["failed"] == 0
                for lane in report["lanes"].values())
+
+
+# ---------------------------------------------------------------------------
+# the storm's traffic process
+# ---------------------------------------------------------------------------
+
+class _StubClient:
+    """Answers every lane at once: event batches ack their ids, queries
+    answer one slate."""
+
+    def __init__(self):
+        self.ratings = []           #: the events lane's ratings
+        self.queries = 0
+
+    def submit_event_batch(self, payloads):
+        if len(payloads) > 1:       # the events lane's (feedback: one)
+            self.ratings.extend(p["properties"].get("rating")
+                                for p in payloads)
+        fut = concurrent.futures.Future()
+        fut.set_result([f"id{len(self.ratings)}-{i}"
+                        for i in range(len(payloads))])
+        return fut
+
+    def submit_query(self, payload):
+        self.queries += 1
+        fut = concurrent.futures.Future()
+        fut.set_result({"itemScores": [{"item": "i1", "score": 1.0}]})
+        return fut
+
+
+def test_traffic_lanes_offer_the_whole_schedule():
+    """``_drive_lanes`` (the traffic process's body) offers every
+    arrival of the scenario's mix, returns the acked ids and one
+    ``[offset, seconds]`` per query; ``degrade`` forces the ratings it
+    sends to 1.0, as the in-process lanes did."""
+    import threading
+
+    sc = port_scenario.Scenario.from_dict({
+        "name": "lanes", "population": 200, "items": 40,
+        "durationS": 0.6, "seed": 5, "baseRate": 200.0,
+        "amplitude": 0.4,
+        "mix": {"events": 0.6, "queries": 0.3, "feedback": 0.1},
+        "maxOutstanding": 64})
+    lanes = port_simulator._Lanes(sc)
+    started = []
+    for degraded in (False, True):
+        client, degrade = _StubClient(), threading.Event()
+        if degraded:
+            degrade.set()
+        out = port_simulator._drive_lanes(
+            sc, client, degrade, 30.0, on_start=lambda: started.append(1))
+        res = out["lanes"]
+        assert res["events"]["offered"] == len(lanes.event_offsets)
+        assert res["queries"]["offered"] == len(lanes.query_offsets) \
+            == client.queries == len(out["query_times"])
+        assert res["feedback"]["offered"] == len(lanes.feedback_offsets)
+        assert all(r["acked"] == r["offered"] and not r["failed"]
+                   for r in res.values())
+        assert len(out["ledger"]) == res["events"]["acked"] \
+            + res["feedback"]["acked"]
+        assert all(len(q) == 2 and q[1] >= 0 for q in out["query_times"])
+        assert out["active_users"] > 0
+        assert len(client.ratings) == len(lanes.event_offsets)
+        assert (set(client.ratings) == {1.0}) == degraded
+    assert started == [1, 1]
+
+
+def test_storm_children_load_neither_jax_nor_torch():
+    """The storm's traffic process and the fleet's router process import
+    neither the reference, nor torch, nor aiohttp: each answers within a
+    second of its start."""
+    import subprocess
+    import sys
+
+    code = (
+        "import json, sys\n"
+        "from predictionio_tpu_torch.loadtest.simulator import "
+        "_traffic_main, _TrafficClient\n"
+        "from predictionio_tpu_torch.loadtest.fleet import _router_main\n"
+        "from predictionio_tpu_torch.obs.registry import MetricsRegistry\n"
+        "from predictionio_tpu_torch.server.router import Router\n"
+        "from predictionio_tpu_torch.utils.server_config import "
+        "RouterConfig\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+        " in ('jax', 'torch', 'predictionio_tpu', 'aiohttp'))))\n")
+    out = subprocess.run([sys.executable, "-c", code],
+                         env=port_harness.child_env(), cwd="/",
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -53,7 +53,7 @@ from predictionio_tpu_torch.models.als import ALSParams
 from predictionio_tpu_torch.obs.registry import MetricsRegistry
 from predictionio_tpu_torch.storage import faults
 from predictionio_tpu_torch.storage.audit import audit_exactly_once
-from predictionio_tpu_torch.storage.base import App
+from predictionio_tpu_torch.storage.base import App, StorageError
 from predictionio_tpu_torch.storage.faults import CrashError, FaultyEvents
 from predictionio_tpu_torch.storage.registry import Storage
 
@@ -155,13 +155,26 @@ def test_shard_partitions_equals_the_reference():
 
 
 def test_parquet_layout_and_sharded_read_refuse(tmp_path):
+    """The parquet layout still refuses; a sharded read (which refused
+    before multi-process training was ported) partitions the rows: the
+    reader shards of one snapshot are disjoint and complete, and a
+    snapshot taken before a reshard refuses after it."""
     with pytest.raises(NotImplementedError, match="item 8"):
         port_part.ParquetPartitions(None)
     store = make_parts(tmp_path / "ev.db", 2)
     store.insert_batch([ev(i) for i in range(6)], APP)
     assert len(store.find_columns(APP, shard=(0, 1))["event_id"]) == 6
-    with pytest.raises(NotImplementedError, match="A12"):
-        store.find_columns(APP, shard=(0, 2))
+    snap = store.read_snapshot(APP)
+    for readers in (2, 3, 5):
+        got = [store.find_columns(APP, shard=(i, readers, snap))["event_id"]
+               for i in range(readers)]
+        ids = np.concatenate(got)
+        assert len(ids) == 6 and len(set(ids.tolist())) == 6
+        if readers == 2:
+            assert 0 < len(got[0]) < 6
+    store.reshard(3, [(APP, None)])
+    with pytest.raises(StorageError, match="reshard"):
+        store.find_columns(APP, shard=(0, 2, snap))
     store.close()
 
 

@@ -20,6 +20,8 @@ the card by tests/test_torch_kernels.py and, at the serving shapes, by
 chip_smoke.py.
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -366,9 +368,103 @@ def test_scorer_config_precedence_matches_reference(monkeypatch, tmp_path,
 
 
 def test_sharded_scoring_is_not_ported(monkeypatch):
+    """Sharded serving is ported now: ``PIO_SCORER_SHARDS=2`` resolves
+    to two shards (it raised before) and a model scores through a
+    ``ShardedScorer`` whose answers are the exact top-k."""
+    from predictionio_tpu_torch.ops.scoring import (
+        ShardedScorer, scorer_for,
+    )
+
     monkeypatch.setenv("PIO_SCORER_SHARDS", "2")
-    with pytest.raises(NotImplementedError, match="ShardedScorer"):
-        ScorerConfig.from_env()
+    cfg = ScorerConfig.from_env()
+    assert cfg.shards == 2
+    rng = np.random.default_rng(3)
+    V = rng.standard_normal((300, 8)).astype(np.float32)
+    holder = types.SimpleNamespace(device=torch.device("cpu"),
+                                   _scorer_cfg_override=cfg)
+    scorer = scorer_for(holder, V)
+    assert isinstance(scorer, ShardedScorer) and scorer.n_shards == 2
+    u = rng.standard_normal((4, 8)).astype(np.float32)
+    _, ids = scorer.topk(u, 10)
+    np.testing.assert_array_equal(ids, np.argsort(-(u @ V.T), axis=1)[:, :10])
+
+
+@pytest.mark.parametrize("mode", ["exact", "fused", "twostage"])
+def test_sharded_scorer_matches_reference(mode):
+    """``ShardedScorer`` against the reference's at 3 shards: the same
+    ranges, bytes and status block, and the same answers with no mask,
+    a random mask and a whitelist concentrated in one shard (every
+    other shard fully sentineled)."""
+    n_items, k, shards = 385, 10, 3
+    V = _factors(n_items, seed=6)
+    U = _factors(6, seed=7)
+    cfg_r = RefConfig(mode=mode, tile_items=64, shortlist=32, shards=shards)
+    cfg_p = ScorerConfig(mode=mode, tile_items=64, shortlist=32,
+                         shards=shards)
+    r = ref.build_sharded_scorer(V, cfg_r)
+    p = port.build_sharded_scorer(V, cfg_p, device=CPU)
+    st_r, st_p = r.status(), p.status()
+    for s_ in (st_r, st_p):
+        for sub in s_["shardStatus"]:
+            sub.pop("device", None)
+            sub.pop("buildSeconds", None)
+            sub.pop("gateSeconds", None)
+    assert st_p == st_r
+    rng = np.random.default_rng(8)
+    lo, hi = p.ranges[1]
+    concentrated = np.ones((6, n_items), bool)
+    concentrated[:, lo:lo + 12] = False
+    for m in (None, rng.random((6, n_items)) < 0.3, concentrated):
+        sc_r, ix_r = r.topk(U, k, mask=m)
+        sc_p, ix_p = p.topk(U, k, mask=m)
+        fin = np.isfinite(sc_r)
+        assert np.array_equal(fin, np.isfinite(sc_p))
+        assert np.array_equal(np.asarray(ix_p)[fin], np.asarray(ix_r)[fin])
+        np.testing.assert_allclose(sc_p[fin], sc_r[fin], rtol=1e-5)
+    # the concentrated whitelist serves only its 12 items
+    _, ix = p.topk(U, k, mask=concentrated)
+    assert ((ix >= lo) & (ix < lo + 12)).all()
+    # an exact shard keeps its rows as a tensor on the serving device
+    # and scores there; a shard a scorer serves holds none
+    for scorer, v_dev, v_shard in zip(p.shards, p._v_devices, p._v_shards):
+        if mode == "exact":
+            assert v_dev is not None and v_dev.device == CPU
+            np.testing.assert_array_equal(v_dev.numpy(), v_shard)
+        else:
+            assert scorer.active and v_dev is None
+
+
+def test_demoted_shard_serves_exact_on_its_device(monkeypatch):
+    """A shard whose parity gate demoted it serves the exact product
+    over its own rows on the shard's device (the unsharded exact
+    scorer's product and top-k), not the host's: the answers equal the
+    reference's demoted shards (which serve host BLAS), and no host
+    product of the factors runs."""
+    n_items, k, shards = 300, 10, 2
+    V = _factors(n_items, seed=11)
+    U = _factors(5, seed=12)
+    cfg = dict(mode="twostage", tile_items=32, shortlist=2, shards=shards)
+    r = ref.build_sharded_scorer(V, RefConfig(**cfg), min_recall=1.01)
+    p = port.build_sharded_scorer(V, ScorerConfig(**cfg), min_recall=1.01,
+                                  device=CPU)
+    assert p.active_mode == r.active_mode == "exact"
+    assert all(not s.active for s in p.shards)
+    assert all(v is not None and v.device == CPU for v in p._v_devices)
+    calls = []
+    real = port._exact_shard_topk
+
+    def spy(u, v_dev, k_s, mask):
+        calls.append(v_dev.device)
+        return real(u, v_dev, k_s, mask)
+
+    monkeypatch.setattr(port, "_exact_shard_topk", spy)
+    rng = np.random.default_rng(13)
+    for m in (None, rng.random((5, n_items)) < 0.4):
+        sc_r, ix_r = r.topk(U, k, mask=m)
+        sc_p, ix_p = p.topk(U, k, mask=m)
+        np.testing.assert_array_equal(ix_p, ix_r)
+        np.testing.assert_allclose(sc_p, sc_r, rtol=1e-5)
+    assert calls == [CPU] * (2 * shards)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

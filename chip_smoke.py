@@ -583,10 +583,12 @@ Phases, each reported on its own lines:
                    after each the audit clean against the same ledger and
                    the training read's rows those before it (as a
                    multiset).
-18. ``distributed`` — multi-process ALS and the sharded scorer
+18. ``distributed`` — multi-process training and the sharded scorer
                    (``parallel/*``, ``models/als.build_distributed``,
-                   ``ops/scoring.ShardedScorer``), in three legs. Legs 1
-                   and 2 run in two processes of one gloo group on the
+                   ``ops/scoring.ShardedScorer``, the classifiers,
+                   cooccurrence, the eval sweep and seqrec over a mesh),
+                   in seven legs. Legs 1-2 and 4-7 run, in that order,
+                   in two processes of one gloo group on the
                    card (``dist_worker``: the repo root on
                    ``PYTHONPATH``, a free loopback port, gloo on ``lo``;
                    a rendezvous or run past its bound fails the phase and
@@ -627,10 +629,42 @@ Phases, each reported on its own lines:
                    in this process on the same batches: each shard's
                    rows on the card and every batch allocating there (no
                    host product), no B2, the same exact top-10s.
+                   Legs 4-7, in the processes of legs 1-2 after them,
+                   each then checked here against one process on the
+                   card. Leg 4: the classify phase's spam width (20,000
+                   x 2,000 Poisson, bench.py:247-255): naive Bayes (its
+                   mesh branch), logistic regression (200 Adam steps)
+                   and the forest (10 trees, depth 4, 32 bins) over the
+                   2-position process mesh, each process then predicting
+                   its own whole X (naive Bayes on its resident X on
+                   the card): the log-probs, the forest's node arrays
+                   and every answer equal to one process's, logreg's W
+                   and b within ``LOGREG_TOL``. Leg 5:
+                   ``cooccurrence_topn_distributed`` at the ML-1M shape
+                   (6,040 x 3,706, 1,000,000 events, bench.py:674), each
+                   process passing every other event: counts and ids
+                   exactly a one-process ``cooccurrence_topn``'s (its
+                   slabbed product on the card). Leg 6:
+                   ``run_sweep`` over the eval grid (``EVAL_GRID``)
+                   across the processes, one rank group each: B1 10
+                   times in each process, the merged results the
+                   one-process sweep's (``_hold_sweeps``). Leg 7: seqrec
+                   at the template's widths over ML-20M's catalog (V
+                   26,745), 40 steps (``DIST_SR``): (a) a data 1 x model
+                   2 mesh across the processes against the same mesh in
+                   one process on the card, each step's loss and every
+                   parameter within ``DIST_SR_TOL``, the answers equal
+                   on both and the one process's; (b) here, a data 2 x
+                   seq 2 mesh of positions on the card with ring
+                   attention against flash, ``emb`` within 2e-4; (c)
+                   ``ulysses_attention`` against ``mha`` on the card.
+                   Each leg reports its
+                   seconds, its bytes and seconds in host-staged
+                   collectives, and leg 7 its ms a step and their share.
 
 Order, for the time limit: batchpredict's leg 1 (no kernel) runs in a
 process of its own while nvcc builds; then the distributed phase's legs
-1-2 with nothing beside them (their processes' launches are their own;
+1-2 and 4-7 with nothing beside them (their processes' launches are their own;
 leg 1's factors are held to the train phase's after it), then the
 classify phase alone; after the kernels phase, the lifecycle (with the
 eval, batchpredict and multitenant CLI legs inside it, the three at
@@ -5194,7 +5228,8 @@ def start_legs(names, seed: int, port: int) -> dict:
     logs = WORK / "legs_logs"
     logs.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, CHIP_SMOKE_LEGS=json.dumps(
-        dict({k: globals()[k] for k in LEG_SHAPES}, device=DEV)))
+        dict({k: globals()[k] for k in LEG_SHAPES + DIST_SHAPES},
+             device=DEV)))
     procs = {}
     try:
         for name in names:
@@ -9426,17 +9461,20 @@ def _dist_wait(procs, work: pathlib.Path) -> list:
 
 
 def dist_worker() -> int:
-    """One process of legs 1-2 (``python3 -c "import chip_smoke;
+    """One process of legs 1-2 and 4-7 (``python3 -c "import chip_smoke;
     chip_smoke.dist_worker()"``, its settings in ``CHIP_SMOKE_DIST``):
     joins the gloo group, runs leg 1 (the ML-20M train over a 2-position
-    process mesh) and leg 2 (the recommendation engine's sharded read and
-    train) and prints its report as the last line."""
+    process mesh), leg 2 (the recommendation engine's sharded read and
+    train), then legs 4-7 (the classifiers, distributed cooccurrence,
+    the eval sweep and seqrec over the process mesh; their arrays go to
+    the leg's ``out`` directory) and prints its report as the last
+    line."""
     global DEV
     sys.path.insert(0, str(ROOT))
     cfg = json.loads(os.environ["CHIP_SMOKE_DIST"])
     DEV = cfg["device"]
-    ML20M.update(cfg["ML20M"])
-    ML100K.update(cfg["ML100K"])
+    for key, shape in cfg["shapes"].items():
+        globals()[key].update(shape)
     from predictionio_tpu_torch.parallel.distributed import (
         initialize_distributed, process_count, process_index,
     )
@@ -9457,6 +9495,11 @@ def dist_worker() -> int:
         report["leg1"] = _dist_leg1(pid, nproc,
                                     pathlib.Path(cfg["factors"]))
         report["leg2"] = _dist_leg2(cfg)
+        out = pathlib.Path(cfg["out"])
+        report["leg4"] = _dist_leg4(pid, out)
+        report["leg5"] = _dist_leg5(pid, nproc, out)
+        report["leg6"] = _dist_leg6()
+        report["leg7"] = _dist_leg7(pid, nproc, out, cfg["seed"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -9564,6 +9607,201 @@ def _dist_leg2(cfg: dict) -> dict:
             "answers": answers}
 
 
+#: leg 5: the reference's cooccurrence bench at the ML-1M shape
+#: (bench.py:674: 6,040 x 3,706, 1,000,000 events, seed 2), top 20
+DIST_COOC = dict(n_users=6_040, n_items=3_706, nnz=1_000_000, seed=2,
+                 n=COOC_N)
+#: leg 7: seqrec at the template's widths (``SR_PARAMS``) over ML-20M's
+#: catalog (``SESSIONREC``, V 26,745), ``steps`` steps of one epoch:
+#: the first ``steps * batch - 1`` planted sessions and one session
+#: holding the whole catalog (so the vocabulary is the catalog's; the
+#: one cut is the step count); ``queries`` next-item queries of
+#: ``num`` on each process
+DIST_SR = dict(steps=40, queries=20, num=10)
+#: leg 7 (a) across the processes against the same mesh in one process
+#: on the card: each step's loss relative, every parameter absolute (the
+#: same f32 steps; only the collectives' path differs)
+DIST_SR_TOL = 1e-5
+#: leg 7 (b): ring attention on a data 2 x seq 2 mesh against flash on
+#: one device, ``emb`` absolute (the reference's bound,
+#: tests/test_sessionrec.py:153-173)
+DIST_RING_TOL = 2e-4
+#: leg 7 (c): Ulysses against dense attention on the card, absolute
+DIST_ATT_TOL = 1e-5
+#: the shapes the distributed phase's processes read
+DIST_SHAPES = ("ML20M", "ML100K", "NB_SPAM", "CLS_WIDTH", "EVAL_GRID",
+               "DIST_COOC", "DIST_SR", "SESSIONREC", "SR_PARAMS")
+
+
+def _on_card(t, what: str) -> None:
+    """``t`` (a tensor or a device) is on the smoke's device type."""
+    import torch
+
+    dev = getattr(t, "device", t)
+    check(dev is not None and dev.type == torch.device(DEV).type,
+          f"distributed {what}: not on {DEV} ({dev})")
+
+
+def _dist_leg4(pid: int, out: pathlib.Path) -> dict:
+    """Leg 4 in one process: naive Bayes (its mesh branch), logistic
+    regression and the forest over the 2-position process mesh at the
+    spam width, then a predict of this process's own whole X with each;
+    the models and answers go to ``out``."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import forest, logreg, naive_bayes
+    from predictionio_tpu_torch.parallel import collectives
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    t_leg = time.perf_counter()
+    mesh = make_mesh(device=DEV)
+    _on_card(mesh.local_devices()[0], "leg 4: the mesh")
+    X, labels = nb_spam_data()
+    collectives.reset_staged_stats()
+    secs = {}
+    t0 = time.perf_counter()
+    nb = naive_bayes.train_multinomial_nb(X, labels, mesh=mesh)
+    secs["nb_train_s"] = time.perf_counter() - t0
+    nb_spam = nb.predict(X) == "spam"
+    check(dict(nb.branches) == {"train_mesh": 1, "predict_device": 1},
+          f"distributed leg 4: naive Bayes took {dict(nb.branches)}")
+    _on_card(nb._x_ref(), "leg 4: the resident X of naive Bayes")
+    lp = logreg.LogRegParams(**CLS_WIDTH["logreg"])
+    t0 = time.perf_counter()
+    lr = logreg.train_logreg(X, labels, lp, mesh=mesh, init_W=logreg.
+                             initial_W(X.shape[1], 2, lp.seed))
+    secs["logreg_train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fm = forest.train_forest(X, labels,
+                             forest.ForestParams(**CLS_WIDTH["forest"]),
+                             mesh=mesh)
+    secs["forest_train_s"] = time.perf_counter() - t0
+    f_codes = fm.predict_codes(X)
+    _on_card(fm._on_device()[1], "leg 4: the forest's nodes")
+    np.savez(out / f"leg4_{pid}.npz", nb_log_prob=nb.log_prob,
+             nb_log_prior=nb.log_prior, nb_spam=nb_spam, lr_W=lr.W,
+             lr_b=lr.b, lr_spam=lr.predict(X) == "spam", f_feat=fm.feat,
+             f_thr=fm.thr, f_leaf=fm.leaf, f_codes=f_codes)
+    return dict(secs, leg_s=time.perf_counter() - t_leg,
+                staged=collectives.staged_stats())
+
+
+def _dist_leg5(pid: int, nproc: int, out: pathlib.Path) -> dict:
+    """Leg 5 in one process: ``cooccurrence_topn_distributed`` on this
+    process's disjoint half of the ML-1M events (every ``nproc``-th from
+    ``pid``); the top-N goes to ``out``."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import cooccurrence as co
+    from predictionio_tpu_torch.parallel import collectives
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    c = DIST_COOC
+    t_leg = time.perf_counter()
+    users, items, _ = synthetic_ratings(c["n_users"], c["n_items"],
+                                        c["nnz"], seed=c["seed"])
+    mesh = make_mesh(device=DEV)
+    collectives.reset_staged_stats()
+    stats = {}
+    synchronize()
+    t0 = time.perf_counter()
+    vals, ids = co.cooccurrence_topn_distributed(
+        mesh, users[pid::nproc], items[pid::nproc], c["n_users"],
+        c["n_items"], c["n"], stats=stats)
+    topn_s = time.perf_counter() - t0
+    check(stats["path"] == "mesh" and stats["device"].startswith(DEV),
+          f"distributed leg 5: the count ran on {stats['device']}")
+    np.savez(out / f"leg5_{pid}.npz", vals=vals, ids=ids)
+    return dict(stats, topn_s=topn_s, local_events=len(users[pid::nproc]),
+                leg_s=time.perf_counter() - t_leg,
+                staged=collectives.staged_stats())
+
+
+def _dist_leg6() -> dict:
+    """Leg 6 in one process: ``run_sweep`` over the eval grid across the
+    processes (its groups round-robin, one a process), after one
+    uncounted sweep; B1 counted from zero around the counted one."""
+    from predictionio_tpu_torch.parallel import collectives
+
+    t_leg = time.perf_counter()
+    data, cands = _eval_grid_data()
+    _sweep_side(data, cands, EVAL_GRID["rank_metrics"])
+    collectives.reset_staged_stats()
+    res, wall, launches = _sweep_side(data, cands,
+                                      EVAL_GRID["rank_metrics"])
+    return {"launches": launches, "sweep_s": wall,
+            "batch_sizes": res.batch_sizes, "seconds": res.seconds,
+            "candidates": [dataclasses.asdict(c) | {"params": None}
+                           for c in res.candidates],
+            "leg_s": time.perf_counter() - t_leg,
+            "staged": collectives.staged_stats()}
+
+
+def _eval_grid_data():
+    """The eval grid's sweep data and candidates (``EVAL_GRID``)."""
+    from predictionio_tpu_torch.core.cross_validation import (
+        fold_assignments,
+    )
+    from predictionio_tpu_torch.models.als import ALSParams
+    from predictionio_tpu_torch.models.als_sweep import build_sweep_data
+
+    c = EVAL_GRID
+    users, items, ratings = synthetic_ratings(c["n_users"], c["n_items"],
+                                              c["nnz"], seed=c["seed"])
+    data = build_sweep_data(users, items, ratings,
+                            fold_assignments(c["folds"], c["nnz"]),
+                            c["n_users"], c["n_items"])
+    cands = [ALSParams(rank=r, num_iterations=c["iters"], reg=g,
+                       chunk_size=c["chunk"])
+             for r in c["ranks"] for g in c["regs"]]
+    return data, cands
+
+
+def dist_sr_sessions(seed: int):
+    """Leg 7's sessions (``DIST_SR``) and its queries (the last five
+    items of the first sessions)."""
+    sessions, names = planted_sessions(seed)
+    k = DIST_SR["steps"] * SR_PARAMS["batch_size"] - 1
+    sessions = sessions[:k] + [names.tolist()]
+    return sessions, [s[-5:] for s in sessions[:DIST_SR["queries"]]]
+
+
+def _dist_leg7(pid: int, nproc: int, out: pathlib.Path, seed: int) -> dict:
+    """Leg 7 (a) in one process: seqrec over a data 1 x model 2 mesh of
+    the two processes (tp across them), ``DIST_SR["steps"]`` steps; each
+    step's loss, the step's milliseconds and the share of the train in
+    host-staged collectives, the answers to the leg's queries; the whole
+    parameters go to ``out``."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import seqrec
+    from predictionio_tpu_torch.parallel import collectives
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    t_leg = time.perf_counter()
+    sessions, queries = dist_sr_sessions(seed)
+    mesh = make_mesh((1, nproc), ("data", "model"), device=DEV)
+    p = seqrec.SeqRecParams(**SR_PARAMS)
+    losses, timings = [], []
+    collectives.reset_staged_stats()
+    t0 = time.perf_counter()
+    model = seqrec.train_seqrec(mesh, sessions, p, losses=losses,
+                                timings=timings)
+    train_s = time.perf_counter() - t0
+    staged = collectives.staged_stats()
+    check(len(losses) == DIST_SR["steps"], f"distributed leg 7: "
+          f"{len(losses)} steps, expected {DIST_SR['steps']}")
+    answers = [model.recommend_next(q, DIST_SR["num"]) for q in queries]
+    _on_card(model.net().emb, "leg 7: the trained model")
+    np.savez(out / f"leg7_{pid}.npz", **model.params)
+    return {"train_s": train_s, "steps": len(losses),
+            "step_ms": timings[0] / len(losses) * 1e3,
+            "staged_share": staged["seconds"] / timings[0],
+            "staged": staged, "losses": losses, "answers": answers,
+            "n_vocab": int(model.params["emb"].shape[0]),
+            "leg_s": time.perf_counter() - t_leg}
+
+
 def _dist_store(work: pathlib.Path, seed: int) -> dict:
     """Leg 2's store: the ML-100k ratings as rate events (sqlite, written
     with ``insert_batch``); returns its storage configuration."""
@@ -9592,10 +9830,11 @@ def _dist_store(work: pathlib.Path, seed: int) -> dict:
 
 
 def distributed_legs(seed: int, port: int, work) -> dict:
-    """Legs 1-2 of the distributed phase (a background leg): leg 2's
-    store, the two processes of legs 1-2 on the card, and leg 2's
-    one-process twin here; leg 1's factors are held to the train
-    phase's one-process train by ``distributed_twin``."""
+    """Legs 1-2 and 4-7 of the distributed phase (a background leg):
+    leg 2's store, the two processes of legs 1-2 and 4-7 on the card,
+    then here each leg's one-process twin and checks, and leg 7's ring
+    and Ulysses parts; leg 1's factors are held to the train phase's
+    one-process train by ``distributed_twin``."""
     import types
 
     import numpy as np
@@ -9611,7 +9850,8 @@ def distributed_legs(seed: int, port: int, work) -> dict:
 
     work = pathlib.Path(work)
     shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
+    out = work / "out"
+    out.mkdir(parents=True)
     t0 = time.perf_counter()
     store = _dist_store(work, seed)
     store_s = time.perf_counter() - t0
@@ -9623,7 +9863,8 @@ def distributed_legs(seed: int, port: int, work) -> dict:
     factors.mkdir(parents=True)
     t0 = time.perf_counter()
     reports = _dist_wait(_dist_spawn(dict(
-        device=DEV, factors=str(factors), ML20M=ML20M, ML100K=ML100K,
+        device=DEV, factors=str(factors), out=str(out), seed=seed,
+        shapes={k: globals()[k] for k in DIST_SHAPES},
         store=store, queries=queries), work), work)
     procs_s = time.perf_counter() - t0
     r0, r1 = (r["leg1"] for r in reports)
@@ -9679,6 +9920,10 @@ def distributed_legs(seed: int, port: int, work) -> dict:
                     np.array([s for _, s in got])
                     - np.array([s for _, s in want])).max()))
         r["leg2"].pop("answers")
+    legs = {"leg4": _dist_check_leg4(reports, out),
+            "leg5": _dist_check_leg5(reports, out),
+            "leg6": _dist_check_leg6(reports),
+            "leg7": _dist_check_leg7(reports, out, seed)}
     return {"card": card_line(), "store_s": store_s,
             "processes_s": procs_s, "procs": [
                 {k: r[k] for k in ("group_ready_s", "device_ready_s")}
@@ -9687,7 +9932,205 @@ def distributed_legs(seed: int, port: int, work) -> dict:
                      "max_abs_diff_across_processes": same},
             "leg2": {"per_process": [r["leg2"] for r in reports],
                      "one_process_launches": one_launches,
-                     "queries": len(queries), "max_score_abs_err": max_err}}
+                     "queries": len(queries), "max_score_abs_err": max_err},
+            **legs}
+
+
+def _dist_check_leg4(reports, out: pathlib.Path) -> dict:
+    """Leg 4 against one process on the card: naive Bayes' log-probs and
+    the forest's node arrays equal, logistic regression's W and b within
+    ``LOGREG_TOL``, and every process's answers on its whole X equal the
+    one-process model's."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import forest, logreg, naive_bayes
+
+    t0 = time.perf_counter()
+    X, labels = nb_spam_data()
+    nb = naive_bayes.train_multinomial_nb(X, labels, device=DEV)
+    nb_spam = nb.predict(X) == "spam"
+    lp = logreg.LogRegParams(**CLS_WIDTH["logreg"])
+    lr = logreg.train_logreg(X, labels, lp, device=DEV,
+                             init_W=logreg.initial_W(X.shape[1], 2, lp.seed))
+    fm = forest.train_forest(X, labels,
+                             forest.ForestParams(**CLS_WIDTH["forest"]),
+                             device=DEV)
+    f_codes = fm.predict_codes(X)
+    one_s = time.perf_counter() - t0
+    scale = max(1.0, float(np.abs(lr.W).max()))
+    lr_err = 0.0
+    for pid in range(len(reports)):
+        got = np.load(out / f"leg4_{pid}.npz")
+        for k, want in (("nb_log_prob", nb.log_prob),
+                        ("nb_log_prior", nb.log_prior), ("nb_spam", nb_spam),
+                        ("f_feat", fm.feat), ("f_thr", fm.thr),
+                        ("f_leaf", fm.leaf), ("f_codes", f_codes)):
+            check(np.array_equal(got[k], want), f"distributed leg 4: "
+                  f"process {pid}'s {k} differs from one process's")
+        err = max(float(np.abs(got["lr_W"] - lr.W).max()),
+                  float(np.abs(got["lr_b"] - lr.b).max()))
+        lr_err = max(lr_err, err)
+        check(err <= LOGREG_TOL * scale, f"distributed leg 4: process "
+              f"{pid}'s logreg W/b {err} from one process's (tolerance "
+              f"{LOGREG_TOL * scale})")
+        check(np.array_equal(got["lr_spam"], lr.predict(X) == "spam"),
+              f"distributed leg 4: process {pid}'s logreg answers differ")
+    report = {"per_process": [r["leg4"] for r in reports],
+              "one_process_s": one_s, "logreg_max_abs_err": lr_err,
+              "logreg_tol": LOGREG_TOL * scale,
+              "nb_branches_one_process": dict(nb.branches)}
+    log("distributed: leg 4 " + json.dumps(report))
+    return report
+
+
+def _dist_check_leg5(reports, out: pathlib.Path) -> dict:
+    """Leg 5 against one process on the card over all the events (the
+    slabbed product ``cooccurrence_topn`` runs on the card): counts and
+    ids exactly equal (ties keep the lower id in both)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models import cooccurrence as co
+
+    c = DIST_COOC
+    users, items, _ = synthetic_ratings(c["n_users"], c["n_items"],
+                                        c["nnz"], seed=c["seed"])
+    du, di = co.distinct_pairs(users, items)
+    stats = {}
+    t0 = time.perf_counter()
+    vals, ids = co.cooccurrence_topn_slabs(
+        du, di, c["n_users"], c["n_items"], c["n"], device=DEV, stats=stats)
+    one_s = time.perf_counter() - t0
+    for pid in range(len(reports)):
+        got = np.load(out / f"leg5_{pid}.npz")
+        check(np.array_equal(got["vals"], vals)
+              and np.array_equal(got["ids"], ids), f"distributed leg 5: "
+              f"process {pid}'s top-{c['n']} differs from one process's")
+    report = {"per_process": [r["leg5"] for r in reports],
+              "one_process_s": one_s, "one_process_path": stats["path"],
+              "distinct_pairs": len(du)}
+    log("distributed: leg 5 " + json.dumps(report))
+    return report
+
+
+def _dist_check_leg6(reports) -> dict:
+    """Leg 6 against one process's sweep on the card: each process ran
+    one rank group (B1 ``2 * iters`` times), and both merged results
+    hold the one-process sweep's (``_hold_sweeps``)."""
+    from predictionio_tpu_torch.models.als_sweep import (
+        CandidateResult, SweepResult,
+    )
+
+    c = EVAL_GRID
+    data, cands = _eval_grid_data()
+    units = len(c["regs"]) * c["folds"]
+    one, one_s, one_n = _sweep_side(data, cands, c["rank_metrics"])
+    sides = {"one_process": one}
+    for pid, r in enumerate(reports):
+        leg = r["leg6"]
+        check(leg["launches"] == 2 * c["iters"] and leg["batch_sizes"]
+              == [units], f"distributed leg 6: process {pid} launched B1 "
+              f"{leg['launches']} times over {leg['batch_sizes']}")
+        sides[f"process_{pid}"] = SweepResult(
+            candidates=[CandidateResult(**dict(d, params=p)) for d, p
+                        in zip(leg.pop("candidates"), cands)],
+            n_groups=one.n_groups, batch_sizes=leg["batch_sizes"],
+            mode="batched")
+    gap, hit_gap = _hold_sweeps("distributed leg 6", sides,
+                                c["rank_metrics"])
+    report = {"per_process": [r["leg6"] for r in reports],
+              "launches_per_process": [r["leg6"]["launches"]
+                                       for r in reports],
+              "one_process_s": one_s, "one_process_launches": one_n,
+              "max_rmse_gap": gap, "max_hit_gap": hit_gap}
+    log("distributed: leg 6 " + json.dumps(report))
+    return report
+
+
+def _dist_check_leg7(reports, out: pathlib.Path, seed: int) -> dict:
+    """Leg 7: (a) the processes' tp train against the same 1 x 2 mesh
+    in one process, both positions on the card (one device, the same
+    init: the vocabulary padded to 2): each step's loss and every
+    parameter within ``DIST_SR_TOL``, the answers equal on both
+    processes and the one-process model's (``_same_answers``);
+    (b) here, a data 2 x seq 2 mesh of positions on the card trained
+    with ``attention_impl="ring"`` against flash on one device, ``emb``
+    within ``DIST_RING_TOL``; (c) ``ulysses_attention`` against ``mha``
+    on the card."""
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.models import seqrec
+    from predictionio_tpu_torch.ops import attention
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    sessions, queries = dist_sr_sessions(seed)
+    p = seqrec.SeqRecParams(**SR_PARAMS)
+    t0 = time.perf_counter()
+    losses = []
+    one = seqrec.train_seqrec(
+        make_mesh((1, 2), ("data", "model"), devices=[DEV] * 2), sessions,
+        p, losses=losses)
+    one_s = time.perf_counter() - t0
+    loss_err = param_err = 0.0
+    for pid, r in enumerate(reports):
+        got = np.asarray(r["leg7"].pop("losses"))
+        loss_err = max(loss_err, float(np.max(np.abs(got - losses)
+                                              / np.abs(losses))))
+        params = np.load(out / f"leg7_{pid}.npz")
+        for k, want in one.params.items():
+            param_err = max(param_err,
+                            float(np.abs(params[k] - want).max()))
+    answers = [r["leg7"].pop("answers") for r in reports]
+    check(all(a == answers[0] for a in answers),
+          "distributed leg 7: the processes answer differently")
+    for q, a in zip(queries, answers[0]):
+        _same_answers(
+            {"itemScores": [{"item": i, "score": x} for i, x in a]},
+            {"itemScores": [{"item": i, "score": x} for i, x in
+                            one.recommend_next(q, DIST_SR["num"])]},
+            f"distributed leg 7: {q}")
+    check(loss_err <= DIST_SR_TOL and param_err <= DIST_SR_TOL,
+          f"distributed leg 7: losses {loss_err}, parameters {param_err} "
+          f"from one process (tolerance {DIST_SR_TOL})")
+    # (b) ring over "seq" in this process, four positions on the card
+    t0 = time.perf_counter()
+    flash = seqrec.train_seqrec(None, sessions, p, device=DEV)
+    ring_mesh = make_mesh((2, 2), ("data", "seq"), devices=[DEV] * 4)
+    ring = seqrec.train_seqrec(
+        ring_mesh, sessions,
+        seqrec.SeqRecParams(**dict(SR_PARAMS, attention_impl="ring")))
+    ring_s = time.perf_counter() - t0
+    _on_card(ring.net().emb, "leg 7 (b): the ring-trained model")
+    ring_err = float(np.abs(ring.params["emb"] - flash.params["emb"]).max())
+    check(ring_err <= DIST_RING_TOL, f"distributed leg 7 (b): ring emb "
+          f"{ring_err} from flash (tolerance {DIST_RING_TOL})")
+    # (c) Ulysses against dense attention at the template's shapes
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    d = SR_PARAMS["d_model"] // SR_PARAMS["n_heads"]
+    q, k, v = (torch.randn((SR_PARAMS["batch_size"], SR_PARAMS["max_len"],
+                            SR_PARAMS["n_heads"], d), generator=g).to(DEV)
+               for _ in range(3))
+    key_mask = (torch.arange(SR_PARAMS["max_len"])[None, :]
+                >= torch.randint(0, SR_PARAMS["max_len"],
+                                 (SR_PARAMS["batch_size"], 1),
+                                 generator=g)).to(DEV)
+    uly = attention.ulysses_attention(
+        q, k, v, make_mesh((2,), ("seq",), devices=[DEV] * 2), causal=True,
+        key_mask=key_mask)
+    _on_card(uly, "leg 7 (c): the Ulysses output")
+    att_err = float((uly - attention.mha(q, k, v, causal=True,
+                                         key_mask=key_mask)).abs().max())
+    check(att_err <= DIST_ATT_TOL, f"distributed leg 7 (c): Ulysses "
+          f"{att_err} from mha (tolerance {DIST_ATT_TOL})")
+    report = {"per_process": [r["leg7"] for r in reports],
+              "one_process_s": one_s, "loss_max_rel_err": loss_err,
+              "param_max_abs_err": param_err, "tol": DIST_SR_TOL,
+              "ring_s": ring_s, "ring_emb_max_abs_err": ring_err,
+              "ring_tol": DIST_RING_TOL, "ulysses_max_abs_err": att_err,
+              "n_vocab": reports[0]["leg7"]["n_vocab"],
+              "sessions": len(sessions)}
+    log("distributed: leg 7 " + json.dumps(report))
+    return report
 
 
 def distributed_twin(report: dict, full_UV, digest: str) -> dict:
@@ -9886,9 +10329,9 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
     zero); beside them the fold-in launches of both legs and of the
     canary's held fold-in, the engines' trains and e-commerce's fold-in,
     the load test's storm (its trains and fold-in, counted from zero
-    around the fleet), the distributed phase's trains (each process's
-    own count), B1's times at the applies' shapes and at the eval
-    sweeps'."""
+    around the fleet), the distributed phase's trains and its sweep
+    across processes (each process's own count), B1's times at the
+    applies' shapes and at the eval sweeps'."""
     fl = lifecycle["foldin"]
     grid, cli = evals["grid"]["launches"], evals["cli"]
     eval_launches = {
@@ -9904,6 +10347,7 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
                   for p in distributed["leg1"]["per_process"]]
     dist_engine = [p["launches"]
                    for p in distributed["leg2"]["per_process"]]
+    dist_sweep = distributed["leg6"]["launches_per_process"]
     return {
         "name": "spd_solve",
         "route": "cuda",
@@ -9912,7 +10356,7 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
         "launches": train["full"]["launches"] + sum(eval_launches.values())
         + lifecycle["foldin_slo"]["b1_launches"]
         + loadtest["launches"]["spd_solve"]
-        + sum(dist_train) + sum(dist_engine),
+        + sum(dist_train) + sum(dist_engine) + sum(dist_sweep),
         "max_abs_err": spd_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -9962,6 +10406,9 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
             "distributed_engine_per_process": dist_engine,
             "distributed_engine_one_process":
                 distributed["leg2"]["one_process_launches"],
+            "distributed_sweep_per_process": dist_sweep,
+            "distributed_sweep_one_process":
+                distributed["leg6"]["one_process_launches"],
             **eval_launches},
         "eval_shapes": [r for r in spd_rows if r["eval"]],
         "foldin": {
@@ -10126,8 +10573,9 @@ def main() -> int:
             bp_bench = finish_legs(bench_leg)["bp_bench"]
             log(f"build: with batchpredict leg 1 beside it "
                 f"{time.perf_counter() - t0:.3f} s")
-            # 18. distributed, legs 1-2 (two processes on the card, their
-            #     launches counted in each), with nothing else running
+            # 18. distributed, legs 1-2 and 4-7 (two processes on the
+            #     card, their launches counted in each), with nothing
+            #     else running
             t_dist = time.perf_counter()
             distributed = finish_legs(start_legs(
                 ["distributed"], args.seed, args.port))["distributed"]

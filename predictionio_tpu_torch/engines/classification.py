@@ -16,9 +16,12 @@ evaluation.
     add-algorithm variants
   * Accuracy <- Evaluation.scala:26
 
-Every algorithm trains on ``ctx.device`` (None or absent: ``cuda``); the
-naive Bayes and forest models predict there too, logistic regression on
-the host (the reference's product).
+Every algorithm trains on the workflow mesh (``mesh_of(ctx)``, as the
+reference's do): on ``ctx.device`` (None or absent: ``cuda``) when the
+mesh has one position, over its positions when it has more (each
+model's mesh branch). The naive Bayes and forest models predict on the
+device they trained on, logistic regression on the host (the
+reference's product).
 
 Query: {"attr0": 2.0, "attr1": 0.0, "attr2": 0.0} -> {"label": 0.0}.
 """
@@ -45,6 +48,7 @@ from predictionio_tpu_torch.models.logreg import (
 from predictionio_tpu_torch.models.naive_bayes import (
     MultinomialNBModel, train_multinomial_nb,
 )
+from predictionio_tpu_torch.workflow.context import mesh_of
 
 ATTRS = ("attr0", "attr1", "attr2")
 
@@ -193,6 +197,7 @@ class NaiveBayesAlgorithm(_WarmableClassifier):
         _require_points(pd)
         X, y = _xy(pd)
         return train_multinomial_nb(X, y, smoothing=self.params.reg,
+                                    mesh=mesh_of(ctx),
                                     device=getattr(ctx, "device", None))
 
 
@@ -217,7 +222,7 @@ class LogisticRegressionAlgorithm(_WarmableClassifier):
             iterations=self.params.iterations,
             learning_rate=self.params.learning_rate,
             reg=self.params.reg, seed=self.params.seed),
-            device=getattr(ctx, "device", None))
+            mesh=mesh_of(ctx), device=getattr(ctx, "device", None))
 
 
 #: RandomForestAlgorithmParams parity (add-algorithm/src/main/scala/
@@ -238,7 +243,7 @@ class RandomForestAlgorithm(_WarmableClassifier):
     def train(self, ctx, pd: PreparedData) -> ForestModel:
         _require_points(pd)
         X, y = _xy(pd)
-        return train_forest(X, y, self.params,
+        return train_forest(X, y, self.params, mesh=mesh_of(ctx),
                             device=getattr(ctx, "device", None))
 
 

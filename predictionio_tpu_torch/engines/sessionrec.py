@@ -80,9 +80,11 @@ class DataSourceParams(Params):
 
 
 class SessionDataSource(DataSource):
-    """Per-user sessions ordered by eventTime, read whole (a session is
-    never split across readers; the reference's multi-process note
-    applies to ROADMAP item A12, part 2)."""
+    """Per-user sessions ordered by eventTime, read whole on every
+    process (the reference's deliberately unsharded read: a session is
+    never split across readers; the train shards the batch over the
+    mesh's ``"data"`` axis instead, so no exchange keyed by user is
+    needed)."""
 
     params_class = DataSourceParams
 
@@ -141,7 +143,9 @@ class AlgorithmParams(SeqRecParams):
 
 
 class SeqRecAlgorithm(Algorithm):
-    """The transformer next-item model, trained on the run's device."""
+    """The transformer next-item model, trained on the workflow mesh
+    (``mesh_of(ctx)``): on the run's device when it has one position,
+    over its positions when it has more (``models/seqrec``)."""
 
     params_class = AlgorithmParams
 
@@ -153,8 +157,10 @@ class SeqRecAlgorithm(Algorithm):
             checkpointer_of,
         )
 
-        return train_seqrec(getattr(ctx, "mesh", None), pd.sessions,
-                            self.params, checkpointer=checkpointer_of(ctx),
+        from predictionio_tpu_torch.workflow.context import mesh_of
+
+        return train_seqrec(mesh_of(ctx), pd.sessions, self.params,
+                            checkpointer=checkpointer_of(ctx),
                             device=getattr(ctx, "device", None))
 
     def warmup_query(self, model: SeqRecModel) -> Optional[Query]:

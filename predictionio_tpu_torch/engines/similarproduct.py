@@ -352,8 +352,10 @@ class CooccurrenceEngineModel:
 
 
 class CooccurrenceAlgorithm(Algorithm):
-    """The top-N cooccurring items of the query items, counted on
-    ``ctx.device`` (``models/cooccurrence``)."""
+    """The top-N cooccurring items of the query items, counted on the
+    workflow mesh (``mesh_of(ctx)``, ``models/cooccurrence``): on
+    ``ctx.device`` when it has one position, its first axis's row blocks
+    when it has more (every process reads the views whole)."""
 
     params_class = CooccurrenceAlgorithmParams
 
@@ -368,7 +370,7 @@ class CooccurrenceAlgorithm(Algorithm):
         device = resolve_device(getattr(ctx, "device", None))
         top = train_cooccurrence(user_codes, item_codes, len(user_vocab),
                                  len(item_vocab), self.params.n,
-                                 device=device)
+                                 device=device, mesh=mesh_of(ctx))
         return CooccurrenceEngineModel(
             model=CooccurrenceModel(item_vocab=item_vocab,
                                     top_cooccurrences=top),

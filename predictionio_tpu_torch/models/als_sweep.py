@@ -23,9 +23,14 @@ the rank of every held-out item among all items, for precision@k and
 the top-N MSE) runs over the same axis, and each candidate's sums are
 pooled over its folds, as in the reference.
 
-One process and one device: the reference's multi-process split of the
-groups and its unit sharding over local devices belong to a later slice.
-The reference's ``eval_*`` spans and counters are plain numbers in the
+Across the processes of a ``torch.distributed`` group the groups split
+round-robin (group ``gi`` runs on process ``gi % n_proc``, the
+reference's rule), each process runs its own groups with B1 on its
+device, and the per-candidate results merge over
+``parallel/shuffle.allgather_object``. Inside a process one device: the
+reference's sharding of a launch's units over a process's local devices
+(``_local_shardings``) waits for a host with two local cards. The
+reference's ``eval_*`` spans and counters are plain numbers in the
 result (:class:`SweepResult`). Knobs, read as the reference reads them:
 ``PIO_EVAL_BATCH_MAX`` (units per launch, default 256) and
 ``PIO_EVAL_CHUNK_MB`` (the chunk buffers' budget, default 256 MiB).
@@ -50,6 +55,8 @@ from predictionio_tpu_torch.obs.eval_stats import (
     eval_batch_size, eval_candidates_counter, eval_compile_groups,
 )
 from predictionio_tpu_torch.obs.tracing import span
+from predictionio_tpu_torch.parallel.distributed import group_rank_size
+from predictionio_tpu_torch.parallel.shuffle import allgather_object
 from predictionio_tpu_torch.utils.device import resolve_device, synchronize
 
 #: units (candidate x fold) per launch; larger groups split into launches
@@ -345,10 +352,10 @@ class CandidateResult:
 
 @dataclasses.dataclass
 class SweepResult:
-    """The candidates' results in input order, and what the sweep did:
-    groups, units per launch, the mode, and the seconds of the upload,
-    the trains and the metric passes (the reference's ``eval_*`` spans as
-    plain numbers)."""
+    """The candidates' results in input order (every process's, merged),
+    and what the sweep did: groups, this process's units per launch, the
+    mode, and this process's seconds of the upload, the trains and the
+    metric passes (the reference's ``eval_*`` spans as plain numbers)."""
 
     candidates: List[CandidateResult]
     n_groups: int
@@ -383,6 +390,12 @@ def run_sweep(data: ALSSweepData, candidates: Sequence[ALSParams], *,
     group_items = list(group_candidates(candidates).items())
     if warm_start:
         group_items.sort(key=lambda kv: kv[0].rank)
+    # multi-process: the groups split round-robin, the results merge
+    # at the end over the object all-gather
+    me, n_proc = group_rank_size()
+    my_groups = [(gi, static, members)
+                 for gi, (static, members) in enumerate(group_items)
+                 if gi % n_proc == me]
 
     t0 = time.perf_counter()
     user = _Side.upload(data.by_user, dev)
@@ -398,7 +411,7 @@ def run_sweep(data: ALSSweepData, candidates: Sequence[ALSParams], *,
     batch_sizes: List[int] = []
     prev_v: Dict[int, np.ndarray] = {}      # fold -> trained V (warm start)
 
-    for gi, (static, members) in enumerate(group_items):
+    for gi, static, members in my_groups:
         group_label = f"g{gi}:{static.label}"
         units = [(ci, f) for ci in members for f in range(k_folds)]
         b = min(len(units), batch_max) if batched else 1
@@ -458,6 +471,11 @@ def run_sweep(data: ALSSweepData, candidates: Sequence[ALSParams], *,
                 res.topn_mse = float(tse / nt) if nt else float("nan")
             results[ci] = res
 
+    if n_proc > 1:
+        results = {ci: r for part in allgather_object(list(results.items()))
+                   for ci, r in part}
+    missing = [i for i in range(len(candidates)) if i not in results]
+    assert not missing, f"sweep lost candidates {missing}"
     eval_candidates_counter().inc(len(candidates), mode=mode)
     eval_compile_groups().set(len(group_items))
     return SweepResult(

@@ -1,5 +1,5 @@
-"""Random-forest classifier, fit on one device with every tree at once
-(port of the reference's ``models/forest.py``, the tree model behind
+"""Random-forest classifier, fit on one device with every tree at once,
+or with the trees sharded over a mesh (port of the reference's ``models/forest.py``, the tree model behind
 the classification template's RandomForest variant,
 RandomForestAlgorithm.scala: MLlib ``RandomForest.trainClassifier`` with
 numClasses/numTrees/featureSubsetStrategy/impurity/maxDepth/maxBins).
@@ -28,8 +28,14 @@ numClasses/numTrees/featureSubsetStrategy/impurity/maxDepth/maxBins).
   per level) and takes the majority vote; a tie goes to the lowest class
   code (the first maximum of the vote counts).
 
-The reference's tree-sharded mesh fit is not ported: a mesh of more
-than one device raises ``NotImplementedError``.
+With a ``mesh`` of more than one position the trees shard over its
+first axis (the embarrassingly parallel axis MLlib also splits by): the
+bags and masks are drawn for the requested tree count, so the random
+stream does not depend on the mesh; the count pads to a multiple of the
+axis with copies of tree 0; each position fits its run of trees with
+:func:`_fit_forest` on its device from the whole binned data; one
+``all_gather`` over the axis collects the node arrays, and the padding
+is sliced off, so the model is the one-device model whatever the mesh.
 """
 
 from __future__ import annotations
@@ -42,9 +48,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.core.params import Params
-from predictionio_tpu_torch.utils.device import (
-    refuse_multi_device, resolve_device,
-)
+from predictionio_tpu_torch.utils.device import resolve_device
 
 #: cell ids of one histogram call (int32 each): the trees of a level go
 #: through ``torch.bincount`` in groups of at most this many (tree,
@@ -314,10 +318,12 @@ def train_forest(X: np.ndarray, y: Sequence, params: ForestParams,
                  timings: Optional[list] = None) -> ForestModel:
     """Fit a forest on dense [N, F] features with arbitrary labels, on
     ``device`` (``cuda`` unless the caller asks for the CPU); the model
-    predicts there too. ``timings`` receives each level's histogram
-    seconds."""
-    refuse_multi_device(mesh, "random forest")
-    dev = resolve_device(device)
+    predicts there too. With a ``mesh`` of more than one position the
+    trees shard over its first axis (the module docstring) and the model
+    predicts on the first local device. ``timings`` receives each
+    level's histogram seconds (each local position's, in turn)."""
+    on_mesh = mesh is not None and mesh.size > 1
+    dev = mesh.local_devices()[0] if on_mesh else resolve_device(device)
     X = np.asarray(X, np.float32)
     classes, codes = np.unique(np.asarray(y), return_inverse=True)
     c = int(params.num_classes) or len(classes)
@@ -327,16 +333,43 @@ def train_forest(X: np.ndarray, y: Sequence, params: ForestParams,
     thresholds, xq = bin_features(X, b)
     boot, mask = draw_bags(X.shape[0], X.shape[1], params)
     depth = int(params.max_depth)
-    xq_dtype = np.uint8 if b <= 256 else np.int32
-    feat, thr, leaf = _fit_forest(
-        torch.from_numpy(xq.astype(xq_dtype)).to(dev),
-        torch.from_numpy(codes.reshape(-1).astype(np.int64)).to(dev),
-        torch.from_numpy(boot.astype(np.int64)).to(dev),
-        torch.from_numpy(mask).to(dev), c, depth, b, params.impurity,
-        timings=timings)
+    xq = xq.astype(np.uint8 if b <= 256 else np.int32)
+    codes = codes.reshape(-1).astype(np.int64)
+
+    def fit(on, trees: slice):
+        return _fit_forest(
+            torch.from_numpy(xq).to(on), torch.from_numpy(codes).to(on),
+            torch.from_numpy(boot[trees].astype(np.int64)).to(on),
+            torch.from_numpy(mask[trees]).to(on), c, depth, b,
+            params.impurity, timings=timings)
+
+    if on_mesh:
+        feat, thr, leaf = _fit_on_mesh(fit, len(boot), mesh)
+    else:
+        feat, thr, leaf = fit(dev, slice(None))
     return ForestModel(
         classes=classes, thresholds=thresholds,
         feat=feat.cpu().numpy().astype(np.int32),
         thr=thr.cpu().numpy().astype(np.int32),
         leaf=leaf.cpu().numpy().astype(np.int32), max_depth=depth,
         device=dev)
+
+
+def _fit_on_mesh(fit, t_req: int, mesh):
+    """``(feat, thr, leaf)`` of ``t_req`` trees sharded over the mesh's
+    first axis: ``fit(device, trees)`` grows a run of trees (indices past
+    ``t_req`` are copies of tree 0, sliced off after the gather)."""
+    from predictionio_tpu_torch.parallel.collectives import all_gather
+
+    axis = mesh.axis_names[0]
+    per = -(-t_req // mesh.shape[axis])
+    parts = []
+    for p, dev in zip(mesh.local_positions(), mesh.local_devices()):
+        lo = mesh.axis_index(p, axis) * per
+        ids = [i if i < t_req else 0 for i in range(lo, lo + per)]
+        feat, thr, leaf = fit(dev, ids)
+        parts.append(torch.cat([feat, thr, leaf], dim=1))
+    nodes = all_gather(parts, mesh, axis)[0][:t_req]
+    m = (nodes.shape[1] - 1) // 3       # 2^D - 1 nodes, 2^D leaves
+    return nodes.split([m, m, m + 1], dim=1)
+

@@ -1,5 +1,5 @@
-"""Softmax (logistic) regression, full-batch Adam on one device (port of
-the reference's ``models/logreg.py``, the MLlib LogisticRegression
+"""Softmax (logistic) regression, full-batch Adam on one device or
+data-parallel over a mesh (port of the reference's ``models/logreg.py``, the MLlib LogisticRegression
 analog of the classification template).
 
 The whole data set lives on the device and each step is one forward
@@ -14,9 +14,19 @@ The initial W is ``N(0, 1) * 0.01`` from a ``torch.Generator`` seeded
 with ``params.seed``. The reference draws it from ``jax.random.normal``,
 which torch cannot reproduce, so ``train_logreg`` takes an ``init_W``
 (the parity tests pass the reference's draw). Predict is the
-reference's host product. The reference's data-parallel mesh branch is
-not ported: a mesh of more than one device raises
-``NotImplementedError``.
+reference's host product.
+
+With a ``mesh`` of more than one position the rows split into one block
+a position along its first axis (ceil(N / shards) rows, the last
+shorter: the reference pads to a multiple of the device count with
+zero-weight rows, which add nothing to either sum below). Each position
+holds its block and a copy of W and b on its device; a step takes the
+gradient of its block's summed cross-entropy, one ``psum`` over the
+axis adds the positions' gradients, and dividing by the global row
+count gives the gradient of the reference's loss ``sum(ce * w) /
+sum(w)`` over the GLOBAL rows (never a mean of the positions' means).
+The L2 term's gradient ``2 * reg * W`` is added once, and every copy
+takes the same Adam update.
 """
 
 from __future__ import annotations
@@ -27,9 +37,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.utils.device import (
-    refuse_multi_device, resolve_device,
-)
+from predictionio_tpu_torch.utils.device import resolve_device
 
 #: optax.adam's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -88,14 +96,18 @@ def train_logreg(X: np.ndarray, labels: Sequence[str],
                  ) -> LogRegModel:
     """Fit W [F, L] and b [L] by ``params.iterations`` full-batch Adam
     steps on ``device`` (``cuda`` unless the caller asks for the CPU),
-    from ``init_W`` (default: :func:`initial_W` of ``params.seed``)."""
-    refuse_multi_device(mesh, "logistic regression")
-    dev = resolve_device(device)
+    from ``init_W`` (default: :func:`initial_W` of ``params.seed``);
+    with a ``mesh`` of more than one position, data-parallel over its
+    first axis on its own devices (the module docstring)."""
     labels = np.asarray(labels, dtype=object)
     label_vocab, y = np.unique(labels, return_inverse=True)
     n_features, n_labels = X.shape[1], len(label_vocab)
     W0 = (initial_W(n_features, n_labels, params.seed) if init_W is None
           else np.asarray(init_W, np.float32))
+    if mesh is not None and mesh.size > 1:
+        W, b = _fit_mesh(X, y.reshape(-1), W0, params, mesh)
+        return LogRegModel(label_vocab=label_vocab, W=W, b=b)
+    dev = resolve_device(device)
     Xd = torch.from_numpy(np.asarray(X, np.float32)).to(dev)
     yd = torch.from_numpy(y.reshape(-1).astype(np.int64)).to(dev)
     W = torch.from_numpy(np.array(W0, np.float32)).to(dev).requires_grad_()
@@ -115,3 +127,47 @@ def train_logreg(X: np.ndarray, labels: Sequence[str],
     return LogRegModel(label_vocab=label_vocab,
                        W=W.detach().cpu().numpy(),
                        b=b.detach().cpu().numpy())
+
+
+def _fit_mesh(X: np.ndarray, y: np.ndarray, W0: np.ndarray,
+              params: LogRegParams, mesh) -> "tuple[np.ndarray, np.ndarray]":
+    """The data-parallel fit of the module docstring: ``(W, b)`` as
+    numpy, equal on every position and process."""
+    from predictionio_tpu_torch.parallel.collectives import psum
+
+    axis = mesh.axis_names[0]
+    n, (n_features, n_labels) = len(y), W0.shape
+    blk = -(-n // mesh.shape[axis])
+    reg, lr = float(params.reg), float(params.learning_rate)
+    corr = bias_corrections(params.iterations)
+    shards = []
+    for p, dev in zip(mesh.local_positions(), mesh.local_devices()):
+        lo = min(n, mesh.axis_index(p, axis) * blk)
+        hi = min(n, lo + blk)
+        W = torch.from_numpy(np.array(W0, np.float32)).to(dev)
+        b = torch.zeros(n_labels, dtype=torch.float32, device=dev)
+        shards.append(dict(
+            X=torch.from_numpy(np.asarray(X[lo:hi], np.float32)).to(dev),
+            y=torch.from_numpy(y[lo:hi].astype(np.int64)).to(dev),
+            W=W.requires_grad_(), b=b.requires_grad_(),
+            moments=[(torch.zeros_like(t), torch.zeros_like(t))
+                     for t in (W, b)], corr=corr.to(dev)))
+    for t in range(int(params.iterations)):
+        parts = []
+        for sh in shards:
+            ce = torch.nn.functional.cross_entropy(
+                sh["X"] @ sh["W"] + sh["b"], sh["y"], reduction="sum")
+            gW, gb = torch.autograd.grad(ce, (sh["W"], sh["b"]))
+            parts.append(torch.cat([gW.reshape(-1), gb]))
+        for sh, g in zip(shards, psum(parts, mesh, axis)):
+            g = g / n
+            W, b = sh["W"], sh["b"]
+            with torch.no_grad():
+                grads = (g[:W.numel()].view_as(W) + 2.0 * reg * W,
+                         g[W.numel():])
+                for p, gp, (m, v) in zip((W, b), grads, sh["moments"]):
+                    _adam_step(p, gp, m, v, sh["corr"][0, t],
+                               sh["corr"][1, t], lr)
+    first = shards[0]
+    return (first["W"].detach().cpu().numpy(),
+            first["b"].detach().cpu().numpy())

@@ -12,9 +12,20 @@ Two variants:
   template (NaiveBayesAlgorithm.scala:35-56): count-vector features;
   prediction is one product ``X @ logP^T + prior``.
 
-The multinomial train counts features per label in one of three
+The multinomial train counts features per label in one of four
 branches, by the reference's own size rule:
 
+* ``mesh`` — a ``mesh`` of more than one position, X of at least
+  ``DEVICE_MIN_SIZE`` elements and a one-hot within ``ONEHOT_MAX_BYTES``
+  times the positions: the rows split into one block a position along
+  the mesh's first axis (ceil(N / shards) rows, the last block shorter;
+  the reference pads it with code -1 rows, which count nothing), each
+  position counts its block ([L, F] = one-hot @ its rows of X, on its
+  device) and one ``psum`` over that axis adds the partial counts.
+  Every process holds the whole X, as the reference's callers do, and
+  uploads it once to each of its devices (``resident_x``): a position
+  reads its rows there, and a later predict on the same X finds the
+  process's whole X resident (never a copy sharded across processes);
 * ``device`` — X of at least ``DEVICE_MIN_SIZE`` elements whose [L, N]
   one-hot fits ``ONEHOT_MAX_BYTES``: X is compacted to uint8/uint16
   (``_compact_for_transfer``), uploaded once (``ops/device_cache``, keyed
@@ -28,8 +39,6 @@ The model counts the branches it took (``MultinomialNBModel.branches``),
 its train's and its predicts'. ``predict_scores`` runs on the device when
 X is resident there (the train just uploaded it) or has at least
 ``PREDICT_DEVICE_MIN_SIZE`` elements; otherwise the host product wins.
-The reference's mesh branch and its multi-process predict are not
-ported: a mesh of more than one device raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,9 +53,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops import device_cache
-from predictionio_tpu_torch.utils.device import (
-    refuse_multi_device, resolve_device, synchronize,
-)
+from predictionio_tpu_torch.utils.device import resolve_device, synchronize
 from predictionio_tpu_torch.utils.profiling import phase
 
 
@@ -205,6 +212,27 @@ def count_product(resident, codes: torch.Tensor,
     return onehot @ _widen(resident)
 
 
+def mesh_counts(X: np.ndarray, label_codes: np.ndarray, n_labels: int,
+                mesh) -> np.ndarray:
+    """The mesh branch's [L, F] counts: each local position counts its
+    block of rows along the mesh's first axis on its device, from the
+    process's whole X resident there, and one ``psum`` over that axis
+    adds the blocks (exact: integer counts below 2^24 in f32)."""
+    from predictionio_tpu_torch.parallel.collectives import psum
+
+    axis = mesh.axis_names[0]
+    n = X.shape[0]
+    blk = -(-n // mesh.shape[axis])
+    parts = []
+    for p, dev in zip(mesh.local_positions(), mesh.local_devices()):
+        lo = min(n, mesh.axis_index(p, axis) * blk)
+        hi = min(n, lo + blk)
+        xd, unsigned16 = resident_x(X, dev)
+        codes = torch.from_numpy(label_codes[lo:hi].astype(np.int64)).to(dev)
+        parts.append(count_product((xd[lo:hi], unsigned16), codes, n_labels))
+    return psum(parts, mesh, axis)[0].cpu().numpy().astype(np.float64)
+
+
 def score_product(resident, log_prob: torch.Tensor,
                   log_prior: torch.Tensor) -> torch.Tensor:
     """[N, L] = X widened to f32 @ log_prob^T + log_prior."""
@@ -221,8 +249,9 @@ class MultinomialNBModel:
     #: the device of the count product and of a device predict (None:
     #: ``cuda`` when a predict needs it)
     device: Optional[torch.device] = None
-    #: branches taken, by name (``train_device``, ``train_host_gemm``,
-    #: ``train_scatter``, ``predict_device``, ``predict_host``)
+    #: branches taken, by name (``train_mesh``, ``train_device``,
+    #: ``train_host_gemm``, ``train_scatter``, ``predict_device``,
+    #: ``predict_host``)
     branches: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
@@ -291,18 +320,27 @@ def train_multinomial_nb(X: np.ndarray, labels: Sequence[str],
     """MLlib NaiveBayes.train parity (lambda smoothing). The per-label
     feature counts come from the branch the module docstring names;
     ``device`` is where the device branch runs (``cuda`` unless the
-    caller asks for the CPU)."""
-    refuse_multi_device(mesh, "multinomial naive Bayes")
-    dev = resolve_device(device)
+    caller asks for the CPU), a ``mesh`` of more than one position's own
+    devices for the mesh branch (the model predicts on the first local
+    one)."""
     labels = np.asarray(labels, dtype=object)
     label_vocab, label_codes = np.unique(labels, return_inverse=True)
     label_codes = label_codes.reshape(-1)
     n_labels = len(label_vocab)
     n_features = X.shape[1]
-    onehot_fits = X.shape[0] * n_labels * 4 <= ONEHOT_MAX_BYTES
+    onehot_bytes = X.shape[0] * n_labels * 4
+    onehot_fits = onehot_bytes <= ONEHOT_MAX_BYTES
     branches: collections.Counter = collections.Counter()
     resident = None
-    if X.size >= DEVICE_MIN_SIZE and onehot_fits:
+    on_mesh = mesh is not None and mesh.size > 1 \
+        and X.size >= DEVICE_MIN_SIZE \
+        and onehot_bytes <= ONEHOT_MAX_BYTES * mesh.size
+    dev = mesh.local_devices()[0] if on_mesh else resolve_device(device)
+    if on_mesh:
+        counts = mesh_counts(X, label_codes, n_labels, mesh)
+        resident = resident_x(X, dev)
+        branches["train_mesh"] += 1
+    elif X.size >= DEVICE_MIN_SIZE and onehot_fits:
         resident = resident_x(X, dev)
         codes = torch.from_numpy(label_codes.astype(np.int64)).to(dev)
         counts = count_product(resident, codes, n_labels).cpu().numpy(

@@ -24,9 +24,34 @@ user's time-ordered item stream (port of the reference's
   (the step count, then the first and second moments in pytree order),
   so either package resumes the other's snapshots.
 
-The reference's mesh branches (dp x tp sharding, ring attention over a
-``"seq"`` axis) are not ported: a mesh of more than one device raises
-``NotImplementedError`` (ROADMAP item A12, part 2).
+Over a mesh of more than one position (``parallel/mesh``) the train is
+the reference's partitioned step, run at every local position in turn
+with the collectives of ``parallel/collectives`` (:class:`_MeshTrain`):
+
+* dp: the batch shards over ``"data"``; the loss is the masked NLL
+  summed over the GLOBAL batch over its global mask count, each
+  position contributing its partial sum;
+* tp over ``"model"``: the vocabulary pads to a multiple of the axis
+  (``init_params(vocab_multiple=tp)``), and each position holds the
+  parameters as the reference's ``shard_params`` lays them out (``emb``
+  and ``w2`` by rows, ``wqkv`` and ``w1`` by columns, the rest whole),
+  AdamW's moments sharded with them. The compute gathers a weight whole
+  when it is used (``all_gather`` over ``"model"``) and so reduces its
+  gradient back to the shards (the gather's transpose): the math of
+  XLA's partitioned product, with the per-token compute repeated at
+  the positions of a ``"model"`` group (each weighs its loss by one over
+  the repeat, and the gradients add back to one);
+* sp: ``attention_impl="ring"`` lays the tokens out ``[data, seq]`` and
+  runs ``ops/attention.ring_attention_traced`` over ``"seq"``;
+* each parameter's gradient is summed over the axes its copies repeat
+  on (``psum``), so every copy takes the same AdamW update;
+* at the end the shards are gathered, so every process holds the whole
+  model. A mesh inside one process checkpoints and resumes in the
+  reference's layout (the moments gathered whole); a checkpointer with
+  a mesh that spans processes raises ``NotImplementedError``, because
+  the reference cannot write that snapshot either (its
+  ``Checkpointer.save`` calls ``np.asarray`` on leaves that span
+  processes).
 """
 
 from __future__ import annotations
@@ -43,10 +68,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from predictionio_tpu_torch.core.params import Params
-from predictionio_tpu_torch.ops.attention import blockwise_attention
-from predictionio_tpu_torch.utils.device import (
-    refuse_multi_device, resolve_device, synchronize,
+from predictionio_tpu_torch.ops.attention import (
+    assemble_blocks, blockwise_attention, ring_attention_traced,
+    split_blocks,
 )
+from predictionio_tpu_torch.utils.device import resolve_device, synchronize
 
 logger = logging.getLogger(__name__)
 
@@ -70,7 +96,9 @@ class SeqRecParams(Params):
     epochs: int = 10
     seed: int = 7
     #: "flash" (the local blockwise attention) or "ring" (sequence
-    #: parallelism over a mesh's "seq" axis, not ported: ROADMAP A12, part 2)
+    #: parallelism: K/V blocks rotate over the mesh's "seq" axis). "ring"
+    #: requires training on a mesh with a "seq" axis; serving always
+    #: uses the local kernel.
     attention_impl: str = "flash"
 
 
@@ -178,6 +206,28 @@ class _Norm(nn.Module):
         return F.layer_norm(x, x.shape[-1:], self.scale, self.bias, LN_EPS)
 
 
+def _norm(x, w: Dict, prefix: str):
+    return F.layer_norm(x, x.shape[-1:], w[f"{prefix}.scale"],
+                        w[f"{prefix}.bias"], LN_EPS)
+
+
+def _heads(h, w: Dict, prefix: str, n_heads: int):
+    """A layer's q, k, v of ``h [B, L, D]``, each ``[B, L, H, D / H]``."""
+    b, l, d = h.shape
+    q, k, v = (_norm(h, w, f"{prefix}.ln1") @ w[f"{prefix}.wqkv"]).split(
+        d, dim=-1)
+    return [t.reshape(b, l, n_heads, d // n_heads) for t in (q, k, v)]
+
+
+def _finish_layer(h, att, w: Dict, prefix: str):
+    """The rest of a layer after attention: the output projection, the
+    residual and the tanh-GELU feed-forward."""
+    h = h + att.reshape(h.shape) @ w[f"{prefix}.wo"]
+    x = _norm(h, w, f"{prefix}.ln2")
+    return h + F.gelu(x @ w[f"{prefix}.w1"], approximate="tanh") \
+        @ w[f"{prefix}.w2"]
+
+
 class _Block(nn.Module):
     def __init__(self, d: int):
         super().__init__()
@@ -189,13 +239,10 @@ class _Block(nn.Module):
         self.w2 = nn.Parameter(torch.empty(4 * d, d))
 
     def forward(self, h, key_mask, n_heads: int):
-        b, l, d = h.shape
-        q, k, v = (self.ln1(h) @ self.wqkv).split(d, dim=-1)
-        heads = [t.reshape(b, l, n_heads, d // n_heads) for t in (q, k, v)]
-        att = blockwise_attention(*heads, causal=True, key_mask=key_mask)
-        h = h + att.reshape(b, l, d) @ self.wo
-        x = self.ln2(h)
-        return h + F.gelu(x @ self.w1, approximate="tanh") @ self.w2
+        w = {f"l.{k}": v for k, v in self.named_parameters()}
+        att = blockwise_attention(*_heads(h, w, "l", n_heads), causal=True,
+                                  key_mask=key_mask)
+        return _finish_layer(h, att, w, "l")
 
 
 class SeqRecNet(nn.Module):
@@ -225,16 +272,19 @@ class SeqRecNet(nn.Module):
 
     def forward(self, seqs: torch.Tensor, mesh=None,
                 attention_impl: str = "flash") -> torch.Tensor:
-        if attention_impl not in ("flash", "ring"):
-            raise ValueError(f"unknown attention_impl {attention_impl!r}: "
-                             "expected 'flash' or 'ring'")
-        if attention_impl == "ring":
-            if mesh is not None and "seq" in getattr(mesh, "axis_names", ()):
-                raise NotImplementedError(
-                    "ring attention over a mesh's \"seq\" axis is not "
-                    "ported to PyTorch yet (ROADMAP item A12, part 2)")
-            raise ValueError('attention_impl="ring" requires a mesh with a '
-                             '"seq" axis')
+        """``attention_impl="ring"`` with a mesh that has a ``"seq"``
+        axis runs the attention sequence-parallel over it (the tokens
+        split ``[data, seq]`` over the mesh, this net's weights at every
+        position, the hidden states assembled whole)."""
+        if _uses_ring(mesh, attention_impl):
+            spec = _token_spec(mesh, True)
+            w = dict(self.named_parameters())
+            blocks = split_blocks(seqs, mesh, spec)
+            hidden = _forward_blocks(
+                [{k: t.to(b.device) for k, t in w.items()} for b in blocks],
+                blocks, mesh, self.n_heads, True)
+            return assemble_blocks(hidden, mesh, spec + (None,),
+                                   tuple(seqs.shape) + (self.emb.shape[1],))
         l = seqs.shape[1]
         h = F.embedding(seqs, self.emb) + self.pos[None, :l]
         # left-padding sits in the causal past; the key mask keeps it out
@@ -243,6 +293,61 @@ class SeqRecNet(nn.Module):
         for layer in self.layers:
             h = layer(h, key_mask, self.n_heads)
         return torch.where(key_mask[..., None], self.ln_f(h), 0.0)
+
+
+def _uses_ring(mesh, attention_impl: str) -> bool:
+    """Whether the attention runs as the ring over the mesh's ``"seq"``
+    axis; the reference's errors for an unknown implementation, and for
+    ``"ring"`` without such an axis."""
+    if attention_impl not in ("flash", "ring"):
+        raise ValueError(f"unknown attention_impl {attention_impl!r}: "
+                         "expected 'flash' or 'ring'")
+    if attention_impl == "ring" and (
+            mesh is None or "seq" not in getattr(mesh, "axis_names", ())):
+        raise ValueError('attention_impl="ring" requires a mesh with a '
+                         '"seq" axis')
+    return attention_impl == "ring"
+
+
+def _token_spec(mesh, ring: bool) -> Tuple[Optional[str], Optional[str]]:
+    """How a ``[B, L]`` batch of tokens lies over the mesh: the batch over
+    ``"data"`` when the mesh has it, the sequence over ``"seq"`` under
+    the ring."""
+    return ("data" if "data" in mesh.axis_names else None,
+            "seq" if ring else None)
+
+
+def _forward_blocks(weights: List[Dict], seqs: List[torch.Tensor], mesh,
+                    n_heads: int, ring: bool) -> List[torch.Tensor]:
+    """The forward at every local position: ``weights`` each position's
+    whole parameters by flat name, ``seqs`` its ``[b, l]`` block of
+    tokens (the batch rows and, under the ring, the sequence run of its
+    ``"seq"`` index); returns each position's ``[b, l, D]`` hidden
+    states, the pads zeroed. Collective under the ring."""
+    seq_idx = [mesh.axis_index(p, "seq") if ring else 0
+               for p in mesh.local_positions()]
+    h = []
+    for w, s, si in zip(weights, seqs, seq_idx):
+        l = s.shape[1]
+        h.append(F.embedding(s, w["emb"])
+                 + w["pos"][si * l:(si + 1) * l][None])
+    key_mask = [s != 0 for s in seqs]
+    n_layers = sum(1 for k in weights[0] if k.endswith(".wqkv"))
+    for i in range(n_layers):
+        prefix = f"layers.{i}"
+        heads = [_heads(hj, w, prefix, n_heads)
+                 for hj, w in zip(h, weights)]
+        if ring:
+            att = ring_attention_traced(
+                *([x[j] for x in heads] for j in range(3)), mesh,
+                axis="seq", causal=True, key_mask=key_mask)
+        else:
+            att = [blockwise_attention(*x, causal=True, key_mask=m)
+                   for x, m in zip(heads, key_mask)]
+        h = [_finish_layer(hj, a, w, prefix)
+             for hj, a, w in zip(h, att, weights)]
+    return [torch.where(m[..., None], _norm(hj, w, "ln_f"), 0.0)
+            for hj, m, w in zip(h, key_mask, weights)]
 
 
 def forward(net: SeqRecNet, seqs: torch.Tensor, mesh=None,
@@ -396,27 +501,37 @@ def seqrec_fingerprint(item_vocab: np.ndarray, p: SeqRecParams,
 
 # -- training -------------------------------------------------------------------
 
-def _opt_leaves(net: SeqRecNet, optimizer, n_layers: int) -> List[np.ndarray]:
+def _opt_leaves(step: int, first: Dict[str, torch.Tensor],
+                second: Dict[str, torch.Tensor], n_layers: int
+                ) -> List[np.ndarray]:
     """The optimizer state as optax adamw's leaf list: the step count
-    (int32), then every first moment, then every second moment, in
-    :func:`param_names` order."""
-    params = dict(net.named_parameters())
-    states = [optimizer.state[params[n]] for n in param_names(n_layers)]
-    count = np.asarray(int(states[0]["step"]), np.int32)
-    return ([count] + [s["exp_avg"] for s in states]
-            + [s["exp_avg_sq"] for s in states])
-
-
-def _restore_opt(net: SeqRecNet, optimizer, leaves, n_layers: int,
-                 epoch0: int) -> None:
-    """Load a snapshot's optax leaves into ``optimizer``; leaves whose
-    count, shape or dtype differ from a fresh state's leave the moments
-    at zero (a warning, the reference's rule)."""
+    (int32), then every first moment, then every second moment (whole),
+    in :func:`param_names` order."""
     names = param_names(n_layers)
-    params = dict(net.named_parameters())
+    return ([np.asarray(int(step), np.int32)]
+            + [first[n] for n in names] + [second[n] for n in names])
+
+
+def _net_opt_leaves(net: SeqRecNet, optimizer, n_layers: int
+                    ) -> List[np.ndarray]:
+    """:func:`_opt_leaves` of a one-device train."""
+    states = {n: optimizer.state[t] for n, t in net.named_parameters()}
+    some = next(iter(states.values()))
+    return _opt_leaves(some["step"],
+                       {n: st["exp_avg"] for n, st in states.items()},
+                       {n: st["exp_avg_sq"] for n, st in states.items()},
+                       n_layers)
+
+
+def _snapshot_moments(leaves, shapes: Dict[str, tuple], n_layers: int,
+                      epoch0: int):
+    """``(step, first moments, second moments)`` of a snapshot's optax
+    leaves, whole, by name, when their count, shapes and dtypes are a
+    fresh state's for parameters of ``shapes``; else None and a warning
+    (the moments restart at zero: the reference's rule)."""
+    names = param_names(n_layers)
     want = ([((), np.dtype(np.int32))]
-            + [(tuple(params[n].shape), np.dtype(np.float32))
-               for n in names] * 2)
+            + [(tuple(shapes[n]), np.dtype(np.float32)) for n in names] * 2)
     compatible = len(leaves) == len(want) and all(
         np.asarray(s).shape == shape and np.asarray(s).dtype == dtype
         for s, (shape, dtype) in zip(leaves, want))
@@ -426,17 +541,30 @@ def _restore_opt(net: SeqRecNet, optimizer, leaves, n_layers: int,
             "current optimizer layout (%d leaves saved, %d expected, "
             "or shape/dtype mismatch) — resuming params at epoch %d "
             "with RESET adam moments", len(leaves), len(want), epoch0)
-        return
+        return None
     n = len(names)
     step = torch.tensor(float(np.asarray(leaves[0])), dtype=torch.float32)
-    for i, name in enumerate(names):
-        prm = params[name]
+    first = {name: torch.from_numpy(np.array(leaves[1 + i]))
+             for i, name in enumerate(names)}
+    second = {name: torch.from_numpy(np.array(leaves[1 + n + i]))
+              for i, name in enumerate(names)}
+    return step, first, second
+
+
+def _restore_opt(net: SeqRecNet, optimizer, leaves, n_layers: int,
+                 epoch0: int) -> None:
+    """Load a snapshot's optax leaves into a one-device train's
+    ``optimizer`` (:func:`_snapshot_moments`' rule)."""
+    params = dict(net.named_parameters())
+    got = _snapshot_moments(leaves, {n: t.shape for n, t in params.items()},
+                            n_layers, epoch0)
+    if got is None:
+        return
+    step, first, second = got
+    for name, prm in params.items():
         optimizer.state[prm] = {
-            "step": step.clone(),
-            "exp_avg": torch.from_numpy(np.array(leaves[1 + i])).to(
-                prm.device),
-            "exp_avg_sq": torch.from_numpy(np.array(leaves[1 + n + i])).to(
-                prm.device)}
+            "step": step.clone(), "exp_avg": first[name].to(prm.device),
+            "exp_avg_sq": second[name].to(prm.device)}
 
 
 def _restored_params(state: Dict, expect: Dict[str, np.ndarray]
@@ -477,22 +605,223 @@ def epoch_order(n: int, p: SeqRecParams, epoch: int) -> np.ndarray:
     return order
 
 
+class _NetTrain:
+    """The one-device train: :class:`SeqRecNet` and AdamW on ``dev``."""
+
+    def __init__(self, state: Dict[str, np.ndarray], p: SeqRecParams, dev):
+        self.p, self.dev = p, dev
+        self.net = SeqRecNet.from_state(state, p.n_heads, dev)
+        self.optimizer = make_optimizer(self.net, p)
+        self.step = make_train_step(self.net, self.optimizer, p)
+
+    def restore_opt(self, leaves, epoch0: int) -> None:
+        _restore_opt(self.net, self.optimizer, leaves, self.p.n_layers,
+                     epoch0)
+
+    def snapshot(self) -> Dict:
+        return {"params": to_reference_params(self.net.state_dict()),
+                "opt_leaves": _net_opt_leaves(self.net, self.optimizer,
+                                              self.p.n_layers)}
+
+    def model(self, all_items: np.ndarray) -> "SeqRecModel":
+        model = SeqRecModel(item_vocab=all_items,
+                            params=self.net.state_dict(), hyper=self.p,
+                            device=self.dev)
+        model._net = self.net.requires_grad_(False).eval()
+        return model
+
+
+#: the leaves the reference's ``shard_params`` lays over "model", and
+#: the dimension each splits along
+_TP_DIM = {"emb": 0, "wqkv": 1, "w1": 1, "w2": 0}
+
+
+def _tp_dim(name: str) -> Optional[int]:
+    return _TP_DIM.get(name.rsplit(".", 1)[-1])
+
+
+class _MeshTrain:
+    """The train over a mesh of positions (the module docstring): each
+    local position's parameters (``"model"`` shards or whole copies) on
+    its device, one AdamW over all of them, a step run at every local
+    position with the collectives of ``parallel/collectives``. Every
+    process of a mesh that spans processes runs the same steps."""
+
+    def __init__(self, mesh, state: Dict[str, np.ndarray], p: SeqRecParams):
+        self.mesh, self.p = mesh, p
+        self.ring = _uses_ring(mesh, p.attention_impl)
+        self.spec = _token_spec(mesh, self.ring)
+        #: positions that repeat each token's compute (the axes that do
+        #: not split the tokens): each weighs its loss by one over it
+        self.repeat = int(np.prod([n for a, n in mesh.shape.items()
+                                   if a not in self.spec]))
+        self.tp = int(mesh.shape.get("model", 1))
+        self.names = param_names(p.n_layers)
+        self.sharded = [n for n in self.names
+                        if self.tp > 1 and _tp_dim(n) is not None]
+        self.whole = [n for n in self.names if n not in self.sharded]
+        self.devs = mesh.local_devices()
+        self.params = [
+            {n: nn.Parameter(self._shard(torch.from_numpy(state[n]), n,
+                                         pos).to(dev))
+             for n in self.names}
+            for pos, dev in zip(mesh.local_positions(), self.devs)]
+        self.optimizer = torch.optim.AdamW(
+            [t for w in self.params for t in w.values()],
+            lr=p.learning_rate, betas=ADAMW_BETAS, eps=ADAMW_EPS,
+            weight_decay=ADAMW_WEIGHT_DECAY)
+
+    def _shard(self, full: torch.Tensor, name: str, pos: int
+               ) -> torch.Tensor:
+        """Position ``pos``'s part of the whole parameter ``full``."""
+        if name not in self.sharded:
+            return full.clone()
+        dim = _tp_dim(name)
+        size = full.shape[dim] // self.tp
+        i = self.mesh.axis_index(pos, "model")
+        return full.narrow(dim, i * size, size).clone()
+
+    def _whole(self, tensors: List[Dict[str, torch.Tensor]]
+               ) -> List[Dict[str, torch.Tensor]]:
+        """Each local position's tensors by name made whole: its copies
+        as they are, its ``"model"`` shards gathered (one ``all_gather``
+        of every shard flattened; its backward reduces the gradients
+        back to the shards)."""
+        from predictionio_tpu_torch.parallel.collectives import all_gather
+
+        out = [{n: t[n] for n in self.whole} for t in tensors]
+        if not self.sharded:
+            return out
+        flat = [torch.cat([t[n].reshape(-1) for n in self.sharded])
+                for t in tensors]
+        for o, t, g in zip(out, tensors,
+                           all_gather(flat, self.mesh, "model")):
+            parts = g.view(self.tp, -1)
+            off = 0
+            for n in self.sharded:
+                size = t[n].numel()
+                o[n] = torch.cat([parts[m, off:off + size].view(t[n].shape)
+                                  for m in range(self.tp)], dim=_tp_dim(n))
+                off += size
+        return out
+
+    def step(self, seqs: torch.Tensor, targets: torch.Tensor
+             ) -> torch.Tensor:
+        """One AdamW step on the whole batch ``seqs``/``targets`` (every
+        process passes the same); returns the global loss (a scalar on
+        the first local device, detached)."""
+        from predictionio_tpu_torch.parallel.collectives import psum
+
+        mesh = self.mesh
+        weights = self._whole(self.params)
+        s_blocks = split_blocks(seqs, mesh, self.spec)
+        t_blocks = split_blocks(targets, mesh, self.spec)
+        hidden = _forward_blocks(weights, s_blocks, mesh, self.p.n_heads,
+                                 self.ring)
+        # the global mask count: every process holds the whole batch
+        den = (targets > 0).sum().clamp_min(1).float() * self.repeat
+        parts = []
+        for w, hj, tj in zip(weights, hidden, t_blocks):
+            logits = hj @ w["emb"].T
+            nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  tj.reshape(-1), reduction="none")
+            parts.append((nll.reshape(tj.shape) * (tj > 0).float()).sum()
+                         / den.to(hj.device))
+        self.optimizer.zero_grad(set_to_none=True)
+        sum(x.to(self.devs[0]) for x in parts).backward()
+        # each gradient summed over the axes its copies repeat on; the
+        # loss rides with the whole parameters' gradients
+        loss = None
+        for names, axes in (
+                (self.whole, mesh.axis_names),
+                (self.sharded, [a for a in mesh.axis_names
+                                if a != "model"])):
+            if not names:
+                continue
+            vec = [torch.cat([w[n].grad.reshape(-1) for n in names]
+                             + ([x.detach().reshape(1)]
+                                if names is self.whole else []))
+                   for w, x in zip(self.params, parts)]
+            for axis in axes:
+                vec = psum(vec, mesh, axis)
+            for w, v in zip(self.params, vec):
+                off = 0
+                for n in names:
+                    size = w[n].numel()
+                    w[n].grad = v[off:off + size].view_as(w[n]).clone()
+                    off += size
+            if names is self.whole:
+                loss = vec[0][-1]
+        self.optimizer.step()
+        return loss
+
+    def whole_state(self) -> Dict[str, torch.Tensor]:
+        """The whole parameters by name (every process gets them)."""
+        with torch.no_grad():
+            w = self._whole(self.params)[0]
+        return {n: t.detach().cpu() for n, t in w.items()}
+
+    def restore_opt(self, leaves, epoch0: int) -> None:
+        """Load a snapshot's whole optax leaves, sharded as the
+        parameters are (:func:`_snapshot_moments`' rule)."""
+        shapes = {n: t.shape for n, t in self.whole_state().items()}
+        got = _snapshot_moments(leaves, shapes, self.p.n_layers, epoch0)
+        if got is None:
+            return
+        step, first, second = got
+        for pos, w in zip(self.mesh.local_positions(), self.params):
+            for n, prm in w.items():
+                self.optimizer.state[prm] = {
+                    "step": step.clone(),
+                    "exp_avg": self._shard(first[n], n, pos).to(prm.device),
+                    "exp_avg_sq": self._shard(second[n], n, pos).to(
+                        prm.device)}
+
+    def snapshot(self) -> Dict:
+        """The reference's snapshot: whole parameters and moments."""
+        moments = [[{n: self.optimizer.state[prm][key]
+                     for n, prm in w.items()} for w in self.params]
+                   for key in ("exp_avg", "exp_avg_sq")]
+        first, second = (
+            {n: t.cpu().numpy() for n, t in self._whole(m)[0].items()}
+            for m in moments)
+        step = self.optimizer.state[self.params[0]["emb"]]["step"]
+        return {"params": to_reference_params(self.whole_state()),
+                "opt_leaves": _opt_leaves(step, first, second,
+                                          self.p.n_layers)}
+
+    def model(self, all_items: np.ndarray) -> "SeqRecModel":
+        return SeqRecModel(item_vocab=all_items, params=self.whole_state(),
+                           hyper=self.p, device=self.devs[0])
+
+
 def train_seqrec(mesh, sessions: Sequence[Sequence[str]], p: SeqRecParams,
                  checkpointer=None, device=None,
                  losses: Optional[list] = None,
                  timings: Optional[list] = None) -> SeqRecModel:
     """Id-assign, pad, and train with AdamW on ``device`` (``cuda``
-    unless the caller asks for the CPU); the model serves there.
-    ``sessions`` are per-user time-ordered item-id lists. With a
-    ``workflow.checkpoint.Checkpointer``, (params, optimizer state)
-    snapshot every ``interval`` epochs and a preempted run resumes from
-    the latest one. ``losses`` receives each step's loss, ``timings``
-    each epoch's seconds (the device synchronised)."""
-    refuse_multi_device(mesh, "seqrec training")
-    dev = resolve_device(device)
+    unless the caller asks for the CPU), or over ``mesh`` when it has
+    more than one position or the attention is the ring (the module
+    docstring; the model serves on the first local device). ``sessions``
+    are per-user time-ordered item-id lists, every process passing them
+    all. With a ``workflow.checkpoint.Checkpointer``, (params, optimizer
+    state) snapshot every ``interval`` epochs and a preempted run
+    resumes from the latest one. ``losses`` receives each step's loss,
+    ``timings`` each epoch's seconds (the device synchronised). The
+    vocabulary pads to a multiple of the mesh's ``"model"`` size (the
+    reference's rule)."""
+    on_mesh = _uses_ring(mesh, p.attention_impl) or (
+        mesh is not None and mesh.size > 1)
+    if on_mesh and checkpointer is not None and mesh.spans_processes:
+        raise NotImplementedError(
+            "a seqrec checkpoint over a mesh that spans processes: the "
+            "reference cannot write it either (its Checkpointer.save "
+            "calls np.asarray on parameters that span processes)")
+    dev = mesh.local_devices()[0] if on_mesh else resolve_device(device)
     all_items, inputs, targets = encode_sessions(sessions, p.max_len)
+    tp = int(mesh.shape.get("model", 1)) if on_mesh else 1
     state = _flatten(init_params(np.random.default_rng(p.seed),
-                                 len(all_items), p))
+                                 len(all_items), p, vocab_multiple=tp))
     fp = seqrec_fingerprint(all_items, p, sessions)
     epoch0 = 0
     restored_opt_leaves = None
@@ -504,38 +833,44 @@ def train_seqrec(mesh, sessions: Sequence[Sequence[str]], p: SeqRecParams,
         if restored is not None:
             epoch0, state = e, restored
             restored_opt_leaves = saved.get("opt_leaves")
-    net = SeqRecNet.from_state(state, p.n_heads, dev)
-    optimizer = make_optimizer(net, p)
+    n = len(inputs)
+    bs = min(p.batch_size, n)
+    if on_mesh:
+        _check_divides(mesh, _token_spec(mesh, p.attention_impl == "ring"),
+                       bs, p.max_len)
+    trainer = _MeshTrain(mesh, state, p) if on_mesh \
+        else _NetTrain(state, p, dev)
     if restored_opt_leaves is not None:
-        _restore_opt(net, optimizer, restored_opt_leaves, p.n_layers, epoch0)
-    step = make_train_step(net, optimizer, p, mesh)
+        trainer.restore_opt(restored_opt_leaves, epoch0)
 
     # the padded sessions go to the device once; batches index them there
     inputs_d = torch.from_numpy(inputs.astype(np.int64)).to(dev)
     targets_d = torch.from_numpy(targets.astype(np.int64)).to(dev)
-    n = len(inputs)
-    bs = min(p.batch_size, n)
     for epoch in range(epoch0, p.epochs):
         t0 = time.perf_counter()
         order_d = torch.from_numpy(epoch_order(n, p, epoch)).to(dev)
         epoch_losses = []
         for lo in range(0, n - bs + 1, bs):
             idx = order_d[lo:lo + bs]
-            epoch_losses.append(step(inputs_d[idx], targets_d[idx]))
+            epoch_losses.append(trainer.step(inputs_d[idx], targets_d[idx]))
         if losses is not None and epoch_losses:
             losses.extend(torch.stack(epoch_losses).cpu().tolist())
         if timings is not None:
-            synchronize(dev)
+            for d in {dev, *(trainer.devs if on_mesh else ())}:
+                synchronize(d)
             timings.append(time.perf_counter() - t0)
         done = epoch + 1
         if checkpointer is not None and checkpointer.due(done) \
                 and done < p.epochs:
-            checkpointer.save(done, {
-                "params": to_reference_params(net.state_dict()),
-                "opt_leaves": _opt_leaves(net, optimizer, p.n_layers)},
-                fingerprint=fp)
-    del optimizer
-    model = SeqRecModel(item_vocab=all_items, params=net.state_dict(),
-                        hyper=p, device=dev)
-    model._net = net.requires_grad_(False).eval()
-    return model
+            checkpointer.save(done, trainer.snapshot(), fingerprint=fp)
+    return trainer.model(all_items)
+
+
+def _check_divides(mesh, spec, batch: int, max_len: int) -> None:
+    """The batch must split evenly over ``"data"`` and, under the ring,
+    the sessions' length over ``"seq"``."""
+    for size, axis, what in ((batch, spec[0], "batch size"),
+                             (max_len, spec[1], "seq len")):
+        if axis is not None and size % mesh.shape[axis]:
+            raise ValueError(f"{what} {size} not divisible by mesh axis "
+                             f"'{axis}' size {mesh.shape[axis]}")

@@ -16,27 +16,75 @@ Each collective combines the blocks of a position's axis group in
 position order, so every process computes the same result bit for bit,
 and the result equals that of a single-process mesh of the same
 positions.
+
+The collectives are differentiable (seqrec trains through them). Inside
+one process they are torch ops (``sum``, ``cat``, ``chunk``, a reordered
+list), so autograd runs through them as it runs through any op. The
+cross-process leg (:func:`gather_positions`: one ``all_gather`` of every
+process's blocks) is a ``torch.autograd.Function`` when a block needs a
+gradient: its backward sums, over the processes, the gradients each
+process took of the blocks it received, and hands each process those
+of its own blocks (one ``all_reduce``, the reduce-scatter that
+transposes the all-gather). Composed with the in-process combine, the
+backward of ``psum`` is a ``psum`` of the gradients, of ``all_gather`` a
+``reduce_scatter``, of ``all_to_all`` the inverse ``all_to_all`` and of
+``ring_pass`` the ring the other way round. The received blocks live on
+the device of this process's first block, so every backward node of a
+train runs on one autograd thread, in the graph's order, and every
+process issues its backward collectives in the same order. Without a
+gradient (ALS) the leg is the plain detached exchange.
+
+:func:`staged_stats` reads the seconds, calls and bytes of the
+cross-process leg (host staging and the gloo call, forward and
+backward) since :func:`reset_staged_stats`.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 
-def gather_positions(blocks: Sequence[torch.Tensor], mesh) -> List:
-    """Every position's block in flat position order: the local ones as
-    given, another process's as CPU tensors received through the group.
-    Blocks have one shape and dtype across positions (SPMD), and every
-    process of the group holds positions of the mesh."""
-    blocks = list(blocks)
-    if len(blocks) != len(mesh.local_positions()):
-        raise ValueError(f"{len(blocks)} blocks for "
-                         f"{len(mesh.local_positions())} local positions")
-    if not mesh.spans_processes:
-        return blocks
+_STAGED_LOCK = threading.Lock()
+_STAGED = {"seconds": 0.0, "calls": 0, "bytes": 0}
+
+
+def reset_staged_stats() -> None:
+    """Zero the cross-process leg's counters."""
+    with _STAGED_LOCK:
+        _STAGED.update(seconds=0.0, calls=0, bytes=0)
+
+
+def staged_stats() -> dict:
+    """The cross-process leg's seconds, calls and bytes moved (each
+    host buffer counted once) since the last reset."""
+    with _STAGED_LOCK:
+        return dict(_STAGED)
+
+
+def _note_staged(t0: float, nbytes: int) -> None:
+    with _STAGED_LOCK:
+        _STAGED["seconds"] += time.perf_counter() - t0
+        _STAGED["calls"] += 1
+        _STAGED["bytes"] += int(nbytes)
+
+
+def _start_staging(device: torch.device) -> float:
+    """The clock of one cross-process call, started once ``device`` has
+    run its queued work (the copy to the host would wait for it)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _layout(mesh) -> Tuple[np.ndarray, list, int]:
+    """``(each flat position's process, each position's slot among its
+    process's positions, the most positions a process holds)``; raises
+    unless every process of the group holds positions of the mesh."""
     import torch.distributed as dist
 
     world = dist.get_world_size()
@@ -44,23 +92,96 @@ def gather_positions(blocks: Sequence[torch.Tensor], mesh) -> List:
     if sorted(set(procs.tolist())) != list(range(world)):
         raise ValueError("a mesh across processes must hold positions of "
                          f"every process of the group (world {world})")
-    counts = np.bincount(procs, minlength=world)
-    n_max = int(counts.max())
+    seen = np.zeros(world, np.int64)
+    slots = []
+    for p in procs:
+        slots.append(int(seen[p]))
+        seen[p] += 1
+    return procs, slots, int(seen.max())
+
+
+def _gather_remote(blocks: Sequence[torch.Tensor], mesh) -> List:
+    """Every other process's blocks, in flat position order, on the
+    device of ``blocks[0]``: one ``all_gather`` of a host buffer of each
+    process's blocks (detached)."""
+    import torch.distributed as dist
+
+    procs, slots, n_max = _layout(mesh)
+    dev = blocks[0].device
+    t0 = _start_staging(dev)
     buf = torch.zeros((n_max,) + tuple(blocks[0].shape),
                       dtype=blocks[0].dtype)
     for j, b in enumerate(blocks):
         buf[j] = b.detach().to("cpu")
-    outs = [torch.empty_like(buf) for _ in range(world)]
+    outs = [torch.empty_like(buf) for _ in range(dist.get_world_size())]
     dist.all_gather(outs, buf)
-    seen = np.zeros(world, np.int64)
-    result = []
-    me = mesh.process_index
+    remote = [outs[p][j].to(dev) for p, j in zip(procs, slots)
+              if p != mesh.process_index]
+    _note_staged(t0, buf.numel() * buf.element_size())
+    return remote
+
+
+class _CrossProcessGather(torch.autograd.Function):
+    """The cross-process leg with a gradient: forward, the other
+    processes' blocks (:func:`_gather_remote`); backward, each local
+    block's gradient from the other processes, summed over them (one
+    ``all_reduce`` of a buffer of every position's gradient)."""
+
+    @staticmethod
+    def forward(ctx, mesh, *blocks):
+        ctx.mesh = mesh
+        ctx.local = [(b.shape, b.dtype, b.device) for b in blocks]
+        return tuple(_gather_remote(blocks, mesh))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        import torch.distributed as dist
+
+        mesh = ctx.mesh
+        procs, slots, n_max = _layout(mesh)
+        shape, dtype, dev = ctx.local[0]
+        t0 = _start_staging(dev)
+        buf = torch.zeros((dist.get_world_size(), n_max) + tuple(shape),
+                          dtype=dtype)
+        remote = iter(grads)
+        for p, j in zip(procs, slots):
+            if p != mesh.process_index:
+                g = next(remote)
+                if g is not None:
+                    buf[p, j] = g.detach().to("cpu")
+        dist.all_reduce(buf)
+        own = buf[mesh.process_index]
+        out = [own[j].to(d) for j, (_s, _t, d) in enumerate(ctx.local)]
+        _note_staged(t0, buf.numel() * buf.element_size())
+        return (None, *out)
+
+
+def _local_blocks(blocks: Sequence[torch.Tensor], mesh) -> List:
+    """``blocks`` as a list, one a local position (else ``ValueError``)."""
+    blocks = list(blocks)
+    if len(blocks) != len(mesh.local_positions()):
+        raise ValueError(f"{len(blocks)} blocks for "
+                         f"{len(mesh.local_positions())} local positions")
+    return blocks
+
+
+def gather_positions(blocks: Sequence[torch.Tensor], mesh) -> List:
+    """Every position's block in flat position order: the local ones as
+    given, another process's received through the group onto the device
+    of this process's first block (through :class:`_CrossProcessGather`
+    when a block needs a gradient). Blocks have one shape and dtype
+    across positions (SPMD), and every process of the group holds
+    positions of the mesh."""
+    blocks = _local_blocks(blocks, mesh)
+    if not mesh.spans_processes:
+        return blocks
+    if torch.is_grad_enabled() and any(b.requires_grad for b in blocks):
+        remote = iter(_CrossProcessGather.apply(mesh, *blocks))
+    else:
+        remote = iter(_gather_remote(blocks, mesh))
     local = iter(blocks)
-    for p in procs:
-        j = int(seen[p])
-        seen[p] += 1
-        result.append(next(local) if p == me else outs[p][j])
-    return result
+    return [next(local) if p == mesh.process_index else next(remote)
+            for p in mesh.process_indices.reshape(-1)]
 
 
 def _axis_rows(mesh, axis: str) -> Dict[int, Tuple[Tuple[int, ...], int]]:
@@ -81,9 +202,16 @@ def _axis_rows(mesh, axis: str) -> Dict[int, Tuple[Tuple[int, ...], int]]:
 def _per_local(mesh, axis: str, blocks, combine: Callable) -> List:
     """``combine(group, index, device)`` for each local position: its
     axis group's blocks in axis order, its index in that group, its
-    device."""
-    every = gather_positions(blocks, mesh)
+    device. When no group of ``axis`` holds positions of two processes
+    (a property of the mesh, the same in every process) nothing crosses
+    the group."""
     rows = _axis_rows(mesh, axis)
+    procs = mesh.process_indices.reshape(-1)
+    if any(len({procs[q] for q in row}) > 1 for row, _ in rows.values()):
+        every = gather_positions(blocks, mesh)
+    else:
+        every = dict(zip(mesh.local_positions(),
+                         _local_blocks(blocks, mesh)))
     flat_dev = mesh.devices.reshape(-1)
     out = []
     for p in mesh.local_positions():

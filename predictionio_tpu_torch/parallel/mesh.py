@@ -85,6 +85,11 @@ class Mesh:
                 "multi-process layouts need process-contiguous positions")
         return range(lo, hi)
 
+    def axis_index(self, position: int, axis: str) -> int:
+        """The flat ``position``'s index along ``axis``."""
+        coords = np.unravel_index(int(position), self.devices.shape)
+        return int(coords[self.axis_names.index(axis)])
+
     def local_devices(self) -> list:
         """Each local position's device, in position order."""
         flat = self.devices.reshape(-1)

@@ -11,9 +11,8 @@ compared against f32 references, and TF32 keeps about three digits.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
-import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -41,19 +40,3 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def refuse_multi_device(mesh, what: str) -> None:
-    """The models of ROADMAP item A12's part 2 (naive Bayes, logistic
-    regression, the forest, seqrec) train on one device. A ``mesh`` of
-    more than one position (its ``devices``, or a sequence of devices)
-    raises ``NotImplementedError``; ``None`` or one position passes. ALS
-    trains over a mesh (A12 part 1)."""
-    if mesh is None:
-        return
-    n = np.asarray(getattr(mesh, "devices", mesh), dtype=object).size
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} over a mesh of {n} positions: its multi-device "
-            "training is not ported to PyTorch yet (ROADMAP item A12, "
-            "part 2)")

@@ -177,18 +177,36 @@ def test_device_branch_widens_uint16_on_the_device(monkeypatch):
 
 
 @pytest.mark.parametrize("fit", ["nb", "logreg", "forest"])
-def test_a_mesh_of_several_devices_is_refused(fit):
+def test_a_mesh_of_several_positions_fits_like_one_device(monkeypatch,
+                                                          fit):
+    """Two positions (the CPU repeated) fit the one-device model: the
+    naive Bayes counts and the forest's nodes exactly, logistic
+    regression within ``LOGREG_TOL``; a one-position mesh is the
+    one-device path."""
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(port_nb, "DEVICE_MIN_SIZE", 0)
     X, labels = spam_data(40, 4)
-    call = {"nb": lambda m: port_nb.train_multinomial_nb(
-                X, labels, mesh=m, device="cpu"),
-            "logreg": lambda m: port_logreg.train_logreg(
-                X, labels, mesh=m, device="cpu"),
-            "forest": lambda m: port_forest.train_forest(
-                X, labels, port_forest.ForestParams(num_trees=2),
-                mesh=m, device="cpu")}[fit]
-    with pytest.raises(NotImplementedError, match="A12"):
-        call(types.SimpleNamespace(devices=np.array(jax.devices()[:2])))
-    call(types.SimpleNamespace(devices=np.array(jax.devices()[:1])))
+    call = {"nb": lambda **kw: port_nb.train_multinomial_nb(
+                X, labels, **kw),
+            "logreg": lambda **kw: port_logreg.train_logreg(
+                X, labels, **kw),
+            "forest": lambda **kw: port_forest.train_forest(
+                X, labels, port_forest.ForestParams(num_trees=3), **kw)}[fit]
+    one = call(device="cpu")
+    two = call(mesh=make_mesh(devices=["cpu", "cpu"]))
+    single = call(mesh=make_mesh(devices=["cpu"]), device="cpu")
+    fields = {"nb": ("log_prob", "log_prior"), "logreg": ("W", "b"),
+              "forest": ("feat", "thr", "leaf")}[fit]
+    for k in fields:
+        np.testing.assert_allclose(getattr(two, k), getattr(one, k),
+                                   atol=LOGREG_TOL if fit == "logreg" else 0,
+                                   rtol=0)
+        np.testing.assert_array_equal(getattr(single, k), getattr(one, k))
+    assert list(two.predict(X)) == list(one.predict(X))
+    if fit == "nb":
+        assert two.branches["train_mesh"] == 1
+        assert single.branches["train_device"] == 1
 
 
 # -- categorical NB (the e2 fixture of tests/test_models.py) ---------------------

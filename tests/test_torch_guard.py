@@ -1273,6 +1273,27 @@ def test_two_process_child_loads_no_jax(tmp_path):
     assert [r["forbidden_modules"] for r in results.values()] == [[], []]
 
 
+def test_two_process_classify_similar_and_session_trains_on_a_mesh_load_no_jax(
+        tmp_path):
+    """The classification engine's three algorithms, the similar-product
+    cooccurrence algorithm and the session engine's algorithm, each
+    trained on ``mesh_of(ctx)`` by two processes of one gloo group
+    (``tests/torch_distributed_child.py`` phase ``engines``): neither
+    process loads jax or the JAX package, and both train the same
+    models."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    try:
+        from test_torch_parallel import run_children
+    finally:
+        sys.path.pop(0)
+    results = run_children("engines", tmp_path)
+    assert [r["forbidden_modules"] for r in results.values()] == [[], []]
+    r0, r1 = results[0], results[1]
+    for key in ("naive", "logreg", "forest", "cooccurrence", "sessionrec"):
+        assert r0[key] == r1[key], key
+    assert r0["cooccurrence"] and r0["sessionrec"]
+
+
 def test_scan_covers_the_loadtest_modules():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
                if PKG in p.parents}

@@ -154,7 +154,7 @@ def test_shard_partitions_equals_the_reference():
             port_part.shard_partitions(*bad, 4)
 
 
-def test_parquet_layout_and_sharded_read_refuse(tmp_path):
+def test_parquet_layout_refuses_and_sharded_read_partitions(tmp_path):
     """The parquet layout still refuses; a sharded read (which refused
     before multi-process training was ported) partitions the rows: the
     reader shards of one snapshot are disjoint and complete, and a

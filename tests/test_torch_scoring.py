@@ -367,7 +367,7 @@ def test_scorer_config_precedence_matches_reference(monkeypatch, tmp_path,
     assert got.cache_key() == want.cache_key()
 
 
-def test_sharded_scoring_is_not_ported(monkeypatch):
+def test_scorer_shards_env_serves_sharded(monkeypatch):
     """Sharded serving is ported now: ``PIO_SCORER_SHARDS=2`` resolves
     to two shards (it raised before) and a model scores through a
     ``ShardedScorer`` whose answers are the exact top-k."""

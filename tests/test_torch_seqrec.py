@@ -170,9 +170,18 @@ def test_attention_impl_and_mesh_rules():
     with pytest.raises(ValueError, match="unknown attention_impl"):
         port_seqrec.train_seqrec(None, sessions, p, device="cpu")
     p.attention_impl = "flash"
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_seqrec.train_seqrec(["cpu:0", "cpu:1"], sessions, p,
-                                 device="cpu")
+    # a mesh of two positions (the CPU repeated) trains the one-device
+    # model: the same steps, the batch split over "data"
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    one_losses, two_losses = [], []
+    one = port_seqrec.train_seqrec(None, sessions, p, device="cpu",
+                                   losses=one_losses)
+    two = port_seqrec.train_seqrec(make_mesh(devices=["cpu"] * 2),
+                                   sessions, p, losses=two_losses)
+    np.testing.assert_allclose(two_losses, one_losses, rtol=LOSS_TOL)
+    for k, v in two.params.items():
+        assert rel(v, one.params[k]) <= PARAM_TOL, k
 
 
 # -- host helpers -----------------------------------------------------------------

@@ -218,14 +218,33 @@ def test_engine_train_and_predict_like_reference(sess_store):
                 [(s.item, s.score) for s in want.item_scores], SCORE_TOL)
 
 
-def test_a_mesh_of_several_devices_is_refused(sess_store, mesh8):
-    ctx = types.SimpleNamespace(device="cpu", mesh=mesh8)
+def test_engine_trains_on_a_mesh_like_reference(sess_store):
+    """``SeqRecAlgorithm.train`` on ``mesh_of(ctx)``: a 2 x 2 ``("data",
+    "model")`` mesh of positions (the CPU repeated) trains the model the
+    reference's trains on a 2 x 2 mesh of its devices, and answers as
+    it does."""
+    import jax
+    from jax.sharding import Mesh as RefMesh
+
+    from predictionio_tpu.models.seqrec import train_seqrec as ref_train
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    ctx = types.SimpleNamespace(device="cpu", mesh=mesh)
     td = port_sr.SessionPreparator().prepare(
         ctx, port_sr.SessionDataSource(
             port_sr.DataSourceParams(app_name=APP)).read_training(ctx))
-    with pytest.raises(NotImplementedError, match="A12"):
-        port_sr.SeqRecAlgorithm(port_sr.AlgorithmParams(**ALGO)).train(
-            ctx, td)
+    kw = dict(ALGO, epochs=3)
+    algo = port_sr.SeqRecAlgorithm(port_sr.AlgorithmParams(**kw))
+    model = algo.train(ctx, td)
+    want = ref_train(RefMesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                             ("data", "model")), td.sessions,
+                     ref_sr.AlgorithmParams(**kw))
+    for q in (["i03", "i04", "i05"], ["i14"], ["i07", "nope", "i09"]):
+        got = algo.predict(model, port_sr.Query(items=q, num=5))
+        assert_same_answers(
+            [(s.item, s.score) for s in got.item_scores],
+            want.recommend_next(q, 5), SCORE_TOL)
 
 
 def test_foldin_stays_off_for_sessionrec(sess_store):

@@ -18,7 +18,15 @@ Phases:
   checkpointed train whose resume process 0's snapshot decides; the
   partitioned read of a sqlite store through ``training_scan`` into
   ``build_distributed``; the recommendation engine's DataSource and
-  ``ALSAlgorithm.train``, and its replicated fallback.
+  ``ALSAlgorithm.train``, and its replicated fallback;
+* ``models`` — over the 2-position process mesh: the naive Bayes count
+  (its mesh branch), logistic regression and the forest, each process
+  then predicting its own whole X; ``cooccurrence_topn_distributed`` on
+  a disjoint half of the events in each process; ``run_sweep`` (one
+  group a process); seqrec over a data 1 x model 2 mesh;
+* ``engines`` — the classification engine's three algorithms, the
+  similar-product cooccurrence algorithm and the session engine's
+  algorithm, each trained on ``mesh_of(ctx)`` (the process mesh).
 
 It imports neither jax nor the JAX package.
 """
@@ -233,6 +241,182 @@ def _als(pid, nproc, work):
     return res
 
 
+def nb_data(n=400, f=30, seed=12):
+    """Poisson counts [n, f] and two labels (the models phase's NB)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.poisson(1.0, size=(n, f)).astype(np.float32)
+    y = np.where(rng.random(n) < 0.4, "spam", "ham")
+    return X, y
+
+
+def logreg_data(seed=3):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(117, 5)).astype(np.float32)
+    y = np.where(X @ rng.normal(size=(5,)) > 0, "pos", "neg")
+    return X, y
+
+
+def forest_data(seed=4):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(150, 4)).astype(np.float32)
+    y = np.where(X[:, 0] + X[:, 1] > 0, "hi", "lo")
+    return X, y
+
+
+def cooc_events(seed=8, nu=60, ni=300, n=3000):
+    """(users, items, n_users, n_items) with duplicates; process ``p``
+    of two takes the events at ``p::2``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, nu, n).astype(np.int32),
+            rng.integers(0, ni, n).astype(np.int32), nu, ni)
+
+
+def sweep_grid():
+    """The models phase's sweep: its fold split and candidates (two
+    rank groups, one a process)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.models.als import ALSParams
+
+    users, items, ratings, n_users, n_items = make_toy_ratings()
+    fold_of = (np.arange(len(ratings)) % 3).astype(np.int32)
+    cands = [ALSParams(rank=r, num_iterations=3, reg=g, chunk_size=64)
+             for r in (2, 3) for g in (0.05, 0.1)]
+    return (users, items, ratings, fold_of, n_users, n_items), cands
+
+
+def seqrec_sessions(n=48, n_items=14, seed=7):
+    """Cyclic sessions over an ``n_items`` catalog (V = 15, padded to 16
+    under tp 2)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[f"i{(int(rng.integers(0, n_items)) + j) % n_items:02d}"
+             for j in range(int(rng.integers(3, 12)))] for _ in range(n)]
+
+
+#: the models phase's seqrec widths
+SEQREC = dict(d_model=16, n_heads=2, n_layers=1, max_len=8, epochs=2,
+              batch_size=8)
+
+
+def _models(pid, nproc):
+    import numpy as np
+
+    from predictionio_tpu_torch.models import forest, logreg, naive_bayes
+    from predictionio_tpu_torch.models.als_sweep import (
+        build_sweep_data, run_sweep,
+    )
+    from predictionio_tpu_torch.models.cooccurrence import (
+        cooccurrence_topn_distributed,
+    )
+    from predictionio_tpu_torch.models.seqrec import (
+        SeqRecParams, train_seqrec,
+    )
+    from predictionio_tpu_torch.ops import kernels
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    assert mesh.size == nproc and mesh.spans_processes
+    res = {}
+    naive_bayes.DEVICE_MIN_SIZE = 0          # the mesh branch at this size
+    X, y = nb_data()
+    nb = naive_bayes.train_multinomial_nb(X, y, mesh=mesh)
+    res.update(nb_log_prob=nb.log_prob.tolist(),
+               nb_log_prior=nb.log_prior.tolist(),
+               nb_predict=nb.predict(X).tolist(),
+               nb_branches=dict(nb.branches))
+    X, y = logreg_data()
+    lr = logreg.train_logreg(X, y, logreg.LogRegParams(
+        iterations=60, learning_rate=0.2), mesh=mesh)
+    res.update(lr_W=lr.W.tolist(), lr_b=lr.b.tolist(),
+               lr_predict=lr.predict(X).tolist())
+    X, y = forest_data()
+    fm = forest.train_forest(X, y, forest.ForestParams(
+        num_trees=7, max_depth=3, max_bins=16, seed=5), mesh=mesh)
+    res.update(forest_nodes=[fm.feat.tolist(), fm.thr.tolist(),
+                             fm.leaf.tolist()],
+               forest_predict=fm.predict(X).tolist())
+    users, items, nu, ni = cooc_events()
+    vals, ids = cooccurrence_topn_distributed(
+        mesh, users[pid::nproc], items[pid::nproc], nu, ni, 5)
+    res.update(cooc_vals=vals.tolist(), cooc_ids=ids.tolist())
+    args, cands = sweep_grid()
+    kernels.reset_counts()
+    sweep = run_sweep(build_sweep_data(*args), cands, device="cpu")
+    res.update(sweep_rmse=[c.heldout_rmse for c in sweep.candidates],
+               sweep_groups=[c.group for c in sweep.candidates],
+               sweep_batches=sweep.batch_sizes)
+    losses = []
+    sm = train_seqrec(make_mesh((1, nproc), ("data", "model"), device="cpu"),
+                      seqrec_sessions(), SeqRecParams(**SEQREC),
+                      losses=losses)
+    res.update(seqrec_losses=losses,
+               seqrec_params={k: v.tolist() for k, v in sm.params.items()},
+               seqrec_recs=sm.recommend_next(["i03", "i04", "i05"], 5))
+    return res
+
+
+def _engines(pid, nproc):
+    import types
+
+    import numpy as np
+    import torch
+
+    from predictionio_tpu_torch.engines import (
+        classification, sessionrec, similarproduct,
+    )
+    from predictionio_tpu_torch.engines.common import InteractionColumns
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    ctx = types.SimpleNamespace(mesh=make_mesh(device="cpu"),
+                                device=torch.device("cpu"),
+                                checkpointer=None)
+    X, y = forest_data()
+    pd = classification.PreparedData(points=[
+        classification.LabeledVector(label=float(lab == "hi"),
+                                     features=tuple(map(float, x[:3])))
+        for x, lab in zip(X, y)])
+    res = {}
+    for name, algo in (
+            ("naive", classification.NaiveBayesAlgorithm()),
+            ("logreg", classification.LogisticRegressionAlgorithm(
+                classification.LogisticRegressionParams(iterations=20))),
+            ("forest", classification.RandomForestAlgorithm(
+                classification.ForestParams(num_trees=3, max_depth=2,
+                                            max_bins=8)))):
+        pd_abs = pd if name != "naive" else classification.PreparedData(
+            points=[classification.LabeledVector(
+                label=p.label, features=tuple(abs(v) for v in p.features))
+                for p in pd.points])
+        model = algo.train(ctx, pd_abs)
+        res[name] = [algo.predict(model, classification.Query(
+            attr0=a, attr1=b, attr2=c)).label
+            for a, b, c in np.abs(X[:10, :3]).tolist()]
+    users, items, _nu, _ni = cooc_events(n=400, nu=20, ni=30)
+    views = InteractionColumns(
+        users=np.asarray([f"u{u}" for u in users], object),
+        items=np.asarray([f"i{i}" for i in items], object))
+    co = similarproduct.CooccurrenceAlgorithm().train(
+        ctx, similarproduct.PreparedData(users={}, items={}, views=views,
+                                         likes=views))
+    res["cooccurrence"] = {str(k): v for k, v in
+                           co.model.top_cooccurrences.items()}
+    sr = sessionrec.SeqRecAlgorithm(sessionrec.AlgorithmParams(
+        **dict(SEQREC, epochs=1))).train(
+        ctx, sessionrec.TrainingData(sessions=seqrec_sessions()))
+    res["sessionrec"] = sr.recommend_next(["i03", "i04"], 3)
+    return res
+
+
 def main() -> None:
     phase, pid, nproc, port, work = (sys.argv[1], int(sys.argv[2]),
                                      int(sys.argv[3]), sys.argv[4],
@@ -246,8 +430,10 @@ def main() -> None:
                            timeout_s=120)
     assert (process_index(), process_count()) == (pid, nproc)
     result = {"pid": pid}
-    result.update(_collectives(pid, nproc) if phase == "collectives"
-                  else _als(pid, nproc, work))
+    result.update({"collectives": lambda: _collectives(pid, nproc),
+                   "als": lambda: _als(pid, nproc, work),
+                   "models": lambda: _models(pid, nproc),
+                   "engines": lambda: _engines(pid, nproc)}[phase]())
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith("jax.")
                  or m == "predictionio_tpu"

@@ -662,18 +662,76 @@ Phases, each reported on its own lines:
                    seconds, its bytes and seconds in host-staged
                    collectives, and leg 7 its ms a step and their share.
 
+19. ``operator`` — the operator's surface (``utils/server_config``'s
+                   ``ServerConfig`` and ``ServingConfig``, TLS on
+                   ``server/http``, ``data/webhooks``, ``server/admin``,
+                   ``server/dashboard``, the CLI's ``export``, app,
+                   channel and key commands, ``analyze``, ``version``,
+                   ``run`` and ``shell``), in two legs. Leg 1, inside the
+                   lifecycle beside the eval, batchpredict and
+                   multiserve CLI legs, on its store and event server:
+                   ``export`` of the app right after train v2 (before the
+                   fold-in leg writes more events), ``app new`` and
+                   ``import`` of the file into a second app (its events
+                   the source's as a multiset: properties, times and
+                   ids), a train of a variant on it (40 B1 launches; for
+                   ``OPERATOR["users"]`` users and unknown ones its
+                   top-10s v2's, ids up to ties, scores within 1e-4);
+                   ``OPERATOR["hook_events"]`` rate events one a request
+                   through ``POST /webhooks/examplejson.json`` and
+                   ``exampleform.json`` (form-encoded), the reference's
+                   segmentio and mailchimp payloads, each beside the
+                   event it stands for through ``POST /events.json`` into
+                   another app: both apps' events equal as multisets
+                   (ids and creation times aside); ``GET
+                   /webhooks/<name>.json`` and an unknown connector
+                   answer the reference's messages; ``app channel-new``,
+                   ``app data-delete --channel`` (that channel empty, the
+                   default one untouched), ``app channel-delete``,
+                   ``accesskey delete`` (the key 401 at the running
+                   event server), ``app delete --force`` (no event, key
+                   or channel left); ``version``, ``run`` of a module and
+                   ``shell`` fed a line on stdin. Leg 2, after obs: a
+                   ``deploy`` of the serve phase's model file under a
+                   server.json with a key, TLS (a certificate of
+                   ``openssl req -x509``; without openssl the leg prints
+                   ``tls: no openssl on this host`` and serves plain
+                   HTTP) and ``serving`` {batchMax 8, batchInflight 2},
+                   ``PIO_BATCH_LINGER_S`` 0.002, durable telemetry and
+                   the anatomy: the serve phase's plain users over HTTPS
+                   from one client, then ``OPERATOR_SERVE["queries"]``
+                   from 64 clients, every top-10 the serve phase's
+                   answer (ids up to ties, scores within 1e-4); B2
+                   launches above 0 and equal to the micro-batches, none
+                   above 8 in ``pio_batch_size``; ``POST /stop`` without
+                   the key 401 and a plain-HTTP request refused; then
+                   ``analyze --json --since 10m`` over its telemetry
+                   root (every serving stage counted once a query), and
+                   ``adminserver`` and ``dashboard`` (started beside the
+                   deploy, the same server.json) over a copy of the
+                   lifecycle's store: the admin app round-trip and
+                   ``/cmd/releases`` (v1 and v2), the dashboard's 401
+                   without the key, its console's releases, SLO and
+                   capacity sections, ``/evaluations.json`` (the eval
+                   leg's completed evaluations) and
+                   ``/history/series.json`` (the deploy's series).
+                   The HTTPS p50/p99 stand beside the serve phase's
+                   plain-HTTP ones.
+
 Order, for the time limit: batchpredict's leg 1 (no kernel) runs in a
 process of its own while nvcc builds; then the distributed phase's legs
 1-2 and 4-7 with nothing beside them (their processes' launches are their own;
 leg 1's factors are held to the train phase's after it), then the
 classify phase alone; after the kernels phase, the lifecycle (with the
-eval, batchpredict and multitenant CLI legs inside it, the three at
-once), the engines' three CLI legs, the fleet's orchestrated cycle and
-sessionrec's leg 2 run each in a process of its own, each on its own
+eval, batchpredict and multitenant CLI legs and the operator phase's
+leg 1 inside it, the four at once), the engines' three CLI legs, the
+fleet's orchestrated cycle and sessionrec's leg 2 run each in a
+process of its own, each on its own
 store, while this process runs the train phase, the engines' width leg,
 eval legs 1-2, sessionrec's leg 1 and the fold-in width leg; then the
-other phases on the serve cell's model, one at a time (the distributed
-phase's leg 3 after obs); then the loadtest phase, alone. The kernels
+other phases on the serve cell's model, one at a time (the operator
+phase's leg 2 and the distributed phase's leg 3 after obs); then the
+loadtest phase, alone. The kernels
 phase and the phases of the serve cell share the card with no other
 work; a leg run beside others has its times taken under that load.
 
@@ -1944,6 +2002,8 @@ def lifecycle_phase(seed: int, port: int):
         check(len(set(ids2)) == 10_000, "second ingest lost events")
         t2 = train(n1 + 10_000, 2)
         m2 = _stored_model(t2["instance"])
+        # the operator phase's export: the app as v2 read it
+        export = operator_export(env, work, "SmokeApp", app_id)
 
         # 6. GET /reload -> v2 ---------------------------------------------
         status, reload, reload_dt = qc.call("GET",
@@ -1989,12 +2049,16 @@ def lifecycle_phase(seed: int, port: int):
             rep["leg_s"] = time.perf_counter() - t0
             return rep
 
-        eval_cli, bp_cli, mt_cli = _together(
+        # 12. and the operator phase's CLI leg beside them: its apps and
+        #     its variant are its own
+        eval_cli, bp_cli, mt_cli, op_cli = _together(
             lambda: timed(eval_cli_leg, env, work, "SmokeApp"),
             lambda: timed(batchpredict_cli_leg, env, work, variant, key,
                           port),
             lambda: multiserve_cli_leg(env, work, variant, m2,
-                                       t2["instance"]))
+                                       t2["instance"]),
+            lambda: timed(operator_cli_leg, seed, env, work, variant, key,
+                          es_port, m2, export))
         log("multitenant: cli " + json.dumps(mt_cli))
         events_srv.stop()
         check(events_srv.proc.returncode == 0, "the event server did not "
@@ -2014,8 +2078,11 @@ def lifecycle_phase(seed: int, port: int):
                   "queries": len(picks) + 11, "foldin": foldin,
                   "foldin_slo": foldin_slo,
                   "feedback": feedback, "eval_cli": eval_cli,
-                  "batchpredict_cli": bp_cli, "multiserve_cli": mt_cli}
+                  "batchpredict_cli": bp_cli, "multiserve_cli": mt_cli,
+                  "operator_cli": op_cli}
         log("lifecycle: " + json.dumps(report))
+        # the operator phase's consoles read this store after the phase
+        operator_store_copy(work / "pio.db")
         return report
     finally:
         for proc in (server, events_srv):
@@ -5190,7 +5257,8 @@ BACKGROUND_LEGS = {
 #: the shapes a background leg reads, passed on in ``CHIP_SMOKE_LEGS``
 LEG_SHAPES = ("ECOMM", "SIMILAR", "FOLLOW", "ML100K", "FLEET_ORCH",
               "EVAL_CLI", "BP_CLI", "BP_BENCH", "FOLDIN", "FEEDBACK",
-              "SESSIONREC_CLI", "LT_CURVE", "LT_STORM", "ML20M", "DIST")
+              "SESSIONREC_CLI", "LT_CURVE", "LT_STORM", "ML20M", "DIST",
+              "OPERATOR")
 
 
 def leg_worker() -> int:
@@ -10320,6 +10388,652 @@ def sharded_serve_leg(seed: int, port: int, users, items, U, V,
                      "exact_bytes": sst["exactBytes"]}}
 
 
+# ---------------------------------------------------------------------------
+# operator phase: server.json's key, TLS and serving section, the webhooks,
+# export/import, the management commands and the consoles
+# ---------------------------------------------------------------------------
+
+#: leg 1's webhook traffic: rate events one request each through each
+#: example connector, and the channel leg's events
+OPERATOR = dict(hook_events=1000, channel_events=20, users=20)
+#: leg 2 on the serve cell's deploy: server.json's serving section (with
+#: PIO_BATCH_LINGER_S), the HTTPS clients and their queries, the serial
+#: client's rounds over the serve phase's plain users
+OPERATOR_SERVE = dict(batch_max=8, inflight=2, linger_s=0.002, clients=64,
+                      queries=1280, serial_rounds=2, interval_s=1.0)
+OPERATOR_KEY = "operator-smoke-key"
+#: the reference's webhook routes' answers (event_server.py:442-456)
+_HOOK_OK = "webhooks connection for {} is ok."
+_HOOK_UNKNOWN = "webhooks connection for {} is not supported."
+#: the reference's own test payloads (tests/test_event_server.py:337-370)
+SEGMENTIO_TRACK = {
+    "version": "2", "type": "track", "userId": "u42", "event": "Signed Up",
+    "timestamp": "2015-01-02T00:30:12.984Z", "properties": {"plan": "pro"},
+    "sent_at": "2015-01-02T00:30:12.984Z"}
+MAILCHIMP_SUBSCRIBE = {
+    "type": "subscribe", "fired_at": "2009-03-26 21:35:57",
+    "data[id]": "8a25ff1d98", "data[list_id]": "a6b5da1054",
+    "data[email]": "api@mailchimp.com", "data[email_type]": "html",
+    "data[merges][EMAIL]": "api@mailchimp.com",
+    "data[merges][FNAME]": "MailChimp", "data[merges][LNAME]": "API",
+    "data[ip_opt]": "10.20.10.30", "data[ip_signup]": "10.20.10.30"}
+#: the events those payloads store, written out by hand
+SEGMENTIO_EVENT = {
+    "event": "track", "entityType": "user", "entityId": "u42",
+    "properties": {"properties": {"plan": "pro"}, "event": "Signed Up"},
+    "eventTime": "2015-01-02T00:30:12.984Z"}
+MAILCHIMP_EVENT = {
+    "event": "subscribe", "entityType": "user", "entityId": "8a25ff1d98",
+    "targetEntityType": "list", "targetEntityId": "a6b5da1054",
+    "properties": {"email": "api@mailchimp.com", "email_type": "html",
+                   "merges": {"EMAIL": "api@mailchimp.com",
+                              "FNAME": "MailChimp", "LNAME": "API"},
+                   "ip_opt": "10.20.10.30", "ip_signup": "10.20.10.30"},
+    "eventTime": "2009-03-26T21:35:57.000Z"}
+
+
+def _event_bag(app_id: int, channel_id=None):
+    """The app's (or its channel's) stored events as a multiset of their
+    JSON, creation times aside."""
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    return collections.Counter(
+        json.dumps({k: v for k, v in e.to_dict().items()
+                    if k != "creationTime"}, sort_keys=True)
+        for e in Storage.get_events().find(app_id, channel_id))
+
+
+def _without_ids(bag):
+    out = collections.Counter()
+    for line, n in bag.items():
+        d = json.loads(line)
+        d.pop("eventId", None)
+        out[json.dumps(d, sort_keys=True)] += n
+    return out
+
+
+def operator_store_copy(db: pathlib.Path) -> None:
+    """The lifecycle's store (releases, evaluations), copied for leg 2's
+    consoles before the lifecycle removes it."""
+    import sqlite3
+
+    dst = WORK / "operator" / "lifecycle.db"
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    dst.unlink(missing_ok=True)
+    src, out = sqlite3.connect(str(db)), sqlite3.connect(str(dst))
+    try:
+        src.backup(out)
+    finally:
+        src.close()
+        out.close()
+
+
+def operator_export(env, work, app: str, app_id: int) -> dict:
+    """Leg 1's export, in the lifecycle right after train v2 (before the
+    fold-in leg adds events): ``export`` of the app to JSON lines, and
+    the app's events at that moment, to hold the import against."""
+    t0 = time.perf_counter()
+    out = _cli(["export", "--appname", app, "--output",
+                str(work / "export.jsonl")], env)
+    wall = time.perf_counter() - t0
+    source = _event_bag(app_id)
+    n = sum(source.values())
+    check(out[-1] == f"[INFO] Exported {n} events to "
+          f"{work / 'export.jsonl'}.", f"operator: export printed "
+          f"{out[-1]!r}, the app holds {n} events")
+    return {"events": n, "export_s": wall, "source": source}
+
+
+def _hook_call(conn, method: str, path: str, body=None, form=None):
+    """(status, JSON) of one request on a keep-alive connection: a JSON
+    body, or form fields url-encoded."""
+    import urllib.parse
+
+    if form is not None:
+        data = urllib.parse.urlencode(form).encode()
+        ctype = "application/x-www-form-urlencoded"
+    else:
+        data = json.dumps(body).encode() if body is not None else None
+        ctype = "application/json"
+    conn.request(method, path, body=data, headers={"Content-Type": ctype})
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read())
+
+
+def _rate_hook(u: int, i: int, r: float, j: int):
+    """(JSON payload, form fields, the event they store) of one rate."""
+    ts = f"2024-03-01T00:{(j // 60) % 60:02d}:{j % 60:02d}.{j % 1000:03d}Z"
+    ctx = {"ip": f"10.0.{j % 256}.{u % 256}", "source": "webhook"}
+    payload = {"type": "userActionItem", "userId": f"hu{u}",
+               "event": "rate", "itemId": f"hi{i}", "context": ctx,
+               "anotherPropertyA": r, "timestamp": ts}
+    form = dict(payload, context=json.dumps(ctx),
+                anotherPropertyA=repr(r))
+    event = {"event": "rate", "entityType": "user", "entityId": f"hu{u}",
+             "targetEntityType": "item", "targetEntityId": f"hi{i}",
+             "properties": {"context": ctx, "anotherPropertyA": r},
+             "eventTime": ts}
+    return payload, form, event
+
+
+def _operator_copy(seed, env, work, variant, m2, export, copy_id) -> dict:
+    """Leg 1's import of the export into the second app, its events held
+    to the source's, and the train of a variant on it: 40 B1 launches,
+    its top-10s v2's (the same rows in the same order, the seeded
+    initial factors)."""
+    import numpy as np
+    import torch
+
+    c = OPERATOR
+    report = {}
+    t0 = time.perf_counter()
+    out = _cli(["import", "--appname", "SmokeCopy", "--input",
+                str(work / "export.jsonl")], env)
+    report["import_s"] = time.perf_counter() - t0
+    check(out[-1] == f"[INFO] Imported {export['events']} events.",
+          f"operator: import printed {out[-1]!r}")
+    check(_event_bag(copy_id) == export["source"], "operator: the imported "
+          "app's events differ from the exported app's")
+    copy_variant = work / "engine-copy.json"
+    spec = json.loads(pathlib.Path(variant).read_text())
+    spec["id"] = "operator-copy"
+    spec["datasource"]["params"]["appName"] = "SmokeCopy"
+    copy_variant.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    line = json.loads(_cli(["train", "--variant", str(copy_variant),
+                            "--device", DEV], env)[-1])
+    report["train_s"] = time.perf_counter() - t0
+    report["train_launches"] = line["launches"]
+    want = 2 * ML100K["iters"]
+    check(line["launches"]["spd_solve"] == want, f"operator: the copy's "
+          f"train launched B1 {line['launches']['spd_solve']} times, "
+          f"expected {want}")
+    mc = _stored_model(line["instance"])
+    U2, V2 = _factors_on_card(m2, "operator v2")
+    Uc, Vc = _factors_on_card(mc, "operator copy")
+    known_c = set(mc.user_vocab.tolist())
+    picks = [str(m2.user_vocab[i]) for i in np.random.default_rng(
+        seed + 19).choice(len(m2.user_vocab), size=c["users"],
+                          replace=False)]
+    err = 0.0
+    for user in picks:
+        check(user in known_c, f"operator: {user} is missing from the "
+              "copy's model")
+        vals, idx = torch.topk(Vc @ Uc[mc.user_index(user)], 10)
+        body = {"itemScores": [{"item": str(mc.item_vocab[j]),
+                                "score": float(v)}
+                               for j, v in zip(idx.tolist(),
+                                               vals.tolist())]}
+        err = max(err, _top10_err(U2, V2, m2, user, body, "operator copy"))
+    for user in ("nobody", f"u{ML100K['n_users'] + 1000}"):
+        check(user not in known_c
+              and user not in set(m2.user_vocab.tolist()),
+              f"operator: {user} is known to a model")
+    report["copy_max_score_err"] = err
+    return report
+
+
+def _operator_hooks(seed, env, es_port: int, apps_ids: dict) -> dict:
+    """Leg 1's webhooks against direct POSTs, then the channel and key
+    commands on the webhook app at the running event server."""
+    import http.client
+
+    import numpy as np
+
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    c = OPERATOR
+    (hook_id, hook_key), (direct_id, direct_key) = (apps_ids["HookApp"],
+                                                    apps_ids["DirectApp"])
+    conn = http.client.HTTPConnection("localhost", es_port, timeout=120)
+    rng = np.random.default_rng(seed + 20)
+    hook_lat, direct_lat = [], []
+    t_hooks = time.perf_counter()
+    for j in range(c["hook_events"]):
+        payload, form, event = _rate_hook(
+            int(rng.integers(0, 200)), int(rng.integers(0, 300)),
+            float(rng.integers(1, 6)), j)
+        name = "examplejson" if j % 2 == 0 else "exampleform"
+        t0 = time.perf_counter()
+        status, body = _hook_call(
+            conn, "POST", f"/webhooks/{name}.json?accessKey={hook_key}",
+            *((payload, None) if name == "examplejson" else (None, form)))
+        hook_lat.append(time.perf_counter() - t0)
+        check(status == 201, f"operator: {name} answered {status} {body}")
+        t0 = time.perf_counter()
+        status, body = _hook_call(
+            conn, "POST", f"/events.json?accessKey={direct_key}", event)
+        direct_lat.append(time.perf_counter() - t0)
+        check(status == 201, f"operator: a direct POST answered {status}")
+    for name, payload, form, event in (
+            ("segmentio", SEGMENTIO_TRACK, None, SEGMENTIO_EVENT),
+            ("mailchimp", None, MAILCHIMP_SUBSCRIBE, MAILCHIMP_EVENT)):
+        status, body = _hook_call(
+            conn, "POST", f"/webhooks/{name}.json?accessKey={hook_key}",
+            payload, form)
+        check(status == 201, f"operator: {name} answered {status} {body}")
+        status, _ = _hook_call(
+            conn, "POST", f"/events.json?accessKey={direct_key}", event)
+        check(status == 201, "operator: a direct POST failed")
+    hooks_s = time.perf_counter() - t_hooks
+    for name, want in (
+            ("examplejson", (200, {"message": _HOOK_OK.format(
+                "examplejson")})),
+            ("mailchimp", (200, {"message": _HOOK_OK.format("mailchimp")})),
+            ("nope", (404, {"message": _HOOK_UNKNOWN.format("nope")}))):
+        got = _hook_call(conn, "GET", f"/webhooks/{name}.json?accessKey="
+                                      f"{hook_key}")
+        check(got == want, f"operator: GET /webhooks/{name}.json answered "
+              f"{got}")
+    status, body = _hook_call(
+        conn, "POST", f"/webhooks/nope.json?accessKey={hook_key}", {})
+    check((status, body) == (404, {"message": _HOOK_UNKNOWN.format(
+        "nope")}), f"operator: an unknown connector answered {status}")
+    hooked = _without_ids(_event_bag(hook_id))
+    direct = _without_ids(_event_bag(direct_id))
+    n_hooked = c["hook_events"] + 2
+    check(sum(hooked.values()) == n_hooked and hooked == direct,
+          f"operator: {sum(hooked.values())} webhook events stored, "
+          f"{sum((hooked & direct).values())} of them as the direct "
+          f"POSTs' {sum(direct.values())}")
+    report = {"events": n_hooked, "hooks_s": hooks_s,
+              "hook_p50_ms": 1e3 * float(np.percentile(hook_lat, 50)),
+              "direct_p50_ms": 1e3 * float(np.percentile(direct_lat, 50))}
+
+    # the channel and key commands ------------------------------------------
+    channels = Storage.get_meta_data_channels()
+    _cli(["app", "channel-new", "HookApp", "side"], env)
+    side = next(ch.id for ch in channels.get_by_appid(hook_id)
+                if ch.name == "side")
+    for j in range(c["channel_events"]):
+        payload, _, _ = _rate_hook(j, j, 3.0, 10_000 + j)
+        status, _ = _hook_call(
+            conn, "POST", f"/webhooks/examplejson.json?accessKey="
+                          f"{hook_key}&channel=side", payload)
+        check(status == 201, f"operator: a channel webhook answered "
+              f"{status}")
+    check(sum(_event_bag(hook_id, side).values()) == c["channel_events"],
+          "operator: the side channel lacks its events")
+    _cli(["app", "data-delete", "HookApp", "--channel", "side", "--force"],
+         env)
+    check(sum(_event_bag(hook_id, side).values()) == 0
+          and sum(_event_bag(hook_id).values()) == n_hooked,
+          "operator: data-delete --channel left the side channel "
+          f"{sum(_event_bag(hook_id, side).values())} events, the default "
+          f"{sum(_event_bag(hook_id).values())}")
+    _cli(["app", "channel-delete", "HookApp", "side", "--force"], env)
+    check(not channels.get_by_appid(hook_id), "operator: channel-delete "
+          "left the channel")
+    spare = _cli(["accesskey", "new", "HookApp"], env)[-1].split()[-1]
+    payload, _, _ = _rate_hook(1, 1, 5.0, 20_000)
+    status, _ = _hook_call(conn, "POST", f"/webhooks/examplejson.json?"
+                           f"accessKey={spare}", payload)
+    check(status == 201, f"operator: the new key answered {status}")
+    _cli(["accesskey", "delete", spare], env)
+    status, body = _hook_call(conn, "POST", f"/webhooks/examplejson.json?"
+                              f"accessKey={spare}", payload)
+    check((status, body) == (401, {"message": "Invalid accessKey."}),
+          f"operator: the deleted key answered {status} {body}")
+    conn.close()
+    return report
+
+
+def _operator_small(env, work) -> dict:
+    """``version``, ``run`` of a module and ``shell`` fed a line."""
+    from predictionio_tpu_torch import __version__
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    t0 = time.perf_counter()
+    out = _cli(["version"], env)
+    check(out == [__version__], f"operator: version printed {out}")
+    (work / "operator_mod.py").write_text(
+        "import sys\nprint('operator module', sys.argv[1:])\n")
+    run_env = dict(env, PYTHONPATH=os.pathsep.join(
+        [str(work)] + [p for p in [env.get("PYTHONPATH")] if p]))
+    out = _cli(["run", "operator_mod", "a", "--b"], run_env)
+    check(out[-1] == "operator module ['a', '--b']",
+          f"operator: run printed {out}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli.main", "shell"],
+        input="print('shell', sorted(a.name for a in "
+              "Storage.get_meta_data_apps().get_all()))\n",
+        cwd=str(ROOT), env=env, capture_output=True, text=True,
+        timeout=300)
+    names = sorted(a.name for a in Storage.get_meta_data_apps().get_all())
+    check(proc.returncode == 0 and "shell [" in proc.stdout
+          and "'SmokeApp'" in proc.stdout, f"operator: shell printed "
+          f"{proc.stdout[-500:]} {proc.stderr[-500:]} (apps {names})")
+    return {"small_s": time.perf_counter() - t0}
+
+
+def operator_cli_leg(seed, env, work, variant, key: str, es_port: int,
+                     m2, export: dict) -> dict:
+    """Leg 1 of the operator phase, inside the lifecycle on its store and
+    event server: the import of the export into a second app and a train
+    of it, the webhooks with the channel and key commands, and the small
+    commands, the three at once (their apps are their own); then ``app
+    delete --force`` of the three apps it made (no event, key or channel
+    left)."""
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    apps = Storage.get_meta_data_apps()
+    made = {}
+    for name in ("SmokeCopy", "HookApp", "DirectApp"):
+        out = _cli(["app", "new", name], env)
+        made[name] = (apps.get_by_name(name).id,
+                      next(x for x in out if "Access Key:" in x).split()[-1])
+    copy, hooks, small = _together(
+        lambda: _operator_copy(seed, env, work, variant, m2, export,
+                               made["SmokeCopy"][0]),
+        lambda: _operator_hooks(seed, env, es_port, made),
+        lambda: _operator_small(env, work))
+    _cli(["app", "show", "HookApp"], env)
+    events = Storage.get_events()
+    for name, (app_id, _) in made.items():
+        _cli(["app", "delete", name, "--force"], env)
+        try:
+            left = sum(1 for _ in events.find(app_id))
+        except Exception:        # noqa: BLE001 — the table is gone
+            left = 0
+        check(apps.get_by_name(name) is None
+              and not Storage.get_meta_data_access_keys().get_by_appid(
+                  app_id)
+              and not Storage.get_meta_data_channels().get_by_appid(app_id)
+              and left == 0,
+              f"operator: app delete left {name}'s rows ({left} events)")
+    report = {"events": export["events"], "export_s": export["export_s"],
+              **copy, "webhooks": hooks, **small}
+    log("operator: leg 1 " + json.dumps(report))
+    return report
+
+
+class TlsClient(Client):
+    """A keep-alive HTTPS connection to a self-signed certificate."""
+
+    def __init__(self, port: int):
+        import http.client
+        import ssl
+
+        self.conn = http.client.HTTPSConnection(
+            "localhost", port, timeout=300,
+            context=ssl._create_unverified_context())
+
+
+def _self_signed(home: pathlib.Path):
+    """(certfile, keyfile) made by ``openssl req -x509``, or None when
+    the host has no openssl."""
+    cert, key = home / "cert.pem", home / "key.pem"
+    try:
+        p = subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+             "-keyout", str(key), "-out", str(cert), "-days", "1",
+             "-subj", "/CN=localhost"], capture_output=True, timeout=120)
+    except FileNotFoundError:
+        return None
+    return (str(cert), str(key)) if p.returncode == 0 else None
+
+
+def _same_top10(got, want, tag: str) -> float:
+    """A served top-10 against the serve phase's answer for the user: ids
+    equal up to ties within 1e-4, scores within 1e-4."""
+    import numpy as np
+
+    check(len(got) == len(want), f"{tag}: {len(got)} items, the serve "
+          f"phase answered {len(want)}")
+    gv = np.array([s["score"] for s in got])
+    wv = np.array([s["score"] for s in want])
+    err = np.abs(gv - wv)
+    check(bool((err <= 1e-4 * np.maximum(1.0, np.abs(wv))).all()),
+          f"{tag}: scores differ from the serve phase's by {err.max()}")
+    wid = [s["item"] for s in want]
+    for a, b, v in zip([s["item"] for s in got], wid, wv):
+        tied = np.abs(wv - v) <= 1e-4 * max(1.0, abs(v))
+        check(a == b or a in {wid[j] for j in np.flatnonzero(tied)},
+              f"{tag}: served {a} where the serve phase served {b}")
+    return float(err.max()) if len(err) else 0.0
+
+
+def _console(args, env, tag: str):
+    return Server([*args, "--ip", "localhost", "--port", "0", "--device",
+                   DEV], env, tag=tag)
+
+
+def _metrics_buckets(text: bytes, name: str) -> dict:
+    out = {}
+    for line in text.decode().splitlines():
+        if line.startswith(f"{name}_bucket{{le="):
+            le = line.split('"')[1]
+            out[le] = float(line.rsplit(" ", 1)[1])
+        elif line.startswith(f"{name}_count "):
+            out["count"] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def operator_serve_leg(seed: int, shape: dict, users, plain_answers: dict,
+                       serve: dict) -> dict:
+    """Leg 2 of the operator phase, after obs, on the serve phase's model
+    file: ``deploy`` under a server.json with a key, TLS (a certificate
+    of ``openssl req -x509``) and ``serving`` {batchMax 8, batchInflight
+    2}, ``PIO_BATCH_LINGER_S``, durable telemetry and the anatomy; its
+    answers over HTTPS against the serve phase's, B2 launches, the
+    micro-batches, the key and the refused plain request; ``analyze``
+    over its telemetry; ``adminserver`` and ``dashboard`` over the
+    lifecycle's store (copied there by the lifecycle) under the same
+    server.json."""
+    import numpy as np
+
+    from predictionio_tpu_torch.obs.anatomy import SERVING_WALL_STAGES
+
+    o = OPERATOR_SERVE
+    home = WORK / "operator" / "home"
+    shutil.rmtree(home, ignore_errors=True)
+    (home / "conf").mkdir(parents=True)
+    tls = _self_signed(home)
+    conf = {"key": OPERATOR_KEY,
+            "serving": {"batchMax": o["batch_max"],
+                        "batchInflight": o["inflight"]}}
+    if tls is None:
+        log("operator: tls: no openssl on this host")
+    else:
+        conf["ssl"] = {"enabled": True, "certfile": tls[0],
+                       "keyfile": tls[1]}
+    (home / "conf" / "server.json").write_text(json.dumps(conf))
+    store = WORK / "operator" / "lifecycle.db"
+    env = dict(os.environ, PIO_HOME=str(home), PIO_SCORER_MODE="twostage",
+               PIO_SCORER_TILE_ITEMS=str(TILE),
+               PIO_SCORER_SHORTLIST=str(SHORTLIST),
+               PIO_BATCH_LINGER_S=str(o["linger_s"]), PIO_ANATOMY="1",
+               PIO_TELEMETRY="1",
+               PIO_TELEMETRY_INTERVAL_S=str(o["interval_s"]),
+               PIO_STORAGE_SOURCES_OPS_TYPE="sqlite",
+               PIO_STORAGE_SOURCES_OPS_PATH=str(store),
+               **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+                  for r, name in (("METADATA", "pio_meta"),
+                                  ("EVENTDATA", "pio_event"),
+                                  ("MODELDATA", "pio_model"))
+                  for k, v in (("NAME", name), ("SOURCE", "OPS"))})
+    mk = TlsClient if tls else Client
+    report = {"tls": tls is not None}
+    t_start = time.perf_counter()
+    server = Server(["deploy", "--model", str(WORK / "als_model.npz"),
+                     "--port", "0", "--device", DEV], env, tag="operator")
+    # the consoles start while the deploy loads its model
+    admin = _console(["adminserver"], env, "operator admin")
+    dash = _console(["dashboard"], env, "operator dashboard")
+    try:
+        port = server.wait_ready(timeout_s=600)
+        client = mk(port)
+        status, root, _ = client.call("GET", "/")
+        report["deploy_to_first_answer_s"] = time.perf_counter() - t_start
+        t_queries = time.perf_counter()
+        check(status == 200, f"operator: GET / answered {status}")
+        scorer = root["scorer"][0]
+        check(scorer["activeMode"] == "twostage"
+              and (scorer["scanRank"], scorer["tileItems"],
+                   scorer["tiles"]) == (shape["R"], shape["T"],
+                                        shape["nt"]),
+              f"operator: the deploy serves {scorer}")
+        check(all(v == 0 for v in root["kernelLaunches"].values()),
+              f"operator: launches before the queries "
+              f"{root['kernelLaunches']}")
+        # one client, the serve phase's plain users in turn ----------------
+        plain = list(plain_answers.items())
+        serial_lat, err = [], 0.0
+        for _ in range(o["serial_rounds"]):
+            for user, want in plain:
+                status, body, dt = client.call(
+                    "POST", "/queries.json", {"user": user, "num": 10})
+                check(status == 200, f"operator: a query answered {status}")
+                serial_lat.append(dt * 1e3)
+                err = max(err, _same_top10(body["itemScores"], want,
+                                           f"operator {user}"))
+        # 64 HTTPS clients ------------------------------------------------
+        per = -(-o["queries"] // o["clients"])
+        lat, failures, errs, lock = [], [], [err], threading.Lock()
+
+        def run(k):
+            c = mk(port)
+            for q in range(per):
+                user, want = plain[(k + q) % len(plain)]
+                try:
+                    status, body, dt = c.call(
+                        "POST", "/queries.json", {"user": user, "num": 10})
+                    check(status == 200, f"answered {status}")
+                    e = _same_top10(body["itemScores"], want,
+                                    f"operator {user}")
+                except Exception as ex:     # noqa: BLE001 — reported
+                    failures.append(repr(ex))
+                    return
+                with lock:
+                    lat.append(dt * 1e3)
+                    errs.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(k,))
+                   for k in range(o["clients"])]
+        for t in threads:
+            t.start()
+        _join(threads, "operator")
+        conc_s = time.perf_counter() - t0
+        check(not failures, f"operator: {len(failures)} HTTPS clients "
+              f"failed, first {failures[:3]}")
+        n_sent = len(serial_lat) + len(lat)
+        report["queries_s"] = time.perf_counter() - t_queries
+        _, root1, _ = client.call("GET", "/")
+        b2 = root1["kernelLaunches"]["shortlist"]
+        check(b2 > 0, "operator: B2 never launched")
+        status, metrics, _ = client.call("GET", "/metrics", raw=True)
+        sizes = _metrics_buckets(metrics, "pio_batch_size")
+        check(sizes.get(str(o["batch_max"])) == sizes.get("count")
+              and sizes.get("count", 0) > 0,
+              f"operator: micro-batches above {o['batch_max']}: {sizes}")
+        check(b2 == root1["microBatches"]["batches"], f"operator: B2 "
+              f"launched {b2} times for {root1['microBatches']['batches']} "
+              "micro-batches")
+        # the key and the plain listener ---------------------------------
+        status, body, _ = client.call("POST", "/stop")
+        check(status == 401, f"operator: /stop without the key answered "
+              f"{status}")
+        if tls:
+            refused = False
+            try:
+                Client(port).call("GET", "/")
+            except Exception:       # noqa: BLE001 — the handshake fails
+                refused = True
+            check(refused, "operator: a plain-HTTP request was answered")
+        t0 = time.perf_counter()
+        status, _, _ = client.call("POST",
+                                   f"/stop?accessKey={OPERATOR_KEY}")
+        check(status == 200 and server.proc.wait(timeout=120) == 0,
+              "operator: the deploy did not stop on its key")
+        report["stop_s"] = time.perf_counter() - t0
+        report.update({
+            "queries": n_sent, "b2_launches": b2,
+            "micro_batches": root1["microBatches"]["batches"],
+            "batch_sizes": {k: v for k, v in sizes.items()},
+            "max_score_abs_err": max(errs),
+            "https_serial": _lat(serial_lat),
+            "https_clients": dict(_lat(lat), clients=o["clients"],
+                                  qps=len(lat) / conc_s),
+            "http_serve_phase": {
+                "plain_p50_ms": serve["p50_ms_by_kind"]["plain"],
+                "p50_ms": serve["query_p50_ms"],
+                "p99_ms": serve["query_p99_ms"]}})
+        # analyze over the deploy's telemetry -----------------------------
+        t0 = time.perf_counter()
+        doc = json.loads(_cli(["analyze", "--json", "--since", "10m",
+                               "--dir", str(home / "telemetry")], env)[-1])
+        report["analyze_s"] = time.perf_counter() - t0
+        counts = {s: v["count"] for s, v in doc["stages"].items()}
+        check(set(SERVING_WALL_STAGES) <= set(counts)
+              and all(counts[s] == n_sent for s in SERVING_WALL_STAGES),
+              f"operator: analyze counts {counts}, sent {n_sent}")
+        report["analyze_p99_composition"] = doc["p99Composition"]
+        # the consoles ------------------------------------------------------
+        t0 = time.perf_counter()
+        report["consoles"] = operator_consoles(admin, dash, mk, port)
+        report["consoles"]["checks_s"] = time.perf_counter() - t0
+        log("operator: leg 2 " + json.dumps(report))
+        return report
+    finally:
+        for proc in (server, admin, dash):
+            proc.stop()
+
+
+def operator_consoles(admin, dash, mk, deploy_port: int) -> dict:
+    """``adminserver`` and ``dashboard`` over the lifecycle's store and
+    the deploy's telemetry root: the admin app round-trip and releases,
+    the dashboard's key, console, evaluations and history."""
+    a = mk(admin.wait_ready(timeout_s=300))
+    d_port = dash.wait_ready(timeout_s=300)
+    d = mk(d_port)
+    status, body, _ = a.call("POST", "/cmd/app", {"name": "OperatorAdmin"})
+    check(status == 201 and body["accessKey"], f"admin: create answered "
+          f"{status} {body}")
+    _, listing, _ = a.call("GET", "/cmd/app")
+    check("OperatorAdmin" in [x["name"] for x in listing["apps"]],
+          f"admin: the app is not listed: {listing}")
+    status, _, _ = a.call("DELETE", "/cmd/app/OperatorAdmin")
+    _, listing2, _ = a.call("GET", "/cmd/app")
+    check(status == 200 and "OperatorAdmin" not in [
+        x["name"] for x in listing2["apps"]], "admin: delete failed")
+    _, rel, _ = a.call("GET", "/cmd/releases?engineVariant=default")
+    versions = sorted(r["version"] for r in rel["releases"])
+    check(versions[:2] == [1, 2], f"admin: releases {versions}")
+    status, _, _ = d.call("GET", "/evaluations.json")
+    check(status == 401, f"dashboard: no key answered {status}")
+    status, evals, _ = d.call("GET", f"/evaluations.json?accessKey="
+                                     f"{OPERATOR_KEY}")
+    check(status == 200 and len(evals) >= 2, f"dashboard: evaluations "
+          f"{status} {evals}")
+    status, page, _ = d.call("GET", f"/?accessKey={OPERATOR_KEY}",
+                             raw=True)
+    page = page.decode()
+    for want in ("<h2>Releases</h2>", "<h2>SLO burn (trailing hour)</h2>",
+                 "<h2>Capacity ledger (trailing hour)</h2>",
+                 "recommendation:engine/default", "<td>v2</td>"):
+        check(want in page, f"dashboard: the console lacks {want!r}")
+    status, series, _ = d.call("GET", "/history/series.json")
+    procs = {s["labels"].get("process", "") for s in series["series"]}
+    check(status == 200 and any(p.startswith("query_server")
+                                for p in procs),
+          f"dashboard: /history/series.json names {sorted(procs)}")
+    return {"admin_apps": len(listing["apps"]), "releases": versions,
+            "evaluations": len(evals), "history_processes": sorted(procs),
+            "console_bytes": len(page)}
+
+
+def operator_phase(seed: int, shape: dict, users, plain_answers: dict,
+                   serve: dict, cli: dict) -> dict:
+    """Leg 2 here; leg 1's report from the lifecycle."""
+    t0 = time.perf_counter()
+    report = {"serve": operator_serve_leg(seed, shape, users,
+                                          plain_answers, serve),
+              "cli": cli}
+    report["serve"]["leg_s"] = time.perf_counter() - t0
+    return report
+
+
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
              canary, engines, evals, fleet, sessionrec, loadtest,
              distributed) -> dict:
@@ -10355,6 +11069,7 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
         "replaces": "predictionio_tpu/ops/linalg.py:106",
         "launches": train["full"]["launches"] + sum(eval_launches.values())
         + lifecycle["foldin_slo"]["b1_launches"]
+        + lifecycle["operator_cli"]["train_launches"]["spd_solve"]
         + loadtest["launches"]["spd_solve"]
         + sum(dist_train) + sum(dist_engine) + sum(dist_sweep),
         "max_abs_err": spd_err,
@@ -10409,6 +11124,8 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
             "distributed_sweep_per_process": dist_sweep,
             "distributed_sweep_one_process":
                 distributed["leg6"]["one_process_launches"],
+            "operator_copy_train":
+                lifecycle["operator_cli"]["train_launches"]["spd_solve"],
             **eval_launches},
         "eval_shapes": [r for r in spd_rows if r["eval"]],
         "foldin": {
@@ -10450,10 +11167,11 @@ def partial_run(args, shape) -> int:
     debugging on the card; no kernels line and no result."""
     phases = set(args.only.split(","))
     bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant",
-                    "classify", "sessionrec", "loadtest", "distributed"}
+                    "classify", "sessionrec", "loadtest", "distributed",
+                    "operator"}
     check(not bad, f"--only takes serve, obs, lifecycle, fleet, "
-          f"multitenant, classify, sessionrec, loadtest, distributed; got "
-          f"{sorted(bad)}")
+          f"multitenant, classify, sessionrec, loadtest, distributed, "
+          f"operator; got {sorted(bad)}")
     if "distributed" in phases:
         # legs 1-2, the one-process twin, then the serve phase (the
         # unsharded answers) and leg 3 on its model
@@ -10482,16 +11200,22 @@ def partial_run(args, shape) -> int:
         report["cli"] = finish_legs(start_legs(["sessionrec"], args.seed,
                                                args.port))["sessionrec"]
         log("sessionrec: " + json.dumps(report))
-    cli = None
-    if "lifecycle" in phases:
-        cli = lifecycle_phase(args.seed, args.port)["multiserve_cli"]
-    if phases & {"serve", "obs", "fleet", "multitenant"}:
+    cli = op_cli = None
+    if phases & {"lifecycle", "operator"}:
+        lifecycle = lifecycle_phase(args.seed, args.port)
+        cli, op_cli = lifecycle["multiserve_cli"], lifecycle["operator_cli"]
+    if phases & {"serve", "obs", "fleet", "multitenant", "operator"}:
         served = build_model(args.seed, args.items, SERVE_USERS,
                              SERVE_RANK)
-        if phases & {"serve", "obs"}:
-            serve_phase(args.seed, args.items, args.port, shape, *served)
+        if phases & {"serve", "obs", "operator"}:
+            serve = serve_phase(args.seed, args.items, args.port, shape,
+                                *served)
         if "obs" in phases:
             log("obs: " + json.dumps(obs_phase(args.seed, shape, *served)))
+        if "operator" in phases:
+            log("operator: " + json.dumps(operator_phase(
+                args.seed, shape, served[0], serve["plain_answers"], serve,
+                op_cli)))
         if phases & {"fleet", "multitenant"}:
             blob = served_blob(*served)
         if "fleet" in phases:
@@ -10518,7 +11242,7 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
                     help="run only these of serve, obs, lifecycle, fleet, "
                          "multitenant, classify, sessionrec, loadtest, "
-                         "distributed after the build "
+                         "distributed, operator after the build "
                          "and the "
                          "kernels phase (a partial run: it prints no "
                          "result and exits 4)")
@@ -10680,6 +11404,13 @@ def main() -> int:
         #     launches, this process's from zero just before them
         obs = obs_phase(args.seed, shape, *served)
         log("obs: " + json.dumps(obs))
+        # 19. operator, leg 2: the same model's deploy under server.json's
+        #     key, TLS and serving section, analyze and the consoles (leg
+        #     1 ran inside the lifecycle)
+        operator = operator_phase(args.seed, shape, served[0],
+                                  serve["plain_answers"], serve,
+                                  lifecycle["operator_cli"])
+        log("operator: " + json.dumps(operator))
         # 18. distributed, leg 3: the same model under two scorer shards,
         #     in this process and through deploy (the serve phase's file)
         t0 = time.perf_counter()
@@ -10782,7 +11513,8 @@ def main() -> int:
             "distributed_sharded_in_process":
                 distributed["leg3"]["in_process"]["b2_launches"],
             "distributed_sharded_http":
-                distributed["leg3"]["http"]["b2_launches"]},
+                distributed["leg3"]["http"]["b2_launches"],
+            "operator_https_deploy": operator["serve"]["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
         "chunk_rows": chunk_rows,
         "engine_shapes": eng_rows,

@@ -14,3 +14,5 @@ Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (``--device cpu`` on the CLI); without a card and without
 that request it raises (:func:`predictionio_tpu_torch.utils.device.resolve_device`).
 """
+
+__version__ = "0.1.0"

@@ -1,17 +1,32 @@
 """Command line of the port (``argparse``; the reference's ``pio`` uses
 click), with the reference's commands, flags and exit codes:
 
+    python -m predictionio_tpu_torch.cli.main version
     python -m predictionio_tpu_torch.cli.main app new NAME [--id N]
         [--description D] [--access-key K]
     python -m predictionio_tpu_torch.cli.main app list
+    python -m predictionio_tpu_torch.cli.main app show NAME
+    python -m predictionio_tpu_torch.cli.main app delete NAME [--force]
+    python -m predictionio_tpu_torch.cli.main app data-delete NAME
+        [--channel C] [--all] [--force]
+    python -m predictionio_tpu_torch.cli.main app channel-new APP CHANNEL
+    python -m predictionio_tpu_torch.cli.main app channel-delete APP
+        CHANNEL [--force]
     python -m predictionio_tpu_torch.cli.main accesskey new APP
         [--key K] [--event NAME ...]
     python -m predictionio_tpu_torch.cli.main accesskey list [APP]
+    python -m predictionio_tpu_torch.cli.main accesskey delete KEY
     python -m predictionio_tpu_torch.cli.main eventserver [--ip] [--port 7070]
+    python -m predictionio_tpu_torch.cli.main adminserver [--ip]
+        [--port 7071] [--device cpu]
+    python -m predictionio_tpu_torch.cli.main dashboard [--ip]
+        [--port 9000] [--device cpu]
     python -m predictionio_tpu_torch.cli.main template list
     python -m predictionio_tpu_torch.cli.main template get NAME [DIRECTORY]
     python -m predictionio_tpu_torch.cli.main import --appname APP
         [--channel C] --input events.jsonl
+    python -m predictionio_tpu_torch.cli.main export (--appid N |
+        --appname APP) [--channel C] --output events.jsonl [--format json]
     python -m predictionio_tpu_torch.cli.main train [-v engine.json]
         [--batch B] [--skip-sanity-check] [--stop-after-read]
         [--stop-after-prepare] [--checkpoint-dir D]
@@ -48,7 +63,11 @@ click), with the reference's commands, flags and exit codes:
     python -m predictionio_tpu_torch.cli.main reshard --partitions P
     python -m predictionio_tpu_torch.cli.main loadtest [--scenario S.json]
         [--example] [--dir D] [--report R.json] [--json] [--device cpu]
+    python -m predictionio_tpu_torch.cli.main analyze [--path serving]
+        [--since 1h] [--diff] [--dir D] [--json]
     python -m predictionio_tpu_torch.cli.main status [--fleet PATH]
+    python -m predictionio_tpu_torch.cli.main shell
+    python -m predictionio_tpu_torch.cli.main run MODULE [ARGS ...]
 
 The engine.json's ``engineFactory`` names one of the ported engines
 (recommendation, ecommerce, similarproduct, recommended_user,
@@ -78,6 +97,13 @@ launch counts, the scan-cache hits and misses and the wall seconds.
 ``--sequential`` forces the per-candidate loop
 (``PIO_EVAL_VECTORIZE=0``).
 
+``app delete`` drops an app with its channels, keys and events (``--force``
+skips the question); ``app data-delete`` empties its default channel,
+``--channel C`` that channel, ``--all`` every channel. ``export`` writes
+an app's events as JSON lines through a temporary file renamed at the
+end, so an interrupted export leaves no partial file (``--format
+parquet`` raises: the card's machine has no pyarrow).
+
 ``deploy`` serves the latest COMPLETED instance of the variant, or
 ``--engine-instance-id``, or a release (``--release`` id, ``3`` or
 ``v3``), or a model file (``--model``). It reads the engine.json's
@@ -89,7 +115,12 @@ the serving path up, then serves. ``--feedback`` with
 ``--event-server-app`` records every answer as a ``predict`` event of
 that app (the answer carries its ``prId``); ``--log-url`` receives each
 failed query's error, prefixed by ``--log-prefix``. Models run on
-``cuda`` unless ``--device cpu`` is given.
+``cuda`` unless ``--device cpu`` is given. server.json's ``key`` guards
+the deploy API when ``--accesskey`` is not given, its ``ssl`` section
+(or ``PIO_SSL_CERTFILE``) serves over TLS, and its ``serving`` section
+under ``PIO_BATCH_*`` sizes the micro-batcher; ``multiserve``,
+``eventserver``, ``adminserver`` and ``dashboard`` read the same
+sections.
 
 ``multiserve`` hosts N engine variants in one process
 (``server/multitenant``): each ``--tenant NAME=engine.json`` serves the
@@ -141,6 +172,14 @@ file, or a multi-tenant host under a tenant scenario, and exits 1 unless
 every invariant held (``PIO_LOADTEST_*`` scale the scenario).
 
 ``status`` checks every storage backend, or prints a fleet view.
+
+``analyze`` reads the anatomy of the serving (or ingest) path off the
+durable telemetry: each stage's mean, p50 and p99 and its share of the
+p50 and p99 request, ``--diff`` against the window before. ``adminserver``
+serves the admin REST API (``server/admin``), ``dashboard`` the console
+(``server/dashboard``); ``shell`` is an interactive interpreter with
+``Storage``, ``EventStoreClient`` and ``WorkflowContext`` loaded;
+``run`` runs a module as ``__main__``.
 
 The storage is the one ``PIO_STORAGE_*`` configures (``storage/registry``).
 """
@@ -354,6 +393,114 @@ def app_list(_args) -> int:
     return 0
 
 
+def _app_or_fail(name: str):
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    a = Storage.get_meta_data_apps().get_by_name(name)
+    if a is None:
+        _fail(f"App {name} does not exist. Aborting.")
+    return a
+
+
+def _confirm(question: str) -> bool:
+    try:
+        return input(f"{question} [y/N]: ").strip().lower() in ("y", "yes")
+    except EOFError:
+        return False
+
+
+def app_show(args) -> int:
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    a = _app_or_fail(args.name)
+    print(f"[INFO]     App Name: {a.name}")
+    print(f"[INFO]       App ID: {a.id}")
+    print(f"[INFO]  Description: {a.description or ''}")
+    for k in Storage.get_meta_data_access_keys().get_by_appid(a.id):
+        events = ",".join(k.events) if k.events else "(all)"
+        print(f"[INFO]   Access Key: {k.key} | {events}")
+    for c in Storage.get_meta_data_channels().get_by_appid(a.id):
+        print(f"[INFO]      Channel: {c.name} ({c.id})")
+    sys.stdout.flush()
+    return 0
+
+
+def app_delete(args) -> int:
+    from predictionio_tpu_torch.server.admin import delete_app
+
+    _app_or_fail(args.name)
+    if not args.force and not _confirm(
+            f"Delete app {args.name} and ALL its data?"):
+        print("[INFO] Aborted.", flush=True)
+        return 0
+    delete_app(args.name)
+    print(f"[INFO] App {args.name} deleted.", flush=True)
+    return 0
+
+
+def app_data_delete(args) -> int:
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    a = _app_or_fail(args.name)
+    if not args.force and not _confirm(f"Delete data of app {args.name}?"):
+        print("[INFO] Aborted.", flush=True)
+        return 0
+    events = Storage.get_events()
+    if args.all or args.channel is None:
+        events.remove_channel(a.id)
+        events.init_channel(a.id)
+        print(f"[INFO] Deleted data of app {args.name} (default channel).")
+    if args.channel is not None or args.all:
+        channels = Storage.get_meta_data_channels().get_by_appid(a.id)
+        if args.channel is not None and args.channel not in [
+                c.name for c in channels]:
+            _fail(f"Channel {args.channel} does not exist. Aborting.")
+        for c in channels:
+            if args.all or c.name == args.channel:
+                events.remove_channel(a.id, c.id)
+                events.init_channel(a.id, c.id)
+                print(f"[INFO] Deleted data of channel {c.name}.")
+    sys.stdout.flush()
+    return 0
+
+
+def app_channel_new(args) -> int:
+    from predictionio_tpu_torch.storage.base import Channel
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    a = _app_or_fail(args.app_name)
+    try:
+        cid = Storage.get_meta_data_channels().insert(
+            Channel(id=0, name=args.channel_name, appid=a.id))
+    except ValueError as e:
+        _fail(str(e))
+    if cid is None:
+        _fail(f"Channel {args.channel_name} already exists.")
+    Storage.get_events().init_channel(a.id, cid)
+    print(f"[INFO] Created channel {args.channel_name} ({cid}).",
+          flush=True)
+    return 0
+
+
+def app_channel_delete(args) -> int:
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    a = _app_or_fail(args.app_name)
+    channels = Storage.get_meta_data_channels()
+    matched = [c for c in channels.get_by_appid(a.id)
+               if c.name == args.channel_name]
+    if not matched:
+        _fail(f"Channel {args.channel_name} does not exist.")
+    if not args.force and not _confirm(
+            f"Delete channel {args.channel_name} and its data?"):
+        print("[INFO] Aborted.", flush=True)
+        return 0
+    Storage.get_events().remove_channel(a.id, matched[0].id)
+    channels.delete(matched[0].id)
+    print(f"[INFO] Deleted channel {args.channel_name}.", flush=True)
+    return 0
+
+
 def accesskey_new(args) -> int:
     from predictionio_tpu_torch.storage.base import AccessKey
     from predictionio_tpu_torch.storage.registry import Storage
@@ -388,6 +535,21 @@ def accesskey_list(args) -> int:
     return 0
 
 
+def accesskey_delete(args) -> int:
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    Storage.get_meta_data_access_keys().delete(args.key)
+    print(f"[INFO] Deleted access key {args.key}.", flush=True)
+    return 0
+
+
+def version(_args) -> int:
+    from predictionio_tpu_torch import __version__
+
+    print(__version__, flush=True)
+    return 0
+
+
 # -- events (EventServer.scala, commands/Import.scala) ----------------------
 
 def eventserver(args) -> int:
@@ -396,11 +558,57 @@ def eventserver(args) -> int:
     print(f"[INFO] Creating Event Server at {args.ip}:{args.port}",
           flush=True)
 
+    scheme = _scheme()
+
     def ready(port):
-        print(f"[INFO] Event Server listening on http://{args.ip}:{port}",
-              flush=True)
+        print(f"[INFO] Event Server listening on {scheme}://{args.ip}:"
+              f"{port}", flush=True)
 
     run_event_server(args.ip, args.port, on_ready=ready, stats=args.stats)
+    return 0
+
+
+def _scheme() -> str:
+    from predictionio_tpu_torch.utils.server_config import ServerConfig
+
+    return "https" if ServerConfig.load().ssl_context() else "http"
+
+
+def adminserver(args) -> int:
+    """The admin REST API (Console.scala:399, AdminAPI.scala:45)."""
+    from predictionio_tpu_torch.server.admin import run_admin_server
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    # the device first: without a card (and without --device cpu) this
+    # raises before anything is served
+    device = resolve_device(args.device)
+    print(f"[INFO] Creating Admin API at {args.ip}:{args.port} (device "
+          f"{device})", flush=True)
+    scheme = _scheme()
+
+    def ready(port):
+        print(f"[INFO] Admin API listening on {scheme}://{args.ip}:{port}",
+              flush=True)
+
+    run_admin_server(args.ip, args.port, on_ready=ready)
+    return 0
+
+
+def dashboard(args) -> int:
+    """The fleet console (Console.scala:371, Dashboard.scala:45)."""
+    from predictionio_tpu_torch.server.dashboard import run_dashboard
+    from predictionio_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    print(f"[INFO] Creating Dashboard at {args.ip}:{args.port} (device "
+          f"{device})", flush=True)
+    scheme = _scheme()
+
+    def ready(port):
+        print(f"[INFO] Dashboard listening on {scheme}://{args.ip}:{port}",
+              flush=True)
+
+    run_dashboard(args.ip, args.port, on_ready=ready)
     return 0
 
 
@@ -442,6 +650,47 @@ def import_events(args) -> int:
         store.insert_batch(batch, app_id, channel_id)
         total += len(batch)
     print(f"[INFO] Imported {total} events.", flush=True)
+    return 0
+
+
+def export_events(args) -> int:
+    """Export an app's events (Console.scala:606, EventsToFile.scala:40)
+    as JSON lines, through a temporary file renamed at the end."""
+    from predictionio_tpu_torch.data.eventstore import resolve_app
+    from predictionio_tpu_torch.storage.base import StorageError
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    if args.format == "parquet":
+        raise ValueError(
+            "export --format parquet needs pyarrow, which the port does not "
+            "use (ROADMAP Queue 1 item 8); use --format json")
+    if args.appname:
+        try:
+            app_id, channel_id = resolve_app(args.appname, args.channel)
+        except StorageError as e:
+            _fail(f"{e}. Aborting.")
+    elif args.appid is not None:
+        app_id, channel_id = args.appid, None
+    else:
+        _fail("--appid or --appname is required.")
+    store = Storage.get_events()
+    # an interrupted export must never leave a truncated file that looks
+    # like a whole dump
+    tmp = f"{args.output}.tmp-{os.getpid()}"
+    try:
+        n = 0
+        with open(tmp, "w") as f:
+            for e in store.find(app_id, channel_id):
+                f.write(e.to_json() + "\n")
+                n += 1
+        os.replace(tmp, args.output)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    print(f"[INFO] Exported {n} events to {args.output}.", flush=True)
     return 0
 
 
@@ -697,12 +946,16 @@ def deploy(args) -> int:
     from predictionio_tpu_torch.obs.slo import slo_spec_from_server_json
     from predictionio_tpu_torch.obs.telemetry import build_recorder
     from predictionio_tpu_torch.utils.server_config import (
-        deploy_config, foldin_config, scorer_config, telemetry_config,
+        ServerConfig, foldin_config, scorer_config, telemetry_config,
     )
     from predictionio_tpu_torch.workflow.serialization import load_model
     from predictionio_tpu_torch.workflow.train import load_for_deploy
 
     t0 = time.perf_counter()
+    # server.json: the key (unless --accesskey), TLS, the serving and
+    # deploy sections under their env knobs
+    cfg = ServerConfig.load()
+    ssl_ctx = cfg.ssl_context()
     release = None
     if args.model:
         variant = {}
@@ -757,26 +1010,32 @@ def deploy(args) -> int:
                                  registry=registry, telemetry=telemetry,
                                  slo_spec=slo_spec_from_server_json(),
                                  scorer_config=scfg, release=release,
-                                 access_key=args.accesskey,
+                                 access_key=args.accesskey or cfg.key
+                                 or None,
+                                 serving_config=cfg.serving,
                                  foldin_config=fic,
-                                 deploy_config=deploy_config(),
+                                 deploy_config=cfg.deploy,
                                  feedback=args.feedback,
                                  feedback_app_name=args.event_server_app,
                                  log_url=args.log_url,
                                  log_prefix=args.log_prefix)
     report = server.warm()
     print(f"[INFO] Warm-up: batches {report.buckets} in "
-          f"{report.seconds:.3f} s; scorer mode {scfg.mode}", flush=True)
+          f"{report.seconds:.3f} s; scorer mode {scfg.mode}; micro-batches "
+          f"of at most {cfg.serving.batch_max}", flush=True)
     if fic.enabled:
         print(f"[INFO] Online fold-in enabled: apply interval "
               f"{fic.apply_interval_s:g}s, max pending {fic.max_pending} "
               "rows", flush=True)
 
-    def ready(port):
-        print(f"[INFO] Query server listening on http://{args.ip}:{port}",
-              flush=True)
+    scheme = "https" if ssl_ctx else "http"
 
-    run_query_server(server, args.ip, args.port, on_ready=ready)
+    def ready(port):
+        print(f"[INFO] Query server listening on {scheme}://{args.ip}:"
+              f"{port}", flush=True)
+
+    run_query_server(server, args.ip, args.port, on_ready=ready,
+                     ssl_context=ssl_ctx)
     return 0
 
 
@@ -792,11 +1051,12 @@ def multiserve(args) -> int:
     )
     from predictionio_tpu_torch.storage.registry import Storage
     from predictionio_tpu_torch.utils.server_config import (
-        foldin_config, scorer_config,
+        ServingConfig, foldin_config, read_server_json, scorer_config,
     )
     from predictionio_tpu_torch.workflow.train import load_for_deploy
 
     port = DEFAULT_PORT if args.port is None else args.port
+    serving = ServingConfig.from_env(read_server_json().get("serving"))
     specs = []
     instances = Storage.get_meta_data_engine_instances()
     for entry in args.tenant_specs:
@@ -824,7 +1084,7 @@ def multiserve(args) -> int:
             name=name, engine=engine, train_result=result,
             instance=instance, release=release, scorer_config=scfg,
             foldin_config=foldin_config(variant.get("foldin")),
-            slo=variant.get("slo")))
+            serving_config=serving, slo=variant.get("slo")))
     print(f"[INFO] Hosting {len(specs)} tenant(s) at {args.ip}:{port}",
           flush=True)
 
@@ -1380,6 +1640,95 @@ def _echo_cycle(doc) -> None:
           f"--trace-id {trace}` on a live server)", flush=True)
 
 
+def analyze(args) -> int:
+    """Tail anatomy off the durable telemetry: where the p50 and p99
+    requests spend their wall, stage by stage
+    (``pio_anatomy_stage_seconds``), with an optional two-window diff
+    naming the stage a regression came from."""
+    from predictionio_tpu_torch.obs.anatomy import (
+        composition, regression_diff, stage_stats,
+    )
+
+    root, reader = _history_reader(args.dirpath)
+    window_ms = int(_parse_duration_s(args.since) * 1000)
+    since_ms = int(time.time() * 1000) - window_ms
+    path = args.anatomy_path
+    stats = stage_stats(reader, path, since_ms=since_ms)
+    diff = None
+    if args.diff:
+        before = stage_stats(reader, path, since_ms=since_ms - window_ms,
+                             until_ms=since_ms)
+        if before and stats:
+            diff = regression_diff(before, stats)
+    if args.as_json:
+        print(json.dumps({
+            "path": path, "sinceMs": since_ms, "stages": stats,
+            "p50Composition": composition(stats, path, "p50"),
+            "p99Composition": composition(stats, path, "p99"),
+            "diff": diff}, sort_keys=True), flush=True)
+        return 0
+    if not stats:
+        print(f"[INFO] no anatomy history for path={path} in the window "
+              f"(root {root}; is PIO_ANATOMY on and telemetry "
+              "persisting?).", flush=True)
+        return 0
+    p50_comp = composition(stats, path, "p50")
+    p99_comp = composition(stats, path, "p99")
+    requests = max(s["count"] for s in stats.values())
+    print(f"[INFO] {path} anatomy over {args.since} ({requests:g} "
+          "request(s)):")
+    print(f"[INFO]   {'stage':<16} {'mean':>9} {'p50':>9} {'p99':>9} "
+          f"{'p50 share':>10} {'p99 share':>10}")
+    for stage, st in sorted(stats.items(), key=lambda kv: -kv[1]["p99"]):
+        def _share(comp):
+            return f"{100.0 * comp[stage]:.0f}%" if stage in comp else "-"
+        print(f"[INFO]   {stage:<16} {1e3 * st['mean']:>7.2f}ms "
+              f"{1e3 * st['p50']:>7.2f}ms {1e3 * st['p99']:>7.2f}ms "
+              f"{_share(p50_comp):>10} {_share(p99_comp):>10}")
+    if args.diff:
+        if diff is None:
+            print("[INFO] diff: not enough history in the baseline "
+                  "window.")
+        else:
+            print(f"[INFO] regression diff vs previous {args.since}: stage "
+                  f"'{diff['stage']}' moved most "
+                  f"({1e3 * diff['beforeMeanS']:.2f}ms -> "
+                  f"{1e3 * diff['afterMeanS']:.2f}ms mean, "
+                  f"{1e3 * diff['deltaMeanS']:+.2f}ms)")
+    sys.stdout.flush()
+    return 0
+
+
+def shell(_args) -> int:
+    """An interactive interpreter with the port loaded (bin/pio-shell):
+    ``Storage``, ``EventStoreClient`` and ``WorkflowContext``."""
+    import code
+
+    from predictionio_tpu_torch.data.eventstore import EventStoreClient
+    from predictionio_tpu_torch.storage.registry import Storage
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    code.interact(
+        banner="predictionio_tpu_torch shell\npreloaded: Storage, "
+               "EventStoreClient (PEventStore/LEventStore analog), "
+               "WorkflowContext",
+        local={"Storage": Storage, "EventStoreClient": EventStoreClient,
+               "WorkflowContext": WorkflowContext},
+        exitmsg="")
+    return 0
+
+
+def run(args) -> int:
+    """Run a module as ``__main__`` with ``sys.argv`` its name and the
+    arguments (Console.scala:412)."""
+    import runpy
+
+    sys.argv = [args.main_module, *args.args]
+    runpy.run_module(args.main_module, run_name="__main__",
+                     alter_sys=True)
+    return 0
+
+
 def status(args) -> int:
     """Verify the storage configuration (Console.scala:435,
     Management.scala:99); with ``--fleet``, print a sharded run's merged
@@ -1672,6 +2021,31 @@ def build_parser() -> argparse.ArgumentParser:
     a.set_defaults(func=app_new)
     app.add_parser("list", help="list apps and their keys").set_defaults(
         func=app_list)
+    a = app.add_parser("show", help="show an app, its keys and channels")
+    a.add_argument("name")
+    a.set_defaults(func=app_show)
+    a = app.add_parser("delete", help="delete an app with its channels, "
+                                      "keys and events")
+    a.add_argument("name")
+    a.add_argument("--force", "-f", action="store_true")
+    a.set_defaults(func=app_delete)
+    a = app.add_parser("data-delete", help="delete an app's events")
+    a.add_argument("name")
+    a.add_argument("--channel", default=None)
+    a.add_argument("--all", action="store_true",
+                   help="every channel and the default one")
+    a.add_argument("--force", "-f", action="store_true")
+    a.set_defaults(func=app_data_delete)
+    a = app.add_parser("channel-new", help="add a channel to an app")
+    a.add_argument("app_name")
+    a.add_argument("channel_name")
+    a.set_defaults(func=app_channel_new)
+    a = app.add_parser("channel-delete", help="delete a channel and its "
+                                              "events")
+    a.add_argument("app_name")
+    a.add_argument("channel_name")
+    a.add_argument("--force", "-f", action="store_true")
+    a.set_defaults(func=app_channel_delete)
 
     keys = sub.add_parser("accesskey", help="manage access keys"
                           ).add_subparsers(dest="key_command", required=True)
@@ -1684,6 +2058,12 @@ def build_parser() -> argparse.ArgumentParser:
     k = keys.add_parser("list", help="list access keys")
     k.add_argument("app_name", nargs="?", default=None)
     k.set_defaults(func=accesskey_list)
+    k = keys.add_parser("delete", help="delete an access key")
+    k.add_argument("key")
+    k.set_defaults(func=accesskey_delete)
+
+    sub.add_parser("version", help="print the version").set_defaults(
+        func=version)
 
     tp = sub.add_parser("template", help="engine templates"
                         ).add_subparsers(dest="template_command",
@@ -1702,6 +2082,28 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--stats", action="store_true",
                    help="keep ingest statistics at /stats.json")
     e.set_defaults(func=eventserver)
+
+    ad = sub.add_parser("adminserver", help="serve the admin REST API")
+    ad.add_argument("--ip", default="localhost")
+    ad.add_argument("--port", default=7071, type=int)
+    ad.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ad.set_defaults(func=adminserver)
+
+    db = sub.add_parser("dashboard", help="serve the fleet console")
+    db.add_argument("--ip", default="localhost")
+    db.add_argument("--port", default=9000, type=int)
+    db.add_argument("--device", default=None, help="cuda (default) or cpu")
+    db.set_defaults(func=dashboard)
+
+    ex = sub.add_parser("export", help="export an app's events to a "
+                                       "JSON-lines file")
+    ex.add_argument("--appid", type=int, default=None)
+    ex.add_argument("--appname", default=None)
+    ex.add_argument("--channel", default=None)
+    ex.add_argument("--output", required=True)
+    ex.add_argument("--format", choices=("json", "parquet"),
+                    default="json")
+    ex.set_defaults(func=export_events)
 
     i = sub.add_parser("import", help="import events from a JSON-lines "
                                       "file")
@@ -1986,6 +2388,30 @@ def build_parser() -> argparse.ArgumentParser:
                          "summary")
     lt.add_argument("--device", default=None, help="cuda (default) or cpu")
     lt.set_defaults(func=loadtest)
+
+    an = sub.add_parser("analyze", help="per-stage anatomy of the serving "
+                                        "or ingest path from the durable "
+                                        "telemetry")
+    an.add_argument("--path", dest="anatomy_path", default="serving",
+                    choices=("serving", "ingest"))
+    an.add_argument("--since", default="1h",
+                    help="trailing window (45s, 30m, 2h; default 1h)")
+    an.add_argument("--diff", action="store_true",
+                    help="against the window of the same length before")
+    an.add_argument("--dir", dest="dirpath", default=None,
+                    help="telemetry root (default $PIO_HOME/telemetry or "
+                         "PIO_TELEMETRY_DIR)")
+    an.add_argument("--json", dest="as_json", action="store_true")
+    an.set_defaults(func=analyze)
+
+    sub.add_parser("shell", help="an interactive interpreter with the "
+                                 "storage and workflow loaded"
+                   ).set_defaults(func=shell)
+
+    rn = sub.add_parser("run", help="run a module as __main__")
+    rn.add_argument("main_module")
+    rn.add_argument("args", nargs=argparse.REMAINDER)
+    rn.set_defaults(func=run)
 
     st = sub.add_parser("status", help="verify the storage configuration")
     st.add_argument("--fleet", dest="fleet_path", default=None,

@@ -25,7 +25,11 @@ store (port of the reference's ``data/write_buffer.py``).
   of every buffer in the process (the push path of online fold-in,
   ``deploy/foldin``). A tap runs on the writer thread only after the
   commit landed, never for a failed flush; a tap that raises is logged
-  and the flush goes on.
+  and the flush goes on. A group commit runs under the trace context
+  of its first submitter that had one (an ``ingest_flush`` hop of the
+  submitting request's trace), and so do its taps: fold-in captures the
+  context there and its apply re-enters it. (The reference runs its
+  taps after the carried flush has ended, where no trace is active.)
 
 * **commit lanes** — with ``partitions > 1`` the buffer runs one
   group-commit lane per partition, each with its own bounded queue
@@ -67,7 +71,9 @@ from predictionio_tpu_torch.data.event import Event
 from predictionio_tpu_torch.obs.anatomy import (
     anatomy_enabled, anatomy_metrics, observe_ingest_batch,
 )
-from predictionio_tpu_torch.obs.tracing import current_trace
+from predictionio_tpu_torch.obs.tracing import (
+    capture_context, carried, current_trace, span,
+)
 from predictionio_tpu_torch.storage.base import StorageError, generate_id
 from predictionio_tpu_torch.storage.partitioned import partition_of
 
@@ -164,10 +170,11 @@ class _AttemptThread:
 
 class _Pending:
     """One submit. ``t_submit`` and ``req_trace`` (the submitting
-    request's Trace) feed the ingest anatomy."""
+    request's Trace) feed the ingest anatomy; ``trace`` is its carryable
+    context (None outside a trace)."""
 
     __slots__ = ("events", "app_id", "channel_id", "future", "t_submit",
-                 "req_trace")
+                 "req_trace", "trace")
 
     def __init__(self, events, app_id, channel_id, future):
         self.events = events
@@ -176,6 +183,7 @@ class _Pending:
         self.future = future
         self.t_submit = time.perf_counter()
         self.req_trace = current_trace()
+        self.trace = capture_context()
 
 
 class _Lane:
@@ -248,6 +256,7 @@ class WriteBuffer:
         #: registry, when one is given
         self._anatomy = (anatomy_metrics(registry)
                          if registry is not None else None)
+        self._registry = registry
         self.queue_max = max(1, queue_max)
         self.flush_max = max(1, flush_max)
         self.linger_s = max(0.0, linger_s)
@@ -424,40 +433,56 @@ class WriteBuffer:
         for p in batch:
             groups.setdefault((p.app_id, p.channel_id), []).append(p)
         for (app_id, channel_id), pendings in groups.items():
-            events = [e for p in pendings for e in p.events]
-            t_flush_start = time.perf_counter()
-            try:
-                ids = self._flush_group(lane, events, app_id, channel_id)
-            except Exception as e:  # noqa: BLE001 — fanned out to callers
-                for p in pendings:
-                    if p.future.set_running_or_notify_cancel():
-                        p.future.set_exception(_as_storage_error(e))
+            ctx = next((p.trace for p in pendings if p.trace is not None),
+                       None)
+            if ctx is None:
+                self._commit_group(lane, pendings, app_id, channel_id)
                 continue
-            commit_s = time.perf_counter() - t_flush_start
-            if self._p_commit is not None:
-                self._p_commit.observe(commit_s, partition=str(lane.index))
-            if self._anatomy is not None and anatomy_enabled():
-                try:
-                    observe_ingest_batch(
-                        self._anatomy,
-                        [(p.t_submit, p.req_trace) for p in pendings],
-                        t_flush_start, commit_s)
-                except Exception:
-                    logger.exception("ingest anatomy observation failed")
-            pos = 0
-            for p in pendings:
-                n = len(p.events)
-                if p.future.set_running_or_notify_cancel():
-                    p.future.set_result(list(ids[pos:pos + n]))
-                pos += n
-            # only after the commit: a tap never sees an event the store
-            # might still lose
-            _notify_taps(events, app_id, channel_id)
+            events = sum(len(p.events) for p in pendings)
+            with carried(ctx, "ingest_flush", registry=self._registry,
+                         attrs={"events": events,
+                                "submits": len(pendings)}):
+                self._commit_group(lane, pendings, app_id, channel_id)
         # this lane's own retry-after estimate: a slow partition backs
         # off only its own writers
         lane.last_flush_s = max(0.001, time.monotonic() - t0)
         if self._flush_duration is not None:
             self._flush_duration.observe(time.monotonic() - t0)
+
+    def _commit_group(self, lane: _Lane, pendings: List[_Pending],
+                      app_id, channel_id) -> None:
+        """One (app, channel)'s insert; each submitter's future gets its
+        slice of the ids, then the taps see the committed events."""
+        events = [e for p in pendings for e in p.events]
+        t_flush_start = time.perf_counter()
+        try:
+            with span("ingest_flush"):
+                ids = self._flush_group(lane, events, app_id, channel_id)
+        except Exception as e:  # noqa: BLE001 — fanned out to callers
+            for p in pendings:
+                if p.future.set_running_or_notify_cancel():
+                    p.future.set_exception(_as_storage_error(e))
+            return
+        commit_s = time.perf_counter() - t_flush_start
+        if self._p_commit is not None:
+            self._p_commit.observe(commit_s, partition=str(lane.index))
+        if self._anatomy is not None and anatomy_enabled():
+            try:
+                observe_ingest_batch(
+                    self._anatomy,
+                    [(p.t_submit, p.req_trace) for p in pendings],
+                    t_flush_start, commit_s)
+            except Exception:
+                logger.exception("ingest anatomy observation failed")
+        pos = 0
+        for p in pendings:
+            n = len(p.events)
+            if p.future.set_running_or_notify_cancel():
+                p.future.set_result(list(ids[pos:pos + n]))
+            pos += n
+        # only after the commit: a tap never sees an event the store
+        # might still lose
+        _notify_taps(events, app_id, channel_id)
 
     def _flush_group(self, lane: _Lane, events, app_id, channel_id
                      ) -> List[str]:

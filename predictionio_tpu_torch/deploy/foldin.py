@@ -38,9 +38,12 @@ return the rows the unpartitioned store returns.
 The controller counts into the registry series of ``obs/foldin_stats``
 (applies by outcome, applied and pending rows, the apply, solve and
 event-to-applied times) and keeps a log of its recent applies, which
-``status_dict`` (``GET /deploy/status.json``) reports. The reference's
-trace carry (an apply re-entering the trace of the request whose
-events it folds) is not ported (ROADMAP Queue 1 item 4).
+``status_dict`` (``GET /deploy/status.json``) reports. Each tap
+captures the trace context it runs in (the write buffer's flush carries
+the ingest request's), and the next apply re-enters the last one as a
+``foldin_apply`` span, so one trace id stitches ingest request, flush,
+apply and swap; an apply that raced a cutover or failed keeps the
+context for the retry.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from predictionio_tpu_torch.obs.foldin_stats import (
     foldin_solve_seconds,
 )
 from predictionio_tpu_torch.obs.registry import MetricsRegistry
+from predictionio_tpu_torch.obs.tracing import capture_context, carried
 from predictionio_tpu_torch.storage.base import Release
 from predictionio_tpu_torch.utils.server_config import FoldinConfig
 
@@ -327,6 +331,10 @@ class FoldInController:
         self._loop = None
         self._task = None
         self._kick: Optional[threading.Event] = None
+        #: the last tap's captured trace context, re-entered by the
+        #: next apply
+        self._last_trace = None
+        self._registry = reg
         self.applied_users = 0
         self.applied_items = 0
         self.applies = 0
@@ -389,6 +397,11 @@ class FoldInController:
         dirty, once per event id; other event names and entity types are
         ignored."""
         now = time.monotonic()
+        # the tap runs inside the flush's carried trace: the apply that
+        # folds these events stays on its trace id (None: tracing off)
+        ctx = capture_context()
+        if ctx is not None:
+            self._last_trace = ctx
         with self._lock:
             for e in events:
                 if not self._first_sight(e.event_id):
@@ -642,16 +655,27 @@ class FoldInController:
 
         from predictionio_tpu_torch.deploy.warm import FoldinSwapRaced
 
+        # re-enter the last tap's trace: this apply and its swap are
+        # recorded under the ingest request's trace id
+        ctx, self._last_trace = self._last_trace, None
         try:
-            stats = self._apply(users, items, counts)
+            if ctx is not None:
+                with carried(ctx, "foldin_apply", registry=self._registry,
+                             attrs={"users": len(users),
+                                    "items": len(items)}):
+                    stats = self._apply(users, items, counts)
+            else:
+                stats = self._apply(users, items, counts)
         except FoldinSwapRaced as e:
             requeue()
+            self._last_trace = ctx
             self._m_applies.inc(outcome="raced")
             logger.info("fold-in apply raced a cutover, deltas requeued: "
                         "%s", e)
             return None
         except Exception:
             requeue()
+            self._last_trace = ctx
             self._m_applies.inc(outcome="error")
             raise
         self._m_applies.inc(outcome="applied")

@@ -15,6 +15,10 @@
   *      /plugins/<type>/<name>/<args...> -> that plugin's
                                  ``handle_rest`` (the reference's
                                  ``event_server.py:398-412``)
+  POST   /webhooks/<name>.json -> 201 {"eventId": id}: the payload
+                                 through that connector
+                                 (``data/webhooks``)           (:442)
+  GET    /webhooks/<name>.json -> the connector's liveness
 
 Auth (:92-142): the ``accessKey`` query parameter, else an
 ``Authorization: Basic <key:>`` header; a key restricted to some event
@@ -38,8 +42,14 @@ Every request runs under the observability middleware
 served unauthenticated, as in the reference. The write buffer observes
 each submit's ``flush_wait`` and ``commit`` anatomy stages.
 
-The HTTP layer is the port's stdlib one (``server/http``); the
-reference's webhooks are not ported yet.
+A webhook's payload is a JSON body, or form fields for the form-based
+connectors (``mailchimp``, ``exampleform``; read as aiohttp's
+``request.post()`` reads them); its event takes the key auth and the
+write path of the other ingest routes. An unknown connector answers 404.
+
+The HTTP layer is the port's stdlib one (``server/http``);
+:func:`run_event_server` listens over TLS when server.json's ``ssl``
+section (or ``PIO_SSL_CERTFILE``) turns it on.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ import json
 import logging
 from typing import Any, List, Optional, Tuple
 
+from predictionio_tpu_torch.data import webhooks
 from predictionio_tpu_torch.data.event import (
     Event, EventValidationError, parse_event_time, validate_event,
 )
@@ -77,7 +88,7 @@ from predictionio_tpu_torch.server.stats import Stats
 from predictionio_tpu_torch.storage.base import StorageError
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.server_config import (
-    IngestConfig, ingest_config, telemetry_config,
+    IngestConfig, ServerConfig, ingest_config,
 )
 
 logger = logging.getLogger("pio.torch.eventserver")
@@ -134,6 +145,8 @@ class EventServer:
             ("GET", "/stats.json", self.handle_stats),
             ("GET", "/plugins.json", self.handle_plugins),
             ("*", "/plugins/{tail:.*}", self.handle_plugin_rest),
+            ("POST", "/webhooks/{name}.json", self.handle_webhook_post),
+            ("GET", "/webhooks/{name}.json", self.handle_webhook_get),
             *metrics_routes(self.registry, default_registry()),
             *capacity_routes(),
             *history_routes(history_reader_factory(self.telemetry)),
@@ -143,8 +156,8 @@ class EventServer:
         self.stopped = asyncio.Event()
 
     async def start(self, host: str = "localhost",
-                    port: int = DEFAULT_PORT) -> int:
-        return await self._http.start(host, port)
+                    port: int = DEFAULT_PORT, ssl_context=None) -> int:
+        return await self._http.start(host, port, ssl_context=ssl_context)
 
     async def close(self) -> None:
         """Stop accepting, then flush every buffered event: accepted
@@ -399,17 +412,55 @@ class EventServer:
         return 200, registry[plugin_name].handle_rest(
             auth.app_id, auth.channel_id, args)
 
+    # -- webhooks (EventServer.scala:442-523) -------------------------------
+    @staticmethod
+    def _unsupported(name: str) -> Tuple[int, Any]:
+        return 404, {"message": f"webhooks connection for {name} is not "
+                                "supported."}
+
+    async def handle_webhook_post(self, req: Request):
+        auth = await self._auth(req)
+        name = req.params["name"]
+        connector = webhooks.get_connector(name)
+        if connector is None:
+            return self._unsupported(name)
+        try:
+            payload = req.form() if connector.form_based else req.json()
+            event = connector.to_event(payload)
+            validate_event(event)
+        except Exception as e:      # the reference answers 400 for any
+            return 400, {"message": str(e)}
+        try:
+            event_id = (await self._insert([event], auth))[0]
+        except BufferFull as bf:
+            return self._shed(bf)
+        except StorageError as e:
+            return self._storage_status(), {"message": str(e)}
+        if self.stats_enabled:
+            self.stats.bookkeeping(auth.app_id, 201, event)
+        return 201, {"eventId": event_id}
+
+    async def handle_webhook_get(self, req: Request):
+        await self._auth(req)
+        name = req.params["name"]
+        if webhooks.get_connector(name) is None:
+            return self._unsupported(name)
+        return 200, {"message": f"webhooks connection for {name} is ok."}
+
 
 def run_event_server(host: str = "localhost", port: int = DEFAULT_PORT,
                      on_ready=None, stats: bool = False) -> None:
     """Serve until SIGINT or SIGTERM, then drain the write buffer.
-    ``on_ready(port)`` runs once the socket is bound. Durable telemetry
-    runs as ``telemetry_config()`` resolves it (``PIO_TELEMETRY=0``
-    off), in the store ``event_server-<port>``."""
+    ``on_ready(port)`` runs once the socket is bound. server.json (with
+    its env) gives the ingest knobs, TLS and durable telemetry
+    (``PIO_TELEMETRY=0`` off; the store ``event_server-<port>``)."""
+    cfg = ServerConfig.load()
     registry = MetricsRegistry()
-    telemetry = build_recorder("event_server", telemetry_config(),
+    telemetry = build_recorder("event_server", cfg.telemetry,
                                instance=str(port),
                                registries=[registry, default_registry()])
-    serve_until_stopped(EventServer(stats=stats, registry=registry,
+    serve_until_stopped(EventServer(ingest=cfg.ingest, stats=stats,
+                                    registry=registry,
                                     telemetry=telemetry),
-                        host, port, on_ready)
+                        host, port, on_ready,
+                        ssl_context=cfg.ssl_context())

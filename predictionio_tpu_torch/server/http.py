@@ -26,18 +26,27 @@ mounting server's own routes outrank a mount; a path they do not take
 that starts with the prefix is matched against the mounted routes with
 the prefix cut to ``/``. Only the mounting server's middleware runs
 around it, so a request is observed once.
+
+A listener may speak TLS: ``start`` (and :func:`serve_until_stopped`)
+take an ``ssl.SSLContext`` (``utils/server_config.ServerConfig.
+ssl_context``); a plain-HTTP request to it fails the handshake and gets
+no answer. :meth:`Request.form` reads a form body as aiohttp's
+``dict(await request.post())`` does (the webhooks' form connectors).
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import email.parser
+import email.policy
 import functools
 import http
 import json
 import logging
 import re
 import signal
+import ssl
 import threading
 import urllib.parse
 from typing import Any, Awaitable, Callable, Dict, List, Optional, Tuple
@@ -46,6 +55,9 @@ logger = logging.getLogger("pio.torch.http")
 
 #: largest request body accepted
 MAX_BODY_BYTES = 16 << 20
+#: how long a TLS connection's close waits for the peer's close_notify
+#: (asyncio's default, 30 s, holds a stopping server on an idle client)
+TLS_SHUTDOWN_TIMEOUT_S = 1.0
 
 
 @dataclasses.dataclass
@@ -63,6 +75,46 @@ class Request:
     def json(self) -> Any:
         return json.loads(self.body)
 
+    def form(self) -> Dict[str, str]:
+        """The body's form fields as aiohttp's ``dict(await
+        request.post())`` gives them: an ``x-www-form-urlencoded`` body
+        percent-decoded in its charset (utf-8 unless named), blank values
+        kept, the first value of a repeated key; a
+        ``multipart/form-data`` body's text fields; no fields for another
+        type (a missing or empty header is ``application/octet-stream``)
+        or a method without a body."""
+        if self.method not in _FORM_METHODS:
+            return {}
+        ctype, _, params = self.headers.get(
+            "content-type", "application/octet-stream").partition(";")
+        ctype = ctype.strip().lower()
+        charset = "utf-8"
+        for param in params.split(";"):
+            name, _, value = param.strip().partition("=")
+            if name.lower() == "charset" and value:
+                charset = value.strip('"')
+        out: Dict[str, str] = {}
+        if ctype == "application/x-www-form-urlencoded":
+            if self.body:
+                for k, v in urllib.parse.parse_qsl(
+                        self.body.rstrip().decode(charset),
+                        keep_blank_values=True, encoding=charset):
+                    out.setdefault(k, v)
+        elif ctype == "multipart/form-data":
+            msg = email.parser.BytesParser(
+                policy=email.policy.HTTP).parsebytes(
+                b"Content-Type: " + self.headers["content-type"].encode(
+                    "latin-1") + b"\r\n\r\n" + self.body)
+            for part in msg.iter_parts():
+                name = part.get_param("name", header="content-disposition")
+                if name is None:
+                    raise ValueError("Multipart field missing name.")
+                if part.get_filename() is None:
+                    data = part.get_payload(decode=True) or b""
+                    out.setdefault(name, data.decode(
+                        part.get_content_charset() or "utf-8"))
+        return out
+
 
 @dataclasses.dataclass
 class RawBody:
@@ -72,6 +124,10 @@ class RawBody:
     data: bytes
     content_type: str
 
+
+#: the methods whose form body ``Request.form`` reads (aiohttp's
+#: ``POST_METHODS``)
+_FORM_METHODS = frozenset({"PATCH", "POST", "PUT", "TRACE", "DELETE"})
 
 #: the handler label of a request no route took (the reference's)
 UNMATCHED = "__unmatched__"
@@ -124,9 +180,14 @@ class HttpServer:
         self._conns: Dict[asyncio.StreamWriter, bool] = {}
         self._closing = False
 
-    async def start(self, host: str, port: int) -> int:
-        self._server = await asyncio.start_server(self._handle_conn,
-                                                  host, port)
+    async def start(self, host: str, port: int,
+                    ssl_context: Optional[ssl.SSLContext] = None) -> int:
+        """Bind; with ``ssl_context`` every connection speaks TLS."""
+        tls = {} if ssl_context is None else {
+            "ssl": ssl_context,
+            "ssl_shutdown_timeout": TLS_SHUTDOWN_TIMEOUT_S}
+        self._server = await asyncio.start_server(
+            self._handle_conn, host, port, **tls)
         return self._server.sockets[0].getsockname()[1]
 
     async def close(self) -> None:
@@ -138,7 +199,9 @@ class HttpServer:
         self._server.close()
         for writer, busy in list(self._conns.items()):
             if not busy:
-                writer.close()
+                # nothing is in flight on an idle connection: drop it
+                # without waiting on the peer's TLS close
+                writer.transport.abort()
         await self._server.wait_closed()
 
     def mount(self, prefix: str, server: "HttpServer") -> None:
@@ -256,10 +319,12 @@ class HttpServer:
                 if not keep_alive or self._closing:
                     return
                 self._conns[writer] = False
-        except (ConnectionError, asyncio.IncompleteReadError,
+        except (OSError, asyncio.IncompleteReadError,
                 asyncio.LimitOverrunError, ValueError):
-            # a peer that vanished, or a line past the stream's limit:
-            # drop the connection
+            # a peer that vanished, a line past the stream's limit or a
+            # broken or timed-out TLS stream (OSError covers
+            # ConnectionError, ssl.SSLError and TimeoutError): drop the
+            # connection
             pass
         finally:
             self._conns.pop(writer, None)
@@ -303,20 +368,25 @@ async def _respond(writer: asyncio.StreamWriter, status: int, payload: Any,
 
 
 def serve_until_stopped(server, host: str, port: int,
-                        on_ready: Optional[Callable[[int], None]] = None
+                        on_ready: Optional[Callable[[int], None]] = None,
+                        ssl_context: Optional[ssl.SSLContext] = None
                         ) -> None:
     """Run ``server`` (``start(host, port)``, ``close()`` and a
     ``stopped`` asyncio.Event) on a new event loop until ``stopped`` is
     set or the process gets SIGINT or SIGTERM (handled when called on
     the main thread); then ``close()`` runs, so a server's shutdown work
     (the event server's buffer drain) is done. ``on_ready(port)`` runs
-    once the socket is bound."""
+    once the socket is bound. With ``ssl_context`` the server listens
+    over TLS (its ``start`` takes ``ssl_context=``)."""
     async def _main():
         if threading.current_thread() is threading.main_thread():
             loop = asyncio.get_running_loop()
             for sig in (signal.SIGINT, signal.SIGTERM):
                 loop.add_signal_handler(sig, server.stopped.set)
-        bound = await server.start(host, port)
+        if ssl_context is None:
+            bound = await server.start(host, port)
+        else:
+            bound = await server.start(host, port, ssl_context=ssl_context)
         if on_ready is not None:
             on_ready(bound)
         try:

@@ -81,9 +81,10 @@ class TenantSpec:
     about 3.8x more tenants resident than f32 before the budgeter has to
     evict); ``slo`` is a raw server.json-style ``"slo"`` section whose
     objective names get tenant-prefixed so N tenants share one
-    registry's ``pio_slo_*`` gauges without colliding. ``max_batch`` and
-    ``linger_s`` are the tenant's micro-batcher's (the reference's
-    ``ServingConfig`` ``batch_max`` and ``batch_linger_s``)."""
+    registry's ``pio_slo_*`` gauges without colliding.
+    ``serving_config`` (a ``ServingConfig``: server.json ``serving`` and
+    ``PIO_BATCH_*``) sizes the tenant's micro-batcher; without one,
+    ``max_batch`` and ``linger_s`` do."""
 
     name: str
     engine: Any
@@ -94,6 +95,7 @@ class TenantSpec:
     deploy_config: Any = None
     foldin_config: Any = None
     slo: Optional[dict] = None
+    serving_config: Any = None
     max_batch: int = MAX_BATCH
     linger_s: Optional[float] = None
 
@@ -213,8 +215,8 @@ class MultiTenantServer:
     # -- construction --------------------------------------------------------
     def _build_tenant(self, spec: TenantSpec) -> Tenant:
         kwargs: Dict[str, Any] = {}
-        for key in ("release", "scorer_config", "deploy_config",
-                    "foldin_config"):
+        for key in ("release", "scorer_config", "serving_config",
+                    "deploy_config", "foldin_config"):
             value = getattr(spec, key)
             if value is not None:
                 kwargs[key] = value
@@ -257,11 +259,11 @@ class MultiTenantServer:
 
     # -- lifecycle -----------------------------------------------------------
     async def start(self, host: str = "localhost",
-                    port: int = DEFAULT_PORT) -> int:
-        """Bind, start every tenant's fold-in and SLO loops, the budget
-        sweep (with a budget) and the tenants' SLO loop; returns the
-        bound port."""
-        bound = await self._http.start(host, port)
+                    port: int = DEFAULT_PORT, ssl_context=None) -> int:
+        """Bind (over TLS with ``ssl_context``), start every tenant's
+        fold-in and SLO loops, the budget sweep (with a budget) and the
+        tenants' SLO loop; returns the bound port."""
+        bound = await self._http.start(host, port, ssl_context=ssl_context)
         for tenant in self.tenants.values():
             tenant.server.start_background()
         loop = asyncio.get_running_loop()
@@ -487,20 +489,26 @@ def run_multitenant_server(specs: List[TenantSpec],
                            on_ready=None, **kwargs) -> None:
     """Serve until SIGINT or SIGTERM, with the ``PIO_MT_*`` knobs and,
     unless the caller passed one, a telemetry recorder of service
-    ``multitenant`` over the host's registry. ``on_ready(port)`` runs
-    once the socket is bound."""
+    ``multitenant`` over the host's registry. Without an
+    ``access_key`` (None or empty) server.json's ``key`` guards every
+    tenant's deploy API; server.json's ``ssl`` turns TLS on.
+    ``on_ready(port)`` runs once the socket is bound."""
     from predictionio_tpu_torch.obs.telemetry import build_recorder
-    from predictionio_tpu_torch.utils.server_config import (
-        multitenant_config, telemetry_config,
-    )
+    from predictionio_tpu_torch.utils.server_config import ServerConfig
 
-    kwargs.setdefault("config", multitenant_config())
+    cfg = ServerConfig.load()
+    # the file's key stands in for a missing one (the reference's
+    # setdefault never applies: its CLI passes access_key=None)
+    if not kwargs.get("access_key"):
+        kwargs["access_key"] = cfg.key or None
+    kwargs.setdefault("config", cfg.multitenant)
     if "telemetry" not in kwargs:
         registry = kwargs.setdefault("registry", MetricsRegistry())
         kwargs["telemetry"] = build_recorder(
-            "multitenant", telemetry_config(), instance=str(port),
+            "multitenant", cfg.telemetry, instance=str(port),
             registries=[registry, default_registry()])
     server = create_multitenant_server(specs, **kwargs)
-    logger.info("Multi-tenant server on %s:%s (%d tenants)", ip, port,
-                len(server.tenants))
-    serve_until_stopped(server, ip, port, on_ready)
+    ssl_ctx = cfg.ssl_context()
+    logger.info("Multi-tenant server on %s:%s%s (%d tenants)", ip, port,
+                " (TLS)" if ssl_ctx else "", len(server.tenants))
+    serve_until_stopped(server, ip, port, on_ready, ssl_context=ssl_ctx)

@@ -152,7 +152,7 @@ from predictionio_tpu_torch.storage.base import (
 )
 from predictionio_tpu_torch.storage.registry import Storage
 from predictionio_tpu_torch.utils.server_config import (
-    DeployConfig, FoldinConfig, ScorerConfig,
+    DeployConfig, FoldinConfig, ScorerConfig, ServingConfig,
 )
 
 logger = logging.getLogger("pio.torch.queryserver")
@@ -557,6 +557,7 @@ class QueryServer:
                  max_batch: int = MAX_BATCH,
                  linger_s: Optional[float] = None,
                  inflight: int = INFLIGHT,
+                 serving_config: Optional[ServingConfig] = None,
                  release: Optional[Release] = None,
                  access_key: Optional[str] = None,
                  foldin_config: Optional[FoldinConfig] = None,
@@ -575,6 +576,12 @@ class QueryServer:
         #: process-wide default registry
         self.registry = registry or MetricsRegistry()
         self.start_time = _dt.datetime.now(tz=_dt.timezone.utc)
+        if serving_config is not None:
+            # server.json "serving" and PIO_BATCH_* (ServingConfig)
+            # outrank the three knobs
+            max_batch = serving_config.batch_max
+            linger_s = serving_config.batch_linger_s
+            inflight = serving_config.batch_inflight
         self.max_batch = max(1, max_batch)
         #: resolved scoring-kernel knobs, pinned process-wide so every
         #: scoring surface (models, warm-up) sees ONE mode
@@ -1132,11 +1139,12 @@ class QueryServer:
                 await asyncio.wrap_future(fut)
 
     # -- HTTP ----------------------------------------------------------------
-    async def start(self, host: str = "localhost", port: int = DEFAULT_PORT
-                    ) -> int:
-        """Bind and start accepting; returns the bound port (``port=0``
-        picks a free one). Starts the fold-in controller when enabled."""
-        bound = await self._http.start(host, port)
+    async def start(self, host: str = "localhost", port: int = DEFAULT_PORT,
+                    ssl_context=None) -> int:
+        """Bind and start accepting (over TLS with ``ssl_context``);
+        returns the bound port (``port=0`` picks a free one). Starts the
+        fold-in controller when enabled."""
+        bound = await self._http.start(host, port, ssl_context=ssl_context)
         self.start_background()
         return bound
 
@@ -1961,7 +1969,9 @@ def create_query_server(engine: Engine, train_result: TrainResult,
 
 
 def run_query_server(server: QueryServer, host: str = "localhost",
-                     port: int = DEFAULT_PORT, on_ready=None) -> None:
-    """Serve until ``POST /stop``, SIGINT or SIGTERM. ``on_ready(port)``
-    runs once the socket is bound."""
-    serve_until_stopped(server, host, port, on_ready)
+                     port: int = DEFAULT_PORT, on_ready=None,
+                     ssl_context=None) -> None:
+    """Serve until ``POST /stop``, SIGINT or SIGTERM, over TLS with
+    ``ssl_context``. ``on_ready(port)`` runs once the socket is bound."""
+    serve_until_stopped(server, host, port, on_ready,
+                        ssl_context=ssl_context)

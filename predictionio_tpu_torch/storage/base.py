@@ -216,6 +216,9 @@ class AccessKeys(abc.ABC):
     @abc.abstractmethod
     def get_by_appid(self, appid: int) -> List[AccessKey]: ...
 
+    @abc.abstractmethod
+    def delete(self, key: str) -> None: ...
+
     @staticmethod
     def generate_key() -> str:
         """Random URL-safe key (AccessKeys.scala:68 parity)."""
@@ -232,6 +235,9 @@ class Channels(abc.ABC):
 
     @abc.abstractmethod
     def get_by_appid(self, appid: int) -> List[Channel]: ...
+
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> None: ...
 
 
 class EngineInstances(abc.ABC):

@@ -525,6 +525,9 @@ class SqliteAccessKeys(_MetaBase, base.AccessKeys):
             "SELECT accesskey, appid, events FROM pio_accesskeys "
             "WHERE appid=?", (appid,))]
 
+    def delete(self, key: str) -> None:
+        self._exec("DELETE FROM pio_accesskeys WHERE accesskey=?", (key,))
+
 
 def _row_to_accesskey(row) -> AccessKey:
     key, appid, events = row
@@ -563,6 +566,9 @@ class SqliteChannels(_MetaBase, base.Channels):
         return [Channel(*r) for r in self._query(
             "SELECT id, name, appid FROM pio_channels WHERE appid=? "
             "ORDER BY id", (appid,))]
+
+    def delete(self, channel_id: int) -> None:
+        self._exec("DELETE FROM pio_channels WHERE id=?", (channel_id,))
 
 
 _EI_COLS = ("id, status, startTime, endTime, engineId, engineVersion, "

@@ -1,9 +1,11 @@
-"""Scorer, ingest, training-solver, fold-in, deploy, batch-predict,
-telemetry, orchestrator, router, fleet and multi-tenant knobs: the
-``scorer``, ``ingest``, ``train``, ``foldin``, ``deploy``,
-``batchpredict``, ``telemetry``, ``orchestrator``, ``router``, ``fleet``
-and ``multitenant`` sections of the
-reference's ``utils/server_config.py`` (``ScorerConfig``,
+"""Server security, serving, scorer, ingest, training-solver, fold-in,
+deploy, batch-predict, telemetry, orchestrator, router, fleet and
+multi-tenant knobs: the ``key``, ``ssl``, ``serving``, ``scorer``,
+``ingest``, ``train``, ``foldin``, ``deploy``, ``batchpredict``,
+``telemetry``, ``orchestrator``, ``router``, ``fleet`` and
+``multitenant`` sections of the reference's ``utils/server_config.py``
+(``ServerConfig`` with ``check_key`` and ``ssl_context``,
+``ServingConfig``, ``ScorerConfig``,
 ``scorer_config``, ``IngestConfig``, ``TrainConfig``,
 ``als_solver_config``, ``FoldinConfig``, ``foldin_config``,
 ``DeployConfig``, ``deploy_config``, ``BatchPredictConfig``,
@@ -17,7 +19,10 @@ and ``batchpredict`` sections, the algorithm's ``solver`` params) <
 ``PIO_DEPLOY_*`` / ``PIO_CANARY_*`` / ``PIO_BATCHPREDICT_*`` /
 ``PIO_TELEMETRY*`` / ``PIO_ORCH_*`` environment (the ``router``,
 ``fleet`` and ``multitenant`` sections have no engine.json level:
-server.json < ``PIO_ROUTER_*`` / ``PIO_FLEET_*`` / ``PIO_MT_*``).
+server.json < ``PIO_ROUTER_*`` / ``PIO_FLEET_*`` / ``PIO_MT_*``; nor do
+``key``, ``ssl`` and ``serving``: server.json < ``PIO_SERVER_KEY`` /
+``PIO_SSL_CERTFILE`` (which turns TLS on) / ``PIO_SSL_KEYFILE`` /
+``PIO_BATCH_*``).
 
 The server.json path is resolved as the reference resolves it:
 ``PIO_SERVER_CONF``, else ``$PIO_CONF_DIR/server.json``, else
@@ -27,9 +32,11 @@ The server.json path is resolved as the reference resolves it:
 from __future__ import annotations
 
 import dataclasses
+import hmac
 import json
 import logging
 import os
+import ssl
 from typing import Optional
 
 logger = logging.getLogger("pio.torch.config")
@@ -56,6 +63,52 @@ def read_server_json(path: Optional[str] = None) -> dict:
         except (OSError, json.JSONDecodeError) as e:
             logger.warning("cannot read server config %s: %s", path, e)
     return {}
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """Query-server micro-batch tuning (the ``PIO_BATCH_*`` knobs).
+
+    ``batch_linger_s = None`` is the adaptive linger: the batcher waits
+    only when another batch is in flight, for about twice the arrival
+    interval's EWMA (``server/query_server.MicroBatcher``). A number
+    forces a fixed linger; ``0`` disables it."""
+
+    batch_max: int = 64          # largest micro-batch
+    batch_linger_s: Optional[float] = None   # None: adaptive linger
+    batch_inflight: int = 2      # micro-batches running at once
+
+    @classmethod
+    def from_env(cls, data: Optional[dict] = None) -> "ServingConfig":
+        """``PIO_BATCH_*`` env over a server.json ``serving`` section
+        (camelCase keys). A malformed value, in the file or the env, is
+        logged and falls back: a bad knob never stops a server."""
+        data = data or {}
+        cfg = cls()
+        sources = (
+            ("batchMax", data.get("batchMax"), "batch_max", int),
+            ("batchLingerS", data.get("batchLingerS"), "batch_linger_s",
+             float),
+            ("batchInflight", data.get("batchInflight"), "batch_inflight",
+             int),
+            ("PIO_BATCH_MAX", os.environ.get("PIO_BATCH_MAX"),
+             "batch_max", int),
+            ("PIO_BATCH_LINGER_S", os.environ.get("PIO_BATCH_LINGER_S"),
+             "batch_linger_s", float),
+            ("PIO_BATCH_INFLIGHT", os.environ.get("PIO_BATCH_INFLIGHT"),
+             "batch_inflight", int),
+        )
+        for name, raw, attr, conv in sources:
+            if raw is None or raw == "":
+                continue
+            try:
+                setattr(cfg, attr, conv(raw))
+            except (TypeError, ValueError):
+                logger.warning("ignoring malformed serving knob %s=%r",
+                               name, raw)
+        cfg.batch_max = max(1, cfg.batch_max)
+        cfg.batch_inflight = max(1, cfg.batch_inflight)
+        return cfg
 
 
 @dataclasses.dataclass
@@ -1158,3 +1211,78 @@ def loadtest_config() -> LoadtestConfig:
     """The knobs a ``pio loadtest`` run uses: server.json ``loadtest``
     section overlaid by ``PIO_LOADTEST_*`` env."""
     return LoadtestConfig.from_env(read_server_json().get("loadtest") or {})
+
+
+@dataclasses.dataclass
+class ServerConfig:
+    """server.json as a whole: the access key, TLS and every section a
+    server resolves (the reference's ``ServerConfig``)."""
+
+    key: str = ""
+    ssl_enabled: bool = False
+    certfile: Optional[str] = None
+    keyfile: Optional[str] = None
+    serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
+    deploy: DeployConfig = dataclasses.field(default_factory=DeployConfig)
+    ingest: IngestConfig = dataclasses.field(default_factory=IngestConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    foldin: FoldinConfig = dataclasses.field(default_factory=FoldinConfig)
+    scorer: ScorerConfig = dataclasses.field(default_factory=ScorerConfig)
+    batchpredict: BatchPredictConfig = dataclasses.field(
+        default_factory=BatchPredictConfig)
+    orchestrator: OrchestratorConfig = dataclasses.field(
+        default_factory=OrchestratorConfig)
+    telemetry: TelemetryConfig = dataclasses.field(
+        default_factory=TelemetryConfig)
+    multitenant: MultiTenantConfig = dataclasses.field(
+        default_factory=MultiTenantConfig)
+
+    @classmethod
+    def load(cls, path: Optional[str] = None) -> "ServerConfig":
+        """Read server.json and overlay the env; no file: defaults."""
+        data = read_server_json(path)
+        ssl_conf = data.get("ssl", {}) or {}
+        cfg = cls(
+            key=data.get("key", "") or "",
+            ssl_enabled=bool(ssl_conf.get("enabled", False)),
+            certfile=ssl_conf.get("certfile"),
+            keyfile=ssl_conf.get("keyfile"),
+            serving=ServingConfig.from_env(data.get("serving") or {}),
+            deploy=DeployConfig.from_env(data.get("deploy") or {}),
+            ingest=IngestConfig.from_env(data.get("ingest") or {}),
+            train=TrainConfig.from_env(data.get("train") or {}),
+            foldin=FoldinConfig.from_env(data.get("foldin") or {}),
+            scorer=ScorerConfig.from_env(data.get("scorer") or {}),
+            batchpredict=BatchPredictConfig.from_env(
+                data.get("batchpredict") or {}),
+            orchestrator=OrchestratorConfig.from_env(
+                data.get("orchestrator") or {}),
+            telemetry=TelemetryConfig.from_env(
+                data.get("telemetry") or {}),
+            multitenant=MultiTenantConfig.from_env(
+                data.get("multitenant") or {}),
+        )
+        if os.environ.get("PIO_SERVER_KEY"):
+            cfg.key = os.environ["PIO_SERVER_KEY"]
+        if os.environ.get("PIO_SSL_CERTFILE"):
+            cfg.certfile = os.environ["PIO_SSL_CERTFILE"]
+            cfg.ssl_enabled = True
+        if os.environ.get("PIO_SSL_KEYFILE"):
+            cfg.keyfile = os.environ["PIO_SSL_KEYFILE"]
+        return cfg
+
+    def check_key(self, provided: Optional[str]) -> bool:
+        """No configured key: open access; else ``provided`` must match
+        (compared in constant time)."""
+        if not self.key:
+            return True
+        return hmac.compare_digest(provided or "", self.key)
+
+    def ssl_context(self) -> Optional[ssl.SSLContext]:
+        """The listener's TLS context from the PEM certificate and key,
+        or None when TLS is off or a file is not named."""
+        if not (self.ssl_enabled and self.certfile and self.keyfile):
+            return None
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(certfile=self.certfile, keyfile=self.keyfile)
+        return ctx

@@ -980,3 +980,79 @@ async def test_rollback_after_reload_loads_previous_release(stores,
                                       rels[0][2].U)
     finally:
         await qs.close()
+
+
+async def test_apply_carries_the_ingest_request_trace(stores, tmp_path):
+    """An ingest request carrying a trace header: the port's write buffer
+    flushes under that trace, fold-in's tap captures it and the apply is
+    recorded as a ``foldin_apply`` span under the same trace id. The
+    reference runs its taps after the carried flush has ended, so its
+    tap captures nothing and its apply starts no span under the
+    request's trace (ROADMAP, faults of the reference)."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from predictionio_tpu.data import write_buffer as ref_wb
+    from predictionio_tpu.obs import trace_context as ref_tc
+    from predictionio_tpu.server.event_server import (
+        create_event_server as ref_create_event_server,
+    )
+    from predictionio_tpu.storage import AccessKey as RefAccessKey
+    from predictionio_tpu.utils.server_config import (
+        IngestConfig as RefIngestConfig,
+    )
+    from predictionio_tpu_torch.obs import trace_context as port_tc
+    from predictionio_tpu_torch.server.event_server import EventServer
+    from predictionio_tpu_torch.utils.server_config import IngestConfig
+
+    arrays = _arrays()
+    wire = [{"event": "rate", "entityType": "user", "entityId": "traced",
+             "targetEntityType": "item", "targetEntityId": str(i),
+             "properties": {"rating": 4.0}} for i in arrays[1][:3]]
+    spans = {}
+    for pkg in ("reference", "port"):
+        side = _Side(pkg, tmp_path / f"{pkg}.db", arrays)
+        trace_id = f"{pkg[:4]}" + "ab" * 14
+        header = {"X-Pio-Trace": f"{trace_id}:{'cd' * 8}"}
+        if pkg == "reference":
+            RefStorage.get_meta_data_access_keys().insert(
+                RefAccessKey(key=KEY, appid=side.app_id, events=()))
+            wb, tc = ref_wb, ref_tc
+            client = TestClient(TestServer(ref_create_event_server(
+                ingest=RefIngestConfig(buffer=True, linger_s=0.0))))
+            await client.start_server()
+            post = client.post
+        else:
+            Storage.get_meta_data_access_keys().insert(
+                AccessKey(key=KEY, appid=side.app_id, events=()))
+            wb, tc = port_wb, port_tc
+            es = EventServer(ingest=IngestConfig(buffer=True, linger_s=0.0))
+            e_port = await es.start("127.0.0.1", 0)
+            session = aiohttp.ClientSession()
+
+            def post(path, _s=session, _p=e_port, **kw):
+                return _s.post(f"http://127.0.0.1:{_p}{path}", **kw)
+        wb.add_flush_tap(side.ctl.tap)
+        try:
+            resp = await post(f"/batch/events.json?accessKey={KEY}",
+                              json=wire, headers=header)
+            assert resp.status == 200
+            assert [r["status"] for r in await resp.json()] == [201] * 3
+            deadline = time.monotonic() + 10
+            while side.ctl.pending_rows() < 1 \
+                    and time.monotonic() < deadline:
+                await asyncio.sleep(0.01)
+            assert side.ctl.apply_pending() is not None
+            spans[pkg] = sorted(t["name"] for t in
+                                tc.recorder().traces(trace_id))
+        finally:
+            wb.remove_flush_tap(side.ctl.tap)
+            if pkg == "reference":
+                await client.close()
+            else:
+                await session.close()
+                await es.close()
+    assert "foldin_apply" in spans["port"]
+    assert "ingest_flush" in spans["port"]
+    # the reference's fault: the flush is carried, the apply is not
+    assert "ingest_flush" in spans["reference"]
+    assert "foldin_apply" not in spans["reference"]

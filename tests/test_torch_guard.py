@@ -21,6 +21,9 @@ the CPU on their own.
   runs ``eval`` through the CLI, and another trains and deploys the
   sessionrec engine through the CLI, and another runs ``reshard`` and
   ``compact`` on a partitioned store and a storm through ``loadtest``,
+  and another ``version``, the app, channel and access-key management
+  commands, ``export``, ``analyze``, ``run``, ``adminserver`` and
+  ``dashboard``,
   and two processes in a gloo group run the collectives child
   (``tests/torch_distributed_child.py``) and ``train --mesh-shape 2``
   through the CLI, each with the same finding;
@@ -1294,6 +1297,97 @@ def test_two_process_classify_similar_and_session_trains_on_a_mesh_load_no_jax(
     assert r0["cooccurrence"] and r0["sessionrec"]
 
 
+_OPS_CHILD = r"""
+import http.client, json, os, socket, sys, threading, time
+from predictionio_tpu_torch.cli.main import main
+
+tmp = sys.argv[1]
+os.environ.update({
+    "PIO_HOME": tmp, "PIO_TELEMETRY": "0",
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "o.db"),
+    **{f"PIO_STORAGE_REPOSITORIES_{r}_{k}": v
+       for r in ("METADATA", "EVENTDATA", "MODELDATA")
+       for k, v in (("NAME", "pio"), ("SOURCE", "DB"))}})
+with open(os.path.join(tmp, "opsmod.py"), "w") as f:
+    f.write("print('module ran')\n")
+sys.path.insert(0, tmp)
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+def get(port, path):
+    for _ in range(600):
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            c.request("GET", path)
+            r = c.getresponse()
+            return r.status, r.read()
+        except ConnectionRefusedError:
+            time.sleep(0.05)
+
+assert main(["version"]) == 0
+assert main(["app", "new", "Ops", "--access-key", "k"]) == 0
+assert main(["app", "channel-new", "Ops", "side"]) == 0
+assert main(["app", "show", "Ops"]) == 0
+assert main(["accesskey", "new", "Ops", "--key", "k2"]) == 0
+assert main(["accesskey", "delete", "k2"]) == 0
+assert main(["app", "data-delete", "Ops", "--channel", "side",
+             "--force"]) == 0
+assert main(["app", "channel-delete", "Ops", "side", "--force"]) == 0
+assert main(["export", "--appname", "Ops", "--output",
+             os.path.join(tmp, "ops.jsonl")]) == 0
+assert main(["analyze", "--json", "--dir", os.path.join(tmp, "tel")]) == 0
+assert main(["run", "opsmod"]) == 0
+ports = {}
+for cmd in ("adminserver", "dashboard"):
+    ports[cmd] = free_port()
+    threading.Thread(target=main, args=([cmd, "--port", str(ports[cmd]),
+                                         "--device", "cpu"],),
+                     daemon=True).start()
+status, body = get(ports["adminserver"], "/cmd/app")
+assert status == 200 and json.loads(body)["apps"][0]["name"] == "Ops"
+status, body = get(ports["dashboard"], "/evaluations.json")
+assert status == 200 and json.loads(body) == [], body
+status, body = get(ports["dashboard"], "/")
+assert status == 200 and b"<h2>Releases</h2>" in body
+assert main(["app", "delete", "Ops", "--force"]) == 0
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu.")
+             or m.split(".")[0] in ("aiohttp", "click"))
+print(json.dumps(bad), flush=True)
+os._exit(0)
+"""
+
+
+def test_operator_cli_loads_no_jax(tmp_path):
+    """``version``, the app, channel and key management commands,
+    ``export``, ``analyze``, ``run``, ``adminserver`` and ``dashboard``
+    through the CLI in one process."""
+    out = subprocess.run([sys.executable, "-c", _OPS_CHILD, str(tmp_path)],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "[]", out.stdout
+    assert lines[0] == "0.1.0"
+    assert "module ran" in lines
+
+
+def test_scan_covers_the_operator_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"data/webhooks/__init__.py", "data/webhooks/example.py",
+            "data/webhooks/segmentio.py", "data/webhooks/mailchimp.py",
+            "server/admin.py", "server/dashboard.py", "server/http.py",
+            "server/event_server.py", "server/multitenant.py",
+            "utils/server_config.py", "deploy/foldin.py",
+            "cli/main.py"} <= scanned
+
+
 def test_scan_covers_the_loadtest_modules():
     scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
                if PKG in p.parents}
@@ -1489,6 +1583,12 @@ def _cli_deploy(tmp_path):
     return main(["deploy", "--model", str(path), "--port", "0"])
 
 
+def _cli_console(cmd):
+    from predictionio_tpu_torch.cli.main import main
+
+    return main([cmd, "--port", "0"])
+
+
 def _train_cooccurrence():
     from predictionio_tpu_torch.models.cooccurrence import (
         train_cooccurrence,
@@ -1624,7 +1724,8 @@ def _classifier(fit):
                                    "train_seqrec",
                                    "SeqRecModel.recommend_next",
                                    "cli loadtest", "LocalFleet.start",
-                                   "make_mesh", "build_sharded_scorer"])
+                                   "make_mesh", "build_sharded_scorer",
+                                   "cli adminserver", "cli dashboard"])
 def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
                                                         entry):
     call = {"ALSModel.from_arrays": lambda: _als_model(),
@@ -1649,7 +1750,9 @@ def test_entry_point_without_device_raises_without_card(no_card, tmp_path,
             "cli loadtest": lambda: _cli_loadtest(tmp_path),
             "LocalFleet.start": lambda: _local_fleet(tmp_path),
             "make_mesh": _make_mesh,
-            "build_sharded_scorer": _build_sharded_scorer}.get(
+            "build_sharded_scorer": _build_sharded_scorer,
+            "cli adminserver": lambda: _cli_console("adminserver"),
+            "cli dashboard": lambda: _cli_console("dashboard")}.get(
                 entry, lambda: _classifier(entry))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()

@@ -717,18 +717,57 @@ Phases, each reported on its own lines:
                    ``/history/series.json`` (the deploy's series).
                    The HTTPS p50/p99 stand beside the serve phase's
                    plain-HTTP ones.
+20. ``evlog``    — the evlog event store (``native/evlog`` over
+                   ``csrc/evlog.cc``, built with g++ into
+                   ``build/torch_kernels/``; ``storage/evlog_backend``),
+                   in two legs, every one on the native codec (a failed
+                   build or load fails the run). Leg 1, host work only,
+                   in a process of its own during the build: ML-1M's
+                   1,000,209 ratings (6,040 x 3,706, 30 days of event
+                   times) as event JSON of the lifecycle's shape
+                   (``Event.to_json``'s, checked on a sample), appended
+                   in batches of 20,000 through the native codec and
+                   through ``PyCodec``: the two files byte for byte
+                   equal; each codec scans the other's file whole (every
+                   record), over the middle half of its times and for
+                   one user's hash (the counts numpy gives), then
+                   verifies it; each codec's append, scan, window,
+                   entity and verify seconds and MB/s. Also the port's
+                   postgres source, on a machine with neither driver:
+                   ``StorageError`` naming both. Leg 2, in a process of
+                   its own beside the train phase, on its own store
+                   (EVENTDATA an ``evlog`` source with ``CODEC=native``,
+                   METADATA sqlite, MODELDATA ``localfs``): ``app new``,
+                   the lifecycle's ML-100k shape (943 x 1,682, 100,000
+                   ratings; rank 10, 20 iterations, reg 0.01) over
+                   ``POST /batch/events.json`` (the write buffer into
+                   ``EvlogEvents.insert_batch``), the store holding
+                   exactly the acknowledged ids; ``DELETE`` of one event
+                   and its ``GET`` 404; ``export``, its bag the posted
+                   one less the deleted event; ``train`` (B1 40 times
+                   in its process; the split of its wall: the evlog read
+                   with its decode, the build, ``train_s``); the same
+                   events in the log's order into a sqlite store and a
+                   twin ``train`` (B1 40); ``deploy`` under twostage
+                   (shortlist ``SHORTLIST``) and 100 queries over HTTP,
+                   each the exact top-10 of the sqlite twin's factors
+                   (scores within ``EVLOG_TOL`` x max(1, |score|), ids
+                   equal up to ties within it), B2's launches equal to
+                   the micro-batches scored; ``POST /stop`` and the
+                   event server's drain.
 
-Order, for the time limit: batchpredict's leg 1 (no kernel) runs in a
-process of its own while nvcc builds; then the distributed phase's legs
-1-2 and 4-7 with nothing beside them (their processes' launches are their own;
-leg 1's factors are held to the train phase's after it), then the
-classify phase alone; after the kernels phase, the lifecycle (with the
-eval, batchpredict and multitenant CLI legs and the operator phase's
-leg 1 inside it, the four at once), the engines' three CLI legs, the
-fleet's orchestrated cycle and sessionrec's leg 2 run each in a
-process of its own, each on its own
-store, while this process runs the train phase, the engines' width leg,
-eval legs 1-2, sessionrec's leg 1 and the fold-in width leg; then the
+Order, for the time limit: batchpredict's and evlog's legs 1 (no
+kernel) run each in a process of its own while nvcc builds; then the
+distributed phase's legs 1-2 and 4-7 with nothing beside them (their
+processes' launches are their own; leg 1's factors are held to the
+train phase's after it), then the classify phase alone; after the
+kernels phase, the lifecycle (with the eval, batchpredict and
+multitenant CLI legs and the operator phase's leg 1 inside it, the four
+at once), the engines' three CLI legs, the fleet's orchestrated cycle,
+sessionrec's leg 2 and evlog's leg 2 run each in a process of its own,
+each on its own store, while this process runs the train phase, the
+engines' width leg, eval legs 1-2, sessionrec's leg 1 and the fold-in
+width leg; then the
 other phases on the serve cell's model, one at a time (the operator
 phase's leg 2 and the distributed phase's leg 3 after obs); then the
 loadtest phase, alone. The kernels
@@ -5238,9 +5277,10 @@ def follow_leg(seed: int, port: int, work):
 
 
 #: the legs that run each in a process of its own (``leg_worker``),
-#: beside this process's work: the batchpredict phase's leg 1 (no kernel)
-#: during the build; the lifecycle, the engines phase's three CLI legs
-#: and the fleet phase's orchestrated cycle while this process trains.
+#: beside this process's work: the batchpredict and evlog phases' legs 1
+#: (no kernel) during the build; the lifecycle, the engines phase's three
+#: CLI legs, the fleet phase's orchestrated cycle and the evlog phase's
+#: leg 2 while this process trains.
 #: Each has its own store and its own port (``--port`` plus its index
 #: here, or 0); they share only the card.
 BACKGROUND_LEGS = {
@@ -5253,12 +5293,14 @@ BACKGROUND_LEGS = {
                                                               work),
     "loadtest": lambda seed, port, work: loadtest_phase(seed, port, work),
     "distributed": lambda seed, port, work: distributed_legs(seed, port,
-                                                             work)}
+                                                             work),
+    "evlog_codec": lambda seed, port, work: evlog_codec_leg(seed),
+    "evlog": lambda seed, port, work: evlog_leg(seed, port, work)}
 #: the shapes a background leg reads, passed on in ``CHIP_SMOKE_LEGS``
 LEG_SHAPES = ("ECOMM", "SIMILAR", "FOLLOW", "ML100K", "FLEET_ORCH",
               "EVAL_CLI", "BP_CLI", "BP_BENCH", "FOLDIN", "FEEDBACK",
               "SESSIONREC_CLI", "LT_CURVE", "LT_STORM", "ML20M", "DIST",
-              "OPERATOR")
+              "OPERATOR", "EVLOG_CODEC", "EVLOG")
 
 
 def leg_worker() -> int:
@@ -11034,9 +11076,392 @@ def operator_phase(seed: int, shape: dict, users, plain_answers: dict,
     return report
 
 
+# ---------------------------------------------------------------------------
+# evlog phase
+# ---------------------------------------------------------------------------
+
+#: leg 1: ML-1M's rating count (6,040 users x 3,706 items) through both
+#: codecs, in appends of ``batch`` records, event times over 30 days
+EVLOG_CODEC = dict(records=1_000_209, n_users=6040, n_items=3706,
+                   batch=20_000, days=30, seed=11)
+#: leg 2: the lifecycle's ML-100k ratings over REST into an evlog store,
+#: its train, a deploy and the queries held to a sqlite-trained twin
+EVLOG = dict(queries=100, seed=40)
+#: leg 2's answers against the twin's exact top-10: scores within this
+#: (times max(1, |score|)) and ids equal up to ties within it; the two
+#: trains read the same rows in the same order, and differ only in the
+#: order of the Gramian assembly's f32 atomics
+EVLOG_TOL = 1e-4
+#: an event JSON of the lifecycle's shape, as ``Event.to_json`` writes it
+_EVLOG_PAYLOAD = ('{{"creationTime": "{t}", "entityId": "u{u}", '
+                  '"entityType": "user", "event": "rate", "eventId": '
+                  '"{eid}", "eventTime": "{t}", "properties": {{"rating": '
+                  '{r}}}, "targetEntityId": "i{i}", "targetEntityType": '
+                  '"item"}}')
+
+
+def _same_file(a: pathlib.Path, b: pathlib.Path) -> bool:
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(1 << 24), fb.read(1 << 24)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _postgres_gate() -> str:
+    """The port's postgres source on this machine, which has neither
+    driver: the store raises ``StorageError`` naming both (the gate runs
+    before any connection)."""
+    from predictionio_tpu_torch.storage.base import StorageError
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    Storage.configure({
+        "sources": {"PG": {"TYPE": "postgres",
+                           "URL": "postgresql://localhost/pio"}},
+        "repositories": {r: {"NAME": "pio", "SOURCE": "PG"} for r in
+                         ("METADATA", "EVENTDATA", "MODELDATA")}})
+    try:
+        Storage.get_events()
+    except StorageError as e:
+        msg = str(e)
+    else:
+        msg = ""
+    finally:
+        Storage.reset()
+    check("psycopg2" in msg and "pg8000" in msg,
+          f"evlog: the postgres source without a driver gave {msg!r}")
+    return msg
+
+
+def evlog_codec_leg(seed: int) -> dict:
+    """The evlog phase's leg 1, host work only (module docstring)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.native import evlog
+
+    c = EVLOG_CODEC
+    work = WORK / "evlog_codec"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    report = {"records": c["records"], "card": card_line(),
+              "postgres_gate": _postgres_gate()}
+    try:
+        t0 = time.perf_counter()
+        lib = evlog.build()
+        codecs = {"native": evlog.get_codec("native"),
+                  "python": evlog.PyCodec()}
+        check(codecs["native"].name == "native", "evlog: the native codec "
+              f"is {codecs['native'].name}")
+        report["build_s"] = time.perf_counter() - t0
+        report["library"] = str(lib.relative_to(ROOT))
+        report["source"] = str(evlog.SOURCE.relative_to(ROOT))
+
+        t0 = time.perf_counter()
+        n = c["records"]
+        rng = np.random.default_rng(c["seed"] + seed)
+        users = rng.integers(0, c["n_users"], n)
+        items = rng.integers(0, c["n_items"], n)
+        ratings = rng.integers(1, 6, n)
+        times = BASE_MS + np.sort(rng.integers(0, c["days"] * 86_400_000, n))
+        ids = rng.bytes(16 * n)
+        hashes = [evlog.entity_hash("user", f"u{u}")
+                  for u in range(c["n_users"])]
+        # isoformat(timespec="milliseconds") of UTC times, vectorized
+        whens = [w + "+00:00" for w in np.datetime_as_string(
+            times.astype("datetime64[ms]"), unit="ms").tolist()]
+        records = []
+        for j, (u, i, r, ms, when) in enumerate(zip(
+                users.tolist(), items.tolist(), ratings.tolist(),
+                times.tolist(), whens)):
+            rid = ids[16 * j:16 * j + 16]
+            records.append((ms, hashes[u], 0, rid, _EVLOG_PAYLOAD.format(
+                t=when, u=u, eid=rid.hex(), r=float(r), i=i).encode()))
+        for j in rng.choice(n, 64, replace=False).tolist():
+            p = records[j][4].decode()
+            check(Event.from_json(p).to_json() == p,
+                  f"evlog: payload {j} is not Event.to_json's: {p}")
+        report["make_s"] = time.perf_counter() - t0
+
+        paths = {k: work / f"{k}.evlog" for k in codecs}
+        per = {}
+        for name, codec in codecs.items():
+            codec.create(str(paths[name]))
+            t0 = time.perf_counter()
+            for s in range(0, n, c["batch"]):
+                codec.append(str(paths[name]), records[s:s + c["batch"]])
+            per[name] = {"append_s": time.perf_counter() - t0}
+        size = paths["native"].stat().st_size
+        check(_same_file(paths["native"], paths["python"]),
+              f"evlog: the native and Python codecs wrote different files "
+              f"({paths['native'].stat().st_size} and "
+              f"{paths['python'].stat().st_size} bytes)")
+        report["file_bytes"] = size
+        report["byte_identical"] = True
+
+        lo, hi = (int(x) for x in np.quantile(times, [0.25, 0.75]))
+        want_window = int(((times >= lo) & (times < hi)).sum())
+        top_user = int(np.bincount(users).argmax())
+        want_entity = int((users == top_user).sum())
+        for name, codec in codecs.items():
+            other = str(paths["python" if name == "native" else "native"])
+            t0 = time.perf_counter()
+            got = codec.scan(other)
+            scan_s = time.perf_counter() - t0
+            check(len(got) == n and got[0] == records[0]
+                  and got[-1] == records[-1],
+                  f"evlog: {name} read {len(got)} records of {n}")
+            del got
+            t0 = time.perf_counter()
+            window = codec.scan(other, lo, hi)
+            window_s = time.perf_counter() - t0
+            check(len(window) == want_window, f"evlog: {name}'s window "
+                  f"scan gave {len(window)}, expected {want_window}")
+            t0 = time.perf_counter()
+            ent = codec.scan(other, ehash=hashes[top_user])
+            entity_s = time.perf_counter() - t0
+            check(len(ent) == want_entity, f"evlog: {name}'s entity scan "
+                  f"gave {len(ent)}, expected {want_entity}")
+            t0 = time.perf_counter()
+            verified = codec.verify(other)
+            verify_s = time.perf_counter() - t0
+            check(verified == n, f"evlog: {name} verified {verified}")
+            mb = size / 1e6
+            per[name].update({
+                "append_MB_s": mb / per[name]["append_s"],
+                "scan_s": scan_s, "scan_MB_s": mb / scan_s,
+                "window_s": window_s, "window_records": want_window,
+                "entity_s": entity_s, "entity_records": want_entity,
+                "verify_s": verify_s, "verify_MB_s": mb / verify_s})
+            log(f"evlog: codec {name} " + json.dumps(per[name]))
+        report["codecs"] = per
+        return report
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _evlog_config(work: pathlib.Path):
+    """(the CLI's environment, the in-process config) of leg 2's store:
+    events in an evlog directory under the native codec, metadata in
+    sqlite, model blobs on ``localfs``."""
+    sources = {"META": {"TYPE": "sqlite", "PATH": str(work / "pio.db")},
+               "EVLOG": {"TYPE": "evlog", "PATH": str(work / "evlog"),
+                         "CODEC": "native"},
+               "MODELS": {"TYPE": "localfs", "PATH": str(work / "models")}}
+    repos = {"METADATA": "META", "EVENTDATA": "EVLOG", "MODELDATA": "MODELS"}
+    env = dict(os.environ)
+    for name, src in sources.items():
+        for k, v in src.items():
+            env[f"PIO_STORAGE_SOURCES_{name}_{k}"] = v
+    for repo, src in repos.items():
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_NAME"] = "pio"
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = src
+    return env, {"sources": sources, "repositories": {
+        r: {"NAME": "pio", "SOURCE": s} for r, s in repos.items()}}
+
+
+def evlog_leg(seed: int, port: int, work) -> dict:
+    """The evlog phase's leg 2, end to end on its own store (module
+    docstring)."""
+    import numpy as np
+
+    from predictionio_tpu_torch.data import eventstore
+    from predictionio_tpu_torch.storage.registry import Storage
+
+    c, e = ML100K, EVLOG
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env, config = _evlog_config(work)
+    Storage.configure(config)
+    eventstore.clear_cache()
+    report = {"card": card_line()}
+    servers = []
+    t_leg = time.perf_counter()
+    try:
+        events_srv = Server(["eventserver", "--ip", "127.0.0.1", "--port",
+                             "0"], env, tag="evlog")
+        servers.append(events_srv)
+        es_port = events_srv.wait_ready(timeout_s=120)
+        out = _cli(["app", "new", "EvlogApp"], env)
+        key = next(x for x in out if "Access Key:" in x).split()[-1]
+        app_id = Storage.get_meta_data_apps().get_by_name("EvlogApp").id
+        store = Storage.get_events()
+        check(store.client.codec.name == "native",
+              f"evlog: the store's codec is {store.client.codec.name}")
+
+        # the ML-100k ratings over REST: write buffer -> insert_batch
+        users, items, ratings = synthetic_ratings(
+            c["n_users"], c["n_items"], c["nnz"], seed=seed + e["seed"])
+        wire = _wire(users.tolist(), items.tolist(), ratings.tolist(),
+                     ["rate"] * len(ratings))
+        ids, lat, wall = ingest(es_port, key, wire)
+        n = len(wire)
+        stored = store.find_columns(app_id, columns=("event_id",),
+                                    ordered=False)["event_id"]
+        check(len(stored) == n and set(stored.tolist()) == set(ids),
+              f"evlog: the store holds {len(stored)} rows, "
+              f"{len(set(stored.tolist()) & set(ids))} of the acknowledged "
+              f"{n} ids")
+        report["ingest"] = {
+            "events": n, "events_per_s": n / wall, "wall_s": wall,
+            "request_p50_ms": float(np.percentile(lat, 50)),
+            "request_p99_ms": float(np.percentile(lat, 99))}
+
+        # one event deleted over REST, then 404
+        gone = int(np.random.default_rng(seed + e["seed"]).integers(n))
+        client = Client(es_port)
+        status, _, _ = client.call(
+            "DELETE", f"/events/{ids[gone]}.json?accessKey={key}")
+        check(status == 200, f"evlog: DELETE answered {status}")
+        status, _, _ = client.call(
+            "GET", f"/events/{ids[gone]}.json?accessKey={key}")
+        check(status == 404, f"evlog: GET of the deleted event answered "
+              f"{status}")
+
+        # export: the posted bag less the deleted event
+        t0 = time.perf_counter()
+        _cli(["export", "--appname", "EvlogApp", "--output",
+              str(work / "export.jsonl")], env)
+        report["export_s"] = time.perf_counter() - t0
+        fields = ("event", "entityType", "entityId", "targetEntityType",
+                  "targetEntityId", "properties")
+        exported = [json.loads(x) for x in
+                    (work / "export.jsonl").read_text().splitlines()]
+        got_bag = collections.Counter(
+            json.dumps([x.get(k, {} if k == "properties" else None)
+                        for k in fields]) for x in exported)
+        want_bag = collections.Counter(
+            json.dumps([w.get(k, {} if k == "properties" else None)
+                        for k in fields])
+            for j, w in enumerate(wire) if j != gone)
+        check(got_bag == want_bag and sorted(x["eventId"] for x in exported)
+              == sorted(ids[:gone] + ids[gone + 1:]),
+              f"evlog: export holds {len(exported)} events, not the "
+              f"{n - 1} posted less the deleted one")
+        report["exported"] = len(exported)
+
+        # train from the log: B1 2 x iters in the train's process
+        variant = work / "engine.json"
+        variant.write_text(json.dumps({
+            "id": "default", "engineFactory": RECOMMENDATION,
+            "datasource": {"params": {"appName": "EvlogApp"}},
+            "algorithms": [{"name": "als", "params": {
+                "rank": c["rank"], "numIterations": c["iters"],
+                "lambda": c["reg"]}}]}))
+
+        def train(tenv, tag):
+            t0 = time.perf_counter()
+            line = json.loads(_cli(["train", "--variant", str(variant),
+                                    "--device", DEV], tenv)[-1])
+            line["wall_s"] = time.perf_counter() - t0
+            check(line["launches"]["spd_solve"] == 2 * c["iters"],
+                  f"evlog: the {tag} train launched B1 "
+                  f"{line['launches']['spd_solve']} times, expected "
+                  f"{2 * c['iters']}")
+            check(line["nnz"] == n - 1, f"evlog: the {tag} train read "
+                  f"{line['nnz']} ratings of {n - 1}")
+            log(f"evlog: train ({tag}) " + json.dumps(line))
+            return line
+
+        report["train"] = train(env, "evlog")
+        m_ev = _stored_model(report["train"]["instance"])
+        t_split = report["train"]
+        report["train_split"] = {
+            "wall_s": t_split["wall_s"], "train_s": t_split["train_s"],
+            "read_s": t_split["ingest"]["scan_s"],
+            "build_s": t_split["build_s"]}
+
+        # the twin: the same events, in the log's order, on sqlite
+        t0 = time.perf_counter()
+        events = list(store.find(app_id))
+        twin_env = smoke_store(work / "twin")
+        twin_id = _new_app("EvlogApp")
+        for s in range(0, len(events), 20_000):
+            Storage.get_events().insert_batch(events[s:s + 20_000], twin_id)
+        report["twin_copy_s"] = time.perf_counter() - t0
+        report["twin_train"] = train(twin_env, "sqlite twin")
+        m_sql = _stored_model(report["twin_train"]["instance"])
+        del events
+        Storage.configure(config)
+        eventstore.clear_cache()
+        check(list(m_ev.user_vocab) == list(m_sql.user_vocab)
+              and list(m_ev.item_vocab) == list(m_sql.item_vocab),
+              "evlog: the two trains' vocabularies differ")
+        report["factor_max_abs_diff"] = float(max(
+            np.abs(np.asarray(m_ev.U) - np.asarray(m_sql.U)).max(),
+            np.abs(np.asarray(m_ev.V) - np.asarray(m_sql.V)).max()))
+
+        # deploy under twostage, queries through B2
+        denv = dict(env, PIO_SCORER_MODE="twostage",
+                    PIO_SCORER_SHORTLIST=str(SHORTLIST))
+        t0 = time.perf_counter()
+        server = Server(["deploy", "--variant", str(variant), "--port",
+                         str(port), "--device", DEV, "--accesskey", key],
+                        denv, tag="evlog")
+        servers.append(server)
+        qc = Client(server.wait_ready(timeout_s=300))
+        report["deploy_up_s"] = time.perf_counter() - t0
+        _, root0, _ = qc.call("GET", "/")
+        sc = root0["scorer"][0]
+        check(root0["engineInstance"]["id"] == report["train"]["instance"]
+              and sc["activeMode"] == "twostage",
+              f"evlog: deploy serves {root0['engineInstance']} under "
+              f"{sc['activeMode']}")
+        picks = [str(m_sql.user_vocab[i]) for i in np.random.default_rng(
+            seed + e["seed"] + 1).choice(len(m_sql.user_vocab),
+                                         size=e["queries"], replace=False)]
+        U, V = _factors_on_card(m_sql, "evlog twin")
+        max_err, qlat = 0.0, []
+        for user in picks:
+            status, body, dt_ = qc.call("POST", "/queries.json",
+                                        {"user": user, "num": 10})
+            check(status == 200, f"evlog: query for {user} answered "
+                  f"{status}")
+            qlat.append(dt_ * 1e3)
+            max_err = max(max_err, _top10_err(U, V, m_sql, user, body,
+                                               "evlog"))
+        _, root1, _ = qc.call("GET", "/")
+        b2 = (root1["kernelLaunches"]["shortlist"]
+              - root0["kernelLaunches"]["shortlist"])
+        batches = (root1["microBatches"]["batches"]
+                   - root0["microBatches"]["batches"])
+        check(b2 == batches and b2 > 0, f"evlog: B2 launched {b2} times "
+              f"for {batches} micro-batches")
+        check(root1["kernelLaunches"]["spd_solve"] == 0,
+              f"evlog: the deploy launched B1 "
+              f"{root1['kernelLaunches']['spd_solve']} times")
+        status, _, _ = qc.call("POST", f"/stop?accessKey={key}")
+        check(status == 200 and server.proc.wait(timeout=60) == 0,
+              "evlog: the query server did not stop on POST /stop")
+        events_srv.stop()
+        check(events_srv.proc.returncode == 0, "evlog: the event server "
+              f"did not drain and exit (rc {events_srv.proc.returncode})")
+        report.update({
+            "queries": len(picks), "max_score_abs_err": max_err,
+            "tolerance": EVLOG_TOL, "b2_launches": b2,
+            "micro_batches": batches,
+            "query_p50_ms": float(np.percentile(qlat, 50)),
+            "query_p99_ms": float(np.percentile(qlat, 99)),
+            "scorer": {k: sc[k] for k in ("activeMode", "scanRank",
+                                          "tileItems", "tiles",
+                                          "shortlist", "recallProbe")},
+            "leg_s": time.perf_counter() - t_leg})
+        log("evlog: leg 2 " + json.dumps(report))
+        return report
+    finally:
+        for srv in servers:
+            srv.stop()
+        Storage.reset()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
              canary, engines, evals, fleet, sessionrec, loadtest,
-             distributed) -> dict:
+             distributed, evlog) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
     the ML-20M train and of the eval phase's sweeps (each counted from
@@ -11044,8 +11469,9 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
     canary's held fold-in, the engines' trains and e-commerce's fold-in,
     the load test's storm (its trains and fold-in, counted from zero
     around the fleet), the distributed phase's trains and its sweep
-    across processes (each process's own count), B1's times at the
-    applies' shapes and at the eval sweeps'."""
+    across processes (each process's own count), the evlog phase's
+    train and its sqlite twin's, B1's times at the applies' shapes and
+    at the eval sweeps'."""
     fl = lifecycle["foldin"]
     grid, cli = evals["grid"]["launches"], evals["cli"]
     eval_launches = {
@@ -11071,7 +11497,9 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
         + lifecycle["foldin_slo"]["b1_launches"]
         + lifecycle["operator_cli"]["train_launches"]["spd_solve"]
         + loadtest["launches"]["spd_solve"]
-        + sum(dist_train) + sum(dist_engine) + sum(dist_sweep),
+        + sum(dist_train) + sum(dist_engine) + sum(dist_sweep)
+        + evlog["train"]["launches"]["spd_solve"]
+        + evlog["twin_train"]["launches"]["spd_solve"],
         "max_abs_err": spd_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -11126,6 +11554,9 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
                 distributed["leg6"]["one_process_launches"],
             "operator_copy_train":
                 lifecycle["operator_cli"]["train_launches"]["spd_solve"],
+            "evlog_train": evlog["train"]["launches"]["spd_solve"],
+            "evlog_sqlite_twin_train":
+                evlog["twin_train"]["launches"]["spd_solve"],
             **eval_launches},
         "eval_shapes": [r for r in spd_rows if r["eval"]],
         "foldin": {
@@ -11168,10 +11599,17 @@ def partial_run(args, shape) -> int:
     phases = set(args.only.split(","))
     bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant",
                     "classify", "sessionrec", "loadtest", "distributed",
-                    "operator"}
+                    "operator", "evlog"}
     check(not bad, f"--only takes serve, obs, lifecycle, fleet, "
           f"multitenant, classify, sessionrec, loadtest, distributed, "
-          f"operator; got {sorted(bad)}")
+          f"operator, evlog; got {sorted(bad)}")
+    if "evlog" in phases:
+        # leg 1 (host only), then leg 2 on the card, each in its worker
+        evlog = finish_legs(start_legs(["evlog_codec"], args.seed,
+                                       args.port))
+        evlog.update(finish_legs(start_legs(["evlog"], args.seed,
+                                            args.port)))
+        log("evlog: " + json.dumps(evlog))
     if "distributed" in phases:
         # legs 1-2, the one-process twin, then the serve phase (the
         # unsharded answers) and leg 3 on its model
@@ -11242,7 +11680,7 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
                     help="run only these of serve, obs, lifecycle, fleet, "
                          "multitenant, classify, sessionrec, loadtest, "
-                         "distributed, operator after the build "
+                         "distributed, operator, evlog after the build "
                          "and the "
                          "kernels phase (a partial run: it prints no "
                          "result and exits 4)")
@@ -11277,7 +11715,8 @@ def main() -> int:
         if args.only:
             logs = kernels.build_all()
         else:
-            bench_leg = start_legs(["bp_bench"], args.seed, args.port)
+            bench_leg = start_legs(["bp_bench", "evlog_codec"], args.seed,
+                                   args.port)
             try:
                 logs = kernels.build_all()
             except BaseException:
@@ -11294,8 +11733,10 @@ def main() -> int:
                     log(f"build: {src}: {line.strip()}")
         log(f"build: {sorted(logs) or 'cached'} in {build_s:.3f} s")
         if not args.only:
-            bp_bench = finish_legs(bench_leg)["bp_bench"]
-            log(f"build: with batchpredict leg 1 beside it "
+            build_legs = finish_legs(bench_leg)
+            bp_bench = build_legs["bp_bench"]
+            evlog = {"codec": build_legs["evlog_codec"]}
+            log(f"build: with batchpredict and evlog legs 1 beside it "
                 f"{time.perf_counter() - t0:.3f} s")
             # 18. distributed, legs 1-2 and 4-7 (two processes on the
             #     card, their launches counted in each), with nothing
@@ -11328,8 +11769,8 @@ def main() -> int:
         #    and 6 (leg 2)
         t_legs = time.perf_counter()
         legs = start_legs(["lifecycle", "ecommerce", "similarproduct",
-                           "recommended_user", "orchestrate", "sessionrec"],
-                          args.seed, args.port)
+                           "recommended_user", "orchestrate", "sessionrec",
+                           "evlog"], args.seed, args.port)
         try:
             # 4. train (the training path: counts zeroed just before
             #    each train, read just after)
@@ -11382,6 +11823,8 @@ def main() -> int:
         lifecycle = background.pop("lifecycle")
         sessionrec["cli"] = background.pop("sessionrec")
         log("sessionrec: " + json.dumps(sessionrec))
+        evlog["store"] = background.pop("evlog")
+        log("evlog: " + json.dumps(evlog))
         legs_s = time.perf_counter() - t_legs
         log(f"lifecycle: phase took {lifecycle['leg_s']:.3f} s; with the "
             f"train, engines, eval and fold-in legs beside it "
@@ -11514,14 +11957,15 @@ def main() -> int:
                 distributed["leg3"]["in_process"]["b2_launches"],
             "distributed_sharded_http":
                 distributed["leg3"]["http"]["b2_launches"],
-            "operator_https_deploy": operator["serve"]["b2_launches"]},
+            "operator_https_deploy": operator["serve"]["b2_launches"],
+            "evlog_deploy": evlog["store"]["b2_launches"]},
         "foldin_scored_queries": width["scored_probes"],
         "chunk_rows": chunk_rows,
         "engine_shapes": eng_rows,
         "tie_rows": tie_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
                 canary, engines, evals, fleet, sessionrec, loadtest,
-                distributed)]}
+                distributed, evlog["store"])]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

@@ -258,14 +258,21 @@ def _model_summary(model) -> dict:
 
 def _ingest_counts() -> dict:
     """This process's training-read cache hits and misses
-    (``pio_ingest_cache_{hits,misses}_total``, summed over apps)."""
+    (``pio_ingest_cache_{hits,misses}_total``, summed over apps) and the
+    seconds its training scans took (the ``ingest_scan`` spans: the
+    store's read and decode)."""
     from predictionio_tpu_torch.obs.registry import default_registry
 
+    reg = default_registry()
     out = {}
     for key in ("hits", "misses"):
-        metric = default_registry().get(f"pio_ingest_cache_{key}_total")
+        metric = reg.get(f"pio_ingest_cache_{key}_total")
         out[key] = 0 if metric is None else int(
             sum(v for _labels, v in metric.samples()))
+    spans = reg.get("pio_span_duration_seconds")
+    out["scan_s"] = 0.0 if spans is None else sum(
+        v["sum"] for labels, v in spans.samples()
+        if labels.get("span") == "ingest_scan")
     return out
 
 

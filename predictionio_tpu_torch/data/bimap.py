@@ -1,18 +1,105 @@
-"""Sorted-vocab ids (copy of the reference's ``data/bimap.py``
-``assign_indices``, ``vocab_index`` and ``batch_lookup``).
+"""Bidirectional maps and sorted-vocab ids (copy of the reference's
+``data/bimap.py``: ``BiMap``, ``assign_indices``, ``vocab_index`` and
+``batch_lookup``).
 
-A model's user and item ids are a sorted array (``vocab``); the row of
-an id in the factor matrix is its position in that array. The reference
-interns through ``pandas.factorize`` where pandas is installed; the port
-keeps only its numpy path (the machine with the card has no pandas), and
-both give the same sorted vocab and codes.
+``BiMap`` is the reference's BiMap (data/.../storage/BiMap.scala:28-167),
+its ids assigned over the sorted distinct keys. A model's user and item
+ids are a sorted array (``vocab``); the row of an id in the factor matrix
+is its position in that array. The reference interns through
+``pandas.factorize`` where pandas is installed; the port keeps only its
+numpy path (the machine with the card has no pandas), and both give the
+same sorted vocab and codes.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Generic, Iterable, Mapping, Sequence, Tuple, TypeVar
 
 import numpy as np
+
+K = TypeVar("K")
+V = TypeVar("V")
+
+
+class BiMap(Generic[K, V]):
+    """Immutable bidirectional map; values must be unique
+    (BiMap.scala:28)."""
+
+    __slots__ = ("_forward", "_inverse")
+
+    def __init__(self, forward: Mapping[K, V],
+                 _inverse: "BiMap | None" = None):
+        self._forward = dict(forward)
+        if _inverse is None:
+            inv = {}
+            for k, v in self._forward.items():
+                if v in inv:
+                    raise ValueError(
+                        f"BiMap values must be unique: duplicate {v!r}")
+                inv[v] = k
+            self._inverse = inv
+        else:
+            self._inverse = _inverse
+
+    @property
+    def forward(self) -> Dict[K, V]:
+        return dict(self._forward)
+
+    def inverse(self) -> "BiMap[V, K]":
+        out = BiMap.__new__(BiMap)
+        out._forward = self._inverse
+        out._inverse = self._forward
+        return out
+
+    def __getitem__(self, key: K) -> V:
+        return self._forward[key]
+
+    def get(self, key: K, default=None):
+        return self._forward.get(key, default)
+
+    def get_opt(self, key: K):
+        return self._forward.get(key)
+
+    def contains(self, key: K) -> bool:
+        return key in self._forward
+
+    __contains__ = contains
+
+    def __len__(self) -> int:
+        return len(self._forward)
+
+    def __iter__(self):
+        return iter(self._forward)
+
+    def items(self):
+        return self._forward.items()
+
+    def take(self, n: int) -> "BiMap[K, V]":
+        return BiMap(dict(list(self._forward.items())[:n]))
+
+    def to_map(self) -> Dict[K, V]:
+        return dict(self._forward)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, BiMap) and self._forward == other._forward
+
+    def __repr__(self) -> str:
+        return f"BiMap({self._forward!r})"
+
+    # -- id assignment (BiMap.stringInt/stringLong parity) -----------------
+    @classmethod
+    def string_int(cls, keys: Iterable[str]) -> "BiMap[str, int]":
+        """Contiguous ints [0, n) for the distinct keys, in sorted
+        order."""
+        uniq = np.unique(np.asarray(list(keys), dtype=object))
+        return cls({str(k): i for i, k in enumerate(uniq)})
+
+    string_long = string_int  # Python ints are unbounded
+
+    @classmethod
+    def string_double(cls, keys: Iterable[str]) -> "BiMap[str, float]":
+        uniq = np.unique(np.asarray(list(keys), dtype=object))
+        return cls({str(k): float(i) for i, k in enumerate(uniq)})
 
 
 def batch_lookup(vocab: np.ndarray, values) -> np.ndarray:

@@ -7,7 +7,8 @@ Instead of Scala's Option[Option[T]] target filters, the sentinel
 ``UNFILTERED`` distinguishes "no filter" from "must be absent" (None).
 The training read is :meth:`EventStore.find_columns`, numpy columns in
 place of the reference's pyarrow table (the machine with the card has no
-pyarrow).
+pyarrow); its default, like the reference's ``find_columnar``'s, goes
+through ``find``.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from predictionio_tpu_torch.data.datamap import PropertyMap
-from predictionio_tpu_torch.data.event import UTC, Event
+from predictionio_tpu_torch.data.event import UTC, Event, millis
 
 
 class StorageError(Exception):
@@ -394,14 +395,43 @@ class EventStore(abc.ABC):
                      channel_id: Optional[int] = None) -> List[str]:
         """Insert events, returning their ids."""
 
-    @abc.abstractmethod
     def insert_batch_idempotent(self, events: Sequence[Event], app_id: int,
                                 channel_id: Optional[int] = None
                                 ) -> List[str]:
         """Like insert_batch, but events whose (pre-assigned) id is
         already stored are skipped: the retry path of the group-commit
         flush (``data/write_buffer``), where an earlier attempt may have
-        committed. Every event must carry an event_id."""
+        committed. Every event must carry an event_id. Backends override
+        with a native upsert-ignore (sqlite INSERT OR IGNORE, postgres ON
+        CONFLICT DO NOTHING); this default probes with ``get`` an event,
+        correct everywhere, slow, and only ever on the retry path."""
+        missing = []
+        for e in events:
+            if not e.event_id:
+                raise StorageError(
+                    "insert_batch_idempotent requires pre-assigned event ids")
+            if self.get(e.event_id, app_id, channel_id) is None:
+                missing.append(e)
+        if missing:
+            self.insert_batch(missing, app_id, channel_id)
+        return [e.event_id for e in events]
+
+    def compact(self, app_id: int, channel_id: Optional[int] = None,
+                ttl_days: Optional[float] = None) -> Dict[str, int]:
+        """Maintenance sweep (``pio compact``): with ``ttl_days``, drop
+        the events whose ``event_time`` is older than the retention
+        window. Returns counters (``removed_rows`` always). This default
+        deletes through the row API, correct for every backend; row
+        stores override it with one DELETE."""
+        removed = 0
+        if ttl_days is not None:
+            cutoff = _utcnow() - _dt.timedelta(days=ttl_days)
+            expired = [e.event_id for e in self.find(
+                app_id, channel_id, until_time=cutoff) if e.event_id]
+            for eid in expired:
+                if self.delete(eid, app_id, channel_id):
+                    removed += 1
+        return {"removed_rows": removed}
 
     @abc.abstractmethod
     def get(self, event_id: str, app_id: int,
@@ -430,20 +460,31 @@ class EventStore(abc.ABC):
         filters; limit None or -1 -> all; reversed_order = latest
         first."""
 
-    @abc.abstractmethod
     def find_columns(self, app_id: int, channel_id: Optional[int] = None,
                      columns: Sequence[str] = (), ordered: bool = True,
                      **filters) -> Dict[str, np.ndarray]:
-        """Training-path read: the named columns of the matching events
-        as numpy arrays (object arrays for strings, int64 for the
-        ``*_ms`` times), with ``find``'s filters. ``ordered=False``
-        accepts any row order. ``shard=(index, count[, snapshot])``
-        restricts the scan to one of ``count`` disjoint row partitions
-        (the multi-process partitioned training read); the readers of
-        one run pass one ``read_snapshot()`` token (third element), so
-        concurrent ingest cannot skew the partition bounds between them.
-        A backend that cannot partition refuses rather than hand every
-        process the full set."""
+        """Training-path read: the named columns (``SQL_COLUMN_OF``
+        names; all of them by default) of the matching events as numpy
+        arrays (``columns_of_rows``), with ``find``'s filters.
+        ``ordered=False`` accepts any row order. ``shard=(index, count[,
+        snapshot])`` restricts the scan to one of ``count`` disjoint row
+        partitions (the multi-process partitioned training read); the
+        readers of one run pass one ``read_snapshot()`` token (third
+        element), so concurrent ingest cannot skew the partition bounds
+        between them. A backend that cannot partition refuses rather than
+        hand every process the full set.
+
+        This default materializes through ``find`` (in its order) and
+        refuses ``shard``; columnar backends override it with a direct
+        scan."""
+        if filters.pop("shard", None) is not None:
+            raise StorageError(
+                f"{type(self).__name__} does not support sharded "
+                "(partitioned) reads")
+        names = column_names(columns)
+        return columns_of_rows(
+            [tuple(_EVENT_FIELD[n](e) for n in names)
+             for e in self.find(app_id, channel_id, **filters)], names)
 
     def aggregate_properties(
         self,
@@ -481,11 +522,68 @@ class EventStore(abc.ABC):
         return None
 
 
+#: column name of a training read -> its column in the row stores' event
+#: tables (the reference's columnar schema names,
+#: ``data/columnar.SQL_COLUMN_OF``)
+SQL_COLUMN_OF = {
+    "event_id": "id", "event": "event", "entity_type": "entityType",
+    "entity_id": "entityId", "target_entity_type": "targetEntityType",
+    "target_entity_id": "targetEntityId", "properties": "properties",
+    "event_time_ms": "eventTime", "creation_time_ms": "creationTime",
+}
+
+#: column name -> its value of an Event, as the row stores hold it
+_EVENT_FIELD = {
+    "event_id": lambda e: e.event_id,
+    "event": lambda e: e.event,
+    "entity_type": lambda e: e.entity_type,
+    "entity_id": lambda e: e.entity_id,
+    "target_entity_type": lambda e: e.target_entity_type,
+    "target_entity_id": lambda e: e.target_entity_id,
+    "properties": lambda e: (None if e.properties.is_empty
+                             else e.properties.to_json()),
+    "event_time_ms": lambda e: millis(e.event_time),
+    "creation_time_ms": lambda e: millis(e.creation_time),
+}
+
+
+def column_names(columns: Sequence[str]) -> List[str]:
+    """The requested training-read columns (every one when empty);
+    ``KeyError`` names an unknown one."""
+    names = list(columns) or list(SQL_COLUMN_OF)
+    unknown = [n for n in names if n not in SQL_COLUMN_OF]
+    if unknown:
+        raise KeyError(f"unknown event columns {unknown}; known: "
+                       f"{sorted(SQL_COLUMN_OF)}")
+    return names
+
+
+def columns_of_rows(rows: Sequence[tuple],
+                    names: Sequence[str]) -> Dict[str, np.ndarray]:
+    """Row tuples (values in ``names`` order) as numpy columns: object
+    arrays for strings (None where NULL; an empty properties string reads
+    as None, as in the reference's table), int64 for ``event_time_ms`` /
+    ``creation_time_ms``."""
+    out = {}
+    for j, n in enumerate(names):
+        if n.endswith("_ms"):
+            out[n] = np.fromiter((r[j] for r in rows), np.int64,
+                                 count=len(rows))
+            continue
+        col = np.empty(len(rows), dtype=object)
+        col[:] = [r[j] for r in rows]
+        if n == "properties":
+            col[col == ""] = None
+        out[n] = col
+    return out
+
+
 def shard_window(lo_all: int, hi_all: int, shard) -> "tuple[int, int]":
     """One of ``count`` near-equal [lo, hi) sub-windows of a numeric
     snapshot range: the partition arithmetic of range-sharded backends
-    (sqlite rowids). The last window clamps to the snapshot end, so
-    values arriving after the snapshot never leak into it."""
+    (sqlite rowids, postgres eventTimes). The last window clamps to the
+    snapshot end, so values arriving after the snapshot never leak into
+    it."""
     idx, count = shard[0], shard[1]
     if not (0 <= idx < count):
         raise StorageError(f"bad shard {shard}")

@@ -2,11 +2,14 @@
 ``storage/registry.py``, the Storage.scala:146-466 analog).
 
   * ``PIO_STORAGE_SOURCES_<NAME>_TYPE`` — backend type of source <NAME>;
-    the port has ``sqlite`` (every repository) and ``localfs`` / ``fs``
-    (MODELDATA, local paths); the reference's other types raise
-    ``NotImplementedError`` naming where they live;
-  * ``PIO_STORAGE_SOURCES_<NAME>_PATH`` — the sqlite file, or the model
-    directory;
+    the port has ``sqlite`` and ``postgres`` (every repository),
+    ``evlog`` (EVENTDATA) and ``localfs`` / ``fs`` (MODELDATA, local
+    paths); ``parquet`` raises ``NotImplementedError`` naming where it
+    lives;
+  * ``PIO_STORAGE_SOURCES_<NAME>_PATH`` — the sqlite file, the evlog
+    directory (default ``$PIO_HOME/evlog``) or the model directory;
+    ``_URL`` (else ``_PATH``) the postgres DSN; ``_CODEC`` the evlog
+    codec (before ``PIO_EVLOG_CODEC``);
   * ``PIO_STORAGE_REPOSITORIES_{METADATA,EVENTDATA,MODELDATA}_{NAME,SOURCE}``
     — binds each repository to a source.
 
@@ -31,6 +34,7 @@ from typing import Dict, Optional
 
 from predictionio_tpu_torch.storage import base
 from predictionio_tpu_torch.storage.base import StorageError
+from predictionio_tpu_torch.utils.config import pio_home
 
 log = logging.getLogger("pio.torch.storage")
 
@@ -41,18 +45,16 @@ REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
 #: the reference's other source types and the module of each there
 _NOT_PORTED = {
-    "postgres": "storage/postgres_backend.py",
     "parquet": "storage/parquet_events.py",
-    "evlog": "storage/evlog_backend.py",
 }
 
-#: data object kind -> sqlite backend class name
-_SQLITE_KINDS = {
-    "apps": "SqliteApps", "accesskeys": "SqliteAccessKeys",
-    "channels": "SqliteChannels", "engineinstances": "SqliteEngineInstances",
-    "evaluationinstances": "SqliteEvaluationInstances",
-    "releases": "SqliteReleases", "models": "SqliteModels",
-    "events": "SqliteEvents",
+#: data object kind -> class name suffix of the sqlite and postgres
+#: backends (``Sqlite<suffix>``, ``Postgres<suffix>``)
+_KIND_CLASS = {
+    "apps": "Apps", "accesskeys": "AccessKeys", "channels": "Channels",
+    "engineinstances": "EngineInstances",
+    "evaluationinstances": "EvaluationInstances",
+    "releases": "Releases", "models": "Models", "events": "Events",
 }
 
 
@@ -73,8 +75,7 @@ def _parse_env(env: Dict[str, str]) -> Dict:
 def default_config(home: Optional[str] = None) -> Dict:
     """Single-file sqlite under $PIO_HOME (or ~/.pio_tpu) for events and
     metadata, model blobs as files under ``models/`` beside it."""
-    home = home or os.environ.get(
-        "PIO_HOME", os.path.join(os.path.expanduser("~"), ".pio_tpu"))
+    home = home or pio_home()
     db = os.path.join(home, "data", "pio.db")
     return {
         "sources": {
@@ -177,16 +178,12 @@ class Storage:
                 obj = (LocalFSModels if stype == "localfs" else FSModels)(
                     source.get("PATH") or os.path.join(
                         os.path.expanduser("~"), ".pio_tpu", "models"))
-            elif stype == "sqlite":
-                from predictionio_tpu_torch.storage import (
-                    sqlite_backend as sb,
-                )
-
+            elif stype in ("sqlite", "postgres", "evlog"):
                 client = cls._clients.get(name)
                 if client is None:
-                    client = sb.SqliteClient(source.get("PATH", ":memory:"))
+                    client = _new_client(stype, source)
                     cls._clients[name] = client
-                obj = getattr(sb, _SQLITE_KINDS[kind])(client)
+                obj = _construct(stype, kind, client)
                 if kind == "events":
                     from predictionio_tpu_torch.storage import faults
 
@@ -259,6 +256,42 @@ class Storage:
         events.init_channel(0, None)
         events.remove_channel(0, None)
         return True
+
+
+def _new_client(stype: str, source: Dict[str, str]):
+    """The connection (or directory) a source's data objects share."""
+    if stype == "sqlite":
+        from predictionio_tpu_torch.storage.sqlite_backend import (
+            SqliteClient,
+        )
+
+        return SqliteClient(source.get("PATH", ":memory:"))
+    if stype == "postgres":
+        from predictionio_tpu_torch.storage.postgres_backend import (
+            PostgresClient,
+        )
+
+        return PostgresClient(source.get("URL", source.get("PATH", "")))
+    from predictionio_tpu_torch.storage.evlog_backend import EvlogClient
+
+    return EvlogClient(source.get("PATH")
+                       or os.path.join(pio_home(), "evlog"),
+                       codec=source.get("CODEC"))
+
+
+def _construct(stype: str, kind: str, client):
+    """A data object of ``kind`` over a source's client."""
+    if stype == "evlog":
+        if kind != "events":
+            raise StorageError("evlog source only supports EVENTDATA")
+        from predictionio_tpu_torch.storage.evlog_backend import EvlogEvents
+
+        return EvlogEvents(client)
+    if stype == "sqlite":
+        from predictionio_tpu_torch.storage import sqlite_backend as mod
+    else:
+        from predictionio_tpu_torch.storage import postgres_backend as mod
+    return getattr(mod, stype.capitalize() + _KIND_CLASS[kind])(client)
 
 
 def _ingest_partitions() -> int:

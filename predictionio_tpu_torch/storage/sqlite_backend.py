@@ -28,8 +28,9 @@ from predictionio_tpu_torch.data.datamap import DataMap
 from predictionio_tpu_torch.data.event import UTC, Event, millis as _to_ms
 from predictionio_tpu_torch.storage import base
 from predictionio_tpu_torch.storage.base import (
-    AccessKey, App, Channel, EngineInstance, EvaluationInstance, Model,
-    Release, StorageError, UNFILTERED, generate_id,
+    SQL_COLUMN_OF, AccessKey, App, Channel, EngineInstance,
+    EvaluationInstance, Model, Release, StorageError, UNFILTERED,
+    column_names, columns_of_rows, generate_id,
 )
 
 
@@ -95,16 +96,6 @@ class SqliteClient:
 _EVENT_COLS = ("id, event, entityType, entityId, targetEntityType, "
                "targetEntityId, properties, eventTime, eventTimeZone, tags, "
                "prId, creationTime, creationTimeZone")
-
-#: column name of a training read -> the table's column (the reference's
-#: columnar schema names, ``data/columnar.SQL_COLUMN_OF``)
-SQL_COLUMN_OF = {
-    "event_id": "id", "event": "event", "entity_type": "entityType",
-    "entity_id": "entityId", "target_entity_type": "targetEntityType",
-    "target_entity_id": "targetEntityId", "properties": "properties",
-    "event_time_ms": "eventTime", "creation_time_ms": "creationTime",
-}
-
 
 #: rows an insert statement carries (13 bound values each: under the
 #: 999 variables of older sqlite builds)
@@ -381,34 +372,17 @@ class SqliteEvents(base.EventStore):
                      columns: Sequence[str] = (), ordered: bool = True,
                      **filters) -> Dict[str, np.ndarray]:
         """The named columns (``SQL_COLUMN_OF`` names) of the matching
-        events as numpy arrays: object arrays for strings (None where
-        NULL; an empty properties string reads as None, as in the
-        reference's table), int64 for ``event_time_ms`` /
-        ``creation_time_ms``. ``reversed_order``/``limit`` need the time
-        sort, so they force it on."""
-        names = list(columns) or list(SQL_COLUMN_OF)
-        unknown = [n for n in names if n not in SQL_COLUMN_OF]
-        if unknown:
-            raise KeyError(f"unknown event columns {unknown}; known: "
-                           f"{sorted(SQL_COLUMN_OF)}")
+        events as numpy arrays (``base.columns_of_rows``).
+        ``reversed_order``/``limit`` need the time sort, so they force it
+        on."""
+        names = column_names(columns)
         if filters.get("reversed_order") or filters.get("limit") is not None:
             ordered = True
         sql, params = self._find_sql(
             ", ".join(SQL_COLUMN_OF[n] for n in names), app_id, channel_id,
             ordered=ordered, **filters)
-        rows = self._rows(sql, params, app_id, channel_id).fetchall()
-        out = {}
-        for j, n in enumerate(names):
-            if n.endswith("_ms"):
-                out[n] = np.fromiter((r[j] for r in rows), np.int64,
-                                     count=len(rows))
-                continue
-            col = np.empty(len(rows), dtype=object)
-            col[:] = [r[j] for r in rows]
-            if n == "properties":
-                col[col == ""] = None
-            out[n] = col
-        return out
+        return columns_of_rows(
+            self._rows(sql, params, app_id, channel_id).fetchall(), names)
 
 
 def _row_to_event(row) -> Event:

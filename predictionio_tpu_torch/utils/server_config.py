@@ -39,14 +39,11 @@ import os
 import ssl
 from typing import Optional
 
+from predictionio_tpu_torch.utils.config import pio_home
+
 logger = logging.getLogger("pio.torch.config")
 
 SCORER_MODES = ("exact", "fused", "fused_bf16", "fused_int8", "twostage")
-
-
-def pio_home() -> str:
-    return os.environ.get(
-        "PIO_HOME", os.path.join(os.path.expanduser("~"), ".pio_tpu"))
 
 
 def read_server_json(path: Optional[str] = None) -> dict:

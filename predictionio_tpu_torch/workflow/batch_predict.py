@@ -26,8 +26,8 @@ supplement / predict / serve per query -> one ``{"query": ...,
     contract (``parallel/distributed``) gives each process one
     contiguous row range. Each shard writes its fragment by temp-write
     + atomic rename; the last shard to finish claims a merge manifest
-    (O_EXCL) and concatenates the fragments in rank order into the
-    final path, so the merged output is that of a single-process run and
+    (O_EXCL, under a lock on the output's directory) and concatenates
+    the fragments in rank order into the final path, so the merged output is that of a single-process run and
     a kill at any point leaves nothing partial at the final path.
 
 Malformed input rows (unparseable JSON, queries that do not fit the
@@ -47,6 +47,7 @@ Parquet input, parquet output and the reference's arrow lane need
 from __future__ import annotations
 
 import dataclasses
+import fcntl
 import json
 import logging
 import os
@@ -626,7 +627,25 @@ def _maybe_merge(output: str, size: int,
     merge is simply re-run (same fragments -> same bytes, committed by
     atomic rename), so a merger that crashed at ANY point — before or
     after the commit — is healed by the next run over the same path.
-    Returns the run totals when this call merged, else None."""
+    Returns the run totals when this call merged, else None.
+
+    The whole election and merge run under an exclusive ``flock`` of the
+    output's directory: a shard that finishes while a sibling is
+    mid-merge waits for it and then finds the metas gone, instead of
+    rolling the live merge forward and reporting itself a merger too.
+    A merger that crashed holds no lock, so the roll-forward still
+    heals it."""
+    fd = os.open(os.path.dirname(os.path.abspath(output)), os.O_RDONLY)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        return _elect_and_merge(output, size, fingerprint)
+    finally:
+        os.close(fd)
+
+
+def _elect_and_merge(output: str, size: int,
+                     fingerprint: List[Any]) -> Optional[dict]:
+    """``_maybe_merge``'s body, under its lock."""
     metas = [_meta_path(output, r, size) for r in range(size)]
     entries = [_read_meta(m, fingerprint) for m in metas]
     if any(e is None for e in entries):
@@ -647,9 +666,10 @@ def _roll_forward_merge(output: str, size: int, manifest: str,
     """A manifest already exists: a previous merger crashed mid-merge
     (no output yet) or right after its commit (output present but the
     stale claim survived — which would otherwise wedge every future
-    fleet on this path), or a concurrent merger is mid-flight right
-    now. Every meta already matched this fleet's fingerprint, so if the
-    fragments are present too, re-run the merge — idempotent, so racing
+    fleet on this path), or a merger on another host, beyond
+    ``_maybe_merge``'s lock, is mid-flight right now. Every meta
+    already matched this fleet's fingerprint, so if the fragments are
+    present too, re-run the merge — idempotent, so racing
     a live merger is harmless (_do_merge treats losing that race as
     success). Fragments missing with the output present is the normal
     already-merged-and-GC'd state: nothing to do."""

@@ -279,6 +279,56 @@ def test_kill_mid_merge_rolls_forward(tmp_path):
     assert not os.path.exists(f"{out}.manifest.json")
 
 
+def test_shard_finishing_mid_merge_does_not_merge_again(tmp_path,
+                                                        monkeypatch):
+    """Two shards finishing at once: the one that finds a sibling
+    mid-merge waits for it and reports no merge of its own, so exactly
+    one shard of the fleet says ``merged``."""
+    import threading
+
+    from predictionio_tpu_torch.workflow import batch_predict as bp
+
+    result = _port_result()
+    inp = tmp_path / "q.jsonl"
+    n = _write_queries(inp)
+    out = tmp_path / "out.jsonl"
+    single = tmp_path / "single.jsonl"
+    run_batch_predict(None, None, str(inp), str(single), chunk_size=16,
+                      loaded=(result, None))
+    run_batch_predict(None, None, str(inp), str(out), chunk_size=16,
+                      loaded=(result, None), worker=(0, 2))
+    real_merge = bp._do_merge
+    entered, go = threading.Event(), threading.Event()
+    merges = []
+
+    def held_merge(*args):
+        merges.append(args)
+        entered.set()
+        assert go.wait(30)
+        return real_merge(*args)
+
+    monkeypatch.setattr(bp, "_do_merge", held_merge)
+    reps = {}
+    merger = threading.Thread(target=lambda: reps.setdefault(
+        "merger", run_batch_predict(None, None, str(inp), str(out),
+                                    chunk_size=16, loaded=(result, None),
+                                    worker=(1, 2))))
+    merger.start()
+    assert entered.wait(30)
+    fp = bp._input_fingerprint(str(inp), None)
+    late = threading.Thread(target=lambda: reps.setdefault(
+        "late", bp._maybe_merge(str(out), 2, fp)))
+    late.start()
+    late.join(0.3)
+    assert late.is_alive()            # waits on the merger's lock
+    go.set()
+    merger.join(30)
+    late.join(30)
+    assert reps["merger"].merged and reps["merger"].total_written == n
+    assert reps["late"] is None and len(merges) == 1
+    assert out.read_bytes() == single.read_bytes()
+
+
 def test_kill_points_arm_from_the_environment(monkeypatch):
     monkeypatch.setattr(faults, "_kill_points", None)
     monkeypatch.setenv("PIO_FAULT_KILL", " a:b , c ")

@@ -23,15 +23,17 @@ the CPU on their own.
   ``compact`` on a partitioned store and a storm through ``loadtest``,
   and another ``version``, the app, channel and access-key management
   commands, ``export``, ``analyze``, ``run``, ``adminserver`` and
-  ``dashboard``,
+  ``dashboard``, and another ``app new``, ``import`` and ``train``
+  on an evlog event store (the native codec where g++ is present),
   and two processes in a gloo group run the collectives child
   (``tests/torch_distributed_child.py``) and ``train --mesh-shape 2``
   through the CLI, each with the same finding;
 * an AST scan finds no such import in the package (the staged-rollout
   modules ``obs/slo.py``, ``deploy/canary.py`` and ``server/plugins.py``,
   the batch-predict slice's obs core, worker contract and kill points,
-  the observability plane, the classification slice and the sessionrec
-  slice among them) or in chip_smoke.py;
+  the observability plane, the classification slice, the sessionrec
+  slice, the other event stores and the small library modules among
+  them) or in chip_smoke.py;
 * each entry point called without ``device=`` raises when CUDA is
   absent.
 """
@@ -1375,6 +1377,76 @@ def test_operator_cli_loads_no_jax(tmp_path):
     assert lines[-1] == "[]", out.stdout
     assert lines[0] == "0.1.0"
     assert "module ran" in lines
+
+
+_EVLOG_CHILD = r"""
+import json, os, shutil, sys
+from predictionio_tpu_torch.cli.main import main
+from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.storage.registry import Storage
+
+tmp = sys.argv[1]
+codec = "native" if shutil.which("g++") else "python"
+os.environ.update({
+    "PIO_HOME": tmp, "PIO_TELEMETRY": "0",
+    "PIO_STORAGE_SOURCES_DB_TYPE": "sqlite",
+    "PIO_STORAGE_SOURCES_DB_PATH": os.path.join(tmp, "meta.db"),
+    "PIO_STORAGE_SOURCES_LOG_TYPE": "evlog",
+    "PIO_STORAGE_SOURCES_LOG_CODEC": codec,
+    "PIO_STORAGE_REPOSITORIES_METADATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "DB",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "LOG",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_NAME": "pio",
+    "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "DB"})
+src = os.path.join(tmp, "events.jsonl")
+with open(src, "w") as f:
+    for u in range(12):
+        for j in range(4):
+            f.write(Event(event="rate", entity_type="user",
+                          entity_id=f"u{u}", target_entity_type="item",
+                          target_entity_id=f"i{(u * 7 + j) % 9}",
+                          properties={"rating": float(1 + (u + j) % 5)}
+                          ).to_json() + "\n")
+assert main(["app", "new", "Guard", "--access-key", "k"]) == 0
+assert main(["import", "--appname", "Guard", "--input", src]) == 0
+variant = os.path.join(tmp, "engine.json")
+with open(variant, "w") as f:
+    json.dump({"datasource": {"params": {"appName": "Guard"}},
+               "algorithms": [{"name": "als", "params": {
+                   "rank": 3, "numIterations": 2}}]}, f)
+assert main(["train", "--variant", variant, "--device", "cpu"]) == 0
+store = Storage.get_events()
+assert store.client.codec.name == codec, store.client.codec.name
+assert os.path.exists(os.path.join(tmp, "evlog", "events_1.evlog"))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "predictionio_tpu"
+             or m.startswith("predictionio_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def test_evlog_store_cli_loads_no_jax(tmp_path):
+    """``app new``, ``import`` and ``train --device cpu`` on an evlog
+    EVENTDATA source (its default path under ``PIO_HOME``)."""
+    out = subprocess.run([sys.executable, "-c", _EVLOG_CHILD, str(tmp_path)],
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert json.loads(lines[-2])["nnz"] == 48
+    assert lines[-1] == "[]", out.stdout
+
+
+def test_scan_covers_the_storage_and_library_modules():
+    scanned = {p.relative_to(PKG).as_posix() for p in _port_sources()
+               if PKG in p.parents}
+    assert {"native/__init__.py", "native/evlog.py",
+            "storage/evlog_backend.py", "storage/postgres_backend.py",
+            "storage/registry.py", "storage/base.py", "utils/config.py",
+            "utils/cleanup.py", "utils/logging_util.py",
+            "data/entity_map.py", "data/bimap.py",
+            "core/self_cleaning.py"} <= scanned
 
 
 def test_scan_covers_the_operator_modules():

@@ -327,8 +327,12 @@ Phases, each reported on its own lines:
                    queries from one client, 384 from 8 (cfg_telemetry's
                    per_level and n_clients, bench.py:2502-2503); every
                    traced request has each stage of
-                   ``SERVING_WALL_STAGES`` and they sum to its
-                   middleware wall within 10% or 0.5 ms; B2's launches
+                   ``SERVING_WALL_STAGES`` and the middleware's own
+                   stage around the handler, and they sum to its
+                   middleware wall within 10% or 0.5 ms (each set's
+                   gap, wall - the stages' sum, and its middleware
+                   stage printed first: the largest with its request,
+                   the p99); B2's launches
                    equal the micro-batches scored and the ``shortlist``
                    dispatches; each stage's p50/p99 beside the HTTP
                    ones. Leg 4: ``POST /debug/profile`` for 2 s while 8
@@ -755,15 +759,35 @@ Phases, each reported on its own lines:
                    equal up to ties within it), B2's launches equal to
                    the micro-batches scored; ``POST /stop`` and the
                    event server's drain.
+21. ``check``    — static analysis of the port's own tree
+                   (``analysis``, the reference's ``pio check``), in
+                   two legs. Leg 1, host only, in a process of its own
+                   during the build: ``python -m
+                   predictionio_tpu_torch.cli.main check`` in four
+                   processes at once: the whole tree as JSON (exit 0,
+                   ``ok``, the 13 rule ids, every ``.py`` under
+                   ``predictionio_tpu_torch/`` plus this file scanned, no
+                   finding, no parse error; its wall, file count and
+                   finding counts on lines of their own), ``-r PIO004
+                   predictionio_tpu_torch/data/write_buffer.py`` (exit
+                   0), a path outside the root (exit 2) and
+                   ``--list-rules`` (the 13 ids). Leg 2, on the card
+                   right after the kernels phase: the entry module
+                   (``predictionio_tpu_torch/entry.py``), ``entry()``'s
+                   top-10 against an f64 recompute and
+                   ``dryrun_multichip(2)`` over two positions of the
+                   card (a sharded ALS step, a seqrec dp x tp step), B1
+                   launched 4 times (one a position a half-sweep)
+                   counted from zero around it.
 
-Order, for the time limit: batchpredict's and evlog's legs 1 (no
-kernel) run each in a process of its own while nvcc builds; then the
+Order, for the time limit: batchpredict's, evlog's and check's legs 1
+(no kernel) run each in a process of its own while nvcc builds; then the
 distributed phase's legs 1-2 and 4-7 with nothing beside them (their
 processes' launches are their own; leg 1's factors are held to the
 train phase's after it), then the classify phase alone; after the
-kernels phase, the lifecycle (with the eval, batchpredict and
-multitenant CLI legs and the operator phase's leg 1 inside it, the four
-at once), the engines' three CLI legs, the fleet's orchestrated cycle,
+kernels phase, check's leg 2 alone on the card, then the lifecycle
+(with the eval, batchpredict and multitenant CLI legs and the operator
+phase's leg 1 inside it, the four at once), the engines' three CLI legs, the fleet's orchestrated cycle,
 sessionrec's leg 2 and evlog's leg 2 run each in a process of its own,
 each on its own store, while this process runs the train phase, the
 engines' width leg, eval legs 1-2, sessionrec's leg 1 and the fold-in
@@ -918,6 +942,7 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 def solve_env(value):
     """``PIO_TPU_SOLVE`` set to ``value`` inside the block (None: left
     as it is), restored after it."""
+    # pio: ignore[PIO006]: save/restore around the solver toggle
     saved = os.environ.get("PIO_TPU_SOLVE")
     if value is not None:
         os.environ["PIO_TPU_SOLVE"] = value
@@ -2228,6 +2253,7 @@ class _LogSink:
 
         self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
                                                      Handler)
+        # pio: ignore[PIO003]: the smoke's stub log sink; no request trace
         threading.Thread(target=self.httpd.serve_forever,
                          daemon=True).start()
         self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/log"
@@ -3186,6 +3212,7 @@ class _LoopThread:
         import asyncio
 
         self.loop = asyncio.new_event_loop()
+        # pio: ignore[PIO003]: a bare loop thread; requests open traces on it
         self.thread = threading.Thread(target=self.loop.run_forever,
                                        daemon=True)
         self.thread.start()
@@ -3980,15 +4007,19 @@ def dispatch_s(metrics_json: dict) -> float:
         if s["labels"]["family"] == "shortlist"), 0.0)
 
 
-def _stage_split(traces, ids):
-    """Per request of ``ids``: its wall stages, their sum and the
-    middleware's wall; checks that the stages tile it."""
+def _stage_split(traces, ids, label: str):
+    """Per request of ``ids``: its wall stages, the middleware's own
+    stage around the handler, their sum and the middleware's wall;
+    prints each request's gap (wall - the stages' sum: the largest, its
+    request, the p99) and the middleware stage (the largest, its
+    request, the p99), then checks that the stages tile the wall."""
     import numpy as np
 
     from predictionio_tpu_torch.obs.anatomy import (
-        SERVING_WALL_STAGES, TRACE_STAGE_PREFIX,
+        MIDDLEWARE_STAGE, SERVING_WALL_STAGES, TRACE_STAGE_PREFIX,
     )
 
+    stages = SERVING_WALL_STAGES + (MIDDLEWARE_STAGE,)
     by_id = {t["traceId"]: t for t in traces
              if t["name"] == "query_server POST /queries.json"}
     missing = [i for i in ids if i not in by_id]
@@ -3996,25 +4027,41 @@ def _stage_split(traces, ids):
     rows = []
     for rid in ids:
         t = by_id[rid]
-        st = {s: t["spans"].get(TRACE_STAGE_PREFIX + s)
-              for s in SERVING_WALL_STAGES}
+        st = {s: t["spans"].get(TRACE_STAGE_PREFIX + s) for s in stages}
         check(None not in st.values(), f"obs: request {rid} lacks stages "
               f"{[s for s, v in st.items() if v is None]}")
         wall = t["durationSec"]
-        gap = wall - sum(st.values())
+        rows.append((st, wall, wall - sum(st.values()), rid))
+    gaps_ms = np.array([r[2] for r in rows]) * 1e3
+    worst = rows[int(np.abs(gaps_ms).argmax())]
+    mw_ms = np.array([r[0][MIDDLEWARE_STAGE] for r in rows]) * 1e3
+    mw_worst = rows[int(mw_ms.argmax())]
+    log(f"obs: {label} gap (wall - stages) over {len(rows)} requests: "
+        f"largest {worst[2] * 1e3:.6f} ms (request {worst[3]}, wall "
+        f"{worst[1] * 1e3:.3f} ms, stages "
+        f"{ {s: round(v * 1e3, 3) for s, v in worst[0].items()} }), p99 "
+        f"{float(np.percentile(np.abs(gaps_ms), 99)):.6f} ms, median "
+        f"{float(np.median(gaps_ms)):.6f} ms")
+    log(f"obs: {label} middleware stage: largest {float(mw_ms.max()):.6f}"
+        f" ms (request {mw_worst[3]}, wall {mw_worst[1] * 1e3:.3f} ms), "
+        f"p99 {float(np.percentile(mw_ms, 99)):.6f} ms, median "
+        f"{float(np.median(mw_ms)):.6f} ms")
+    for st, wall, gap, rid in rows:
         check(abs(gap) <= max(0.1 * wall, 0.0005),
               f"obs: request {rid}'s stages sum to {sum(st.values())} s "
               f"against its wall {wall} s")
-        rows.append((st, wall, gap))
     out = {s: {"p50_ms": float(np.percentile([r[0][s] for r in rows], 50))
                * 1e3,
                "p99_ms": float(np.percentile([r[0][s] for r in rows], 99))
-               * 1e3} for s in SERVING_WALL_STAGES}
+               * 1e3} for s in stages}
     walls = np.array([r[1] for r in rows]) * 1e3
-    gaps = np.array([r[2] for r in rows]) * 1e3
     out["wall"] = {"p50_ms": float(np.percentile(walls, 50)),
                    "p99_ms": float(np.percentile(walls, 99))}
-    out["unattributed_max_ms"] = float(np.abs(gaps).max())
+    out["unattributed_max_ms"] = float(np.abs(gaps_ms).max())
+    out["unattributed_p99_ms"] = float(np.percentile(np.abs(gaps_ms), 99))
+    out["unattributed_max_request"] = worst[3]
+    out["middleware_max_ms"] = float(mw_ms.max())
+    out["middleware_max_request"] = mw_worst[3]
     return out
 
 
@@ -4075,13 +4122,13 @@ def obs_server_leg(seed: int, users, shape: dict):
               f"clients, first {failures[:3]}")
         _, tr, _ = client.call("GET", "/debug/traces.json?limit=4096")
         traces = tr["traces"]
-        serial_split = _stage_split(traces, ids)
+        serial_split = _stage_split(traces, ids, "serial")
         conc_ids = [t["traceId"] for t in traces
                     if t["name"] == "query_server POST /queries.json"
                     and t["traceId"] not in set(ids)]
         check(len(conc_ids) == o["per_level"], f"obs: {len(conc_ids)} "
               f"traced requests at 8 clients of {o['per_level']}")
-        conc_split = _stage_split(traces, conc_ids)
+        conc_split = _stage_split(traces, conc_ids, "clients8")
         _, root1, _ = client.call("GET", "/")
         _, mj, _ = client.call("GET", "/metrics.json")
         launches = root1["kernelLaunches"]["shortlist"]
@@ -5295,7 +5342,8 @@ BACKGROUND_LEGS = {
     "distributed": lambda seed, port, work: distributed_legs(seed, port,
                                                              work),
     "evlog_codec": lambda seed, port, work: evlog_codec_leg(seed),
-    "evlog": lambda seed, port, work: evlog_leg(seed, port, work)}
+    "evlog": lambda seed, port, work: evlog_leg(seed, port, work),
+    "check": lambda seed, port, work: check_leg()}
 #: the shapes a background leg reads, passed on in ``CHIP_SMOKE_LEGS``
 LEG_SHAPES = ("ECOMM", "SIMILAR", "FOLLOW", "ML100K", "FLEET_ORCH",
               "EVAL_CLI", "BP_CLI", "BP_BENCH", "FOLDIN", "FEEDBACK",
@@ -5345,8 +5393,11 @@ def start_legs(names, seed: int, port: int) -> dict:
         for name in names:
             k = list(BACKGROUND_LEGS).index(name)
             env["PIO_HOME"] = str(WORK / "legs_home" / name)
-            with open(logs / f"{name}.out", "w") as fo, \
-                    open(logs / f"{name}.err", "w") as fe:
+            # pio: ignore[PIO002]: a worker's stdout log in scratch
+            fo = open(logs / f"{name}.out", "w")
+            # pio: ignore[PIO002]: a worker's stderr log in scratch
+            fe = open(logs / f"{name}.err", "w")
+            with fo, fe:
                 procs[name] = subprocess.Popen(
                     [sys.executable, "-c", "import sys, chip_smoke; "
                      "sys.exit(chip_smoke.leg_worker())", name, str(seed),
@@ -5857,6 +5908,7 @@ def bp_fleet_worker() -> int:
     c = json.loads(os.environ["CHIP_SMOKE_BP_SHAPE"])
     result = bp_bench_result(os.environ["CHIP_SMOKE_BP_DEVICE"], c)
     out = os.environ["CHIP_SMOKE_BP_OUTPUT"]
+    # pio: ignore[PIO006]: a spawned shard reads its own rank wiring
     rank = os.environ["PIO_PROCESS_ID"]
     warm_out = f"{out}.warm-{rank}"
     run_batch_predict(None, None, os.environ["CHIP_SMOKE_BP_WARM"],
@@ -7190,9 +7242,12 @@ def orch_cli_worker() -> int:
         raised = type(e).__name__
         raise
     finally:
-        with open(os.environ["CHIP_SMOKE_ORCH_DUMP"], "w") as f:
+        # temp-write + rename: the parent never reads a torn dump
+        dump = os.environ["CHIP_SMOKE_ORCH_DUMP"]
+        with open(dump + ".tmp", "w") as f:
             json.dump({"rc": rc, "raised": raised, "marks": marks,
                        "events": rec.events(), "traces": rec.traces()}, f)
+        os.replace(dump + ".tmp", dump)
 
 
 def _orchestrate(env, args, dump: pathlib.Path):
@@ -8482,8 +8537,11 @@ def classify_cli_leg(seed: int):
             f"EVAL_K = {c['eval_k']}\nALGOS = {CLS_ALGOS!r}\n"
             + _CLS_EVAL_MODULE)
         # its output to files: nothing reads it until the queries end
-        with open(work / "eval.out", "w") as fo, \
-                open(work / "eval.err", "w") as fe:
+        # pio: ignore[PIO002]: the eval child's stdout log in scratch
+        fo = open(work / "eval.out", "w")
+        # pio: ignore[PIO002]: the eval child's stderr log in scratch
+        fe = open(work / "eval.err", "w")
+        with fo, fe:
             eval_proc = subprocess.Popen(
                 [sys.executable, "-c", _CHECKED_CLI, "eval",
                  "cls_eval:evaluation", "--device", DEV], cwd=str(ROOT),
@@ -9528,7 +9586,9 @@ def _dist_spawn(leg_cfg: dict, work: pathlib.Path):
         for k in ("PIO_COORDINATOR_ADDRESS", "PIO_NUM_PROCESSES",
                   "PIO_PROCESS_ID"):
             env.pop(k, None)
+        # pio: ignore[PIO002]: a process's stdout log in scratch
         out = open(work / f"dist{pid}.out", "w")
+        # pio: ignore[PIO002]: a process's stderr log in scratch
         err = open(work / f"dist{pid}.err", "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-c", "import sys, chip_smoke; "
@@ -11461,7 +11521,7 @@ def evlog_leg(seed: int, port: int, work) -> dict:
 
 def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
              canary, engines, evals, fleet, sessionrec, loadtest,
-             distributed, evlog) -> dict:
+             distributed, evlog, dryrun) -> dict:
     """B1's entry of the kernels line: times at the shape of the main
     path's larger half-sweep (S = users, K = rank) and the launches of
     the ML-20M train and of the eval phase's sweeps (each counted from
@@ -11470,8 +11530,9 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
     the load test's storm (its trains and fold-in, counted from zero
     around the fleet), the distributed phase's trains and its sweep
     across processes (each process's own count), the evlog phase's
-    train and its sqlite twin's, B1's times at the applies' shapes and
-    at the eval sweeps'."""
+    train and its sqlite twin's, the check phase's dry run over two
+    positions, B1's times at the applies' shapes and at the eval
+    sweeps'."""
     fl = lifecycle["foldin"]
     grid, cli = evals["grid"]["launches"], evals["cli"]
     eval_launches = {
@@ -11499,7 +11560,8 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
         + loadtest["launches"]["spd_solve"]
         + sum(dist_train) + sum(dist_engine) + sum(dist_sweep)
         + evlog["train"]["launches"]["spd_solve"]
-        + evlog["twin_train"]["launches"]["spd_solve"],
+        + evlog["twin_train"]["launches"]["spd_solve"]
+        + dryrun["launches"]["spd_solve"],
         "max_abs_err": spd_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
@@ -11557,6 +11619,7 @@ def spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
             "evlog_train": evlog["train"]["launches"]["spd_solve"],
             "evlog_sqlite_twin_train":
                 evlog["twin_train"]["launches"]["spd_solve"],
+            "check_dryrun_multichip": dryrun["launches"]["spd_solve"],
             **eval_launches},
         "eval_shapes": [r for r in spd_rows if r["eval"]],
         "foldin": {
@@ -11593,16 +11656,130 @@ def ml20m_one_process():
     return UV, data.digest
 
 
+#: the rule ids ``check`` ships: the reference's 13
+CHECK_RULES = ["PIO001", "PIO002", "PIO003", "PIO004", "PIO005", "PIO006",
+               "PIO007", "PIO008", "PIO009", "PIO090", "PIO100", "PIO101",
+               "PIO102"]
+
+
+def check_leg() -> dict:
+    """Leg 1 of the check phase, host only: ``check`` over the port's
+    tree through the CLI, in four processes at once (the whole tree as
+    JSON, PIO004 on ``data/write_buffer.py``, a path outside the root,
+    ``--list-rules``). Checks each one's exit code and report."""
+    cli = [sys.executable, "-m", "predictionio_tpu_torch.cli.main",
+           "check"]
+    runs = {"tree": ["--json"],
+            "pio004": ["--json", "-r", "PIO004",
+                       "predictionio_tpu_torch/data/write_buffer.py"],
+            "outside": [str(ROOT.parent)],
+            "list_rules": ["--list-rules"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(cli + a, cwd=str(ROOT), text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, a in runs.items()}
+    out, wall = {}, None
+    for k, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            check(False, f"check: {runs[k]} ran past 600 s")
+        # the whole tree's run is waited for first: its end is its own
+        wall = time.perf_counter() - t0 if wall is None else wall
+        out[k] = (proc.returncode, stdout, stderr)
+    n_py = len(list((ROOT / "predictionio_tpu_torch").rglob("*.py")))
+    rc, stdout, stderr = out["tree"]
+    check(rc == 0, f"check: the tree exited {rc}: {stdout[-3000:]} "
+          f"{stderr[-2000:]}")
+    doc = json.loads(stdout)
+    check(doc["ok"] is True and doc["rules"] == CHECK_RULES
+          and not doc["findings"] and not doc["parseErrors"]
+          and doc["filesChecked"] == n_py + 1,
+          f"check: the tree's report ok={doc['ok']} rules={doc['rules']} "
+          f"files={doc['filesChecked']} (want {n_py} + chip_smoke.py) "
+          f"findings={doc['findings'][:5]} "
+          f"parseErrors={doc['parseErrors']}")
+    rc4, stdout4, stderr4 = out["pio004"]
+    doc4 = json.loads(stdout4) if rc4 in (0, 1) else {}
+    check(rc4 == 0 and doc4.get("rules") == ["PIO004"],
+          f"check: -r PIO004 on data/write_buffer.py exited {rc4}: "
+          f"{stdout4[-2000:]} {stderr4[-2000:]}")
+    rco, stdouto, _ = out["outside"]
+    check(rco == 2 and "outside the project root" in stdouto,
+          f"check: a path outside the root exited {rco}: {stdouto[-500:]}")
+    rcl, stdoutl, _ = out["list_rules"]
+    listed = [line.split()[0] for line in stdoutl.splitlines() if line]
+    check(rcl == 0 and listed == CHECK_RULES,
+          f"check: --list-rules exited {rcl} with {listed}")
+    log(f"check: wall {wall:.3f} s (the whole tree, --json; the four "
+        f"runs at once)")
+    log(f"check: files {doc['filesChecked']} ({n_py} under "
+        "predictionio_tpu_torch/ + chip_smoke.py), parse errors "
+        f"{len(doc['parseErrors'])}")
+    log(f"check: findings {len(doc['findings'])}, baselined "
+        f"{doc['baselinedCount']}, rules {len(doc['rules'])}")
+    return {"wall_s": wall, "files": doc["filesChecked"],
+            "port_py_files": n_py, "findings": len(doc["findings"]),
+            "baselined": doc["baselinedCount"], "rules": doc["rules"],
+            "pio004": {"rc": rc4, "findings": len(doc4["findings"])},
+            "outside_rc": rco, "list_rules_rc": rcl,
+            "runs_s": time.perf_counter() - t0}
+
+
+def check_dryrun(n: int = 2) -> dict:
+    """Leg 2 of the check phase, on the card: the port's entry module,
+    ``entry()``'s forward against a plain recompute and
+    ``dryrun_multichip(n)`` over n positions of the card; B1's launches
+    counted from zero around the dry run (one a position a half-sweep of
+    its one ALS iteration)."""
+    import torch
+
+    from predictionio_tpu_torch.entry import dryrun_multichip, entry
+    from predictionio_tpu_torch.ops import kernels
+
+    fn, args = entry(DEV)
+    scores, ids = fn(*args)
+    user_vec, factors, _ = (a.cpu().double() for a in args)
+    plain = factors @ user_vec
+    want = torch.topk(plain, len(ids))
+    check(torch.equal(ids.cpu(), want.indices)
+          and float((scores.cpu().double() - want.values).abs().max())
+          <= 1e-4 * max(1.0, float(want.values.abs().max())),
+          f"check: entry()'s top-10 {ids.tolist()} against the f64 "
+          f"recompute's {want.indices.tolist()}")
+    synchronize()
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    report = dryrun_multichip(n, DEV)
+    synchronize()
+    launches = kernels.counts()
+    report["wall_s"] = time.perf_counter() - t0
+    report["launches"] = launches
+    check(launches["spd_solve"] == 2 * n,
+          f"check: dryrun_multichip({n}) launched B1 "
+          f"{launches['spd_solve']} times, want {2 * n}")
+    log(f"check: dryrun_multichip({n}) {json.dumps(report)}")
+    return report
+
+
 def partial_run(args, shape) -> int:
     """``--only``: the named phases after the kernels phase, for
     debugging on the card; no kernels line and no result."""
     phases = set(args.only.split(","))
     bad = phases - {"serve", "obs", "lifecycle", "fleet", "multitenant",
                     "classify", "sessionrec", "loadtest", "distributed",
-                    "operator", "evlog"}
+                    "operator", "evlog", "check"}
     check(not bad, f"--only takes serve, obs, lifecycle, fleet, "
           f"multitenant, classify, sessionrec, loadtest, distributed, "
-          f"operator, evlog; got {sorted(bad)}")
+          f"operator, evlog, check; got {sorted(bad)}")
+    if "check" in phases:
+        report = finish_legs(start_legs(["check"], args.seed,
+                                        args.port))["check"]
+        report["dryrun"] = check_dryrun()
+        log("check: " + json.dumps(report))
     if "evlog" in phases:
         # leg 1 (host only), then leg 2 on the card, each in its worker
         evlog = finish_legs(start_legs(["evlog_codec"], args.seed,
@@ -11680,7 +11857,8 @@ def main() -> int:
     ap.add_argument("--only", default=None, metavar="PHASE[,PHASE]",
                     help="run only these of serve, obs, lifecycle, fleet, "
                          "multitenant, classify, sessionrec, loadtest, "
-                         "distributed, operator, evlog after the build "
+                         "distributed, operator, evlog, check after the "
+                         "build "
                          "and the "
                          "kernels phase (a partial run: it prints no "
                          "result and exits 4)")
@@ -11715,8 +11893,8 @@ def main() -> int:
         if args.only:
             logs = kernels.build_all()
         else:
-            bench_leg = start_legs(["bp_bench", "evlog_codec"], args.seed,
-                                   args.port)
+            bench_leg = start_legs(["bp_bench", "evlog_codec", "check"],
+                                   args.seed, args.port)
             try:
                 logs = kernels.build_all()
             except BaseException:
@@ -11736,8 +11914,9 @@ def main() -> int:
             build_legs = finish_legs(bench_leg)
             bp_bench = build_legs["bp_bench"]
             evlog = {"codec": build_legs["evlog_codec"]}
-            log(f"build: with batchpredict and evlog legs 1 beside it "
-                f"{time.perf_counter() - t0:.3f} s")
+            checked = build_legs["check"]
+            log(f"build: with batchpredict's, evlog's and check's legs 1 "
+                f"beside it {time.perf_counter() - t0:.3f} s")
             # 18. distributed, legs 1-2 and 4-7 (two processes on the
             #     card, their launches counted in each), with nothing
             #     else running
@@ -11762,6 +11941,10 @@ def main() -> int:
         eng_rows, eng_err = kernels_engine_shapes(args.seed)
         tie_rows = kernels_tie_rows(args.seed)
         spd_rows, spd_err = spd_kernels_phase(args.seed)
+        # 21. check, leg 2: the entry module's dry run over two positions
+        #     of the card (B1 counted from zero around it)
+        checked["dryrun"] = check_dryrun()
+        log("check: " + json.dumps(checked))
         # 5, 9 (leg 1) and 13 (leg 3): the lifecycle (its CLI processes
         #    count their own launches), the three engines through the CLI
         #    and an orchestrated cycle, each in a process of its own,
@@ -11965,7 +12148,7 @@ def main() -> int:
         "tie_rows": tie_rows,
     }, spd_line(spd_rows, spd_err, train, lifecycle, width, b1_rows,
                 canary, engines, evals, fleet, sessionrec, loadtest,
-                distributed, evlog["store"])]}
+                distributed, evlog["store"], checked["dryrun"])]}
     log(json.dumps(line))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     log(card)

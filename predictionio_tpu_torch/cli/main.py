@@ -68,6 +68,9 @@ click), with the reference's commands, flags and exit codes:
     python -m predictionio_tpu_torch.cli.main status [--fleet PATH]
     python -m predictionio_tpu_torch.cli.main shell
     python -m predictionio_tpu_torch.cli.main run MODULE [ARGS ...]
+    python -m predictionio_tpu_torch.cli.main check [PATHS ...]
+        [--rule ID ...] [--json] [--baseline F] [--write-baseline]
+        [--no-baseline] [--list-rules]
 
 The engine.json's ``engineFactory`` names one of the ported engines
 (recommendation, ecommerce, similarproduct, recommended_user,
@@ -181,6 +184,11 @@ serves the admin REST API (``server/admin``), ``dashboard`` the console
 ``Storage``, ``EventStoreClient`` and ``WorkflowContext`` loaded;
 ``run`` runs a module as ``__main__``.
 
+``check`` runs the static-analysis rules (``analysis``) over the port's
+own tree, ``predictionio_tpu_torch/`` plus ``chip_smoke.py``, with the
+reference's flags and exit codes; the baseline is
+``conf/pio_check_baseline_torch.json``. It touches no device.
+
 The storage is the one ``PIO_STORAGE_*`` configures (``storage/registry``).
 """
 
@@ -198,8 +206,15 @@ _ENGINES = ("recommendation", "ecommerce", "similarproduct",
             "recommended_user", "classification", "sessionrec")
 
 
+def echo(message="") -> None:
+    """The counterpart of ``click.echo``: one line on stdout, flushed,
+    so a parent reading the pipe sees it."""
+    sys.stdout.write(f"{message}\n")
+    sys.stdout.flush()
+
+
 def _fail(msg: str) -> None:
-    print(f"[ERROR] {msg}", flush=True)
+    echo(f"[ERROR] {msg}")
     sys.exit(1)
 
 
@@ -323,8 +338,7 @@ def _template_factory(module: str) -> str:
 def template_list(_args) -> int:
     """The built-in engine templates and their engineFactory."""
     for name, (module, _ds, _algos) in _TEMPLATES.items():
-        print(f"[INFO] {name:<16} {_template_factory(module)}")
-    sys.stdout.flush()
+        echo(f"[INFO] {name:<16} {_template_factory(module)}")
     return 0
 
 
@@ -355,8 +369,7 @@ def template_get(args) -> int:
         except OSError:
             pass
         raise
-    print(f"[INFO] Engine template {args.name} written to {target}",
-          flush=True)
+    echo(f"[INFO] Engine template {args.name} written to {target}")
     return 0
 
 
@@ -380,10 +393,10 @@ def app_new(args) -> int:
         Storage.get_events().remove_channel(new_id)
         apps.delete(new_id)
         _fail(f"Access key {args.access_key} already exists. Aborting.")
-    print("[INFO] Created a new app:")
-    print(f"[INFO]         Name: {args.name}")
-    print(f"[INFO]           ID: {new_id}")
-    print(f"[INFO] Access Key: {key}", flush=True)
+    echo("[INFO] Created a new app:")
+    echo(f"[INFO]         Name: {args.name}")
+    echo(f"[INFO]           ID: {new_id}")
+    echo(f"[INFO] Access Key: {key}")
     return 0
 
 
@@ -392,11 +405,11 @@ def app_list(_args) -> int:
 
     apps = Storage.get_meta_data_apps().get_all()
     keys = Storage.get_meta_data_access_keys()
-    print(f"[INFO] {'Name':<20} | {'ID':<4} | Access Key")
+    echo(f"[INFO] {'Name':<20} | {'ID':<4} | Access Key")
     for a in sorted(apps, key=lambda x: x.name):
         for k in keys.get_by_appid(a.id) or [None]:
-            print(f"[INFO] {a.name:<20} | {a.id:<4} | {k.key if k else ''}")
-    print(f"[INFO] Finished listing {len(apps)} app(s).", flush=True)
+            echo(f"[INFO] {a.name:<20} | {a.id:<4} | {k.key if k else ''}")
+    echo(f"[INFO] Finished listing {len(apps)} app(s).")
     return 0
 
 
@@ -420,15 +433,14 @@ def app_show(args) -> int:
     from predictionio_tpu_torch.storage.registry import Storage
 
     a = _app_or_fail(args.name)
-    print(f"[INFO]     App Name: {a.name}")
-    print(f"[INFO]       App ID: {a.id}")
-    print(f"[INFO]  Description: {a.description or ''}")
+    echo(f"[INFO]     App Name: {a.name}")
+    echo(f"[INFO]       App ID: {a.id}")
+    echo(f"[INFO]  Description: {a.description or ''}")
     for k in Storage.get_meta_data_access_keys().get_by_appid(a.id):
         events = ",".join(k.events) if k.events else "(all)"
-        print(f"[INFO]   Access Key: {k.key} | {events}")
+        echo(f"[INFO]   Access Key: {k.key} | {events}")
     for c in Storage.get_meta_data_channels().get_by_appid(a.id):
-        print(f"[INFO]      Channel: {c.name} ({c.id})")
-    sys.stdout.flush()
+        echo(f"[INFO]      Channel: {c.name} ({c.id})")
     return 0
 
 
@@ -438,10 +450,10 @@ def app_delete(args) -> int:
     _app_or_fail(args.name)
     if not args.force and not _confirm(
             f"Delete app {args.name} and ALL its data?"):
-        print("[INFO] Aborted.", flush=True)
+        echo("[INFO] Aborted.")
         return 0
     delete_app(args.name)
-    print(f"[INFO] App {args.name} deleted.", flush=True)
+    echo(f"[INFO] App {args.name} deleted.")
     return 0
 
 
@@ -450,13 +462,13 @@ def app_data_delete(args) -> int:
 
     a = _app_or_fail(args.name)
     if not args.force and not _confirm(f"Delete data of app {args.name}?"):
-        print("[INFO] Aborted.", flush=True)
+        echo("[INFO] Aborted.")
         return 0
     events = Storage.get_events()
     if args.all or args.channel is None:
         events.remove_channel(a.id)
         events.init_channel(a.id)
-        print(f"[INFO] Deleted data of app {args.name} (default channel).")
+        echo(f"[INFO] Deleted data of app {args.name} (default channel).")
     if args.channel is not None or args.all:
         channels = Storage.get_meta_data_channels().get_by_appid(a.id)
         if args.channel is not None and args.channel not in [
@@ -466,8 +478,7 @@ def app_data_delete(args) -> int:
             if args.all or c.name == args.channel:
                 events.remove_channel(a.id, c.id)
                 events.init_channel(a.id, c.id)
-                print(f"[INFO] Deleted data of channel {c.name}.")
-    sys.stdout.flush()
+                echo(f"[INFO] Deleted data of channel {c.name}.")
     return 0
 
 
@@ -484,8 +495,7 @@ def app_channel_new(args) -> int:
     if cid is None:
         _fail(f"Channel {args.channel_name} already exists.")
     Storage.get_events().init_channel(a.id, cid)
-    print(f"[INFO] Created channel {args.channel_name} ({cid}).",
-          flush=True)
+    echo(f"[INFO] Created channel {args.channel_name} ({cid}).")
     return 0
 
 
@@ -500,11 +510,11 @@ def app_channel_delete(args) -> int:
         _fail(f"Channel {args.channel_name} does not exist.")
     if not args.force and not _confirm(
             f"Delete channel {args.channel_name} and its data?"):
-        print("[INFO] Aborted.", flush=True)
+        echo("[INFO] Aborted.")
         return 0
     Storage.get_events().remove_channel(a.id, matched[0].id)
     channels.delete(matched[0].id)
-    print(f"[INFO] Deleted channel {args.channel_name}.", flush=True)
+    echo(f"[INFO] Deleted channel {args.channel_name}.")
     return 0
 
 
@@ -519,7 +529,7 @@ def accesskey_new(args) -> int:
         AccessKey(key=args.key, appid=a.id, events=tuple(args.event)))
     if k is None:
         _fail("Unable to create access key.")
-    print(f"[INFO] Created new access key: {k}", flush=True)
+    echo(f"[INFO] Created new access key: {k}")
     return 0
 
 
@@ -536,9 +546,8 @@ def accesskey_list(args) -> int:
         listing = keys.get_all()
     for k in listing:
         events = ",".join(k.events) if k.events else "(all)"
-        print(f"[INFO] {k.key} | app {k.appid} | {events}")
-    print(f"[INFO] Finished listing {len(listing)} access key(s).",
-          flush=True)
+        echo(f"[INFO] {k.key} | app {k.appid} | {events}")
+    echo(f"[INFO] Finished listing {len(listing)} access key(s).")
     return 0
 
 
@@ -546,14 +555,14 @@ def accesskey_delete(args) -> int:
     from predictionio_tpu_torch.storage.registry import Storage
 
     Storage.get_meta_data_access_keys().delete(args.key)
-    print(f"[INFO] Deleted access key {args.key}.", flush=True)
+    echo(f"[INFO] Deleted access key {args.key}.")
     return 0
 
 
 def version(_args) -> int:
     from predictionio_tpu_torch import __version__
 
-    print(__version__, flush=True)
+    echo(__version__)
     return 0
 
 
@@ -562,14 +571,13 @@ def version(_args) -> int:
 def eventserver(args) -> int:
     from predictionio_tpu_torch.server.event_server import run_event_server
 
-    print(f"[INFO] Creating Event Server at {args.ip}:{args.port}",
-          flush=True)
+    echo(f"[INFO] Creating Event Server at {args.ip}:{args.port}")
 
     scheme = _scheme()
 
     def ready(port):
-        print(f"[INFO] Event Server listening on {scheme}://{args.ip}:"
-              f"{port}", flush=True)
+        echo(f"[INFO] Event Server listening on {scheme}://{args.ip}:"
+             f"{port}")
 
     run_event_server(args.ip, args.port, on_ready=ready, stats=args.stats)
     return 0
@@ -589,13 +597,12 @@ def adminserver(args) -> int:
     # the device first: without a card (and without --device cpu) this
     # raises before anything is served
     device = resolve_device(args.device)
-    print(f"[INFO] Creating Admin API at {args.ip}:{args.port} (device "
-          f"{device})", flush=True)
+    echo(f"[INFO] Creating Admin API at {args.ip}:{args.port} (device "
+         f"{device})")
     scheme = _scheme()
 
     def ready(port):
-        print(f"[INFO] Admin API listening on {scheme}://{args.ip}:{port}",
-              flush=True)
+        echo(f"[INFO] Admin API listening on {scheme}://{args.ip}:{port}")
 
     run_admin_server(args.ip, args.port, on_ready=ready)
     return 0
@@ -607,13 +614,12 @@ def dashboard(args) -> int:
     from predictionio_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
-    print(f"[INFO] Creating Dashboard at {args.ip}:{args.port} (device "
-          f"{device})", flush=True)
+    echo(f"[INFO] Creating Dashboard at {args.ip}:{args.port} (device "
+         f"{device})")
     scheme = _scheme()
 
     def ready(port):
-        print(f"[INFO] Dashboard listening on {scheme}://{args.ip}:{port}",
-              flush=True)
+        echo(f"[INFO] Dashboard listening on {scheme}://{args.ip}:{port}")
 
     run_dashboard(args.ip, args.port, on_ready=ready)
     return 0
@@ -656,7 +662,7 @@ def import_events(args) -> int:
     if batch:
         store.insert_batch(batch, app_id, channel_id)
         total += len(batch)
-    print(f"[INFO] Imported {total} events.", flush=True)
+    echo(f"[INFO] Imported {total} events.")
     return 0
 
 
@@ -697,7 +703,7 @@ def export_events(args) -> int:
         except OSError:
             pass
         raise
-    print(f"[INFO] Exported {n} events to {args.output}.", flush=True)
+    echo(f"[INFO] Exported {n} events to {args.output}.")
     return 0
 
 
@@ -751,12 +757,10 @@ def train(args) -> int:
                                      engine_variant=variant_id,
                                      workflow_params=wp, ctx=ctx)
     except StopAfterReadInterruption:
-        print("[INFO] Training interrupted by --stop-after-read.",
-              flush=True)
+        echo("[INFO] Training interrupted by --stop-after-read.")
         return 0
     except StopAfterPrepareInterruption:
-        print("[INFO] Training interrupted by --stop-after-prepare.",
-              flush=True)
+        echo("[INFO] Training interrupted by --stop-after-prepare.")
         return 0
     train_s = time.perf_counter() - t0
     model = result.models[0]
@@ -764,14 +768,13 @@ def train(args) -> int:
         save_model(args.out, model)
     release = _release_of(instance) if instance is not None else None
     if instance is None:
-        print("[INFO] Training completed on this process; process 0 "
-              "records the instance.", flush=True)
+        echo("[INFO] Training completed on this process; process 0 "
+             "records the instance.")
     else:
-        print(f"[INFO] Training completed. Engine instance: {instance.id}"
-              + (f" (release v{release.version})" if release else ""),
-              flush=True)
+        echo(f"[INFO] Training completed. Engine instance: {instance.id}"
+             + (f" (release v{release.version})" if release else ""))
     summary = _model_summary(model)
-    print(json.dumps({
+    echo(json.dumps({
         "users": summary["users"], "items": summary["items"],
         "nnz": summary["nnz"], "rank": summary["rank"],
         "labels": summary["labels"], "features": summary["features"],
@@ -782,7 +785,7 @@ def train(args) -> int:
         "launches": kernels.counts(), "ingest": _ingest_counts(),
         "out": args.out,
         "instance": instance.id if instance is not None else None,
-        "release": release.version if release else None}), flush=True)
+        "release": release.version if release else None}))
     return 0
 
 
@@ -876,18 +879,18 @@ def eval_cmd(args) -> int:
     eval_s = time.perf_counter() - t0
     sweep = result.sweep or {}
     if sweep.get("mode") == "batched":
-        print(f"[INFO] Sweep ran device-batched: {len(params_list)} "
-              f"candidates in {sweep.get('compileGroups')} compile "
-              f"group(s), batch sizes {sweep.get('batchSizes')}")
+        echo(f"[INFO] Sweep ran device-batched: {len(params_list)} "
+             f"candidates in {sweep.get('compileGroups')} compile "
+             f"group(s), batch sizes {sweep.get('batchSizes')}")
     for i, detail in enumerate(result.candidate_details):
         _ep, score, _others = result.engine_params_scores[i]
-        print(f"[INFO]   #{i}: score={score} "
-              f"wall={detail.get('wallTimeS')}s "
-              f"group={detail.get('group')}"
-              + (" <- best" if i == result.best_idx else ""))
-    print(f"[INFO] {result.to_one_liner()}")
-    print("[INFO] Evaluation completed.", flush=True)
-    print(json.dumps({
+        echo(f"[INFO]   #{i}: score={score} "
+             f"wall={detail.get('wallTimeS')}s "
+             f"group={detail.get('group')}"
+             + (" <- best" if i == result.best_idx else ""))
+    echo(f"[INFO] {result.to_one_liner()}")
+    echo("[INFO] Evaluation completed.")
+    echo(json.dumps({
         "mode": sweep.get("mode"), "candidates": len(params_list),
         "groups": sweep.get("compileGroups"),
         "batch_sizes": sweep.get("batchSizes"),
@@ -896,7 +899,7 @@ def eval_cmd(args) -> int:
         "best_params": result.best_engine_params.to_json_dict(),
         "scores": [[s, o] for _ep, s, o in result.engine_params_scores],
         "device": str(ctx.device), "launches": kernels.counts(),
-        "ingest": _ingest_counts(), "eval_s": eval_s}), flush=True)
+        "ingest": _ingest_counts(), "eval_s": eval_s}))
     return 0
 
 
@@ -983,9 +986,9 @@ def deploy(args) -> int:
         engine, variant, engine_id, variant_id = _load_variant(
             args.variant or "engine.json")
         instance, release = _instance_to_deploy(args, engine_id, variant_id)
-        print(f"[INFO] Deploying engine instance {instance.id}"
-              + (f" (release v{release.version})" if release else "")
-              + f" at {args.ip}:{args.port}", flush=True)
+        echo(f"[INFO] Deploying engine instance {instance.id}"
+             + (f" (release v{release.version})" if release else "")
+             + f" at {args.ip}:{args.port}")
         try:
             result, _ctx = load_for_deploy(engine, instance,
                                            device=args.device)
@@ -1003,9 +1006,9 @@ def deploy(args) -> int:
              if summary["d_model"] is not None else
              f"{summary['users']} users x {summary['items']} items, rank "
              f"{summary['rank']}")
-    print(f"[INFO] Loaded {instance.id}: {summary['kind']}, {shape}, on "
-          f"{getattr(model, 'device', None)} "
-          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    echo(f"[INFO] Loaded {instance.id}: {summary['kind']}, {shape}, on "
+         f"{getattr(model, 'device', None)} "
+         f"({time.perf_counter() - t0:.3f} s)")
     # durable telemetry (env > engine.json "telemetry" > server.json;
     # PIO_TELEMETRY=0 off) in the store query_server-<port>, and the
     # server.json "slo" objectives (PIO_SLO=0 off)
@@ -1027,19 +1030,19 @@ def deploy(args) -> int:
                                  log_url=args.log_url,
                                  log_prefix=args.log_prefix)
     report = server.warm()
-    print(f"[INFO] Warm-up: batches {report.buckets} in "
-          f"{report.seconds:.3f} s; scorer mode {scfg.mode}; micro-batches "
-          f"of at most {cfg.serving.batch_max}", flush=True)
+    echo(f"[INFO] Warm-up: batches {report.buckets} in "
+         f"{report.seconds:.3f} s; scorer mode {scfg.mode}; micro-batches "
+         f"of at most {cfg.serving.batch_max}")
     if fic.enabled:
-        print(f"[INFO] Online fold-in enabled: apply interval "
-              f"{fic.apply_interval_s:g}s, max pending {fic.max_pending} "
-              "rows", flush=True)
+        echo(f"[INFO] Online fold-in enabled: apply interval "
+             f"{fic.apply_interval_s:g}s, max pending {fic.max_pending} "
+             "rows")
 
     scheme = "https" if ssl_ctx else "http"
 
     def ready(port):
-        print(f"[INFO] Query server listening on {scheme}://{args.ip}:"
-              f"{port}", flush=True)
+        echo(f"[INFO] Query server listening on {scheme}://{args.ip}:"
+             f"{port}")
 
     run_query_server(server, args.ip, args.port, on_ready=ready,
                      ssl_context=ssl_ctx)
@@ -1084,20 +1087,19 @@ def multiserve(args) -> int:
                                            device=args.device)
         except DeployError as e:
             _fail(f"Tenant {name!r}: {e}. Aborting.")
-        print(f"[INFO] Tenant {name!r}: instance {instance.id}"
-              + (f" (release v{release.version})" if release else "")
-              + f", scorer {scfg.mode}", flush=True)
+        echo(f"[INFO] Tenant {name!r}: instance {instance.id}"
+             + (f" (release v{release.version})" if release else "")
+             + f", scorer {scfg.mode}")
         specs.append(TenantSpec(
             name=name, engine=engine, train_result=result,
             instance=instance, release=release, scorer_config=scfg,
             foldin_config=foldin_config(variant.get("foldin")),
             serving_config=serving, slo=variant.get("slo")))
-    print(f"[INFO] Hosting {len(specs)} tenant(s) at {args.ip}:{port}",
-          flush=True)
+    echo(f"[INFO] Hosting {len(specs)} tenant(s) at {args.ip}:{port}")
 
     def ready(bound):
-        print(f"[INFO] Multi-tenant server listening on "
-              f"http://{args.ip}:{bound}", flush=True)
+        echo(f"[INFO] Multi-tenant server listening on "
+             f"http://{args.ip}:{bound}")
 
     try:
         run_multitenant_server(specs, ip=args.ip, port=port,
@@ -1137,8 +1139,8 @@ def batchpredict(args) -> int:
     scfg = scorer_config(variant.get("scorer"))
     set_process_scorer_config(scfg)
     if scfg.mode != "exact":
-        print(f"[INFO] Scoring kernel {scfg.mode} (tile "
-              f"{scfg.tile_items} items)", flush=True)
+        echo(f"[INFO] Scoring kernel {scfg.mode} (tile "
+             f"{scfg.tile_items} items)")
     instances = Storage.get_meta_data_engine_instances()
     if args.release:
         release = resolve_release(Storage.get_meta_data_releases(),
@@ -1148,8 +1150,8 @@ def batchpredict(args) -> int:
                   "Aborting.")
         instance = instances.get(release.instance_id)
         if instance is not None and instance.status == "COMPLETED":
-            print(f"[INFO] Scoring with release v{release.version} "
-                  f"(instance {release.instance_id})", flush=True)
+            echo(f"[INFO] Scoring with release v{release.version} "
+                 f"(instance {release.instance_id})")
     elif args.engine_instance_id:
         instance = instances.get(args.engine_instance_id)
     else:
@@ -1167,28 +1169,28 @@ def batchpredict(args) -> int:
     except DeployError as e:
         _fail(f"{e}. Aborting.")
     if report.merged:
-        print(f"[INFO] Wrote {report.total_written} predictions to "
-              f"{report.output_path}")
+        echo(f"[INFO] Wrote {report.total_written} predictions to "
+             f"{report.output_path}")
         if report.fleet:
             totals = report.fleet.get("counterTotals", {})
             scored = totals.get("pio_batchpredict_queries_total")
-            print(f"[INFO] Fleet view ({len(report.fleet.get('processes', []))}"
-                  f" process(es)) -> {report.output_path}.fleet.json"
-                  + (f"; fleet queries scored {scored:g}"
-                     if scored is not None else ""))
+            echo(f"[INFO] Fleet view ({len(report.fleet.get('processes', []))}"
+                 f" process(es)) -> {report.output_path}.fleet.json"
+                 + (f"; fleet queries scored {scored:g}"
+                    if scored is not None else ""))
     else:
         rank, size = report.worker
-        print(f"[INFO] Shard {rank}/{size} wrote {report.written} "
-              f"predictions to fragment {report.output_path} "
-              "(awaiting merge by the last shard)")
+        echo(f"[INFO] Shard {rank}/{size} wrote {report.written} "
+             f"predictions to fragment {report.output_path} "
+             "(awaiting merge by the last shard)")
     if report.invalid or (report.total_invalid or 0):
         n_bad = report.total_invalid if report.merged else report.invalid
-        print(f"[WARN] Skipped {n_bad} invalid queries "
-              f"-> {report.errors_path}")
+        echo(f"[WARN] Skipped {n_bad} invalid queries "
+             f"-> {report.errors_path}")
     if report.trace_id:
-        print(f"[INFO] Trace id {report.trace_id} (in the .fleet.json of "
-              "a sharded run)")
-    print(json.dumps({
+        echo(f"[INFO] Trace id {report.trace_id} (in the .fleet.json of "
+             "a sharded run)")
+    echo(json.dumps({
         "written": report.written, "invalid": report.invalid,
         "total_written": report.total_written,
         "total_invalid": report.total_invalid,
@@ -1199,7 +1201,7 @@ def batchpredict(args) -> int:
         "launches": kernels.counts(), "worker": list(report.worker),
         "merged": report.merged, "output": report.output_path,
         "errors": report.errors_path, "instance": instance.id,
-        "device": str(device)}), flush=True)
+        "device": str(device)}))
     return 0
 
 
@@ -1211,17 +1213,17 @@ def releases(args) -> int:
         engine_id, "1", variant_id)
     if args.status:
         listing = [r for r in listing if r.status == args.status.upper()]
-    print(f"[INFO] {'Ver':<5} | {'Status':<11} | "
-          f"{'Instance':<32} | {'Created':<20} | Model")
+    echo(f"[INFO] {'Ver':<5} | {'Status':<11} | "
+         f"{'Instance':<32} | {'Created':<20} | Model")
     for r in listing:
         size = (f"{r.model_size_bytes / 1024:.0f}KiB"
                 if r.model_size_bytes else "-")
         digest = r.model_digest[:12] if r.model_digest else "-"
-        print(f"[INFO] v{r.version:<4} | {r.status:<11} | "
-              f"{r.instance_id:<32} | "
-              f"{r.created_time.strftime('%Y-%m-%d %H:%M:%S'):<20} | "
-              f"{digest} {size}")
-    print(f"[INFO] Finished listing {len(listing)} release(s).", flush=True)
+        echo(f"[INFO] v{r.version:<4} | {r.status:<11} | "
+             f"{r.instance_id:<32} | "
+             f"{r.created_time.strftime('%Y-%m-%d %H:%M:%S'):<20} | "
+             f"{digest} {size}")
+    echo(f"[INFO] Finished listing {len(listing)} release(s).")
     return 0
 
 
@@ -1247,11 +1249,10 @@ def rollback(args) -> int:
     except OSError as e:
         _fail(f"Unable to reach query server: {e}")
     version, seconds = out.get("releaseVersion"), out.get("seconds")
-    print(f"[INFO] {out.get('message', 'Rolled back')}: now serving "
-          f"instance {out.get('engineInstanceId')}"
-          + (f" (release v{version})" if version else "")
-          + (f" in {seconds * 1e3:.3f} ms" if seconds is not None else ""),
-          flush=True)
+    echo(f"[INFO] {out.get('message', 'Rolled back')}: now serving "
+         f"instance {out.get('engineInstanceId')}"
+         + (f" (release v{version})" if version else "")
+         + (f" in {seconds * 1e3:.3f} ms" if seconds is not None else ""))
     return 0
 
 
@@ -1266,7 +1267,7 @@ def undeploy(args) -> int:
         with urllib.request.urlopen(
                 urllib.request.Request(url, data=b"", method="POST"),
                 timeout=10) as r:
-            print(f"[INFO] {r.read().decode()}", flush=True)
+            echo(f"[INFO] {r.read().decode()}")
     except Exception as e:
         _fail(f"Unable to undeploy: {e}")
     return 0
@@ -1308,24 +1309,23 @@ def traces(args) -> int:
     doc = _get_json(f"http://{args.ip}:{args.port}/debug/traces.json?"
                     + urllib.parse.urlencode(params))
     if args.as_json:
-        print(json.dumps(doc, indent=1, sort_keys=True), flush=True)
+        echo(json.dumps(doc, indent=1, sort_keys=True))
         return 0
     for t in doc.get("traces", []):
         spans = " ".join(f"{k}={v * 1e3:.1f}ms"
                          for k, v in (t.get("spans") or {}).items())
-        print(f"[INFO] {t.get('traceId', '?')[:12]} "
-              f"{t.get('name')} {t.get('durationSec', 0) * 1e3:.1f}ms "
-              f"[{t.get('status')}] proc={t.get('process')}"
-              + (f" | {spans}" if spans else ""), flush=True)
+        echo(f"[INFO] {t.get('traceId', '?')[:12]} "
+             f"{t.get('name')} {t.get('durationSec', 0) * 1e3:.1f}ms "
+             f"[{t.get('status')}] proc={t.get('process')}"
+             + (f" | {spans}" if spans else ""))
     if args.show_events:
         for e in doc.get("events", []):
             tid = (e.get("traceId") or "-")[:12]
             rest = {k: v for k, v in e.items()
                     if k not in ("kind", "ts", "traceId", "process")}
-            print(f"[INFO] event {e.get('kind')} trace={tid} {rest}",
-                  flush=True)
-    print(f"[INFO] {len(doc.get('traces', []))} trace record(s), "
-          f"{len(doc.get('events', []))} lifecycle event(s).", flush=True)
+            echo(f"[INFO] event {e.get('kind')} trace={tid} {rest}")
+    echo(f"[INFO] {len(doc.get('traces', []))} trace record(s), "
+         f"{len(doc.get('events', []))} lifecycle event(s).")
     return 0
 
 
@@ -1356,18 +1356,17 @@ def profile(args) -> int:
         _fail(f"Profile failed: {message}")
     except Exception as e:
         _fail(f"Unable to reach query server: {e}")
-    print(f"[INFO] Captured {out.get('seconds')}s device profile "
-          f"-> {out.get('traceDir')}", flush=True)
+    echo(f"[INFO] Captured {out.get('seconds')}s device profile "
+         f"-> {out.get('traceDir')}")
     dispatch = out.get("dispatch") or {}
     if dispatch:
-        print("[INFO] Dispatch seconds by kernel family "
-              "(cumulative since process start):", flush=True)
+        echo("[INFO] Dispatch seconds by kernel family "
+             "(cumulative since process start):")
         for family, secs in dispatch.items():
-            print(f"[INFO]   {family:<24} {secs:.3f}s", flush=True)
+            echo(f"[INFO]   {family:<24} {secs:.3f}s")
     else:
-        print("[INFO] No dispatch attribution recorded yet "
-              "(PIO_DISPATCH_ATTRIBUTION=0, or nothing dispatched).",
-              flush=True)
+        echo("[INFO] No dispatch attribution recorded yet "
+             "(PIO_DISPATCH_ATTRIBUTION=0, or nothing dispatched).")
     return 0
 
 
@@ -1375,11 +1374,11 @@ def slo(args) -> int:
     """Read a live query server's SLO burn-rate evaluation (/slo.json)."""
     doc = _get_json(f"http://{args.ip}:{args.port}/slo.json")
     if not doc.get("enabled"):
-        print("[INFO] SLO engine disabled "
-              '(configure server.json {"slo": {...}}).', flush=True)
+        echo("[INFO] SLO engine disabled "
+             '(configure server.json {"slo": {...}}).')
         return 0
     state = "BREACHED" if doc.get("breached") else "ok"
-    print(f"[INFO] SLO status: {state}", flush=True)
+    echo(f"[INFO] SLO status: {state}")
     for obj in doc.get("objectives", []):
         mark = "BREACHED" if obj.get("breached") else "ok"
         if obj.get("window") == "cold":
@@ -1387,8 +1386,8 @@ def slo(args) -> int:
         windows = ", ".join(
             f"{int(w['seconds'])}s burn {w['burn']:.2f}/{w['burnThreshold']}"
             for w in obj.get("windows", []))
-        print(f"[INFO]   {obj['name']} ({obj['kind']}): {mark} "
-              f"[{windows}]", flush=True)
+        echo(f"[INFO]   {obj['name']} ({obj['kind']}): {mark} "
+             f"[{windows}]")
     return 0
 
 
@@ -1396,32 +1395,32 @@ def capacity(args) -> int:
     """Read a live server's device-memory ledger (GET /capacity.json)."""
     doc = _get_json(f"http://{args.ip}:{args.port}/capacity.json")
     if args.as_json:
-        print(json.dumps(doc, indent=1, sort_keys=True), flush=True)
+        echo(json.dumps(doc, indent=1, sort_keys=True))
         return 0
 
     def _mb(n):
         return f"{float(n or 0) / (1 << 20):.1f}MiB"
 
     proc = doc.get("process") or {}
-    print(f"[INFO] process: device {_mb(proc.get('deviceBytes'))} "
-          f"across {int(proc.get('deviceArrays') or 0)} array(s), "
-          f"watermark {_mb(proc.get('deviceWatermarkBytes'))}, "
-          f"host RSS {_mb(proc.get('hostRssBytes'))}", flush=True)
+    echo(f"[INFO] process: device {_mb(proc.get('deviceBytes'))} "
+         f"across {int(proc.get('deviceArrays') or 0)} array(s), "
+         f"watermark {_mb(proc.get('deviceWatermarkBytes'))}, "
+         f"host RSS {_mb(proc.get('hostRssBytes'))}")
     units = doc.get("units") or []
     for u in units:
-        print(f"[INFO] unit {u.get('role')}: resident "
-              f"{_mb(u.get('residentBytes'))} (scorer "
-              f"{_mb(u.get('scorerBytes'))}) release "
-              f"v{u.get('release')} instance "
-              f"{u.get('engineInstanceId')}", flush=True)
+        echo(f"[INFO] unit {u.get('role')}: resident "
+             f"{_mb(u.get('residentBytes'))} (scorer "
+             f"{_mb(u.get('scorerBytes'))}) release "
+             f"v{u.get('release')} instance "
+             f"{u.get('engineInstanceId')}")
         for m in u.get("models") or []:
-            print(f"[INFO]   {m.get('model')}: factors "
-                  f"{_mb(m.get('modelFactorBytes'))} + scorer "
-                  f"{_mb(m.get('scorerFactorBytes'))} + shortlist "
-                  f"{_mb(m.get('shortlistBytes'))}", flush=True)
+            echo(f"[INFO]   {m.get('model')}: factors "
+                 f"{_mb(m.get('modelFactorBytes'))} + scorer "
+                 f"{_mb(m.get('scorerFactorBytes'))} + shortlist "
+                 f"{_mb(m.get('shortlistBytes'))}")
     if not units:
-        print("[INFO] no serving units reported (the event server "
-              "answers process-level only).", flush=True)
+        echo("[INFO] no serving units reported (the event server "
+             "answers process-level only).")
     return 0
 
 
@@ -1441,9 +1440,9 @@ def metrics_series(args) -> int:
         if not info.points:
             continue
         span = (info.points[-1][0] - info.points[0][0]) / 1000.0
-        print(f"[INFO] {info.name} {info.labels} [{info.kind}] "
-              f"{len(info.points)} sample(s) over {span:.0f}s", flush=True)
-    print(f"[INFO] {len(listing)} series in {root}.", flush=True)
+        echo(f"[INFO] {info.name} {info.labels} [{info.kind}] "
+             f"{len(info.points)} sample(s) over {span:.0f}s")
+    echo(f"[INFO] {len(listing)} series in {root}.")
     return 0
 
 
@@ -1464,27 +1463,26 @@ def metrics_query(args) -> int:
         value = reader.quantile_over_time(name, args.quantile,
                                           labels=labels, since_ms=since_ms)
         if args.as_json:
-            print(json.dumps({"name": name, "quantile": args.quantile,
-                              "value": value}), flush=True)
+            echo(json.dumps({"name": name, "quantile": args.quantile,
+                             "value": value}))
         elif value is None:
-            print(f"[INFO] no histogram data for {name} in the window "
-                  f"(root {root}).", flush=True)
+            echo(f"[INFO] no histogram data for {name} in the window "
+                 f"(root {root}).")
         else:
-            print(f"[INFO] {name} p{args.quantile * 100:g} over "
-                  f"{args.since}: {value:.6g}", flush=True)
+            echo(f"[INFO] {name} p{args.quantile * 100:g} over "
+                 f"{args.since}: {value:.6g}")
         return 0
     if args.as_rate:
         rates = reader.rate(name, labels=labels, since_ms=since_ms)
         if args.as_json:
-            print(json.dumps({"name": name, "series": rates}), flush=True)
+            echo(json.dumps({"name": name, "series": rates}))
             return 0
         for r in rates:
-            print(f"[INFO] {name} {r['labels']}: {r['rate']:.4g}/s "
-                  f"(+{r['increase']:.6g} over {r['seconds']:.0f}s)",
-                  flush=True)
+            echo(f"[INFO] {name} {r['labels']}: {r['rate']:.4g}/s "
+                 f"(+{r['increase']:.6g} over {r['seconds']:.0f}s)")
         if not rates:
-            print(f"[INFO] no data for {name} in the window (root "
-                  f"{root}).", flush=True)
+            echo(f"[INFO] no data for {name} in the window (root "
+                 f"{root}).")
         return 0
     series = reader.series(name=name, labels=labels, since_ms=since_ms)
     if args.as_json:
@@ -1495,7 +1493,7 @@ def metrics_query(args) -> int:
                       else [[ts, v] for ts, v in info.points])
             out.append({"labels": info.labels, "kind": info.kind,
                         "points": points})
-        print(json.dumps({"name": name, "series": out}), flush=True)
+        echo(json.dumps({"name": name, "series": out}))
         return 0
     shown = 0
     for info in series:
@@ -1504,17 +1502,16 @@ def metrics_query(args) -> int:
         shown += 1
         if info.kind == "histogram":
             first, last = info.points[0], info.points[-1]
-            print(f"[INFO] {name} {info.labels} [histogram]: count "
-                  f"{sum(first[1]):g} -> {sum(last[1]):g} over "
-                  f"{len(info.points)} sample(s)", flush=True)
+            echo(f"[INFO] {name} {info.labels} [histogram]: count "
+                 f"{sum(first[1]):g} -> {sum(last[1]):g} over "
+                 f"{len(info.points)} sample(s)")
         else:
             values = [p[1] for p in info.points]
-            print(f"[INFO] {name} {info.labels} [{info.kind}]: "
-                  f"{values[0]:g} -> {values[-1]:g} over {len(values)} "
-                  f"sample(s)", flush=True)
+            echo(f"[INFO] {name} {info.labels} [{info.kind}]: "
+                 f"{values[0]:g} -> {values[-1]:g} over {len(values)} "
+                 f"sample(s)")
     if not shown:
-        print(f"[INFO] no data for {name} in the window (root {root}).",
-              flush=True)
+        echo(f"[INFO] no data for {name} in the window (root {root}).")
     return 0
 
 
@@ -1561,20 +1558,18 @@ def router(args) -> int:
             env = worker_env(rank, max(cfg.replicas, rank + 1),
                              base=dict(os.environ))
             proc = subprocess.Popen(argv, env=env)
-            print(f"[INFO] Spawned replica {rank} (pid {proc.pid}) on "
-                  f"{args.ip}:{port_r}", flush=True)
+            echo(f"[INFO] Spawned replica {rank} (pid {proc.pid}) on "
+                 f"{args.ip}:{port_r}")
             return ReplicaHandle(rank=rank,
                                  url=f"http://{args.ip}:{port_r}",
                                  proc=proc)
 
-    print(f"[INFO] Router starting at {args.ip}:{cfg.port} over "
-          + (f"{len(args.replica_urls)} existing replica(s)"
-             if args.replica_urls else f"{cfg.replicas} replica(s)"),
-          flush=True)
+    echo(f"[INFO] Router starting at {args.ip}:{cfg.port} over "
+         + (f"{len(args.replica_urls)} existing replica(s)"
+            if args.replica_urls else f"{cfg.replicas} replica(s)"))
 
     def ready(port):
-        print(f"[INFO] Router listening on http://{args.ip}:{port}",
-              flush=True)
+        echo(f"[INFO] Router listening on http://{args.ip}:{port}")
 
     run_router(config=cfg, ip=args.ip, spawn=spawn,
                replica_urls=tuple(args.replica_urls), on_ready=ready)
@@ -1605,46 +1600,46 @@ def orchestrate(args) -> int:
                               access_key=args.accesskey,
                               state_dir=args.state_dir, device=args.device)
     cfg = orch.cfg
-    print(f"[INFO] Orchestrating {orch.engine_id}/{orch.engine_variant} "
-          f"(state in {orch.store.state_dir})", flush=True)
-    print(f"[INFO] Triggers: ingest>={cfg.min_ingest_events or 'off'}"
-          f" foldin>={cfg.foldin_pending_max or 'off'}"
-          f" slo={'on' if cfg.slo_trigger else 'off'}; "
-          f"cooldown {cfg.cooldown_s:g}s, check every "
-          f"{cfg.interval_s:g}s", flush=True)
-    print("[INFO] Canary plane: "
-          + (f"live server {args.server}" if args.server
-             else "release registry"), flush=True)
+    echo(f"[INFO] Orchestrating {orch.engine_id}/{orch.engine_variant} "
+         f"(state in {orch.store.state_dir})")
+    echo(f"[INFO] Triggers: ingest>={cfg.min_ingest_events or 'off'}"
+         f" foldin>={cfg.foldin_pending_max or 'off'}"
+         f" slo={'on' if cfg.slo_trigger else 'off'}; "
+         f"cooldown {cfg.cooldown_s:g}s, check every "
+         f"{cfg.interval_s:g}s")
+    echo("[INFO] Canary plane: "
+         + (f"live server {args.server}" if args.server
+            else "release registry"))
     if args.once or args.force:
         action = orch.recover()
         if action:
-            print(f"[INFO] Recovery: {action}", flush=True)
+            echo(f"[INFO] Recovery: {action}")
         doc = orch.tick(force=args.force)
         if doc is None:
-            print("[INFO] No trigger fired; nothing to do.", flush=True)
+            echo("[INFO] No trigger fired; nothing to do.")
             return 0
         _echo_cycle(doc)
         return 0 if doc.outcome == "promoted" else 1
     try:
         done = orch.run(cycles=args.cycles)
     except KeyboardInterrupt:
-        print("[INFO] Orchestrator stopped.", flush=True)
+        echo("[INFO] Orchestrator stopped.")
         return 0
-    print(f"[INFO] Orchestrator exiting after {done} cycle(s).", flush=True)
+    echo(f"[INFO] Orchestrator exiting after {done} cycle(s).")
     return 0
 
 
 def _echo_cycle(doc) -> None:
-    print(f"[INFO] Cycle {doc.cycle_id} ({doc.trigger}): "
-          f"{doc.outcome} — {doc.reason}", flush=True)
+    echo(f"[INFO] Cycle {doc.cycle_id} ({doc.trigger}): "
+         f"{doc.outcome} — {doc.reason}")
     if doc.candidate_release_version:
-        print(f"[INFO]   candidate release "
-              f"v{doc.candidate_release_version}"
-              + (f" | eval score {doc.eval_score}"
-                 if doc.eval_score is not None else ""), flush=True)
+        echo(f"[INFO]   candidate release "
+             f"v{doc.candidate_release_version}"
+             + (f" | eval score {doc.eval_score}"
+                if doc.eval_score is not None else ""))
     trace = (doc.trace or ":").split(":")[0]
-    print(f"[INFO]   trace id {trace} (follow with `traces "
-          f"--trace-id {trace}` on a live server)", flush=True)
+    echo(f"[INFO]   trace id {trace} (follow with `traces "
+         f"--trace-id {trace}` on a live server)")
 
 
 def analyze(args) -> int:
@@ -1668,41 +1663,40 @@ def analyze(args) -> int:
         if before and stats:
             diff = regression_diff(before, stats)
     if args.as_json:
-        print(json.dumps({
+        echo(json.dumps({
             "path": path, "sinceMs": since_ms, "stages": stats,
             "p50Composition": composition(stats, path, "p50"),
             "p99Composition": composition(stats, path, "p99"),
-            "diff": diff}, sort_keys=True), flush=True)
+            "diff": diff}, sort_keys=True))
         return 0
     if not stats:
-        print(f"[INFO] no anatomy history for path={path} in the window "
-              f"(root {root}; is PIO_ANATOMY on and telemetry "
-              "persisting?).", flush=True)
+        echo(f"[INFO] no anatomy history for path={path} in the window "
+             f"(root {root}; is PIO_ANATOMY on and telemetry "
+             "persisting?).")
         return 0
     p50_comp = composition(stats, path, "p50")
     p99_comp = composition(stats, path, "p99")
     requests = max(s["count"] for s in stats.values())
-    print(f"[INFO] {path} anatomy over {args.since} ({requests:g} "
-          "request(s)):")
-    print(f"[INFO]   {'stage':<16} {'mean':>9} {'p50':>9} {'p99':>9} "
-          f"{'p50 share':>10} {'p99 share':>10}")
+    echo(f"[INFO] {path} anatomy over {args.since} ({requests:g} "
+         "request(s)):")
+    echo(f"[INFO]   {'stage':<16} {'mean':>9} {'p50':>9} {'p99':>9} "
+         f"{'p50 share':>10} {'p99 share':>10}")
     for stage, st in sorted(stats.items(), key=lambda kv: -kv[1]["p99"]):
         def _share(comp):
             return f"{100.0 * comp[stage]:.0f}%" if stage in comp else "-"
-        print(f"[INFO]   {stage:<16} {1e3 * st['mean']:>7.2f}ms "
-              f"{1e3 * st['p50']:>7.2f}ms {1e3 * st['p99']:>7.2f}ms "
-              f"{_share(p50_comp):>10} {_share(p99_comp):>10}")
+        echo(f"[INFO]   {stage:<16} {1e3 * st['mean']:>7.2f}ms "
+             f"{1e3 * st['p50']:>7.2f}ms {1e3 * st['p99']:>7.2f}ms "
+             f"{_share(p50_comp):>10} {_share(p99_comp):>10}")
     if args.diff:
         if diff is None:
-            print("[INFO] diff: not enough history in the baseline "
-                  "window.")
+            echo("[INFO] diff: not enough history in the baseline "
+                 "window.")
         else:
-            print(f"[INFO] regression diff vs previous {args.since}: stage "
-                  f"'{diff['stage']}' moved most "
-                  f"({1e3 * diff['beforeMeanS']:.2f}ms -> "
-                  f"{1e3 * diff['afterMeanS']:.2f}ms mean, "
-                  f"{1e3 * diff['deltaMeanS']:+.2f}ms)")
-    sys.stdout.flush()
+            echo(f"[INFO] regression diff vs previous {args.since}: stage "
+                 f"'{diff['stage']}' moved most "
+                 f"({1e3 * diff['beforeMeanS']:.2f}ms -> "
+                 f"{1e3 * diff['afterMeanS']:.2f}ms mean, "
+                 f"{1e3 * diff['deltaMeanS']:+.2f}ms)")
     return 0
 
 
@@ -1725,6 +1719,78 @@ def shell(_args) -> int:
     return 0
 
 
+def check(args) -> int:
+    """Static analysis of the port's own tree (the reference's ``pio
+    check``): every ``.py`` under ``predictionio_tpu_torch/`` plus
+    ``chip_smoke.py``, through the rules of ``analysis``. Exit 1 when a
+    finding is neither in the baseline nor suppressed by a ``# pio:
+    ignore[RULE]: reason``; exit 2 on a path outside the root, a path
+    that matches no scanned file, or ``--write-baseline`` with
+    ``--rule`` or PATHS. The whole tree is always parsed (the
+    whole-program rules need it); PATHS only filter the report."""
+    import pathlib
+
+    from predictionio_tpu_torch.analysis import (
+        Baseline, Project, all_rules, run_check,
+    )
+    from predictionio_tpu_torch.analysis.engine import DEFAULT_BASELINE
+
+    if args.list_rules:
+        for rid, title in sorted(all_rules().items()):
+            echo(f"{rid}  {title}")
+        return 0
+    if args.write_baseline and (args.rules or args.paths):
+        # a partial run would rewrite the baseline without the entries
+        # the filtered-out rules and files still need
+        echo("[ERROR] --write-baseline regenerates the whole baseline; "
+             "it cannot be combined with --rule or PATHS.")
+        return 2
+    root = pathlib.Path(__file__).resolve().parent.parent.parent
+    norm_paths = []
+    for p in args.paths:
+        # root-relative; `./`, `..` and absolute spellings normalize to
+        # the scanned form, so a mistyped path never reports clean
+        base = pathlib.Path(p) if pathlib.Path(p).is_absolute() \
+            else root / p
+        try:
+            norm_paths.append(base.resolve().relative_to(root).as_posix())
+        except ValueError:
+            echo(f"[ERROR] {p} is outside the project root {root}.")
+            return 2
+    project = Project.from_root(root)
+    scanned = {f.path for f in project.files}
+    for p, norm in zip(args.paths, norm_paths):
+        if not any(s == norm or s.startswith(norm + "/") for s in scanned):
+            echo(f"[ERROR] {p} matches no scanned file (paths are "
+                 "relative to the project root, e.g. "
+                 "predictionio_tpu_torch/deploy/foldin.py).")
+            return 2
+    baseline = Baseline()
+    resolved = pathlib.Path(args.baseline_path) if args.baseline_path \
+        else root / DEFAULT_BASELINE
+    if not args.no_baseline and not args.write_baseline \
+            and resolved.is_file():
+        baseline = Baseline.load(resolved)
+    try:
+        report = run_check(project, rules=args.rules or None,
+                           baseline=baseline, paths=norm_paths or None)
+    except ValueError as e:
+        echo(f"[ERROR] {e}")
+        return 2
+    if args.write_baseline:
+        Baseline.from_findings(
+            report.findings + report.baselined).save(resolved)
+        echo(f"[INFO] baseline written to {resolved} "
+             f"({len(report.findings) + len(report.baselined)} findings "
+             "absorbed)")
+        return 0
+    if args.as_json:
+        echo(json.dumps(report.to_json(), indent=2, sort_keys=True))
+    else:
+        echo(report.render())
+    return 0 if report.ok else 1
+
+
 def run(args) -> int:
     """Run a module as ``__main__`` with ``sys.argv`` its name and the
     arguments (Console.scala:412)."""
@@ -1744,15 +1810,13 @@ def status(args) -> int:
         return _print_fleet(args.fleet_path)
     from predictionio_tpu_torch.storage.registry import Storage
 
-    print("[INFO] Inspecting predictionio_tpu_torch installation...",
-          flush=True)
+    echo("[INFO] Inspecting predictionio_tpu_torch installation...")
     try:
         Storage.verify_all_data_objects()
     except Exception as e:
         _fail(f"Unable to connect to all storage backends: {e}")
-    print("[INFO] All storage backends are properly configured.",
-          flush=True)
-    print("[INFO] Your system is all ready to go.", flush=True)
+    echo("[INFO] All storage backends are properly configured.")
+    echo("[INFO] Your system is all ready to go.")
     return 0
 
 
@@ -1772,20 +1836,20 @@ def _print_fleet(path) -> int:
             doc = json.load(f)
     except (OSError, ValueError) as e:
         _fail(f"cannot read fleet view {path}: {e}")
-    print(f"[INFO] Fleet view {path}: "
-          f"{len(doc.get('processes', []))} process(es) "
-          f"{doc.get('processes')}", flush=True)
+    echo(f"[INFO] Fleet view {path}: "
+         f"{len(doc.get('processes', []))} process(es) "
+         f"{doc.get('processes')}")
     totals = doc.get("counterTotals", {})
     metrics = doc.get("metrics", {})
     for name in sorted(totals):
-        print(f"[INFO] {name} fleet total: {totals[name]:g}")
+        echo(f"[INFO] {name} fleet total: {totals[name]:g}")
         for sample in metrics.get(name, {}).get("samples", []):
             labels = sample.get("labels", {})
             proc = labels.get("process", "?")
             rest = {k: v for k, v in labels.items() if k != "process"}
             suffix = f" {rest}" if rest else ""
-            print(f"[INFO]   process {proc}{suffix}: "
-                  f"{sample.get('value'):g}")
+            echo(f"[INFO]   process {proc}{suffix}: "
+                 f"{sample.get('value'):g}")
     trace_ids = []
     for t in doc.get("traces", []):
         tid = t.get("traceId")
@@ -1795,9 +1859,8 @@ def _print_fleet(path) -> int:
         spans = [t for t in doc.get("traces", [])
                  if t.get("traceId") == tid]
         procs = sorted({t.get("process", "?") for t in spans})
-        print(f"[INFO] trace {tid}: {len(spans)} span(s) across "
-              f"processes {procs}")
-    sys.stdout.flush()
+        echo(f"[INFO] trace {tid}: {len(spans)} span(s) across "
+             f"processes {procs}")
     return 0
 
 
@@ -1817,19 +1880,18 @@ def _print_fleet_history(root) -> int:
         count, newest = by_process.get(proc, (0, 0))
         by_process[proc] = (count + 1, max(newest, info.points[-1][0]))
     if not by_process:
-        print(f"[INFO] No telemetry stores under {root}.", flush=True)
+        echo(f"[INFO] No telemetry stores under {root}.")
         return 0
-    print(f"[INFO] Telemetry root {root}: {len(by_process)} process "
-          "store(s)")
+    echo(f"[INFO] Telemetry root {root}: {len(by_process)} process "
+         "store(s)")
     for proc, (count, newest) in sorted(by_process.items()):
         when = _dt.datetime.fromtimestamp(newest / 1000.0)
-        print(f"[INFO]   {proc}: {count} series, newest sample "
-              f"{when.strftime('%Y-%m-%d %H:%M:%S')}")
+        echo(f"[INFO]   {proc}: {count} series, newest sample "
+             f"{when.strftime('%Y-%m-%d %H:%M:%S')}")
     for _ts, e in reader.events()[-10:]:
-        print(f"[INFO]   event {e.get('kind')} "
-              f"proc={e.get('process', '?')} "
-              f"trace={(e.get('traceId') or '-')[:12]}")
-    sys.stdout.flush()
+        echo(f"[INFO]   event {e.get('kind')} "
+             f"proc={e.get('process', '?')} "
+             f"trace={(e.get('traceId') or '-')[:12]}")
     return 0
 
 
@@ -1865,9 +1927,9 @@ def compact_cmd(args) -> int:
                                              ttl_days=args.ttl_days)
     except StorageError as e:
         _fail(f"compaction failed: {e}")
-    print(f"[INFO] Compacted app {app_id}"
-          + (f" channel {channel_id}" if channel_id is not None else "")
-          + ": " + json.dumps(stats, sort_keys=True), flush=True)
+    echo(f"[INFO] Compacted app {app_id}"
+         + (f" channel {channel_id}" if channel_id is not None else "")
+         + ": " + json.dumps(stats, sort_keys=True))
     return 0
 
 
@@ -1895,8 +1957,8 @@ def reshard_cmd(args) -> int:
         stats = store.reshard(args.partitions, apps)
     except StorageError as e:
         _fail(f"reshard failed (safe to re-run): {e}")
-    print(f"[INFO] Resharded {len(apps)} namespace(s): "
-          + json.dumps(stats, sort_keys=True), flush=True)
+    echo(f"[INFO] Resharded {len(apps)} namespace(s): "
+         + json.dumps(stats, sort_keys=True))
     return 0
 
 
@@ -1914,8 +1976,7 @@ def loadtest(args) -> int:
     )
 
     if args.show_example:
-        print(json.dumps(example_scenario(), indent=2, sort_keys=True),
-              flush=True)
+        echo(json.dumps(example_scenario(), indent=2, sort_keys=True))
         return 0
     try:
         sc = (Scenario.load(args.scenario_path) if args.scenario_path
@@ -1944,11 +2005,11 @@ def loadtest(args) -> int:
         workdir = tmp.name
     try:
         if sc.tenants:
-            print(f"[INFO] Multi-tenant storm '{sc.name}': "
-                  f"{len(sc.tenants)} tenant(s) "
-                  f"[{', '.join(t.name for t in sc.tenants)}] "
-                  f"duration={sc.duration_s:g}s rate={sc.base_rate:g}/s "
-                  f"incidents={len(sc.incidents)}", flush=True)
+            echo(f"[INFO] Multi-tenant storm '{sc.name}': "
+                 f"{len(sc.tenants)} tenant(s) "
+                 f"[{', '.join(t.name for t in sc.tenants)}] "
+                 f"duration={sc.duration_s:g}s rate={sc.base_rate:g}/s "
+                 f"incidents={len(sc.incidents)}")
             fleet = MultiTenantFleet(workdir, sc.tenants,
                                      device=args.device)
             try:
@@ -1957,11 +2018,10 @@ def loadtest(args) -> int:
             finally:
                 fleet.stop()
         else:
-            print(f"[INFO] Storm '{sc.name}': population={sc.population} "
-                  f"duration={sc.duration_s:g}s rate={sc.base_rate:g}/s "
-                  f"replicas={sc.replicas} partitions={sc.partitions} "
-                  f"backend={sc.backend} incidents={len(sc.incidents)}",
-                  flush=True)
+            echo(f"[INFO] Storm '{sc.name}': population={sc.population} "
+                 f"duration={sc.duration_s:g}s rate={sc.base_rate:g}/s "
+                 f"replicas={sc.replicas} partitions={sc.partitions} "
+                 f"backend={sc.backend} incidents={len(sc.incidents)}")
             fleet = LocalFleet(workdir, replicas=sc.replicas,
                                partitions=sc.partitions, backend=sc.backend,
                                device=args.device)
@@ -1983,31 +2043,30 @@ def loadtest(args) -> int:
         with open(tmp_report, "w") as f:
             f.write(storm_report_json(report) + "\n")
         os.replace(tmp_report, report_path)
-        print(f"[INFO] Report written to {report_path}", flush=True)
+        echo(f"[INFO] Report written to {report_path}")
 
     if args.as_json:
-        print(storm_report_json(report), flush=True)
+        echo(storm_report_json(report))
     else:
         for lane, res in sorted(report.get("lanes", {}).items()):
-            print(f"[INFO] lane {lane}: offered={res['offered']} "
-                  f"acked={res['acked']} failed={res['failed']} "
-                  f"p99={res['ack_p99_ms']:.1f}ms")
+            echo(f"[INFO] lane {lane}: offered={res['offered']} "
+                 f"acked={res['acked']} failed={res['failed']} "
+                 f"p99={res['ack_p99_ms']:.1f}ms")
         for name, res in sorted(report.get("tenants", {}).items()):
-            print(f"[INFO] tenant {name}: offered={res['offered']} "
-                  f"acked={res['acked']} failed={res['failed']} "
-                  f"rejected={res['rejections']} "
-                  f"p99={res['ack_p99_ms']:.1f}ms")
+            echo(f"[INFO] tenant {name}: offered={res['offered']} "
+                 f"acked={res['acked']} failed={res['failed']} "
+                 f"rejected={res['rejections']} "
+                 f"p99={res['ack_p99_ms']:.1f}ms")
         for inv in report["invariants"]:
             mark = "OK" if inv["ok"] else "FAIL"
-            print(f"[{mark}] {inv['name']}: {inv['detail']}")
-        sys.stdout.flush()
+            echo(f"[{mark}] {inv['name']}: {inv['detail']}")
     if not report["ok"]:
         _fail("storm verdict: INVARIANT VIOLATED")
     arrivals = report.get(
         "arrivals",
         sum(r["offered"] for r in report.get("tenants", {}).values()))
-    print(f"[INFO] storm verdict: OK ({arrivals} arrivals, "
-          f"{report['wall_s']:.1f}s wall)", flush=True)
+    echo(f"[INFO] storm verdict: OK ({arrivals} arrivals, "
+         f"{report['wall_s']:.1f}s wall)")
     return 0
 
 
@@ -2426,6 +2485,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "<output>.fleet.json a batchpredict merge commits, "
                          "or the output path), or a telemetry root")
     st.set_defaults(func=status)
+    ck = sub.add_parser("check", help="static analysis of the port's "
+                                      "tree (the pio check rules)")
+    ck.add_argument("paths", nargs="*",
+                    help="report only these root-relative files or "
+                         "directories (the whole tree is still parsed)")
+    ck.add_argument("--rule", "-r", dest="rules", action="append",
+                    default=[], help="run only this rule id (repeatable), "
+                                     "e.g. -r PIO002")
+    ck.add_argument("--json", dest="as_json", action="store_true",
+                    help="machine-readable report on stdout")
+    ck.add_argument("--baseline", dest="baseline_path", default=None,
+                    help="baseline file of grandfathered findings "
+                         "(default: conf/pio_check_baseline_torch.json)")
+    ck.add_argument("--write-baseline", action="store_true",
+                    help="rewrite the baseline to absorb every current "
+                         "finding")
+    ck.add_argument("--no-baseline", action="store_true",
+                    help="report every finding, ignoring any baseline")
+    ck.add_argument("--list-rules", action="store_true",
+                    help="list the shipped rule ids and exit")
+    ck.set_defaults(func=check)
     return p
 
 

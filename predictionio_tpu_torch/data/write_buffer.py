@@ -213,7 +213,9 @@ def _join_parts(parent: "concurrent.futures.Future", n_events: int,
     lock = threading.Lock()
 
     def one_done(idxs, child):
+        # read before the lock: no future is waited on under it
         exc = child.exception()
+        res = child.result() if exc is None else None
         finish = None
         with lock:
             if state["failed"]:
@@ -222,7 +224,7 @@ def _join_parts(parent: "concurrent.futures.Future", n_events: int,
                 state["failed"] = True
                 finish = exc
             else:
-                for i, eid in zip(idxs, child.result()):
+                for i, eid in zip(idxs, res):
                     ids[i] = eid
                 state["remaining"] -= 1
                 if state["remaining"] == 0:

@@ -104,9 +104,11 @@ def _router_main() -> int:
             for rank in list(router.replicas):
                 if not await router.wait_replica_healthy(rank,
                                                          timeout_s=30):
+                    # pio: ignore[PIO100]: the parent reads this child's stdout
                     print(f"replica {rank} never became healthy behind "
                           "the router", flush=True)
                     return 1
+            # pio: ignore[PIO100]: the parent reads the port off stdout
             print(port, flush=True)
             await router.stopped.wait()
         finally:

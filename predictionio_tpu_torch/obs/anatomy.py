@@ -52,6 +52,10 @@ INGEST_PATH = "ingest"
 #: elapsed serving stages — per-request sum ≈ request wall
 SERVING_WALL_STAGES = ("queue_wait", "linger", "assemble", "device",
                        "serve", "serialize")
+#: the HTTP middleware's own steps around a handler whose wall stages it
+#: frames (``obs/middleware``): a trace pseudo-span only, no histogram;
+#: with it the wall stages tile the middleware's wall
+MIDDLEWARE_STAGE = "middleware"
 #: amortized cost attributions (shares of batch work, not elapsed wall)
 SERVING_COST_STAGES = ("pad_share", "device_dispatch")
 INGEST_STAGES = ("flush_wait", "commit")

@@ -20,6 +20,11 @@ recorder, exposed at ``GET /debug/traces.json``. ``PIO_TRACING=0``
 disables the trace layer (no contextvars, no recorder writes) while
 keeping every metric.
 
+Where the handler's anatomy stages tile an interval of the wall
+(``Trace.stage_frame``), the middleware books the rest of its wall, its
+own steps before and after the handler, to the trace pseudo-span
+``anatomy_middleware``, so a stall there shows under its own name.
+
 :func:`metrics_routes` gives ``GET /metrics`` (Prometheus text
 exposition 0.0.4), ``GET /metrics.json`` and ``GET /debug/traces.json``
 over the given registries merged: by convention the server's own
@@ -35,6 +40,9 @@ import os
 import time
 from typing import List, Tuple
 
+from predictionio_tpu_torch.obs.anatomy import (
+    MIDDLEWARE_STAGE, TRACE_STAGE_PREFIX,
+)
 from predictionio_tpu_torch.obs.registry import (
     PROMETHEUS_CONTENT_TYPE, MetricsRegistry, default_registry,
     render_json, render_prometheus,
@@ -95,7 +103,12 @@ def observability_middleware(registry: MetricsRegistry, service: str,
             return status, payload, headers
         finally:
             in_flight.dec(service=service)
-            dt = time.perf_counter() - t0
+            t_end = time.perf_counter()
+            dt = t_end - t0
+            if trace is not None and trace.stage_frame is not None:
+                start, end = trace.stage_frame
+                trace.add(TRACE_STAGE_PREFIX + MIDDLEWARE_STAGE,
+                          (start - t0) + (t_end - end))
             duration.observe(dt, service=service, method=request.method,
                              handler=handler_label, status=str(status))
             if dt >= slow_threshold_s:

@@ -75,7 +75,7 @@ class Trace:
     """Per-request (or per-job/per-hop) span accumulator with identity."""
 
     __slots__ = ("request_id", "registry", "span_hist", "spans",
-                 "trace_id", "span_id", "parent_span_id")
+                 "trace_id", "span_id", "parent_span_id", "stage_frame")
 
     def __init__(self, request_id: str,
                  registry: Optional[MetricsRegistry] = None,
@@ -96,6 +96,10 @@ class Trace:
             self.trace_id = request_id
             self.parent_span_id = None
         self.span_id = new_span_id()
+        #: the perf_counter interval a handler's anatomy stages tile
+        #: (``obs/anatomy``); the HTTP middleware books the rest of its
+        #: wall as a stage of its own. None for a request without stages.
+        self.stage_frame: Optional[Tuple[float, float]] = None
 
     def add(self, name: str, seconds: float) -> None:
         self.spans.append((name, seconds))

@@ -36,6 +36,10 @@ routes before the insert; one that raises rejects the event with 403
 and its message. Input sniffers see each stored event after the
 insert.
 
+Every event's outcome is counted as the reference counts it:
+``pio_event_ingest_total{status}``, ``pio_event_rejected_total{reason}``
+(``invalid``, ``forbidden``, ``blocked``, ``shed``, ``storage_error``)
+and, once per ``/batch/events.json`` request, ``pio_event_batch_size``.
 Every request runs under the observability middleware
 (``obs/middleware``); ``/metrics``, ``/metrics.json``,
 ``/debug/traces.json``, ``/capacity.json`` and ``/history/*.json`` are
@@ -121,6 +125,17 @@ class EventServer:
         self.registry = registry or MetricsRegistry()
         self.stats = Stats(registry=self.registry)
         register_capacity_metrics(self.registry)
+        self._ingest_total = self.registry.counter(
+            "pio_event_ingest_total",
+            "Event ingest attempts by response status",
+            labelnames=("status",))
+        self._rejected_total = self.registry.counter(
+            "pio_event_rejected_total",
+            "Rejected events by reason (invalid/forbidden/blocked/storage)",
+            labelnames=("reason",))
+        self._batch_size = self.registry.histogram(
+            "pio_event_batch_size", "Events per /batch/events.json request",
+            buckets=(1, 2, 5, 10, 20, 50))
         #: the durable-telemetry recorder (``obs/telemetry``), owned by
         #: this server when given: stopped last on close
         self.telemetry = telemetry
@@ -216,15 +231,25 @@ class EventServer:
         return await self._run(Storage.get_events().insert_batch, events,
                                auth.app_id, auth.channel_id)
 
-    @staticmethod
-    def _shed(bf: BufferFull) -> Tuple[int, Any, dict]:
+    def _ingest(self, status: int, reason: Optional[str] = None) -> None:
+        """Count one event's outcome (``pio_event_ingest_total``) and,
+        for a rejection, its reason (``pio_event_rejected_total``)."""
+        self._ingest_total.inc(status=str(status))
+        if reason is not None:
+            self._rejected_total.inc(reason=reason)
+
+    def _shed(self, bf: BufferFull) -> Tuple[int, Any, dict]:
+        """Explicit load shedding: the ingest queue is at its bound."""
+        self._ingest(429, "shed")
         return 429, {"message": str(bf)}, {"Retry-After":
                                            str(bf.retry_after)}
 
-    def _storage_status(self) -> int:
+    def _storage_failed(self, e: StorageError) -> Tuple[int, Any]:
         # a buffered failure already spent its retries: retryable 503;
         # the direct path keeps the reference's 500
-        return 503 if self.buffer is not None else 500
+        status = 503 if self.buffer is not None else 500
+        self._ingest(status, "storage_error")
+        return status, {"message": str(e)}
 
     # -- routes -------------------------------------------------------------
     async def handle_root(self, _req: Request):
@@ -237,21 +262,25 @@ class EventServer:
             validate_event(event)
         except (EventValidationError, json.JSONDecodeError, TypeError,
                 AttributeError, ValueError) as e:
+            self._ingest(400, "invalid")
             return 400, {"message": str(e)}
         if auth.events and event.event not in auth.events:
+            self._ingest(403, "forbidden")
             return 403, {"message": f"{event.event} events are not allowed"}
         blocked = self._blocked(auth, event)
         if blocked is not None:
+            self._ingest(403, "blocked")
             return 403, {"message": blocked}
         try:
             event_id = (await self._insert([event], auth))[0]
         except BufferFull as bf:
             return self._shed(bf)
         except StorageError as e:
-            return self._storage_status(), {"message": str(e)}
+            return self._storage_failed(e)
         self._sniff(auth, event)
         if self.stats_enabled:
             self.stats.bookkeeping(auth.app_id, 201, event)
+        self._ingest(201)
         return 201, {"eventId": event_id}
 
     async def handle_find(self, req: Request):
@@ -335,6 +364,7 @@ class EventServer:
         if len(body) > max_batch:
             return 400, {"message": "Batch request must have less than or "
                                     f"equal to {max_batch} events"}
+        self._batch_size.observe(len(body))
         results: List[Optional[dict]] = [None] * len(body)
         to_insert = []  # (index, event)
         for i, item in enumerate(body):
@@ -342,14 +372,17 @@ class EventServer:
                 event = Event.from_dict(item)
                 validate_event(event)
             except (EventValidationError, TypeError, AttributeError) as e:
+                self._ingest(400, "invalid")
                 results[i] = {"status": 400, "message": str(e)}
                 continue
             if auth.events and event.event not in auth.events:
+                self._ingest(403, "forbidden")
                 results[i] = {"status": 403, "message":
                               f"{event.event} events are not allowed"}
                 continue
             blocked = self._blocked(auth, event)
             if blocked is not None:
+                self._ingest(403, "blocked")
                 results[i] = {"status": 403, "message": blocked}
                 continue
             to_insert.append((i, event))
@@ -361,9 +394,11 @@ class EventServer:
                 return self._shed(bf)
             except StorageError as e:
                 for i, _event in to_insert:
+                    self._ingest(503, "storage_error")
                     results[i] = {"status": 503, "message": str(e)}
             else:
                 for (i, event), event_id in zip(to_insert, ids):
+                    self._ingest(201)
                     self._sniff(auth, event)
                     if self.stats_enabled:
                         self.stats.bookkeeping(auth.app_id, 201, event)
@@ -429,15 +464,17 @@ class EventServer:
             event = connector.to_event(payload)
             validate_event(event)
         except Exception as e:      # the reference answers 400 for any
+            self._ingest(400, "invalid")
             return 400, {"message": str(e)}
         try:
             event_id = (await self._insert([event], auth))[0]
         except BufferFull as bf:
             return self._shed(bf)
         except StorageError as e:
-            return self._storage_status(), {"message": str(e)}
+            return self._storage_failed(e)
         if self.stats_enabled:
             self.stats.bookkeeping(auth.app_id, 201, event)
+        self._ingest(201)
         return 201, {"eventId": event_id}
 
     async def handle_webhook_get(self, req: Request):

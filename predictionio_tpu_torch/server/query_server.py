@@ -35,10 +35,12 @@ Every request runs under the observability middleware (request id,
 trace, ``pio_http_request_duration_seconds``). A batched query's
 critical path is split by ``obs/anatomy`` into queue wait, linger,
 assemble, device (closed once the result is on the host), serve and
-serialize. With an SLO spec the burn-rate engine ticks on the server's
-loop; with a telemetry recorder the registries persist to its store,
-the SLO rings rehydrate from it and a canary's splitter resumes from
-its last persisted accumulator.
+serialize, which tile the handler from its start to the end of
+serialize (``Trace.stage_frame``; the middleware books its own steps
+around that). With an SLO spec the burn-rate engine ticks on the
+server's loop; with a telemetry recorder the registries persist to its
+store, the SLO rings rehydrate from it and a canary's splitter resumes
+from its last persisted accumulator.
 
 Every swap keeps the outgoing unit resident as the rollback standby
 (its batcher is retired); a unit's device copies are dropped only once
@@ -1810,9 +1812,12 @@ class QueryServer:
         if anatomy_enabled():
             # the post-predict tail: feedback scheduling, blockers,
             # sniffers, JSON conversion
+            t_done = time.perf_counter()
+            trace = current_trace()
             observe_stage(self._anatomy, SERVING_PATH, "serialize",
-                          time.perf_counter() - t_serialize,
-                          current_trace())
+                          t_done - t_serialize, trace)
+            if trace is not None:
+                trace.stage_frame = (t0, t_done)
         dt = time.perf_counter() - t0
         self.last_serving_sec = dt
         self._query_hist.observe(dt, engine_variant=variant)
@@ -1843,14 +1848,20 @@ class QueryServer:
     def _remote_log(self, message: str) -> None:
         """POST a serving failure to ``log_url`` on a daemon thread: the
         400 goes out at once, and delivery (5 s at most) or its failure
-        never reaches the client."""
+        never reaches the client. The delivery runs in the failed
+        request's trace."""
         inst = self.instance
         payload = self.log_prefix + json.dumps({
             "engineInstance": {"id": inst.id, "engineId": inst.engine_id,
                                "engineVariant": inst.engine_variant},
             "message": message})
-        threading.Thread(target=_post_remote_log,
-                         args=(self.log_url, payload), daemon=True,
+        ctx, url = capture_context(), self.log_url
+
+        def deliver() -> None:
+            with carried(ctx, "remote_log", registry=self.registry):
+                _post_remote_log(url, payload)
+
+        threading.Thread(target=deliver, daemon=True,
                          name="pio-remote-log").start()
 
     def _record_feedback(self, query_json, pred_json, pr_id) -> None:

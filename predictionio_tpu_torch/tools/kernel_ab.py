@@ -44,6 +44,8 @@ writes the same lines to a file. ``event_ms`` and ``graph_ms`` are the
 timers ``chip_smoke.py`` uses too.
 """
 
+# pio: ignore-file[PIO100]: a command-line tool; its report is its stdout
+
 from __future__ import annotations
 
 import argparse

@@ -18,6 +18,8 @@ event-ack p99s run by run, and how many runs passed. ``--out`` writes
 the same lines to a file.
 """
 
+# pio: ignore-file[PIO100]: a command-line tool; its report is its stdout
+
 from __future__ import annotations
 
 import argparse

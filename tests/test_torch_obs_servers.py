@@ -28,8 +28,8 @@ from predictionio_tpu_torch.engines.recommendation import (
 from predictionio_tpu_torch.models.als import ALSModel
 from predictionio_tpu_torch.obs import trace_context as port_tc
 from predictionio_tpu_torch.obs.anatomy import (
-    SERVING_COST_STAGES, SERVING_WALL_STAGES, STAGE_HISTOGRAM,
-    TRACE_STAGE_PREFIX,
+    MIDDLEWARE_STAGE, SERVING_COST_STAGES, SERVING_WALL_STAGES,
+    STAGE_HISTOGRAM, TRACE_STAGE_PREFIX,
 )
 from predictionio_tpu_torch.obs.registry import MetricsRegistry
 from predictionio_tpu_torch.obs.slo import SLOSpec
@@ -133,6 +133,55 @@ async def test_anatomy_splits_each_request_and_metrics_show_it():
     assert "pio_scoring_batches_total" in text
     assert 'pio_http_request_duration_seconds_count{service="query_server",' \
         'method="POST",handler="/queries.json",status="200"} 48' in text
+
+
+@pytest.mark.parametrize("where,stage", [
+    ("after_the_handler", MIDDLEWARE_STAGE),
+    ("before_the_queue", "queue_wait"),
+])
+async def test_stages_tile_the_wall_around_a_stall(monkeypatch, where,
+                                                   stage):
+    """A 5 ms stall (a GC pass, or the loop thread waiting out the
+    interpreter's 5 ms switch interval for the batch thread) either in
+    the handler's own metrics after its last stage, or in its query
+    extraction before the micro-batcher: the wall stages and the
+    middleware's own stage tile the middleware's wall to 0.5 ms, and each
+    request's own stall shows in the stage where it happened (the loop
+    it blocks delays the other clients' requests wherever they are)."""
+    import time
+
+    server = _twostage_server(linger_s=0.002)
+    stall_s = 0.005
+    if where == "after_the_handler":
+        target, name = server._query_hist, "observe"
+    else:
+        target, name = server, "_extract_query"
+    real = getattr(target, name)
+
+    def stalled(*args, **kwargs):
+        time.sleep(stall_s)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(target, name, stalled)
+    port = await server.start("127.0.0.1", 0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        ids = await _burst(base, 16, 4)
+        async with aiohttp.ClientSession() as session:
+            async with session.get(base + "/debug/traces.json?limit=200"
+                                   ) as r:
+                doc = await r.json()
+    finally:
+        await server.close()
+    by_id = {t["traceId"]: t for t in doc["traces"]
+             if t["name"] == "query_server POST /queries.json"}
+    for rid in ids:
+        t = by_id[rid]
+        st = {s: t["spans"][TRACE_STAGE_PREFIX + s]
+              for s in SERVING_WALL_STAGES + (MIDDLEWARE_STAGE,)}
+        assert t["durationSec"] >= stall_s, t
+        assert abs(t["durationSec"] - sum(st.values())) <= 0.0005, (rid, t)
+        assert st[stage] >= stall_s, (rid, st)
 
 
 async def test_anatomy_off_records_nothing(monkeypatch):

@@ -25,6 +25,7 @@ stores in ``tmp_path``, with seeds from numpy.
   attempt hangs.
 """
 
+import concurrent.futures
 import datetime as dt
 import json
 import threading
@@ -335,6 +336,75 @@ def test_lanes_retry_faults_no_loss_no_dup(tmp_path):
     assert all(s[1] == 0 for s in depth.samples())
     assert audit_exactly_once(store, APP, ids).ok
     store.close()
+
+
+def test_partitioned_fan_out_returns_ids_in_request_order(tmp_path):
+    """One submit spanning four lanes, each lane's first insert failing
+    after it landed, so that every part commits through the retry's
+    ``insert_batch_idempotent``: the ids come back in the order of the
+    events, each stored once, in both packages' buffers."""
+    for wb_mod, part_mod, faults_mod, cls in (
+            (port_wb, port_part, faults, Event),
+            (ref_wb, ref_part, ref_faults, RefEvent)):
+        store = make_parts(tmp_path / f"{wb_mod.__name__}.db", 4, part_mod)
+        faulty = faults_mod.FaultyEvents(store, fail_n=4, when="after",
+                                         ops=("insert_batch",))
+        buf = wb_mod.WriteBuffer(lambda: faulty, partitions=4, retries=2,
+                                 backoff_s=0.001, backoff_cap_s=0.002,
+                                 linger_s=0.005)
+        events = [ev(i, cls=cls) for i in range(40)]
+        lanes = {part_mod.partition_of(APP, None, e, 4) for e in events}
+        assert lanes == {0, 1, 2, 3}
+        ids = buf.submit(events, APP).result(timeout=30)
+        buf.stop()
+        assert faulty.faults_fired == 4
+        assert [store.get(i, APP).entity_id for i in ids] \
+            == [f"u{i}" for i in range(40)]
+        assert stored_ids(store) == sorted(ids)
+        store.close()
+
+
+class _OnceFuture(concurrent.futures.Future):
+    """A future that counts how often it is settled."""
+
+    def __init__(self):
+        super().__init__()
+        self.settled = 0
+
+    def set_result(self, result):
+        self.settled += 1
+        super().set_result(result)
+
+    def set_exception(self, exception):
+        self.settled += 1
+        super().set_exception(exception)
+
+
+@pytest.mark.parametrize("wb_mod", [port_wb, ref_wb],
+                         ids=["port", "reference"])
+def test_failed_part_fails_the_parent_exactly_once(wb_mod):
+    """Parts settling out of order: the ids land at their input
+    positions; with two failed parts the parent fails once, with the
+    first failure, and the later parts neither settle it again nor
+    raise in their callbacks."""
+    ok = _OnceFuture()
+    parts = [([0, 2], concurrent.futures.Future()),
+             ([1, 3], concurrent.futures.Future())]
+    wb_mod._join_parts(ok, 4, parts)
+    parts[1][1].set_result(["b", "d"])
+    parts[0][1].set_result(["a", "c"])
+    assert ok.result(timeout=1) == ["a", "b", "c", "d"] and ok.settled == 1
+
+    failed = _OnceFuture()
+    parts = [([0], concurrent.futures.Future()),
+             ([1], concurrent.futures.Future()),
+             ([2], concurrent.futures.Future())]
+    wb_mod._join_parts(failed, 3, parts)
+    first, second = StorageError("lane 1 failed"), StorageError("lane 2")
+    parts[1][1].set_exception(first)
+    parts[0][1].set_result(["a"])
+    parts[2][1].set_exception(second)
+    assert failed.exception(timeout=1) is first and failed.settled == 1
 
 
 def _shed_run(wb_mod, part_mod, path, cls):
